@@ -1,0 +1,99 @@
+"""Config registry (port of ``repro/configs/base.py``).
+
+Only ``smollm-135m`` is registered in this slice of the port; every other
+architecture of the reference raises a ``KeyError`` that points at
+``ROADMAP.md``. ``reduce_config`` and ``InputShape`` are copied exactly, so
+the port's reduced and full configs equal the reference's field for field.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.common import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# ---------------------------------------------------------------------------
+# Reduced smoke-test variants
+# ---------------------------------------------------------------------------
+
+
+def reduce_config(cfg: ModelConfig) -> ModelConfig:
+    """Same family, toy size: 2 layers/superblocks, d_model<=256, <=4 experts."""
+    d = min(cfg.d_model, 256)
+    heads = max(min(cfg.n_heads, 4), 1)
+    kv = max(min(cfg.n_kv_heads, heads), 1)
+    if heads % kv:
+        kv = 1
+    upd: dict = dict(
+        d_model=d,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=d // heads,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab=min(cfg.vocab, 512),
+        remat=False,
+        dtype="float32",
+        sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window else 0,
+    )
+    if cfg.arch_type == "hybrid":
+        upd.update(n_layers=4, hybrid_period=2, ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    elif cfg.arch_type == "ssm":
+        upd.update(n_layers=2, ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    elif cfg.arch_type == "vlm":
+        upd.update(n_layers=4, vlm_period=2, n_image_tokens=16)
+    elif cfg.arch_type == "audio":
+        upd.update(n_layers=2, n_encoder_layers=2, n_audio_frames=16)
+    else:
+        upd.update(n_layers=2)
+    if cfg.n_experts:
+        upd.update(n_experts=4, experts_per_token=2, n_shared_experts=min(cfg.n_shared_experts, 1))
+    return cfg.replace(**upd)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"arch {name!r} is not ported to repro_torch yet (ported: "
+            f"{sorted(_REGISTRY)}); see ROADMAP.md for the order of slices")
+    return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded():
+    from repro_torch.configs import smollm_135m  # noqa: F401

@@ -1,0 +1,129 @@
+"""PyTorch port: package hygiene, configs and the weight bridge.
+
+The port (``src/repro_torch``) must equal the JAX reference's configs field
+for field, import neither ``jax`` nor anything of ``repro``, and carry
+parameter trees across the numpy bridge exactly.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_config, reduce_config  # noqa: E402
+from repro.models import build_model  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import build_model as tbuild_model  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    params_from_numpy,
+    params_to_numpy,
+    tree_leaves_with_paths,
+    tree_paths,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_files() -> list[str]:
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_smollm_config_equals_reference(reduced):
+    ref = get_config("smollm-135m")
+    port = tconfigs.get_config("smollm-135m")
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd
+    assert str(port.compute_dtype) == f"torch.{ref.compute_dtype}"
+    if reduced:
+        assert (port.d_model, port.n_heads, port.n_kv_heads, port.n_layers, port.vocab) == (
+            256, 4, 1, 2, 512)
+
+
+def test_unported_arch_names_roadmap():
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        tconfigs.get_config("mamba2-370m")
+    assert tconfigs.list_configs() == ["smollm-135m"]
+
+
+@pytest.mark.parametrize("arch_type", ["moe", "ssm", "hybrid", "audio", "vlm"])
+def test_unported_family_names_roadmap(arch_type):
+    cfg = tconfigs.get_config("smollm-135m").replace(arch_type=arch_type)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        tbuild_model(cfg)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            root = m.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {m}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "repro_torch." + os.path.relpath(os.path.join(r, n), PORT)[:-3].replace(os.sep, ".")
+        for r, _, ns in os.walk(PORT) for n in ns if n.endswith(".py") and n != "__init__.py")
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._LIBS\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_params_bridge_roundtrip_is_exact():
+    model = build_model(reduce_config(get_config("smollm-135m")))
+    ref = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    port = params_from_numpy(ref, "cpu")
+    back = params_to_numpy(port)
+    flat_ref = dict(jax.tree_util.tree_flatten_with_path(ref)[0])
+    assert tree_paths(port) == sorted(
+        "/".join(str(k.key) for k in path) for path in flat_ref)
+    for path, leaf in flat_ref.items():
+        got = back
+        for k in path:
+            got = got[k.key]
+        assert got.dtype == leaf.dtype and got.shape == leaf.shape
+        np.testing.assert_array_equal(got, leaf)
+
+
+def test_port_init_matches_reference_tree():
+    """The port's own seeded init has the reference's paths, shapes and dtypes."""
+    cfg = reduce_config(get_config("smollm-135m"))
+    ref = jax.tree.map(np.asarray, build_model(cfg).init(jax.random.PRNGKey(0)))
+    tmodel = tbuild_model(tconfigs.reduce_config(tconfigs.get_config("smollm-135m")))
+    port = params_to_numpy(tmodel.init(torch.Generator().manual_seed(0), "cpu"))
+    ref_leaves = {"/".join(str(k.key) for k in p): x
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    port_leaves = dict(tree_leaves_with_paths(port))
+    assert sorted(ref_leaves) == sorted(port_leaves)
+    for p, x in ref_leaves.items():
+        assert port_leaves[p].shape == x.shape and port_leaves[p].dtype == x.dtype, p
+    w = port_leaves["layers/attn/wq"]
+    assert abs(w.std() * np.sqrt(cfg.d_model) - 0.98) < 0.05 and np.abs(w).max() <= 3.0 / 16

@@ -1,0 +1,159 @@
+"""PyTorch port: the dense LM against the JAX package, reduced smollm-135m.
+
+Parameters come from the reference's ``model.init`` and cross through
+``params_from_numpy``; tokens are numpy draws from a seed. Each function
+runs with ``attn_impl`` both ``xla`` (plain torch) and ``pallas`` (the
+kernels' plain versions on CPU; the reference's Pallas kernels in interpret
+mode). Tolerances: fp32 atol 1e-4 (summation order differs across the two
+frameworks over 2 layers); bf16 logits atol 5e-2 (about 3 bf16 ulps at
+the logits' typical scale of 1-2) plus rtol 2**-7, one bf16 ulp of the
+value: the largest logits reach ~12, where one ulp is 0.0625 and the two
+frameworks, which round at different points, differ by that ulp.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config, reduce_config  # noqa: E402
+from repro.models import build_model, common as jcommon, lm as jlm  # noqa: E402
+from repro.serving.paging import PageAllocator, pages_needed  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import build_model as tbuild_model, common as tcommon  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.utils.tree import params_from_numpy  # noqa: E402
+
+TOL = {"float32": dict(atol=1e-4, rtol=0), "bfloat16": dict(atol=5e-2, rtol=2.0 ** -7)}
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+def _pair(impl: str, dtype: str = "float32", window: int = 0):
+    upd = dict(attn_impl=impl, dtype=dtype, sliding_window=window)
+    jcfg = reduce_config(get_config("smollm-135m")).replace(**upd)
+    tcfg = tconfigs.reduce_config(tconfigs.get_config("smollm-135m")).replace(**upd)
+    jmodel = build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jmodel, jparams, tbuild_model(tcfg), tparams
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+# ----------------------------------------------------------------- primitives
+
+def test_primitives_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = rng.standard_normal((16,)).astype(np.float32)
+    pos = np.arange(5, dtype=np.int32)
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(tcommon.rms_norm(tx, torch.from_numpy(scale)).numpy(),
+                               np.asarray(jcommon.rms_norm(jnp.asarray(x), jnp.asarray(scale))),
+                               atol=1e-6, rtol=1e-6)
+    for p in (pos, np.stack([pos, pos + 3])):
+        np.testing.assert_allclose(
+            tcommon.apply_rope(tx, torch.from_numpy(p), 10_000.0).numpy(),
+            np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(p), 10_000.0)),
+            atol=1e-5, rtol=1e-5)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    for name in ("swiglu", "relu2", "gelu"):
+        np.testing.assert_allclose(
+            tcommon.activation_fn(name, tx, torch.from_numpy(g)).numpy(),
+            np.asarray(jcommon.activation_fn(name, jnp.asarray(x), jnp.asarray(g))),
+            atol=1e-6, rtol=1e-5)
+
+
+# ------------------------------------------------------------ forward/prefill
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_forward_lm_logits_match_reference(impl, dtype):
+    jmodel, jparams, tmodel, tparams = _pair(impl, dtype)
+    toks = _tokens(1, (2, 12), jmodel.cfg.vocab)
+    jl, _ = jax.jit(jmodel.forward)(jparams, jnp.asarray(toks))
+    tl, _ = tmodel.forward(tparams, torch.from_numpy(toks))
+    assert tl.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL[dtype])
+    if dtype == "float32":
+        np.testing.assert_array_equal(tl.argmax(-1).numpy(), np.asarray(jl.argmax(-1)))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_prefill_lm_kv_match_reference(impl):
+    jmodel, jparams, tmodel, tparams = _pair(impl)
+    toks = _tokens(2, (2, 9), jmodel.cfg.vocab)
+    jl, jk, jv = jax.jit(lambda p, t: jlm.prefill_lm(jmodel.cfg, p, t))(jparams, jnp.asarray(toks))
+    tl, tk, tv = tlm.prefill_lm(tmodel.cfg, tparams, torch.from_numpy(toks))
+    assert tuple(tk.shape) == jk.shape == (2, 2, 9, 1, 64)
+    for t, j in ((tl, jl), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_f32(t), _f32(j), atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------- paged serving
+
+def _paged_setup(B, P, steps, ps=4, seed=3):
+    n = pages_needed(P + steps, ps)
+    alloc = PageAllocator(n_pages=1 + B * n, page_size=ps)
+    rng = np.random.default_rng(seed)
+    for b in rng.permutation(B):  # interleaved page ids
+        alloc.alloc(int(b), n)
+    return alloc, alloc.page_table(range(B), n)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_paged_prefill_pool_matches_reference(impl):
+    jmodel, jparams, tmodel, tparams = _pair(impl)
+    B, P, ps = 2, 7, 4
+    alloc, table = _paged_setup(B, P, 1, ps)
+    toks = _tokens(4, (B, P), jmodel.cfg.vocab)
+    lens = np.asarray([P, P - 3], np.int32)  # row 1 is right-padded
+    jcache = jmodel.init_paged_cache(alloc.n_pages, ps)
+    jl, jcache = jax.jit(jmodel.paged_prefill)(jparams, jcache, jnp.asarray(toks),
+                                               jnp.asarray(table), jnp.asarray(lens))
+    tcache = tmodel.init_paged_cache(alloc.n_pages, ps, "cpu")
+    tl, tcache = tmodel.paged_prefill(tparams, tcache, torch.from_numpy(toks),
+                                      torch.from_numpy(table), torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), atol=1e-4, rtol=0)
+    for key in ("k", "v"):  # page 0 is the null page: garbage by design
+        np.testing.assert_allclose(_f32(tcache[key])[:, 1:], _f32(jcache[key])[:, 1:],
+                                   atol=1e-4, rtol=0)
+        assert _f32(tcache[key])[:, 1:].any()  # the prompt really landed in the pool
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_paged_decode_step_logits_match_reference(impl, dtype, window):
+    """Paged prefill, then 4 decode steps fed the reference's greedy tokens:
+    per-step logits within tolerance, and in fp32 the same greedy tokens."""
+    jmodel, jparams, tmodel, tparams = _pair(impl, dtype, window)
+    B, P, ps, steps = 2, 6, 4, 4
+    alloc, table = _paged_setup(B, P, steps, ps, seed=5)
+    toks = _tokens(6, (B, P), jmodel.cfg.vocab)
+    lens = np.asarray([P, P - 2], np.int32)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jcache = jmodel.init_paged_cache(alloc.n_pages, ps)
+    jl, jcache = jax.jit(jmodel.paged_prefill)(jparams, jcache, jnp.asarray(toks), jt,
+                                               jnp.asarray(lens))
+    tcache = tmodel.init_paged_cache(alloc.n_pages, ps, "cpu")
+    tl, tcache = tmodel.paged_prefill(tparams, tcache, torch.from_numpy(toks), tt,
+                                      torch.from_numpy(lens))
+    tok = np.asarray(jl)[np.arange(B), lens - 1].argmax(-1).astype(np.int32)
+    jstep = jax.jit(lambda p, c, t, n: jmodel.paged_decode_step(p, c, t, jt, n, impl=impl))
+    for t in range(steps):
+        n = lens + t
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.asarray(n))
+        tlog, tcache = tmodel.paged_decode_step(tparams, tcache, torch.from_numpy(tok), tt,
+                                                torch.from_numpy(n), impl=impl)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL[dtype])
+        if dtype == "float32":
+            np.testing.assert_array_equal(tlog.argmax(-1).numpy(), np.asarray(jlog.argmax(-1)))
+        tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
