@@ -6,6 +6,11 @@ with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
 of their source, and are built at first use. Importing this module
 compiles nothing.
+
+The launch plumbing every kernel wrapper shares lives here too: ``entry``
+binds a C entry point, ``launch`` calls it on PyTorch's current stream,
+raises if the launch failed and adds one to ``LAUNCHES[name]``, so a run
+can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -19,11 +24,24 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
+           "flash_bwd": "flash_bwd.cu", "matmul_epilogue": "matmul_epilogue.cu",
+           "outer_update": "outer_update.cu"}
+# C entry point -> the library that holds it (default: the library of its name)
+ENTRY_LIB = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd", "nesterov": "outer_update"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[str, tuple] = {}
+
+LAUNCHES: dict[str, int] = {name: 0 for name in (
+    "flash_fwd", "paged_decode", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov")}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -83,3 +101,31 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _LIBS[name] = ctypes.CDLL(str(path))
     return _LIBS[name]
+
+
+def entry(name: str, argtypes: list):
+    """``(fn, err)``: the C entry point ``name`` with its argument types, and
+    its library's error-string function; built and bound on first use."""
+    if name not in _ENTRIES:
+        lib_name = ENTRY_LIB.get(name, name)
+        lib = load(lib_name)
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        err = getattr(lib, f"{lib_name}_error")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        _ENTRIES[name] = (fn, err)
+    return _ENTRIES[name]
+
+
+def launch(name: str, argtypes: list, device, *args) -> None:
+    """Launch ``name`` on ``device``'s current stream (the stream is passed
+    as the last argument); raise if the launch failed, else count it."""
+    import torch
+
+    fn, err = entry(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()} (cudaError {rc})")
+    LAUNCHES[name] += 1

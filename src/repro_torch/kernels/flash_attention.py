@@ -1,20 +1,25 @@
 """GQA flash attention and paged decode attention (port of
 ``repro/kernels/flash_attention.py``).
 
-Two Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
-``_build.py``), replace the reference's two Pallas kernels on the serving
-path:
+Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
+``_build.py``), replace the reference's Pallas kernels:
 
-* ``flash_fwd`` replaces ``_fwd_kernel``: the prefill forward, o and the
-  per-row logsumexp, visiting only the kv tiles that the causal diagonal
-  and the sliding window leave (the rule of :func:`visited_kv_range`,
-  applied at the kernel's own tile sizes).
+* ``flash_fwd`` replaces ``_fwd_kernel``: the forward, o and the per-row
+  logsumexp, visiting only the kv tiles that the causal diagonal and the
+  sliding window leave (the rule of :func:`visited_kv_range`, applied at
+  the kernel's own tile sizes).
+* ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace
+  ``_dq_kernel`` and ``_dkv_kernel``: the backward's q-major and kv-major
+  sweeps, recomputing the probabilities from the saved logsumexp.
+  :class:`FlashAttention` is the ``torch.autograd.Function`` around the
+  forward and these two (the reference's custom VJP).
 * ``paged_decode`` replaces ``_paged_kernel``: one new token per slot
   against the paged KV pool, read in its stored layout.
 
 Each wrapper takes the kernel's plain PyTorch version for a tensor that
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Every
-launch adds one to ``LAUNCHES[name]``, so a run can show that its path went
+launch adds one to ``LAUNCHES[name]`` (shared with the other kernel
+modules, ``_build.LAUNCHES``), so a run can show that its path went
 through the kernels.
 
 The visit-schedule helpers are pure Python, carried over exactly.
@@ -26,22 +31,18 @@ import math
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import LAUNCHES, reset_launch_counts  # noqa: F401
+
 NEG_INF = -2.0e38
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
 # tile sizes of csrc/flash_fwd.cu (checked against the built library)
 FLASH_BLOCK_Q = 32
 FLASH_BLOCK_KV = 64
-MAX_GROUP = {"flash_fwd": 256 // FLASH_BLOCK_Q, "paged_decode": 16}
+MAX_GROUP = {"flash_fwd": 256 // FLASH_BLOCK_Q, "paged_decode": 16, "flash_bwd": 8}
 KERNEL_HEAD_DIM = 64  # the head dim of the configs ported so far
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-LAUNCHES = {"flash_fwd": 0, "paged_decode": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -107,30 +108,12 @@ def visited_fraction(S: int, block_q: int, block_kv: int,
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _LL, _LL, _LL, _I, _F, _I, _P],
 }
-_BOUND: dict[str, object] = {}
-
-
-def _kernel(name: str):
-    """The C entry point ``name``, built and bound on first use."""
-    if name not in _BOUND:
-        from repro_torch.kernels import _build
-
-        lib = _build.load(name)
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
-        err = getattr(lib, f"{name}_error")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        if name == "flash_fwd":
-            bq, bkv = ctypes.c_int(), ctypes.c_int()
-            lib.flash_fwd_tiles(ctypes.byref(bq), ctypes.byref(bkv))
-            if (bq.value, bkv.value) != (FLASH_BLOCK_Q, FLASH_BLOCK_KV):
-                raise RuntimeError(f"flash_fwd.cu tiles ({bq.value}, {bkv.value}) != "
-                                   f"({FLASH_BLOCK_Q}, {FLASH_BLOCK_KV}) in flash_attention.py")
-        _BOUND[name] = (fn, err)
-    return _BOUND[name]
+_TILES_CHECKED = []
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -143,13 +126,15 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    fn, err = _kernel(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {err(rc).decode()} (cudaError {rc})")
-    LAUNCHES[name] += 1
+    if name == "flash_fwd" and not _TILES_CHECKED:
+        lib = _build.load("flash_fwd")
+        bq, bkv = ctypes.c_int(), ctypes.c_int()
+        lib.flash_fwd_tiles(ctypes.byref(bq), ctypes.byref(bkv))
+        if (bq.value, bkv.value) != (FLASH_BLOCK_Q, FLASH_BLOCK_KV):
+            raise RuntimeError(f"flash_fwd.cu tiles ({bq.value}, {bkv.value}) != "
+                               f"({FLASH_BLOCK_Q}, {FLASH_BLOCK_KV}) in flash_attention.py")
+        _TILES_CHECKED.append(True)
+    _build.launch(name, _ARGTYPES[name], device, *args)
 
 
 def _check_head(name: str, dtype: torch.dtype, hd: int, G: int) -> None:
@@ -169,15 +154,8 @@ def _check_head(name: str, dtype: torch.dtype, hd: int, G: int) -> None:
 def _fwd_plain(q, k, v, *, causal: bool, window: int, scale: float):
     """Plain version of ``flash_fwd``: fp32 math on the kernel layout.
     Returns (o in q's dtype, lse fp32 [BKV, S, G])."""
-    S = q.shape[1]
     s = torch.einsum("bqgh,bsh->bqgs", q.float(), k.float()) * scale
-    i = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= i[:, None] >= i[None, :]
-    if window:
-        mask &= i[:, None] - i[None, :] < window
-    mask = mask[None, :, None, :]
+    mask = _mask(q.shape[1], causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -210,11 +188,125 @@ def _fwd(q, k, v, *, causal: bool, window: int, scale: float):
     return _fwd_cuda(q, k, v, causal=causal, window=window, scale=scale)
 
 
+def _mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
+    i = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= i[:, None] >= i[None, :]
+    if window:
+        mask &= i[:, None] - i[None, :] < window
+    return mask[None, :, None, :]
+
+
+def _probs_plain(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    """fp32 p (recomputed from the saved logsumexp, masked explicitly) and
+    ds = p * (do v^T - dl), both [BKV, S, G, S]."""
+    s = torch.einsum("bqgh,bsh->bqgs", q.float(), k.float()) * scale
+    p = torch.where(_mask(q.shape[1], causal, window, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqgh,bsh->bqgs", do.float(), v.float())
+    return p, p * (dp - dl[..., None])
+
+
+def _dq_plain(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    """Plain version of ``flash_dq``: dq = scale * ds k."""
+    _, ds = _probs_plain(q, k, v, do, lse, dl, causal=causal, window=window, scale=scale)
+    return (scale * torch.einsum("bqgs,bsh->bqgh", ds, k.float())).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    """Plain version of ``flash_dkv``: dk = scale * ds^T q and dv = p^T do,
+    summed over the G query heads of each kv head."""
+    p, ds = _probs_plain(q, k, v, do, lse, dl, causal=causal, window=window, scale=scale)
+    dk = scale * torch.einsum("bqgs,bqgh->bsh", ds, q.float())
+    dv = torch.einsum("bqgs,bqgh->bsh", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    """Both plain versions (the CPU path): (dq, dk, dv)."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    return (_dq_plain(q, k, v, do, lse, dl, **kw), *_dkv_plain(q, k, v, do, lse, dl, **kw))
+
+
+def _check_bwd(q, k, v, do, lse, dl) -> None:
+    BKV, S, G, hd = q.shape
+    _check_cuda("flash_bwd", q, k, v, do, lse, dl)
+    _check_head("flash_bwd", q.dtype, hd, G)
+    if k.dtype != q.dtype or v.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"flash_bwd: q {q.dtype}, k {k.dtype}, v {v.dtype}, do {do.dtype}")
+    if lse.dtype != torch.float32 or dl.dtype != torch.float32:
+        raise TypeError("flash_bwd: lse and dl must be float32")
+    if (k.shape != (BKV, S, hd) or v.shape != k.shape or do.shape != q.shape
+            or lse.shape != (BKV, S, G) or dl.shape != lse.shape):
+        raise ValueError(f"flash_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"do {tuple(do.shape)}, lse {tuple(lse.shape)}")
+
+
+def _bwd_args(q, k, v, do, lse, dl, causal, window, scale):
+    BKV, S, G, hd = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             dl.data_ptr()),
+            (BKV, S, G, hd, int(causal), int(window), scale, _DTYPE_CODE[q.dtype]))
+
+
+def _dq_cuda(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    _check_bwd(q, k, v, do, lse, dl)
+    dq = torch.empty_like(q)
+    ptrs, tail = _bwd_args(q, k, v, do, lse, dl, causal, window, scale)
+    _launch("flash_dq", q.device, *ptrs, dq.data_ptr(), *tail)
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    _check_bwd(q, k, v, do, lse, dl)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs, tail = _bwd_args(q, k, v, do, lse, dl, causal, window, scale)
+    _launch("flash_dkv", q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), *tail)
+    return dk, dv
+
+
+def _bwd_cuda(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float):
+    kw = dict(causal=causal, window=window, scale=scale)
+    return (_dq_cuda(q, k, v, do, lse, dl, **kw), *_dkv_cuda(q, k, v, do, lse, dl, **kw))
+
+
+def _bwd(q, k, v, o, lse, do, *, causal: bool, window: int, scale: float):
+    """(dq, dk, dv) in the kernel layout. ``dl = rowsum(do * o)`` in fp32 from
+    the stored o, as the reference's ``_bwd``; then the two kernels on a CUDA
+    tensor, their plain version on a CPU tensor."""
+    dl = torch.sum(do.float() * o.float(), dim=-1)
+    fn = _bwd_plain if q.device.type == "cpu" else _bwd_cuda
+    return fn(q, k, v, do, lse, dl, causal=causal, window=window, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """GQA flash attention on the kernel layout (q [BKV, S, G, hd], k/v
+    [BKV, S, hd]) with the flash backward: the reference's ``_flash_fn``
+    custom VJP. The residuals are q, k, v, o and lse, all O(S)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        o, lse = _fwd(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.cfg
+        # autograd may hand in a strided gradient; the kernels take contiguous rows
+        dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), causal=causal, window=window,
+                          scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         block_q: int = DEFAULT_BLOCK_Q,
                         block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
-    """Fused GQA flash attention.
+    """Fused GQA flash attention, differentiable (:class:`FlashAttention`).
 
     q ``[B, S, H, hd]``, k/v ``[B, S, KV, hd]`` -> ``[B, S, H, hd]``; query
     head h reads kv head h // G. Rows attend by absolute position;
@@ -232,8 +324,8 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(B, S, KV, G, hd).transpose(1, 2).reshape(B * KV, S, G, hd)
     kg = k.transpose(1, 2).reshape(B * KV, S, hd)
     vg = v.transpose(1, 2).reshape(B * KV, S, hd)
-    o, _ = _fwd(qg.contiguous(), kg.contiguous(), vg.contiguous(), causal=bool(causal),
-                window=int(window), scale=1.0 / math.sqrt(hd))
+    o = FlashAttention.apply(qg.contiguous(), kg.contiguous(), vg.contiguous(), bool(causal),
+                             int(window), 1.0 / math.sqrt(hd))
     return o.reshape(B, KV, S, G, hd).transpose(1, 2).reshape(B, S, H, hd)
 
 

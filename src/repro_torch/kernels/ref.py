@@ -1,4 +1,4 @@
-"""Plain-torch oracles for the attention kernels (port of ``repro/kernels/ref.py``).
+"""Plain-torch oracles for the kernels (port of ``repro/kernels/ref.py``).
 
 Dense fp32 formulations, independent of the kernels' tiling: the tests hold
 the kernels' plain versions and the JAX oracles against these.
@@ -65,3 +65,43 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.T
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("kgs,skh->kgh", p, vg).reshape(H, hd))
     return torch.stack(outs).to(q.dtype)
+
+
+def matmul_epilogue_ref(a, b, d=None, *, alpha=1.0, beta=0.0, out_dtype=None):
+    out = alpha * (a.float() @ b.float())
+    if d is not None and beta != 0.0:
+        out = out + beta * d.float()
+    return out.to(out_dtype or a.dtype)
+
+
+def ns_iteration_ref(x: torch.Tensor) -> torch.Tensor:
+    """One quintic Newton-Schulz iteration on [m, n] or a stack [z, m, n]."""
+    from repro_torch.optim.muon import NS_COEFFS
+
+    a, b, c = NS_COEFFS
+    x32 = x.float()
+    A = x32 @ x32.transpose(-1, -2)
+    B = b * A + c * (A @ A)
+    return (a * x32 + B @ x32).to(x.dtype)
+
+
+def ns_orthogonalize_ref(g: torch.Tensor, iters: int = 5, eps: float = 1e-7) -> torch.Tensor:
+    """Full NS orthogonalization oracle (fp32 throughout)."""
+    m, n = g.shape[-2:]
+    x = g.float()
+    transpose = m > n
+    if transpose:
+        x = x.transpose(-1, -2)
+    x = x / (torch.sqrt(torch.sum(x * x, dim=(-2, -1), keepdim=True)) + eps)
+    for _ in range(iters):
+        x = ns_iteration_ref(x)
+    if transpose:
+        x = x.transpose(-1, -2)
+    return x.to(g.dtype)
+
+
+def nesterov_update_ref(theta, psi, u, *, lr, momentum):
+    psi32 = psi.float()
+    u_new = momentum * u + lr * psi32
+    theta_new = theta.float() - momentum * u_new - lr * psi32
+    return theta_new.to(theta.dtype), u_new

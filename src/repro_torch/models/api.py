@@ -3,6 +3,7 @@
     model = build_model(cfg)
     params = model.init(gen, device)
     logits, aux = model.forward(params, tokens)
+    loss, metrics = model.loss(params, batch)
     cache = model.init_paged_cache(n_pages, page_size, device)
     logits, cache = model.paged_prefill(params, cache, tokens, page_table, lengths)
     logits, cache = model.paged_decode_step(params, cache, token, page_table, lengths)
@@ -18,7 +19,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import attention, lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, fused_cross_entropy, softmax_cross_entropy
 
 Tree = Any
 
@@ -43,6 +44,27 @@ class Model:
 
     def forward(self, params: Tree, tokens: torch.Tensor, last_only: bool = False):
         return self._fam["forward"](self.cfg, params, tokens, last_only=last_only)
+
+    # --- training ---
+    def head_weight(self, params: Tree) -> torch.Tensor:
+        if self.cfg.tie_embeddings and "head" not in params:
+            return params["embed"].T
+        return params["head"]
+
+    def loss(self, params: Tree, batch: dict, fused: bool = True) -> tuple[torch.Tensor, dict]:
+        """Training loss of ``batch`` ({"tokens", "labels"} int [B, S]).
+        ``fused`` uses the chunked head + cross-entropy (never materialises
+        the [B, S, V] logits); disabled automatically for softcap."""
+        if fused and not self.cfg.logit_softcap:
+            hidden, _ = self._fam["forward"](self.cfg, params, batch["tokens"],
+                                             hidden_only=True)
+            loss, metrics = fused_cross_entropy(hidden, self.head_weight(params),
+                                                batch["labels"])
+        else:
+            logits, _ = self.forward(params, batch["tokens"])
+            loss, metrics = softmax_cross_entropy(logits, batch["labels"])
+        metrics["loss_total"] = loss
+        return loss, metrics
 
     # --- paged serving (repro_torch.serving) ---
     @property

@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # Config
@@ -170,3 +171,61 @@ def embed_init(gen: torch.Generator, shape, dtype: torch.dtype = torch.float32,
     # std 1/sqrt(d): with the sqrt(d) input scaling this keeps the residual
     # stream O(1) AND keeps tied-embedding logits O(1).
     return (_truncated_normal(gen, shape, device) / math.sqrt(shape[-1])).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _logz_and_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """fp32 logsumexp (max subtracted, not differentiated through) and the
+    gold logit. The reference gathers the gold logit with a one-hot einsum
+    (for a sharded vocab); on one card a gather gives the same value."""
+    lmax = torch.amax(logits, dim=-1).detach()
+    logz = lmax + torch.log(torch.sum(torch.exp(logits - lmax[..., None]), dim=-1))
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz, gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None,
+                          z_loss: float = 0.0) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy in fp32. logits [B,S,V], labels [B,S]."""
+    logz, gold = _logz_and_gold(logits.float(), labels)
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(logz)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"loss": loss, "tokens": torch.sum(mask)}
+
+
+def _chunk_nll_sum(x_c: torch.Tensor, head_w: torch.Tensor, y_c: torch.Tensor) -> torch.Tensor:
+    logz, gold = _logz_and_gold((x_c @ head_w.to(x_c.dtype)).float(), y_c)
+    return torch.sum(logz - gold)
+
+
+def fused_cross_entropy(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                        chunk: int = 512) -> tuple[torch.Tensor, dict]:
+    """Head matmul + cross-entropy per sequence chunk: the full [B, S, V]
+    logits are never materialised. Each chunk's fp32 logits live only inside
+    a ``torch.utils.checkpoint`` region (the reference's ``jax.checkpoint``),
+    so the backward recomputes them instead of storing them.
+
+    hidden [B, S, d] post-final-norm states; head_w [d, V]; labels [B, S].
+    """
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        x_c, y_c = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_nll_sum, x_c, head_w, y_c, use_reentrant=False)
+        else:
+            part = _chunk_nll_sum(x_c, head_w, y_c)
+        total = total + part
+    loss = total / (B * S)
+    return loss, {"loss": loss, "tokens": torch.tensor(float(B * S), device=hidden.device)}

@@ -1,8 +1,12 @@
 """Decoder-only language model, dense family (port of ``repro/models/lm.py``).
 
 Layers are stacked along a leading ``[L, ...]`` axis as in the reference;
-where the reference scans over that axis, the port loops in Python and
-slices layer ``i`` out of every stacked leaf.
+where the reference scans over that axis, the port loops in Python. The
+training forward takes the layers apart with one ``torch.unbind`` per leaf
+(its backward stacks the L layer gradients once, where indexing each layer
+would write a full-size gradient of the stack per layer), and with
+``cfg.remat`` runs each block under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` around the scan body).
 """
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, dense_init, embed_init, rms_norm
@@ -21,6 +26,14 @@ Tree = Any
 def _layer(tree: Tree, i: int) -> Tree:
     """Layer ``i`` of a stacked [L, ...] tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unstack(tree: Tree, n: int) -> list[Tree]:
+    """The n layers of a stacked [L, ...] tree, one ``unbind`` per leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
@@ -95,8 +108,13 @@ def forward_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor, last_only: 
     """Forward. tokens [B, S] -> (logits [B,S,V], aux = 0 for the dense family)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for i in range(cfg.n_layers):
-        x = _block(cfg, x, _layer(params["layers"], i), positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(lambda x, lp=lp: _block(cfg, x, lp, positions), x,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, x, lp, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if last_only:
         x = x[:, -1:]

@@ -1,11 +1,12 @@
-"""PyTorch port: the attention kernels' plain versions against the JAX package.
+"""PyTorch port: the kernels' plain versions against the JAX package.
 
 On CPU tensors the port's wrappers take each Hopper kernel's plain PyTorch
 version, so these tests hold that arithmetic against the reference's Pallas
 kernels run as the reference's own tests run them (``interpret=True``) and
-against its gather path. Inputs are made with numpy from a seed and handed
+against its plain paths. Inputs are made with numpy from a seed and handed
 to both sides. fp32 throughout, at atol = rtol = 1e-5 (the reference's own
-bound for its interpret-mode kernel, tests/test_serving.py).
+bound for its interpret-mode kernel, tests/test_serving.py) unless a test
+states another bound and its reason.
 """
 import math
 
@@ -14,12 +15,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.optim.nesterov import nesterov as jnesterov  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.matmul import matmul_epilogue  # noqa: E402
+from repro_torch.optim.nesterov import nesterov as tnesterov  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -163,6 +170,168 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     tfa.paged_decode_attention(q, kp, vp, table, lengths, impl="pallas")
     x = torch.randn(1, 8, 4, 16)
     tfa.gqa_flash_attention(x, x[:, :, :1], x[:, :, :1])
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "paged_decode": 0}
+    y = torch.randn(2, 6, 5)
+    tops.ns_orthogonalize(y)
+    tops.nesterov_update(y, y, y, lr=0.5, momentum=0.9)
+    assert set(tfa.LAUNCHES) == {"flash_fwd", "paged_decode", "flash_dq", "flash_dkv",
+                                 "matmul_epilogue", "nesterov"}
+    assert all(n == 0 for n in tfa.LAUNCHES.values()), tfa.LAUNCHES
     with pytest.raises(ValueError, match="impl"):
         tfa.paged_decode_attention(q, kp, vp, table, lengths, impl="triton")
+
+
+# ----------------------------------------------------------- flash backward
+
+@pytest.mark.parametrize("S", [16, 13])
+@pytest.mark.parametrize("H,KV", [(3, 3), (6, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_backward_matches_jax_grad(causal, window, H, KV, S):
+    """dq, dk and dv of the port's FlashAttention (its plain backward on CPU)
+    == jax.grad through the reference's gqa_flash_attention (Pallas forward
+    and both backward sweeps in interpret mode), for G = 1 and G = 3, at an
+    odd S, a sliding window and non-causal. fp32; atol 1e-5 plus rtol 1e-5
+    (gradients reach ~10, and the frameworks sum in another order)."""
+    rng = np.random.default_rng(1000 + S * 10 + H + window)
+    B, hd = 2, 16
+    q, k, v = _np(rng, (B, S, H, hd)), _np(rng, (B, S, KV, hd)), _np(rng, (B, S, KV, hd))
+    do = _np(rng, (B, S, H, hd))
+
+    def jloss(q, k, v):
+        o = jfa.gqa_flash_attention(q, k, v, causal=causal, window=window, block_q=4,
+                                    block_kv=4, interpret=True)
+        return jnp.sum(o * jnp.asarray(do))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = tfa.gqa_flash_attention(tq, tk, tv, causal=causal, window=window)
+    tgrads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for name, t, j in zip("qkv", tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=f"d{name}", **TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7), (False, 0)])
+def test_flash_plain_backward_matches_autograd(causal, window):
+    """The plain backward (the kernels' CPU twin, recomputing p from lse) ==
+    autograd through the plain forward, on the kernel layout with G = 3."""
+    rng = np.random.default_rng(21 + window)
+    BKV, S, G, hd = 3, 19, 3, 16
+    q, k, v = _np(rng, (BKV, S, G, hd)), _np(rng, (BKV, S, hd)), _np(rng, (BKV, S, hd))
+    do = torch.from_numpy(_np(rng, (BKV, S, G, hd)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    kw = dict(causal=causal, window=window, scale=0.25)
+    got = torch.autograd.grad(tfa.FlashAttention.apply(tq, tk, tv, causal, window, 0.25),
+                              (tq, tk, tv), do)
+    o, _ = tfa._fwd_plain(tq, tk, tv, **kw)
+    want = torch.autograd.grad(o, (tq, tk, tv), do)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=f"d{name}", **TOL)
+
+
+# ---------------------------------------------------- matmul with epilogue
+
+@pytest.mark.parametrize("m,k,n,alpha,beta,with_d", [
+    (16, 16, 16, 1.0, 0.0, False), (37, 50, 23, 2.0, 0.5, True),
+    (9, 130, 129, -1.5, 3.0, True), (20, 7, 33, 0.25, 0.0, True)])
+def test_matmul_matches_reference_ops(m, k, n, alpha, beta, with_d):
+    """The port's ops.matmul (plain version on CPU) == the reference's
+    ops.matmul (padded Pallas kernel, interpret mode) on ragged shapes, with
+    alpha, beta and d=None; and with beta = 0 the d operand is ignored."""
+    rng = np.random.default_rng(m * k + n)
+    a, b = _np(rng, (m, k)), _np(rng, (k, n))
+    d = _np(rng, (m, n)) if with_d else None
+    j = jops.matmul(jnp.asarray(a), jnp.asarray(b), None if d is None else jnp.asarray(d),
+                    alpha=alpha, beta=beta, block=16)
+    t = tops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                    None if d is None else torch.from_numpy(d), alpha=alpha, beta=beta)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+    tr = tref.matmul_epilogue_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                  None if d is None else torch.from_numpy(d),
+                                  alpha=alpha, beta=beta)
+    np.testing.assert_allclose(tr.numpy(), t.numpy(), **TOL)
+
+
+def test_matmul_epilogue_reads_transposed_and_stacked_operands():
+    """A stacked call on a transposed view == the per-matrix products."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_np(rng, (3, 6, 10)))
+    d = torch.from_numpy(_np(rng, (3, 6, 6)))
+    c = matmul_epilogue(x, x.transpose(-1, -2), d, alpha=2.0, beta=-1.0)
+    for i in range(3):
+        want = 2.0 * (x[i] @ x[i].T) - d[i]
+        np.testing.assert_allclose(c[i].numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 20), (3, 24, 10), (2, 3, 16, 16)])
+def test_ns_orthogonalize_matches_reference(shape):
+    """fp32 Newton-Schulz through the matmul kernel's plain version == the
+    reference's ops.ns_orthogonalize (Pallas, interpret) and both oracles,
+    on stacked inputs with m < n, m > n and two batch dims. atol 2e-5: five
+    iterations of three chained products grow the 1e-7 relative rounding
+    differences of the two frameworks to ~1e-5 on O(1) entries."""
+    rng = np.random.default_rng(sum(shape))
+    g = _np(rng, shape)
+    j = jops.ns_orthogonalize(jnp.asarray(g), block=8)
+    t = tops.ns_orthogonalize(torch.from_numpy(g))
+    tol = dict(atol=2e-5, rtol=0)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **tol)
+    np.testing.assert_allclose(t.numpy(), tref.ns_orthogonalize_ref(torch.from_numpy(g)).numpy(),
+                               **tol)
+    g3 = jnp.asarray(g.reshape(-1, *shape[-2:]))  # the reference's oracle takes one stack axis
+    np.testing.assert_allclose(np.asarray(jref.ns_orthogonalize_ref(g3)),
+                               t.numpy().reshape(g3.shape), **tol)
+    assert t.shape == g.shape
+
+
+# ------------------------------------------------------- outer Nesterov
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nesterov_update_matches_reference(dtype):
+    """The port's ops.nesterov_update (plain version on CPU) against the
+    reference's (Pallas, interpret), at the scales of an outer step (theta
+    ~1, psi ~1e-2, u ~1e-1). The ulp is taken at each expression's largest
+    term. u' is within 1 ulp: XLA contracts mu*u + (lr*psi) into one FMA,
+    the port rounds the product on its own. theta' is within 3 ulps: that
+    1-ulp u' difference times mu, plus the same contraction in each of its
+    two subtractions. In bf16, theta' may also straddle one bf16 rounding
+    step (2^-8 of the value)."""
+    rng = np.random.default_rng(9)
+    n = 3007
+    theta, psi, u = (_np(rng, (n,)) * s for s in (1.0, 1e-2, 1e-1))
+    jt, ju = jops.nesterov_update(jnp.asarray(theta, dtype), jnp.asarray(psi),
+                                  jnp.asarray(u), lr=0.7, momentum=0.9)
+    tt, tu = tops.nesterov_update(torch.from_numpy(theta).to(getattr(torch, dtype)),
+                                  torch.from_numpy(psi), torch.from_numpy(u),
+                                  lr=0.7, momentum=0.9)
+    ju = np.asarray(ju)
+    jt32 = np.asarray(jnp.asarray(jt, jnp.float32))
+    theta_in = np.asarray(jnp.asarray(jnp.asarray(theta, dtype), jnp.float32))
+    ulp_u = np.spacing(np.maximum.reduce([np.abs(0.9 * u), np.abs(0.7 * psi), np.abs(ju)]))
+    ulp_t = np.spacing(np.maximum.reduce([np.abs(theta_in), np.abs(0.9 * ju),
+                                          np.abs(0.7 * psi), np.abs(jt32)]))
+    assert tu.dtype == torch.float32
+    assert np.all(np.abs(tu.numpy() - ju) <= ulp_u)
+    bound = 3 * ulp_t if dtype == "float32" else 3 * ulp_t + np.abs(jt32) * 2.0 ** -8
+    assert np.all(np.abs(tt.float().numpy() - jt32) <= bound)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nesterov_kernel_plain_equals_unfused_transform(dtype):
+    """The kernel's plain version (what the kernel matches bitwise on the
+    card) == the port's own unfused optim/nesterov.py path, exactly."""
+    rng = np.random.default_rng(10)
+    params = {"a": torch.from_numpy(_np(rng, (5, 7))).to(dtype),
+              "b": {"c": torch.from_numpy(_np(rng, (13,))).to(dtype)}}
+    psi = {"a": torch.from_numpy(_np(rng, (5, 7))), "b": {"c": torch.from_numpy(_np(rng, (13,)))}}
+    fused, unfused = tnesterov(0.7, 0.9, kernel=True), tnesterov(0.7, 0.9)
+    state = {"u": {"a": torch.from_numpy(_np(rng, (5, 7))),
+                   "b": {"c": torch.from_numpy(_np(rng, (13,)))}}}
+    pf, sf = fused.apply(params, psi, state)
+    pu, su = unfused.apply(params, psi, state)
+    for a, b in [(pf["a"], pu["a"]), (pf["b"]["c"], pu["b"]["c"]),
+                 (sf["u"]["a"], su["u"]["a"]), (sf["u"]["b"]["c"], su["u"]["b"]["c"])]:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # the reference's own unfused path returns the same dtypes and state layout
+    jp, js = jnesterov(0.7, 0.9).apply(
+        {"a": jnp.asarray(params["a"].float().numpy())}, {"a": jnp.asarray(psi["a"].numpy())},
+        {"u": {"a": jnp.asarray(state["u"]["a"].numpy())}})
+    assert set(js) == set(su) == {"u"} and np.asarray(js["u"]["a"]).dtype == np.float32
