@@ -44,7 +44,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``TrainEngine.launches_per_round``). Losses must be finite and fall
    from the first round to the last. Then one more round under
    torch.profiler: device busy share and the kernels that take the time.
-7. Summary: one ``{"kernels": [...]}`` line, then the last line
+8. Compressed pseudogradients: (8a) ``quantize`` and ``dequantize``
+   against their plain versions on the card, bitwise, at every (rows, cols)
+   shape the two compressed runs below give them (Q1 and Q2 of every leaf),
+   at 1, 2, 4 and 8 bits, plus a ragged shape with a constant row; the
+   largest call of each layout timed beside its plain version and its bound
+   (``torch.addcmul`` as the dequantizer's library yardstick); (8b) one
+   full-width outer sync from one set of deltas with ``wire_impl='pallas'``
+   (the kernels) against ``'jnp'`` (plain torch): Psi, the EF residuals and
+   the new params bitwise, for global 2-bit and for a row-wise 4-bit
+   streaming segment; (8c) the paper's compressed variant in-process, the
+   command in ``TRAIN`` plus ``COMPRESSED`` (global 2-bit quantization with
+   error feedback), 3 rounds; (8d) row-wise with two streaming partitions,
+   ``TRAIN`` plus ``COMPRESSED`` plus ``ROWWISE``, 2 rounds. Both runs
+   assert the launch counts against the formula, quantize and dequantize
+   launched, finite losses and the per-round ``comm_bytes``; (8c) also that
+   the losses fall, and profiles one more round (8c'): the device time of
+   the quantize kernels against the round.
+9. Summary: one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
@@ -81,6 +98,11 @@ TRAIN = ["--arch", "smollm-135m", "--inner", "muon", "--outer", "nesterov", "--w
          "--sync-interval", "4", "--rounds", "3", "--seq-len", "1024", "--batch-per-worker", "8",
          "--attn-impl", "pallas", "--ns-impl", "pallas", "--outer-kernel", "--seed", "0",
          "--lr", "3e-3", "--out", str(ROOT / "build" / "chip_smoke_train"), "--verbose"]
+# the paper's compressed variant (README): 2-bit global quantization, error feedback
+COMPRESSED = ["--compression", "quant", "--bits", "2", "--error-feedback"]
+ROWWISE = ["--rowwise", "--streaming", "2"]
+# the reference's measured wire bytes per worker per round at full width, K = 2
+COMM_BYTES = {"a": 67_257_680, "b": 70_441_072}
 
 
 def time_ms(torch, fn, runs: int = 30) -> float:
@@ -562,15 +584,16 @@ def phase_train_main(torch, build_parser, train):
     return launches, out
 
 
-def phase_train_profile(torch, out, args_list):
+def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = ()):
     """[6c] where a training round's time goes: one more round unprofiled,
-    then one under torch.profiler."""
+    then one under torch.profiler; the device time of the kernels whose
+    names hold one of ``focus`` is summed apart."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig, MarkovStream, batches_for_round
     from repro_torch.launch.train import build_parser
 
-    print("[6c] profile: one more training round of the same run")
+    print(f"[{tag}] profile: one more training round of the same run")
     args = build_parser().parse_args(args_list)
     engine, state, model = out["engine"], out["state"], out["model"]
     data = MarkovStream(DataConfig(vocab=model.cfg.vocab, seq_len=args.seq_len,
@@ -604,6 +627,184 @@ def phase_train_profile(torch, out, args_list):
           f"{sum(v[1] for v in by_name.values())} kernels")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
+    for key in focus:
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
+        ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        print(f"  {key}: {ms:.3f} ms device time, x{n}, {100 * ms / plain_wall_ms:.2f}% of "
+              "the unprofiled wall")
+
+
+def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
+    """The (rows, cols) of every quantize call one sync of the compressed
+    runs makes: Q1 on the K-stacked (subset) leaf, Q2 on the reduced one."""
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.streaming import streaming_masks, subset_plan
+    from repro_torch.core.wire import _row_layout
+    from repro_torch.utils.tree import tree_leaves
+
+    ccfg = CompressionConfig(kind="quant", bits=2, rowwise=rowwise)
+    leaves = [tuple(p.shape) for p in tree_leaves(params)]
+    encoded = []
+    for mask in (streaming_masks(params, J) if J > 1 else [None]):
+        masks = tree_leaves(mask) if mask is not None else [None] * len(leaves)
+        for shape, m in zip(leaves, masks):
+            plan, idx = subset_plan(m, shape, ccfg) if m is not None else ("all", None)
+            if plan == "rows":
+                encoded.append((len(idx), *shape[1:]))
+            elif plan != "skip":
+                encoded.append(shape)
+    return ({_row_layout((K, *s), rowwise, 1) for s in encoded}
+            | {_row_layout(s, rowwise, 0) for s in encoded})
+
+
+def phase_quantize(torch, q, params):
+    """[8a] quantize / dequantize against their plain versions, bitwise, at
+    the compressed runs' shapes; the largest call of each layout timed."""
+    print("[8a] quantize / dequantize (replace quantize.py:_rowwise_quant_kernel / "
+          "_rowwise_dequant_kernel) against their plain versions, bitwise")
+    shapes = sorted(wire_shapes(params, 1, False) | wire_shapes(params, 2, True) | {(77, 1001)})
+    print(f"  {len(shapes)} (rows, cols) shapes: {shapes}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for rows, cols in shapes:
+        # per-row magnitudes from 1e-4 to 10; the ragged shape holds a constant row
+        mag = torch.exp(torch.empty((rows, 1), device="cuda").uniform_(
+            math.log(1e-4), math.log(10.0), generator=gen))
+        x = torch.randn((rows, cols), generator=gen, device="cuda") * mag
+        if rows == 77:
+            x[3] = 0.375
+        for bits in (1, 2, 4, 8):
+            got = q._quantize_cuda(x, bits)
+            want = q.rowwise_quantize_plain(x, bits)
+            vals = q._dequantize_cuda(got[1], got[2], got[3])
+            vals_plain = q.rowwise_dequantize_plain(got[1], got[2], got[3])
+            torch.cuda.synchronize()
+            for name, a, b in zip(("deq", "codes", "lo", "scale", "values"),
+                                  (*got, vals), (*want, vals_plain)):
+                assert torch.equal(a, b), f"quantize [{rows}, {cols}] bits {bits}: {name} differs"
+        if rows == 77:
+            assert float(got[3][3]) == 1.0 and not got[1][3].any(), "constant row"
+        del x, got, want, vals, vals_plain
+    print(f"  all {len(shapes)} shapes x bits 1, 2, 4, 8: deq, codes, lo, scale and the "
+          "dequantized values bitwise equal")
+    out = {}
+    for tag, rows, cols, bits in (("global Q1 of embed", 2, 28_311_552, 2),
+                                  ("row-wise Q1 of w_in", 34_560, 1536, 4)):
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+        n = rows * cols
+        ms = time_ms(torch, lambda: q._quantize_cuda(x, bits))
+        plain_ms = time_ms(torch, lambda: q.rowwise_quantize_plain(x, bits), runs=5)
+        b = bound(6.0 * n, 9.0 * n + 8.0 * rows, PEAK_FP32_FLOPS)
+        print(f"  timed quantize, {tag} [{rows}, {cols}] {bits}-bit: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+              f"{9 * n + 8 * rows} B)")
+        if "quantize" not in out:
+            out["quantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        _, codes, lo, scale = q._quantize_cuda(x, bits)
+        ms = time_ms(torch, lambda: q._dequantize_cuda(codes, lo, scale))
+        plain_ms = time_ms(torch, lambda: q.rowwise_dequantize_plain(codes, lo, scale), runs=5)
+        library_ms = time_ms(torch, lambda: torch.addcmul(lo, codes, scale))
+        b = bound(2.0 * n, 5.0 * n + 8.0 * rows, PEAK_FP32_FLOPS)
+        print(f"  timed dequantize, {tag} [{rows}, {cols}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.addcmul {library_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {5 * n + 8 * rows} B)")
+        out["dequantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, **b)
+        del x, codes, lo, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wire_agreement(torch, get_config, build_model):
+    """[8b] one full-width outer sync, wire_impl 'pallas' (the kernels) vs
+    'jnp' (plain torch), from one set of deltas: bitwise."""
+    print("[8b] full-width outer sync with EF: wire_impl pallas (kernels) vs jnp (plain torch)")
+    from repro_torch.core import CompressionConfig, DiLoCoConfig, make_outer, outer_step
+    from repro_torch.core.streaming import streaming_masks
+    from repro_torch.engine import train_state
+    from repro_torch.utils.tree import tree_leaves_with_paths, tree_map
+
+    dev = torch.device("cuda")
+    params = build_model(get_config("smollm-135m")).init(
+        torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def noise(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    K = 2
+    base = dict(outer_params=params,
+                outer_opt={"u": tree_map(lambda p: noise(p.shape, 1e-3), params)},
+                worker_params=tree_map(lambda p: p[None] + noise((K, *p.shape), 1e-3), params),
+                inner_state={}, round=torch.zeros((), dtype=torch.int32, device=dev),
+                ef=tree_map(lambda p: noise((K, *p.shape), 1e-4), params))
+    for tag, ckw, J in (("global 2-bit", dict(bits=2), 1),
+                        ("row-wise 4-bit, streaming segment 0 of 2", dict(bits=4, rowwise=True), 2)):
+        mask = streaming_masks(params, J)[0] if J > 1 else None
+        got = {}
+        for impl in ("pallas", "jnp"):
+            dcfg = DiLoCoConfig(n_workers=K, compression=CompressionConfig(
+                kind="quant", error_feedback=True, wire_impl=impl, **ckw),
+                streaming_partitions=J, outer_kernel=True)
+            state = train_state(**tree_map(torch.clone, base))
+            state, psi = outer_step(dcfg, state, mask=mask, outer=make_outer(dcfg))
+            got[impl] = (psi, state["ef"], state["outer_params"])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("psi", "ef", "theta'"), got["pallas"], got["jnp"]):
+            for (path, x), (_, y) in zip(tree_leaves_with_paths(a), tree_leaves_with_paths(b)):
+                assert torch.equal(x, y), f"{tag}: {name} {path} differs, pallas vs jnp"
+        print(f"  {tag}: psi, ef and theta' bitwise equal over all 11 leaves")
+        del got, state, psi
+    del params, base
+    torch.cuda.empty_cache()
+
+
+def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, rounds: int,
+                         comm: int, falls: bool, profile: str = ""):
+    """[8c] / [8d] a compressed run in-process through the CLI entry point;
+    ``profile`` names a phase that profiles one more round."""
+    from repro_torch.kernels import _build
+
+    argv = [a for a in TRAIN] + extra
+    argv[argv.index("--rounds") + 1] = str(rounds)
+    argv[argv.index("--out") + 1] = str(ROOT / "build" / f"chip_smoke_train_{tag}")
+    print(f"[8{'c' if tag == 'a' else 'd'}] run ({tag}): repro_torch.launch.train " + " ".join(argv))
+    args = build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = train(args)
+    launches = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    engine, state, hist = out["engine"], out["state"], out["history"]
+    want = {k: rounds * v for k, v in engine.launches_per_round(state["outer_params"]).items()}
+    print(f"  launches {launches}")
+    print(f"  formula  {want} (rounds x TrainEngine.launches_per_round)")
+    assert launches == want, (launches, want)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
+                 "quantize", "dequantize"):
+        assert launches[name] > 0, name
+    tokens = args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
+    for rec in hist:
+        assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"]), rec
+        assert rec["comm_bytes"] == comm, (rec["comm_bytes"], comm)
+        print(f"  round {rec['round']}: train {rec['train_loss']:.4f}, eval "
+              f"{rec['eval_loss']:.4f}, comm_bytes {rec['comm_bytes']:.0f}, wall "
+              f"{rec['wall_s']:.3f} s ({tokens / rec['wall_s']:.0f} tok/s)")
+    if falls:
+        assert hist[-1]["train_loss"] < hist[0]["train_loss"], "train loss did not fall"
+        assert hist[-1]["eval_loss"] < hist[0]["eval_loss"], "eval loss did not fall"
+    later = hist[1:]
+    tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
+    print(f"  training tokens/s over rounds 2-{len(hist)}: {tok_s:.1f}; comm_bytes per round "
+          f"{comm} (dense: 1,076,120,064); peak device memory {peak_gb:.2f} GB")
+    if profile:  # the quantize kernels (csrc/quantize.cu) against the round
+        phase_train_profile(torch, out, argv, tag=profile,
+                            focus=("tile_minmax_kernel", "row_stats_kernel", "encode_kernel",
+                                   "decode_kernel"))
+    del out, engine, state
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 def main() -> int:
@@ -618,6 +819,7 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import outer_update as ou
+    from repro_torch.kernels import quantize as q
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import build_parser, train
     from repro_torch.models import build_model
@@ -657,6 +859,17 @@ def main() -> int:
     phase_train_agreement(torch, get_config, build_model)
     train_launches, out = phase_train_main(torch, build_parser, train)
     phase_train_profile(torch, out, TRAIN)
+    params = out["state"]["outer_params"]
+    del out
+    torch.cuda.empty_cache()
+
+    quant = phase_quantize(torch, q, params)
+    del params
+    phase_wire_agreement(torch, get_config, build_model)
+    run_a = phase_compressed_run(torch, build_parser, train, "a", COMPRESSED, 3,
+                                 COMM_BYTES["a"], falls=True, profile="8c'")
+    run_b = phase_compressed_run(torch, build_parser, train, "b", COMPRESSED + ROWWISE, 2,
+                                 COMM_BYTES["b"], falls=False)
 
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"
@@ -679,10 +892,19 @@ def main() -> int:
         {"name": "nesterov", "route": "cuda", "source": f"{src}/outer_update.cu",
          "replaces": f"{jax_src}/outer_update.py:58",
          "launches": train_launches["nesterov"], **nesterov},
+        {"name": "quantize", "route": "cuda", "source": f"{src}/quantize.cu",
+         "replaces": f"{jax_src}/quantize.py:40",
+         "launches": run_a["quantize"], **quant["quantize"]},
+        {"name": "dequantize", "route": "cuda", "source": f"{src}/quantize.cu",
+         "replaces": f"{jax_src}/quantize.py:87",
+         "launches": run_a["dequantize"], **quant["dequantize"]},
     ]}
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
           "(the flash_fwd row counts the serving main path's)")
-    print(f"[7] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
+          f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
+          f"{run_b['dequantize']}")
+    print(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """DiLoCo/MuLoCo distributed optimization (port of ``repro/core``): the
-single-card lockstep round with compression ``none``."""
+single-card round, with compressed and streaming pseudogradient syncs."""
+from repro_torch.core.compression import CompressionConfig  # noqa: F401
 from repro_torch.core.diloco import (  # noqa: F401
-    CompressionConfig,
     DiLoCoConfig,
     OuterOptimizer,
     comm_bytes,
@@ -11,5 +11,6 @@ from repro_torch.core.diloco import (  # noqa: F401
     inner_step,
     make_optimizer,
     make_outer,
+    make_streaming_masks,
     outer_step,
 )

@@ -1,0 +1,235 @@
+"""Communication collectives for the pseudogradient all-reduce (port of
+``repro/core/collectives.py``; paper §2, App. C.1).
+
+The quantized collective is an all-to-all reduce-scatter followed by a ring
+all-gather: each worker's quantized shard is dequantized and reduced once
+in fp32 on its owner, re-quantized and all-gathered — exactly two
+quantize / dequantize points (Q1/D1, Q2/D2). Top-k uses an all-gather and a
+local reduce (one compression). The reduce consumes the wire buffers the
+worker stage emitted (:mod:`repro_torch.core.wire`). Workers live on a
+stacked leading K axis, so the mean over axis 0 is the all-reduce.
+
+Byte accounting: :func:`measured_sync_bytes` sizes the buffers the
+collective moves (codes, row metadata, indices, packing padding) in closed
+form from the leaf shapes, allocating nothing; it is the per-round
+``comm_bytes`` metric. :func:`collective_bytes_tree` is the reference's
+closed-form model (Tab. 10 / Fig. 16).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.compression import CompressionConfig, ef_accumulate
+from repro_torch.core.wire import _row_layout, decode_leaf, encode_leaf
+from repro_torch.kernels.quantize import packed_width
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
+
+Tree = Any
+
+
+def _sum_workers(vals: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading K axis in order, ((v0 + v1) + v2) + ..., the
+    order XLA reduces a leading axis in (``torch.sum`` takes another order
+    for some entries of some shapes)."""
+    acc = vals[0]
+    for k in range(1, vals.shape[0]):
+        acc = acc + vals[k]
+    return acc
+
+
+def participation_mean(vals: torch.Tensor, participation: torch.Tensor | None) -> torch.Tensor:
+    """Mean over the leading K axis restricted to participating workers.
+
+    ``participation`` is a [K] fp32 {0, 1} mask (``None`` = everyone). Both
+    forms multiply by a reciprocal: ``sum * (1 / K)``, which is what
+    ``jnp.mean`` compiles to (a plain division, like ``torch.mean``'s,
+    differs in the last ulp whenever 1/K is inexact, e.g. K = 3), and
+    ``sum(p * vals) * (1 / max(sum(p), 1))`` with a mask."""
+    if participation is None:
+        return _sum_workers(vals) * (1.0 / vals.shape[0])
+    p = participation.float()
+    pb = p.reshape((p.shape[0],) + (1,) * (vals.dim() - 1))
+    return _sum_workers(pb * vals) * (1.0 / torch.clamp(p.sum(), min=1.0))
+
+
+def _q2_d2(psi: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
+    """The a2a_rs_ag collective re-quantizes the reduced shard (Q2) and the
+    all-gather delivers its reconstruction (D2)."""
+    if cfg.kind == "quant" and cfg.collective == "a2a_rs_ag":
+        return decode_leaf(encode_leaf(psi, cfg, batch_ndim=0), impl=cfg.wire_impl)
+    return psi
+
+
+def reduce_pseudogradients(worker_comm: Tree, cfg: CompressionConfig,
+                           participation: torch.Tensor | None = None) -> Tree:
+    """Reduce per-worker wire buffers into the pseudogradient Psi: dense
+    [K, ...] deltas for ``kind='none'``, wire packets otherwise (decoded,
+    D1, then averaged; Q2/D2 for the a2a_rs_ag quantized collective)."""
+    if cfg.kind == "none":
+        return tree_map(lambda d: participation_mean(d.float(), participation), worker_comm)
+    return tree_map(lambda w: _q2_d2(participation_mean(decode_leaf(w, impl=cfg.wire_impl),
+                                                        participation), cfg), worker_comm)
+
+
+def _leaf_wire_pipeline(d: torch.Tensor, e: torch.Tensor | None, cfg: CompressionConfig,
+                        participation: torch.Tensor | None = None):
+    """The whole per-leaf wire path on a [K, ...] delta leaf: (EF accumulate
+    ->) Q1 -> D1 -> mean over K (-> Q2/D2), decoding Q1 once for both the
+    residual and the mean. Mirrors the stage chain leafwise. Returns
+    ``(psi fp32, new_residual fp32 | None)``."""
+    acc = ef_accumulate(cfg, d, e) if e is not None else None
+    vals = decode_leaf(encode_leaf(acc if acc is not None else d, cfg, batch_ndim=1),
+                       impl=cfg.wire_impl)  # D1: the true reconstruction
+    new_e = acc - vals if acc is not None else None
+    return _q2_d2(participation_mean(vals, participation), cfg), new_e
+
+
+def segment_sync_update(deltas: Tree, residuals: Tree | None, mask: Tree,
+                        cfg: CompressionConfig,
+                        participation: torch.Tensor | None = None):
+    """One streaming segment's worker and reduce stages with wire-row
+    subsetting: per leaf, the mask decides (``streaming.subset_plan``)
+    whether to encode the whole leaf, nothing, only its owned L-rows (a
+    smaller wire buffer), or the full-size masked encode (``'legacy'``).
+
+    ``deltas`` are the mask-multiplied [K, ...] worker deltas, ``residuals``
+    the K-stacked EF tree or ``None``. Returns ``(psi, new_residuals)``.
+    For ``'skip'`` / ``'rows'`` leaves psi is zero outside the partition and
+    unowned residual rows come back unchanged; callers still mask psi and
+    merge the residuals under the mask, for the ``'legacy'`` leaves."""
+    from repro_torch.core.streaming import subset_plan
+
+    def per_leaf(d, e, m):
+        plan, idx = subset_plan(m, tuple(d.shape[1:]), cfg)
+        if plan == "skip":
+            return torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device), e
+        if plan == "rows":
+            rows = torch.as_tensor(idx, device=d.device)
+            psi_sub, new_e_sub = _leaf_wire_pipeline(
+                d[:, rows], e[:, rows] if e is not None else None, cfg, participation)
+            psi = torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device)
+            psi[rows] = psi_sub
+            new_e = None
+            if e is not None:
+                new_e = e.float().clone()
+                new_e[:, rows] = new_e_sub
+            return psi, new_e
+        return _leaf_wire_pipeline(d, e, cfg, participation)  # 'all' / 'legacy'
+
+    if residuals is None:
+        psi, _ = tree_unzip(tree_map(lambda d, m: per_leaf(d, None, m), deltas, mask), 2)
+        return psi, None
+    return tree_unzip(tree_map(per_leaf, deltas, residuals, mask), 2)
+
+
+def reduce_mean(cfg: CompressionConfig, participation: torch.Tensor | None = None):
+    """The pseudogradient all-reduce as a stateless transform stage:
+    [K, ...]-stacked wire buffers (or dense deltas for kind='none') -> Psi."""
+    from repro_torch.optim.transform import stateless
+
+    return stateless(lambda comm, _params: reduce_pseudogradients(
+        comm, cfg, participation=participation))
+
+
+# ---------------------------------------------------------------------------
+# Byte accounting
+# ---------------------------------------------------------------------------
+
+
+def _wire_bytes(shape: tuple, cfg: CompressionConfig, batch_ndim: int) -> int:
+    """Bytes of the packet ``encode_leaf`` makes of an fp32 leaf of this
+    shape, from the shape alone."""
+    if cfg.kind == "topk":
+        inner = math.prod(shape[batch_ndim:])
+        k = max(int(round(cfg.topk_frac * inner)), 1)
+        return math.prod(shape[:batch_ndim]) * k * (4 + 4)  # int32 index + fp32 value
+    if cfg.kind == "quant":
+        rows, cols = _row_layout(shape, cfg.rowwise, batch_ndim)
+        meta = 4 * (1 << cfg.bits) if cfg.quant_mode == "statistical" else 4 + 4
+        return rows * (packed_width(cols, cfg.bits) + meta)
+    raise ValueError(f"unknown compressor {cfg.kind!r}")
+
+
+def _leaf_sync_bytes(shape: tuple, cfg: CompressionConfig, n_workers: int) -> float:
+    """Measured per-sync wire bytes per worker for one parameter leaf:
+
+    * dense (kind='none'): fp32 reduce-scatter + all-gather = 2 full leaves;
+    * quant 'a2a_rs_ag': the worker's Q1 buffer out + the Q2 buffer in;
+    * quant / top-k 'gather': every worker receives all K workers' buffers.
+    """
+    K = n_workers
+    if cfg.kind == "none":
+        return 2.0 * math.prod(shape) * 4
+    q1_per_worker = _wire_bytes((K, *shape), cfg, 1) / K
+    if cfg.kind == "quant" and cfg.collective == "a2a_rs_ag":
+        return q1_per_worker + _wire_bytes(shape, cfg, 0)
+    return q1_per_worker * K
+
+
+def _mask_fraction(m) -> float:
+    return float(m.float().mean()) if isinstance(m, torch.Tensor) else float(m)
+
+
+def measured_sync_bytes(params: Tree, cfg: CompressionConfig, n_workers: int,
+                        mask: Tree | None = None, outer_enabled: bool = True) -> int:
+    """Measured wire bytes per outer sync per worker, from the sizes of the
+    buffers the collective moves. Only the leaves' shapes are read.
+
+    With a streaming partition ``mask`` the accounting follows the
+    ``subset_plan`` the segment sync executes: wholly owned leaves count in
+    full, unowned leaves not at all, ``'rows'`` leaves at the size of the
+    subset they encode (so per-segment totals sum exactly to the single
+    sync's), ``'legacy'`` leaves at the masked-row fraction. With
+    ``outer_enabled=False`` the sync is the dense K-way parameter average
+    (nothing at all for K == 1)."""
+    from repro_torch.core.streaming import subset_plan
+
+    leaves = tree_leaves(params)
+    mask_leaves = tree_leaves(mask) if mask is not None else [None] * len(leaves)
+    total = 0.0
+    for p, m in zip(leaves, mask_leaves):
+        shape = tuple(p.shape)
+        if not outer_enabled:
+            frac = 1.0 if m is None else _mask_fraction(m)
+            total += frac * (0.0 if n_workers == 1 else 2.0 * math.prod(shape) * 4)
+            continue
+        if m is None or cfg.kind == "none":
+            frac = 1.0 if m is None else _mask_fraction(m)
+            total += frac * _leaf_sync_bytes(shape, cfg, n_workers)
+            continue
+        plan, idx = subset_plan(m, shape, cfg)
+        if plan == "rows":  # the subset the segment encodes
+            total += _leaf_sync_bytes((len(idx), *shape[1:]), cfg, n_workers)
+        elif plan == "all":
+            total += _leaf_sync_bytes(shape, cfg, n_workers)
+        elif plan == "legacy":
+            total += _mask_fraction(m) * _leaf_sync_bytes(shape, cfg, n_workers)
+    return int(round(total))
+
+
+def measured_compression_ratio(params: Tree, cfg: CompressionConfig, n_workers: int) -> float:
+    """Measured wire bytes vs the dense fp32 collective on the same tree."""
+    dense = measured_sync_bytes(params, CompressionConfig(kind="none"), n_workers)
+    return measured_sync_bytes(params, cfg, n_workers) / max(dense, 1)
+
+
+def collective_bytes_tree(params: Tree, cfg: CompressionConfig, n_workers: int) -> dict:
+    """Modeled wire bytes per outer sync per worker (Tab. 10 / Fig. 16):
+
+    dense ring all-reduce:   2 * P * 4 bytes (reduce-scatter + all-gather)
+    quant a2a_rs + ring ag:  2 * P * bits/8
+    top-k all-gather:        K * kept * (4 + 4) bytes (value + index)
+    """
+    n = sum(math.prod(tuple(p.shape)) for p in tree_leaves(params))
+    if cfg.kind == "none":
+        per_worker = 2 * n * 4
+    elif cfg.kind == "quant":
+        per_worker = int(2 * n * cfg.bits / 8)
+    elif cfg.kind == "topk":
+        per_worker = n_workers * int(n * cfg.topk_frac) * 8
+    else:
+        raise ValueError(cfg.kind)
+    return {"params": n, "bytes_per_sync_per_worker": per_worker}

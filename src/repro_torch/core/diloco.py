@@ -1,11 +1,11 @@
 """DiLoCo / MuLoCo on one card (port of ``repro/core/diloco.py``).
 
-Algorithm 1 of the paper:
+Algorithm 1/2 of the paper:
 
   * K workers each run H local steps of the **inner optimizer**
     (AdamW -> DiLoCo, Muon -> MuLoCo) on their own data shard;
-  * every H steps the worker deltas Δ_k = θ_outer − θ_k are averaged into
-    the pseudogradient Ψ;
+  * every H steps the worker deltas Δ_k = θ_outer − θ_k are (optionally
+    EF-compressed and) averaged into the pseudogradient Ψ;
   * the **outer** Nesterov-SGD applies Ψ to the outer params, which are then
     broadcast back to all workers.
 
@@ -13,14 +13,18 @@ Worker state is stacked on a leading K axis, as in the reference. Where the
 reference vmaps the inner step over K, :func:`inner_step` loops over the K
 workers in Python: the Hopper kernels on the path are launched through
 ctypes and have no ``torch.func`` batching rule. Where JAX donates the
-state, the port writes worker params, inner state and the outer state in
-place (``copy_``), so a round holds one copy of each.
+state, the port writes worker params, inner state, the EF residuals and the
+outer state in place (``copy_``), so a round holds one copy of each.
 
-This slice ports the lockstep path with compression ``none`` (J = 1).
-Compression, error feedback and streaming (Slice 3), elastic participation,
-``sync_delay`` and the health sentinel (Slice 4), and the data-parallel
+The pseudogradient path Δ -> compress/EF -> reduce -> outer descent is the
+chain :func:`make_outer` declares (:class:`OuterOptimizer`), with the
+compressors of :mod:`repro_torch.core.compression`, the wire packets of
+:mod:`repro_torch.core.wire` and the collectives of
+:mod:`repro_torch.core.collectives`; streaming (J > 1) syncs one partition
+of :mod:`repro_torch.core.streaming` per segment. Elastic participation,
+``sync_delay`` and the health sentinel (Slice 4) and the data-parallel
 baseline (``dp_config`` / ``dp_step``) raise ``NotImplementedError`` naming
-their slice of ROADMAP.md.
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,19 +33,18 @@ from typing import Any
 
 import torch
 
-from repro_torch.optim import OptimizerConfig, make_inner_optimizer, make_outer_transform
+from repro_torch.core.collectives import measured_sync_bytes, reduce_mean, segment_sync_update
+from repro_torch.core.compression import CompressionConfig, compress, error_feedback
+from repro_torch.core.streaming import masked_update, streaming_masks
+from repro_torch.optim import (
+    OptimizerConfig,
+    chain,
+    make_inner_optimizer,
+    make_outer_transform,
+)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 Tree = Any
-
-
-@dataclasses.dataclass(frozen=True)
-class CompressionConfig:
-    """The two fields of the reference's ``core/compression.CompressionConfig``
-    this slice reads: only ``kind='none'`` without error feedback is ported
-    (Slice 3 brings the codecs and their settings)."""
-    kind: str = "none"  # none | topk | quant
-    error_feedback: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +71,7 @@ class DiLoCoConfig:
 
 
 def check_ported(dcfg: DiLoCoConfig) -> None:
-    """Raise for the features of the reference this slice does not carry."""
-    c = dcfg.compression
-    slice3 = ("compression other than 'none'" if c.kind != "none" else
-              "error feedback" if c.error_feedback else
-              "streaming (J > 1)" if dcfg.streaming_partitions > 1 else None)
-    if slice3:
-        raise NotImplementedError(f"{slice3} is not ported to repro_torch yet: "
-                                  "ROADMAP.md, Queue 1, Slice 3")
+    """Raise for the features of the reference the port does not carry yet."""
     slice4 = ("elastic participation" if dcfg.elastic else
               "sync_delay" if dcfg.sync_delay else
               "the health sentinel" if dcfg.health_enabled else None)
@@ -94,13 +90,27 @@ def make_optimizer(dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig):
 
 
 class OuterOptimizer:
-    """The pseudogradient path Δ -> reduce -> outer descent for compression
-    ``none``: the reduce is the mean over K, the descent the terminal outer
-    transform (Nesterov or SGD)."""
+    """The pseudogradient path Δ -> compress/EF -> reduce -> outer descent:
+    the worker stage (``compress`` or ``error_feedback``) chained with
+    ``reduce_mean`` (:meth:`reduce`), then the terminal outer transform
+    (:meth:`descend`).
+
+    The chain's state is the stage tuple ``(ef_residuals | (), ())``; the
+    TrainState keeps the EF residuals and the outer-transform state in its
+    ``ef`` / ``outer_opt`` fields, and this wrapper packs and unpacks them
+    around the stages. ``step`` also owns the streaming-mask merges:
+    candidate params and outer momentum merge under the partition mask, and
+    untouched partitions keep their EF residuals.
+    """
 
     def __init__(self, dcfg: DiLoCoConfig, state_dtype="float32"):
         check_ported(dcfg)
+        ccfg = dcfg.compression
         self.dcfg = dcfg
+        self.state_dtype = getattr(torch, str(state_dtype))
+        self.has_ef = bool(ccfg.error_feedback and ccfg.kind != "none")
+        self.has_wire = ccfg.kind != "none"
+        self.worker_stage = error_feedback(ccfg) if self.has_ef else compress(ccfg)
         self.terminal = make_outer_transform(
             dcfg.outer_name, dcfg.outer_lr, dcfg.outer_momentum,
             state_dtype=state_dtype, kernel=dcfg.outer_kernel)
@@ -108,30 +118,70 @@ class OuterOptimizer:
     def init_opt(self, params: Tree) -> Tree:
         return self.terminal.init(params)
 
-    def reduce(self, deltas: Tree) -> Tree:
-        """Ψ = mean over the K workers of the fp32 deltas."""
-        return tree_map(lambda d: torch.mean(d.float(), dim=0), deltas)
+    def init_ef(self, params: Tree, n_workers: int) -> Tree | None:
+        """K-stacked EF residuals in ``state_dtype``, or None. They exist
+        whenever ``error_feedback=True``, even with ``kind='none'``, where
+        the chain skips the EF stage (the reference's allocation rule)."""
+        if not self.dcfg.compression.error_feedback:
+            return None
+        template = tree_map(lambda p: torch.zeros((n_workers, *p.shape), dtype=self.state_dtype,
+                                                  device=p.device), params)
+        return error_feedback(self.dcfg.compression).init(template)
+
+    def reduce(self, params: Tree, deltas: Tree, ef: Tree | None, mask: Tree | None = None):
+        """The communication half of the sync: worker stage (compress / EF)
+        and the pseudogradient all-reduce. Returns ``(psi, new_ef)``. A
+        streaming segment (``mask``) with wire compression goes through
+        ``segment_sync_update``, whose buffers shrink to the segment's rows."""
+        ccfg = self.dcfg.compression
+        if mask is not None and self.has_wire:
+            psi, seg_ef = segment_sync_update(deltas, ef if self.has_ef else None, mask, ccfg)
+            return psi, seg_ef if self.has_ef else ef
+        sub = chain(self.worker_stage, reduce_mean(ccfg))
+        psi, sub_state = sub.update(deltas, (ef if self.has_ef else (), ()), params)
+        return psi, sub_state[0] if self.has_ef else ef
 
     def descend(self, params: Tree, psi: Tree, opt_state: Tree):
+        """The terminal half: outer transform update + parameter descent.
+        Returns ``(new_params, new_opt)``."""
         psi, opt_after = self.terminal.update(psi, opt_state, params)
         return self.terminal.apply(params, psi, opt_after)
 
-    def step(self, params: Tree, deltas: Tree, opt_state: Tree):
-        """(new_params, new_opt_state, psi)."""
-        psi = self.reduce(deltas)
-        new_params, new_opt = self.descend(params, psi, opt_state)
-        return new_params, new_opt, psi
+    def step(self, params: Tree, deltas: Tree, opt_state: Tree, ef: Tree | None,
+             mask: Tree | None = None):
+        """:meth:`reduce` then :meth:`descend`, plus the streaming merges.
+        Returns ``(new_params, new_opt_state, new_ef, psi)``."""
+        psi, new_ef = self.reduce(params, deltas, ef, mask=mask)
+        cand_params, new_opt = self.descend(params, psi, opt_state)
+        if mask is None:
+            return cand_params, new_opt, new_ef, psi
+        new_params = masked_update(mask, cand_params, params)
+        new_opt = self.terminal.mask_state(mask, new_opt, opt_state)
+        if self.has_ef:  # untouched partitions keep their residuals
+            new_ef = tree_map(lambda m, ne, oe: torch.where(_masked(m) > 0, ne, oe),
+                              mask, new_ef, ef)
+        return new_params, new_opt, new_ef, psi
 
 
 def make_outer(dcfg: DiLoCoConfig, state_dtype="float32") -> OuterOptimizer:
     return OuterOptimizer(dcfg, state_dtype=state_dtype)
 
 
-def comm_bytes(params: Tree) -> int:
-    """The reference's measured per-worker wire bytes of one sync for
-    compression ``none``: an fp32 reduce-scatter plus all-gather, two full
-    trees (``collectives._leaf_sync_bytes``)."""
-    return int(sum(2 * p.numel() * 4 for p in tree_leaves(params)))
+def comm_bytes(params: Tree, dcfg: DiLoCoConfig, masks: list[Tree] | None = None) -> int:
+    """The round's measured per-worker wire bytes: one sync, or the J
+    segment syncs of a streaming round, each its partition's share
+    (``collectives.measured_sync_bytes``)."""
+    def sync(mask=None) -> int:
+        return measured_sync_bytes(params, dcfg.compression, dcfg.n_workers, mask=mask,
+                                   outer_enabled=dcfg.outer_enabled)
+
+    return sync() if not masks else sum(sync(m) for m in masks)
+
+
+def make_streaming_masks(state: dict, dcfg: DiLoCoConfig) -> list[Tree] | None:
+    if dcfg.streaming_partitions <= 1:
+        return None
+    return streaming_masks(state["outer_params"], dcfg.streaming_partitions)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +211,7 @@ def diloco_init(model, dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig,
         # times is the reference's vmap(opt.init)
         inner_state=_stack(opt.init(params), K),
         round=torch.zeros((), dtype=torch.int32, device=device),
+        ef=outer.init_ef(params, K),
     )
 
 
@@ -213,45 +264,89 @@ def compute_deltas(state: dict) -> Tree:
                     state["outer_params"], state["worker_params"])
 
 
+def _masked(m: torch.Tensor) -> torch.Tensor:
+    """A mask leaf broadcast against a K-stacked leaf."""
+    return m[None] if m.dim() else m
+
+
 @torch.no_grad()
-def outer_step(dcfg: DiLoCoConfig, state: dict, outer: OuterOptimizer | None = None
-               ) -> tuple[dict, Tree]:
-    """Communicate + outer update + worker reset. Returns (state, Ψ)."""
+def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
+               outer: OuterOptimizer | None = None) -> tuple[dict, Tree]:
+    """Communicate + outer update + worker reset, in place. Returns
+    ``(state, Ψ)``. With a streaming partition ``mask`` only its share of
+    the params syncs: the deltas are masked, the params, outer momentum and
+    EF residuals merge under the mask, and only masked entries of the
+    workers reset."""
+    deltas = compute_deltas(state)
+    if mask is not None:
+        deltas = tree_map(lambda m, d: _masked(m) * d, mask, deltas)
     outer = outer or make_outer(dcfg)
-    new_outer, new_opt, psi = outer.step(state["outer_params"], compute_deltas(state),
-                                         state["outer_opt"])
+    new_outer, new_opt, new_ef, psi = outer.step(
+        state["outer_params"], deltas, state["outer_opt"], state.get("ef"), mask=mask)
     _copy_into(state["outer_params"], new_outer)
     _copy_into(state["outer_opt"], new_opt)
-    # broadcast the synced params back to every worker
-    tree_map(lambda o, w: w.copy_(o[None].to(w.dtype).expand_as(w)),
-             state["outer_params"], state["worker_params"])
+    if new_ef is not None:
+        _copy_into(state["ef"], new_ef)
+
+    # broadcast the synced params back to every worker (masked portions only)
+    def reset(o, w, m=None):
+        ob = o[None].to(w.dtype).expand_as(w)
+        if m is None:
+            w.copy_(ob)
+        else:
+            mm = _masked(m)
+            w.copy_((mm * ob.float() + (1 - mm) * w.float()).to(w.dtype))
+
+    if mask is None:
+        tree_map(reset, state["outer_params"], state["worker_params"])
+    else:
+        tree_map(reset, state["outer_params"], state["worker_params"], mask)
     state["round"] = state["round"] + 1
     return state, psi
 
 
 # ---------------------------------------------------------------------------
-# A full round: H inner steps + sync
+# A full round: H inner steps + sync(s)
 # ---------------------------------------------------------------------------
 
 
 def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
+                 masks: list[Tree] | None = None,
                  outer: OuterOptimizer | None = None) -> tuple[dict, dict]:
-    """One communication round: H inner steps then the outer sync.
+    """One communication round: H inner steps then the outer sync(s).
 
-    ``batches`` leaves: [H, K, B, ...]. Returns ``(state, {"loss": f32[H],
-    "psi": tree, "comm_bytes": f32[], "active_workers": f32[],
-    "staleness": f32[]})`` as the reference's J = 1 path.
+    ``batches`` leaves: [H, K, B, ...]. With streaming (J > 1) the round is
+    J segments of H/J steps, each followed by the partition-j sync
+    (``masks`` from :func:`make_streaming_masks`). Returns ``(state,
+    {"loss": f32[H], "psi": tree, "comm_bytes": f32[], "active_workers":
+    f32[], "staleness": f32[]})`` as the reference does; with J > 1 each
+    ``psi`` entry comes from the segment that synced it, and ``comm_bytes``
+    sums the segments' measured wire bytes.
     """
-    H = dcfg.sync_interval
+    H, J = dcfg.sync_interval, dcfg.streaming_partitions
     if batches["tokens"].shape[0] != H:
         raise ValueError(f"batches hold {batches['tokens'].shape[0]} steps, H = {H}")
+    if J > 1 and H % J:
+        raise ValueError("streaming requires the partition count to divide the sync "
+                         f"interval: J={J} does not divide H={H}")
+    if J > 1 and masks is None:
+        raise ValueError("streaming (J>1) requires partition masks; build them with "
+                         "make_streaming_masks(state, dcfg)")
     device = state["round"].device
-    comm = comm_bytes(state["outer_params"])
-    losses = []
-    for h in range(H):
-        state, m = inner_step(model, opt, state, {n: v[h] for n, v in batches.items()})
-        losses.append(m["loss"])
-    state, psi = outer_step(dcfg, state, outer=outer)
+    comm = comm_bytes(state["outer_params"], dcfg, masks if J > 1 else None)
+    seg = H // max(J, 1)
+    losses, psi = [], None
+    for j in range(max(J, 1)):
+        for h in range(j * seg, (j + 1) * seg):
+            state, m = inner_step(model, opt, state, {n: v[h] for n, v in batches.items()})
+            losses.append(m["loss"])
+        if J <= 1:
+            state, psi = outer_step(dcfg, state, outer=outer)
+            continue
+        state, psi_j = outer_step(dcfg, state, mask=masks[j], outer=outer)
+        # psi leaves have no K axis: the masks broadcast directly
+        masked_j = tree_map(lambda m, p: m * p, masks[j], psi_j)
+        psi = masked_j if psi is None else tree_map(torch.add, psi, masked_j)
     f32 = dict(dtype=torch.float32, device=device)
     return state, {"loss": torch.stack(losses), "psi": psi,
                    "comm_bytes": torch.tensor(float(comm), **f32),

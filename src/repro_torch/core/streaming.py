@@ -1,0 +1,90 @@
+"""Streaming DiLoCo partitioned communication (port of
+``repro/core/streaming.py``; Douillard et al., 2025; paper §6.4).
+
+The parameters split into J partitions; partition j syncs after
+(j + 1) * H / J of a round's H inner steps, cutting peak bandwidth by J
+while the total communication stays the same.
+
+Layers are stored stacked ([L, ...]), so a layer partition is a
+broadcastable {0, 1} mask over the L axis (contiguous layer ranges).
+Non-stacked leaves (embed, final norm, ...) go whole to the partition
+``crc32(path) % J``, the path rendered as the reference renders it, so the
+two packages partition alike. Masks are fp32 tensors on the params' device
+(the CPU for leaves that are not tensors, which only need a ``shape``):
+shape ``(L, 1, ...)`` for stacked leaves, 0-dim otherwise.
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_map_with_path
+
+Tree = Any
+
+LAYER_PREFIXES = ("layers", "self_layers", "cross_layers", "decoder", "encoder")
+
+
+def streaming_masks(params: Tree, n_partitions: int,
+                    layer_prefixes: tuple[str, ...] = LAYER_PREFIXES) -> list[Tree]:
+    """J mask trees; elementwise they sum to 1 across partitions."""
+    J = n_partitions
+
+    def leaf_mask(path: str, leaf, j: int) -> torch.Tensor:
+        device = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+        is_stacked = any(path.startswith(p) or f"/{p}/" in path for p in layer_prefixes)
+        if is_stacked and len(leaf.shape) >= 1 and leaf.shape[0] > 1:
+            L = leaf.shape[0]
+            part = (torch.arange(L) * J) // L  # contiguous layer ranges
+            m = (part == j).to(torch.float32).reshape((L,) + (1,) * (len(leaf.shape) - 1))
+            return m.to(device)
+        owner = zlib.crc32(path.encode()) % J  # whole-leaf assignment by path
+        return torch.tensor(1.0 if owner == j else 0.0, dtype=torch.float32, device=device)
+
+    return [tree_map_with_path(lambda p, x: leaf_mask(p, x, j), params) for j in range(J)]
+
+
+def subset_plan(mask_leaf, leaf_shape: tuple, ccfg) -> tuple[str, np.ndarray | None]:
+    """Classify a mask leaf for wire-row subsetting: ``(plan, idx)``.
+
+    * ``'all'``    — the segment owns the whole leaf (encode it whole);
+    * ``'skip'``   — the segment owns nothing (encode nothing);
+    * ``'rows'``   — a stacked-layer mask whose owned L-rows gather into a
+      smaller wire buffer without changing any wire row: only for row-wise
+      linear quantization of a >= 2-D leaf;
+    * ``'legacy'`` — partial ownership that would split wire rows (global
+      quantization rows span the L axis; top-k rounds k per leaf): the
+      full-size masked encode, accounted at the masked-row fraction.
+    """
+    m = (mask_leaf.detach().cpu().numpy() if isinstance(mask_leaf, torch.Tensor)
+         else np.asarray(mask_leaf))
+    if m.ndim == 0:
+        return ("all" if m > 0 else "skip"), None
+    rows = m.reshape(m.shape[0], -1)  # stacked masks broadcast (L, 1, ..)
+    if not (rows.min(axis=1) == rows.max(axis=1)).all():
+        raise ValueError("partition mask rows must be constant along non-leading axes "
+                         "(streaming_masks makes (L, 1, ...) broadcasts)")
+    idx = np.nonzero(rows[:, 0] > 0)[0]
+    if idx.size == m.shape[0]:
+        return "all", None
+    if idx.size == 0:
+        return "skip", None
+    if ccfg.kind == "quant" and ccfg.rowwise and len(leaf_shape) >= 2:
+        return "rows", idx
+    return "legacy", None
+
+
+def masked_update(mask: Tree, new: Tree, old: Tree) -> Tree:
+    """new where mask else old (mask broadcast per leaf), in fp32."""
+    return tree_map(lambda m, n, o: (m * n.float() + (1.0 - m) * o.float()).to(o.dtype),
+                    mask, new, old)
+
+
+def assert_masks_partition(masks: list[Tree]) -> bool:
+    """Whether the masks tile the parameter set exactly once (test helper)."""
+    total = tree_map(lambda *ms: sum(ms), *masks)
+    return all(bool(torch.all(torch.isclose(t, torch.ones_like(t))))
+               for t in tree_leaves(total))

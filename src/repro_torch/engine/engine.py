@@ -21,6 +21,7 @@ from repro_torch.core.diloco import (
     diloco_round,
     make_optimizer,
     make_outer,
+    make_streaming_masks,
 )
 from repro_torch.optim import OptimizerConfig
 
@@ -35,7 +36,9 @@ class TrainEngine:
         for r in range(rounds):
             state, info = engine.step(state, batches_for_round(stream, r, H))
 
-    ``step`` updates ``state`` in place and returns it.
+    ``step`` updates ``state`` in place and returns it. A streaming config
+    (J > 1) builds its partition masks once, from the first state it steps,
+    and passes them to every round.
     """
 
     def __init__(self, model, dcfg: DiLoCoConfig, icfg: OptimizerConfig):
@@ -44,13 +47,17 @@ class TrainEngine:
         self.icfg = icfg
         self.opt = make_optimizer(dcfg, icfg)
         self.outer = make_outer(dcfg, state_dtype=icfg.state_dtype)
+        self._masks = None
 
     def init(self, gen: torch.Generator, device) -> dict:
         return diloco_init(self.model, self.dcfg, self.icfg, gen, device)
 
     def step(self, state: dict, batches: dict) -> tuple[dict, dict]:
-        """One communication round (H inner steps + the outer sync)."""
-        return diloco_round(self.model, self.dcfg, self.opt, state, batches, outer=self.outer)
+        """One communication round (H inner steps + the outer sync(s))."""
+        if self._masks is None:
+            self._masks = make_streaming_masks(state, self.dcfg)
+        return diloco_round(self.model, self.dcfg, self.opt, state, batches,
+                            masks=self._masks, outer=self.outer)
 
     def launches_per_round(self, params: Tree) -> dict[str, int]:
         """Hopper-kernel launches one round makes on the card (with an eval
@@ -58,8 +65,9 @@ class TrainEngine:
         with ``remat``: the backward recomputes it), dq and dkv once per
         layer, and three matmul-epilogue launches per Newton-Schulz
         iteration per Muon leaf (one launch covers a whole [L, m, n] stack);
-        the eval loss runs the forward once per layer; the outer step
-        launches the Nesterov kernel once per leaf."""
+        the eval loss runs the forward once per layer; each outer sync (J
+        per round) launches the Nesterov kernel once per leaf, and the
+        quantize and dequantize launches are :meth:`wire_launches_per_round`'s."""
         from repro_torch.optim.muon import muon_label
         from repro_torch.utils.tree import tree_leaves_with_paths
 
@@ -70,9 +78,38 @@ class TrainEngine:
         ns = (3 * self.icfg.ns_iters * sum(muon_label(p, x) == "muon" for p, x in leaves)
               if dcfg.inner_name == "muon" and dcfg.ns_impl == "pallas" else 0)
         outer = dcfg.outer_kernel and dcfg.outer_name == "nesterov"
+        syncs = max(dcfg.streaming_partitions, 1)
+        quantize, dequantize = self.wire_launches_per_round(params)
         return {"flash_fwd": steps * attn * (2 if cfg.remat else 1) + attn,
                 "paged_decode": 0, "flash_dq": steps * attn, "flash_dkv": steps * attn,
-                "matmul_epilogue": steps * ns, "nesterov": len(leaves) if outer else 0}
+                "matmul_epilogue": steps * ns, "nesterov": syncs * len(leaves) if outer else 0,
+                "quantize": quantize, "dequantize": dequantize}
+
+    def wire_launches_per_round(self, params: Tree) -> tuple[int, int]:
+        """(quantize, dequantize) launches of one round's sync(s), one per
+        wrapper call. Only linear quantization with ``wire_impl='pallas'``
+        reaches the kernels. Every encoded leaf costs Q1 and its decode D1,
+        plus Q2 and D2 on the a2a_rs_ag collective. In the single sync
+        (J = 1) the stages run as a chain: the EF stage decodes its packet
+        for the residual and the reduce decodes it again, so EF adds one D1
+        per leaf. A streaming segment runs ``_leaf_wire_pipeline``, which
+        decodes once, on each leaf its ``subset_plan`` does not skip."""
+        from repro_torch.core.streaming import streaming_masks, subset_plan
+        from repro_torch.utils.tree import tree_leaves
+
+        ccfg, J = self.dcfg.compression, self.dcfg.streaming_partitions
+        if not (ccfg.kind == "quant" and ccfg.quant_mode == "linear"
+                and ccfg.wire_impl == "pallas"):
+            return 0, 0
+        q2 = int(ccfg.collective == "a2a_rs_ag")
+        leaves = tree_leaves(params)
+        if J <= 1:
+            ef = int(ccfg.error_feedback)
+            return len(leaves) * (1 + q2), len(leaves) * (1 + ef + q2)
+        encoded = sum(subset_plan(m, tuple(p.shape), ccfg)[0] != "skip"
+                      for mask in streaming_masks(params, J)
+                      for p, m in zip(leaves, tree_leaves(mask)))
+        return encoded * (1 + q2), encoded * (1 + q2)
 
     @torch.no_grad()
     def eval_loss(self, params: Tree, batch: dict) -> torch.Tensor:

@@ -26,9 +26,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_bwd": "flash_bwd.cu", "matmul_epilogue": "matmul_epilogue.cu",
-           "outer_update": "outer_update.cu"}
+           "outer_update": "outer_update.cu", "quantize": "quantize.cu"}
 # C entry point -> the library that holds it (default: the library of its name)
-ENTRY_LIB = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd", "nesterov": "outer_update"}
+ENTRY_LIB = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd", "nesterov": "outer_update",
+             "dequantize": "quantize"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,7 +37,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[str, tuple] = {}
 
 LAUNCHES: dict[str, int] = {name: 0 for name in (
-    "flash_fwd", "paged_decode", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov")}
+    "flash_fwd", "paged_decode", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
+    "quantize", "dequantize")}
 
 
 def reset_launch_counts() -> None:

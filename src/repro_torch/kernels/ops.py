@@ -1,6 +1,6 @@
-"""Public wrappers around the Hopper kernels of the optimizer path (port of
-the matmul / Newton–Schulz and outer-update parts of
-``repro/kernels/ops.py``).
+"""Public wrappers around the Hopper kernels of the optimizer and
+pseudogradient paths (port of the matmul / Newton–Schulz, quantize and
+outer-update parts of ``repro/kernels/ops.py``).
 
 The reference pads operands to block multiples and vmaps its 2-D kernel
 over a stacked leaf; the port's kernels mask ragged edges and take the
@@ -8,7 +8,7 @@ stack axis themselves, so nothing is padded and one launch covers a whole
 ``[L, m, n]`` leaf. Mesh routing (``kernels/partition.py``) comes with the
 multi-GPU slice, and the autotune table (``kernels/autotune.py``) with the
 tooling slice (ROADMAP.md); the Hopper kernels tile themselves, so the
-reference's ``block`` arguments have no counterpart.
+reference's ``block`` and ``block_rows`` arguments have no counterpart.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels.matmul import matmul_epilogue
 from repro_torch.kernels.outer_update import fused_nesterov_update
+from repro_torch.kernels.quantize import rowwise_dequantize, rowwise_quantize
 from repro_torch.optim.muon import NS_COEFFS
 
 
@@ -67,3 +68,18 @@ def nesterov_update(theta: torch.Tensor, psi: torch.Tensor, u: torch.Tensor, *,
     t2, u2 = fused_nesterov_update(theta.reshape(-1), psi.reshape(-1).float(),
                                    u.reshape(-1).float(), lr=lr, momentum=momentum)
     return t2.reshape(shape), u2.reshape(shape)
+
+
+def quantize_rowwise(x: torch.Tensor, bits: int = 4, block_rows: int | None = None):
+    """Fused row-wise linear quantize -> dequantize of ``x [rows, cols]``:
+    ``(dequantized fp32, codes u8, lo [rows, 1], scale [rows, 1])``. Any row
+    count; ``block_rows`` is accepted and changes nothing (every row
+    quantizes against its own lo and scale)."""
+    return rowwise_quantize(x, bits)
+
+
+def dequantize_rowwise(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
+                       block_rows: int | None = None) -> torch.Tensor:
+    """The receiver's reconstruction: ``(codes u8 [rows, cols], lo, scale)``
+    -> fp32 values. ``block_rows`` is accepted and changes nothing."""
+    return rowwise_dequantize(codes, lo, scale)

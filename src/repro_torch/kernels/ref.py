@@ -105,3 +105,27 @@ def nesterov_update_ref(theta, psi, u, *, lr, momentum):
     u_new = momentum * u + lr * psi32
     theta_new = theta.float() - momentum * u_new - lr * psi32
     return theta_new.to(theta.dtype), u_new
+
+
+def rowwise_quantize_ref(x: torch.Tensor, bits: int):
+    """Row-wise linear quantization oracle, the reference's ``ref.py``
+    formula with XLA's arithmetic: the scale as (hi - lo) times the fp32
+    reciprocal of the level count, the dequantized value lo + q * scale
+    formed in fp64 (q * scale is exact there) and rounded once to fp32.
+    Returns ``(dequantized, codes u8, lo, scale)``."""
+    x32 = x.float()
+    lo = torch.amin(x32, dim=1, keepdim=True)
+    hi = torch.amax(x32, dim=1, keepdim=True)
+    nlevels = (1 << bits) - 1
+    scale = (hi - lo) * torch.tensor(1.0 / nlevels, dtype=torch.float32)
+    scale = torch.where(scale <= 0.0, torch.ones_like(scale), scale)
+    q = torch.round((x32 - lo) / scale)
+    deq = (lo.double() + q.double() * scale.double()).float()
+    return deq.to(x.dtype), q.to(torch.uint8), lo, scale
+
+
+def rowwise_dequantize_ref(codes: torch.Tensor, lo: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """Receiver-side reconstruction oracle: lo + codes * scale, formed in
+    fp64 and rounded once to fp32."""
+    return (lo.double() + codes.double() * scale.double()).float()

@@ -5,6 +5,11 @@ rounds of a dense LM on the synthetic Markov stream, on one card.
         --inner muon --outer nesterov --workers 2 --sync-interval 4 --rounds 3 \
         --seq-len 1024 --batch-per-worker 8 --outer-kernel --seed 0 --out results/t
 
+Add ``--compression quant --bits 2 --error-feedback`` for the paper's
+compressed variant (2-bit quantized pseudogradients with error feedback),
+and ``--rowwise --streaming 2`` for row-wise quantization and a streaming
+sync of two partitions.
+
 The parser keeps the reference's flags and defaults, with two changes:
 ``--attn-impl`` and ``--ns-impl`` default to ``pallas`` (on the card the
 port's paths launch the hand-written kernels), and ``--device`` (default
@@ -30,7 +35,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core.diloco import CompressionConfig, DiLoCoConfig
+from repro_torch.core import CompressionConfig, DiLoCoConfig
 from repro_torch.data import DataConfig, MarkovStream, batches_for_round
 from repro_torch.engine import TrainEngine, run_rounds
 from repro_torch.models import build_model
@@ -59,9 +64,6 @@ def smoothed_eval_loss(losses: list[float], steps: list[int], H: int, alpha: flo
 def check_ported_flags(args) -> None:
     """Raise for the flags of features that later slices of the port bring."""
     deferred = [
-        ("--compression", args.compression != "none", 3),
-        ("--error-feedback", args.error_feedback, 3),
-        ("--streaming", args.streaming > 1, 3),
         ("--resume", args.resume is not None, 4),
         ("--checkpoint-every", bool(args.checkpoint_every), 4),
         ("--checkpoint-in-program", args.checkpoint_in_program, 4),
@@ -81,12 +83,15 @@ def check_ported_flags(args) -> None:
 
 
 def make_diloco_cfg(args) -> DiLoCoConfig:
+    comp = CompressionConfig(
+        kind=args.compression, bits=args.bits, topk_frac=args.topk_frac,
+        quant_mode=args.quant_mode, rowwise=args.rowwise,
+        error_feedback=args.error_feedback,
+        collective="gather" if args.compression == "topk" else "a2a_rs_ag")
     return DiLoCoConfig(
         n_workers=args.workers, sync_interval=args.sync_interval, inner_name=args.inner,
         outer_name=args.outer, outer_lr=args.outer_lr, outer_momentum=args.outer_momentum,
-        compression=CompressionConfig(kind=args.compression,
-                                      error_feedback=args.error_feedback),
-        streaming_partitions=args.streaming, ns_impl=args.ns_impl,
+        compression=comp, streaming_partitions=args.streaming, ns_impl=args.ns_impl,
         outer_kernel=args.outer_kernel, sync_delay=args.sync_delay)
 
 

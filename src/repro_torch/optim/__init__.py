@@ -7,7 +7,7 @@ protocol from the inner step to the outer sync.
   ``Optimizer`` (schedule, per-leaf lr scale, decoupled weight decay);
 * inner optimizers (``--inner``): ``adamw`` (DiLoCo) and ``muon``
   (MuLoCo). ``muon_bp`` and ``normuon`` are named in the registry and
-  raise until their slice (ROADMAP.md, Slice 3);
+  raise until their slice (ROADMAP.md, Slice 6);
 * outer transforms (``--outer``): ``nesterov`` (paper Eq. 3, optionally
   through the fused Hopper kernel) and ``sgd``.
 """
@@ -45,7 +45,7 @@ def _deferred(name: str):
     def build(*args, **kw):
         raise NotImplementedError(
             f"inner optimizer {name!r} (optim/muon_variants.py) is not ported to "
-            "repro_torch yet: ROADMAP.md, Queue 1, Slice 3")
+            "repro_torch yet: ROADMAP.md, Queue 1, Slice 6")
 
     return build
 

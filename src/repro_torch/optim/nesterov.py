@@ -9,8 +9,9 @@
 Both outer transforms are terminal: ``update`` passes Psi through and
 ``apply`` does the descent, in plain PyTorch or, with ``kernel=True``,
 through the fused Hopper kernel (``kernels/ops.nesterov_update``, one
-launch per leaf), which writes (theta', u') in one pass. The streaming
-merge (``mask_state``) comes with streaming in a later slice (ROADMAP.md).
+launch per leaf), which writes (theta', u') in one pass. ``mask_state``
+is the streaming merge: a segment sync keeps u where the partition mask is
+0.
 """
 from __future__ import annotations
 
@@ -54,7 +55,12 @@ def nesterov(lr: float, momentum: float, *, state_dtype=torch.float32,
         new_params, new_u = tree_unzip(tree_map(upd, params, updates, state["u"]), 2)
         return new_params, {"u": new_u}
 
-    return Transform(init=init, update=update, apply=apply)
+    def mask_state(mask: Tree, new_state: Tree, old_state: Tree) -> Tree:
+        from repro_torch.core.streaming import masked_update
+
+        return {"u": masked_update(mask, new_state["u"], old_state["u"])}
+
+    return Transform(init=init, update=update, apply=apply, mask_state=mask_state)
 
 
 def outer_sgd(lr: float) -> Transform:
@@ -64,4 +70,5 @@ def outer_sgd(lr: float) -> Transform:
         return tree_map(lambda p, psi: (p.float() - lr * psi.float()).to(p.dtype),
                         params, updates), state
 
-    return Transform(init=lambda params: {}, update=lambda u, s, p: (u, s), apply=apply)
+    return Transform(init=lambda params: {}, update=lambda u, s, p: (u, s), apply=apply,
+                     mask_state=lambda mask, new, old: new)

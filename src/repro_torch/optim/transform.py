@@ -6,6 +6,7 @@ A ``Transform`` is an optax-style pair of functions plus a hook for terminal
     state            = t.init(tree)
     updates, state   = t.update(updates, state, params)
     params, state    = t.apply(params, updates, state)        # terminal only
+    state            = t.mask_state(mask, new_state, old)     # streaming sync
 
 ``chain`` composes transforms left to right; ``partition`` routes disjoint
 parameter groups through different transforms, replacing out-of-group
@@ -14,8 +15,8 @@ leaves it owns (Muon's AdamW second moment exists only for the AdamW
 leaves). Terminal stages see the params and do the descent themselves, so
 the reference's association ``(p - lr*u) - lr*wd*p`` is kept exactly.
 
-The streaming merge hook ``mask_state`` comes with streaming (J > 1) in a
-later slice of the port (ROADMAP.md).
+A streaming (J > 1) segment sync merges a terminal stage's new state into
+the old one under the partition mask with ``mask_state``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ class Transform(NamedTuple):
     update: Callable[[Tree, Tree, Tree], tuple[Tree, Tree]]
     # terminal stages only: (params, updates, state) -> (new_params, new_state)
     apply: Callable[[Tree, Tree, Tree], tuple[Tree, Tree]] | None = None
+    # streaming (masked) sync: (mask, new_state, old_state) -> merged_state
+    mask_state: Callable[[Tree, Tree, Tree], Tree] | None = None
 
 
 def stateless(fn: Callable[[Tree, Tree], Tree]) -> Transform:
@@ -42,7 +45,8 @@ def stateless(fn: Callable[[Tree, Tree], Tree]) -> Transform:
 
 def chain(*transforms: Transform) -> Transform:
     """Compose transforms left to right; state is the tuple of stage states.
-    Only the last stage may be terminal; ``chain`` delegates ``apply`` to it."""
+    Only the last stage may be terminal; ``chain`` delegates ``apply`` and
+    ``mask_state`` to it."""
     for t in transforms[:-1]:
         if t.apply is not None:
             raise ValueError("only the final transform in a chain may be "
@@ -59,6 +63,7 @@ def chain(*transforms: Transform) -> Transform:
         return updates, tuple(new_states)
 
     apply = None
+    mask_state = None
     if transforms and transforms[-1].apply is not None:
         last = transforms[-1]
 
@@ -66,7 +71,12 @@ def chain(*transforms: Transform) -> Transform:
             new_params, last_state = last.apply(params, updates, state[-1])
             return new_params, (*state[:-1], last_state)
 
-    return Transform(init=init, update=update, apply=apply)
+        if last.mask_state is not None:
+            def mask_state(mask, new_state, old_state):
+                merged = last.mask_state(mask, new_state[-1], old_state[-1])
+                return (*new_state[:-1], merged)
+
+    return Transform(init=init, update=update, apply=apply, mask_state=mask_state)
 
 
 # ---------------------------------------------------------------------------

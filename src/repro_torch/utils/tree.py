@@ -11,7 +11,11 @@ across the two packages. ``params_from_numpy`` / ``params_to_numpy`` are the
 weight bridge: the reference's params, turned into numpy with
 ``jax.tree.map(np.asarray, params)``, become port params with the same paths.
 ``state_from_numpy`` / ``state_to_numpy`` carry whole optimizer and
-training states (tuples, ``None`` holes, integer counters) the same way.
+training states (tuples, ``None`` holes, integer counters, the K-stacked
+error-feedback residuals ``ef``) the same way.
+
+A wire packet (``repro_torch.core.wire``) is a dataclass, so these walks
+treat it as one leaf, as the reference's ``is_wire`` makes it one.
 """
 from __future__ import annotations
 
@@ -53,10 +57,19 @@ def tree_unzip(tree_of_tuples: Tree, n: int) -> tuple[Tree, ...]:
 
 
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Tree, prefix: str = "") -> Tree:
-    """Map ``fn(path_string, leaf)`` over a tree of nested dicts."""
+    """Map ``fn(path_string, leaf)`` over a tree of dicts, tuples and lists
+    (``None`` holes stay ``None``). A path joins dict keys and sequence
+    indices with "/", as the reference's ``path_str`` renders a key path:
+    the streaming masks hash these strings."""
+    def child(key) -> str:
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
+        return {k: tree_map_with_path(fn, v, child(k)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, child(i)) for i, v in enumerate(tree))
     return fn(prefix, tree)
 
 

@@ -20,11 +20,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import quantize as jquantize  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import topk_pack as jtopk  # noqa: E402
 from repro.optim.nesterov import nesterov as jnesterov  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import quantize as tquantize  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import topk_pack as ttopk  # noqa: E402
 from repro_torch.kernels.matmul import matmul_epilogue  # noqa: E402
 from repro_torch.optim.nesterov import nesterov as tnesterov  # noqa: E402
 
@@ -173,8 +177,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     y = torch.randn(2, 6, 5)
     tops.ns_orthogonalize(y)
     tops.nesterov_update(y, y, y, lr=0.5, momentum=0.9)
+    _, codes, lo, scale = tops.quantize_rowwise(y[0], bits=2)
+    tops.dequantize_rowwise(codes, lo, scale)
     assert set(tfa.LAUNCHES) == {"flash_fwd", "paged_decode", "flash_dq", "flash_dkv",
-                                 "matmul_epilogue", "nesterov"}
+                                 "matmul_epilogue", "nesterov", "quantize", "dequantize"}
     assert all(n == 0 for n in tfa.LAUNCHES.values()), tfa.LAUNCHES
     with pytest.raises(ValueError, match="impl"):
         tfa.paged_decode_attention(q, kp, vp, table, lengths, impl="triton")
@@ -335,3 +341,117 @@ def test_nesterov_kernel_plain_equals_unfused_transform(dtype):
         {"a": jnp.asarray(params["a"].float().numpy())}, {"a": jnp.asarray(psi["a"].numpy())},
         {"u": {"a": jnp.asarray(state["u"]["a"].numpy())}})
     assert set(js) == set(su) == {"u"} and np.asarray(js["u"]["a"]).dtype == np.float32
+
+
+# ------------------------------------------------- row-wise quantize / dequantize
+
+def _quant_rows(layout, seed):
+    """Rows whose magnitudes span 1e-4 to 10; the ragged layout (13 rows, not
+    a multiple of the reference's 8-row blocks) holds a constant row."""
+    rng = np.random.default_rng(seed)
+    rows, cols = {"ragged": (13, 97), "long_row": (1, 100_003)}[layout]
+    mag = np.exp(rng.uniform(np.log(1e-4), np.log(10.0), (rows, 1)))
+    x = (rng.standard_normal((rows, cols)) * mag).astype(np.float32)
+    if rows > 3:
+        x[3] = np.float32(0.375)
+    return x
+
+
+@pytest.mark.parametrize("layout", ["ragged", "long_row"])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_quantize_plain_bitwise_matches_pallas(bits, layout):
+    """The plain quantize and dequantize (the kernels' CPU path) == the
+    reference's ops.quantize_rowwise / dequantize_rowwise (Pallas, interpret
+    mode, jitted), bitwise on codes, lo, scale, deq and the dequantized
+    values: the port reproduces XLA's reciprocal scale and fused
+    multiply-add on purpose. The torch oracle == the reference's jitted
+    oracle, bitwise. A constant row gets scale 1 and codes 0."""
+    x = _quant_rows(layout, 100 + bits)
+    j = [np.asarray(a) for a in jops.quantize_rowwise(jnp.asarray(x), bits=bits)]
+    t = [a.numpy() for a in tops.quantize_rowwise(torch.from_numpy(x), bits=bits)]
+    for name, a, b in zip(("deq", "codes", "lo", "scale"), t, j):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    jv = np.asarray(jops.dequantize_rowwise(*map(jnp.asarray, j[1:])))
+    tv = tops.dequantize_rowwise(*map(torch.from_numpy, t[1:])).numpy()
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tv, t[0])
+    jr = jax.jit(lambda v: jref.rowwise_quantize_ref(v, bits))(jnp.asarray(x))
+    tr = tref.rowwise_quantize_ref(torch.from_numpy(x), bits)
+    for a, b in zip(tr, jr):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(
+        tref.rowwise_dequantize_ref(*map(torch.from_numpy, t[1:])).numpy(), tv)
+    if layout == "ragged":
+        assert t[3][3, 0] == 1.0 and not t[1][3].any() and (t[0][3] == x[3]).all()
+    assert t[1].max() <= (1 << bits) - 1
+
+
+def _round_to_f32(exact):
+    """The fp32 nearest to a Fraction, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(exact))
+    best = None
+    for c in (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))):
+        d = abs(Fraction(float(c)) - exact)
+        even = int(np.array(c).view(np.int32)) % 2 == 0
+        if best is None or d < best[0] or (d == best[0] and even):
+            best = (d, c)
+    return best[1]
+
+
+def test_fma_f32_rounds_once():
+    """fma_f32 == the exactly rounded fp32 a * b + c (Python fractions), on
+    random triples and on triples built so that rounding the fp64 sum to fp32
+    would round twice: c has an odd last bit, and a * b is half an ulp of c
+    less 2^-46 of that, so the exact sum lies just short of the midpoint
+    between c and its even neighbour, while its fp64 rounding is that
+    midpoint and ties to the neighbour."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal(400).astype(np.float32)
+    b = (rng.standard_normal(400) * 10.0 ** rng.integers(-6, 6, 400)).astype(np.float32)
+    c = rng.standard_normal(400).astype(np.float32)
+    odd = (rng.integers(1 << 22, 1 << 23, 200) * 2 + 1).astype(np.float64)  # 24-bit odd
+    exp = rng.integers(-60, 60, 200).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], 200)
+    c[:200] = sign * odd * 2.0 ** exp
+    a[:200] = sign * 2.0 ** (exp - 1) * (1 + 2.0 ** -23)  # half an ulp of c, times 1 + 2^-23
+    b[:200] = 1 - 2.0 ** -23
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    got = tquantize.fma_f32(*map(torch.from_numpy, (a, b, c))).numpy()
+    want = np.array([_round_to_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert (naive[:200] != want[:200]).all()  # the cases do catch a double rounding
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_pack_codes_bitwise_matches_reference(bits):
+    """pack_codes / unpack_codes == the reference's bytes for every width and
+    odd code counts; the round trip is lossless."""
+    rng = np.random.default_rng(bits)
+    for n in (7, 129, 1000):
+        codes = rng.integers(0, 1 << bits, (3, n)).astype(np.uint8)
+        jp = np.asarray(jquantize.pack_codes(jnp.asarray(codes), bits))
+        tp = tquantize.pack_codes(torch.from_numpy(codes), bits)
+        np.testing.assert_array_equal(tp.numpy(), jp)
+        assert tp.shape[-1] == tquantize.packed_width(n, bits) == jquantize.packed_width(n, bits)
+        np.testing.assert_array_equal(tquantize.unpack_codes(tp, bits, n).numpy(), codes)
+
+
+def test_pack_topk_matches_reference():
+    """pack_topk / unpack_topk == the reference's on distinct magnitudes
+    (torch.topk does not promise lax.top_k's order among ties)."""
+    rng = np.random.default_rng(5)
+    x = (rng.permutation(1000).astype(np.float32) + 1.0) * rng.choice([-1.0, 1.0], 1000)
+    x = x.astype(np.float32).reshape(25, 40) / 7.0
+    ji, jv = jtopk.pack_topk(jnp.asarray(x), 37)
+    ti, tv = ttopk.pack_topk(torch.from_numpy(x), 37)
+    assert ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ttopk.unpack_topk(ti, tv, 1000).numpy(),
+                                  np.asarray(jtopk.unpack_topk(ji, jv, 1000)))
