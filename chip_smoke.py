@@ -8,12 +8,16 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles every kernel of the serving and training paths from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
-   source, all started together) and prints the build seconds and ptxas's
-   register / spill report.
+   source, all started together) and prints the build seconds, ptxas's
+   registers, shared memory and spills for each kernel function, and the
+   count of tensor-core instructions (HGMMA, HMMA) in each function's SASS
+   (``cuobjdump --dump-sass``); fails if the bf16 flash backward sweeps
+   have no HGMMA.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes in bf16 plus odd-length, sliding-window and fp32 cases
    (tolerances: bf16 outputs 2e-2, lse 1e-3, fp32 1e-5), and times each
-   kernel (CUDA events, L2 flushed before each run, median of 30) beside
+   kernel (CUDA events, L2 flushed before each run, median of 30, the runs
+   queued behind a device sleep so host time does not show) beside
    its plain version, its bound and, for flash, torch's
    scaled_dot_product_attention as the library yardstick.
 4. A full-width fp32 agreement check (kernel path against the plain torch
@@ -28,8 +32,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. The training kernels against their plain PyTorch versions at the
    training main path's shapes, each timed beside its plain version, its
    bound and, where one PyTorch call computes the same function, that call:
-   the flash backward (``flash_dq``, ``flash_dkv``; bf16 and fp32, against
-   autograd through the plain forward, and bitwise equal from run to run),
+   the flash backward (``flash_dq``, ``flash_dkv``; bf16 (tensor-core
+   sweeps) and fp32 (CUDA-core sweeps) at the main shape and at ragged S,
+   G = 1 and 4, non-causal and windowed cases, against autograd through the
+   plain forward, and bitwise equal from run to run; the library yardstick
+   is SDPA's backward alone, from one kept forward, three repeats),
    ``matmul_epilogue`` (fp32, the w_in stack's X X^T and a square stack
    with its epilogue; library: ``torch.baddbmm``), the full Newton-Schulz
    through it, and ``nesterov`` over all 134,515,008 parameters (bitwise
@@ -43,7 +50,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    0 just before it and read just after, and must equal the port's formula
    (``TrainEngine.launches_per_round``). Losses must be finite and fall
    from the first round to the last. Then one more round under
-   torch.profiler: device busy share and the kernels that take the time.
+   torch.profiler: device busy share, the kernels that take the time, and
+   the per-launch device time of the two flash backward sweeps beside
+   phase 5's event times.
 8. Compressed pseudogradients: (8a) ``quantize`` and ``dequantize``
    against their plain versions on the card, bitwise, at every (rows, cols)
    shape the two compressed runs below give them (Q1 and Q2 of every leaf),
@@ -72,6 +81,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -106,11 +116,16 @@ COMM_BYTES = {"a": 67_257_680, "b": 70_441_072}
 
 
 def time_ms(torch, fn, runs: int = 30) -> float:
-    """Median device time of ``fn`` in ms, the 50 MB L2 flushed before each run."""
+    """Median device time of ``fn`` in ms, the 50 MB L2 flushed before each
+    run. The runs are queued behind a ~0.1 s device sleep, so the host has
+    queued them (unless ``fn`` waits for the card) before the first starts:
+    an event pair then brackets the card's work, not the host's, which
+    matters for calls of ~0.1 ms on a slow host."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     events = []
+    torch.cuda._sleep(200_000_000)  # clock cycles: ~0.1 s at the H100's 1.98 GHz
     for _ in range(runs):
         flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -132,6 +147,75 @@ def check(name: str, err: float, tol: float) -> float:
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
     return err
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name inside a mangled symbol (the last length-prefixed
+    name that ends in ``kernel``) with its element type where it is a
+    template (``<float>``, ``<bf16>``); else the symbol."""
+    found, i = None, 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        i = start + int(m.group())
+        if mangled[start:i].endswith("kernel"):
+            found = mangled[start:i] + next(
+                (t for p, t in (("I13__nv_bfloat16", "<bf16>"), ("If", "<float>"))
+                 if mangled.startswith(p, i)), "")
+    return found or mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: "N registers, M bytes smem, spills"} from ``-Xptxas -v``."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif fn and ("spill" in line or "registers" in line):
+            out[fn] = (out.get(fn, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: {"HGMMA": n, "HMMA": m}} in the library's SASS."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", lib], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            out[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in out[fn]:
+                out[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    return out
+
+
+def phase_build(_build, fa):
+    print("[2] build")
+    report = _build.build(verbose=True)
+    sass = {}
+    for name, r in report.items():
+        print(f"  {name}: built in {r['seconds']:.2f} s -> {Path(r['path']).name}")
+        for fn, line in ptxas_report(r["log"]).items():
+            print(f"    {fn}: {line}")
+        for fn, ops in sass_counts(r["path"]).items():
+            print(f"    {fn}: tensor-core instructions in SASS {ops}")
+            sass[fn] = ops
+    for fn in ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"):
+        if not sass.get(fn, {}).get("HGMMA"):
+            raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
+    rows, keys, dq_smem, dkv_smem = fa.kernel_tiles("flash_bwd")
+    print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys, one "
+          f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv)")
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -338,6 +422,24 @@ def phase_profile(torch, engine):
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
 
 
+def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int) -> float:
+    """The library yardstick of the flash backward: SDPA's backward alone (dq,
+    dk and dv in one autograd call), from one causal forward with enable_gqa
+    kept with retain_graph. Prints the backend and three repeats of
+    ``time_ms``; returns their median."""
+    _, S, G, hd = q.shape
+    qs = q.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
+    dos = do.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
+    leaves = [t.detach().requires_grad_(True)
+              for t in (qs, k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd))]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    repeats = [time_ms(torch, lambda: torch.autograd.grad(o, leaves, dos, retain_graph=True))
+               for _ in range(3)]
+    print(f"  sdpa backward ({type(o.grad_fn).__name__}): "
+          + ", ".join(f"{r:.4f}" for r in repeats) + " ms")
+    return statistics.median(repeats)
+
+
 def phase_flash_bwd(torch, fa):
     """[5a] flash_dq and flash_dkv against autograd through the plain forward
     and against their plain versions; bitwise equal from run to run."""
@@ -350,6 +452,13 @@ def phase_flash_bwd(torch, fa):
         (2, 3, 300, 3, torch.bfloat16, True, 100),
         (2, 1, 96, 4, torch.float32, False, 0),
         (2, 2, 130, 1, torch.float32, True, 0),
+        # bf16 at the shapes above, so the tensor-core sweeps meet ragged
+        # tiles, G = 1 and 4, non-causal and windowed masks
+        (2, 3, 77, 3, torch.bfloat16, True, 0),
+        (2, 1, 96, 4, torch.bfloat16, False, 0),
+        (2, 2, 130, 1, torch.bfloat16, True, 0),
+        (2, 1, 130, 4, torch.bfloat16, True, 37),
+        (2, 2, 77, 2, torch.bfloat16, False, 20),
     ]
     out = {}
     for B, KV, S, G, dt, causal, window in cases:
@@ -391,23 +500,7 @@ def phase_flash_bwd(torch, fa):
         dkv_ms = time_ms(torch, lambda: fa._dkv_cuda(*args, **kw))
         dq_plain = time_ms(torch, lambda: fa._dq_plain(*args, **kw), runs=5)
         dkv_plain = time_ms(torch, lambda: fa._dkv_plain(*args, **kw), runs=5)
-        # library: SDPA's backward (dq, dk and dv in one call) through autograd
-        # with enable_gqa, minus its forward
-        qs = q.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
-        ks, vs = k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd)
-        dos = do.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lq, lk, lv = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
-
-        def sdpa_fwd():
-            with torch.no_grad():
-                sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(lq, lk, lv, is_causal=True, enable_gqa=True),
-                                (lq, lk, lv), dos)
-
-        lib_ms = time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd)
+        lib_ms = sdpa_backward_ms(torch, q, k, v, do, B, KV)
         out["flash_dq"] = dict(max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain,
                                library_ms=lib_ms,
                                **bound(6 * hd * rows, io + q.numel() * q.element_size(),
@@ -584,10 +677,12 @@ def phase_train_main(torch, build_parser, train):
     return launches, out
 
 
-def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = ()):
+def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (),
+                        beside: dict | None = None):
     """[6c] where a training round's time goes: one more round unprofiled,
     then one under torch.profiler; the device time of the kernels whose
-    names hold one of ``focus`` is summed apart."""
+    names hold one of ``focus`` is summed apart, with its time per launch
+    beside ``beside[key]`` (ms per call measured elsewhere) where given."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig, MarkovStream, batches_for_round
@@ -631,7 +726,9 @@ def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (
         hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
         ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
         print(f"  {key}: {ms:.3f} ms device time, x{n}, {100 * ms / plain_wall_ms:.2f}% of "
-              "the unprofiled wall")
+              "the unprofiled wall" + (f"; {ms / n:.4f} ms per launch" if n else ""))
+        if beside and key in beside:
+            print(f"    beside phase 5a's event time {beside[key]:.4f} ms per call (L2 flushed)")
 
 
 def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
@@ -837,14 +934,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
-    print("[2] build")
-    report = _build.build(verbose=True)
-    for name, r in report.items():
-        print(f"  {name}: built in {r['seconds']:.2f} s -> {Path(r['path']).name}")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ", line.strip())
-
+    phase_build(_build, fa)
     flash = phase_flash(torch, fa)
     paged = phase_paged(torch, fa)
     phase_agreement(torch, get_config, build_model)
@@ -858,7 +948,9 @@ def main() -> int:
     nesterov = phase_nesterov(torch, ou)
     phase_train_agreement(torch, get_config, build_model)
     train_launches, out = phase_train_main(torch, build_parser, train)
-    phase_train_profile(torch, out, TRAIN)
+    phase_train_profile(torch, out, TRAIN, focus=("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+                        beside={"flash_dq_wgmma_kernel": bwd["flash_dq"]["ms"],
+                                "flash_dkv_wgmma_kernel": bwd["flash_dkv"]["ms"]})
     params = out["state"]["outer_params"]
     del out
     torch.cuda.empty_cache()

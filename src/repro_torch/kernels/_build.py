@@ -4,8 +4,8 @@ Each source under ``csrc/`` has a plain C interface. It is compiled by hand
 with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds. Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
-of their source, and are built at first use. Importing this module
-compiles nothing.
+of their source and the shared headers (``csrc/*.cuh``), and are built at
+first use. Importing this module compiles nothing.
 
 The launch plumbing every kernel wrapper shares lives here too: ``entry``
 binds a C entry point, ``launch`` calls it on PyTorch's current stream,
@@ -58,8 +58,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library is built, named by a hash of its source, every
+    header under ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

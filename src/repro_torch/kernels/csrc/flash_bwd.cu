@@ -4,74 +4,99 @@
 // _dkv_kernel (Pallas, reached through _bwd / _flash_fn's custom VJP).
 //
 // Layout as the forward: q, do [BKV, S, G, hd]; k, v [BKV, S, hd]; lse and
-// dl = rowsum(do * o) [BKV, S, G] fp32. dq like q, dk and dv like k. fp32
-// or bf16 in, fp32 arithmetic.
+// dl = rowsum(do * o) [BKV, S, G] fp32. dq like q, dk and dv like k. From
+// them p = exp(scale q k^T - lse) (masked explicitly), ds = p (do v^T - dl),
+// dq = scale ds k, dk = scale ds^T q and dv = p^T do, dk and dv summed over
+// the G query heads of their kv head.
 //
 // What bounds it on this card: at the training shape (BKV = 24, S = 1024,
 // G = 3, hd = 64, bf16, causal) the two sweeps read ~40 MB and write ~12 MB
-// (about 15 us at 3.35 TB/s) against five products over 524,800 causal pairs
-// per head, ~24 GFLOP (about 24 us on the bf16 tensor cores). This first
-// version runs its products on the fp32 CUDA cores (67 TFLOP/s), so those
-// bound it; wgmma and TMA come in a later change.
+// (about 15 us at 3.35 TB/s) against 6 hd (dq: three products) and 8 hd (dkv:
+// four) flops per unmasked (row, key) pair, 1.57 million pairs per kv head:
+// ~14.5 and ~19.3 GFLOP, 15 and 20 us on the 989 TFLOP/s bf16 tensor cores.
+// So the bound is operations, and the products have to run on the tensor
+// cores.
 //
-// Design. The TPU kernels carry their accumulators in scratch across a
-// sequential grid. Here blocks run in parallel and in no order, so each
-// block owns its accumulators and loops over its own range, and the two
-// sweeps stay separate (no atomics: both are deterministic run to run).
-//   * dq: one block per (row of BKV, tile of DQ_BQ positions) x G heads; it
-//     walks the kv tiles of flash_attention.visited_kv_range at its tile
-//     sizes, staging each K/V tile in shared memory once for all G heads.
-//   * dkv: one block per (row of BKV, tile of DKV_BKV kv positions); it
-//     walks the q positions that can see the tile, from the causal diagonal
-//     to the sliding window's far edge (the inverse of visited_kv_range),
-//     staging q and do for all G heads of each position, so dk and dv sum
-//     over the G query heads of their kv head.
-// Registers: a thread would need q, do and dq (dq sweep) or k, v, dk and dv
-// (dkv sweep) as 64-float rows; 256 floats do not fit under the 255-register
-// limit. So two neighbouring threads share a row, each holding 32 of its 64
-// dims (dims 4i + 2h and 4i + 2h + 1 of half h, read as float2), and the two
-// dot products of each (row, key) pair are summed across the pair with one
-// shuffle each. Masked pairs are never computed (explicit masking: they add
-// exactly zero), and ragged tile edges are masked, so any S works.
+// bf16 inputs: two tensor-core sweeps (wgmma, bf16 operands, fp32
+// accumulators), each writing only its own rows (no atomics: deterministic).
+//   * Packed rows. The G query heads of a position are adjacent rows of q
+//     and do, so for one kv head q and do are [S G, 64] matrices and row r
+//     has position r / G. Both sweeps tile those rows, 64 to a tile (21 1/3
+//     positions at G = 3), so no G wastes a tensor-core row; the causal and
+//     window masks compare r / G with the key. A 64-wide bf16 row is 128
+//     bytes, exactly the 128-byte swizzle of wgmma's shared-memory operands.
+//   * dkv: one block (one warpgroup, 128 threads) per (kv tile of 64
+//     positions, row of BKV), kv tile 0 first (the longest causal walk). K
+//     and V stay in shared memory; the block walks the q-row tiles that see
+//     the tile (dkv_row_tiles in flash_attention.py). Per tile: S^T = K Q^T
+//     and dP^T = V dO^T (both operands K-major in shared memory); P^T and
+//     dS^T in registers from lse and dl; then dV += P^T dO and dK += dS^T Q
+//     with A from registers (the accumulators packed to bf16) and dO or Q
+//     as an MN-major B (transpose bit).
+//   * dq: one block per (q-row tile, row of BKV), last tile first; Q and dO
+//     stay in shared memory, the block walks the kv tiles up to the diagonal
+//     (dq_kv_tiles): S = Q K^T, dP = dO V^T, dQ += dS K (A from registers, K
+//     MN-major).
+//   * Overlap within a block: the first two products are committed as two
+//     wgmma groups, so the exponentials of P run while the second product
+//     does, and each later product is issued as soon as its operand is
+//     packed (in dkv, dV += P^T dO runs while dS^T is formed).
+//   * Staging: 16-byte cp.async into the swizzled layout, zero-filled past
+//     the ragged edge, double-buffered: the next streamed tile (q, do, lse,
+//     dl in dkv; K and V in dq) loads while the current one is used.
+//   * Per block: 6 tiles of 8 KB (+ lse / dl in dkv) = 50 KB of dynamic
+//     shared memory with the 1 KB alignment; four m64n64 fp32 accumulators
+//     (dkv) or three (dq) of 32 registers a thread: ptxas gives dkv 220 and
+//     dq 157 registers, no spills, so two dkv or three dq blocks share an
+//     SM. The training shape launches 384 dkv and 1152 dq blocks on 132
+//     SMs; the causal walks run 3 to 48 tiles (dkv) and 1 to 16 (dq),
+//     longest first.
+//   * Numbers: p and ds are rounded to bf16 as operands of the second
+//     products (the plain versions keep them in fp32); the sums stay fp32.
+//
+// fp32 inputs keep the CUDA-core sweeps (no fp32 tensor-core product does
+// the same arithmetic): blocks as above but over positions, two neighbouring
+// threads share a 64-wide row (32 dims each, float2 reads; the dot products
+// are summed across the pair by one shuffle), K/V (dq) or q/do (dkv) staged
+// in shared memory as fp32. Masked pairs are never computed in either route
+// (explicit masking: they add exactly zero), and ragged tile edges are
+// masked, so any S works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_tiles.cuh"
 
 namespace {
 
 constexpr int HD = 64;
 constexpr int HALF = HD / 2;
+// fp32 sweeps (the bf16 sweeps' tiles are below)
 constexpr int DQ_BQ = 16;     // q positions per dq block (times G heads, times 2 threads)
 constexpr int DQ_BKV = 64;    // kv positions per staged K/V tile (dq sweep)
 constexpr int DKV_BKV = 32;   // kv positions per dkv block (times 2 threads)
 constexpr int DKV_ROWS = 64;  // q rows (positions x G heads) per staged q/do tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core sweeps over positions
+// ---------------------------------------------------------------------------
 
 // the two lanes of a thread pair (for __shfl_xor_sync)
 __device__ __forceinline__ unsigned pair_mask() { return 3u << ((threadIdx.x & 31) & ~1); }
 
-template <typename T>
-__device__ __forceinline__ void load_half(const T* __restrict__ row, int h, float* dst) {
+__device__ __forceinline__ void load_half(const float* __restrict__ row, int h, float* dst) {
 #pragma unroll
   for (int i = 0; i < HALF / 2; ++i) {
-    dst[2 * i] = to_f(row[4 * i + 2 * h]);
-    dst[2 * i + 1] = to_f(row[4 * i + 2 * h + 1]);
+    dst[2 * i] = row[4 * i + 2 * h];
+    dst[2 * i + 1] = row[4 * i + 2 * h + 1];
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_half(T* __restrict__ row, int h, const float* src,
+__device__ __forceinline__ void store_half(float* __restrict__ row, int h, const float* src,
                                            float mult) {
 #pragma unroll
   for (int i = 0; i < HALF / 2; ++i) {
-    row[4 * i + 2 * h] = from_f<T>(mult * src[2 * i]);
-    row[4 * i + 2 * h + 1] = from_f<T>(mult * src[2 * i + 1]);
+    row[4 * i + 2 * h] = mult * src[2 * i];
+    row[4 * i + 2 * h + 1] = mult * src[2 * i + 1];
   }
 }
 
@@ -98,11 +123,10 @@ __device__ __forceinline__ void axpy_half(float a, const float* srow, int h, flo
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
-    T* __restrict__ dq, int S, int G, int nq, int causal, int window, float scale) {
+__global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
+    float* __restrict__ dq, int S, int G, int nq, int causal, int window, float scale) {
   __shared__ __align__(16) float Ks[DQ_BKV][HD];
   __shared__ __align__(16) float Vs[DQ_BKV][HD];
 
@@ -131,8 +155,8 @@ __global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_kernel(
   if (window)
     while (lo < hi - 1 && q_first - (lo * DQ_BKV + DQ_BKV - 1) >= window) ++lo;
 
-  const T* kb = k + (long long)b * S * HD;
-  const T* vb = v + (long long)b * S * HD;
+  const float* kb = k + (long long)b * S * HD;
+  const float* vb = v + (long long)b * S * HD;
   for (int kj = lo; kj < hi; ++kj) {
     const int kv0 = kj * DQ_BKV;
     __syncthreads();  // the previous tile is fully consumed
@@ -140,8 +164,8 @@ __global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_kernel(
       const int j = i / HD, d = i % HD;
       const bool ok = kv0 + j < S;
       const long long off = (long long)(kv0 + j) * HD + d;
-      Ks[j][d] = ok ? to_f(kb[off]) : 0.f;
-      Vs[j][d] = ok ? to_f(vb[off]) : 0.f;
+      Ks[j][d] = ok ? kb[off] : 0.f;
+      Vs[j][d] = ok ? vb[off] : 0.f;
     }
     __syncthreads();
     if (!row_ok) continue;
@@ -161,11 +185,10 @@ __global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_kernel(
   if (row_ok) store_half(dq + row * HD, h, acc, scale);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int G, int nkv, int causal, int window,
+__global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int G, int nkv, int causal, int window,
     float scale) {
   __shared__ __align__(16) float Qs[DKV_ROWS][HD];
   __shared__ __align__(16) float Ds[DKV_ROWS][HD];
@@ -195,8 +218,8 @@ __global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_kernel(
     const long long base = ((long long)b * S + p0) * G;  // first (position, head) row
     __syncthreads();
     for (int i = tid; i < nrows * HD; i += blockDim.x) {
-      Qs[i / HD][i % HD] = to_f(q[base * HD + i]);
-      Ds[i / HD][i % HD] = to_f(dout[base * HD + i]);
+      Qs[i / HD][i % HD] = q[base * HD + i];
+      Ds[i / HD][i % HD] = dout[base * HD + i];
     }
     for (int i = tid; i < nrows; i += blockDim.x) {
       Ls[i] = lse[base + i];
@@ -222,6 +245,304 @@ __global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core sweeps over packed rows
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using hopper::TILE_BYTES;
+constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per tile
+constexpr int WG = hopper::WARPGROUP;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int DQ_SMEM = 6 * TILE_BYTES + 1024;                  // Q, dO, 2 x (K, V); alignment
+constexpr int DKV_SMEM = 6 * TILE_BYTES + 4 * TILE * 4 + 1024;  // K, V, 2 x (Q, dO, lse, dl)
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ bool unmasked(int pos, int key, int S, int causal, int window) {
+  return key < S && (!causal || key <= pos) && (!window || pos - key < window);
+}
+
+__global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int bkv, int S, int G, int causal, int window,
+    float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + TILE_BYTES;
+  const uint32_t sQ0 = sK + 2 * TILE_BYTES;  // Q of stage s at sQ0 + s TILE_BYTES, dO at + 2
+  float* sL = reinterpret_cast<float*>(smem + 6 * TILE_BYTES);  // lse of stage s at sL + s TILE
+  float* sDl = sL + 2 * TILE;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x % bkv;
+  const int k0 = (blockIdx.x / bkv) * TILE;  // kv tile 0 first: the longest causal walk
+  const int k1 = min(k0 + TILE, S);
+  const int SG = S * G;
+  // the q-row tiles that see a key of this tile (flash_attention.dkv_row_tiles)
+  const int p_lo = causal ? k0 : 0;
+  const int p_hi = window ? min(S, k1 - 1 + window) : S;  // positions [p_lo, p_hi)
+  const int t_lo = p_lo * G / TILE, t_hi = (p_hi * G + TILE - 1) / TILE;
+
+  const long long qbase = (long long)b * SG;  // first packed row of this kv head
+  const bf16* qb = q + qbase * HD;
+  const bf16* dob = dout + qbase * HD;
+  const float* lb = lse + qbase;
+  const float* dlb = dl + qbase;
+  auto stage_q = [&](int t, int s) {
+    const int r0 = t * TILE, n = min(TILE, SG - r0);
+    stage_tile(sQ0 + s * TILE_BYTES, qb + (long long)r0 * HD, n, tid);
+    stage_tile(sQ0 + (2 + s) * TILE_BYTES, dob + (long long)r0 * HD, n, tid);
+    const int i = tid & (TILE - 1);
+    const float* src = (tid < TILE ? lb : dlb) + r0 + (i < n ? i : 0);
+    cp_async_4(smem_u32((tid < TILE ? sL : sDl) + s * TILE + i), src, i < n);
+    cp_async_commit();
+  };
+  const long long kbase = ((long long)b * S + k0) * HD;
+  stage_tile(sK, k + kbase, k1 - k0, tid);  // in the first stage's group
+  stage_tile(sV, v + kbase, k1 - k0, tid);
+  stage_q(t_lo, 0);
+
+  const int w = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  const int key_a = k0 + 16 * w + g;  // accumulator rows: keys key_a and key_a + 8
+  const float scale_log2 = scale * LOG2E;
+  float dK[32], dV[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dK[i] = dV[i] = st[i] = dpt[i] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int s = (t - t_lo) & 1;
+    if (t + 1 < t_hi) {
+      stage_q(t + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sQ = sQ0 + s * TILE_BYTES, sD = sQ0 + (2 + s) * TILE_BYTES;
+
+    // S^T = K Q^T and dP^T = V dO^T ([64 keys, 64 q rows], contraction over
+    // hd) as two groups; then dV += P^T dO and dK += dS^T Q (contraction over
+    // the q rows), each issued as soon as its operand is formed, so the
+    // exponentials and the products overlap
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(st, desc_k_major(sK, kk), desc_k_major(sQ, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dpt, desc_k_major(sV, kk), desc_k_major(sD, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in
+    fence_regs(st);
+
+    // P^T in place, masked explicitly; column n is q row t TILE + n
+    const float* L = sL + s * TILE;
+    const float* Dl = sDl + s * TILE;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * c + e, row = t * TILE + n;
+        const int pos = row / G;
+        const bool row_ok = row < SG;
+        const float lse2 = L[n] * LOG2E;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const bool ok = row_ok && unmasked(pos, key_a + 8 * h, S, causal, window);
+          st[i] = ok ? exp2f(fmaf(st[i], scale_log2, -lse2)) : 0.f;
+        }
+      }
+    }
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_frag(st, kk, pf[kk]);
+    fence_regs(dV);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dV, pf[kk], desc_mn_major(sD, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is in (dV may still run)
+    fence_regs(dpt);
+
+    // dS^T = P^T (dP^T - dl) in place: zero where P^T is masked to zero
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dln = Dl[8 * j + 2 * c + e];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          dpt[i] = st[i] * (dpt[i] - dln);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_frag(dpt, kk, dsf[kk]);
+    fence_regs(dK);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dK, dsf[kk], desc_mn_major(sQ, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dV);
+    fence_regs(dK);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(pf[kk]);
+      fence_regs(dsf[kk]);
+    }
+    __syncthreads();  // stage s is free for tile t + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_a + 8 * h;
+    if (key >= S) continue;
+    const long long off = ((long long)b * S + key) * HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          pack_bf16x2(scale * dK[i], scale * dK[i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) = pack_bf16x2(dV[i], dV[i + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
+    bf16* __restrict__ dq, int bkv, int S, int G, int causal, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sD = sQ + TILE_BYTES;
+  const uint32_t sK0 = sQ + 2 * TILE_BYTES;  // K of stage s at sK0 + s TILE_BYTES, V at + 2
+
+  const int tid = threadIdx.x;
+  const int SG = S * G;
+  const int nqt = (SG + TILE - 1) / TILE;
+  const int b = blockIdx.x % bkv;
+  const int r0 = (nqt - 1 - (int)(blockIdx.x / bkv)) * TILE;  // last q-row tile first
+  const int nrows = min(TILE, SG - r0);
+  // the kv tiles this q-row tile sees (flash_attention.dq_kv_tiles)
+  const int p_first = r0 / G, p_last = (r0 + nrows - 1) / G;
+  const int lo = window ? max(0, p_first - window + 1) / TILE : 0;
+  const int hi = causal ? p_last / TILE + 1 : (S + TILE - 1) / TILE;
+
+  const long long qrow0 = (long long)b * SG + r0;
+  stage_tile(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
+  stage_tile(sD, dout + qrow0 * HD, nrows, tid);
+  const bf16* kb = k + (long long)b * S * HD;
+  const bf16* vb = v + (long long)b * S * HD;
+  auto stage_kv = [&](int kj, int s) {
+    const int n = min(TILE, S - kj * TILE);
+    stage_tile(sK0 + s * TILE_BYTES, kb + (long long)kj * TILE * HD, n, tid);
+    stage_tile(sK0 + (2 + s) * TILE_BYTES, vb + (long long)kj * TILE * HD, n, tid);
+    cp_async_commit();
+  };
+  stage_kv(lo, 0);
+
+  const int w = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  int pos[2];
+  bool row_ok[2];
+  float lse2[2], dlr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // accumulator rows: q rows r0 + 16 w + g (+ 8)
+    const int row = r0 + 16 * w + g + 8 * h;
+    row_ok[h] = row < SG;
+    pos[h] = row / G;
+    lse2[h] = row_ok[h] ? lse[qrow0 - r0 + row] * LOG2E : 0.f;
+    dlr[h] = row_ok[h] ? dl[qrow0 - r0 + row] : 0.f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  float dQ[32], sa[32], dpa[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dQ[i] = sa[i] = dpa[i] = 0.f;
+
+  for (int kj = lo; kj < hi; ++kj) {
+    const int s = (kj - lo) & 1;
+    if (kj + 1 < hi) {
+      stage_kv(kj + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sK = sK0 + s * TILE_BYTES, sV = sK0 + (2 + s) * TILE_BYTES;
+
+    // S = Q K^T and dP = dO V^T ([64 q rows, 64 keys], contraction over hd)
+    // as two groups: P is formed while dP runs
+    fence_regs(sa);
+    fence_regs(dpa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dpa, desc_k_major(sD, kk), desc_k_major(sV, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S is in
+    fence_regs(sa);
+
+    // P in place of S, masked explicitly; column n is key kj TILE + n
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kj * TILE + 8 * j + 2 * c + e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const bool ok = row_ok[h] && unmasked(pos[h], key, S, causal, window);
+          sa[i] = ok ? exp2f(fmaf(sa[i], scale_log2, -lse2[h])) : 0.f;
+        }
+      }
+    }
+    wgmma_wait<0>();  // dP is in
+    fence_regs(dpa);
+    // dS = P (dP - dl) in place of dP: zero where P is masked to zero
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpa[i] = sa[i] * (dpa[i] - dlr[(i >> 1) & 1]);
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_frag(dpa, kk, dsf[kk]);
+
+    // dQ += dS K: contraction over the keys
+    fence_regs(dQ);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dQ, dsf[kk], desc_mn_major(sK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dQ);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(dsf[kk]);
+    __syncthreads();  // stage s is free for tile kj + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    bf16* out = dq + (qrow0 + 16 * w + g + 8 * h) * HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16x2(scale * dQ[i], scale * dQ[i + 1]);
+    }
+  }
+}
+
 int check(int G, int hd, int dtype) {
   if (hd != HD || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -230,26 +551,31 @@ int check(int G, int hd, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after its launch.
+// dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps).
+// Each returns cudaGetLastError() after its launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* dl, void* dq, int bkv, int S, int G, int hd,
                         int causal, int window, float scale, int dtype, void* stream) {
   if (int rc = check(G, hd, dtype)) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nq = (S + DQ_BQ - 1) / DQ_BQ;
-  const dim3 grid(bkv * nq), block(2 * DQ_BQ * G);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  if (dtype == 0)
-    flash_dq_kernel<float><<<grid, block, 0, st>>>(
+  if (dtype == 0) {
+    const int nq = (S + DQ_BQ - 1) / DQ_BQ;
+    flash_dq_fp32_kernel<<<bkv * nq, 2 * DQ_BQ * G, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
         scale);
-  else
-    flash_dq_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l, d,
-        static_cast<__nv_bfloat16*>(dq), S, G, nq, causal, window, scale);
+  } else {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            flash_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM))
+      return (int)e;
+    const int nqt = (S * G + TILE - 1) / TILE;
+    flash_dq_wgmma_kernel<<<bkv * nqt, WG, DQ_SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dq), bkv, S, G, causal, window,
+        scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -258,22 +584,36 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                          int hd, int causal, int window, float scale, int dtype, void* stream) {
   if (int rc = check(G, hd, dtype)) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nkv = (S + DKV_BKV - 1) / DKV_BKV;
-  const dim3 grid(bkv * nkv), block(2 * DKV_BKV);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  if (dtype == 0)
-    flash_dkv_kernel<float><<<grid, block, 0, st>>>(
+  if (dtype == 0) {
+    const int nkv = (S + DKV_BKV - 1) / DKV_BKV;
+    flash_dkv_fp32_kernel<<<bkv * nkv, 2 * DKV_BKV, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv),
         S, G, nkv, causal, window, scale);
-  else
-    flash_dkv_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l, d,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, G, nkv, causal,
-        window, scale);
+  } else {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            flash_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM))
+      return (int)e;
+    const int nkt = (S + TILE - 1) / TILE;
+    flash_dkv_wgmma_kernel<<<bkv * nkt, WG, DKV_SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bkv,
+        S, G, causal, window, scale);
+  }
   return (int)cudaGetLastError();
+}
+
+// The bf16 sweeps' tiles (packed q rows, kv positions), checked by the wrapper
+// against flash_attention.FLASH_BWD_ROWS / FLASH_BWD_KEYS, and their dynamic
+// shared memory per block in bytes.
+extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem, int* dkv_smem) {
+  *rows = TILE;
+  *keys = TILE;
+  *dq_smem = DQ_SMEM;
+  *dkv_smem = DKV_SMEM;
+  return 0;
 }
 
 extern "C" const char* flash_bwd_error(int code) {

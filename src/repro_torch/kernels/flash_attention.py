@@ -10,7 +10,11 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   the kernel's own tile sizes).
 * ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace
   ``_dq_kernel`` and ``_dkv_kernel``: the backward's q-major and kv-major
-  sweeps, recomputing the probabilities from the saved logsumexp.
+  sweeps, recomputing the probabilities from the saved logsumexp. bf16
+  inputs take tensor-core (``wgmma``) sweeps over packed rows (the G query
+  heads of a position are adjacent rows; tiles of ``FLASH_BWD_ROWS`` rows
+  and ``FLASH_BWD_KEYS`` keys, visited as :func:`dq_kv_tiles` and
+  :func:`dkv_row_tiles` say); fp32 inputs take CUDA-core sweeps.
   :class:`FlashAttention` is the ``torch.autograd.Function`` around the
   forward and these two (the reference's custom VJP).
 * ``paged_decode`` replaces ``_paged_kernel``: one new token per slot
@@ -37,9 +41,14 @@ from repro_torch.kernels._build import LAUNCHES, reset_launch_counts  # noqa: F4
 NEG_INF = -2.0e38
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
-# tile sizes of csrc/flash_fwd.cu (checked against the built library)
+# tile sizes of csrc/flash_fwd.cu and of flash_bwd.cu's bf16 sweeps (packed
+# q rows, kv positions); checked against the built libraries at first launch
 FLASH_BLOCK_Q = 32
 FLASH_BLOCK_KV = 64
+FLASH_BWD_ROWS = 64
+FLASH_BWD_KEYS = 64
+# query heads per kv head each kernel takes; flash_bwd's bf16 sweeps take any
+# G (packed rows), its fp32 dq sweep runs 32 threads per head in one block
 MAX_GROUP = {"flash_fwd": 256 // FLASH_BLOCK_Q, "paged_decode": 16, "flash_bwd": 8}
 KERNEL_HEAD_DIM = 64  # the head dim of the configs ported so far
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +94,29 @@ def visited_kv_range(qi: int, nkv: int, block_q: int, block_kv: int,
     return visited[0], visited[-1] + 1
 
 
+def dq_kv_tiles(t: int, S: int, G: int, causal: bool, window: int,
+                rows: int = FLASH_BWD_ROWS, keys: int = FLASH_BWD_KEYS) -> tuple[int, int]:
+    """[lo, hi) of the kv tiles that the bf16 ``flash_dq`` block of packed
+    q-row tile ``t`` walks (row r has position r // G): from the window's far
+    edge of its first position to the causal diagonal of its last."""
+    r0 = t * rows
+    p_first, p_last = r0 // G, (min(r0 + rows, S * G) - 1) // G
+    lo = max(0, p_first - window + 1) // keys if window else 0
+    hi = p_last // keys + 1 if causal else -(-S // keys)
+    return lo, hi
+
+
+def dkv_row_tiles(kt: int, S: int, G: int, causal: bool, window: int,
+                  rows: int = FLASH_BWD_ROWS, keys: int = FLASH_BWD_KEYS) -> tuple[int, int]:
+    """[lo, hi) of the packed q-row tiles that the bf16 ``flash_dkv`` block
+    of kv tile ``kt`` walks: the rows of the positions that see one of its
+    keys, from the causal diagonal to the window's far edge."""
+    k0, k1 = kt * keys, min(kt * keys + keys, S)
+    p_lo = k0 if causal else 0
+    p_hi = min(S, k1 - 1 + window) if window else S  # positions [p_lo, p_hi)
+    return p_lo * G // rows, -(-p_hi * G // rows)
+
+
 def clamp_block(block: int, S: int) -> int:
     """A divisor of S that is <= block, found by halving (1 for any S)."""
     b = max(1, min(block, S))
@@ -113,7 +145,11 @@ _ARGTYPES = {
     "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _LL, _LL, _LL, _I, _F, _I, _P],
 }
-_TILES_CHECKED = []
+# library -> (the count of ints its C function <lib>_tiles reports, the
+# leading ones: the tile sizes this module assumes)
+_TILES = {"flash_fwd": (2, (FLASH_BLOCK_Q, FLASH_BLOCK_KV)),
+          "flash_bwd": (4, (FLASH_BWD_ROWS, FLASH_BWD_KEYS))}
+_TILES_CHECKED: set[str] = set()
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -125,15 +161,26 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
 
 
+def kernel_tiles(lib_name: str) -> tuple[int, ...]:
+    """What the built library reports from its ``<lib>_tiles`` function
+    (``flash_bwd``: rows, keys, then the dq and dkv blocks' dynamic shared
+    memory in bytes)."""
+    out = [ctypes.c_int() for _ in range(_TILES[lib_name][0])]
+    fn = getattr(_build.load(lib_name), f"{lib_name}_tiles")
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * len(out), ctypes.c_int
+    fn(*map(ctypes.byref, out))
+    return tuple(o.value for o in out)
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
-    if name == "flash_fwd" and not _TILES_CHECKED:
-        lib = _build.load("flash_fwd")
-        bq, bkv = ctypes.c_int(), ctypes.c_int()
-        lib.flash_fwd_tiles(ctypes.byref(bq), ctypes.byref(bkv))
-        if (bq.value, bkv.value) != (FLASH_BLOCK_Q, FLASH_BLOCK_KV):
-            raise RuntimeError(f"flash_fwd.cu tiles ({bq.value}, {bkv.value}) != "
-                               f"({FLASH_BLOCK_Q}, {FLASH_BLOCK_KV}) in flash_attention.py")
-        _TILES_CHECKED.append(True)
+    lib_name = _build.ENTRY_LIB.get(name, name)
+    if lib_name in _TILES and lib_name not in _TILES_CHECKED:
+        want = _TILES[lib_name][1]
+        got = kernel_tiles(lib_name)[:len(want)]
+        if got != want:
+            raise RuntimeError(f"{_build.SOURCES[lib_name]} tiles {got} != {want} in "
+                               "flash_attention.py")
+        _TILES_CHECKED.add(lib_name)
     _build.launch(name, _ARGTYPES[name], device, *args)
 
 
@@ -241,6 +288,9 @@ def _check_bwd(q, k, v, do, lse, dl) -> None:
             or lse.shape != (BKV, S, G) or dl.shape != lse.shape):
         raise ValueError(f"flash_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"do {tuple(do.shape)}, lse {tuple(lse.shape)}")
+    # the bf16 sweeps stage 128-byte rows with 16-byte copies
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_bwd: bf16 q, k, v and do must start on a 16-byte boundary")
 
 
 def _bwd_args(q, k, v, do, lse, dl, causal, window, scale):

@@ -34,6 +34,8 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 
 def _port_files() -> list[str]:
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+              if n.endswith(".py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -186,6 +186,55 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         tfa.paged_decode_attention(q, kp, vp, table, lengths, impl="triton")
 
 
+def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or a header under csrc/ changes
+    (the bf16 flash backward includes hopper_tiles.cuh)."""
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    paths = {n: _build.lib_path(n) for n in _build.SOURCES}
+    header = tmp_path / "hopper_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(edited[n] != paths[n] for n in _build.SOURCES)
+    src = tmp_path / "quantize.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert [n for n in _build.SOURCES if _build.lib_path(n) != edited[n]] == ["quantize"]
+
+
+@pytest.mark.parametrize("lib,name,tiles", [
+    ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
+    ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
+    ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV))])
+def test_first_launch_checks_the_library_tiles(monkeypatch, lib, name, tiles):
+    """At a library's first launch the wrapper reads ``<lib>_tiles`` from the
+    built library and raises if its tile sizes differ from the module's
+    constants (the visit ranges of the Python mirrors assume them)."""
+    from repro_torch.kernels import _build
+
+    class Lib:
+        def __init__(self, values):
+            def tiles(*refs):
+                for r, v in zip(refs, values):
+                    r._obj.value = v
+            setattr(self, f"{lib}_tiles", tiles)
+
+    launched = []
+    monkeypatch.setattr(_build, "launch", lambda n, argtypes, device, *args: launched.append(n))
+    monkeypatch.setattr(tfa, "_TILES_CHECKED", set())
+    monkeypatch.setattr(_build, "load", lambda n: Lib((tiles[0] // 2, *tiles[1:])))
+    with pytest.raises(RuntimeError, match=f"{lib}.cu tiles"):
+        tfa._launch(name, "cpu")
+    assert launched == []
+    monkeypatch.setattr(_build, "load", lambda n: Lib(tiles))
+    tfa._launch(name, "cpu")
+    tfa._launch(name, "cpu")
+    assert launched == [name, name] and tfa._TILES_CHECKED == {lib}
+    assert tfa.kernel_tiles(lib) == tiles
+
+
 # ----------------------------------------------------------- flash backward
 
 @pytest.mark.parametrize("S", [16, 13])
@@ -231,6 +280,63 @@ def test_flash_plain_backward_matches_autograd(causal, window):
     want = torch.autograd.grad(o, (tq, tk, tv), do)
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=f"d{name}", **TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
+def test_bf16_bwd_sweeps_visit_each_unmasked_pair_once(causal, window, G):
+    """The visit ranges of flash_bwd.cu's bf16 sweeps over packed rows (row
+    r = position * G + head), mirrored by dq_kv_tiles and dkv_row_tiles, held
+    exhaustively against _mask: each sweep covers every unmasked (row, key)
+    pair exactly once and visits no tile without an unmasked pair. Small
+    tiles (many tiles, ragged edges) and the kernel's own."""
+    for rows, keys, sizes in ((4, 4, range(1, 30)), (8, 4, range(1, 30)),
+                              (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, (1, 21, 77, 130, 200))):
+        for S in sizes:
+            pairs = np.repeat(tfa._mask(S, causal, window, "cpu")[0, :, 0, :].numpy(), G, axis=0)
+            for name, n_blocks, walk in (
+                    ("dq", -(-S * G // rows),
+                     lambda t: [(t, kj) for kj in range(*tfa.dq_kv_tiles(
+                         t, S, G, causal, window, rows, keys))]),
+                    ("dkv", -(-S // keys),
+                     lambda kt: [(t, kt) for t in range(*tfa.dkv_row_tiles(
+                         kt, S, G, causal, window, rows, keys))])):
+                count = np.zeros(pairs.shape, np.int64)
+                for blk in range(n_blocks):
+                    for t, kj in walk(blk):
+                        tile = (slice(t * rows, (t + 1) * rows), slice(kj * keys, (kj + 1) * keys))
+                        assert pairs[tile].any(), (name, S, rows, keys, t, kj)
+                        count[tile] += 1
+                assert (count[pairs] == 1).all() and count.max() <= 1, (name, S, rows, keys)
+
+
+def test_bf16_operand_rounding_stays_within_phase_5a_tolerance():
+    """The bf16 sweeps' arithmetic (bf16 q, k, v, do; fp32 products and sums;
+    p and ds rounded to bf16 as operands of the dq, dk and dv products; bf16
+    outputs) against _dq_plain / _dkv_plain (p and ds in fp32) at the
+    training shape's S = 1024, G = 3, hd = 64, causal, with inputs drawn as
+    chip_smoke.py phase 5a draws them: within that phase's bf16 tolerance,
+    1e-2 * max(1, max |grad|). Measured headroom on this seed: the largest
+    error is 0.46 (dq), 0.38 (dk) and 0.27 (dv) of the tolerance; the
+    rounding of p and ds alone moves each gradient by 0.14-0.21% of its
+    largest entry, the rest is the final bf16 store."""
+    rng = np.random.default_rng(14)
+    BKV, S, G, hd = 2, 1024, 3, 64
+    q, do = (torch.from_numpy(_np(rng, (BKV, S, G, hd))).bfloat16() for _ in "qd")
+    k, v = (torch.from_numpy(_np(rng, (BKV, S, hd))).bfloat16() for _ in "kv")
+    kw = dict(causal=True, window=0, scale=1.0 / math.sqrt(hd))
+    o, lse = tfa._fwd_plain(q, k, v, **kw)
+    dl = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, dl)
+    p, ds = (x.bfloat16().float() for x in tfa._probs_plain(*args, **kw))
+    got = ((kw["scale"] * torch.einsum("bqgs,bsh->bqgh", ds, k.float())).bfloat16(),
+           (kw["scale"] * torch.einsum("bqgs,bqgh->bsh", ds, q.float())).bfloat16(),
+           torch.einsum("bqgs,bqgh->bsh", p, do.float()).bfloat16())
+    plain = (tfa._dq_plain(*args, **kw), *tfa._dkv_plain(*args, **kw))
+    for name, g, w in zip(("dq", "dk", "dv"), got, plain):
+        tol = 1e-2 * max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
 
 
 # ---------------------------------------------------- matmul with epilogue
