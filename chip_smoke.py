@@ -11,15 +11,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    source, all started together) and prints the build seconds, ptxas's
    registers, shared memory and spills for each kernel function, and the
    count of tensor-core instructions (HGMMA, HMMA) in each function's SASS
-   (``cuobjdump --dump-sass``); fails if the bf16 flash backward sweeps
-   have no HGMMA.
+   (``cuobjdump --dump-sass``); fails if a bf16 flash sweep (forward, dq,
+   dkv) has no HGMMA or spills.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes in bf16 plus odd-length, sliding-window and fp32 cases
    (tolerances: bf16 outputs 2e-2, lse 1e-3, fp32 1e-5), and times each
    kernel (CUDA events, L2 flushed before each run, median of 30, the runs
    queued behind a device sleep so host time does not show) beside
    its plain version, its bound and, for flash, torch's
-   scaled_dot_product_attention as the library yardstick.
+   scaled_dot_product_attention as the library yardstick. The flash
+   forward (3a): bf16 (the tensor-core sweep) at the serving shape and the
+   training shape, both timed, and at ragged S, G = 1, 2 and 4, windowed
+   and non-causal cases, bitwise equal from run to run; fp32 (the CUDA-core
+   sweep).
 4. A full-width fp32 agreement check (kernel path against the plain torch
    path, logits of a prefill and three decode steps), then the main path:
    ``repro_torch.launch.serve`` at full width (smollm-135m, seeded random
@@ -51,8 +55,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``TrainEngine.launches_per_round``). Losses must be finite and fall
    from the first round to the last. Then one more round under
    torch.profiler: device busy share, the kernels that take the time, and
-   the per-launch device time of the two flash backward sweeps beside
-   phase 5's event times.
+   the per-launch device time of the bf16 flash forward and the two flash
+   backward sweeps beside phase 3a's and 5a's event times.
 8. Compressed pseudogradients: (8a) ``quantize`` and ``dequantize``
    against their plain versions on the card, bitwise, at every (rows, cols)
    shape the two compressed runs below give them (Q1 and Q2 of every leaf),
@@ -202,17 +206,23 @@ def sass_counts(lib: str) -> dict:
 def phase_build(_build, fa):
     print("[2] build")
     report = _build.build(verbose=True)
-    sass = {}
+    sass, ptxas = {}, {}
     for name, r in report.items():
         print(f"  {name}: built in {r['seconds']:.2f} s -> {Path(r['path']).name}")
         for fn, line in ptxas_report(r["log"]).items():
             print(f"    {fn}: {line}")
+            ptxas[fn] = line
         for fn, ops in sass_counts(r["path"]).items():
             print(f"    {fn}: tensor-core instructions in SASS {ops}")
             sass[fn] = ops
-    for fn in ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"):
+    for fn in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"):
         if not sass.get(fn, {}).get("HGMMA"):
             raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ptxas.get(fn, "")):
+            raise AssertionError(f"{fn}: spills (or no ptxas report): {ptxas.get(fn)}")
+    bq, bkv, rows, keys, smem = fa.kernel_tiles("flash_fwd")
+    print(f"  flash_fwd: bf16 sweep tiles of {rows} packed q rows x {keys} keys, one warpgroup "
+          f"a block, dynamic shared memory {smem} B; fp32 sweep {bq} positions x {bkv} keys")
     rows, keys, dq_smem, dkv_smem = fa.kernel_tiles("flash_bwd")
     print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys, one "
           f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv)")
@@ -229,48 +239,61 @@ def flash_pairs(S: int, causal: bool, window: int) -> int:
 
 
 def phase_flash(torch, fa):
+    """[3a] flash_fwd against its plain version; bf16 outputs bitwise equal
+    from run to run. The serving and training shapes are timed beside the
+    plain version, the bound and SDPA's forward: returns {shape: row}."""
     print("[3a] flash_fwd (replaces flash_attention.py:_fwd_kernel) against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # (BKV, S, G, dtype, causal, window); the first is the main path's shape
-        (16 * 3, 512, 3, torch.bfloat16, True, 0),
-        (2 * 3, 77, 3, torch.bfloat16, True, 0),
-        (2 * 3, 300, 3, torch.bfloat16, True, 100),
-        (2 * 3, 130, 3, torch.float32, True, 0),
-        (2 * 1, 96, 4, torch.float32, False, 0),
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [  # (BKV, S, G, dtype, causal, window, timed as): the main paths' shapes first
+        (16 * 3, 512, 3, bf16, True, 0, "serving"),
+        (8 * 3, 1024, 3, bf16, True, 0, "training"),
+        (2 * 3, 77, 3, bf16, True, 0, None),
+        (2 * 3, 300, 3, bf16, True, 100, None),
+        # the tensor-core sweep at G = 1, 2 and 4, ragged, non-causal and windowed
+        (2 * 2, 130, 1, bf16, True, 0, None),
+        (2 * 1, 96, 4, bf16, False, 0, None),
+        (2 * 2, 77, 2, bf16, False, 20, None),
+        (2 * 1, 130, 4, bf16, True, 37, None),
+        (2 * 3, 130, 3, fp32, True, 0, None),
+        (2 * 1, 96, 4, fp32, False, 0, None),
     ]
     out = {}
-    for BKV, S, G, dt, causal, window in cases:
+    for BKV, S, G, dt, causal, window, timed in cases:
         hd = 64
         q = torch.randn((BKV, S, G, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt)
         kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(hd))
         o, lse = fa._fwd_cuda(q, k, v, **kw)
+        again = fa._fwd_cuda(q, k, v, **kw)
         o_ref, lse_ref = fa._fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         tag = f"{str(dt)[6:]} q{[BKV, S, G, hd]} causal={causal} window={window}"
-        fp32 = dt == torch.float32
+        is_fp32 = dt == fp32
         err = check(f"{tag} o", (o.float() - o_ref.float()).abs().max().item(),
-                    1e-5 if fp32 else 2e-2)
-        check(f"{tag} lse", (lse - lse_ref).abs().max().item(), 1e-5 if fp32 else 1e-3)
-        if not out:  # the main path's shape: time it
-            ms = time_ms(torch, lambda: fa._fwd_cuda(q, k, v, **kw))
-            plain_ms = time_ms(torch, lambda: fa._fwd_plain(q, k, v, **kw))
-            qs = q.permute(0, 2, 1, 3).contiguous()  # [BKV, G, S, hd]
-            ks = k[:, None].expand(BKV, G, S, hd).contiguous()
-            vs = v[:, None].expand(BKV, G, S, hd).contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True))
-            flops = 4 * hd * flash_pairs(S, causal, window) * BKV * G
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-            t_ops = flops / PEAK_BF16_FLOPS * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
-            print(f"  timed {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
-                  f"({out['bound_by']}: {flops:.4g} flop, {nbytes:.4g} B)")
+                    1e-5 if is_fp32 else 2e-2)
+        check(f"{tag} lse", (lse - lse_ref).abs().max().item(), 1e-5 if is_fp32 else 1e-3)
+        if not is_fp32:
+            assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), \
+                f"{tag}: not deterministic"
+            print(f"  {tag}: bitwise equal over two runs")
+        if not timed:
+            continue
+        ms = time_ms(torch, lambda: fa._fwd_cuda(q, k, v, **kw))
+        plain_ms = time_ms(torch, lambda: fa._fwd_plain(q, k, v, **kw))
+        qs = q.permute(0, 2, 1, 3).contiguous()  # [BKV, G, S, hd]
+        ks = k[:, None].expand(BKV, G, S, hd).contiguous()
+        vs = v[:, None].expand(BKV, G, S, hd).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=causal))
+        flops = 4 * hd * flash_pairs(S, causal, window) * BKV * G
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
+        out[timed] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **bound(flops, nbytes, PEAK_BF16_FLOPS))
+        print(f"  timed ({timed}) {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {out[timed]['bound_ms']:.4f} ms "
+              f"({out[timed]['bound_by']}: {flops:.4g} flop, {nbytes:.4g} B)")
     return out
 
 
@@ -682,7 +705,7 @@ def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (
     """[6c] where a training round's time goes: one more round unprofiled,
     then one under torch.profiler; the device time of the kernels whose
     names hold one of ``focus`` is summed apart, with its time per launch
-    beside ``beside[key]`` (ms per call measured elsewhere) where given."""
+    beside ``beside[key]`` (the phase and its ms per call) where given."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig, MarkovStream, batches_for_round
@@ -728,7 +751,8 @@ def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (
         print(f"  {key}: {ms:.3f} ms device time, x{n}, {100 * ms / plain_wall_ms:.2f}% of "
               "the unprofiled wall" + (f"; {ms / n:.4f} ms per launch" if n else ""))
         if beside and key in beside:
-            print(f"    beside phase 5a's event time {beside[key]:.4f} ms per call (L2 flushed)")
+            phase, event_ms = beside[key]
+            print(f"    beside phase {phase}'s event time {event_ms:.4f} ms per call (L2 flushed)")
 
 
 def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
@@ -948,9 +972,11 @@ def main() -> int:
     nesterov = phase_nesterov(torch, ou)
     phase_train_agreement(torch, get_config, build_model)
     train_launches, out = phase_train_main(torch, build_parser, train)
-    phase_train_profile(torch, out, TRAIN, focus=("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
-                        beside={"flash_dq_wgmma_kernel": bwd["flash_dq"]["ms"],
-                                "flash_dkv_wgmma_kernel": bwd["flash_dkv"]["ms"]})
+    phase_train_profile(torch, out, TRAIN, focus=("flash_fwd_wgmma_kernel",
+                                                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+                        beside={"flash_fwd_wgmma_kernel": ("3a", flash["training"]["ms"]),
+                                "flash_dq_wgmma_kernel": ("5a", bwd["flash_dq"]["ms"]),
+                                "flash_dkv_wgmma_kernel": ("5a", bwd["flash_dkv"]["ms"])})
     params = out["state"]["outer_params"]
     del out
     torch.cuda.empty_cache()
@@ -968,7 +994,7 @@ def main() -> int:
     summary = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:184",
-         "launches": launches["flash_fwd"], **flash},
+         "launches": launches["flash_fwd"], **flash["serving"]},
         {"name": "paged_decode", "route": "cuda", "source": f"{src}/paged_decode.cu",
          "replaces": f"{jax_src}/flash_attention.py:439",
          "launches": launches["paged_decode"], **paged},
@@ -991,8 +1017,11 @@ def main() -> int:
          "replaces": f"{jax_src}/quantize.py:87",
          "launches": run_a["dequantize"], **quant["dequantize"]},
     ]}
+    t = flash["training"]
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
-          "(the flash_fwd row counts the serving main path's)")
+          "(the flash_fwd row counts the serving main path's and times its shape); at the "
+          f"training shape: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")

@@ -257,14 +257,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DQ_SMEM = 6 * TILE_BYTES + 1024;                  // Q, dO, 2 x (K, V); alignment
 constexpr int DKV_SMEM = 6 * TILE_BYTES + 4 * TILE * 4 + 1024;  // K, V, 2 x (Q, dO, lse, dl)
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ bool unmasked(int pos, int key, int S, int causal, int window) {
-  return key < S && (!causal || key <= pos) && (!window || pos - key < window);
-}
-
 __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,

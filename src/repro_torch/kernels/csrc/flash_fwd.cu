@@ -4,48 +4,80 @@
 // (Pallas, reached through _fwd / _flash_fn / gqa_flash_attention).
 //
 // Layout: q [BKV, S, G, hd], k/v [BKV, S, hd] (BKV = batch x kv heads, G query
-// heads share one kv head); o like q; lse [BKV, S, G] fp32. fp32 or bf16 in,
-// fp32 scores, online softmax and accumulator.
+// heads share one kv head); o like q; lse [BKV, S, G] fp32, the natural-log
+// logsumexp of each row's scaled scores (the backward reads it). Masks are
+// explicit: a masked (row, key) pair gets p = 0, never exp(NEG_INF - NEG_INF)
+// = 1, and a tile masked for a whole row leaves that row's running max, sum
+// and accumulator exactly as they are, so skipping a tile equals visiting it.
+// The row sum is clamped at 1e-30. Any S works: ragged tile edges are masked.
 //
-// What bounds it on this card: at the serving prefill shape (BKV = 48, S = 512,
-// G = 3, hd = 64, bf16) the least time is about even between the bytes (q, k,
-// v, o and lse, ~25 MB at 3.35 TB/s) and the causal products (~4.8 GFLOP at
-// 989 TFLOP/s on the tensor cores); the flops grow with S^2, so longer
-// prompts are compute-bound. This first version runs its products on the fp32
-// CUDA cores (67 TFLOP/s), so those bound it, well above the card's bound;
-// wgmma and TMA come in a later change.
+// What bounds it on this card: at the serving prefill shape (BKV = 48, S =
+// 512, G = 3, hd = 64, bf16, causal) q, k, v, o and lse are ~25 MB (7.6 us
+// at 3.35 TB/s) against ~4.8 GFLOP of causal products (4.9 us at 989 TFLOP/s
+// on the bf16 tensor cores); at the training shape (BKV = 24, S = 1024) the
+// same bytes meet ~9.7 GFLOP (9.8 us). So the products have to run on the
+// tensor cores, and the flops grow with S^2.
 //
-// Design: one thread block per (row of BKV, tile of BQ positions); each thread
-// owns one (position, query head) row and keeps q and acc in registers. A loop
-// inside the block walks the kv tiles in the range that
-// flash_attention.visited_kv_range gives at this kernel's tile sizes, so tiles
-// above the causal diagonal or left of the sliding window are never loaded
-// (no schedule array). Each K/V tile is staged once in shared memory and read
-// by all G heads of the block (broadcast reads). The online softmax updates
-// once per CH keys; masked entries get p = 0 explicitly, never exp(NEG_INF -
-// NEG_INF) = 1. Any S works: ragged tile edges are masked.
+// bf16 inputs (every launch of the serving and training paths): a
+// tensor-core sweep (wgmma, bf16 operands, fp32 accumulators), the design of
+// flash_bwd.cu's dq sweep with its dP product replaced by an online softmax.
+//   * Packed rows. The G query heads of a position are adjacent rows of q, so
+//     for one kv head q is an [S G, 64] matrix and row r has position r / G.
+//     One block (one warpgroup, 128 threads) per (tile of 64 packed q rows,
+//     row of BKV), the last tile first (the longest causal walks start
+//     first). The masks compare r / G with the key.
+//   * The Q tile stays in shared memory; the block walks the kv tiles the
+//     tile sees (flash_attention.dq_kv_tiles), K and V double-buffered by
+//     16-byte cp.async into 128-byte-swizzled tiles (csrc/hopper_tiles.cuh),
+//     zero-filled past the ragged edge.
+//   * Per kv tile: S = Q K^T (both operands K-major in shared memory) into an
+//     m64n64 fp32 accumulator; each thread holds 16 columns of two rows, a
+//     quad of threads a whole row. The online softmax runs on those
+//     registers in base 2 (scores times scale log2 e, masked after scaling):
+//     the row max over the quad by two shuffles, the correction
+//     exp2(m_old - m_new) applied to the thread's part of the row sum and to
+//     the O accumulator's two rows, p = exp2(s - m_new) where unmasked. Then
+//     O += P V with P packed to bf16 in registers as the A operand and V
+//     MN-major (the transpose bit). O stays in registers for the whole walk.
+//   * Epilogue: the row sums are summed over the quad, o = O / max(l, 1e-30)
+//     stored as bf16 pairs, lse = m ln 2 + log(l). Each block writes only its
+//     own rows (no atomics), so the result is bitwise repeatable.
+//   * Per block: Q + 2 x (K, V) = 5 tiles of 8 KB plus the 1 KB alignment,
+//     41,984 bytes of dynamic shared memory; two m64n64 fp32 accumulators of
+//     32 registers a thread. The serving and training shapes launch 1,152
+//     blocks each on 132 SMs.
+//   * Numbers: the one rounding the plain version does not make is P's, to
+//     bf16 as the operand of the PV product; scores, max, sums and the
+//     accumulator stay fp32.
+//
+// fp32 inputs keep the CUDA-core sweep: one block per (row of BKV, tile of BQ
+// positions); each thread owns one (position, query head) row and keeps q and
+// acc in registers. A loop inside the block walks the kv tiles of
+// flash_attention.visited_kv_range at the tile sizes (BQ, BKV); each K/V tile
+// is staged once in fp32 shared memory and read by all G heads of the block
+// (broadcast reads). The online softmax updates once per CH keys; masked
+// entries get p = 0 explicitly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_tiles.cuh"
+
 namespace {
+
+constexpr int HD = 64;
+constexpr float NEG_INF = -2.0e38f;
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core sweep over positions
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 32;   // q positions per block (times G heads = threads)
 constexpr int BKV = 64;  // kv positions per shared-memory tile
 constexpr int CH = 16;   // keys per online-softmax update
-constexpr float NEG_INF = -2.0e38f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int HD>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int S, int G, int nq, int causal,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int S, int G, int nq, int causal,
     int window, float scale) {
   __shared__ __align__(16) float Ks[BKV][HD];
   __shared__ __align__(16) float Vs[BKV][HD];
@@ -61,7 +93,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   float qr[HD], acc[HD];
 #pragma unroll
   for (int h = 0; h < HD; ++h) {
-    qr[h] = row_ok ? to_f(q[row * HD + h]) : 0.f;
+    qr[h] = row_ok ? q[row * HD + h] : 0.f;
     acc[h] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
@@ -75,8 +107,8 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   if (window)
     while (lo < hi - 1 && q_first - (lo * BKV + BKV - 1) >= window) ++lo;
 
-  const T* kb = k + (long long)b * S * HD;
-  const T* vb = v + (long long)b * S * HD;
+  const float* kb = k + (long long)b * S * HD;
+  const float* vb = v + (long long)b * S * HD;
   for (int kj = lo; kj < hi; ++kj) {
     const int kv0 = kj * BKV;
     __syncthreads();  // the previous tile is fully consumed
@@ -84,8 +116,8 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
       const int j = i / HD, h = i % HD;
       const bool ok = kv0 + j < S;
       const long long off = (long long)(kv0 + j) * HD + h;
-      Ks[j][h] = ok ? to_f(kb[off]) : 0.f;
-      Vs[j][h] = ok ? to_f(vb[off]) : 0.f;
+      Ks[j][h] = ok ? kb[off] : 0.f;
+      Vs[j][h] = ok ? vb[off] : 0.f;
     }
     __syncthreads();
     if (!row_ok) continue;
@@ -141,30 +173,195 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   if (!row_ok) return;
   l = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int h = 0; h < HD; ++h) o[row * HD + h] = from_f<T>(acc[h] / l);
+  for (int h = 0; h < HD; ++h) o[row * HD + h] = acc[h] / l;
   lse[row] = m + logf(l);
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, void* lse, int bkv, int S,
-            int G, int causal, int window, float scale, cudaStream_t st) {
-  const int nq = (S + BQ - 1) / BQ;
-  flash_fwd_kernel<T, HD><<<bkv * nq, BQ * G, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
+// ---------------------------------------------------------------------------
+// bf16: tensor-core sweep over packed rows
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using hopper::TILE_BYTES;
+constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per tile
+constexpr int WG = hopper::WARPGROUP;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int SMEM = 5 * TILE_BYTES + 1024;  // Q, 2 x (K, V); alignment
+
+__global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int bkv, int S, int G, int causal, int window,
+    float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK0 = sQ + TILE_BYTES;  // K of stage s at sK0 + s TILE_BYTES, V at + 2
+
+  const int tid = threadIdx.x;
+  const int SG = S * G;
+  const int nqt = (SG + TILE - 1) / TILE;
+  const int b = blockIdx.x % bkv;
+  const int r0 = (nqt - 1 - (int)(blockIdx.x / bkv)) * TILE;  // last q-row tile first
+  const int nrows = min(TILE, SG - r0);
+  // the kv tiles this q-row tile sees (flash_attention.dq_kv_tiles)
+  const int p_first = r0 / G, p_last = (r0 + nrows - 1) / G;
+  const int lo = window ? max(0, p_first - window + 1) / TILE : 0;
+  const int hi = causal ? p_last / TILE + 1 : (S + TILE - 1) / TILE;
+
+  const long long qrow0 = (long long)b * SG + r0;
+  stage_tile(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
+  const bf16* kb = k + (long long)b * S * HD;
+  const bf16* vb = v + (long long)b * S * HD;
+  auto stage_kv = [&](int kj, int s) {
+    const int n = min(TILE, S - kj * TILE);
+    stage_tile(sK0 + s * TILE_BYTES, kb + (long long)kj * TILE * HD, n, tid);
+    stage_tile(sK0 + (2 + s) * TILE_BYTES, vb + (long long)kj * TILE * HD, n, tid);
+    cp_async_commit();
+  };
+  stage_kv(lo, 0);
+
+  const int w = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  int pos[2];
+  bool row_ok[2];
+  // per accumulator row (q rows r0 + 16 w + g (+ 8)): the running max of the
+  // base-2 scores and this thread's part of the row sum (its 16 columns)
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * w + g + 8 * h;
+    row_ok[h] = row < SG;
+    pos[h] = row / G;
+    m[h] = NEG_INF;
+    l[h] = 0.f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[32], sa[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = sa[i] = 0.f;
+
+  for (int kj = lo; kj < hi; ++kj) {
+    const int s = (kj - lo) & 1;
+    if (kj + 1 < hi) {
+      stage_kv(kj + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sK = sK0 + s * TILE_BYTES, sV = sK0 + (2 + s) * TILE_BYTES;
+
+    // S = Q K^T ([64 q rows, 64 keys], contraction over hd)
+    fence_regs(sa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+
+    // scale to base 2 and mask (after scaling: no NEG_INF - NEG_INF below);
+    // column n of S is key kj TILE + n
+    uint32_t okm = 0u;  // bit i: sa[i] is an unmasked pair
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kj * TILE + 8 * j + 2 * c + e;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const bool ok = row_ok[h] && unmasked(pos[h], key, S, causal, window);
+          sa[i] = ok ? sa[i] * scale_log2 : NEG_INF;
+          okm |= (uint32_t)ok << i;
+          mx[h] = fmaxf(mx[h], sa[i]);
+        }
+      }
+    }
+    // the row max over the quad, then the correction of the running state:
+    // exactly 1 where the tile is masked for the whole row (m_new = m)
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+    // P in place of S, zero where masked; O's rows rescaled
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      sa[i] = ((okm >> i) & 1u) ? exp2f(sa[i] - m[h]) : 0.f;
+      l[h] += sa[i];
+      acc[i] *= corr[h];
+    }
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_frag(sa, kk, pf[kk]);
+
+    // O += P V: contraction over the keys, V MN-major
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(acc, pf[kk], desc_mn_major(sV, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pf[kk]);
+    __syncthreads();  // stage s is free for tile kj + 2
+  }
+
+  // the row sums over the quad (every lane takes part), then each row's
+  // o and lse
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    const float lsum = fmaxf(l[h], 1e-30f);
+    const long long row = qrow0 + 16 * w + g + 8 * h;
+    bf16* out = o + row * HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16x2(acc[i] / lsum, acc[i + 1] / lsum);
+    }
+    if (c == 0) lse[row] = m[h] * LN2 + logf(lsum);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core sweep), 1 = bfloat16 (tensor-core sweep).
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bkv, int S, int G, int hd, int causal, int window, float scale,
                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || BQ * G > 256) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 64) launch<float, 64>(q, k, v, o, lse, bkv, S, G, causal, window, scale, st);
-  else if (dtype == 1 && hd == 64) launch<__nv_bfloat16, 64>(q, k, v, o, lse, bkv, S, G, causal, window, scale, st);
-  else return (int)cudaErrorInvalidValue;
+  if (hd != HD || G < 1 || BQ * G > 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const int nq = (S + BQ - 1) / BQ;
+    flash_fwd_kernel<<<bkv * nq, BQ * G, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
+  } else if (dtype == 1) {
+    const int nqt = (S * G + TILE - 1) / TILE;
+    flash_fwd_wgmma_kernel<<<bkv * nqt, WG, SMEM, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(lse), bkv, S, G, causal, window, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -172,8 +369,15 @@ extern "C" const char* flash_fwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-extern "C" int flash_fwd_tiles(int* bq, int* bkv) {
+// The fp32 sweep's tiles (q positions, kv positions), the bf16 sweep's
+// (packed q rows, kv positions), checked by the wrapper against
+// flash_attention.FLASH_BLOCK_Q / FLASH_BLOCK_KV and FLASH_BWD_ROWS /
+// FLASH_BWD_KEYS, and the bf16 block's dynamic shared memory in bytes.
+extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* smem) {
   *bq = BQ;
   *bkv = BKV;
+  *rows = TILE;
+  *keys = TILE;
+  *smem = SMEM;
   return 0;
 }

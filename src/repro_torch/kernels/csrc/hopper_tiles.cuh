@@ -30,6 +30,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary at or after p in shared memory (the swizzled
+// tiles need it; a kernel asks for 1024 bytes more dynamic shared memory)
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// whether query position pos sees key position key (flash attention's masks)
+__device__ __forceinline__ bool unmasked(int pos, int key, int S, int causal, int window) {
+  return key < S && (!causal || key <= pos) && (!window || pos - key < window);
+}
+
 // 16 bytes global -> shared; zero-filled when !valid (nothing is read then)
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"

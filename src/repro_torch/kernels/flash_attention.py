@@ -6,15 +6,20 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
 
 * ``flash_fwd`` replaces ``_fwd_kernel``: the forward, o and the per-row
   logsumexp, visiting only the kv tiles that the causal diagonal and the
-  sliding window leave (the rule of :func:`visited_kv_range`, applied at
-  the kernel's own tile sizes).
+  sliding window leave. bf16 inputs (every launch of the serving and
+  training paths) take a tensor-core (``wgmma``) sweep over packed rows
+  (the G query heads of a position are adjacent rows; tiles of
+  ``FLASH_BWD_ROWS`` rows and ``FLASH_BWD_KEYS`` keys, walked as
+  :func:`dq_kv_tiles` says) with an online softmax on the accumulator's
+  rows; fp32 inputs take a CUDA-core sweep over ``FLASH_BLOCK_Q``
+  positions and ``FLASH_BLOCK_KV`` keys (the rule of
+  :func:`visited_kv_range` at those tiles).
 * ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace
   ``_dq_kernel`` and ``_dkv_kernel``: the backward's q-major and kv-major
   sweeps, recomputing the probabilities from the saved logsumexp. bf16
-  inputs take tensor-core (``wgmma``) sweeps over packed rows (the G query
-  heads of a position are adjacent rows; tiles of ``FLASH_BWD_ROWS`` rows
-  and ``FLASH_BWD_KEYS`` keys, visited as :func:`dq_kv_tiles` and
-  :func:`dkv_row_tiles` say); fp32 inputs take CUDA-core sweeps.
+  inputs take tensor-core sweeps over packed rows with the forward's tiles,
+  visited as :func:`dq_kv_tiles` and :func:`dkv_row_tiles` say; fp32 inputs
+  take CUDA-core sweeps.
   :class:`FlashAttention` is the ``torch.autograd.Function`` around the
   forward and these two (the reference's custom VJP).
 * ``paged_decode`` replaces ``_paged_kernel``: one new token per slot
@@ -41,15 +46,17 @@ from repro_torch.kernels._build import LAUNCHES, reset_launch_counts  # noqa: F4
 NEG_INF = -2.0e38
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
-# tile sizes of csrc/flash_fwd.cu and of flash_bwd.cu's bf16 sweeps (packed
-# q rows, kv positions); checked against the built libraries at first launch
+# tile sizes of csrc/flash_fwd.cu's fp32 sweep (q positions, kv positions) and
+# of the bf16 tensor-core sweeps of flash_fwd.cu and flash_bwd.cu (packed q
+# rows, kv positions); checked against the built libraries at first launch
 FLASH_BLOCK_Q = 32
 FLASH_BLOCK_KV = 64
 FLASH_BWD_ROWS = 64
 FLASH_BWD_KEYS = 64
-# query heads per kv head each kernel takes; flash_bwd's bf16 sweeps take any
-# G (packed rows), its fp32 dq sweep runs 32 threads per head in one block
-MAX_GROUP = {"flash_fwd": 256 // FLASH_BLOCK_Q, "paged_decode": 16, "flash_bwd": 8}
+# query heads per kv head each kernel takes; the bf16 sweeps take any G
+# (packed rows), the fp32 sweeps of flash_fwd and flash_dq run 32 threads per
+# head in one block of at most 256
+MAX_GROUP = {"flash_fwd": 8, "paged_decode": 16, "flash_bwd": 8}
 KERNEL_HEAD_DIM = 64  # the head dim of the configs ported so far
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -147,7 +154,7 @@ _ARGTYPES = {
 }
 # library -> (the count of ints its C function <lib>_tiles reports, the
 # leading ones: the tile sizes this module assumes)
-_TILES = {"flash_fwd": (2, (FLASH_BLOCK_Q, FLASH_BLOCK_KV)),
+_TILES = {"flash_fwd": (5, (FLASH_BLOCK_Q, FLASH_BLOCK_KV, FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
           "flash_bwd": (4, (FLASH_BWD_ROWS, FLASH_BWD_KEYS))}
 _TILES_CHECKED: set[str] = set()
 
@@ -163,8 +170,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def kernel_tiles(lib_name: str) -> tuple[int, ...]:
     """What the built library reports from its ``<lib>_tiles`` function
-    (``flash_bwd``: rows, keys, then the dq and dkv blocks' dynamic shared
-    memory in bytes)."""
+    (``flash_fwd``: the fp32 sweep's positions and keys, the bf16 sweep's
+    rows and keys, then its block's dynamic shared memory in bytes;
+    ``flash_bwd``: rows, keys, then the dq and dkv blocks' dynamic shared
+    memory)."""
     out = [ctypes.c_int() for _ in range(_TILES[lib_name][0])]
     fn = getattr(_build.load(lib_name), f"{lib_name}_tiles")
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * len(out), ctypes.c_int
@@ -182,6 +191,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
                                "flash_attention.py")
         _TILES_CHECKED.add(lib_name)
     _build.launch(name, _ARGTYPES[name], device, *args)
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 sweeps stage 128-byte rows with 16-byte copies."""
+    if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary")
 
 
 def _check_head(name: str, dtype: torch.dtype, hd: int, G: int) -> None:
@@ -219,6 +234,7 @@ def _fwd_cuda(q, k, v, *, causal: bool, window: int, scale: float):
         raise TypeError(f"flash_fwd: q {q.dtype}, k {k.dtype}, v {v.dtype}")
     if k.shape != (BKV, S, hd) or v.shape != k.shape or S < 1:
         raise ValueError(f"flash_fwd: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _check_aligned("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((BKV, S, G), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -288,9 +304,7 @@ def _check_bwd(q, k, v, do, lse, dl) -> None:
             or lse.shape != (BKV, S, G) or dl.shape != lse.shape):
         raise ValueError(f"flash_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"do {tuple(do.shape)}, lse {tuple(lse.shape)}")
-    # the bf16 sweeps stage 128-byte rows with 16-byte copies
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("flash_bwd: bf16 q, k, v and do must start on a 16-byte boundary")
+    _check_aligned("flash_bwd", q, k, v, do)
 
 
 def _bwd_args(q, k, v, do, lse, dl, causal, window, scale):
@@ -362,9 +376,11 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head h reads kv head h // G. Rows attend by absolute position;
     ``window`` is the sliding-window width (0 = none). ``block_q`` /
     ``block_kv`` shape the reference's TPU grid and are accepted so callers
-    pass the config unchanged: the Hopper kernel tiles with
-    ``FLASH_BLOCK_Q`` x ``FLASH_BLOCK_KV`` and the result does not depend on
-    either.
+    pass the config unchanged: the Hopper kernels choose their own tiles
+    (bf16: ``FLASH_BWD_ROWS`` packed q rows x ``FLASH_BWD_KEYS`` keys on the
+    tensor cores, forward and backward; fp32: ``FLASH_BLOCK_Q`` positions x
+    ``FLASH_BLOCK_KV`` keys in the forward) and the result does not depend
+    on either.
     """
     del block_q, block_kv
     B, S, H, hd = q.shape

@@ -154,8 +154,10 @@ def test_schedule_helpers_equal_reference():
 
 
 def test_kernel_tiles_visit_contiguous_ranges():
-    """The flash kernel walks [lo, hi) of visited_kv_range at its own tiles;
-    at the serving prefill shape the causal walk is about half the grid."""
+    """The fp32 flash forward (flash_fwd.cu's CUDA-core sweep) walks [lo, hi)
+    of visited_kv_range at its own tiles (FLASH_BLOCK_Q positions x
+    FLASH_BLOCK_KV keys); at the serving prefill's S the causal walk is about
+    half the grid. The bf16 sweep walks dq_kv_tiles (tested below)."""
     S = 512
     nq, nkv = -(-S // tfa.FLASH_BLOCK_Q), -(-S // tfa.FLASH_BLOCK_KV)
     tiles = sum(hi - lo for lo, hi in (
@@ -207,7 +209,8 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
 @pytest.mark.parametrize("lib,name,tiles", [
     ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
     ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
-    ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV))])
+    ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV, tfa.FLASH_BWD_ROWS,
+                                tfa.FLASH_BWD_KEYS, 41984))])
 def test_first_launch_checks_the_library_tiles(monkeypatch, lib, name, tiles):
     """At a library's first launch the wrapper reads ``<lib>_tiles`` from the
     built library and raises if its tile sizes differ from the module's
@@ -285,17 +288,20 @@ def test_flash_plain_backward_matches_autograd(causal, window):
 @pytest.mark.parametrize("G", [1, 2, 3, 4])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
 def test_bf16_bwd_sweeps_visit_each_unmasked_pair_once(causal, window, G):
-    """The visit ranges of flash_bwd.cu's bf16 sweeps over packed rows (row
+    """The visit ranges of the bf16 tensor-core sweeps over packed rows (row
     r = position * G + head), mirrored by dq_kv_tiles and dkv_row_tiles, held
     exhaustively against _mask: each sweep covers every unmasked (row, key)
-    pair exactly once and visits no tile without an unmasked pair. Small
-    tiles (many tiles, ragged edges) and the kernel's own."""
+    pair exactly once and visits no tile without an unmasked pair. The
+    forward's sweep (flash_fwd.cu) walks the same kv tiles per q-row tile as
+    flash_bwd.cu's dq sweep (dq_kv_tiles), so the first walk checks both.
+    G = 1 to 4, ragged S; small tiles (many tiles, ragged edges) and the
+    kernels' own."""
     for rows, keys, sizes in ((4, 4, range(1, 30)), (8, 4, range(1, 30)),
                               (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, (1, 21, 77, 130, 200))):
         for S in sizes:
             pairs = np.repeat(tfa._mask(S, causal, window, "cpu")[0, :, 0, :].numpy(), G, axis=0)
             for name, n_blocks, walk in (
-                    ("dq", -(-S * G // rows),
+                    ("fwd and dq", -(-S * G // rows),
                      lambda t: [(t, kj) for kj in range(*tfa.dq_kv_tiles(
                          t, S, G, causal, window, rows, keys))]),
                     ("dkv", -(-S // keys),
@@ -337,6 +343,107 @@ def test_bf16_operand_rounding_stays_within_phase_5a_tolerance():
         tol = 1e-2 * max(1.0, w.float().abs().max().item())
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+def _fwd_sweep(q, k, v, *, causal: bool, window: int, scale: float, p_dtype=None,
+               rows: int = tfa.FLASH_BWD_ROWS, keys: int = tfa.FLASH_BWD_KEYS):
+    """flash_fwd.cu's bf16 sweep in torch: per tile of ``rows`` packed q rows,
+    the kv tiles of dq_kv_tiles, each an online-softmax step in base 2 on fp32
+    scores (masked after scaling, p = 0 where masked); p rounded to
+    ``p_dtype`` (the kernel: bf16) as the operand of the PV product; o stored
+    in q's dtype. Returns (o, lse) as _fwd_plain does."""
+    BKV, S, G, hd = q.shape
+    SG = S * G
+    qr, kf, vf = q.float().reshape(BKV, SG, hd), k.float(), v.float()
+    mask = tfa._mask(S, causal, window, "cpu")[0, :, 0, :]
+    pos = torch.arange(SG) // G
+    o, lse = torch.empty(BKV, SG, hd), torch.empty(BKV, SG)
+    scale_log2 = scale * math.log2(math.e)
+    for t in range(-(-SG // rows)):
+        r = slice(t * rows, min(SG, (t + 1) * rows))
+        m = torch.full((BKV, r.stop - r.start, 1), tfa.NEG_INF)
+        l, acc = torch.zeros_like(m), torch.zeros(BKV, r.stop - r.start, hd)
+        for kj in range(*tfa.dq_kv_tiles(t, S, G, causal, window, rows, keys)):
+            kc = slice(kj * keys, min(S, (kj + 1) * keys))
+            ok = mask[pos[r]][:, kc]
+            s2 = torch.where(ok, (qr[:, r] @ kf[:, kc].transpose(1, 2)) * scale_log2, tfa.NEG_INF)
+            m_new = torch.maximum(m, s2.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(s2 - m_new), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            pv = p if p_dtype is None else p.to(p_dtype).float()
+            acc = acc * corr + pv @ vf[:, kc]
+            m = m_new
+        lsum = l.clamp_min(1e-30)
+        o[:, r] = acc / lsum
+        lse[:, r] = (m * math.log(2) + torch.log(lsum))[..., 0]
+    return o.reshape(q.shape).to(q.dtype), lse.reshape(BKV, S, G)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
+def test_fwd_sweep_online_softmax_equals_plain(causal, window, G):
+    """The bf16 forward sweep's algorithm (packed q-row tiles walking
+    dq_kv_tiles, an online softmax in base 2 per kv tile, explicit masking,
+    tiles masked for a whole row leaving the running state as it is), with p
+    kept in fp32, == _fwd_plain in fp32 at 1e-5: at small tiles (many tiles,
+    ragged edges, rows whose first visited tiles are masked) and at the
+    kernel's own, ragged S."""
+    rng = np.random.default_rng(31 + 10 * G + window)
+    for rows, keys, S in ((8, 4, 13), (4, 8, 21), (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 77)):
+        q, k, v = (torch.from_numpy(_np(rng, shape)) for shape in
+                   ((2, S, G, 16), (2, S, 16), (2, S, 16)))
+        kw = dict(causal=causal, window=window, scale=0.25)
+        o, lse = _fwd_sweep(q, k, v, rows=rows, keys=keys, **kw)
+        po, plse = tfa._fwd_plain(q, k, v, **kw)
+        np.testing.assert_allclose(o.numpy(), po.numpy(), err_msg=f"o {rows}x{keys}", **TOL)
+        np.testing.assert_allclose(lse.numpy(), plse.numpy(), err_msg=f"lse {rows}x{keys}", **TOL)
+
+
+@pytest.mark.parametrize("S", [512, 1024])
+def test_bf16_fwd_rounding_stays_within_phase_3a_tolerance(S):
+    """The bf16 forward sweep's arithmetic (bf16 q, k, v; fp32 scores, online
+    softmax and accumulator; p rounded to bf16 as the PV product's operand;
+    o stored in bf16) against _fwd_plain (p in fp32) at the serving (S =
+    512) and training (S = 1024) prefill lengths, G = 3, hd = 64, causal,
+    with inputs drawn as chip_smoke.py phase 3a draws them (standard normal,
+    cast to bf16): within that phase's bf16 tolerances, o 2e-2 and lse 1e-3.
+    Measured headroom on this seed: the largest o error is 0.0156 at S =
+    512 (0.78 of the tolerance: a one-ulp flip of a bf16 output in [2, 4))
+    and 0.0078 at S = 1024 (0.39: one ulp in [1, 2)); with p kept in fp32 it
+    is 0.00098. lse is within 9.6e-7 (p's rounding does not reach lse,
+    whose sum stays fp32). An output of 4 or more would need one ulp of
+    0.031, above the tolerance; none of the rows past position 0 (which is
+    v exactly) comes near it at these draws."""
+    rng = np.random.default_rng(15)
+    BKV, G, hd = 4, 3, 64
+    q = torch.from_numpy(_np(rng, (BKV, S, G, hd))).bfloat16()
+    k, v = (torch.from_numpy(_np(rng, (BKV, S, hd))).bfloat16() for _ in "kv")
+    kw = dict(causal=True, window=0, scale=1.0 / math.sqrt(hd))
+    o, lse = _fwd_sweep(q, k, v, p_dtype=torch.bfloat16, **kw)
+    po, plse = tfa._fwd_plain(q, k, v, **kw)
+    assert o.dtype == torch.bfloat16
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])
+def test_bf16_kernels_refuse_misaligned_inputs(name):
+    """The bf16 sweeps stage rows with 16-byte copies: a wrapper given a bf16
+    tensor that does not start on a 16-byte boundary raises before any
+    launch (checked on a CPU tensor: the check precedes the launch)."""
+    tfa.reset_launch_counts()
+    BKV, S, G, hd = 1, 8, 3, 64
+    q = torch.zeros(BKV * S * G * hd + 1, dtype=torch.bfloat16)[1:].view(BKV, S, G, hd)
+    k = torch.zeros((BKV, S, hd), dtype=torch.bfloat16)
+    kw = dict(causal=True, window=0, scale=0.125)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        if name == "flash_fwd":
+            tfa._fwd_cuda(q, k, k, **kw)
+        else:
+            lse = torch.zeros((BKV, S, G))
+            tfa._dq_cuda(q, k, k, q, lse, lse, **kw)
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 
 # ---------------------------------------------------- matmul with epilogue
