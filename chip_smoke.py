@@ -32,7 +32,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    this run and read just after; every kernel must have launched exactly
    30 times per prefill dispatch / decode step. Then one shorter run of the
    same engine under torch.profiler: wall time, device busy share and the
-   kernels that take the device time.
+   kernels that take the device time, with ``paged_decode``'s two passes
+   summed apart beside phase 3b's event time (3b: ``paged_decode`` at the
+   decode shape in bf16, windowed, with most splits empty, and fp32, each
+   bitwise equal from run to run).
 5. The training kernels against their plain PyTorch versions at the
    training main path's shapes, each timed beside its plain version, its
    bound and, where one PyTorch call computes the same function, that call:
@@ -41,8 +44,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    G = 1 and 4, non-causal and windowed cases, against autograd through the
    plain forward, and bitwise equal from run to run; the library yardstick
    is SDPA's backward alone, from one kept forward, three repeats),
-   ``matmul_epilogue`` (fp32, the w_in stack's X X^T and a square stack
-   with its epilogue; library: ``torch.baddbmm``), the full Newton-Schulz
+   ``matmul_epilogue`` (fp32; every Newton-Schulz product and ragged
+   cases in all four operand layouts, A k- or m-fast by B n- or k-fast,
+   within 1e-5 of the largest output; the symmetric calls bitwise
+   symmetric and bitwise equal to the full computation; X X^T on the w_in
+   stack (one triangle, its bound counting the distinct entries) and
+   B X + a X timed; library: ``torch.baddbmm``), the full Newton-Schulz
    through it, and ``nesterov`` over all 134,515,008 parameters (bitwise
    equal to its plain version).
 6. Training: a full-width fp32 agreement check (loss and every gradient
@@ -55,8 +62,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``TrainEngine.launches_per_round``). Losses must be finite and fall
    from the first round to the last. Then one more round under
    torch.profiler: device busy share, the kernels that take the time, and
-   the per-launch device time of the bf16 flash forward and the two flash
-   backward sweeps beside phase 3a's and 5a's event times.
+   the per-launch device time of the bf16 flash forward, the two flash
+   backward sweeps and ``matmul_epilogue`` beside phase 3a's, 5a's and
+   5b's event times.
 8. Compressed pseudogradients: (8a) ``quantize`` and ``dequantize``
    against their plain versions on the card, bitwise, at every (rows, cols)
    shape the two compressed runs below give them (Q1 and Q2 of every leaf),
@@ -155,8 +163,9 @@ def check(name: str, err: float, tol: float) -> float:
 
 def kernel_name(mangled: str) -> str:
     """The kernel's own name inside a mangled symbol (the last length-prefixed
-    name that ends in ``kernel``) with its element type where it is a
-    template (``<float>``, ``<bf16>``); else the symbol."""
+    name that ends in ``kernel``) with its template arguments where it is a
+    template: the element type (``float``, ``bf16``) and any integer or bool
+    arguments after it (``<float,1,0,1>``); else the symbol."""
     found, i = None, 0
     while i < len(mangled):
         m = re.match(r"\d+", mangled[i:])
@@ -166,9 +175,12 @@ def kernel_name(mangled: str) -> str:
         start = i + m.end()
         i = start + int(m.group())
         if mangled[start:i].endswith("kernel"):
-            found = mangled[start:i] + next(
-                (t for p, t in (("I13__nv_bfloat16", "<bf16>"), ("If", "<float>"))
-                 if mangled.startswith(p, i)), "")
+            found = mangled[start:i]
+            t = re.match(r"I(13__nv_bfloat16|f)((?:L[bi]\d+E)*)", mangled[i:])
+            if t:
+                args = ["bf16" if t.group(1) != "f" else "float",
+                        *re.findall(r"L[bi](\d+)E", t.group(2))]
+                found += "<" + ",".join(args) + ">"
     return found or mangled
 
 
@@ -203,7 +215,7 @@ def sass_counts(lib: str) -> dict:
     return out
 
 
-def phase_build(_build, fa):
+def phase_build(_build):
     print("[2] build")
     report = _build.build(verbose=True)
     sass, ptxas = {}, {}
@@ -220,12 +232,18 @@ def phase_build(_build, fa):
             raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ptxas.get(fn, "")):
             raise AssertionError(f"{fn}: spills (or no ptxas report): {ptxas.get(fn)}")
-    bq, bkv, rows, keys, smem = fa.kernel_tiles("flash_fwd")
+    bq, bkv, rows, keys, smem = _build.kernel_tiles("flash_fwd")
     print(f"  flash_fwd: bf16 sweep tiles of {rows} packed q rows x {keys} keys, one warpgroup "
           f"a block, dynamic shared memory {smem} B; fp32 sweep {bq} positions x {bkv} keys")
-    rows, keys, dq_smem, dkv_smem = fa.kernel_tiles("flash_bwd")
+    rows, keys, dq_smem, dkv_smem = _build.kernel_tiles("flash_bwd")
     print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys, one "
           f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv)")
+    split, threads = _build.kernel_tiles("paged_decode")
+    print(f"  paged_decode: split-K pass of {split} positions a block of {threads} threads, "
+          "then a combine pass")
+    tm, tn, bk, threads = _build.kernel_tiles("matmul_epilogue")
+    print(f"  matmul_epilogue: {tm} x {tn} tiles of C, K steps of {bk}, {threads} threads a "
+          "block")
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -298,14 +316,20 @@ def phase_flash(torch, fa):
 
 
 def phase_paged(torch, fa):
+    """[3b] paged_decode against its plain version, bitwise equal from run to
+    run; the main path's shape timed beside the plain version and the bound."""
     print("[3b] paged_decode (replaces flash_attention.py:_paged_kernel) against its plain version")
     rng = torch.Generator().manual_seed(2)
     gen = torch.Generator(device="cuda").manual_seed(3)
     KV, G, hd, ps, table_w, n_pages = 3, 3, 64, 16, 37, 1024
+    print(f"  split-K: {fa.paged_splits(table_w, ps)} splits of {fa.PAGED_SPLIT} positions a "
+          f"(slot, kv head) at a table of {table_w} pages of {ps}")
     cases = [  # (B, dtype, window, min and max length); the first is the main path's
         (16, torch.bfloat16, 0, 512, 584),  # shape, lengths as its decode spans see them
         (16, torch.bfloat16, 100, 1, 584),
+        (16, torch.bfloat16, 0, 1, 60),     # most of each slot's splits empty
         (4, torch.float32, 0, 1, 200),
+        (4, torch.float32, 100, 1, 592),
     ]
     out = {}
     for B, dt, window, min_len, max_len in cases:
@@ -322,17 +346,24 @@ def phase_paged(torch, fa):
         vp = torch.randn((n_pages, ps, KV, hd), generator=gen, device="cuda").to(dt)
         table, lengths = table.cuda(), lengths.cuda()
         o = fa._paged_decode_cuda(q, kp, vp, table, lengths, window=window)
+        again = fa._paged_decode_cuda(q, kp, vp, table, lengths, window=window)
         o_ref = fa._paged_decode_plain(q, kp, vp, table, lengths, window=window)
         torch.cuda.synchronize()
         tag = f"{str(dt)[6:]} B={B} window={window} lengths {min_len}..{max_len}"
         err = check(f"{tag} out", (o.float() - o_ref.float()).abs().max().item(),
                     1e-5 if dt == torch.float32 else 2e-2)
+        assert torch.equal(o, again), f"{tag}: not bitwise equal from run to run"
+        lens = lengths.cpu().tolist()
+        empty = sum(p0 >= p1 for n in lens for p0, p1 in (
+            fa.paged_split_range(s, n, window, table_w, ps)
+            for s in range(fa.paged_splits(table_w, ps))))
+        print(f"  {tag}: bitwise equal over two runs; {empty} of "
+              f"{B * fa.paged_splits(table_w, ps)} (slot, split) pairs empty")
         if not out:
             ms = time_ms(torch, lambda: fa._paged_decode_cuda(q, kp, vp, table, lengths,
                                                               window=window))
             plain_ms = time_ms(torch, lambda: fa._paged_decode_plain(q, kp, vp, table, lengths,
                                                                      window=window))
-            lens = lengths.cpu().tolist()
             lo = [max(0, n - window) if window else 0 for n in lens]
             positions = sum(n - a for n, a in zip(lens, lo))
             nbytes = (positions * KV * hd * 2 * kp.element_size()   # K and V rows read
@@ -344,7 +375,7 @@ def phase_paged(torch, fa):
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops > t_bytes else "bytes")
-            print(f"  timed {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"  timed {tag}: kernel {ms:.4f} ms (both passes), plain {plain_ms:.4f} ms, "
                   f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}: {nbytes} B, "
                   f"{positions} positions)")
     return out
@@ -405,9 +436,37 @@ def phase_main(torch, fa, get_config, serve):
     return launches, engine
 
 
-def phase_profile(torch, engine):
+def device_times(torch, prof) -> dict:
+    """{kernel name (cut to 70 characters): [device ms, launches]} of a
+    torch.profiler run."""
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name if len(e.name) < 70 else e.name[:67] + "..."
+            acc = by_name.setdefault(name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    return by_name
+
+
+def print_focus(by_name: dict, wall_ms: float, focus: tuple, beside: dict | None = None) -> None:
+    """The device time of the kernels whose names hold each key of ``focus``,
+    summed apart, with its time per launch beside ``beside[key]`` (the phase
+    and its ms per call) where given."""
+    for key in focus:
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
+        ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        print(f"  {key}: {ms:.3f} ms device time, x{n}, {100 * ms / wall_ms:.2f}% of "
+              "the unprofiled wall" + (f"; {ms / n:.4f} ms per launch" if n else ""))
+        if beside and key in beside:
+            phase, event_ms = beside[key]
+            print(f"    beside phase {phase}'s event time {event_ms:.4f} ms per call (L2 flushed)")
+
+
+def phase_profile(torch, engine, paged_ms: float):
     """Where the time goes: one engine run (16 requests, prompt 512, 16 new
-    tokens: one prefill dispatch and two decode spans) under torch.profiler."""
+    tokens: one prefill dispatch and two decode spans) under torch.profiler;
+    paged_decode's two passes summed apart."""
     print("[4c] profile: 16 requests x (512 prompt + 16 new) through the same engine")
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,13 +487,7 @@ def phase_profile(torch, engine):
         engine.run(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name if len(e.name) < 70 else e.name[:67] + "..."
-            acc = by_name.setdefault(name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+    by_name = device_times(torch, prof)
     busy = sum(v[0] for v in by_name.values())
     # kernel times are the card's own; the profiler slows the host, so the
     # idle share is taken against the same run's wall time unprofiled
@@ -443,6 +496,14 @@ def phase_profile(torch, engine):
           f"wall, {engine.stats}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
+    # a call launches two kernels: the split-K pass and the combine pass
+    hits = [(ms, n) for name, (ms, n) in by_name.items() if "paged_decode" in name]
+    ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    calls = (n // 2) or 1
+    print(f"  paged_decode (split and combine passes): {ms:.3f} ms device time, x{n} kernels "
+          f"({n // 2} calls), {100 * ms / plain_wall_ms:.2f}% of the unprofiled wall; "
+          f"{ms / calls:.4f} ms per call beside phase 3b's event time {paged_ms:.4f} ms "
+          "(L2 flushed)")
 
 
 def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int) -> float:
@@ -540,43 +601,103 @@ def phase_flash_bwd(torch, fa):
     return out
 
 
-def phase_matmul(torch, mm, ops, ref):
-    """[5b] matmul_epilogue in fp32 at the Newton-Schulz shapes, then the
-    full Newton-Schulz of the w_in stack through it."""
-    print("[5b] matmul_epilogue (replaces matmul.py:_matmul_epilogue_kernel), fp32, TF32 off")
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    g = torch.randn((30, 576, 1536), generator=gen, device="cuda")
-    x = g / torch.sqrt(torch.sum(g * g, dim=(-2, -1), keepdim=True))  # NS's first input
-    a_sq = torch.randn((30, 576, 576), generator=gen, device="cuda") / 24.0
-    cases = [  # (name, a, b, d, alpha, beta); the first is the one timed
-        ("X X^T, w_in stack [30, 576, 1536]", x, x.transpose(-1, -2), None, 1.0, 0.0),
-        ("c A A + b A, [30, 576, 576]", a_sq, a_sq, a_sq, 2.0315, -4.7750),
-        ("B X + a X, [30, 576, 576] x [30, 576, 1536]", a_sq, x, x, 1.0, 3.4445),
-        ("ragged [3, 77, 50] x [3, 50, 33]", g[:3, :77, :50], g[:3, :50, :33],
-         g[:3, 100:177, 7:40], 0.5, -2.0),
-    ]
+def operand_layouts(a, b, d):
+    """The four layouts of A [z, m, k] (k-fast or m-fast) by B [z, k, n]
+    (n-fast or k-fast), same values: an operand already in a layout stays as
+    it is (a view), else it is copied into it. D follows A or B where it is
+    the same tensor (c A A + b A, B X + a X), as on the main path."""
+    def fast(t, axis):  # t with its values laid out so that ``axis`` has stride 1
+        if t.stride(axis) == 1:
+            return t
+        return t.contiguous() if axis == -1 else t.mT.contiguous().mT
     out = {}
-    for name, a, b, d, alpha, beta in cases:
-        c = mm.matmul_epilogue(a, b, d, alpha=alpha, beta=beta)
+    for an, aa in (("A k-fast", -1), ("A m-fast", -2)):
+        for bn, ba in (("B n-fast", -1), ("B k-fast", -2)):
+            av, bv = fast(a, aa), fast(b, ba)
+            dv = av if d is a else bv if d is b else d
+            out[f"{an}, {bn}"] = (av, bv, dv)
+    return out
+
+
+def phase_matmul(torch, mm, ops, ref):
+    """[5b] matmul_epilogue in fp32 at the Newton-Schulz shapes, every case
+    in all four operand layouts; symmetric calls bitwise symmetric and
+    bitwise equal to the full computation. X X^T (the triangle) and B X + a X
+    timed beside their bounds and torch.baddbmm, then the full Newton-Schulz
+    of the w_in stack through the kernel."""
+    print("[5b] matmul_epilogue (replaces matmul.py:_matmul_epilogue_kernel), fp32, TF32 off")
+    from repro_torch.optim.muon import NS_COEFFS
+
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def normed(g):  # Newton-Schulz's first input
+        return g / torch.sqrt(torch.sum(g * g, dim=(-2, -1), keepdim=True))
+
+    g = torch.randn((30, 576, 1536), generator=gen, device="cuda")
+    x = normed(g)
+    x_kv = normed(torch.randn((30, 576, 192), generator=gen, device="cuda")).mT  # wk, wv
+    A = mm.matmul_epilogue(x, x.mT, symmetric=True)  # the iteration's own A, B
+    Bm = mm.matmul_epilogue(A, A, A, alpha=nc, beta=nb, symmetric=True)
+    assert torch.equal(A, A.mT), "X X^T is not bitwise symmetric"
+    r = g[:2, :200, :70]
+    rr = r @ r.mT  # rr + rr^T is bitwise symmetric, as the triangle's D must be
+    cases = [  # (name, a, b, d, alpha, beta, symmetric)
+        ("X X^T, w_in stack [30, 576, 1536]", x, x.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, [30, 576, 576]", A, A, A, nc, nb, True),
+        ("B X + a X, [30, 576, 576] x [30, 576, 1536]", Bm, x, x, 1.0, na, False),
+        ("X X^T, wk stack transposed [30, 192, 576]", x_kv, x_kv.mT, None, 1.0, 0.0, True),
+        ("ragged [3, 77, 50] x [3, 50, 33]", g[:3, :77, :50], g[:3, :50, :33],
+         g[:3, 100:177, 7:40], 0.5, -2.0, False),
+        ("ragged X X^T [3, 77, 50]", g[:3, :77, :50], g[:3, :77, :50].mT, None, 1.0, 0.0, True),
+        ("ragged X X^T + D [2, 200, 70]", r, r.mT, rr + rr.mT, 0.5, -1.5, True),
+    ]
+    for name, a, b, d, alpha, beta, sym in cases:
         cp = mm._matmul_plain(a, b, d, alpha=alpha, beta=beta, out_dtype=a.dtype)
-        torch.cuda.synchronize()
         # fp32 summation order only: 1e-5 of the largest output
-        err = check(name, (c - cp).abs().max().item(), 1e-5 * max(1.0, cp.abs().max().item()))
-        if out:
-            continue
-        z, m, k = a.shape
-        n = b.shape[-1]
-        ms = time_ms(torch, lambda: mm.matmul_epilogue(a, b, d, alpha=alpha, beta=beta))
-        plain_ms = time_ms(torch, lambda: mm._matmul_plain(a, b, d, alpha=alpha, beta=beta,
-                                                          out_dtype=a.dtype))
-        dst = torch.empty((z, m, n), device="cuda")
-        library_ms = time_ms(torch, lambda: torch.baddbmm(dst, a, b, beta=0.0, alpha=alpha))
-        # X is read once (A and B are the same tensor), C written once
-        out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **bound(2.0 * z * m * n * k, (a.numel() + z * m * n) * 4, PEAK_FP32_FLOPS))
+        tol = 1e-5 * max(1.0, cp.abs().max().item())
+        for layout, (av, bv, dv) in operand_layouts(a, b, d).items():
+            c = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta)
+            torch.cuda.synchronize()
+            check(f"{name}, {layout}", (c - cp).abs().max().item(), tol)
+            if sym:
+                cs = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta, symmetric=True)
+                torch.cuda.synchronize()
+                assert torch.equal(cs, cs.mT), f"{name}, {layout}: triangle not bitwise symmetric"
+                assert torch.equal(cs, c), f"{name}, {layout}: triangle != full computation"
+        if sym:
+            print(f"  {name}: symmetric=True bitwise symmetric and bitwise equal to "
+                  "symmetric=False in all four layouts")
+
+    def timed(name, a, b, d, alpha, beta, sym, flops, nbytes):
+        z, m, n = a.shape[0], a.shape[1], b.shape[-1]
+        kw = dict(alpha=alpha, beta=beta)
+        c = mm.matmul_epilogue(a, b, d, symmetric=sym, **kw)
+        cp = mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw)
+        torch.cuda.synchronize()
+        err = (c - cp).abs().max().item()
+        ms = time_ms(torch, lambda: mm.matmul_epilogue(a, b, d, symmetric=sym, **kw))
+        plain_ms = time_ms(torch, lambda: mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw))
+        dst = d if d is not None else torch.empty((z, m, n), device="cuda")
+        library_ms = time_ms(torch, lambda: torch.baddbmm(dst, a, b, beta=beta, alpha=alpha))
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   **bound(flops, nbytes, PEAK_FP32_FLOPS))
         print(f"  timed {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm "
-              f"{library_ms:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
-              f"{2.0 * z * m * n * k:.4g} flop at 67 TFLOP/s fp32)")
+              f"{library_ms:.4f} ms (the full product), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {flops:.4g} flop at 67 TFLOP/s fp32, {nbytes:.4g} B)")
+        return row
+
+    z, m, k = x.shape
+    # X X^T: X read once (A and B are the same tensor), C written once; the
+    # triangle's bound counts its m(m + 1)/2 distinct entries a matrix
+    xx_bytes = (x.numel() + z * m * m) * 4
+    out = timed("X X^T, w_in stack [30, 576, 1536], symmetric=True", x, x.mT, None, 1.0, 0.0,
+                True, 2.0 * z * (m * (m + 1) // 2) * k, xx_bytes)
+    full = timed("X X^T, w_in stack [30, 576, 1536], symmetric=False (the full product)", x,
+                 x.mT, None, 1.0, 0.0, False, 2.0 * z * m * m * k, xx_bytes)
+    # B X + a X: B read, X read once (B and D are the same tensor), C written
+    bx = timed("B X + a X, [30, 576, 576] x [30, 576, 1536]", Bm, x, x, 1.0, na, False,
+               2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
     y = ops.ns_orthogonalize(g)
     y_ref = ref.ns_orthogonalize_ref(g)
     torch.cuda.synchronize()
@@ -586,7 +707,7 @@ def phase_matmul(torch, mm, ops, ref):
     ns_plain = time_ms(torch, lambda: ref.ns_orthogonalize_ref(g), runs=5)
     print(f"  timed full Newton-Schulz (15 launches) of the w_in stack: kernel {ns_ms:.3f} ms, "
           f"plain {ns_plain:.3f} ms")
-    return out
+    return out, full, bx
 
 
 def phase_nesterov(torch, ou):
@@ -732,27 +853,14 @@ def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (
         one_round(args.rounds + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name if len(e.name) < 70 else e.name[:67] + "..."
-            acc = by_name.setdefault(name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+    by_name = device_times(torch, prof)
     busy = sum(v[0] for v in by_name.values())
     print(f"  wall {plain_wall_ms:.1f} ms unprofiled ({wall_ms:.1f} ms profiled), device busy "
           f"{busy:.1f} ms: idle {100 * (1 - busy / plain_wall_ms):.1f}% of the unprofiled wall; "
           f"{sum(v[1] for v in by_name.values())} kernels")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
-    for key in focus:
-        hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
-        ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
-        print(f"  {key}: {ms:.3f} ms device time, x{n}, {100 * ms / plain_wall_ms:.2f}% of "
-              "the unprofiled wall" + (f"; {ms / n:.4f} ms per launch" if n else ""))
-        if beside and key in beside:
-            phase, event_ms = beside[key]
-            print(f"    beside phase {phase}'s event time {event_ms:.4f} ms per call (L2 flushed)")
+    print_focus(by_name, plain_wall_ms, focus, beside)
 
 
 def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
@@ -958,25 +1066,28 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
-    phase_build(_build, fa)
+    phase_build(_build)
     flash = phase_flash(torch, fa)
     paged = phase_paged(torch, fa)
     phase_agreement(torch, get_config, build_model)
     launches, engine = phase_main(torch, fa, get_config, serve)
-    phase_profile(torch, engine)
+    phase_profile(torch, engine, paged["ms"])
     del engine
     torch.cuda.empty_cache()
 
     bwd = phase_flash_bwd(torch, fa)
-    matmul = phase_matmul(torch, mm, ops, ref)
+    matmul, matmul_full, matmul_bx = phase_matmul(torch, mm, ops, ref)
     nesterov = phase_nesterov(torch, ou)
     phase_train_agreement(torch, get_config, build_model)
     train_launches, out = phase_train_main(torch, build_parser, train)
     phase_train_profile(torch, out, TRAIN, focus=("flash_fwd_wgmma_kernel",
-                                                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+                                                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+                                                  "matmul_epilogue_kernel"),
                         beside={"flash_fwd_wgmma_kernel": ("3a", flash["training"]["ms"]),
                                 "flash_dq_wgmma_kernel": ("5a", bwd["flash_dq"]["ms"]),
-                                "flash_dkv_wgmma_kernel": ("5a", bwd["flash_dkv"]["ms"])})
+                                "flash_dkv_wgmma_kernel": ("5a", bwd["flash_dkv"]["ms"]),
+                                "matmul_epilogue_kernel": ("5b (X X^T on w_in, symmetric)",
+                                                           matmul["ms"])})
     params = out["state"]["outer_params"]
     del out
     torch.cuda.empty_cache()
@@ -1022,6 +1133,11 @@ def main() -> int:
           "(the flash_fwd row counts the serving main path's and times its shape); at the "
           f"training shape: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
           f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    print(f"matmul_epilogue: the row times X X^T on w_in with symmetric=True (bound by its "
+          f"distinct entries); symmetric=False {matmul_full['ms']:.4f} ms; B X + a X [30, 576, "
+          f"576] x [30, 576, 1536]: kernel {matmul_bx['ms']:.4f} ms, plain "
+          f"{matmul_bx['plain_ms']:.4f} ms, baddbmm {matmul_bx['library_ms']:.4f} ms, bound "
+          f"{matmul_bx['bound_ms']:.4f} ms ({matmul_bx['bound_by']})")
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")

@@ -10,7 +10,10 @@ first use. Importing this module compiles nothing.
 The launch plumbing every kernel wrapper shares lives here too: ``entry``
 binds a C entry point, ``launch`` calls it on PyTorch's current stream,
 raises if the launch failed and adds one to ``LAUNCHES[name]``, so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels. Before a library's first
+launch, ``launch`` reads the tile sizes its ``<lib>_tiles`` function
+reports and raises if they differ from those the launching module
+registered in ``TILES`` (its Python mirrors of the schedules assume them).
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[str, tuple] = {}
+# library -> (the count of ints its C function <lib>_tiles reports, the
+# leading ones: the tile sizes the module that launches it assumes)
+TILES: dict[str, tuple[int, tuple[int, ...]]] = {}
+_TILES_CHECKED: set[str] = set()
 
 LAUNCHES: dict[str, int] = {name: 0 for name in (
     "flash_fwd", "paged_decode", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
@@ -124,11 +131,35 @@ def entry(name: str, argtypes: list):
     return _ENTRIES[name]
 
 
+def kernel_tiles(lib_name: str) -> tuple[int, ...]:
+    """What the built library reports from its ``<lib>_tiles`` function."""
+    out = [ctypes.c_int() for _ in range(TILES[lib_name][0])]
+    fn = getattr(load(lib_name), f"{lib_name}_tiles")
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * len(out), ctypes.c_int
+    fn(*map(ctypes.byref, out))
+    return tuple(o.value for o in out)
+
+
+def check_tiles(name: str) -> None:
+    """Raise if the library of entry point ``name`` reports other tile sizes
+    than ``TILES`` holds (read once per library)."""
+    lib_name = ENTRY_LIB.get(name, name)
+    if lib_name in TILES and lib_name not in _TILES_CHECKED:
+        want = TILES[lib_name][1]
+        got = kernel_tiles(lib_name)[:len(want)]
+        if got != want:
+            raise RuntimeError(f"{SOURCES[lib_name]} tiles {got} != {want}, the sizes the "
+                               "launching module assumes")
+        _TILES_CHECKED.add(lib_name)
+
+
 def launch(name: str, argtypes: list, device, *args) -> None:
     """Launch ``name`` on ``device``'s current stream (the stream is passed
-    as the last argument); raise if the launch failed, else count it."""
+    as the last argument) after :func:`check_tiles`; raise if the launch
+    failed, else count it."""
     import torch
 
+    check_tiles(name)
     fn, err = entry(name, argtypes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

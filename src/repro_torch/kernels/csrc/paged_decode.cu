@@ -13,25 +13,46 @@
 // What bounds it on this card: every K/V element it reads is used for G
 // multiply-adds per head, about one flop per byte, so device memory (3.35
 // TB/s) is the bound, and the least bytes are the K/V rows of the positions
-// each slot attends to.
+// each slot attends to: ~6.7 MB at the serving shape (16 slots of ~550
+// positions, 3 kv heads), 2 us. A decode step has few slots, so the work of
+// one (slot, kv head) must be spread over many blocks for the card to have
+// enough loads in flight; one block each (48 for 132 SMs, walking ~576
+// positions one after the other) leaves it idle.
 //
-// Design: one thread block per (slot, kv head) with its G query rows. The block
-// reads lengths[b] and its page-table row itself and walks only the positions
-// [lo, length) - lo = length - window with a sliding window - in chunks of
-// CHUNK positions, so only the pages that hold them are read and table entries
-// past the allocation are never touched (the TPU grid visits every table entry
-// and masks; the result is the same). Each chunk's K/V rows for this head are
-// staged in shared memory (rows padded to hd + 1 floats: conflict-free column
-// reads), scored against the G query rows, and folded into an fp32 online
-// softmax with explicit masking (p = 0 outside [lo, length)). One warp per
-// query head does the max / sum reductions with shuffles.
+// Design: split-K over positions, two passes in one entry point.
+// 1. paged_decode_split_kernel, grid (n_split, KV, B) with n_split =
+//    ceil(max_pages * page_size / SPLIT), a number the host knows from the
+//    table's shape (lengths stay on the card; nothing is read back, so the
+//    launch can be captured in a graph). Block (s, kv head, slot) reads
+//    lengths[b] and the table entries of positions [s SPLIT, (s + 1) SPLIT)
+//    cut to the attended [lo, length) - lo = length - window with a sliding
+//    window - so only the pages that hold them are read. Each K and V row of
+//    the head (hd = 64 elements, 128 contiguous bytes in bf16) is read as
+//    16-byte vectors, all of a block's loads issued before the first is
+//    used, and staged in fp32 in shared memory (rows padded to hd + 1
+//    floats: conflict-free column reads). The block scores its positions
+//    against the G query rows and folds them into an fp32 (m, l, acc[G,
+//    hd]) with explicit masking (p = 0 outside [lo, length)); one warp per
+//    query head does the max / sum reductions with shuffles. It writes the
+//    partial (unnormalised acc, m, l) to scratch the wrapper allocates. An
+//    empty split (past the length, wholly below the window, or the idle
+//    slot's) writes m = NEG_INF, l = 0, acc = 0.
+// 2. paged_decode_combine_kernel, one block per (slot, kv head), merges the
+//    n_split partials of each query row in split order: M = max m_s, weights
+//    exp(m_s - M), l = sum w_s l_s, out = sum w_s acc_s / max(l, 1e-30). No
+//    atomics, so the output is bitwise repeatable. NEG_INF is the finite
+//    -2e38, so an empty split weighs exp(-2e38 - M) = 0 when some split is
+//    not empty; when every split is, M = NEG_INF, every weight is 1, l = 0
+//    and the output is 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int CHUNK = 64;  // positions staged per iteration (two per lane)
+constexpr int SPLIT = 64;  // positions a split block folds (two per lane)
+constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_G = 16;
 constexpr float NEG_INF = -2.0e38f;
 
@@ -43,134 +64,200 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-    const int* __restrict__ table, const int* __restrict__ lengths, T* __restrict__ out,
-    int KV, int G, int ps, int max_pages, int n_pages, long long page_stride,
-    long long pos_stride, long long head_stride, int window, float scale) {
-  static_assert(CHUNK == 64, "the softmax step gives each lane two positions");
-  __shared__ float Ks[CHUNK][HD + 1];
-  __shared__ float Vs[CHUNK][HD + 1];
-  __shared__ float Ps[MAX_G][CHUNK];
-  __shared__ float Qs[MAX_G][HD];
-  __shared__ float Acc[MAX_G][HD];
-  __shared__ float Mrow[MAX_G], Lrow[MAX_G], Corr[MAX_G];
+// the 16 bytes of a vector as fp32: 4 floats or 8 bf16
+__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
+  out[0] = __uint_as_float(u.x); out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z); out[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* out, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    out[2 * i] = __low2float(p);
+    out[2 * i + 1] = __high2float(p);
+  }
+}
 
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+    const int* __restrict__ table, const int* __restrict__ lengths, float* __restrict__ acc_part,
+    float* __restrict__ m_part, float* __restrict__ l_part, int KV, int G, int ps, int max_pages,
+    int n_pages, long long page_stride, long long pos_stride, long long head_stride, int window,
+    float scale) {
+  static_assert(SPLIT == 64, "the softmax step gives each lane two positions");
+  constexpr int VE = 16 / sizeof(T);         // elements of a 16-byte vector
+  constexpr int ROW_VECS = HD / VE;          // vectors of one K or V row
+  constexpr int VECS = SPLIT * ROW_VECS;     // of one operand's split
+  constexpr int ITERS = VECS / THREADS;
+  static_assert(VECS % THREADS == 0, "whole vectors per thread");
+  __shared__ float Ks[SPLIT][HD + 1];
+  __shared__ float Vs[SPLIT][HD + 1];
+  __shared__ float Qs[MAX_G][HD];
+  __shared__ float Ps[MAX_G][SPLIT];
+
+  const int s = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-
-  const T* qb = q + ((long long)b * KV + kvh) * G * HD;
-  for (int i = tid; i < G * HD; i += THREADS) {
-    Qs[i / HD][i % HD] = to_f(qb[i]);
-    Acc[i / HD][i % HD] = 0.f;
-  }
-  if (tid < G) {
-    Mrow[tid] = NEG_INF;
-    Lrow[tid] = 0.f;
-  }
+  const long long part = ((long long)b * KV + kvh) * gridDim.x + s;
+  float* acc_out = acc_part + part * G * HD;
 
   // positions attended: [lo, hi); positions past the table's pages do not exist
   const int len = lengths[b];
   const int hi = min(len, max_pages * ps);
   const int lo = window ? max(0, len - window) : 0;
+  const int s0 = s * SPLIT;
+  const int p0 = max(lo, s0), p1 = min(hi, s0 + SPLIT);
+  if (p0 >= p1) {  // an empty split contributes exactly nothing
+    for (int i = tid; i < G * HD; i += THREADS) acc_out[i] = 0.f;
+    if (tid < G) {
+      m_part[part * G + tid] = NEG_INF;
+      l_part[part * G + tid] = 0.f;
+    }
+    return;
+  }
+
+  // every K/V load of the split in flight before the first is used
   const int* trow = table + (long long)b * max_pages;
   const T* kh = kp + kvh * head_stride;
   const T* vh = vp + kvh * head_stride;
-
-  for (int c0 = lo; c0 < hi; c0 += CHUNK) {
-    __syncthreads();  // previous chunk consumed, init visible
-    for (int i = tid; i < CHUNK * HD; i += THREADS) {
-      const int j = i / HD, h = i % HD;
-      const int p = c0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (p < hi) {
-        const int page = trow[p / ps];
-        if (page >= 0 && page < n_pages) {
-          const long long off = page * page_stride + (p % ps) * pos_stride + h;
-          kx = to_f(kh[off]);
-          vx = to_f(vh[off]);
-        }
-      }
-      Ks[j][h] = kx;
-      Vs[j][h] = vx;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * CHUNK; i += THREADS) {
-      const int g = i / CHUNK, j = i % CHUNK;
-      float d = 0.f;
+  uint4 kr[ITERS], vr[ITERS];
 #pragma unroll
-      for (int h = 0; h < HD; ++h) d = fmaf(Qs[g][h], Ks[j][h], d);
-      Ps[g][j] = (c0 + j < hi) ? d * scale : NEG_INF;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {
-      const float s0 = Ps[g][lane], s1 = Ps[g][lane + 32];
-      float cmax = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off; off >>= 1) cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
-      const float m_old = Mrow[g];
-      const float m_new = fmaxf(m_old, cmax);
-      const float p0 = (c0 + lane < hi) ? expf(s0 - m_new) : 0.f;
-      const float p1 = (c0 + lane + 32 < hi) ? expf(s1 - m_new) : 0.f;
-      Ps[g][lane] = p0;
-      Ps[g][lane + 32] = p1;
-      float lsum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Corr[g] = corr;
-        Lrow[g] = Lrow[g] * corr + lsum;
-        Mrow[g] = m_new;
+  for (int it = 0; it < ITERS; ++it) {
+    const int e = tid + it * THREADS;
+    const int p = s0 + e / ROW_VECS, h = (e % ROW_VECS) * VE;
+    kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
+    if (p >= p0 && p < p1) {
+      const int page = trow[p / ps];
+      if (page >= 0 && page < n_pages) {
+        const long long off = page * page_stride + (p % ps) * pos_stride + h;
+        kr[it] = *reinterpret_cast<const uint4*>(kh + off);
+        vr[it] = *reinterpret_cast<const uint4*>(vh + off);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < G * HD; i += THREADS) {
-      const int g = i / HD, h = i % HD;
-      float a = Acc[g][h] * Corr[g];
-#pragma unroll 8
-      for (int j = 0; j < CHUNK; ++j) a = fmaf(Ps[g][j], Vs[j][h], a);
-      Acc[g][h] = a;
+  }
+  const T* qb = q + ((long long)b * KV + kvh) * G * HD;
+  for (int i = tid; i < G * HD; i += THREADS) Qs[i / HD][i % HD] = to_f(qb[i]);
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int e = tid + it * THREADS;
+    const int j = e / ROW_VECS, h = (e % ROW_VECS) * VE;
+    float kx[VE], vx[VE];
+    unpack(kr[it], kx, T());
+    unpack(vr[it], vx, T());
+#pragma unroll
+    for (int x = 0; x < VE; ++x) {
+      Ks[j][h + x] = kx[x];
+      Vs[j][h + x] = vx[x];
     }
   }
   __syncthreads();
-  T* ob = out + ((long long)b * KV + kvh) * G * HD;
-  for (int i = tid; i < G * HD; i += THREADS)
-    ob[i] = from_f<T>(Acc[i / HD][i % HD] / fmaxf(Lrow[i / HD], 1e-30f));
+
+  for (int i = tid; i < G * SPLIT; i += THREADS) {
+    const int g = i / SPLIT, j = i % SPLIT;
+    float d = 0.f;
+#pragma unroll
+    for (int h = 0; h < HD; ++h) d = fmaf(Qs[g][h], Ks[j][h], d);
+    const int p = s0 + j;
+    Ps[g][j] = (p >= p0 && p < p1) ? d * scale : NEG_INF;
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += THREADS / 32) {
+    const float x0 = Ps[g][lane], x1 = Ps[g][lane + 32];
+    float m = fmaxf(x0, x1);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const int q0 = s0 + lane, q1 = s0 + lane + 32;
+    const float e0 = (q0 >= p0 && q0 < p1) ? expf(x0 - m) : 0.f;
+    const float e1 = (q1 >= p0 && q1 < p1) ? expf(x1 - m) : 0.f;
+    Ps[g][lane] = e0;
+    Ps[g][lane + 32] = e1;
+    float l = e0 + e1;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      m_part[part * G + g] = m;
+      l_part[part * G + g] = l;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += THREADS) {
+    const int g = i / HD, h = i % HD;
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < SPLIT; ++j) a = fmaf(Ps[g][j], Vs[j][h], a);
+    acc_out[i] = a;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(COMBINE_THREADS) paged_decode_combine_kernel(
+    const float* __restrict__ acc_part, const float* __restrict__ m_part,
+    const float* __restrict__ l_part, T* __restrict__ out, int G, int n_split) {
+  const long long bk = blockIdx.x;  // (slot, kv head)
+  for (int i = threadIdx.x; i < G * HD; i += COMBINE_THREADS) {
+    const int g = i / HD;
+    const float* m = m_part + bk * n_split * G + g;  // split s at m[s * G]
+    const float* l = l_part + bk * n_split * G + g;
+    const float* a = acc_part + bk * n_split * G * HD + i;  // split s at a[s * G * HD]
+    float M = NEG_INF;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, m[s * G]);
+    float lsum = 0.f, o = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float w = expf(m[s * G] - M);
+      lsum = fmaf(w, l[s * G], lsum);
+      o = fmaf(w, a[(long long)s * G * HD], o);
+    }
+    out[bk * G * HD + i] = from_f<T>(o / fmaxf(lsum, 1e-30f));
+  }
 }
 
 template <typename T, int HD>
 void launch(const void* q, const void* kp, const void* vp, const void* table, const void* lengths,
-            void* out, int B, int KV, int G, int ps, int max_pages, int n_pages,
-            long long page_stride, long long pos_stride, long long head_stride, int window,
-            float scale, cudaStream_t st) {
-  paged_decode_kernel<T, HD><<<B * KV, THREADS, 0, st>>>(
+            void* out, float* acc, float* m, float* l, int B, int KV, int G, int ps,
+            int max_pages, int n_pages, long long page_stride, long long pos_stride,
+            long long head_stride, int window, float scale, cudaStream_t st) {
+  const int n_split = (max_pages * ps + SPLIT - 1) / SPLIT;
+  paged_decode_split_kernel<T, HD><<<dim3(n_split, KV, B), THREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(table), static_cast<const int*>(lengths), static_cast<T*>(out),
-      KV, G, ps, max_pages, n_pages, page_stride, pos_stride, head_stride, window, scale);
+      static_cast<const int*>(table), static_cast<const int*>(lengths), acc, m, l, KV, G, ps,
+      max_pages, n_pages, page_stride, pos_stride, head_stride, window, scale);
+  paged_decode_combine_kernel<T, HD><<<B * KV, COMBINE_THREADS, 0, st>>>(
+      acc, m, l, static_cast<T*>(out), G, n_split);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. acc [B, KV, n_split, G, hd], m and l [B,
+// KV, n_split, G] fp32 are the caller's scratch, n_split = ceil(max_pages *
+// ps / SPLIT). Both passes launch on `stream`; returns cudaGetLastError()
+// after the second.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const void* table,
-                            const void* lengths, void* out, int B, int KV, int G, int hd, int ps,
-                            int max_pages, int n_pages, long long page_stride,
-                            long long pos_stride, long long head_stride, int window, float scale,
-                            int dtype, void* stream) {
+                            const void* lengths, void* out, void* acc, void* m, void* l, int B,
+                            int KV, int G, int hd, int ps, int max_pages, int n_pages,
+                            long long page_stride, long long pos_stride, long long head_stride,
+                            int window, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > MAX_G || B * KV == 0) return (int)cudaErrorInvalidValue;
-#define PAGED_ARGS q, kp, vp, table, lengths, out, B, KV, G, ps, max_pages, n_pages, page_stride, \
-                   pos_stride, head_stride, window, scale, st
+  if (G < 1 || G > MAX_G || B < 1 || KV < 1 || B > 65535 || KV > 65535 || ps < 1 ||
+      max_pages < 1)
+    return (int)cudaErrorInvalidValue;
+#define PAGED_ARGS q, kp, vp, table, lengths, out, static_cast<float*>(acc), \
+                   static_cast<float*>(m), static_cast<float*>(l), B, KV, G, ps, max_pages, \
+                   n_pages, page_stride, pos_stride, head_stride, window, scale, st
   if (dtype == 0 && hd == 64) launch<float, 64>(PAGED_ARGS);
   else if (dtype == 1 && hd == 64) launch<__nv_bfloat16, 64>(PAGED_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef PAGED_ARGS
   return (int)cudaGetLastError();
+}
+
+// the tile sizes the wrapper and its Python mirror (flash_attention.
+// paged_split_range) assume: positions a split, threads a split block
+extern "C" int paged_decode_tiles(int* split, int* threads) {
+  *split = SPLIT;
+  *threads = THREADS;
+  return 0;
 }
 
 extern "C" const char* paged_decode_error(int code) {

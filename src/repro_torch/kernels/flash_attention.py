@@ -23,7 +23,11 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   :class:`FlashAttention` is the ``torch.autograd.Function`` around the
   forward and these two (the reference's custom VJP).
 * ``paged_decode`` replaces ``_paged_kernel``: one new token per slot
-  against the paged KV pool, read in its stored layout.
+  against the paged KV pool, read in its stored layout, in two passes of
+  one launch: each block folds ``PAGED_SPLIT`` positions of one (slot, kv
+  head) (split-K: :func:`paged_split_range`), then a combine pass merges
+  the splits in a fixed order (:func:`_paged_decode_split_merge` mirrors
+  both in fp32).
 
 Each wrapper takes the kernel's plain PyTorch version for a tensor that
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Every
@@ -58,6 +62,9 @@ FLASH_BWD_KEYS = 64
 # head in one block of at most 256
 MAX_GROUP = {"flash_fwd": 8, "paged_decode": 16, "flash_bwd": 8}
 KERNEL_HEAD_DIM = 64  # the head dim of the configs ported so far
+# positions a block of csrc/paged_decode.cu's split-K pass folds (a multiple
+# of the serving page size 16); checked against the built library
+PAGED_SPLIT = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -149,14 +156,18 @@ _ARGTYPES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-    "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _LL, _LL, _LL, _I, _F, _I, _P],
+    "paged_decode": [_P] * 9 + [_I] * 7 + [_LL, _LL, _LL, _I, _F, _I, _P],
 }
-# library -> (the count of ints its C function <lib>_tiles reports, the
-# leading ones: the tile sizes this module assumes)
-_TILES = {"flash_fwd": (5, (FLASH_BLOCK_Q, FLASH_BLOCK_KV, FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
-          "flash_bwd": (4, (FLASH_BWD_ROWS, FLASH_BWD_KEYS))}
-_TILES_CHECKED: set[str] = set()
+# the tile sizes each library's <lib>_tiles function must report (checked at
+# its first launch): (the count of ints it reports, the leading ones).
+# flash_fwd: the fp32 sweep's positions and keys, the bf16 sweep's rows and
+# keys, then its block's dynamic shared memory in bytes; flash_bwd: rows,
+# keys, then the dq and dkv blocks' dynamic shared memory; paged_decode:
+# positions a split, threads a split block
+_build.TILES.update({
+    "flash_fwd": (5, (FLASH_BLOCK_Q, FLASH_BLOCK_KV, FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
+    "flash_bwd": (4, (FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
+    "paged_decode": (2, (PAGED_SPLIT,))})
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -168,28 +179,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
 
 
-def kernel_tiles(lib_name: str) -> tuple[int, ...]:
-    """What the built library reports from its ``<lib>_tiles`` function
-    (``flash_fwd``: the fp32 sweep's positions and keys, the bf16 sweep's
-    rows and keys, then its block's dynamic shared memory in bytes;
-    ``flash_bwd``: rows, keys, then the dq and dkv blocks' dynamic shared
-    memory)."""
-    out = [ctypes.c_int() for _ in range(_TILES[lib_name][0])]
-    fn = getattr(_build.load(lib_name), f"{lib_name}_tiles")
-    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * len(out), ctypes.c_int
-    fn(*map(ctypes.byref, out))
-    return tuple(o.value for o in out)
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
-    lib_name = _build.ENTRY_LIB.get(name, name)
-    if lib_name in _TILES and lib_name not in _TILES_CHECKED:
-        want = _TILES[lib_name][1]
-        got = kernel_tiles(lib_name)[:len(want)]
-        if got != want:
-            raise RuntimeError(f"{_build.SOURCES[lib_name]} tiles {got} != {want} in "
-                               "flash_attention.py")
-        _TILES_CHECKED.add(lib_name)
     _build.launch(name, _ARGTYPES[name], device, *args)
 
 
@@ -440,6 +430,61 @@ def _paged_decode_plain(q, k_pages, v_pages, page_table, lengths, *, window):
     return (torch.einsum("bkgs,bskh->bkgh", p, vg.float()) / denom).to(q.dtype)
 
 
+def paged_splits(table_w: int, page_size: int, split: int = PAGED_SPLIT) -> int:
+    """Blocks per (slot, kv head) of the split-K pass: the positions the
+    table can address, ``table_w * page_size``, in splits of ``split``."""
+    return -(-table_w * page_size // split)
+
+
+def paged_split_range(s: int, length: int, window: int, table_w: int, page_size: int,
+                      split: int = PAGED_SPLIT) -> tuple[int, int]:
+    """[p0, p1) of the positions split ``s`` of a slot of ``length`` folds:
+    its ``split`` positions cut to the attended [lo, hi); empty (p0 >= p1)
+    past the length, below the window, or past the table."""
+    hi = min(length, table_w * page_size)
+    lo = max(0, length - window) if window else 0
+    return max(lo, s * split), min(hi, (s + 1) * split)
+
+
+def _paged_decode_split_merge(q, k_pages, v_pages, page_table, lengths, *, window,
+                              split: int = PAGED_SPLIT):
+    """fp32 mirror of the kernel's schedule: each split of each slot folds
+    its positions into (m, l, acc) (an empty split gives m = NEG_INF, l = 0,
+    acc = 0), then the merge weighs the splits in order by exp(m_s - M) and
+    divides by max(l, 1e-30). Not on any path: the tests hold it to
+    :func:`_paged_decode_plain`."""
+    B, KV, G, hd = q.shape
+    ps, table_w = k_pages.shape[1], page_table.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32)
+    for b in range(B):
+        ms, ls, accs = [], [], []
+        for s in range(paged_splits(table_w, ps, split)):
+            p0, p1 = paged_split_range(s, int(lengths[b]), window, table_w, ps, split)
+            if p0 >= p1:
+                ms.append(torch.full((KV, G), NEG_INF))
+                ls.append(torch.zeros((KV, G)))
+                accs.append(torch.zeros((KV, G, hd)))
+                continue
+            pos = torch.arange(p0, p1)
+            pages = page_table[b, pos // ps].long()
+            k, v = k_pages[pages, pos % ps].float(), v_pages[pages, pos % ps].float()
+            sc = torch.einsum("kgh,nkh->kgn", q[b].float(), k) * scale
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("kgn,nkh->kgh", p, v))
+        M = torch.stack(ms).amax(dim=0)
+        l, acc = torch.zeros((KV, G)), torch.zeros((KV, G, hd))
+        for m, ls_, a in zip(ms, ls, accs):
+            w = torch.exp(m - M)
+            l = l + w * ls_
+            acc = acc + w[..., None] * a
+        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, *, window):
     B, KV, G, hd = q.shape
     n_pages, ps = k_pages.shape[:2]
@@ -458,12 +503,23 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, *, window):
     for t in (k_pages, v_pages):
         if t.device != q.device:
             raise ValueError(f"paged_decode: pool on {t.device}, q on {q.device}")
+    # K/V rows are read as 16-byte vectors
+    vec = 16 // q.element_size()
+    if (any(t.data_ptr() % 16 for t in (k_pages, v_pages))
+            or any(st % vec for st in k_pages.stride()[:3])):
+        raise ValueError(f"paged_decode: pool rows must start on 16-byte boundaries (strides "
+                         f"{k_pages.stride()})")
     out = torch.empty_like(q)
+    n_split = paged_splits(page_table.shape[1], ps)
+    # the split-K pass's partials: acc [B, KV, n_split, G, hd], m and l [B, KV, n_split, G]
+    acc = torch.empty((B, KV, n_split, G, hd), dtype=torch.float32, device=q.device)
+    ml = torch.empty((2, B, KV, n_split, G), dtype=torch.float32, device=q.device)
     page_stride, pos_stride, head_stride, _ = k_pages.stride()
     _launch("paged_decode", q.device, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, KV, G, hd, ps,
-            page_table.shape[1], n_pages, page_stride, pos_stride, head_stride, int(window),
-            1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype])
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), acc.data_ptr(),
+            ml[0].data_ptr(), ml[1].data_ptr(), B, KV, G, hd, ps, page_table.shape[1], n_pages,
+            page_stride, pos_stride, head_stride, int(window), 1.0 / math.sqrt(hd),
+            _DTYPE_CODE[q.dtype])
     return out
 
 

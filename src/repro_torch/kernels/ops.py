@@ -21,18 +21,21 @@ from repro_torch.optim.muon import NS_COEFFS
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor | None = None, *,
-           alpha: float = 1.0, beta: float = 0.0) -> torch.Tensor:
-    """C = alpha * a@b + beta * d (2-D or stacked 3-D operands, any strides)."""
-    return matmul_epilogue(a, b, d, alpha=alpha, beta=beta)
+           alpha: float = 1.0, beta: float = 0.0, symmetric: bool = False) -> torch.Tensor:
+    """C = alpha * a@b + beta * d (2-D or stacked 3-D operands, any strides);
+    ``symmetric=True`` promises a@b and d symmetric (one triangle computed)."""
+    return matmul_epilogue(a, b, d, alpha=alpha, beta=beta, symmetric=symmetric)
 
 
 def _ns_iteration(x: torch.Tensor) -> torch.Tensor:
-    """One quintic iteration on a stack [z, m, n] (m <= n): three launches."""
+    """One quintic iteration on a stack [z, m, n] (m <= n): three launches.
+    X Xᵀ is symmetric, and so is c·A·A + b·A since the kernel's A is
+    bitwise symmetric: both compute one triangle of tiles."""
     a, b, c = NS_COEFFS
-    xt = x.transpose(-1, -2)                              # a view, read through strides
-    A = matmul(x, xt)                                     # X X^T
-    B = matmul(A, A, d=A, alpha=c, beta=b)                # c*A@A + b*A (fused epilogue)
-    return matmul(B, x, d=x, alpha=1.0, beta=a)           # B@X + a*X (fused epilogue)
+    xt = x.transpose(-1, -2)                                  # a view, read through strides
+    A = matmul(x, xt, symmetric=True)                         # X X^T
+    B = matmul(A, A, d=A, alpha=c, beta=b, symmetric=True)    # c*A@A + b*A (fused epilogue)
+    return matmul(B, x, d=x, alpha=1.0, beta=a)               # B@X + a*X (fused epilogue)
 
 
 def _ns_stack(g3: torch.Tensor, *, iters: int, eps: float) -> torch.Tensor:

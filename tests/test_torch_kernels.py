@@ -25,6 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import topk_pack as jtopk  # noqa: E402
 from repro.optim.nesterov import nesterov as jnesterov  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quantize as tquantize  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -132,6 +133,70 @@ def test_paged_decode_null_page_is_inert():
     np.testing.assert_array_equal(out[:3].numpy(), base[:3].numpy())
 
 
+def _split_inputs(seed, ps, table_w, split, window):
+    """Slots for the split-K mirror: the idle slot (length 1, an all-null
+    row), a slot whose length ends exactly at a split boundary, one whose
+    window starts inside a split, a short one and a full table."""
+    rng = np.random.default_rng(seed)
+    B, KV, G, hd = 5, 2, 3, 16
+    n_pool = 1 + B * table_w
+    q = _np(rng, (B, KV, G, hd))
+    kp, vp = _np(rng, (n_pool, ps, KV, hd)), _np(rng, (n_pool, ps, KV, hd))
+    lengths = np.asarray([1, 2 * split, table_w * ps - ps // 2, 7, table_w * ps], np.int32)
+    perm = rng.permutation(np.arange(1, n_pool)).astype(np.int32)
+    table = np.zeros((B, table_w), np.int32)
+    for b in range(1, B):
+        n = -(-int(lengths[b]) // ps)
+        table[b, :n] = perm[b * table_w: b * table_w + n]
+    return tuple(map(torch.from_numpy, (q, kp, vp, table, lengths)))
+
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("ps,table_w,split", [(4, 40, 6), (4, 40, 8), (16, 37, tfa.PAGED_SPLIT)])
+def test_paged_split_merge_equals_plain(ps, table_w, split, window):
+    """paged_decode.cu's schedule (splits of ``split`` positions folded into
+    (m, l, acc), empty splits as m = NEG_INF, l = 0, acc = 0, then merged in
+    order by exp(m_s - M)), mirrored in fp32 by _paged_decode_split_merge,
+    == _paged_decode_plain at 1e-5: splits that end inside a page (6
+    positions on pages of 4), splits of whole pages, the kernel's own at the
+    serving table width; window 0 and 100; the idle slot; a slot whose
+    length ends exactly at a split boundary."""
+    q, kp, vp, table, lengths = _split_inputs(7 + split + window, ps, table_w, split, window)
+    got = tfa._paged_decode_split_merge(q, kp, vp, table, lengths, window=window, split=split)
+    want = tfa._paged_decode_plain(q, kp, vp, table, lengths, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    n_split = tfa.paged_splits(table_w, ps, split)
+    assert (n_split - 1) * split < table_w * ps <= n_split * split
+    empty = [sum(p0 >= p1 for p0, p1 in (
+        tfa.paged_split_range(s, int(n), window, table_w, ps, split) for s in range(n_split)))
+        for n in lengths.tolist()]
+    # the idle slot folds split 0 only; the full table's window leaves lo // split
+    assert empty[0] == n_split - 1
+    assert empty[-1] == ((table_w * ps - window) // split if window else 0)
+    p0, p1 = tfa.paged_split_range(1, 2 * split, window, table_w, ps, split)
+    assert p1 == 2 * split and tfa.paged_split_range(2, 2 * split, window, table_w, ps,
+                                                     split)[0] >= 2 * split
+
+
+def test_paged_splits_at_the_serving_shape():
+    """16 slots, 3 kv heads and a table of 37 pages of 16 give 10 splits of
+    64 positions: 480 blocks for the split-K pass."""
+    assert tfa.paged_splits(37, 16) == 10
+    assert 16 * 3 * tfa.paged_splits(37, 16) == 480
+
+
+def test_paged_cuda_wrapper_refuses_unaligned_pool_rows():
+    """The split-K pass reads K/V rows as 16-byte vectors: a pool whose
+    position stride is not a multiple of 16 bytes raises before any launch."""
+    q = torch.zeros((2, 3, 3, 64))
+    table, lengths = torch.ones((2, 4), dtype=torch.int32), torch.full((2,), 9, dtype=torch.int32)
+    padded = torch.zeros((8, 16, 3, 65))[..., :-1]
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._paged_decode_cuda(q, padded, padded, table, lengths, window=0)
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
+
+
 # ------------------------------------------------------- schedule helpers
 
 def test_schedule_helpers_equal_reference():
@@ -210,11 +275,19 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
     ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
     ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
     ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV, tfa.FLASH_BWD_ROWS,
-                                tfa.FLASH_BWD_KEYS, 41984))])
+                                tfa.FLASH_BWD_KEYS, 41984)),
+    ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128)),
+    ("matmul_epilogue", "matmul_epilogue", (tmm.MATMUL_TILE, tmm.MATMUL_TILE, tmm.MATMUL_BK,
+                                            256))])
 def test_first_launch_checks_the_library_tiles(monkeypatch, lib, name, tiles):
-    """At a library's first launch the wrapper reads ``<lib>_tiles`` from the
-    built library and raises if its tile sizes differ from the module's
-    constants (the visit ranges of the Python mirrors assume them)."""
+    """At a library's first launch ``_build.launch`` reads ``<lib>_tiles``
+    from the built library and raises, launching nothing, if its tile sizes
+    differ from the constants its module registered in ``_build.TILES`` (the
+    Python mirrors of the schedules assume them); then it launches and
+    counts, reading the tiles once."""
+    import contextlib
+    import types
+
     from repro_torch.kernels import _build
 
     class Lib:
@@ -225,17 +298,23 @@ def test_first_launch_checks_the_library_tiles(monkeypatch, lib, name, tiles):
             setattr(self, f"{lib}_tiles", tiles)
 
     launched = []
-    monkeypatch.setattr(_build, "launch", lambda n, argtypes, device, *args: launched.append(n))
-    monkeypatch.setattr(tfa, "_TILES_CHECKED", set())
+    monkeypatch.setattr(_build, "entry", lambda n, argtypes: (
+        lambda *args: launched.append(n) or 0, None))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(_build.LAUNCHES, name, 0)
+    monkeypatch.setattr(_build, "_TILES_CHECKED", set())
     monkeypatch.setattr(_build, "load", lambda n: Lib((tiles[0] // 2, *tiles[1:])))
     with pytest.raises(RuntimeError, match=f"{lib}.cu tiles"):
-        tfa._launch(name, "cpu")
-    assert launched == []
+        _build.launch(name, [], "cpu")
+    assert launched == [] and _build.LAUNCHES[name] == 0
     monkeypatch.setattr(_build, "load", lambda n: Lib(tiles))
-    tfa._launch(name, "cpu")
-    tfa._launch(name, "cpu")
-    assert launched == [name, name] and tfa._TILES_CHECKED == {lib}
-    assert tfa.kernel_tiles(lib) == tiles
+    _build.launch(name, [], "cpu")
+    _build.launch(name, [], "cpu")
+    assert launched == [name, name] and _build._TILES_CHECKED == {lib}
+    assert _build.LAUNCHES[name] == 2
+    assert _build.kernel_tiles(lib) == tiles
 
 
 # ----------------------------------------------------------- flash backward
@@ -478,6 +557,61 @@ def test_matmul_epilogue_reads_transposed_and_stacked_operands():
     for i in range(3):
         want = 2.0 * (x[i] @ x[i].T) - d[i]
         np.testing.assert_allclose(c[i].numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("m,tile", [(192, 96), (192, 64), (576, 96), (576, 64), (77, 96),
+                                     (200, 96), (130, 64), (1, 96), (1000, 96)])
+def test_sym_tile_map_covers_every_entry_once(m, tile):
+    """The symmetric call's grid (matmul_epilogue.cu, mirrored by sym_tile):
+    nt(nt + 1)/2 blocks visit every tile (i, j), i <= j, of the upper
+    triangle once, and with each off-diagonal tile's transpose written too
+    every entry of the m x m output is written exactly once. The main path's
+    symmetric calls have 2, 3, 6 and 9 tiles a side (m = 192 or 576 at tiles
+    of 96 or 64); the rest are ragged."""
+    nt = -(-m // tile)
+    tiles = [tmm.sym_tile(t, nt) for t in range(nt * (nt + 1) // 2)]
+    assert tiles == [(i, j) for i in range(nt) for j in range(i, nt)]
+    count = np.zeros((m, m), np.int64)
+    for i, j in tiles:
+        rows, cols = slice(i * tile, (i + 1) * tile), slice(j * tile, (j + 1) * tile)
+        count[rows, cols] += 1
+        if i != j:
+            count[cols, rows] += 1
+    assert (count == 1).all()
+
+
+def test_ns_iteration_passes_symmetric_on_its_first_two_products(monkeypatch):
+    """_ns_iteration asks for the triangle on X Xᵀ and on c·A·A + b·A, and
+    for the full product on B X + a·X: per iteration, on m <= n and on a
+    transposed (m > n) stack."""
+    calls = []
+
+    def record(a, b, d=None, **kw):
+        calls.append(kw.get("symmetric", False))
+        return matmul_epilogue(a, b, d, **kw)
+
+    monkeypatch.setattr(tops, "matmul_epilogue", record)
+    rng = np.random.default_rng(8)
+    for shape in ((2, 6, 10), (2, 10, 6)):
+        calls.clear()
+        tops.ns_orthogonalize(torch.from_numpy(_np(rng, shape)), iters=3)
+        assert calls == [True, True, False] * 3, (shape, calls)
+
+
+def test_matmul_symmetric_refuses_a_non_square_product():
+    """symmetric=True on a non-square product raises ValueError on any
+    device; on a square one the plain version ignores it."""
+    rng = np.random.default_rng(9)
+    a, b = torch.from_numpy(_np(rng, (3, 4, 5))), torch.from_numpy(_np(rng, (3, 5, 6)))
+    with pytest.raises(ValueError, match="symmetric"):
+        matmul_epilogue(a, b, symmetric=True)
+    with pytest.raises(ValueError, match="symmetric"):
+        tops.matmul(a[0], b[0], symmetric=True)
+    x = torch.from_numpy(_np(rng, (3, 4, 7)))
+    d = x @ x.transpose(-1, -2)
+    full = matmul_epilogue(x, x.transpose(-1, -2), d, alpha=2.0, beta=-1.0)
+    tri = matmul_epilogue(x, x.transpose(-1, -2), d, alpha=2.0, beta=-1.0, symmetric=True)
+    assert torch.equal(full, tri)
 
 
 @pytest.mark.parametrize("shape", [(4, 12, 20), (3, 24, 10), (2, 3, 16, 16)])

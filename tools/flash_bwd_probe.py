@@ -38,7 +38,7 @@ def main() -> int:
         print(f"  {fn}: {line}")
     for fn, ops in sass_counts(report["path"]).items():
         print(f"  {fn}: tensor-core instructions in SASS {ops}")
-    print("  tiles (rows, keys, dq smem, dkv smem):", fa.kernel_tiles("flash_bwd"), flush=True)
+    print("  tiles (rows, keys, dq smem, dkv smem):", _build.kernel_tiles("flash_bwd"), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = [  # (BKV, S, G, causal, window); the last is the training shape

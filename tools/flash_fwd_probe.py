@@ -29,12 +29,12 @@ from chip_smoke import ptxas_report, sass_counts, time_ms  # noqa: E402  (adds s
 SHAPES = {"serving": (48, 512, 3), "training": (24, 1024, 3)}
 
 
-def use_csrc(_build, fa, csrc: Path) -> None:
+def use_csrc(_build, csrc: Path) -> None:
     """Point the build at ``csrc`` and forget what was built and bound."""
     _build.CSRC = csrc
     _build._LIBS.clear()
     _build._ENTRIES.clear()
-    fa._TILES_CHECKED.clear()
+    _build._TILES_CHECKED.clear()
 
 
 def inputs(torch, gen, BKV, S, G, dt=None):
@@ -74,14 +74,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     ok = True
     for tag, csrc in trees:
-        use_csrc(_build, fa, csrc)
+        use_csrc(_build, csrc)
         report = _build.build(["flash_fwd"], verbose=True)["flash_fwd"]
         print(f"[{tag}] {csrc}")
         for fn, line in ptxas_report(report["log"]).items():
             print(f"  {fn}: {line}")
         for fn, ops in sass_counts(report["path"]).items():
             print(f"  {fn}: tensor-core instructions in SASS {ops}")
-        print("  tiles (bq, bkv, rows, keys, smem):", fa.kernel_tiles("flash_fwd"), flush=True)
+        print("  tiles (bq, bkv, rows, keys, smem):", _build.kernel_tiles("flash_fwd"), flush=True)
         cases = [(BKV, S, G, True, 0) for BKV, S, G in SHAPES.values()]
         if tag == "tree":
             cases = [(1, 64, 1, False, 0), (1, 64, 1, True, 0), (6, 77, 3, True, 0),
@@ -99,7 +99,7 @@ def main() -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         times = {}
         for tag, csrc in trees + trees[::-1]:  # in turns: A, B, ..., B, A
-            use_csrc(_build, fa, csrc)
+            use_csrc(_build, csrc)
             times.setdefault(tag, []).append(time_ms(torch, lambda: fa._fwd_cuda(q, k, v, **kw)))
         lib = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True))
         print(f"timed {name} q[{BKV}, {S}, {G}, 64]: "
