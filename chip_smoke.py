@@ -65,11 +65,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    the per-launch device time of the bf16 flash forward, the two flash
    backward sweeps and ``matmul_epilogue`` beside phase 3a's, 5a's and
    5b's event times.
-8. Compressed pseudogradients: (8a) ``quantize`` and ``dequantize``
-   against their plain versions on the card, bitwise, at every (rows, cols)
-   shape the two compressed runs below give them (Q1 and Q2 of every leaf),
-   at 1, 2, 4 and 8 bits, plus a ragged shape with a constant row; the
-   largest call of each layout timed beside its plain version and its bound
+8. Compressed pseudogradients: (8a) ``quantize`` (the full function and
+   the wire path's codes-only launch, which writes no deq) and
+   ``dequantize`` against their plain versions on the card, bitwise, at
+   every (rows, cols) shape the two compressed runs below give them (Q1 and
+   Q2 of every leaf), at 1, 2, 4 and 8 bits, plus the edges of quantize's
+   regimes (``QUANT_EDGES``: the longest rows a warp and a block hold, the
+   shortest long row, cols % 4 != 0, unaligned x, single rows, a constant
+   row), the kernel's plan equal to the wrapper's mirror of it at each
+   shape; the largest call of each layout timed in both forms beside its
+   plain version, its read-once bound and its two-read floor
    (``torch.addcmul`` as the dequantizer's library yardstick); (8b) one
    full-width outer sync from one set of deltas with ``wire_impl='pallas'``
    (the kernels) against ``'jnp'`` (plain torch): Psi, the EF residuals and
@@ -91,6 +96,7 @@ below. Needs one card and no network.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -164,8 +170,9 @@ def check(name: str, err: float, tol: float) -> float:
 def kernel_name(mangled: str) -> str:
     """The kernel's own name inside a mangled symbol (the last length-prefixed
     name that ends in ``kernel``) with its template arguments where it is a
-    template: the element type (``float``, ``bf16``) and any integer or bool
-    arguments after it (``<float,1,0,1>``); else the symbol."""
+    template: the element type (``float``, ``bf16``), if it has one, and
+    any integer or bool arguments (``<float,1,0,1>``, ``<1,12,1>``); else
+    the symbol."""
     found, i = None, 0
     while i < len(mangled):
         m = re.match(r"\d+", mangled[i:])
@@ -176,10 +183,10 @@ def kernel_name(mangled: str) -> str:
         i = start + int(m.group())
         if mangled[start:i].endswith("kernel"):
             found = mangled[start:i]
-            t = re.match(r"I(13__nv_bfloat16|f)((?:L[bi]\d+E)*)", mangled[i:])
-            if t:
-                args = ["bf16" if t.group(1) != "f" else "float",
-                        *re.findall(r"L[bi](\d+)E", t.group(2))]
+            t = re.match(r"I(13__nv_bfloat16|f)?((?:L[bi]\d+E)*)", mangled[i:])
+            if t and (t.group(1) or t.group(2)):
+                args = ([{"f": "float"}.get(t.group(1), "bf16")] if t.group(1) else []) + \
+                    re.findall(r"L[bi](\d+)E", t.group(2))
                 found += "<" + ",".join(args) + ">"
     return found or mangled
 
@@ -244,6 +251,10 @@ def phase_build(_build):
     tm, tn, bk, threads = _build.kernel_tiles("matmul_epilogue")
     print(f"  matmul_epilogue: {tm} x {tn} tiles of C, K steps of {bk}, {threads} threads a "
           "block")
+    warp_max, block_max, blocks, groups = _build.kernel_tiles("quantize")
+    print(f"  quantize: a row of up to {warp_max} entries in a warp's registers, up to "
+          f"{block_max} in a block's (read once); longer rows read twice over ~{blocks} blocks "
+          f"of at least {groups} float4 groups")
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -886,48 +897,98 @@ def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
             | {_row_layout(s, rowwise, 0) for s in encoded})
 
 
+# shapes at the edges of quantize's regimes (kernels/quantize.quantize_plan)
+# and of its vector path, beside the compressed runs' own: (rows, cols,
+# offset of x's first entry from an aligned address, in entries)
+QUANT_EDGES = [
+    (77, 1001, 0),      # a warp a row, cols % 4 != 0 (entry by entry), a constant row
+    (9, 2048, 0),       # the longest row a warp holds, a ragged last block of rows
+    (1, 7, 0),          # a single short row, entry by entry
+    (13, 1536, 1),      # a warp a row, x not 16-byte aligned (entry by entry)
+    (3, 2049, 0),       # the shortest row a block holds, cols % 4 != 0
+    (5, 16384, 0),      # the longest row held on chip
+    (3, 8192, 1),       # a block a row, x not aligned
+    (2, 16385, 0),      # the shortest long row (read twice), cols % 4 != 0
+    (1, 16388, 0),      # a single long row, the vector path
+    (2, 1_000_000, 1),  # long rows, x not aligned
+]
+
+
 def phase_quantize(torch, q, params):
-    """[8a] quantize / dequantize against their plain versions, bitwise, at
-    the compressed runs' shapes; the largest call of each layout timed."""
+    """[8a] quantize (full and codes-only) and dequantize against their plain
+    versions, bitwise, at the compressed runs' shapes and at the edges of
+    quantize's regimes; the largest call of each layout timed in both forms."""
     print("[8a] quantize / dequantize (replace quantize.py:_rowwise_quant_kernel / "
           "_rowwise_dequant_kernel) against their plain versions, bitwise")
-    shapes = sorted(wire_shapes(params, 1, False) | wire_shapes(params, 2, True) | {(77, 1001)})
-    print(f"  {len(shapes)} (rows, cols) shapes: {shapes}")
+    from repro_torch.kernels import _build
+
+    print("  quantize plan (longest row a warp holds, a block holds; blocks a long call, "
+          f"least float4 groups a part): {_build.kernel_tiles('quantize')}")
+    cases = sorted({(r, c, 0) for r, c in wire_shapes(params, 1, False)
+                    | wire_shapes(params, 2, True)} | set(QUANT_EDGES))
+    print(f"  {len(cases)} (rows, cols, offset) cases: "
+          + ", ".join(f"{r}x{c}{'+' + str(o) if o else ''} {q.quantize_plan(r, c)[0]}"
+                      for r, c, o in cases))
+    c_plan = _build.load("quantize").quantize_plan
+    c_plan.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+    c_plan.restype = ctypes.c_int
+    for rows, cols, _ in cases:  # the wrapper sizes the scratch from its mirror of the plan
+        parts = ctypes.c_longlong()
+        code = c_plan(rows, cols, ctypes.byref(parts))
+        assert code in (0, 1, 2), (rows, cols, code)
+        got = (("warp", "block", "long")[code], parts.value)
+        assert got == q.quantize_plan(rows, cols), (rows, cols, got)
+    print("  the plan of csrc/quantize.cu == kernels/quantize.quantize_plan at every case")
     gen = torch.Generator(device="cuda").manual_seed(14)
-    for rows, cols in shapes:
+    for rows, cols, offset in cases:
         # per-row magnitudes from 1e-4 to 10; the ragged shape holds a constant row
         mag = torch.exp(torch.empty((rows, 1), device="cuda").uniform_(
             math.log(1e-4), math.log(10.0), generator=gen))
-        x = torch.randn((rows, cols), generator=gen, device="cuda") * mag
+        x = torch.empty(rows * cols + offset, device="cuda")[offset:].view(rows, cols)
+        x.copy_(torch.randn((rows, cols), generator=gen, device="cuda") * mag)
         if rows == 77:
             x[3] = 0.375
         for bits in (1, 2, 4, 8):
             got = q._quantize_cuda(x, bits)
+            # deq = null: a write through it would fault at the synchronize below
+            codes_only = q.rowwise_quantize_codes(x, bits)
             want = q.rowwise_quantize_plain(x, bits)
+            qv, lo, scale = q.quant_codes_plain(x, bits)
             vals = q._dequantize_cuda(got[1], got[2], got[3])
             vals_plain = q.rowwise_dequantize_plain(got[1], got[2], got[3])
             torch.cuda.synchronize()
-            for name, a, b in zip(("deq", "codes", "lo", "scale", "values"),
-                                  (*got, vals), (*want, vals_plain)):
-                assert torch.equal(a, b), f"quantize [{rows}, {cols}] bits {bits}: {name} differs"
+            for name, a, b in zip(("deq", "codes", "lo", "scale", "values", "codes-only codes",
+                                   "codes-only lo", "codes-only scale"),
+                                  (*got, vals, *codes_only),
+                                  (*want, vals_plain, qv.to(torch.uint8), lo, scale)):
+                assert torch.equal(a, b), \
+                    f"quantize [{rows}, {cols}] +{offset} bits {bits}: {name} differs"
         if rows == 77:
             assert float(got[3][3]) == 1.0 and not got[1][3].any(), "constant row"
-        del x, got, want, vals, vals_plain
-    print(f"  all {len(shapes)} shapes x bits 1, 2, 4, 8: deq, codes, lo, scale and the "
-          "dequantized values bitwise equal")
+        del x, got, codes_only, want, qv, lo, scale, vals, vals_plain
+    print(f"  all {len(cases)} cases x bits 1, 2, 4, 8: deq, codes, lo, scale, the "
+          "dequantized values and the codes-only launch's codes, lo and scale bitwise equal")
     out = {}
     for tag, rows, cols, bits in (("global Q1 of embed", 2, 28_311_552, 2),
                                   ("row-wise Q1 of w_in", 34_560, 1536, 4)):
         x = torch.randn((rows, cols), generator=gen, device="cuda")
         n = rows * cols
-        ms = time_ms(torch, lambda: q._quantize_cuda(x, bits))
+        regime, parts = q.quantize_plan(rows, cols)
         plain_ms = time_ms(torch, lambda: q.rowwise_quantize_plain(x, bits), runs=5)
-        b = bound(6.0 * n, 9.0 * n + 8.0 * rows, PEAK_FP32_FLOPS)
-        print(f"  timed quantize, {tag} [{rows}, {cols}] {bits}-bit: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
-              f"{9 * n + 8 * rows} B)")
-        if "quantize" not in out:
-            out["quantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        for form, fn, once, twice in (
+                ("full", lambda: q._quantize_cuda(x, bits), 9, 13),
+                ("codes-only", lambda: q._quantize_cuda(x, bits, with_deq=False), 5, 9)):
+            ms = time_ms(torch, fn)
+            b = bound(6.0 * n, once * n + 8.0 * rows, PEAK_FP32_FLOPS)
+            floor = (twice * n + 8.0 * rows) / PEAK_BYTES * 1e3
+            print(f"  timed quantize {form}, {tag} [{rows}, {cols}] {bits}-bit ({regime}, "
+                  f"{parts} parts a row): kernel {ms:.4f} ms, plain (full) {plain_ms:.4f} ms, "
+                  f"bound read once {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                  f"{once * n + 8 * rows} B, {b['bound_ms'] / ms:.2f} of it), read twice "
+                  f"{floor:.4f} ms ({twice * n + 8 * rows} B, {floor / ms:.2f} of it)")
+            if "quantize" not in out:  # the summary row: the global full-function call
+                out["quantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                       library_ms=None, **b)
         _, codes, lo, scale = q._quantize_cuda(x, bits)
         ms = time_ms(torch, lambda: q._dequantize_cuda(codes, lo, scale))
         plain_ms = time_ms(torch, lambda: q.rowwise_dequantize_plain(codes, lo, scale), runs=5)
@@ -1028,8 +1089,8 @@ def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, roun
           f"{comm} (dense: 1,076,120,064); peak device memory {peak_gb:.2f} GB")
     if profile:  # the quantize kernels (csrc/quantize.cu) against the round
         phase_train_profile(torch, out, argv, tag=profile,
-                            focus=("tile_minmax_kernel", "row_stats_kernel", "encode_kernel",
-                                   "decode_kernel"))
+                            focus=("quantize_rows_kernel", "quantize_minmax_kernel",
+                                   "quantize_encode_kernel", "decode_kernel"))
     del out, engine, state
     torch.cuda.empty_cache()
     return launches

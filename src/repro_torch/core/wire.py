@@ -5,9 +5,9 @@ What crosses the wire:
 
 * linear quantization -> :class:`QuantWire`: bit-packed u8 codes (8/bits
   codes per byte, ``kernels/quantize.pack_codes``) plus per-row fp32
-  ``lo``/``scale``, produced by the Hopper ``quantize`` kernel
-  (``impl='pallas'``, the reference's name for the kernel route) or by plain
-  torch with the same arithmetic (``'jnp'``);
+  ``lo``/``scale``, produced by the Hopper ``quantize`` kernel's codes-only
+  launch (``impl='pallas'``, the reference's name for the kernel route) or
+  by plain torch with the same arithmetic (``'jnp'``);
 * statistical quantization -> :class:`CodebookWire`: bit-packed codes plus
   the per-row quantile codebook (2^bits fp32 levels);
 * top-k -> :class:`TopKWire`: (int32 index, fp32 value) pairs per worker
@@ -32,6 +32,7 @@ from repro_torch.kernels.quantize import (
     fma_f32,
     pack_codes,
     quant_codes_plain,
+    rowwise_quantize_codes,
     unpack_codes,
 )
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -115,9 +116,7 @@ def quant_encode(x: torch.Tensor, bits: int, rowwise: bool, *,
     m, n = _row_layout(tuple(x.shape), rowwise, batch_ndim)
     x2d = x.reshape(m, n)
     if impl == "pallas":
-        from repro_torch.kernels.ops import quantize_rowwise
-
-        _, codes, lo, scale = quantize_rowwise(x2d, bits=bits)
+        codes, lo, scale = rowwise_quantize_codes(x2d, bits)
     else:
         q, lo, scale = quant_codes_plain(x2d, bits)
         codes = q.to(torch.uint8)

@@ -10,9 +10,12 @@ Per row of a ``[rows, cols]`` fp32 matrix::
 
 Two hand-written Hopper kernels (``csrc/quantize.cu``) replace the
 reference's ``_rowwise_quant_kernel`` and ``_rowwise_dequant_kernel``:
-``quantize`` writes deq, codes, lo and scale; ``dequantize`` rebuilds the
-values from codes, lo and scale. Each has a plain PyTorch version here
-(``rowwise_quantize_plain``, ``rowwise_dequantize_plain``).
+``quantize`` writes codes, lo, scale and, unless the caller asks for the
+codes alone (:func:`rowwise_quantize_codes`, the wire path's encode), deq;
+``dequantize`` rebuilds the values from codes, lo and scale. Each has a
+plain PyTorch version here (``rowwise_quantize_plain``,
+``quant_codes_plain``, ``rowwise_dequantize_plain``). How ``quantize`` cuts
+a call, from its shape alone, is :func:`quantize_plan`.
 
 The arithmetic is the reference's as XLA compiles it, reproduced on purpose
 so that codes and values are bitwise the reference's: XLA turns the
@@ -36,9 +39,17 @@ from repro_torch.kernels import _build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QUANT_ARGTYPES = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P]
 _DEQUANT_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _P]
-# per-(row, chunk) partial min / max of the quantize kernel's first pass
-# (csrc/quantize.cu: kChunk)
-CHUNK = 4096
+# csrc/quantize.cu's plan, checked against the built library at its first
+# launch: a row of up to WARP_ROW_MAX entries is held in one warp's registers
+# and up to BLOCK_ROW_MAX in one block's (read once); a longer row is read
+# twice, in steps of LONG_MIN_GROUPS float4 groups: first by `parts` blocks
+# a row, about LONG_BLOCKS in all, each at least one step, then by one block
+# a step
+WARP_ROW_MAX = 2048
+BLOCK_ROW_MAX = 16384
+LONG_BLOCKS = 528
+LONG_MIN_GROUPS = 1024
+_build.TILES["quantize"] = (4, (WARP_ROW_MAX, BLOCK_ROW_MAX, LONG_BLOCKS, LONG_MIN_GROUPS))
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -100,19 +111,37 @@ def _check_rows(name: str, x: torch.Tensor, dtype: torch.dtype) -> tuple[int, in
     return x.shape
 
 
-def _quantize_cuda(x: torch.Tensor, bits: int):
+def quantize_plan(rows: int, cols: int) -> tuple[str, int]:
+    """``(regime, parts)``: how the ``quantize`` kernel cuts a ``[rows,
+    cols]`` call (``csrc/quantize.cu: quantize_plan``). ``'warp'`` and
+    ``'block'`` hold a row in one warp's or one block's registers and read
+    it once; ``'long'`` reads it twice, first with ``parts`` blocks a row,
+    which leave ``2 * rows * parts`` fp32 of partial min and max in the
+    scratch."""
+    if rows <= 0 or cols <= 0:
+        raise ValueError(f"quantize_plan: empty shape ({rows}, {cols})")
+    if cols <= WARP_ROW_MAX:
+        return "warp", 1
+    if cols <= BLOCK_ROW_MAX:
+        return "block", 1
+    return "long", min(-(-LONG_BLOCKS // rows), -(-cols // 4) // LONG_MIN_GROUPS)
+
+
+def _quantize_cuda(x: torch.Tensor, bits: int, with_deq: bool = True):
     rows, cols = _check_rows("quantize", x, torch.float32)
     nlevels = _levels(bits)
-    deq = torch.empty_like(x)
+    deq = torch.empty_like(x) if with_deq else None
     codes = torch.empty((rows, cols), dtype=torch.uint8, device=x.device)
     lo = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows and cols:
-        chunks = -(-cols // CHUNK)
-        partial = torch.empty((2, rows * chunks), dtype=torch.float32, device=x.device)
-        _build.launch("quantize", _QUANT_ARGTYPES, x.device, x.data_ptr(), deq.data_ptr(),
-                      codes.data_ptr(), lo.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-                      rows, cols, nlevels)
+        regime, parts = quantize_plan(rows, cols)
+        partial = (torch.empty((2, rows * parts), dtype=torch.float32, device=x.device)
+                   if regime == "long" else None)
+        _build.launch("quantize", _QUANT_ARGTYPES, x.device, x.data_ptr(),
+                      None if deq is None else deq.data_ptr(), codes.data_ptr(),
+                      lo.data_ptr(), scale.data_ptr(),
+                      None if partial is None else partial.data_ptr(), rows, cols, nlevels)
     return deq, codes, lo, scale
 
 
@@ -136,6 +165,16 @@ def rowwise_quantize(x: torch.Tensor, bits: int = 4):
     if x.device.type == "cpu":
         return rowwise_quantize_plain(x, bits)
     return _quantize_cuda(x, bits)
+
+
+def rowwise_quantize_codes(x: torch.Tensor, bits: int = 4):
+    """``x [rows, cols]`` -> ``(codes u8, lo, scale)``: ``rowwise_quantize``
+    without the dequantized values, which the kernel then never writes (the
+    wire path's encode)."""
+    if x.device.type == "cpu":
+        q, lo, scale = quant_codes_plain(x, bits)
+        return q.to(torch.uint8), lo, scale
+    return _quantize_cuda(x, bits, with_deq=False)[1:]
 
 
 def rowwise_dequantize(codes: torch.Tensor, lo: torch.Tensor,

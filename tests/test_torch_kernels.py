@@ -245,6 +245,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     tops.ns_orthogonalize(y)
     tops.nesterov_update(y, y, y, lr=0.5, momentum=0.9)
     _, codes, lo, scale = tops.quantize_rowwise(y[0], bits=2)
+    tquantize.rowwise_quantize_codes(y[0], bits=2)
     tops.dequantize_rowwise(codes, lo, scale)
     assert set(tfa.LAUNCHES) == {"flash_fwd", "paged_decode", "flash_dq", "flash_dkv",
                                  "matmul_epilogue", "nesterov", "quantize", "dequantize"}
@@ -278,7 +279,9 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
                                 tfa.FLASH_BWD_KEYS, 41984)),
     ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128)),
     ("matmul_epilogue", "matmul_epilogue", (tmm.MATMUL_TILE, tmm.MATMUL_TILE, tmm.MATMUL_BK,
-                                            256))])
+                                            256)),
+    ("quantize", "quantize", (tquantize.WARP_ROW_MAX, tquantize.BLOCK_ROW_MAX,
+                              tquantize.LONG_BLOCKS, tquantize.LONG_MIN_GROUPS))])
 def test_first_launch_checks_the_library_tiles(monkeypatch, lib, name, tiles):
     """At a library's first launch ``_build.launch`` reads ``<lib>_tiles``
     from the built library and raises, launching nothing, if its tile sizes
@@ -732,6 +735,50 @@ def test_quantize_plain_bitwise_matches_pallas(bits, layout):
     if layout == "ragged":
         assert t[3][3, 0] == 1.0 and not t[1][3].any() and (t[0][3] == x[3]).all()
     assert t[1].max() <= (1 << bits) - 1
+
+
+@pytest.mark.parametrize("layout", ["ragged", "long_row"])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_quantize_codes_plain_bitwise_matches_pallas(bits, layout):
+    """rowwise_quantize_codes (the wire path's codes-only quantize; on the
+    CPU its plain version) == the codes, lo and scale of the reference's
+    ops.quantize_rowwise (Pallas, interpret mode, jitted), bitwise, and
+    returns no dequantized values."""
+    x = _quant_rows(layout, 200 + bits)
+    j = [np.asarray(a) for a in jops.quantize_rowwise(jnp.asarray(x), bits=bits)[1:]]
+    t = [a.numpy() for a in tquantize.rowwise_quantize_codes(torch.from_numpy(x), bits)]
+    assert len(t) == 3
+    for name, a, b in zip(("codes", "lo", "scale"), t, j):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_quantize_plan_constants_match_the_kernel_source():
+    """kernels/quantize.py's plan constants are the ones csrc/quantize.cu
+    compiles in (its file-scope constexpr ints, evaluated), and the plan
+    cuts at them: a warp holds rows up to WARP_ROW_MAX entries, a block up to
+    BLOCK_ROW_MAX, longer rows are read twice by about LONG_BLOCKS blocks,
+    each at least one step of LONG_MIN_GROUPS float4 groups."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "quantize.cu").read_text()
+    consts: dict = {}
+    for name, expr in re.findall(r"^constexpr (?:int|long long) (\w+) = ([^;]+);", src, re.M):
+        consts[name] = eval(expr, {}, dict(consts))
+    assert (consts["kWarpRowMax"], consts["kBlockRowMax"], consts["kLongBlocks"],
+            consts["kLongMinGroups"]) == (tquantize.WARP_ROW_MAX, tquantize.BLOCK_ROW_MAX,
+                                          tquantize.LONG_BLOCKS, tquantize.LONG_MIN_GROUPS)
+    assert consts["kThreads"] * consts["kMaxGroups"] * 4 == tquantize.BLOCK_ROW_MAX
+    plan = tquantize.quantize_plan
+    assert [plan(1, c)[0] for c in (1, 2048, 2049, 16384, 16385)] == [
+        "warp", "warp", "block", "block", "long"]
+    assert plan(34_560, 1536) == ("warp", 1) and plan(1, 16385) == ("long", 4)
+    assert plan(2, 28_311_552) == ("long", 264) and plan(1, 28_311_552) == ("long", 528)
+    assert plan(1000, 100_000) == ("long", 1)
+    with pytest.raises(ValueError):
+        plan(0, 5)
 
 
 def _round_to_f32(exact):

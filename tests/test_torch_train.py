@@ -432,6 +432,26 @@ def test_quant_wire_round_trip_matches_reference(impl, bits, rowwise):
     np.testing.assert_array_equal(twire.decode_leaf(tw, impl=impl).numpy(), np.asarray(jdec))
 
 
+@pytest.mark.parametrize("bits,rowwise,batch_ndim", [
+    (1, False, 1), (2, False, 1), (3, True, 1), (4, True, 1), (8, True, 0), (2, False, 0)])
+def test_quant_encode_codes_only_matches_jnp_and_reference(bits, rowwise, batch_ndim):
+    """quant_encode's kernel route (impl='pallas': the codes-only quantize,
+    its plain version on the CPU) == its plain route (impl='jnp') and the
+    reference's jitted quant_encode in both of its routes, packet for
+    packet: packed codes, lo, scale, shape, cols and bits."""
+    rng = np.random.default_rng(40 + bits)
+    x = (rng.standard_normal((2, 7, 45))
+         * np.exp(rng.uniform(-8.0, 2.0, (2, 7, 1)))).astype(np.float32)
+    tws = [twire.quant_encode(_t(x), bits, rowwise, batch_ndim=batch_ndim, impl=impl)
+           for impl in ("pallas", "jnp")]
+    for impl in ("pallas", "jnp"):
+        jw = jax.jit(lambda v: jwire.quant_encode(v, bits, rowwise, batch_ndim=batch_ndim,
+                                                  impl=impl))(jnp.asarray(x))
+        for tw in tws:
+            _assert_packets_equal(tw, jw)
+            assert (tw.cols, tw.bits) == (jw.cols, jw.bits)
+
+
 @pytest.mark.parametrize("bits,rowwise", [(2, False), (3, True)])
 def test_codebook_wire_round_trip_matches_reference(bits, rowwise):
     """CodebookWire: the quantile levels (jnp.quantile's linear method, with
@@ -645,6 +665,39 @@ def test_measured_sync_bytes_full_width(run, kw, J, want):
     assert comm_bytes(tabs, dcfg, tmasks if J > 1 else None) == sum(want)
 
 
+def test_quantize_plan_covers_the_compressed_runs_wire_shapes():
+    """Every (rows, cols) quantize call of the two compressed runs
+    chip_smoke.py drives (full-width smollm-135m, K = 2, its
+    ``wire_shapes``) maps to a regime of the quantize kernel and a scratch
+    size: the row-wise calls (rows of 192 to 1536 entries) are held on chip
+    and read once, with no scratch; the global rows longer than a block
+    holds are read twice by `parts` blocks a row, each with at least one
+    step of LONG_MIN_GROUPS float4 groups, fewer than LONG_BLOCKS + rows
+    blocks in all, with 2 * rows * parts fp32 of scratch."""
+    import importlib.util
+
+    from repro_torch.kernels import quantize as tq
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    _, tabs = _abstract(get_config("smollm-135m"))
+    globals_, rowwise = chip_smoke.wire_shapes(tabs, 1, False), chip_smoke.wire_shapes(tabs, 2, True)
+    assert len(globals_ | rowwise) == 24
+    for rows, cols in sorted(globals_ | rowwise):
+        regime, parts = tq.quantize_plan(rows, cols)
+        if (rows, cols) in rowwise or cols <= tq.BLOCK_ROW_MAX:
+            assert regime == ("warp" if cols <= tq.WARP_ROW_MAX else "block") and parts == 1
+            continue
+        assert regime == "long" and parts >= 1, (rows, cols)
+        assert rows * parts < tq.LONG_BLOCKS + rows
+        assert parts * tq.LONG_MIN_GROUPS <= -(-cols // 4), (rows, cols, parts)
+    assert {tq.quantize_plan(r, c)[0] for r, c in rowwise} == {"warp"}
+    assert {tq.quantize_plan(r, c)[0] for r, c in globals_} == {"warp", "long"}
+
+
 @pytest.mark.parametrize("K", [2, 3, 5])
 def test_psi_mean_bitwise_matches_reference(K):
     """Psi of the dense sync (kind 'none') == the reference's
@@ -812,14 +865,15 @@ def test_compressed_round_matches_reference(K, ckw, J):
 
 def test_wire_launches_per_round_formula(monkeypatch):
     """quantize / dequantize launches of one round, as TrainEngine counts
-    them, == the wrapper calls a CPU round makes (each wrapper call is one
-    launch on the card): J = 1 with EF is Q1 + Q2 and D1 + D1 + D2 per leaf
+    them, == the wrapper calls a CPU round makes (the wire path's codes-only
+    quantize and its dequantize; each wrapper call is one launch on the
+    card): J = 1 with EF is Q1 + Q2 and D1 + D1 + D2 per leaf
     (the EF stage and the reduce each decode Q1); a streaming segment decodes
     once, with or without EF, Q1 + Q2 and D1 + D2 per leaf it does not skip;
     the 'jnp' wire launches nothing. At full width these are 22 and 33 (run
     a) and 40 and 40 (run b, whose EF changes no count)."""
     calls = {"quantize": 0, "dequantize": 0}
-    real_q, real_d = tops.quantize_rowwise, tops.dequantize_rowwise
+    real_q, real_d = twire.rowwise_quantize_codes, tops.dequantize_rowwise
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -827,7 +881,7 @@ def test_wire_launches_per_round_formula(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(tops, "quantize_rowwise", count("quantize", real_q))
+    monkeypatch.setattr(twire, "rowwise_quantize_codes", count("quantize", real_q))
     monkeypatch.setattr(tops, "dequantize_rowwise", count("dequantize", real_d))
     _, tcfg = _cfgs()
     model = tbuild_model(tcfg)
