@@ -54,17 +54,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    equal to its plain version).
 6. Training: a full-width fp32 agreement check (loss and every gradient
    leaf with attn_impl pallas against xla, then one Muon step through the
-   kernel against the plain fp32 Newton-Schulz), then the main path,
+   kernel against the plain fp32 Newton-Schulz), then the main path (6b),
    ``repro_torch.launch.train`` in-process with the command in ``TRAIN``
-   (smollm-135m full width, MuLoCo, K=2, H=4, 3 rounds, 8 x 1024 tokens
-   per worker step, every kernel switch on, inner lr 3e-3). The launch counters are set to
-   0 just before it and read just after, and must equal the port's formula
-   (``TrainEngine.launches_per_round``). Losses must be finite and fall
-   from the first round to the last. Then one more round under
-   torch.profiler: device busy share, the kernels that take the time, and
-   the per-launch device time of the bf16 flash forward, the two flash
-   backward sweeps and ``matmul_epilogue`` beside phase 3a's, 5a's and
-   5b's event times.
+   (smollm-135m full width, MuLoCo, K=2, H=4, 3 rounds, one round per
+   dispatch, 8 x 1024 tokens per worker step, every kernel switch on, inner
+   lr 3e-3). Round 1 runs eagerly as the warm-up and is captured in a CUDA
+   graph; rounds 2 and 3 are replays. The launch counters are set to 0 just
+   before it and read just after, and must equal the port's formula
+   (``TrainEngine.launches_per_round``) as captures x replays: the warm-up
+   round's eager launches plus, per replay, what the capture recorded,
+   which must be one round's formula. Losses must be finite and fall from
+   the first round to the last; the capture time prints apart from round
+   1's wall. Then (6c) one more replayed round, and a dispatch of three,
+   under torch.profiler: device busy share, kernel count, the kernels that
+   take the time, and the per-launch device time of the bf16 flash
+   forward, the two flash backward sweeps and ``matmul_epilogue`` beside
+   phase 3a's, 5a's and 5b's event times. Then (6d) the same command with
+   ``capture=False`` (every round eager) and at ``--rounds-per-dispatch 3``
+   (one dispatch) must equal 6b bitwise: losses, eval losses, comm_bytes
+   and the final state.
 8. Compressed pseudogradients: (8a) ``quantize`` (the full function and
    the wire path's codes-only launch, which writes no deq) and
    ``dequantize`` against their plain versions on the card, bitwise, at
@@ -83,10 +91,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    command in ``TRAIN`` plus ``COMPRESSED`` (global 2-bit quantization with
    error feedback), 3 rounds; (8d) row-wise with two streaming partitions,
    ``TRAIN`` plus ``COMPRESSED`` plus ``ROWWISE``, 2 rounds. Both runs
-   assert the launch counts against the formula, quantize and dequantize
-   launched, finite losses and the per-round ``comm_bytes``; (8c) also that
-   the losses fall, and profiles one more round (8c'): the device time of
-   the quantize kernels against the round.
+   run captured, assert the launch counts against the formula (captures x
+   replays), quantize and dequantize launched, finite losses and the
+   per-round ``comm_bytes``; (8c) also that the losses fall, and profiles
+   one more round (8c'): the device time of the quantize kernels against
+   the round. (8e) Crash drills at ``--reduced`` widths (``DRILL``): the
+   command with ``--checkpoint-every 1 --inject-kill-round 2`` in a
+   subprocess (SIGKILL), then ``--resume auto``, whose metrics.csv less
+   wall_s must equal an uninterrupted run's byte for byte; then a NaN
+   injected at round 2 with the health sentinel on, rolled back into the
+   captured round.
 9. Summary: one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -125,7 +139,14 @@ MAIN = dict(batch=32, prompt_len=512, max_new=64, slots=16, page_size=16, max_pa
 TRAIN = ["--arch", "smollm-135m", "--inner", "muon", "--outer", "nesterov", "--workers", "2",
          "--sync-interval", "4", "--rounds", "3", "--seq-len", "1024", "--batch-per-worker", "8",
          "--attn-impl", "pallas", "--ns-impl", "pallas", "--outer-kernel", "--seed", "0",
-         "--lr", "3e-3", "--out", str(ROOT / "build" / "chip_smoke_train"), "--verbose"]
+         "--lr", "3e-3", "--rounds-per-dispatch", "1",
+         "--out", str(ROOT / "build" / "chip_smoke_train"), "--verbose"]
+# the crash drill (8e): the training command at --reduced widths (a
+# full-width K = 2 state is ~3.4 GB a checkpoint), a checkpoint every round
+DRILL = ["--arch", "smollm-135m", "--reduced", "--inner", "muon", "--outer", "nesterov",
+         "--workers", "2", "--sync-interval", "4", "--rounds", "4", "--seq-len", "1024",
+         "--batch-per-worker", "8", "--attn-impl", "pallas", "--ns-impl", "pallas",
+         "--outer-kernel", "--seed", "0", "--lr", "3e-3", "--checkpoint-every", "1"]
 # the paper's compressed variant (README): 2-bit global quantization, error feedback
 COMPRESSED = ["--compression", "quant", "--bits", "2", "--error-feedback"]
 ROWWISE = ["--rowwise", "--streaming", "2"]
@@ -815,6 +836,9 @@ def phase_train_main(torch, build_parser, train):
     assert launches == want, (launches, want)
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov"):
         assert launches[name] > 0, name
+    captured_launches(engine, per_round, args.rounds)
+    print(f"  round 1's wall {hist[0]['wall_s']:.3f} s holds the warm-up round (eager, kernel "
+          f"build included) {engine.warmup_s[0]:.3f} s and the capture {engine.capture_s[0]:.3f} s")
     tokens = args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
     for rec in hist:
         assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"]), rec
@@ -826,52 +850,124 @@ def phase_train_main(torch, build_parser, train):
     later = hist[1:]
     tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
     print(f"  training tokens/s over rounds 2-{len(hist)}: {tok_s:.1f} "
-          f"({tokens} tokens per round = K*H*B*S, round wall ended by a device sync)")
+          f"({tokens} tokens per round = K*H*B*S; a round's wall is the time between "
+          "the ends of two dispatches on the card's clock)")
     print(f"  peak device memory {peak_gb:.2f} GB; final smoothed eval loss "
           f"{out['final_loss']:.4f}")
     return launches, out
 
 
+def captured_launches(engine, per_round: dict, rounds: int) -> None:
+    """The launch count of a captured run is captures x replays: the
+    warm-up round launches eagerly, and each replay adds what the capture
+    recorded, which must be one round's formula."""
+    graph = engine._graphs.get(True)
+    assert graph is not None, "the training round was not captured"
+    assert len(engine.warmup_s) == len(engine.capture_s) == 1, engine.capture_s
+    assert engine.replays == rounds - 1, (engine.replays, rounds)
+    assert graph.launches == per_round, (graph.launches, per_round)
+    print(f"  captured round: 1 capture x {engine.replays} replays + 1 warm-up round; the "
+          "capture recorded one round's formula")
+
+
 def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (),
-                        beside: dict | None = None):
-    """[6c] where a training round's time goes: one more round unprofiled,
-    then one under torch.profiler; the device time of the kernels whose
-    names hold one of ``focus`` is summed apart, with its time per launch
-    beside ``beside[key]`` (the phase and its ms per call) where given."""
+                        beside: dict | None = None, rounds: int = 1):
+    """[6c] where a training round's time goes: one more dispatch of
+    ``rounds`` rounds (replays of the captured round, with the eval loss)
+    unprofiled, then one under torch.profiler; the device time of the
+    kernels whose names hold one of ``focus`` is summed apart, with its time
+    per launch beside ``beside[key]`` (the phase and its ms per call) where
+    given."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data import DataConfig, MarkovStream, batches_for_round
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_span
     from repro_torch.launch.train import build_parser
 
-    print(f"[{tag}] profile: one more training round of the same run")
+    print(f"[{tag}] profile: one more dispatch of {rounds} captured training round(s) of the "
+          "same run")
     args = build_parser().parse_args(args_list)
     engine, state, model = out["engine"], out["state"], out["model"]
-    data = MarkovStream(DataConfig(vocab=model.cfg.vocab, seq_len=args.seq_len,
-                                   batch_per_worker=args.batch_per_worker,
-                                   n_workers=args.workers, seed=args.seed), "cuda")
+    dcfg = dict(vocab=model.cfg.vocab, seq_len=args.seq_len,
+                batch_per_worker=args.batch_per_worker)
+    data = MarkovStream(DataConfig(**dcfg, n_workers=args.workers, seed=args.seed), "cuda")
+    evals = MarkovStream(DataConfig(**dcfg, n_workers=1, seed=args.seed + 10_000), "cuda")
+    replays = engine.replays
 
-    def one_round(r):
+    def dispatch(r):
         nonlocal state
-        state, info = engine.step(state, batches_for_round(data, r, args.sync_interval))
-        return float(info["loss"].mean())
+        eb = {k: v[:, 0] for k, v in evals.batch_stack(r, rounds).items()}
+        state, o = engine.superstep(state, batches_for_span(data, r, args.sync_interval,
+                                                            rounds), eb)
+        return float(o["loss"].mean())
 
     t0 = time.perf_counter()
-    one_round(args.rounds)
+    dispatch(args.rounds)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_round(args.rounds + 1)
+        dispatch(args.rounds + rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    out["state"] = state
+    assert engine.replays == replays + 2 * rounds, "the profiled rounds were not replays"
     by_name = device_times(torch, prof)
     busy = sum(v[0] for v in by_name.values())
+    tokens = rounds * args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
     print(f"  wall {plain_wall_ms:.1f} ms unprofiled ({wall_ms:.1f} ms profiled), device busy "
           f"{busy:.1f} ms: idle {100 * (1 - busy / plain_wall_ms):.1f}% of the unprofiled wall; "
-          f"{sum(v[1] for v in by_name.values())} kernels")
+          f"{sum(v[1] for v in by_name.values())} kernels; {tokens / plain_wall_ms * 1e3:.1f} "
+          f"tokens/s unprofiled, {rounds} round(s) a dispatch")
+    assert busy > 0, "the profiler saw no device time in the replayed rounds"
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
     print_focus(by_name, plain_wall_ms, focus, beside)
+
+
+def _leaf_diffs(torch, a: dict, b: dict) -> list:
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    la, lb = tree_leaves_with_paths(a), tree_leaves_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    return [(p, (x.double() - y.double()).abs().max().item())
+            for (p, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
+
+
+def phase_train_equal(torch, build_parser, train, ref_hist: list, ref_state: dict):
+    """[6d] the main path's run (R = 1: round 1 eager as the warm-up, rounds
+    2 and 3 replays of the captured round) against the same command with
+    ``capture=False`` (every round eager) and at ``--rounds-per-dispatch 3``
+    (one dispatch), from one TrainState (seed 0): losses, eval losses,
+    comm_bytes and the final state, bitwise."""
+    print("[6d] captured = eager and R = 3 = R = 1, bitwise, full width, from one TrainState")
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    for tag, extra, capture in (("eager (capture=False)", [], False),
+                                ("--rounds-per-dispatch 3", ["--rounds-per-dispatch", "3"], None)):
+        argv = list(TRAIN) + extra
+        argv[argv.index("--out") + 1] = str(ROOT / "build" / "chip_smoke_train_equal")
+        out = train(build_parser().parse_args(argv), capture=capture)
+        torch.cuda.synchronize()
+        hist, tel = out["history"], out["telemetry"]
+        for a, b in zip(ref_hist, hist):
+            for k in keys:
+                assert a[k] == b[k], (tag, a["round"], k, a[k], b[k])
+        assert len(hist) == len(ref_hist)
+        diffs = _leaf_diffs(torch, ref_state, out["state"])
+        print(f"  {tag}: {tel['dispatches']} dispatch(es), {out['engine'].replays} replays; "
+              f"{len(hist)} rounds' {', '.join(keys)} equal; state leaves that differ: {diffs}")
+        assert not diffs, (tag, diffs)
+        later = hist[1:]
+        tokens = 65536 * len(later)
+        print(f"    round walls {[round(r['wall_s'], 3) for r in hist]} s; tokens/s over "
+              f"rounds 2-{len(hist)}: {tokens / sum(r['wall_s'] for r in later):.1f}"
+              + (" (one dispatch: each wall is a third of it, warm-up and capture included;"
+                 " 6c's R = 3 line times a dispatch of replays)" if capture is None else ""))
+        if capture is None:
+            assert tel["dispatches"] == 1 and tel["rounds_per_dispatch"] == 3, tel
+            print(f"    warm-up round {out['engine'].warmup_s[0]:.3f} s, capture "
+                  f"{out['engine'].capture_s[0]:.3f} s")
+        del out
+        torch.cuda.empty_cache()
 
 
 def wire_shapes(params, J: int, rowwise: bool, K: int = 2) -> set:
@@ -1073,6 +1169,7 @@ def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, roun
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
                  "quantize", "dequantize"):
         assert launches[name] > 0, name
+    captured_launches(engine, engine.launches_per_round(state["outer_params"]), rounds)
     tokens = args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
     for rec in hist:
         assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"]), rec
@@ -1095,6 +1192,63 @@ def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, roun
     torch.cuda.empty_cache()
     return launches
 
+
+
+def _rows_sans_wall(path: Path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return [row[:-1] for row in csv.reader(f)]
+
+
+def phase_crash_drill(torch, build_parser, train):
+    """[8e] crash drills on the card, at --reduced widths (``DRILL``): SIGKILL
+    at round 2 in a subprocess, then ``--resume auto`` (the restored state
+    is warmed up and captured anew); metrics.csv, less wall_s, must equal an
+    uninterrupted run's byte for byte. Then, in-process, a NaN injected at
+    round 2 with the health sentinel on: the rollback copies the checkpoint
+    into the captured round's tensors and the run completes on replays."""
+    import shutil
+
+    print("[8e] crash drill: repro_torch.launch.train " + " ".join(DRILL))
+    root = ROOT / "build" / "chip_smoke_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def cli(extra: list, out: Path):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *DRILL, *extra,
+                              "--out", str(out)], capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=600)
+        print(f"  {' '.join(extra) or '(uninterrupted)'}: exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return res
+
+    ref = cli([], root / "ref")
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    killed = cli(["--inject-kill-round", "2"], root / "crash")
+    assert killed.returncode == -9, (killed.returncode, killed.stderr[-3000:])
+    assert (root / "crash" / "ckpt_2.npz").exists() and not (root / "crash" / "ckpt_3.npz").exists()
+    resumed = cli(["--resume", "auto"], root / "crash")
+    assert resumed.returncode == 0, resumed.stderr[-3000:]
+    assert "resume telemetry: resumed_from=ckpt_2.npz start_round=2" in resumed.stdout
+    got, want = _rows_sans_wall(root / "crash" / "metrics.csv"), _rows_sans_wall(root / "ref" / "metrics.csv")
+    assert got == want, (got, want)
+    print(f"  SIGKILL at round 2 + --resume auto: metrics.csv rows equal the uninterrupted "
+          f"run's, less wall_s ({len(got) - 1} rounds)")
+    argv = DRILL + ["--health-sentinel", "on", "--health-warmup", "1", "--inject-nan-round", "2",
+                    "--out", str(root / "nan")]
+    out = train(build_parser().parse_args(argv))
+    tel, hist, engine = out["telemetry"], out["history"], out["engine"]
+    assert tel["rollbacks"] == 1 and tel["skipped_rounds"] == 1, tel
+    assert [r["round"] for r in hist] == [0, 1, 3], hist
+    assert all(math.isfinite(r["train_loss"]) and r["health"] == 0 for r in hist), hist
+    assert len(engine.capture_s) == 1 and engine.replays >= 3, (engine.capture_s, engine.replays)
+    print(f"  NaN at round 2: flagged, rolled back to ckpt_2 inside the captured program "
+          f"(1 capture, {engine.replays} replays), round 2 skipped, rounds "
+          f"{[r['round'] for r in hist]} finite")
+    del out, engine
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1141,6 +1295,10 @@ def main() -> int:
     nesterov = phase_nesterov(torch, ou)
     phase_train_agreement(torch, get_config, build_model)
     train_launches, out = phase_train_main(torch, build_parser, train)
+    from repro_torch.utils.tree import tree_map
+
+    ref_hist = out["history"]
+    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
     phase_train_profile(torch, out, TRAIN, focus=("flash_fwd_wgmma_kernel",
                                                   "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                                                   "matmul_epilogue_kernel"),
@@ -1149,8 +1307,12 @@ def main() -> int:
                                 "flash_dkv_wgmma_kernel": ("5a", bwd["flash_dkv"]["ms"]),
                                 "matmul_epilogue_kernel": ("5b (X X^T on w_in, symmetric)",
                                                            matmul["ms"])})
+    phase_train_profile(torch, out, TRAIN, tag="6c, R = 3", rounds=3)
     params = out["state"]["outer_params"]
     del out
+    torch.cuda.empty_cache()
+    phase_train_equal(torch, build_parser, train, ref_hist, ref_state)
+    del ref_state
     torch.cuda.empty_cache()
 
     quant = phase_quantize(torch, q, params)
@@ -1160,6 +1322,7 @@ def main() -> int:
                                  COMM_BYTES["a"], falls=True, profile="8c'")
     run_b = phase_compressed_run(torch, build_parser, train, "b", COMPRESSED + ROWWISE, 2,
                                  COMM_BYTES["b"], falls=False)
+    phase_crash_drill(torch, build_parser, train)
 
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"

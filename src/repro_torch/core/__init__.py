@@ -13,4 +13,6 @@ from repro_torch.core.diloco import (  # noqa: F401
     make_outer,
     make_streaming_masks,
     outer_step,
+    round_constants,
 )
+from repro_torch.core.health import HealthConfig, health_init, health_update  # noqa: F401

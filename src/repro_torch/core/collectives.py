@@ -100,14 +100,14 @@ def segment_sync_update(deltas: Tree, residuals: Tree | None, mask: Tree,
     For ``'skip'`` / ``'rows'`` leaves psi is zero outside the partition and
     unowned residual rows come back unchanged; callers still mask psi and
     merge the residuals under the mask, for the ``'legacy'`` leaves."""
-    from repro_torch.core.streaming import subset_plan
+    from repro_torch.core.streaming import subset_index, subset_plan
 
     def per_leaf(d, e, m):
         plan, idx = subset_plan(m, tuple(d.shape[1:]), cfg)
         if plan == "skip":
             return torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device), e
         if plan == "rows":
-            rows = torch.as_tensor(idx, device=d.device)
+            rows = subset_index(m, idx, d.device)
             psi_sub, new_e_sub = _leaf_wire_pipeline(
                 d[:, rows], e[:, rows] if e is not None else None, cfg, participation)
             psi = torch.zeros(d.shape[1:], dtype=torch.float32, device=d.device)

@@ -100,7 +100,7 @@ def quantize_linear(x: torch.Tensor, bits: int, rowwise: bool = False) -> torch.
     lo = _row_reduce(x32, torch.amin, rowwise)
     hi = _row_reduce(x32, torch.amax, rowwise)
     nlevels = (1 << bits) - 1
-    scale = (hi - lo) * torch.tensor(1.0 / nlevels, dtype=torch.float32, device=x.device)
+    scale = (hi - lo) * torch.full((), 1.0 / nlevels, dtype=torch.float32, device=x.device)
     scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
     q = torch.round((x32 - lo) / scale)
     return fma_f32(q, scale, lo).to(x.dtype)
@@ -120,7 +120,7 @@ def quantile_levels(rows: torch.Tensor, bits: int) -> torch.Tensor:
     nlevels = 1 << bits
     f32 = dict(dtype=torch.float32, device=rows.device)
     qs = (torch.arange(nlevels, **f32) + 0.5) / nlevels
-    top = torch.tensor(float(n), **f32) - 1.0  # fp32, as jnp.quantile forms n - 1
+    top = torch.full((), float(n), **f32) - 1.0  # fp32, as jnp.quantile forms n - 1
     pos = qs * top
     low, high = torch.floor(pos), torch.ceil(pos)
     high_w = pos - low
@@ -180,7 +180,7 @@ def compress_tree(tree: Tree, cfg: CompressionConfig) -> Tree:
 
 def ef_accumulate(cfg: CompressionConfig, d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """E <- beta * E + delta in fp32, one fused multiply-add as XLA forms it."""
-    beta = torch.tensor(cfg.ef_decay, dtype=torch.float32, device=e.device)
+    beta = torch.full((), cfg.ef_decay, dtype=torch.float32, device=e.device)
     return fma_f32(beta, e.float(), d.float())
 
 

@@ -21,10 +21,18 @@ chain :func:`make_outer` declares (:class:`OuterOptimizer`), with the
 compressors of :mod:`repro_torch.core.compression`, the wire packets of
 :mod:`repro_torch.core.wire` and the collectives of
 :mod:`repro_torch.core.collectives`; streaming (J > 1) syncs one partition
-of :mod:`repro_torch.core.streaming` per segment. Elastic participation,
-``sync_delay`` and the health sentinel (Slice 4) and the data-parallel
-baseline (``dp_config`` / ``dp_step``) raise ``NotImplementedError`` naming
-ROADMAP.md.
+of :mod:`repro_torch.core.streaming` per segment. The health sentinel
+(:mod:`repro_torch.core.health`) folds its running stats through the
+state's ``health`` field. Elastic participation and ``sync_delay`` (Slice
+4b) and the data-parallel baseline (``dp_config`` / ``dp_step``) raise
+``NotImplementedError`` naming ROADMAP.md.
+
+A round runs with no host read and no host-to-device copy, and writes
+every state tensor in place (the round counter too), so the engine can
+capture it in a CUDA graph: a captured round reads and writes fixed
+addresses. The per-round constants (``comm_bytes``, ``active_workers``,
+``staleness``) are built once (:func:`round_constants`) and handed to
+every round.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.core.collectives import measured_sync_bytes, reduce_mean, segment_sync_update
 from repro_torch.core.compression import CompressionConfig, compress, error_feedback
+from repro_torch.core.health import HealthConfig, health_init, health_update
 from repro_torch.core.streaming import masked_update, streaming_masks
 from repro_torch.optim import (
     OptimizerConfig,
@@ -63,7 +72,9 @@ class DiLoCoConfig:
     outer_enabled: bool = True
     elastic: bool = False
     sync_delay: int = 0
-    health_enabled: bool = False
+    # the in-program health sentinel (core/health.py): per-round anomaly
+    # flags; disabled adds no state field and no op
+    health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
 
     @property
     def is_muloco(self) -> bool:
@@ -73,11 +84,10 @@ class DiLoCoConfig:
 def check_ported(dcfg: DiLoCoConfig) -> None:
     """Raise for the features of the reference the port does not carry yet."""
     slice4 = ("elastic participation" if dcfg.elastic else
-              "sync_delay" if dcfg.sync_delay else
-              "the health sentinel" if dcfg.health_enabled else None)
+              "sync_delay" if dcfg.sync_delay else None)
     if slice4:
         raise NotImplementedError(f"{slice4} is not ported to repro_torch yet: "
-                                  "ROADMAP.md, Queue 1, Slice 4")
+                                  "ROADMAP.md, Queue 1, Slice 4b")
     if not dcfg.outer_enabled:
         raise NotImplementedError("the data-parallel baseline (outer_enabled=False, "
                                   "dp_config / dp_step) is not ported to repro_torch yet: "
@@ -184,6 +194,22 @@ def make_streaming_masks(state: dict, dcfg: DiLoCoConfig) -> list[Tree] | None:
     return streaming_masks(state["outer_params"], dcfg.streaming_partitions)
 
 
+def round_constants(state: dict, dcfg: DiLoCoConfig,
+                    masks: list[Tree] | None = None) -> dict[str, torch.Tensor]:
+    """The round's constant metrics as f32[] tensors on the state's device:
+    ``comm_bytes`` (:func:`comm_bytes`, read off the host), the worker
+    count and the sync delay. Built once per engine, before any capture."""
+    J = dcfg.streaming_partitions
+    comm = comm_bytes(state["outer_params"], dcfg, masks if J > 1 else None)
+    device = state["round"].device
+
+    def const(v: float) -> torch.Tensor:
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+
+    return {"comm_bytes": const(comm), "active_workers": const(dcfg.n_workers),
+            "staleness": const(dcfg.sync_delay)}
+
+
 # ---------------------------------------------------------------------------
 # State
 # ---------------------------------------------------------------------------
@@ -212,6 +238,7 @@ def diloco_init(model, dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig,
         inner_state=_stack(opt.init(params), K),
         round=torch.zeros((), dtype=torch.int32, device=device),
         ef=outer.init_ef(params, K),
+        health=health_init(dcfg.health, device),
     )
 
 
@@ -301,7 +328,7 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
         tree_map(reset, state["outer_params"], state["worker_params"])
     else:
         tree_map(reset, state["outer_params"], state["worker_params"], mask)
-    state["round"] = state["round"] + 1
+    state["round"].add_(1)
     return state, psi
 
 
@@ -312,7 +339,8 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
 
 def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
                  masks: list[Tree] | None = None,
-                 outer: OuterOptimizer | None = None) -> tuple[dict, dict]:
+                 outer: OuterOptimizer | None = None,
+                 consts: dict[str, torch.Tensor] | None = None) -> tuple[dict, dict]:
     """One communication round: H inner steps then the outer sync(s).
 
     ``batches`` leaves: [H, K, B, ...]. With streaming (J > 1) the round is
@@ -321,7 +349,10 @@ def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
     {"loss": f32[H], "psi": tree, "comm_bytes": f32[], "active_workers":
     f32[], "staleness": f32[]})`` as the reference does; with J > 1 each
     ``psi`` entry comes from the segment that synced it, and ``comm_bytes``
-    sums the segments' measured wire bytes.
+    sums the segments' measured wire bytes. ``consts`` is
+    :func:`round_constants`' dict (built here when not given). With the
+    health sentinel on, the state's ``health`` stats update in place and
+    ``info["health"]`` is the round's flag bitmask.
     """
     H, J = dcfg.sync_interval, dcfg.streaming_partitions
     if batches["tokens"].shape[0] != H:
@@ -332,8 +363,8 @@ def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
     if J > 1 and masks is None:
         raise ValueError("streaming (J>1) requires partition masks; build them with "
                          "make_streaming_masks(state, dcfg)")
-    device = state["round"].device
-    comm = comm_bytes(state["outer_params"], dcfg, masks if J > 1 else None)
+    if consts is None:
+        consts = round_constants(state, dcfg, masks)
     seg = H // max(J, 1)
     losses, psi = [], None
     for j in range(max(J, 1)):
@@ -347,8 +378,11 @@ def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
         # psi leaves have no K axis: the masks broadcast directly
         masked_j = tree_map(lambda m, p: m * p, masks[j], psi_j)
         psi = masked_j if psi is None else tree_map(torch.add, psi, masked_j)
-    f32 = dict(dtype=torch.float32, device=device)
-    return state, {"loss": torch.stack(losses), "psi": psi,
-                   "comm_bytes": torch.tensor(float(comm), **f32),
-                   "active_workers": torch.tensor(float(dcfg.n_workers), **f32),
-                   "staleness": torch.tensor(float(dcfg.sync_delay), **f32)}
+    losses = torch.stack(losses)
+    info = {"loss": losses, "psi": psi, **consts}
+    if "health" in state:
+        with torch.no_grad():
+            new_health, flag = health_update(dcfg.health, state["health"], losses, psi)
+            _copy_into(state["health"], new_health)
+        info["health"] = flag
+    return state, info

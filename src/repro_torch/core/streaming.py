@@ -12,6 +12,11 @@ Non-stacked leaves (embed, final norm, ...) go whole to the partition
 two packages partition alike. Masks are fp32 tensors on the params' device
 (the CPU for leaves that are not tensors, which only need a ``shape``):
 shape ``(L, 1, ...)`` for stacked leaves, 0-dim otherwise.
+
+A mask tensor keeps its :func:`subset_plan` and :func:`subset_index`
+results on itself: the first call reads the mask to the host, every later
+one reads nothing, so a captured streaming sync runs no host read. The
+engine computes them once (:func:`prepare_plans`) before any capture.
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ def streaming_masks(params: Tree, n_partitions: int,
 
 
 def subset_plan(mask_leaf, leaf_shape: tuple, ccfg) -> tuple[str, np.ndarray | None]:
-    """Classify a mask leaf for wire-row subsetting: ``(plan, idx)``.
+    """Classify a mask leaf for wire-row subsetting: ``(plan, idx)``,
+    cached on a mask tensor (module docstring).
 
     * ``'all'``    — the segment owns the whole leaf (encode it whole);
     * ``'skip'``   — the segment owns nothing (encode nothing);
@@ -59,8 +65,38 @@ def subset_plan(mask_leaf, leaf_shape: tuple, ccfg) -> tuple[str, np.ndarray | N
       quantization rows span the L axis; top-k rounds k per leaf): the
       full-size masked encode, accounted at the masked-row fraction.
     """
-    m = (mask_leaf.detach().cpu().numpy() if isinstance(mask_leaf, torch.Tensor)
-         else np.asarray(mask_leaf))
+    if not isinstance(mask_leaf, torch.Tensor):
+        return _subset_plan(np.asarray(mask_leaf), leaf_shape, ccfg)
+    cache = mask_leaf.__dict__.setdefault("_subset_plans", {})
+    key = (tuple(leaf_shape), ccfg.kind, ccfg.rowwise)
+    if key not in cache:
+        cache[key] = _subset_plan(mask_leaf.detach().cpu().numpy(), leaf_shape, ccfg)
+    return cache[key]
+
+
+def subset_index(mask_leaf: torch.Tensor, idx: np.ndarray, device) -> torch.Tensor:
+    """The owned rows ``idx`` of a ``'rows'`` plan as an index tensor on
+    ``device``, made once per mask tensor and device."""
+    cache = mask_leaf.__dict__.setdefault("_subset_index", {})
+    key = (str(torch.device(device)), idx.tobytes())
+    if key not in cache:
+        cache[key] = torch.as_tensor(idx, device=device)
+    return cache[key]
+
+
+def prepare_plans(masks: list[Tree], params: Tree, ccfg) -> None:
+    """Compute every mask leaf's :func:`subset_plan` (and its index on the
+    params' device) for ``params``' leaf shapes, so a later sync reads no
+    mask to the host."""
+    for mask in masks:
+        for p, m in zip(tree_leaves(params), tree_leaves(mask)):
+            if isinstance(m, torch.Tensor):
+                plan, idx = subset_plan(m, tuple(p.shape), ccfg)
+                if plan == "rows":
+                    subset_index(m, idx, p.device)
+
+
+def _subset_plan(m: np.ndarray, leaf_shape: tuple, ccfg) -> tuple[str, np.ndarray | None]:
     if m.ndim == 0:
         return ("all" if m > 0 else "skip"), None
     rows = m.reshape(m.shape[0], -1)  # stacked masks broadcast (L, 1, ..)

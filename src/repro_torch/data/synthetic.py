@@ -83,3 +83,14 @@ class MarkovStream:
 def batches_for_round(stream: MarkovStream, round_idx: int, sync_interval: int) -> dict:
     """Stacked batches for one DiLoCo round: leaves [H, K, B, S]."""
     return stream.batch_stack(round_idx * sync_interval, sync_interval)
+
+
+def batches_for_span(stream: MarkovStream, round_idx: int, sync_interval: int,
+                     n_rounds: int) -> dict:
+    """Round-stacked batches for ``n_rounds`` consecutive rounds: leaves
+    [R, H, K, B, S], the superstep's input. One ``batch_stack`` over the
+    R*H steps, reshaped; equal to stacking ``batches_for_round`` for rounds
+    ``round_idx .. round_idx + n_rounds - 1`` (each step's draws depend on
+    its step alone)."""
+    flat = stream.batch_stack(round_idx * sync_interval, n_rounds * sync_interval)
+    return {k: v.reshape(n_rounds, sync_interval, *v.shape[1:]) for k, v in flat.items()}

@@ -1,17 +1,37 @@
-"""TrainEngine (port of ``repro/engine/engine.py``).
+"""TrainEngine (port of ``repro/engine/engine.py``): R rounds per dispatch,
+captured on the card.
 
-The reference compiles one donated, jitted program per superstep (a
-``lax.scan`` over H inner steps with the outer sync folded in, scanned
-again over R rounds). PyTorch runs eagerly, so the port's engine runs one
-round per call of :meth:`TrainEngine.step`, updating the state in place
-where JAX donates it. Every R that divides a run is bitwise the same
-arithmetic in the reference, so running rounds one at a time changes no
-number; the superstep (one CUDA graph per round or R rounds) is deferred
-(ROADMAP.md).
+The reference jits one donated program per superstep: a ``lax.scan`` over
+H inner steps with the outer sync folded in, scanned again over R rounds.
+The port's unit is the *round program* (``superstep.round_program``): the
+K·H worker steps (forward, checkpointed backward, the Muon or AdamW
+update), the J outer syncs with the wire path, the eval loss of the synced
+params and, when armed, the health update. On a CUDA device the engine
+captures it once in a ``torch.cuda.CUDAGraph`` and replays it for every
+later round, so a round costs the host one graph launch instead of ~67,000
+kernel launches; :func:`repro_torch.engine.superstep.build_superstep_fn`
+runs R of them per dispatch with no host read in between. On the CPU there
+is no capture and the same program runs eagerly. Every R that divides a run
+is the same arithmetic, bit for bit, and so is a replay against the eager
+round.
+
+One graph holds a whole round (with and without the eval loss are two
+graphs, each captured at its first use). The first use of each runs one
+real round eagerly on a side stream (the warm-up: it builds the kernels,
+checks their tiles and makes PyTorch's lazy handles), then captures it.
+The graph reads and writes fixed addresses: the state it was captured on,
+updated in place, and static batch buffers the engine fills before each
+replay. A state passed in with other tensors (a restored checkpoint, a
+round counter set by the recovery path) is copied into the captured
+tensors first. A capture that fails raises; nothing falls back to eager.
+``TrainEngine(..., capture=False)`` keeps the eager path on the card for
+the equality checks.
 """
 from __future__ import annotations
 
-from typing import Any
+import gc
+import time
+from typing import Any, Callable
 
 import torch
 
@@ -22,10 +42,86 @@ from repro_torch.core.diloco import (
     make_optimizer,
     make_outer,
     make_streaming_masks,
+    round_constants,
 )
+from repro_torch.engine.superstep import build_superstep_fn, round_program
 from repro_torch.optim import OptimizerConfig
+from repro_torch.utils.tree import tree_leaves_with_paths, tree_map
 
 Tree = Any
+
+
+class CapturedRound:
+    """One round program captured in a CUDA graph, on the state it was
+    warmed up on. :meth:`replay` stages the batches into the static
+    buffers, replays, and adds the launches the capture recorded to
+    ``_build.LAUNCHES`` (a capture executes nothing, so its own launches
+    are taken back)."""
+
+    def __init__(self, program: Callable, state: dict, batches: dict,
+                 eval_batch: dict | None):
+        from repro_torch.kernels import _build
+
+        device = state["round"].device
+        self.state = state
+        self._leaves = [t for _, t in tree_leaves_with_paths(state)]
+        self.batches = {k: torch.empty_like(v) for k, v in batches.items()}
+        self.eval_batch = (None if eval_batch is None else
+                           {k: torch.empty_like(v) for k, v in eval_batch.items()})
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        # no collection during the capture: destroying an unreachable
+        # engine's graph there would end the capture (torch.cuda.graph
+        # collects once on entry)
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+                _, self.info = program(state, self.batches, self.eval_batch)
+        finally:
+            if gc_was_on:
+                gc.enable()
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: _build.LAUNCHES[k] - n for k, n in before.items()}
+        _build.LAUNCHES.update(before)
+
+    def bind(self, state: dict) -> dict:
+        """The captured state, holding ``state``'s values: a state with
+        other tensors is copied in (same paths, shapes and dtypes)."""
+        if state is self.state:
+            return state
+        leaves = tree_leaves_with_paths(state)
+        if (len(leaves) == len(self._leaves)
+                and all(t is c for (_, t), c in zip(leaves, self._leaves))):
+            return self.state
+        mine = tree_leaves_with_paths(self.state)
+        if [p for p, _ in leaves] != [p for p, _ in mine]:
+            raise ValueError("state does not match the captured round's state: "
+                             f"{len(leaves)} leaves vs {len(mine)}")
+        with torch.no_grad():
+            for (p, src), (_, dst) in zip(leaves, mine):
+                if src.shape != dst.shape or src.dtype != dst.dtype:
+                    raise ValueError(f"state leaf {p}: {tuple(src.shape)} {src.dtype}, "
+                                     f"captured {tuple(dst.shape)} {dst.dtype}")
+                if src is not dst:
+                    dst.copy_(src)
+        return self.state
+
+    def replay(self, state: dict, batches: dict,
+               eval_batch: dict | None) -> tuple[dict, dict]:
+        from repro_torch.kernels import _build
+
+        state = self.bind(state)
+        for k, v in batches.items():
+            self.batches[k].copy_(v)
+        if eval_batch is not None:
+            for k, v in eval_batch.items():
+                self.eval_batch[k].copy_(v)
+        self.graph.replay()
+        _build.add_launch_counts(self.launches)
+        return state, self.info
 
 
 class TrainEngine:
@@ -33,31 +129,142 @@ class TrainEngine:
 
         engine = TrainEngine(model, dcfg, icfg)
         state = engine.init(torch.Generator(device).manual_seed(0), device)
-        for r in range(rounds):
-            state, info = engine.step(state, batches_for_round(stream, r, H))
+        state, info = engine.step(state, batches_for_round(stream, 0, H))
+        # or R rounds in one dispatch (leaves [R, H, K, B, ...]):
+        state, out = engine.superstep(state, batches_for_span(stream, 1, H, R))
 
-    ``step`` updates ``state`` in place and returns it. A streaming config
-    (J > 1) builds its partition masks once, from the first state it steps,
-    and passes them to every round.
+    ``step`` / ``superstep`` update the state in place and return it; on a
+    captured engine the returned state is the captured one, so always
+    rebind from the return value. ``capture`` (default: on a CUDA device)
+    runs the round program as a CUDA graph; ``capture=True`` with a state
+    on the CPU raises. For late metric reads and checkpoints use
+    :func:`repro_torch.engine.driver.run_rounds`.
     """
 
-    def __init__(self, model, dcfg: DiLoCoConfig, icfg: OptimizerConfig):
+    def __init__(self, model, dcfg: DiLoCoConfig, icfg: OptimizerConfig, *,
+                 capture: bool | None = None):
         self.model = model
         self.dcfg = dcfg
         self.icfg = icfg
+        self.capture = capture
         self.opt = make_optimizer(dcfg, icfg)
         self.outer = make_outer(dcfg, state_dtype=icfg.state_dtype)
         self._masks = None
+        self._consts = None
+        self._graphs: dict[bool, CapturedRound] = {}
+        # in-program checkpoints: the driver installs a sink for its run
+        self.checkpoint_sink: Callable | None = None
+        self.dispatch_count = 0
+        # capture record: seconds of each warm-up round and capture, replays
+        self.warmup_s: list[float] = []
+        self.capture_s: list[float] = []
+        self.replays = 0
 
     def init(self, gen: torch.Generator, device) -> dict:
-        return diloco_init(self.model, self.dcfg, self.icfg, gen, device)
+        state = diloco_init(self.model, self.dcfg, self.icfg, gen, device)
+        self._captures(state)
+        return state
+
+    # -- the round program ----------------------------------------------------
+
+    def _prepare(self, state: dict) -> None:
+        """Streaming masks, their subset plans and the round's constant
+        metrics, made once from the first state, before any capture."""
+        if self._consts is not None:
+            return
+        self._masks = make_streaming_masks(state, self.dcfg)
+        if self._masks is not None:
+            from repro_torch.core.streaming import prepare_plans
+
+            prepare_plans(self._masks, state["outer_params"], self.dcfg.compression)
+        self._consts = round_constants(state, self.dcfg, self._masks)
+
+    def _round(self, state: dict, batches: dict) -> tuple[dict, dict]:
+        return diloco_round(self.model, self.dcfg, self.opt, state, batches,
+                            masks=self._masks, outer=self.outer, consts=self._consts)
+
+    def _program(self, state: dict, batches: dict,
+                 eval_batch: dict | None = None) -> tuple[dict, dict]:
+        # built per call, not kept: an engine holding closures over itself
+        # would live (with its graphs and state) until the cyclic GC ran
+        return round_program(self._round, self.eval_loss)(state, batches, eval_batch)
+
+    def _captures(self, state: dict) -> bool:
+        on_cuda = state["round"].device.type == "cuda"
+        if self.capture and not on_cuda:
+            raise ValueError("TrainEngine(capture=True) captures CUDA graphs: the state "
+                             f"is on {state['round'].device}")
+        return on_cuda if self.capture is None else bool(self.capture)
+
+    def _dispatch_round(self, state: dict, batches: dict,
+                        eval_batch: dict | None = None) -> tuple[dict, dict]:
+        """One round: eager, or the captured graph's replay (warm-up and
+        capture at the first use of each graph)."""
+        self._prepare(state)
+        if not self._captures(state):
+            return self._program(state, batches, eval_batch)
+        key = eval_batch is not None
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self.replays += 1
+            return graph.replay(state, batches, eval_batch)
+        if self._graphs:  # a second graph captures on the first one's state
+            state = next(iter(self._graphs.values())).bind(state)
+        device = state["round"].device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            state, info = self._program(state, batches, eval_batch)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.warmup_s.append(time.perf_counter() - t0)
+        graph = CapturedRound(self._program, state, batches, eval_batch)
+        self.capture_s.append(graph.capture_s)
+        self._graphs[key] = graph
+        return state, info
+
+    # -- execution -------------------------------------------------------------
 
     def step(self, state: dict, batches: dict) -> tuple[dict, dict]:
-        """One communication round (H inner steps + the outer sync(s))."""
-        if self._masks is None:
-            self._masks = make_streaming_masks(state, self.dcfg)
-        return diloco_round(self.model, self.dcfg, self.opt, state, batches,
-                            masks=self._masks, outer=self.outer)
+        """One communication round (H inner steps + the outer sync(s)): the
+        degenerate R = 1 :meth:`superstep`, with ``loss`` f32[H] and the
+        round's ``psi`` (on a captured engine, the graph's buffers: valid
+        until the next dispatch)."""
+        state, out = self.superstep(state, {k: v[None] for k, v in batches.items()})
+        return state, {k: (v if k == "psi" else v[0]) for k, v in out.items()}
+
+    def superstep(self, state: dict, batches: dict, eval_batches: dict | None = None,
+                  ckpt_flags=None) -> tuple[dict, dict]:
+        """R rounds in one dispatch. ``batches`` leaves [R, H, K, B, ...];
+        ``eval_batches`` (optional) leaves [R, B, ...]; ``ckpt_flags``
+        (optional, R bools) emits each flagged round's post-round state to
+        :attr:`checkpoint_sink`. Returns ``(state, out)`` with ``loss``
+        f32[R, H], ``comm_bytes`` f32[R] (and ``active_workers``,
+        ``staleness``), ``eval_loss`` f32[R] with eval batches, ``health``
+        f32[R] with the sentinel on, and ``psi`` at R = 1."""
+        self.dispatch_count += 1
+        superstep_fn = build_superstep_fn(self._round, eval_loss_fn=self.eval_loss,
+                                          checkpoint_cb=self._emit_checkpoint,
+                                          program=self._dispatch_round)
+        return superstep_fn(state, batches, eval_batches, ckpt_flags)
+
+    def _emit_checkpoint(self, state: dict) -> None:
+        """Hand a flagged round's state to the sink as ``(host_state,
+        event)``: on the card, asynchronous copies into pinned host buffers
+        and the event that marks them done (the host does not wait here);
+        on the CPU, a copy and ``None``."""
+        sink = self.checkpoint_sink
+        if sink is None:
+            return
+        if state["round"].device.type != "cuda":
+            sink((tree_map(lambda t: t.detach().clone(), state), None))
+            return
+        host = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        .copy_(t, non_blocking=True), state)
+        event = torch.cuda.Event()
+        event.record()
+        sink((host, event))
 
     def launches_per_round(self, params: Tree) -> dict[str, int]:
         """Hopper-kernel launches one round makes on the card (with an eval
@@ -67,7 +274,9 @@ class TrainEngine:
         iteration per Muon leaf (one launch covers a whole [L, m, n] stack);
         the eval loss runs the forward once per layer; each outer sync (J
         per round) launches the Nesterov kernel once per leaf, and the
-        quantize and dequantize launches are :meth:`wire_launches_per_round`'s."""
+        quantize and dequantize launches are :meth:`wire_launches_per_round`'s.
+        A replayed round counts the launches its capture recorded, so the
+        formula holds for warm-up, eager and replayed rounds alike."""
         from repro_torch.optim.muon import muon_label
         from repro_torch.utils.tree import tree_leaves_with_paths
 
@@ -113,5 +322,6 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_loss(self, params: Tree, batch: dict) -> torch.Tensor:
-        """Loss of the synced (outer) params on one un-stacked batch."""
+        """Loss of the synced (outer) params on one un-stacked batch (the
+        function the round program folds in)."""
         return self.model.loss(params, batch)[0]

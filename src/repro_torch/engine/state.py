@@ -5,10 +5,14 @@ with the reference's field names.
     transform's state (``{"u": tree}`` for Nesterov, ``{}`` for SGD);
   * ``worker_params`` / ``inner_state`` — K-stacked replicas and their
     inner-optimizer state (``None`` holes where ``partition`` left them);
-  * ``round`` — the int32 round counter, on the device.
+  * ``round`` — the int32 round counter, on the device;
+  * ``ef`` — the K-stacked error-feedback residuals (compressed syncs);
+  * ``health`` — the health sentinel's ``{"ema", "n"}`` running stats
+    (:mod:`repro_torch.core.health`), checkpointed with the rest.
 
-The reference's optional fields (``ef``, ``participation``, ``pending``,
-``health``) belong to features of later slices; like the reference's
+Every field is updated in place, so a captured round sees the same
+tensors from round to round. The reference's ``participation`` and
+``pending`` belong to Slice 4b (elastic execution); like the reference's
 mapping view of a state without them, the dict simply has no such key.
 ``utils.tree.state_from_numpy`` / ``state_to_numpy`` carry a state across
 the two packages field by field.

@@ -10,7 +10,10 @@ first use. Importing this module compiles nothing.
 The launch plumbing every kernel wrapper shares lives here too: ``entry``
 binds a C entry point, ``launch`` calls it on PyTorch's current stream,
 raises if the launch failed and adds one to ``LAUNCHES[name]``, so a run
-can show that its path went through the kernels. Before a library's first
+can show that its path went through the kernels. A launch made while a CUDA
+graph is being captured executes nothing then; the engine takes back what
+a capture counted and adds it once per replay (:func:`add_launch_counts`),
+so the counts stay kernel executions. Before a library's first
 launch, ``launch`` reads the tile sizes its ``<lib>_tiles`` function
 reports and raises if they differ from those the launching module
 registered in ``TILES`` (its Python mirrors of the schedules assume them).
@@ -51,6 +54,13 @@ LAUNCHES: dict[str, int] = {name: 0 for name in (
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` to ``LAUNCHES`` (a captured graph's launches, once
+    per replay)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

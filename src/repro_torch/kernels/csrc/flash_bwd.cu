@@ -541,6 +541,26 @@ int check(int G, int hd, int dtype) {
   return 0;
 }
 
+// The dynamic shared memory limit is raised once per device, at the first
+// launch, so a launch inside a CUDA graph capture makes no attribute call.
+constexpr int kMaxDevices = 64;
+bool dq_smem_set[kMaxDevices] = {};
+bool dkv_smem_set[kMaxDevices] = {};
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* done) {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    if (cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))
+      return (int)e;
+    done[dev] = true;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps).
@@ -559,9 +579,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
         static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
         scale);
   } else {
-    if (cudaError_t e = cudaFuncSetAttribute(
-            flash_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM))
-      return (int)e;
+    if (int rc = allow_smem(flash_dq_wgmma_kernel, DQ_SMEM, dq_smem_set)) return rc;
     const int nqt = (S * G + TILE - 1) / TILE;
     flash_dq_wgmma_kernel<<<bkv * nqt, WG, DQ_SMEM, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -585,9 +603,7 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
         static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv),
         S, G, nkv, causal, window, scale);
   } else {
-    if (cudaError_t e = cudaFuncSetAttribute(
-            flash_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM))
-      return (int)e;
+    if (int rc = allow_smem(flash_dkv_wgmma_kernel, DKV_SMEM, dkv_smem_set)) return rc;
     const int nkt = (S + TILE - 1) / TILE;
     flash_dkv_wgmma_kernel<<<bkv * nkt, WG, DKV_SMEM, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -79,7 +79,7 @@ def _levels(bits: int) -> int:
 def quant_codes_plain(x: torch.Tensor, bits: int):
     """The code half of ``quantize`` in plain torch: ``x [rows, cols]`` ->
     ``(q, lo [rows, 1], scale [rows, 1])`` with q the fp32 code values."""
-    inv = torch.tensor(1.0 / _levels(bits), dtype=torch.float32, device=x.device)
+    inv = torch.full((), 1.0 / _levels(bits), dtype=torch.float32, device=x.device)
     x32 = x.float()
     lo = torch.amin(x32, dim=1, keepdim=True)
     hi = torch.amax(x32, dim=1, keepdim=True)

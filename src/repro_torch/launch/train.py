@@ -16,28 +16,46 @@ port's paths launch the hand-written kernels), and ``--device`` (default
 ``cuda``) picks the card or, for tests, the CPU, where every kernel runs as
 its plain PyTorch version. Weights are random, made from ``--seed``.
 
-Flags of features later slices bring raise ``NotImplementedError`` naming
-ROADMAP.md. ``--rounds-per-dispatch`` is accepted: the port runs rounds one
-at a time, and since the reference makes every dividing R the same
-arithmetic this changes no number; the telemetry line reports
-``rounds_per_dispatch=1``, what the port did. ``--autotune`` and the
-attention block flags are accepted and change nothing here: the Hopper
-kernels tile themselves and the result does not depend on the blocks.
+``--rounds-per-dispatch R`` (default ``auto``: the whole run when
+unmeasured, clamped to divide the run and the checkpoint cadence) runs R
+rounds per dispatch; on the card each round is a replay of one captured
+CUDA graph (:mod:`repro_torch.engine.engine`), and every dividing R is the
+same arithmetic, bit for bit. Metrics drain late (``run_rounds``), and the
+telemetry line reports what ran.
+
+Crash safety as in the reference: ``--checkpoint-every N`` writes
+checksummed ``ckpt_<round>.npz`` files (``--keep-checkpoints``,
+``--checkpoint-in-program``), ``--resume auto`` restarts from the newest
+valid one and rewrites metrics.csv up to it, ``--health-sentinel on`` rolls
+a flagged round back to the last checkpoint and skips it,
+``--inject-{nan,spike,kill}-round`` injects faults, and SIGTERM / SIGINT
+drain in-flight rounds and write a resumable checkpoint.
+
+Flags of features later slices bring (``--drop-*``, ``--sync-delay``,
+``--mesh``) raise ``NotImplementedError`` naming ROADMAP.md.
+``--autotune`` and the attention block flags are accepted and change
+nothing here: the Hopper kernels tile themselves and the result does not
+depend on the blocks.
 """
 from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import math
 import os
+import signal
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, load_latest_valid, save_round_checkpoint
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core import CompressionConfig, DiLoCoConfig
-from repro_torch.data import DataConfig, MarkovStream, batches_for_round
-from repro_torch.engine import TrainEngine, run_rounds
+from repro_torch.core import CompressionConfig, DiLoCoConfig, HealthConfig
+from repro_torch.core.faults import CrashPlan
+from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+from repro_torch.engine import RecoveryPolicy, TrainEngine, run_rounds
 from repro_torch.models import build_model
 from repro_torch.optim import INNER_OPTIMIZERS, OUTER_OPTIMIZERS, OptimizerConfig
 
@@ -64,17 +82,10 @@ def smoothed_eval_loss(losses: list[float], steps: list[int], H: int, alpha: flo
 def check_ported_flags(args) -> None:
     """Raise for the flags of features that later slices of the port bring."""
     deferred = [
-        ("--resume", args.resume is not None, 4),
-        ("--checkpoint-every", bool(args.checkpoint_every), 4),
-        ("--checkpoint-in-program", args.checkpoint_in_program, 4),
-        ("--health-sentinel", args.health_sentinel == "on", 4),
-        ("--drop-prob", args.drop_prob > 0, 4),
-        ("--drop-schedule", bool(args.drop_schedule), 4),
-        ("--sync-delay", bool(args.sync_delay), 4),
-        ("--inject-nan-round", args.inject_nan_round is not None, 4),
-        ("--inject-spike-round", args.inject_spike_round is not None, 4),
-        ("--inject-kill-round", args.inject_kill_round is not None, 4),
-        ("--mesh", args.mesh is not None, 5),
+        ("--drop-prob", args.drop_prob > 0, "4b"),
+        ("--drop-schedule", bool(args.drop_schedule), "4b"),
+        ("--sync-delay", bool(args.sync_delay), "4b"),
+        ("--mesh", args.mesh is not None, "5"),
     ]
     for flag, used, slice_no in deferred:
         if used:
@@ -92,10 +103,16 @@ def make_diloco_cfg(args) -> DiLoCoConfig:
         n_workers=args.workers, sync_interval=args.sync_interval, inner_name=args.inner,
         outer_name=args.outer, outer_lr=args.outer_lr, outer_momentum=args.outer_momentum,
         compression=comp, streaming_partitions=args.streaming, ns_impl=args.ns_impl,
-        outer_kernel=args.outer_kernel, sync_delay=args.sync_delay)
+        outer_kernel=args.outer_kernel, sync_delay=args.sync_delay,
+        health=HealthConfig(enabled=args.health_sentinel == "on",
+                            spike_factor=args.health_spike_factor,
+                            warmup_rounds=args.health_warmup))
 
 
-def train(args) -> dict:
+def train(args, *, capture: bool | None = None) -> dict:
+    """Run the command ``args`` (``build_parser``'s namespace). ``capture``
+    is ``TrainEngine``'s (default: capture on a CUDA device); ``False``
+    keeps the eager path on the card, for equality checks."""
     check_ported_flags(args)
     device = torch.device(args.device)
     cfg = get_config(args.arch)
@@ -114,8 +131,22 @@ def train(args) -> dict:
         lr=args.lr, weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_steps=max(total_steps // 100, 5), total_steps=total_steps,
         ns_period=args.ns_period)
-    engine = TrainEngine(model, dcfg, icfg)
+    engine = TrainEngine(model, dcfg, icfg, capture=capture)
     state = engine.init(torch.Generator(device=device).manual_seed(args.seed), device)
+    template = state  # paths and devices of a checkpoint's leaves
+
+    start_round, resumed_from = 0, None
+    if args.resume == "auto":
+        got = load_latest_valid(args.out, template, device=device)
+        if got is not None:
+            state, start_round, resumed_from = got
+    elif args.resume and os.path.exists(args.resume):
+        state, start_round = load_checkpoint(args.resume, template, device=device)
+        resumed_from = args.resume
+    if resumed_from is not None:
+        print(f"resumed from {resumed_from} at round {start_round}")
+        print(f"resume telemetry: resumed_from={os.path.basename(resumed_from)} "
+              f"start_round={start_round}")
 
     data = MarkovStream(DataConfig(
         vocab=cfg.vocab, seq_len=cfg.max_seq_len, batch_per_worker=args.batch_per_worker,
@@ -128,12 +159,29 @@ def train(args) -> dict:
         return {k: v[:, 0] for k, v in eval_data.batch_stack(r0, n).items()}
 
     os.makedirs(args.out, exist_ok=True)
+    csv_path = os.path.join(args.out, "metrics.csv")
     losses, steps, history = [], [], []
+    # Resume: keep the killed run's rows before start_round (their eval
+    # losses, logged at %.9g, round-trip through float32 exactly, so the
+    # smoothed eval continues from the same history) and drop the rows of
+    # rounds whose state was lost.
+    prior_rows: list[list[str]] = []
+    if start_round > 0 and os.path.exists(csv_path):
+        with open(csv_path, newline="") as f:
+            prior_rows = [row for row in csv.reader(f)
+                          if row and row[0].isdigit() and int(row[0]) < start_round]
+        for row in prior_rows:
+            losses.append(float(np.float32(row[3])))
+            steps.append(int(row[1]))
     telemetry: dict = {}
+    crash = CrashPlan(nan_round=args.inject_nan_round, spike_round=args.inject_spike_round,
+                      kill_round=args.inject_kill_round)
     t_start = time.time()
-    with open(os.path.join(args.out, "metrics.csv"), "w", newline="") as f:
+    with open(csv_path, "w", newline="") as f:
         writer = csv.writer(f)
         writer.writerow(HEADER)
+        writer.writerows(prior_rows)
+        f.flush()
 
         def on_round(rec):
             losses.append(rec["eval_loss"])
@@ -142,7 +190,7 @@ def train(args) -> dict:
             writer.writerow([rec["round"], rec["step"], f"{rec['train_loss']:.9g}",
                              f"{rec['eval_loss']:.9g}", f"{rec['comm_bytes']:.0f}",
                              f"{rec['active_workers']:.0f}", f"{rec['staleness']:.0f}",
-                             "0", telemetry.get("rollbacks", 0),
+                             f"{rec.get('health', 0.0):.0f}", telemetry.get("rollbacks", 0),
                              f"{time.time() - t_start:.1f}"])
             f.flush()
             if args.verbose:
@@ -150,12 +198,65 @@ def train(args) -> dict:
                       f"train {rec['train_loss']:.4f} eval {rec['eval_loss']:.4f} "
                       f"comm {rec['comm_bytes']:.2e}B active {rec['active_workers']:.0f} "
                       f"wall {rec['wall_s']:.3f}s")
+            # the kill fires after the row is out: a real crash's trail on disk
+            crash.maybe_kill(rec["round"])
 
-        state, _ = run_rounds(engine, state,
-                              lambda r: batches_for_round(data, r, dcfg.sync_interval),
-                              args.rounds, eval_batches_for=eval_batches_for,
-                              on_round=on_round, telemetry=telemetry)
+        def on_state(r, st):
+            save_round_checkpoint(args.out, st, r + 1, keep=args.keep_checkpoints)
 
+        recovery = None
+        if dcfg.health.enabled and args.checkpoint_every:
+            def restore():
+                got = load_latest_valid(args.out, template, device=device)
+                return None if got is None else (got[0], got[1])
+
+            def scale_lr(scale):
+                return TrainEngine(model, dcfg, dataclasses.replace(icfg, lr=args.lr * scale),
+                                   capture=capture)
+
+            recovery = RecoveryPolicy(restore=restore, max_rollbacks=args.health_max_rollbacks,
+                                      scale_lr=scale_lr)
+            if start_round == 0 and not os.path.exists(os.path.join(args.out, "ckpt_0.npz")):
+                on_state(-1, state)  # a round-0 fault needs something to roll back to
+
+        # a poisoning injection edits the state at a dispatch boundary
+        rpd = 1 if crash.needs_single_round_dispatch else args.rounds_per_dispatch
+        stop = {"flag": False}
+
+        def _graceful(signum, frame):
+            stop["flag"] = True
+            print(f"signal {signum}: draining in-flight dispatches, then writing a "
+                  "resumable checkpoint")
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, _graceful)
+            except ValueError:  # not the main thread
+                pass
+        try:
+            state, _ = run_rounds(
+                engine, state, lambda r: batches_for_round(data, r, dcfg.sync_interval),
+                args.rounds, start=start_round, rounds_per_dispatch=rpd,
+                span_batches_for=lambda r0, n: batches_for_span(data, r0, dcfg.sync_interval, n),
+                eval_batches_for=eval_batches_for, on_round=on_round,
+                on_state=on_state if args.checkpoint_every else None,
+                on_state_every=args.checkpoint_every,
+                checkpoint_in_program=args.checkpoint_in_program, telemetry=telemetry,
+                recovery=recovery, should_stop=lambda: stop["flag"],
+                inject=None if crash.is_trivial else crash.apply)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+
+    if telemetry.get("preempted"):
+        done = int(state["round"])
+        path = save_round_checkpoint(args.out, state, done, keep=args.keep_checkpoints)
+        print(f"preempted after round {done - 1}: wrote {os.path.basename(path)}; "
+              "resume with --resume auto")
+    if engine.capture_s and args.verbose:
+        print(f"captured round program: warm-up rounds {engine.warmup_s} s, captures "
+              f"{engine.capture_s} s, {engine.replays} replays")
     print(f"dispatch telemetry: dispatches={telemetry.get('dispatches')} "
           f"rounds_per_dispatch={telemetry.get('rounds_per_dispatch')} "
           f"in_program_checkpoints={telemetry.get('in_program_checkpoints')} "
@@ -186,8 +287,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--rounds-per-dispatch", type=lambda v: v if v == "auto" else int(v),
                     default="auto",
-                    help="accepted; the port runs one round per dispatch (every "
-                         "dividing R is the same arithmetic)")
+                    help="rounds per dispatch (R), or 'auto' (the whole run when "
+                         "unmeasured); clamped to divide the run and the checkpoint "
+                         "cadence; every dividing R is the same arithmetic")
     ap.add_argument("--lr", type=float, default=2e-2)
     ap.add_argument("--weight-decay", type=float, default=1e-4)
     ap.add_argument("--schedule", default="cosine", choices=["cosine", "constant"])

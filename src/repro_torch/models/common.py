@@ -223,9 +223,10 @@ def fused_cross_entropy(hidden: torch.Tensor, head_w: torch.Tensor, labels: torc
     for i in range(0, S, chunk):
         x_c, y_c = hidden[:, i:i + chunk], labels[:, i:i + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_chunk_nll_sum, x_c, head_w, y_c, use_reentrant=False)
+            part = checkpoint(_chunk_nll_sum, x_c, head_w, y_c, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             part = _chunk_nll_sum(x_c, head_w, y_c)
         total = total + part
     loss = total / (B * S)
-    return loss, {"loss": loss, "tokens": torch.tensor(float(B * S), device=hidden.device)}
+    return loss, {"loss": loss, "tokens": torch.full((), float(B * S), device=hidden.device)}

@@ -112,7 +112,7 @@ def forward_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor, last_only: 
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
             x = checkpoint(lambda x, lp=lp: _block(cfg, x, lp, positions), x,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(cfg, x, lp, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

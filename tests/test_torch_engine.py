@@ -1,0 +1,360 @@
+"""PyTorch port: R rounds per dispatch (engine/superstep.py, the engine and
+the driver) and checkpoints that cross between the two packages.
+
+On the CPU the engine runs its round program eagerly (no CUDA graph), which
+is what these tests pin: any R is bitwise the same run, the folded eval is
+the separate eval, the port's superstep agrees with the reference's on the
+same TrainState, and a checkpoint written by either package loads in the
+other, bf16 leaves included. The captured path on the card is held to the
+same equalities by ``chip_smoke.py``.
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from test_torch_train import _cfgs, _jstate_numpy, assert_tree_close  # noqa: E402
+
+from repro.checkpoint import load_checkpoint as jload_checkpoint  # noqa: E402
+from repro.checkpoint import save_checkpoint as jsave_checkpoint  # noqa: E402
+from repro.core import DiLoCoConfig as JDiLoCoConfig  # noqa: E402
+from repro.core import diloco_init as jdiloco_init  # noqa: E402
+from repro.data import DataConfig as JDataConfig  # noqa: E402
+from repro.data import MarkovStream as JMarkovStream  # noqa: E402
+from repro.engine import TrainEngine as JTrainEngine  # noqa: E402
+from repro.engine import superstep as jsuperstep  # noqa: E402
+from repro.models import build_model as jbuild_model  # noqa: E402
+from repro.optim import OptimizerConfig as JOptimizerConfig  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.core import DiLoCoConfig  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    DataConfig,
+    MarkovStream,
+    batches_for_round,
+    batches_for_span,
+)
+from repro_torch.engine import TrainEngine, run_rounds, train_state  # noqa: E402
+from repro_torch.engine import superstep as tsuperstep  # noqa: E402
+from repro_torch.models import ModelConfig, build_model  # noqa: E402
+from repro_torch.optim import OptimizerConfig  # noqa: E402
+from repro_torch.utils.tree import state_from_numpy, tree_leaves_with_paths  # noqa: E402
+
+CFG = ModelConfig(arch_type="dense", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                  d_ff=64, vocab=64, remat=False, dtype="float32", qk_norm=True)
+H, K = 2, 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are tiny: one torch thread computes them as fast and
+    leaves the cores to the other files of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _stream(seed=3, n_workers=K):
+    return MarkovStream(DataConfig(vocab=CFG.vocab, seq_len=16, batch_per_worker=2,
+                                   n_workers=n_workers, seed=seed))
+
+
+def _engine(inner="muon", **dkw):
+    dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name=inner, **dkw)
+    engine = TrainEngine(build_model(CFG), dcfg, OptimizerConfig(lr=1e-2, weight_decay=0.0))
+    return engine, engine.init(torch.Generator().manual_seed(0), "cpu")
+
+
+def _eval(r0, n):
+    return {k: v[:, 0] for k, v in _stream(seed=99, n_workers=1).batch_stack(r0, n).items()}
+
+
+def _assert_states_equal(a, b):
+    la, lb = tree_leaves_with_paths(a), tree_leaves_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        assert torch.equal(x, y), p
+
+
+# ------------------------------------------------------------ dispatch plan
+
+_GRID = [(rounds, every, start, measured)
+         for rounds in (0, 1, 5, 6, 12) for every in (0, 2, 3, 4) for start in (0, 3, 4)
+         for measured in (None, (0.001, 0.05), (0.010, 0.020), (0.0001, 0.05))]
+
+
+@pytest.mark.parametrize("requested", [1, 2, 3, 4, 12, "auto"])
+def test_rounds_per_dispatch_equal_reference(requested):
+    """``effective_rounds_per_dispatch`` (the cadence clamps, a resumed
+    start, "auto" measured and not) and ``auto_rounds_per_dispatch`` give
+    the reference's R on a grid of inputs."""
+    assert tsuperstep.MAX_DISPATCH_OVERHEAD_FRAC == jsuperstep.MAX_DISPATCH_OVERHEAD_FRAC
+    for rounds, every, start, measured in _GRID:
+        kw = {} if measured is None else dict(host_overhead_s=measured[0],
+                                              device_round_s=measured[1])
+        want = jsuperstep.effective_rounds_per_dispatch(requested, rounds, every, start, **kw)
+        got = tsuperstep.effective_rounds_per_dispatch(requested, rounds, every, start, **kw)
+        assert got == want, (requested, rounds, every, start, measured)
+        if requested == "auto":
+            assert (tsuperstep.auto_rounds_per_dispatch(rounds, **kw)
+                    == jsuperstep.auto_rounds_per_dispatch(rounds, **kw))
+
+
+# ------------------------------------------------------------- R invariance
+
+def _six_rounds(inner, R):
+    engine, state = _engine(inner)
+    stream = _stream()
+    losses, evals = [], []
+    for r0 in range(0, 6, R):
+        state, out = engine.superstep(state, batches_for_span(stream, r0, H, R), _eval(r0, R))
+        assert out["loss"].shape == (R, H) and out["eval_loss"].shape == (R,)
+        assert ("psi" in out) == (R == 1)
+        losses.append(out["loss"])
+        evals.append(out["eval_loss"])
+    return state, torch.cat(losses), torch.cat(evals), engine.dispatch_count
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 6])
+@pytest.mark.parametrize("inner", ["muon", "adamw"])
+def test_rounds_per_dispatch_bitwise_equal_six_single_rounds(inner, R):
+    """Six rounds as 6/R dispatches of R rounds equal six ``engine.step``
+    calls plus a separate eval per round: losses, eval losses and the final
+    state, bit for bit."""
+    engine, state = _engine(inner)
+    stream = _stream()
+    losses, evals = [], []
+    for r in range(6):
+        state, info = engine.step(state, batches_for_round(stream, r, H))
+        losses.append(info["loss"])
+        evals.append(engine.eval_loss(state["outer_params"],
+                                      {k: v[0] for k, v in _eval(r, 1).items()}))
+    got_state, got_losses, got_evals, dispatches = _six_rounds(inner, R)
+    assert dispatches == 6 // R
+    assert torch.equal(got_losses, torch.stack(losses))
+    assert torch.equal(got_evals, torch.stack(evals))
+    assert int(got_state["round"]) == 6
+    _assert_states_equal(got_state, state)
+
+
+def test_folded_eval_equals_separate_eval():
+    """The eval loss folded into the round program is the engine's
+    ``eval_loss`` of the post-sync outer params, bitwise."""
+    engine, state = _engine("adamw")
+    state, out = engine.superstep(state, batches_for_span(_stream(), 0, H, 1), _eval(0, 1))
+    sep = engine.eval_loss(state["outer_params"], {k: v[0] for k, v in _eval(0, 1).items()})
+    assert torch.equal(out["eval_loss"][0], sep)
+
+
+def test_batches_for_span_equals_stacked_rounds():
+    stream = _stream()
+    span = batches_for_span(stream, 2, 3, 4)
+    for k, v in span.items():
+        assert v.shape == (4, 3, K, 2, 16) and v.dtype == torch.int32
+        assert torch.equal(v, torch.stack([batches_for_round(stream, 2 + i, 3)[k]
+                                           for i in range(4)]))
+
+
+def _driven(R, **kw):
+    engine, state = _engine("muon")
+    stream = _stream()
+    telemetry = {}
+    state, hist = run_rounds(engine, state, lambda r: batches_for_round(stream, r, H), 6,
+                             rounds_per_dispatch=R, eval_batches_for=_eval,
+                             span_batches_for=lambda r0, n: batches_for_span(stream, r0, H, n),
+                             telemetry=telemetry, **kw)
+    return state, [{k: v for k, v in h.items() if k != "wall_s"} for h in hist], telemetry
+
+
+def test_run_rounds_three_per_dispatch_equals_one():
+    """run_rounds at R = 3 (two dispatches, late reads) and R = 1 give the
+    same records and the same final state; the telemetry says what ran."""
+    s1, h1, t1 = _driven(1)
+    s3, h3, t3 = _driven(3, max_in_flight=1)
+    sa, ha, ta = _driven("auto")
+    assert (t1["dispatches"], t3["dispatches"], ta["dispatches"]) == (6, 2, 1)
+    assert (t1["rounds_per_dispatch"], t3["rounds_per_dispatch"],
+            ta["rounds_per_dispatch"]) == (1, 3, 6)
+    assert [h["round"] for h in h3] == list(range(6))
+    assert h1 == h3 == ha
+    assert all(h["comm_bytes"] > 0 and h["active_workers"] == K for h in h1)
+    _assert_states_equal(s1, s3)
+    _assert_states_equal(s1, sa)
+
+
+def test_capture_true_on_cpu_raises():
+    """capture=True asks for CUDA graphs: on a CPU state it raises rather
+    than running eagerly."""
+    dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name="adamw")
+    engine = TrainEngine(build_model(CFG), dcfg, OptimizerConfig(), capture=True)
+    with pytest.raises(ValueError, match="capture"):
+        engine.init(torch.Generator().manual_seed(0), "cpu")
+    eager, state = _engine("adamw")
+    with pytest.raises(ValueError, match="capture"):
+        engine.step(state, batches_for_round(_stream(), 0, H))
+    assert int(state["round"]) == 0  # nothing ran
+    assert not engine._graphs and engine.replays == 0
+
+
+# ------------------------------------------------- against the reference
+
+@pytest.mark.parametrize("inner", ["muon", "adamw"])
+def test_superstep_r2_matches_reference(inner):
+    """Two rounds in one dispatch, with the folded eval, from one TrainState
+    (bridged) and the same batches: the port's superstep against the
+    reference's ``build_superstep_fn`` (through its engine), at the
+    tolerances of test_one_diloco_round_matches_reference; the round
+    counter and comm_bytes exactly."""
+    jcfg, tcfg = _cfgs()
+    dkw = dict(n_workers=2, sync_interval=2, inner_name=inner, ns_impl="pallas",
+               outer_kernel=inner == "muon")
+    jd, td = JDiLoCoConfig(**dkw), DiLoCoConfig(**dkw)
+    okw = dict(lr=2e-2, weight_decay=1e-4, schedule="cosine", warmup_steps=1, total_steps=4)
+    jo, to = JOptimizerConfig(**okw), OptimizerConfig(**okw)
+    jmodel = jbuild_model(jcfg)
+    jstate = jdiloco_init(jmodel, jd, jo, jax.random.PRNGKey(0))
+    tstate = train_state(**state_from_numpy(_jstate_numpy(jstate), "cpu"))
+    stream = JMarkovStream(JDataConfig(vocab=jcfg.vocab, seq_len=16, batch_per_worker=2,
+                                       n_workers=2, seed=3))
+    flat = {k: np.array(v) for k, v in stream.batch_stack(0, 4).items()}
+    batches = {k: v.reshape(2, 2, *v.shape[1:]) for k, v in flat.items()}
+    ev = {k: np.array(v)[:, 0] for k, v in JMarkovStream(JDataConfig(
+        vocab=jcfg.vocab, seq_len=16, batch_per_worker=2, seed=9)).batch_stack(0, 2).items()}
+
+    jnew, jout = JTrainEngine(jmodel, jd, jo).superstep(
+        jstate, {k: jnp.asarray(v) for k, v in batches.items()},
+        {k: jnp.asarray(v) for k, v in ev.items()})
+    tnew, tout = TrainEngine(build_model(tcfg), td, to).superstep(
+        tstate, {k: torch.from_numpy(v) for k, v in batches.items()},
+        {k: torch.from_numpy(v) for k, v in ev.items()})
+    adam = dict(adamw_tol=okw["lr"], all_adam=inner == "adamw")
+    tight = dict(atol=2e-5, rtol=1e-4, **adam)
+    assert set(tout) == set(jout)
+    assert_tree_close(tout["loss"], jout["loss"], "loss", **tight)
+    assert_tree_close(tout["eval_loss"], jout["eval_loss"], "eval_loss", **tight)
+    assert_tree_close(tnew["worker_params"], jnew.worker_params, "workers", **tight)
+    assert_tree_close(tnew["outer_params"], jnew.outer_params, "outer", **tight)
+    assert_tree_close(tnew["outer_opt"], jax.tree.map(np.asarray, jnew.outer_opt), "u",
+                      atol=2e-4, rtol=1e-4, **adam)
+    assert int(tnew["round"]) == int(jnew.round) == 2
+    assert np.array_equal(tout["comm_bytes"].numpy(), np.asarray(jout["comm_bytes"]))
+
+
+# ------------------------------------------------------------- checkpoints
+
+def _bf16_state():
+    """A reference TrainState with bf16 leaves (bf16 inner state) and the
+    port's copy of it."""
+    jcfg, _ = _cfgs()
+    jd = JDiLoCoConfig(n_workers=2, sync_interval=2, inner_name="muon")
+    jstate = jdiloco_init(jbuild_model(jcfg), jd, JOptimizerConfig(state_dtype="bfloat16"),
+                          jax.random.PRNGKey(0))
+
+    def to_torch(x):
+        x = np.asarray(x)
+        if x.dtype == jnp.bfloat16:
+            return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(x))
+
+    tstate = {f: jax.tree.map(to_torch, getattr(jstate, f)) for f in
+              ("outer_params", "outer_opt", "worker_params", "inner_state", "round")}
+    return jstate, train_state(**tstate)
+
+
+def _assert_bits_equal(t_tree, j_tree):
+    jflat = dict(jax.tree_util.tree_flatten_with_path(j_tree)[0])
+    jflat = {"/".join(str(getattr(k, "key", getattr(k, "name", getattr(k, "idx", k))))
+                      for k in path): v for path, v in jflat.items()}
+    tflat = tree_leaves_with_paths(t_tree)
+    assert sorted(jflat) == [p for p, _ in tflat]
+    n_bf16 = 0
+    for p, t in tflat:
+        j = np.asarray(jflat[p])
+        if t.dtype == torch.bfloat16:
+            n_bf16 += 1
+            assert j.dtype == jnp.bfloat16, p
+            assert np.array_equal(t.view(torch.int16).numpy(), j.view(np.int16)), p
+        else:
+            assert np.array_equal(t.numpy(), j), p
+    assert n_bf16 > 0
+
+
+def test_reference_checkpoint_loads_in_port(tmp_path):
+    """A reference save_checkpoint of a reference TrainState with bf16
+    leaves loads into the port bit for bit (bf16 read without ml_dtypes)."""
+    jstate, tstate = _bf16_state()
+    path = str(tmp_path / "ref.npz")
+    jsave_checkpoint(path, jstate, step=5)
+    loaded, step = load_checkpoint(path, tstate)
+    assert step == 5
+    _assert_bits_equal(loaded, jstate)
+    for (p, a), (_, b) in zip(tree_leaves_with_paths(loaded), tree_leaves_with_paths(tstate)):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+
+
+def test_port_checkpoint_loads_in_reference(tmp_path):
+    """A port save_checkpoint loads into the reference's load_checkpoint
+    (its TrainState template) bit for bit; the file's meta has the
+    reference's keys and stores bf16 as uint16 bits."""
+    jstate, tstate = _bf16_state()
+    path = str(tmp_path / "port.npz")
+    save_checkpoint(path, tstate, step=7)
+    loaded, step = jload_checkpoint(path, jstate)
+    assert step == 7
+    _assert_bits_equal(tstate, loaded)
+    with np.load(path) as z:
+        import json
+
+        meta = json.loads(bytes(z["__tree_meta__"]).decode())
+        assert set(meta) == {"step", "paths", "dtypes", "crc32"}
+        i = meta["dtypes"].index("bfloat16")
+        assert z[f"leaf_{i}"].dtype == np.uint16
+
+
+def test_in_program_checkpoint_bytes_identical_to_host_path(tmp_path):
+    """Checkpoints copied out inside the dispatch (one dispatch for 4 rounds)
+    equal, byte for byte, those written between dispatches (R clamped to
+    the cadence: two dispatches); both runs end in the same state."""
+    def saves(sub, **kw):
+        d = tmp_path / sub
+        os.makedirs(d)
+        seen = []
+
+        def on_state(r, st):
+            path = str(d / f"ckpt_{r}.npz")
+            save_checkpoint(path, st, step=r + 1)
+            seen.append(path)
+
+        engine, state = _engine("muon")
+        stream = _stream()
+        tel = {}
+        state, _ = run_rounds(engine, state, lambda r: batches_for_round(stream, r, H), 4,
+                              rounds_per_dispatch="auto", on_state=on_state, on_state_every=2,
+                              telemetry=tel, **kw)
+        assert engine.checkpoint_sink is None
+        return state, seen, tel
+
+    host_state, host_ckpts, host_tel = saves("host")
+    prog_state, prog_ckpts, prog_tel = saves("prog", checkpoint_in_program=True)
+    assert host_tel["dispatches"] == 2 and not host_tel["in_program_checkpoints"]
+    assert prog_tel["dispatches"] == 1 and prog_tel["in_program_checkpoints"]
+    assert [os.path.basename(p) for p in host_ckpts] == \
+           [os.path.basename(p) for p in prog_ckpts] == ["ckpt_1.npz", "ckpt_3.npz"]
+    for a, b in zip(host_ckpts, prog_ckpts):
+        with np.load(a) as za, np.load(b) as zb:
+            assert sorted(za.files) == sorted(zb.files)
+            for k in za.files:
+                np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+    _assert_states_equal(host_state, prog_state)
+
+
+def test_ckpt_flags_require_sink():
+    engine, state = _engine("adamw")
+    batches = batches_for_span(_stream(), 0, H, 2)
+    fn = tsuperstep.build_superstep_fn(lambda s, b: (s, {"loss": s["round"]}))
+    with pytest.raises(ValueError, match="checkpoint_cb"):
+        fn(state, batches, ckpt_flags=[True, False])

@@ -324,7 +324,8 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     ref_header = eval(src[src.index("[", start):src.index("]", start) + 1])
     assert rows[0] == ref_header == ttrain.HEADER
     assert [r[0] for r in rows[1:]] == ["0", "1"]
-    assert "dispatch telemetry: dispatches=2 rounds_per_dispatch=1" in text
+    # --rounds-per-dispatch auto (the default): both rounds in one dispatch
+    assert "dispatch telemetry: dispatches=1 rounds_per_dispatch=2" in text
     assert "final smoothed eval loss:" in text.splitlines()[-1]
     assert all(math.isfinite(v) for v in out["losses"])
     assert math.isfinite(out["final_loss"])
@@ -335,11 +336,8 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume", "auto"], ["--checkpoint-every", "1"], ["--checkpoint-in-program"],
-    ["--health-sentinel", "on"], ["--mesh", "2x2"], ["--drop-prob", "0.5"],
-    ["--drop-schedule", "1:0"], ["--sync-delay", "1"], ["--inject-nan-round", "1"],
-    ["--inject-spike-round", "1"], ["--inject-kill-round", "1"],
-    ["--inner", "muon_bp"], ["--inner", "normuon"]])
+    ["--mesh", "2x2"], ["--drop-prob", "0.5"], ["--drop-schedule", "1:0"],
+    ["--sync-delay", "1"], ["--inner", "muon_bp"], ["--inner", "normuon"]])
 def test_train_cli_deferred_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttrain.train(_args(tmp_path, *flags))
