@@ -101,7 +101,36 @@ Phases, in order; any failure raises and the script exits nonzero:
    wall_s must equal an uninterrupted run's byte for byte; then a NaN
    injected at round 2 with the health sentinel on, rolled back into the
    captured round.
-9. Summary: one ``{"kernels": [...]}`` line, then the last line
+9. Elastic MuLoCo, in-process through the CLI entry point: the command in
+   ``TRAIN`` plus ``ELASTIC[tag]``. (9a) ``--drop-schedule 1:1`` (worker 1
+   out in round 1 of 3): ``active_workers`` [2, 1, 2]; round 0 bitwise
+   6b's (the dense program); worker 1's inner state bit-identical across
+   round 1 (``RoundSpy`` clones it around the dispatch; round 1 is the
+   masked program's warm-up, so eager); two programs captured, dense and
+   masked, each recording one round's launch formula; the same command with
+   ``capture=False`` bitwise equal; one masked inner step on the card
+   leaves worker 1's params and inner state unchanged; then one more round
+   with worker 0 out replays the masked graph (captured under [1, 0]):
+   worker 0's inner state frozen bitwise, worker 1's moved, and the round
+   bitwise equal to the same round eager from a copy of the state.
+   (9b) ``--sync-delay 1``: round 0's outer params equal the init bitwise,
+   staleness 1, captured = eager bitwise. (9c) the compressed run of 8c
+   plus the drop: worker 1's inner state and EF residual bit-identical
+   across round 1, ``comm_bytes`` 67,257,680 in rounds 0 and 2 and half of
+   it in round 1; the masked replay of 9a, with the EF residuals among the
+   frozen fields. Each then profiles one more replayed dispatch (9a', 9b',
+   9c'; masked where the run drops a worker): tokens/s, idle share.
+10. The data-parallel baselines (10a Muon, 10b AdamW): ``dp_engine`` (K = 1,
+   H = 1, Newton-Schulz through ``matmul_epilogue``) at full width, driven
+   by ``run_rounds`` over 12 steps of 16 x 1024 tokens, one captured
+   one-step round replayed; launches per step counted (``flash_fwd`` 60,
+   ``flash_dq`` and ``flash_dkv`` 30, ``matmul_epilogue`` 105 for Muon);
+   losses finite and falling; eager and R = 4 bitwise equal; a profiled
+   dispatch of four steps. (10c) one full-width attention layer with
+   attn_impl='xla' at S = 4096 (the blockwise online softmax, plain torch)
+   against the fp32 ``flash_fwd``, batch 1. Then each path's tokens/s, idle
+   share and peak memory beside the card's name and power limit.
+11. Summary: one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
@@ -152,6 +181,13 @@ COMPRESSED = ["--compression", "quant", "--bits", "2", "--error-feedback"]
 ROWWISE = ["--rowwise", "--streaming", "2"]
 # the reference's measured wire bytes per worker per round at full width, K = 2
 COMM_BYTES = {"a": 67_257_680, "b": 70_441_072}
+# elastic MuLoCo (9a-9c): the training command plus these flags; worker 1
+# drops in round 1 of 3
+ELASTIC = {"i": ["--drop-schedule", "1:1"], "ii": ["--sync-delay", "1"],
+           "iii": COMPRESSED + ["--drop-schedule", "1:1"]}
+# the data-parallel baselines (10a, 10b): one worker, 16 x 1024 tokens a
+# step (= K * B of the training command), 12 steps (its 3 rounds' tokens)
+DP = dict(steps=12, batch=16, seq_len=1024, lr=3e-3)
 
 
 def time_ms(torch, fn, runs: int = 30) -> float:
@@ -836,7 +872,7 @@ def phase_train_main(torch, build_parser, train):
     assert launches == want, (launches, want)
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov"):
         assert launches[name] > 0, name
-    captured_launches(engine, per_round, args.rounds)
+    check_captures(engine, per_round, args.rounds, [(True, False)])
     print(f"  round 1's wall {hist[0]['wall_s']:.3f} s holds the warm-up round (eager, kernel "
           f"build included) {engine.warmup_s[0]:.3f} s and the capture {engine.capture_s[0]:.3f} s")
     tokens = args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
@@ -857,34 +893,67 @@ def phase_train_main(torch, build_parser, train):
     return launches, out
 
 
-def captured_launches(engine, per_round: dict, rounds: int) -> None:
-    """The launch count of a captured run is captures x replays: the
-    warm-up round launches eagerly, and each replay adds what the capture
-    recorded, which must be one round's formula."""
-    graph = engine._graphs.get(True)
-    assert graph is not None, "the training round was not captured"
-    assert len(engine.warmup_s) == len(engine.capture_s) == 1, engine.capture_s
-    assert engine.replays == rounds - 1, (engine.replays, rounds)
-    assert graph.launches == per_round, (graph.launches, per_round)
-    print(f"  captured round: 1 capture x {engine.replays} replays + 1 warm-up round; the "
+def check_captures(engine, per_round: dict, rounds: int, keys: list) -> None:
+    """A captured run's graphs: one capture for each (eval, masked) key in
+    ``keys``, a warm-up round for each, replays for the rest, and every
+    capture recorded one round's formula."""
+    assert sorted(engine._graphs) == sorted(keys), sorted(engine._graphs)
+    assert len(engine.warmup_s) == len(engine.capture_s) == len(keys), engine.capture_s
+    assert engine.replays == rounds - len(keys), (engine.replays, rounds)
+    for key, graph in engine._graphs.items():
+        assert graph.launches == per_round, (key, graph.launches, per_round)
+    print(f"  captured programs {sorted(engine._graphs)} ((eval, masked)): {len(keys)} "
+          f"warm-up rounds + captures ({[round(s, 3) for s in engine.warmup_s]} s, "
+          f"{[round(s, 3) for s in engine.capture_s]} s), {engine.replays} replays; each "
           "capture recorded one round's formula")
 
 
+def profile_dispatch(torch, dispatch, tokens: int, note: str) -> dict:
+    """Where a dispatch's time goes: ``dispatch(0)`` unprofiled (its wall on
+    the host clock, ending in a device sync), then ``dispatch(1)`` under
+    torch.profiler: device busy time, the idle share of the unprofiled wall,
+    the kernel count, the kernels that take the time, and ``tokens`` over
+    the unprofiled wall. Returns those numbers and the kernels' times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    dispatch(0)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_times(torch, prof)
+    busy = sum(v[0] for v in by_name.values())
+    idle = 100 * (1 - busy / plain_wall_ms)
+    tok_s = tokens / plain_wall_ms * 1e3
+    print(f"  wall {plain_wall_ms:.1f} ms unprofiled ({wall_ms:.1f} ms profiled), device busy "
+          f"{busy:.1f} ms: idle {idle:.1f}% of the unprofiled wall; "
+          f"{sum(v[1] for v in by_name.values())} kernels; {tok_s:.1f} tokens/s unprofiled, "
+          f"{note}")
+    assert busy > 0, "the profiler saw no device time in the dispatch"
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
+    return dict(wall_ms=plain_wall_ms, busy_ms=busy, idle=idle, tok_s=tok_s, by_name=by_name)
+
+
 def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (),
-                        beside: dict | None = None, rounds: int = 1):
+                        beside: dict | None = None, rounds: int = 1,
+                        participation: list | None = None) -> dict:
     """[6c] where a training round's time goes: one more dispatch of
-    ``rounds`` rounds (replays of the captured round, with the eval loss)
+    ``rounds`` rounds (replays of the captured round, with the eval loss,
+    every round with the worker mask ``participation`` where given)
     unprofiled, then one under torch.profiler; the device time of the
     kernels whose names hold one of ``focus`` is summed apart, with its time
     per launch beside ``beside[key]`` (the phase and its ms per call) where
     given."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.data import DataConfig, MarkovStream, batches_for_span
     from repro_torch.launch.train import build_parser
 
     print(f"[{tag}] profile: one more dispatch of {rounds} captured training round(s) of the "
-          "same run")
+          "same run" + (f", worker mask {participation}" if participation else ""))
     args = build_parser().parse_args(args_list)
     engine, state, model = out["engine"], out["state"], out["model"]
     dcfg = dict(vocab=model.cfg.vocab, seq_len=args.seq_len,
@@ -893,35 +962,21 @@ def phase_train_profile(torch, out, args_list, tag: str = "6c", focus: tuple = (
     evals = MarkovStream(DataConfig(**dcfg, n_workers=1, seed=args.seed + 10_000), "cuda")
     replays = engine.replays
 
-    def dispatch(r):
+    def dispatch(i):
         nonlocal state
+        r = args.rounds + i * rounds
         eb = {k: v[:, 0] for k, v in evals.batch_stack(r, rounds).items()}
-        state, o = engine.superstep(state, batches_for_span(data, r, args.sync_interval,
-                                                            rounds), eb)
+        state, o = engine.superstep(state, batches_for_span(data, r, args.sync_interval, rounds),
+                                    eb, participation=(None if participation is None
+                                                       else [participation] * rounds))
         return float(o["loss"].mean())
 
-    t0 = time.perf_counter()
-    dispatch(args.rounds)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dispatch(args.rounds + rounds)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    tokens = rounds * args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
+    prof = profile_dispatch(torch, dispatch, tokens, f"{rounds} round(s) a dispatch")
     out["state"] = state
     assert engine.replays == replays + 2 * rounds, "the profiled rounds were not replays"
-    by_name = device_times(torch, prof)
-    busy = sum(v[0] for v in by_name.values())
-    tokens = rounds * args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
-    print(f"  wall {plain_wall_ms:.1f} ms unprofiled ({wall_ms:.1f} ms profiled), device busy "
-          f"{busy:.1f} ms: idle {100 * (1 - busy / plain_wall_ms):.1f}% of the unprofiled wall; "
-          f"{sum(v[1] for v in by_name.values())} kernels; {tokens / plain_wall_ms * 1e3:.1f} "
-          f"tokens/s unprofiled, {rounds} round(s) a dispatch")
-    assert busy > 0, "the profiler saw no device time in the replayed rounds"
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
-    print_focus(by_name, plain_wall_ms, focus, beside)
+    print_focus(prof["by_name"], prof["wall_ms"], focus, beside)
+    return prof
 
 
 def _leaf_diffs(torch, a: dict, b: dict) -> list:
@@ -1169,7 +1224,8 @@ def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, roun
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
                  "quantize", "dequantize"):
         assert launches[name] > 0, name
-    captured_launches(engine, engine.launches_per_round(state["outer_params"]), rounds)
+    check_captures(engine, engine.launches_per_round(state["outer_params"]), rounds,
+                   [(True, False)])
     tokens = args.workers * args.sync_interval * args.batch_per_worker * args.seq_len
     for rec in hist:
         assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"]), rec
@@ -1251,6 +1307,356 @@ def phase_crash_drill(torch, build_parser, train):
     torch.cuda.empty_cache()
 
 
+class RoundSpy:
+    """Watches one ``train()`` run's dispatches (one round each, R = 1):
+    ``before(r, state)`` / ``after(r, state)`` run around the dispatch of
+    round r. What they clone and compare runs on the card between
+    dispatches, so it lands in the run's round walls; the phases read the
+    rate off a profiled dispatch instead."""
+
+    def __init__(self, before=None, after=None):
+        self.before, self.after = before, after
+
+    def __enter__(self):
+        from repro_torch.engine import TrainEngine
+
+        self._orig = orig = TrainEngine.superstep
+        spy, count = self, [0]
+
+        def superstep(engine, state, batches, *a, **kw):
+            r = count[0]
+            count[0] += batches["tokens"].shape[0]
+            if spy.before:
+                spy.before(r, state)
+            state, out = orig(engine, state, batches, *a, **kw)
+            if spy.after:
+                spy.after(r, state)
+            return state, out
+
+        TrainEngine.superstep = superstep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.engine import TrainEngine
+
+        TrainEngine.superstep = self._orig
+
+
+def _worker_slices(torch, state: dict, k: int, fields: tuple) -> dict:
+    from repro_torch.utils.tree import tree_map
+
+    return {f: tree_map(lambda t: t[k].clone(), state[f]) for f in fields}
+
+
+def masked_replay_check(torch, out, args, fields: tuple, phase: str) -> None:
+    """The masked graph replayed and checked: round 1's drop is the masked
+    program's first use, so it ran eagerly (the warm-up). One more round of
+    the same run with the other worker out, mask [0, 1] (the capture saw
+    [1, 0]), replays the graph; worker 0's ``fields`` keep every bit and
+    worker 1's move, and the same round run eagerly from a copy of the
+    state gives the same metrics and state, bitwise."""
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_span
+    from repro_torch.utils.tree import tree_map
+
+    engine, state, model = out["engine"], out["state"], out["model"]
+    dcfg = dict(vocab=model.cfg.vocab, seq_len=args.seq_len,
+                batch_per_worker=args.batch_per_worker)
+    data = MarkovStream(DataConfig(**dcfg, n_workers=args.workers, seed=args.seed), "cuda")
+    evals = MarkovStream(DataConfig(**dcfg, n_workers=1, seed=args.seed + 10_000), "cuda")
+    r, mask = args.rounds, [[0.0, 1.0]]
+    batches = batches_for_span(data, r, args.sync_interval, 1)
+    eb = {k: v[:, 0] for k, v in evals.batch_stack(r, 1).items()}
+    copy = tree_map(lambda t: t.detach().clone(), state)
+    w0, w1 = (_worker_slices(torch, state, k, fields) for k in (0, 1))
+    replays = engine.replays
+    state, o = engine.superstep(state, batches, eb, participation=mask)
+    torch.cuda.synchronize()
+    assert engine.replays == replays + 1, "the masked round was not a replay"
+    diffs = _leaf_diffs(torch, w0, _worker_slices(torch, state, 0, fields))
+    assert not diffs, f"worker 0 (dropped) moved in the replayed masked round: {diffs}"
+    assert _leaf_diffs(torch, w1, _worker_slices(torch, state, 1, fields)), "worker 1 froze"
+    was, engine.capture = engine.capture, False
+    try:
+        eager, oe = engine.superstep(copy, batches, eb, participation=mask)
+    finally:
+        engine.capture = was
+    torch.cuda.synchronize()
+    assert engine.replays == replays + 1
+    for k in ("loss", "comm_bytes", "active_workers", "staleness", "eval_loss"):
+        assert torch.equal(o[k], oe[k]), (k, o[k], oe[k])
+    diffs = _leaf_diffs(torch, state, eager)
+    assert not diffs, f"replayed masked round != eager: {diffs}"
+    assert float(o["active_workers"][0]) == 1.0
+    out["state"] = state
+    print(f"  [{phase}] masked graph replayed with mask [0, 1] (captured under [1, 0]): "
+          f"worker 0's {' and '.join(fields)} bit-identical, worker 1's moved; loss, "
+          "comm_bytes, active_workers, eval loss and every state leaf bitwise the same round "
+          "eager")
+    del copy, eager, w0, w1
+
+
+def phase_elastic(torch, build_parser, train, tag: str, ref_hist: list) -> dict:
+    """[9a]-[9c] elastic MuLoCo through the CLI entry point: the training
+    command plus ``ELASTIC[tag]``, captured, then (i, ii) eager, bitwise.
+    Returns the run's rate, idle share and peak memory."""
+    from repro_torch.core import inner_step
+    from repro_torch.kernels import _build
+    from repro_torch.utils.tree import tree_map
+
+    phase = {"i": "9a", "ii": "9b", "iii": "9c"}[tag]
+    argv = list(TRAIN) + ELASTIC[tag]
+    argv[argv.index("--out") + 1] = str(ROOT / "build" / f"chip_smoke_elastic_{tag}")
+    print(f"[{phase}] elastic run ({tag}): repro_torch.launch.train " + " ".join(argv))
+    args = build_parser().parse_args(argv)
+    drops, delay = "--drop-schedule" in argv, "--sync-delay" in argv
+    fields = ("inner_state",) + (("ef",) if "--error-feedback" in argv else ())
+    seen: dict = {}
+
+    def before(r, state):
+        if drops and r == 1:  # worker 1 drops in round 1
+            seen["frozen"] = _worker_slices(torch, state, 1, fields)
+        if delay and r == 0:
+            seen["init"] = tree_map(torch.clone, state["outer_params"])
+
+    def after(r, state):
+        if drops and r == 1:
+            now = _worker_slices(torch, state, 1, fields)
+            diffs = _leaf_diffs(torch, seen.pop("frozen"), now)
+            assert not diffs, f"dropped worker 1's {fields} moved in round 1: {diffs}"
+            print(f"  worker 1's {' and '.join(fields)} bit-identical across round 1 (dropped)")
+        if delay and r == 0:
+            diffs = _leaf_diffs(torch, seen.pop("init"), state["outer_params"])
+            assert not diffs, f"round 0 moved the outer params under --sync-delay 1: {diffs}"
+            print("  round 0's outer params equal the init bitwise (the FIFO's zero Psi)")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with RoundSpy(before, after):
+        out = train(args)
+    launches = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    engine, state, hist = out["engine"], out["state"], out["history"]
+    per_round = engine.launches_per_round(state["outer_params"])
+    want = {k: args.rounds * v for k, v in per_round.items()}
+    print(f"  launches {launches}")
+    print(f"  formula  {want} (rounds x TrainEngine.launches_per_round; the masked program "
+          "runs every worker's step and selects)")
+    assert launches == want, (launches, want)
+    kernels = ["flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov"]
+    for name in kernels + (["quantize", "dequantize"] if tag == "iii" else []):
+        assert launches[name] > 0, name
+    check_captures(engine, per_round, args.rounds,
+                   [(True, False), (True, True)] if drops else [(True, False)])
+    active = [r["active_workers"] for r in hist]
+    assert active == ([2.0, 1.0, 2.0] if drops else [2.0, 2.0, 2.0]), active
+    assert all(r["staleness"] == (1.0 if delay else 0.0) for r in hist), hist
+    for rec in hist:
+        assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["eval_loss"]), rec
+        print(f"  round {rec['round']}: train {rec['train_loss']:.4f}, eval "
+              f"{rec['eval_loss']:.4f}, active {rec['active_workers']:.0f}, staleness "
+              f"{rec['staleness']:.0f}, comm_bytes {rec['comm_bytes']:.0f}, wall "
+              f"{rec['wall_s']:.3f} s")
+    if tag == "iii":
+        comm = [r["comm_bytes"] for r in hist]
+        c = COMM_BYTES["a"]
+        assert comm == [c, c / 2, c], comm
+        print(f"  comm_bytes {comm}: {c} in rounds 0 and 2, half of it with one of two "
+              "workers in round 1")
+    if tag == "i":
+        keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+        assert all(hist[0][k] == ref_hist[0][k] for k in keys), (hist[0], ref_hist[0])
+        print(f"  round 0 ({', '.join(keys)}) bitwise equal to 6b's round 0 (every worker "
+              "present: the dense program)")
+    if tag in ("i", "ii"):
+        ref_state = tree_map(lambda t: t.detach().clone(), state)
+        argv_e = list(argv)
+        argv_e[argv_e.index("--out") + 1] += "_eager"
+        eager = train(build_parser().parse_args(argv_e), capture=False)
+        torch.cuda.synchronize()
+        keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes", "active_workers",
+                "staleness")
+        assert len(eager["history"]) == len(hist)
+        for a, b in zip(hist, eager["history"]):
+            for k in keys:
+                assert a[k] == b[k], (tag, a["round"], k, a[k], b[k])
+        diffs = _leaf_diffs(torch, ref_state, eager["state"])
+        assert not diffs, (tag, diffs)
+        print(f"  captured = eager (capture=False), bitwise: {len(hist)} rounds' "
+              f"{', '.join(keys)} and every state leaf")
+        del eager, ref_state
+        torch.cuda.empty_cache()
+    if tag == "i":  # a dropped worker's params through a masked step, on the card
+        probe = tree_map(torch.clone, {f: state[f] for f in ("worker_params", "inner_state")})
+        w1 = _worker_slices(torch, probe, 1, ("worker_params", "inner_state"))
+        w0 = tree_map(torch.clone, probe["worker_params"]["embed"][0])
+        from repro_torch.data import DataConfig, MarkovStream
+
+        batch = MarkovStream(DataConfig(vocab=engine.model.cfg.vocab, seq_len=args.seq_len,
+                                        batch_per_worker=args.batch_per_worker, n_workers=2,
+                                        seed=5), "cuda").batch_stack(0, 1)
+        batch = {k: v[0] for k, v in batch.items()}
+        inner_step(engine.model, engine.opt, probe, batch,
+                   participation=torch.tensor([1.0, 0.0], device="cuda"))
+        diffs = _leaf_diffs(torch, w1, _worker_slices(torch, probe, 1, ("worker_params",
+                                                                         "inner_state")))
+        assert not diffs, diffs
+        assert not torch.equal(w0, probe["worker_params"]["embed"][0]), "worker 0 did not move"
+        print("  a masked inner step on the card (worker 1 out): worker 1's params and inner "
+              "state keep every bit, worker 0's move")
+        del probe, w1, w0
+    if drops:
+        masked_replay_check(torch, out, args, fields, phase)
+    prof = phase_train_profile(torch, out, argv, tag=f"{phase}'",
+                               participation=[1.0, 0.0] if drops else None)
+    print(f"  elastic ({tag}): {prof['tok_s']:.1f} tokens/s (a dispatch of one replayed "
+          f"{'masked ' if drops else ''}round), idle {prof['idle']:.1f}%, peak device memory "
+          f"{peak_gb:.2f} GB of the run")
+    del out, engine, state
+    torch.cuda.empty_cache()
+    return dict(tok_s=prof["tok_s"], idle=prof["idle"], peak_gb=peak_gb)
+
+
+def phase_dp(torch, get_config, build_model, inner: str) -> dict:
+    """[10a] / [10b] the data-parallel baseline (``dp_engine``, K = 1,
+    H = 1) at full width, driven by ``run_rounds``: ``DP['steps']`` steps of
+    ``DP['batch']`` x 1024 tokens, one captured one-step round replayed;
+    then eager and at R = 4, bitwise; then a profiled dispatch of 4 steps."""
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import dp_engine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.utils.tree import tree_map
+
+    phase = {"muon": "10a", "adamw": "10b"}[inner]
+    n, B, S = DP["steps"], DP["batch"], DP["seq_len"]
+    print(f"[{phase}] {inner} DP: dp_engine(model, {inner!r}, icfg) by "
+          f"run_rounds, {n} steps of {B} x {S} tokens, smollm-135m full width")
+    cfg = get_config("smollm-135m").replace(max_seq_len=S, attn_impl="pallas")
+    model = build_model(cfg)
+    icfg = OptimizerConfig(lr=DP["lr"], weight_decay=1e-4, schedule="cosine",
+                           warmup_steps=max(n // 100, 5), total_steps=n)
+    data = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=S, batch_per_worker=B,
+                                   n_workers=1, seed=0), "cuda")
+
+    def run(R, capture=None):
+        engine = dp_engine(model, inner, icfg, capture=capture)
+        state = engine.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        tel: dict = {}
+        state, hist = run_rounds(engine, state, lambda r: batches_for_round(data, r, 1), n,
+                                 rounds_per_dispatch=R, telemetry=tel,
+                                 span_batches_for=lambda r0, m: batches_for_span(data, r0, 1, m))
+        torch.cuda.synchronize()
+        return engine, state, hist, tel
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine, state, hist, tel = run(1)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = engine.launches_per_round(state["outer_params"], with_eval=False)
+    want = {k: n * v for k, v in per_step.items()}
+    print(f"  launches {launches}; per step {per_step}")
+    assert launches == want, (launches, want)
+    L = cfg.n_layers  # full width: flash_fwd 60 (twice a layer, remat), dq and dkv 30
+    expect = {"flash_fwd": (2 if cfg.remat else 1) * L, "flash_dq": L, "flash_dkv": L,
+              "matmul_epilogue": 105 if inner == "muon" else 0, "nesterov": 0}
+    assert {k: per_step[k] for k in expect} == expect, per_step
+    check_captures(engine, per_step, n, [(False, False)])
+    losses = [r["train_loss"] for r in hist]
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], f"{inner} DP loss did not fall: {losses}"
+    assert all(r["comm_bytes"] == 0 and r["active_workers"] == 1 for r in hist), hist
+    tokens = B * S
+    later = hist[1:]
+    tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
+    print(f"  losses {[round(v, 4) for v in losses]}; steps 2-{n}: {tok_s:.1f} tokens/s "
+          f"({tokens} tokens a step; walls between dispatch ends on the card's clock); "
+          f"peak device memory {peak_gb:.2f} GB")
+    ref = (tree_map(lambda t: t.detach().clone(), state), hist)
+    del engine, state
+    keys = ("train_loss", "train_loss_last", "comm_bytes", "active_workers")
+    for label, R, capture in (("eager (capture=False)", 1, False), ("R = 4", 4, None)):
+        engine, state, h, t = run(R, capture)
+        for a, b in zip(ref[1], h):
+            for k in keys:
+                assert a[k] == b[k], (label, a["round"], k, a[k], b[k])
+        diffs = _leaf_diffs(torch, ref[0], state)
+        assert not diffs and len(h) == n, (label, diffs)
+        walls = [r["wall_s"] for r in h[1:]]
+        print(f"  {label}: {t['dispatches']} dispatches, {engine.replays} replays, bitwise "
+              f"equal (records and state); {(n - 1) * tokens / sum(walls):.1f} tokens/s over "
+              f"steps 2-{n}")
+        if R == 4:
+            def dispatch(i):
+                nonlocal state
+                r = n + 4 * i
+                state, _ = engine.superstep(state, batches_for_span(data, r, 1, 4))
+
+            replays = engine.replays
+            prof = profile_dispatch(torch, dispatch, 4 * tokens, "4 steps a dispatch (R = 4)")
+            assert engine.replays == replays + 8, "the profiled steps were not replays"
+        del engine, state
+        torch.cuda.empty_cache()
+    print(f"  {inner} DP: {prof['tok_s']:.1f} tokens/s (a dispatch of 4 replayed steps), "
+          f"idle {prof['idle']:.1f}%, peak device memory {peak_gb:.2f} GB")
+    del ref, model
+    torch.cuda.empty_cache()
+    return dict(tok_s=prof["tok_s"], idle=prof["idle"], peak_gb=peak_gb, launches=launches)
+
+
+def phase_blockwise(torch, get_config):
+    """[10c] one full-width attention layer with attn_impl='xla' at S =
+    blockwise_threshold (the blockwise online softmax, plain torch) against
+    attn_impl='pallas' (flash_fwd's fp32 sweep), batch 1, fp32."""
+    from repro_torch.models import attention
+
+    cfg = get_config("smollm-135m").replace(dtype="float32")
+    S = cfg.blockwise_threshold
+    print(f"[10c] blockwise attention: one full-width layer, attn_impl xla at S = {S} "
+          f"(blocks {cfg.attn_block_q} x {cfg.attn_block_kv}) vs pallas (flash_fwd, fp32)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    p = attention.init_attention(gen, cfg, dev)
+    x = torch.randn((1, S, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    xla, pallas = cfg.replace(attn_impl="xla"), cfg.replace(attn_impl="pallas")
+    with torch.no_grad():
+        ob = attention.attend(p, xla, x, pos)
+        of = attention.attend(p, pallas, x, pos)
+        assert torch.isfinite(ob).all() and ob.shape == (1, S, cfg.d_model)
+        scale = of.abs().max().item()
+        # two fp32 online softmaxes over other blocks: ~1e-6 of the output's scale
+        err = check("blockwise vs flash_fwd (fp32), whole layer output",
+                    (ob - of).abs().max().item(), 1e-5 * max(scale, 1.0))
+        ms_b = time_ms(torch, lambda: attention.attend(p, xla, x, pos), runs=5)
+        ms_f = time_ms(torch, lambda: attention.attend(p, pallas, x, pos), runs=5)
+    print(f"  layer output max |o| {scale:.3f}; timed layer: blockwise (plain torch) "
+          f"{ms_b:.3f} ms, flash_fwd path {ms_f:.3f} ms")
+    del p, x, ob, of
+    torch.cuda.empty_cache()
+    return err
+
+
+def slice_4b(torch, get_config, build_model, build_parser, train, ref_hist: list,
+             smi: str) -> None:
+    """Phases 9 and 10 (elastic MuLoCo, the DP baselines, blockwise
+    attention), then each path's rate, idle share and peak memory beside the
+    card's name and power limit."""
+    elastic = {tag: phase_elastic(torch, build_parser, train, tag, ref_hist)
+               for tag in ("i", "ii", "iii")}
+    dp = {inner: phase_dp(torch, get_config, build_model, inner) for inner in ("muon", "adamw")}
+    phase_blockwise(torch, get_config)
+    smi_line = f"card (nvidia-smi name, power.limit): {smi}"
+    for tag, r in elastic.items():
+        print(f"elastic MuLoCo ({tag}) {' '.join(ELASTIC[tag])}: {r['tok_s']:.1f} tokens/s, "
+              f"idle {r['idle']:.1f}%, peak {r['peak_gb']:.2f} GB; {smi_line}")
+    for inner, r in dp.items():
+        print(f"{inner} DP ({DP['batch']} x {DP['seq_len']} tokens a step): {r['tok_s']:.1f} "
+              f"tokens/s, idle {r['idle']:.1f}%, peak {r['peak_gb']:.2f} GB; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; {smi_line}")
+
+
 def main() -> int:
     import torch
 
@@ -1324,6 +1730,8 @@ def main() -> int:
                                  COMM_BYTES["b"], falls=False)
     phase_crash_drill(torch, build_parser, train)
 
+    slice_4b(torch, get_config, build_model, build_parser, train, ref_hist, smi)
+
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"
     summary = {"kernels": [
@@ -1365,7 +1773,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[9] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[11] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

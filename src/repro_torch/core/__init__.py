@@ -1,5 +1,7 @@
 """DiLoCo/MuLoCo distributed optimization (port of ``repro/core``): the
-single-card round, with compressed and streaming pseudogradient syncs."""
+single-card round, with compressed and streaming pseudogradient syncs,
+elastic participation, the delayed outer sync and the data-parallel
+baseline."""
 from repro_torch.core.compression import CompressionConfig  # noqa: F401
 from repro_torch.core.diloco import (  # noqa: F401
     DiLoCoConfig,
@@ -8,6 +10,9 @@ from repro_torch.core.diloco import (  # noqa: F401
     compute_deltas,
     diloco_init,
     diloco_round,
+    dp_config,
+    dp_init,
+    dp_step,
     inner_step,
     make_optimizer,
     make_outer,

@@ -23,9 +23,19 @@ compressors of :mod:`repro_torch.core.compression`, the wire packets of
 :mod:`repro_torch.core.collectives`; streaming (J > 1) syncs one partition
 of :mod:`repro_torch.core.streaming` per segment. The health sentinel
 (:mod:`repro_torch.core.health`) folds its running stats through the
-state's ``health`` field. Elastic participation and ``sync_delay`` (Slice
-4b) and the data-parallel baseline (``dp_config`` / ``dp_step``) raise
-``NotImplementedError`` naming ROADMAP.md.
+state's ``health`` field.
+
+Elastic execution (``elastic=True``) carries a [K] participation mask in the
+state: a dropped worker (mask 0) is frozen for the round with
+``torch.where``, so its params, inner state and EF residual come back
+bit-identical, and the pseudogradient mean runs over the survivors. Where
+the reference branches on the device (``lax.cond``: the literal dense
+program when everyone takes part, the masked one otherwise), the port's
+caller picks the program on the host, from a mask it made there
+(``diloco_round(masked=)``), so a captured round reads nothing back.
+``sync_delay = d`` applies Ψ from d rounds back, through the state's
+``pending`` FIFO. ``dp_config`` is the data-parallel baseline, the
+degenerate K = 1, H = 1 round with no outer optimizer.
 
 A round runs with no host read and no host-to-device copy, and writes
 every state tensor in place (the round counter too), so the engine can
@@ -41,7 +51,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.collectives import measured_sync_bytes, reduce_mean, segment_sync_update
+from repro_torch.core.collectives import (
+    measured_sync_bytes,
+    participation_mean,
+    reduce_mean,
+    segment_sync_update,
+)
 from repro_torch.core.compression import CompressionConfig, compress, error_feedback
 from repro_torch.core.health import HealthConfig, health_init, health_update
 from repro_torch.core.streaming import masked_update, streaming_masks
@@ -81,17 +96,11 @@ class DiLoCoConfig:
         return self.inner_name == "muon"
 
 
-def check_ported(dcfg: DiLoCoConfig) -> None:
-    """Raise for the features of the reference the port does not carry yet."""
-    slice4 = ("elastic participation" if dcfg.elastic else
-              "sync_delay" if dcfg.sync_delay else None)
-    if slice4:
-        raise NotImplementedError(f"{slice4} is not ported to repro_torch yet: "
-                                  "ROADMAP.md, Queue 1, Slice 4b")
-    if not dcfg.outer_enabled:
-        raise NotImplementedError("the data-parallel baseline (outer_enabled=False, "
-                                  "dp_config / dp_step) is not ported to repro_torch yet: "
-                                  "ROADMAP.md, Queue 1, Slice 2 deferred items")
+def dp_config(inner_name: str, ns_impl: str = "jnp") -> DiLoCoConfig:
+    """The DP baseline as a degenerate DiLoCo config (K=1, H=1, no outer)."""
+    return DiLoCoConfig(n_workers=1, sync_interval=1, inner_name=inner_name,
+                        outer_lr=1.0, outer_momentum=0.0, outer_enabled=False,
+                        ns_impl=ns_impl)
 
 
 def make_optimizer(dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig):
@@ -114,7 +123,6 @@ class OuterOptimizer:
     """
 
     def __init__(self, dcfg: DiLoCoConfig, state_dtype="float32"):
-        check_ported(dcfg)
         ccfg = dcfg.compression
         self.dcfg = dcfg
         self.state_dtype = getattr(torch, str(state_dtype))
@@ -138,18 +146,32 @@ class OuterOptimizer:
                                                   device=p.device), params)
         return error_feedback(self.dcfg.compression).init(template)
 
-    def reduce(self, params: Tree, deltas: Tree, ef: Tree | None, mask: Tree | None = None):
+    def reduce(self, params: Tree, deltas: Tree, ef: Tree | None, mask: Tree | None = None,
+               participation: torch.Tensor | None = None):
         """The communication half of the sync: worker stage (compress / EF)
         and the pseudogradient all-reduce. Returns ``(psi, new_ef)``. A
         streaming segment (``mask``) with wire compression goes through
-        ``segment_sync_update``, whose buffers shrink to the segment's rows."""
+        ``segment_sync_update``, whose buffers shrink to the segment's rows.
+
+        A ``participation`` mask ([K] fp32 {0, 1}) restricts the mean to the
+        surviving workers and freezes the dropped workers' EF residuals:
+        their packets were never sent, so the residuals come back
+        bit-identical (a select, not an EF decay)."""
         ccfg = self.dcfg.compression
         if mask is not None and self.has_wire:
-            psi, seg_ef = segment_sync_update(deltas, ef if self.has_ef else None, mask, ccfg)
-            return psi, seg_ef if self.has_ef else ef
-        sub = chain(self.worker_stage, reduce_mean(ccfg))
-        psi, sub_state = sub.update(deltas, (ef if self.has_ef else (), ()), params)
-        return psi, sub_state[0] if self.has_ef else ef
+            psi, seg_ef = segment_sync_update(deltas, ef if self.has_ef else None, mask, ccfg,
+                                              participation=participation)
+            new_ef = seg_ef if self.has_ef else ef
+        else:
+            sub = chain(self.worker_stage, reduce_mean(ccfg, participation))
+            psi, sub_state = sub.update(deltas, (ef if self.has_ef else (), ()), params)
+            new_ef = sub_state[0] if self.has_ef else ef
+        if participation is not None and self.has_ef and ef is not None:
+            keep = participation.float() > 0
+            new_ef = tree_map(lambda ne, oe: torch.where(
+                keep.reshape((keep.shape[0],) + (1,) * (ne.dim() - 1)), ne, oe.to(ne.dtype)),
+                new_ef, ef)
+        return psi, new_ef
 
     def descend(self, params: Tree, psi: Tree, opt_state: Tree):
         """The terminal half: outer transform update + parameter descent.
@@ -158,10 +180,10 @@ class OuterOptimizer:
         return self.terminal.apply(params, psi, opt_after)
 
     def step(self, params: Tree, deltas: Tree, opt_state: Tree, ef: Tree | None,
-             mask: Tree | None = None):
+             mask: Tree | None = None, participation: torch.Tensor | None = None):
         """:meth:`reduce` then :meth:`descend`, plus the streaming merges.
         Returns ``(new_params, new_opt_state, new_ef, psi)``."""
-        psi, new_ef = self.reduce(params, deltas, ef, mask=mask)
+        psi, new_ef = self.reduce(params, deltas, ef, mask=mask, participation=participation)
         cand_params, new_opt = self.descend(params, psi, opt_state)
         if mask is None:
             return cand_params, new_opt, new_ef, psi
@@ -198,7 +220,9 @@ def round_constants(state: dict, dcfg: DiLoCoConfig,
                     masks: list[Tree] | None = None) -> dict[str, torch.Tensor]:
     """The round's constant metrics as f32[] tensors on the state's device:
     ``comm_bytes`` (:func:`comm_bytes`, read off the host), the worker
-    count and the sync delay. Built once per engine, before any capture."""
+    count and the sync delay. Built once per engine, before any capture. An
+    elastic round scales the first two by its participation mask on the
+    device (:func:`diloco_round`)."""
     J = dcfg.streaming_partitions
     comm = comm_bytes(state["outer_params"], dcfg, masks if J > 1 else None)
     device = state["round"].device
@@ -224,11 +248,22 @@ def diloco_init(model, dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig,
     """The TrainState (``repro_torch.engine.state``) of a fresh run."""
     from repro_torch.engine.state import train_state
 
-    check_ported(dcfg)
+    if dcfg.sync_delay:
+        if not dcfg.outer_enabled:
+            raise ValueError("sync_delay requires the outer optimizer "
+                             "(outer_enabled=False has no pseudogradient to delay)")
+        if dcfg.streaming_partitions > 1:
+            raise ValueError("sync_delay cannot be combined with streaming "
+                             "(J>1) segment syncs")
     params = model.init(gen, device)
     K = dcfg.n_workers
     opt = make_optimizer(dcfg, inner_cfg)
     outer = make_outer(dcfg, state_dtype=inner_cfg.state_dtype)
+    # the pending FIFO starts as zeros: the first sync_delay rounds apply a
+    # zero pseudogradient (the outer params hold still while it fills)
+    pending = (tree_map(lambda p: torch.zeros((dcfg.sync_delay, *p.shape), dtype=torch.float32,
+                                              device=p.device), params)
+               if dcfg.sync_delay else None)
     return train_state(
         outer_params=params,
         outer_opt=outer.init_opt(params),
@@ -238,6 +273,9 @@ def diloco_init(model, dcfg: DiLoCoConfig, inner_cfg: OptimizerConfig,
         inner_state=_stack(opt.init(params), K),
         round=torch.zeros((), dtype=torch.int32, device=device),
         ef=outer.init_ef(params, K),
+        participation=(torch.ones((K,), dtype=torch.float32, device=device)
+                       if dcfg.elastic else None),
+        pending=pending,
         health=health_init(dcfg.health, device),
     )
 
@@ -256,9 +294,17 @@ def _copy_into(dst: Tree, src: Tree) -> None:
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
-def inner_step(model, opt, state: dict, batch: dict) -> tuple[dict, dict]:
+def inner_step(model, opt, state: dict, batch: dict,
+               participation: torch.Tensor | None = None) -> tuple[dict, dict]:
     """One local optimizer step on every worker. batch leaves: [K, B, ...].
-    Worker params and inner state are updated in place."""
+    Worker params and inner state are updated in place.
+
+    A ``participation`` mask ([K] fp32 {0, 1}) freezes the dropped workers:
+    each worker's new params and inner state are selected with
+    ``torch.where``, so a dropped worker's come back bit-identical, and the
+    reported loss is the mean over the survivors. The loss is the
+    reference's sum·(1/K) (``collectives.participation_mean``), which is
+    what ``jnp.mean`` computes."""
     K = batch["tokens"].shape[0]
     losses = []
     for k in range(K):
@@ -273,11 +319,17 @@ def inner_step(model, opt, state: dict, batch: dict) -> tuple[dict, dict]:
         grads = tree_map(lambda _: next(it), leaves)
         new_p, new_s = opt.step(params_k, grads, inner_k)
         with torch.no_grad():
-            _copy_into(params_k, new_p)
-            _copy_into(inner_k, new_s)
+            if participation is None:
+                _copy_into(params_k, new_p)
+                _copy_into(inner_k, new_s)
+            else:
+                keep = participation[k] > 0
+                for dst, src in ((params_k, new_p), (inner_k, new_s)):
+                    tree_map(lambda d, s: d.copy_(torch.where(keep, s, d)), dst, src)
         losses.append(loss.detach())
     losses = torch.stack(losses)
-    return state, {"loss": torch.mean(losses), "loss_per_worker": losses}
+    return state, {"loss": participation_mean(losses, participation),
+                   "loss_per_worker": losses}
 
 
 # ---------------------------------------------------------------------------
@@ -296,20 +348,83 @@ def _masked(m: torch.Tensor) -> torch.Tensor:
     return m[None] if m.dim() else m
 
 
+_FROM_STATE = object()  # outer_step reads the participation mask off the state
+
+
+def _shift_in(fifo: torch.Tensor, new: torch.Tensor) -> None:
+    """Shift a [d, ...] FIFO one slot toward 0 and write ``new`` into its
+    tail, in place: slot by slot from the front (each copy reads the slot
+    behind the one it writes, so no two views overlap) and no allocation."""
+    for i in range(fifo.shape[0] - 1):
+        fifo[i].copy_(fifo[i + 1])
+    fifo[-1].copy_(new.to(fifo.dtype))
+
+
 @torch.no_grad()
 def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
-               outer: OuterOptimizer | None = None) -> tuple[dict, Tree]:
+               outer: OuterOptimizer | None = None,
+               participation: torch.Tensor | None = _FROM_STATE) -> tuple[dict, Tree]:
     """Communicate + outer update + worker reset, in place. Returns
-    ``(state, Ψ)``. With a streaming partition ``mask`` only its share of
-    the params syncs: the deltas are masked, the params, outer momentum and
-    EF residuals merge under the mask, and only masked entries of the
-    workers reset."""
+    ``(state, Ψ)``.
+
+    With a streaming partition ``mask`` only its share of the params syncs:
+    the deltas are masked, the params, outer momentum and EF residuals merge
+    under the mask, and only masked entries of the workers reset.
+
+    ``participation`` defaults to the state's mask (pass ``None`` for the
+    dense program): dropped workers' deltas leave the reduce, their EF
+    residuals stay frozen, and every worker, the dropped ones included,
+    resets to the new outer params (rejoining is the broadcast).
+
+    With ``dcfg.sync_delay = d > 0`` the fresh Ψ_r enters the ``pending``
+    FIFO while the descent applies ``pending[0]`` = Ψ_{r-d}; communication,
+    EF and byte accounting still happen at round r.
+
+    With ``dcfg.outer_enabled=False`` (the DP config) the synced params are
+    the K-mean of the worker params (``w[0]`` at K = 1), broadcast back: no
+    outer transform, no compression, and no use of ``outer_opt`` or ``ef``.
+    """
+    if participation is _FROM_STATE:
+        participation = state.get("participation")
     deltas = compute_deltas(state)
+    if not dcfg.outer_enabled:
+        if mask is not None:
+            raise ValueError(
+                "streaming (partitioned) sync requires the outer optimizer; "
+                "outer_enabled=False cannot be combined with streaming_partitions > 1")
+        if dcfg.n_workers == 1:  # a K = 1 elastic mask is always all-ones
+            participation = None
+        psi = tree_map(lambda d: participation_mean(d, participation), deltas)
+        new_outer = tree_map(
+            lambda o, w: (participation_mean(w.float(), participation).to(o.dtype)
+                          if w.shape[0] > 1 or participation is not None else w[0]),
+            state["outer_params"], state["worker_params"])
+        _copy_into(state["outer_params"], new_outer)
+        tree_map(lambda o, w: w.copy_(o[None].to(w.dtype).expand_as(w)),
+                 state["outer_params"], state["worker_params"])
+        state["round"].add_(1)
+        return state, psi
     if mask is not None:
         deltas = tree_map(lambda m, d: _masked(m) * d, mask, deltas)
     outer = outer or make_outer(dcfg)
-    new_outer, new_opt, new_ef, psi = outer.step(
-        state["outer_params"], deltas, state["outer_opt"], state.get("ef"), mask=mask)
+    if dcfg.sync_delay:
+        if mask is not None:
+            raise ValueError("sync_delay cannot be combined with streaming "
+                             "(J>1) segment syncs")
+        pending = state.get("pending")
+        if pending is None:
+            raise ValueError("sync_delay > 0 needs the pending FIFO in the TrainState; "
+                             "build it with diloco_init on a config with the same sync_delay")
+        psi, new_ef = outer.reduce(state["outer_params"], deltas, state.get("ef"),
+                                   participation=participation)
+        new_outer, new_opt = outer.descend(state["outer_params"],
+                                           tree_map(lambda q: q[0], pending),
+                                           state["outer_opt"])
+        tree_map(_shift_in, pending, psi)
+    else:
+        new_outer, new_opt, new_ef, psi = outer.step(
+            state["outer_params"], deltas, state["outer_opt"], state.get("ef"), mask=mask,
+            participation=participation)
     _copy_into(state["outer_params"], new_outer)
     _copy_into(state["outer_opt"], new_opt)
     if new_ef is not None:
@@ -340,7 +455,8 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
 def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
                  masks: list[Tree] | None = None,
                  outer: OuterOptimizer | None = None,
-                 consts: dict[str, torch.Tensor] | None = None) -> tuple[dict, dict]:
+                 consts: dict[str, torch.Tensor] | None = None,
+                 masked: bool | None = None) -> tuple[dict, dict]:
     """One communication round: H inner steps then the outer sync(s).
 
     ``batches`` leaves: [H, K, B, ...]. With streaming (J > 1) the round is
@@ -353,10 +469,21 @@ def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
     :func:`round_constants`' dict (built here when not given). With the
     health sentinel on, the state's ``health`` stats update in place and
     ``info["health"]`` is the round's flag bitmask.
+
+    An elastic state (a ``participation`` field) runs one of two programs:
+    the dense one, the lockstep round's own operations, when every worker
+    takes part, and the masked one otherwise. ``masked`` names the program;
+    the engine passes it from the host's copy of the mask so a captured
+    round reads nothing back, and ``None`` reads the state's mask here.
+    Both programs report ``comm_bytes`` as c·(sum(p)/K), the reference's op
+    order (exactly c at full participation), and ``active_workers`` as
+    sum(p).
     """
     H, J = dcfg.sync_interval, dcfg.streaming_partitions
     if batches["tokens"].shape[0] != H:
         raise ValueError(f"batches hold {batches['tokens'].shape[0]} steps, H = {H}")
+    if dcfg.sync_delay and J > 1:
+        raise ValueError("sync_delay cannot be combined with streaming (J>1) segment syncs")
     if J > 1 and H % J:
         raise ValueError("streaming requires the partition count to divide the sync "
                          f"interval: J={J} does not divide H={H}")
@@ -365,24 +492,58 @@ def diloco_round(model, dcfg: DiLoCoConfig, opt, state: dict, batches: dict,
                          "make_streaming_masks(state, dcfg)")
     if consts is None:
         consts = round_constants(state, dcfg, masks)
+    participation = state.get("participation")
+    metrics = dict(consts)
+    if participation is not None:
+        if masked is None:
+            masked = not bool((participation > 0).all())
+        with torch.no_grad():
+            p = participation.float()
+            metrics["comm_bytes"] = consts["comm_bytes"] * (torch.sum(p) / float(dcfg.n_workers))
+            metrics["active_workers"] = torch.sum(p)
+    part = participation if masked else None
     seg = H // max(J, 1)
     losses, psi = [], None
     for j in range(max(J, 1)):
         for h in range(j * seg, (j + 1) * seg):
-            state, m = inner_step(model, opt, state, {n: v[h] for n, v in batches.items()})
+            state, m = inner_step(model, opt, state, {n: v[h] for n, v in batches.items()},
+                                  participation=part)
             losses.append(m["loss"])
         if J <= 1:
-            state, psi = outer_step(dcfg, state, outer=outer)
+            state, psi = outer_step(dcfg, state, outer=outer, participation=part)
             continue
-        state, psi_j = outer_step(dcfg, state, mask=masks[j], outer=outer)
+        state, psi_j = outer_step(dcfg, state, mask=masks[j], outer=outer, participation=part)
         # psi leaves have no K axis: the masks broadcast directly
         masked_j = tree_map(lambda m, p: m * p, masks[j], psi_j)
         psi = masked_j if psi is None else tree_map(torch.add, psi, masked_j)
     losses = torch.stack(losses)
-    info = {"loss": losses, "psi": psi, **consts}
+    info = {"loss": losses, "psi": psi, **metrics}
     if "health" in state:
         with torch.no_grad():
             new_health, flag = health_update(dcfg.health, state["health"], losses, psi)
             _copy_into(state["health"], new_health)
         info["health"] = flag
     return state, info
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel baseline: the degenerate (K=1, H=1, no-outer) config.
+# dp_init / dp_step are thin adapters over the inner step DiLoCo runs.
+# ---------------------------------------------------------------------------
+
+
+def dp_init(model, inner_name: str, inner_cfg: OptimizerConfig, gen: torch.Generator,
+            device) -> tuple[dict, Any]:
+    """``({"params", "opt_state"}, opt)`` of a fresh DP run."""
+    params = model.init(gen, device)
+    opt = make_inner_optimizer(inner_name, inner_cfg)
+    return {"params": params, "opt_state": opt.init(params)}, opt
+
+
+def dp_step(model, opt, state: dict, batch: dict) -> tuple[dict, dict]:
+    """One DP step = one DiLoCo inner step at K = 1 (the same code). The
+    params and optimizer state update in place, through K = 1 views."""
+    stacked = {"worker_params": tree_map(lambda p: p[None], state["params"]),
+               "inner_state": tree_map(lambda s: s[None], state["opt_state"])}
+    _, metrics = inner_step(model, opt, stacked, {k: v[None] for k, v in batch.items()})
+    return state, {"loss": metrics["loss"]}

@@ -1,5 +1,19 @@
-"""Crash and corruption injection (port of the crash half of
-``repro/core/faults.py``).
+"""Fault injection (port of ``repro/core/faults.py``): worker churn for
+elastic DiLoCo, and crash and corruption chaos.
+
+Elastic execution models a lost worker (a preemption, a hardware fault, a
+straggler cut off at the round barrier) as a per-round **participation
+mask**: a [K] float32 {0, 1} vector carried in the TrainState's
+``participation`` field. A dropped worker freezes in place for the round
+(no inner steps, no wire packet, its EF residual untouched), and the
+pseudogradient mean runs over the survivors; at the sync every worker,
+the dropped one included, resets to the new outer params, so rejoining is
+the normal broadcast. :class:`FaultPlan` is the host side: a scripted drop
+schedule (:func:`parse_drop_schedule`) and an i.i.d. drop probability turn
+into the ``[R, K]`` masks of a dispatch. A mask is a pure function of
+``(seed, absolute round)`` (numpy's ``SeedSequence``), bitwise the
+reference's, so any rounds-per-dispatch chunking and any resume sees the
+same masks.
 
 :class:`CrashPlan` injects driver-level faults so the crash-safety path
 (checksummed checkpoints, the health sentinel, the recovery policy,
@@ -18,9 +32,70 @@ import dataclasses
 import os
 import signal
 
+import numpy as np
 import torch
 
 from repro_torch.utils.tree import tree_leaves_with_paths
+
+
+def parse_drop_schedule(spec: str) -> dict[int, tuple[int, ...]]:
+    """Parse ``'round:worker[;round:worker...]'`` into {round: (workers,)}.
+
+    ``'1:2;1:3;4:0'`` drops workers 2 and 3 in round 1 and worker 0 in round
+    4 (0-indexed; a worker drops only in the rounds listed). ``;`` and ``,``
+    both separate entries."""
+    sched: dict[int, list[int]] = {}
+    for entry in spec.replace(",", ";").split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        try:
+            r_s, w_s = entry.split(":")
+            r, w = int(r_s), int(w_s)
+        except ValueError as e:
+            raise ValueError(
+                f"bad --drop-schedule entry {entry!r}: expected 'round:worker'") from e
+        if r < 0 or w < 0:
+            raise ValueError(f"--drop-schedule entry {entry!r}: negative index")
+        sched.setdefault(r, []).append(w)
+    return {r: tuple(sorted(set(ws))) for r, ws in sched.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """Host-side participation-mask generator for an elastic run.
+
+    ``drop_prob`` drops each worker independently per round; ``schedule``
+    (:func:`parse_drop_schedule`) forces (round, worker) drops on top. At
+    least one worker always survives: when a round would drop everyone, the
+    worker with the largest draw (the last one any drop rate would evict)
+    stays, the tie-break of ``wallclock.StragglerModel``."""
+
+    n_workers: int
+    drop_prob: float = 0.0
+    schedule: dict[int, tuple[int, ...]] | None = None
+    seed: int = 0
+
+    def mask_for_round(self, r: int) -> np.ndarray:
+        """[K] float32 {0, 1} participation of absolute round ``r``."""
+        K = self.n_workers
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, r]))
+        u = rng.random(K)
+        active = np.ones(K, bool) if self.drop_prob <= 0 else (u >= self.drop_prob)
+        for w in (self.schedule or {}).get(r, ()):
+            if w < K:
+                active[w] = False
+        if not active.any():
+            active[int(np.argmax(u))] = True
+        return active.astype(np.float32)
+
+    def masks(self, r0: int, n: int) -> np.ndarray:
+        """[n, K] float32 masks of rounds ``r0 .. r0+n-1``."""
+        return np.stack([self.mask_for_round(r0 + i) for i in range(n)])
+
+    @property
+    def is_trivial(self) -> bool:
+        return self.drop_prob <= 0 and not self.schedule
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,11 @@ per dispatch, late metric reads, checkpoints and recovery.
   inside the dispatch (``TrainEngine._emit_checkpoint``: pinned host
   buffers and an event, no host wait) and written once the dispatch has
   drained; flagged and unflagged rounds run the same arithmetic.
+* **elastic runs**: ``participation_for(r0, n)`` gives the [n, K] masks of
+  rounds r0..r0+n-1 (``core/faults.FaultPlan.masks``, a pure function of
+  the seed and the round, so a resume or a rollback sees the same masks);
+  each dispatch gets its own, and the records carry the rounds'
+  ``active_workers`` and ``staleness``.
 * **crash safety**: with the health sentinel on, each round's flag drains
   with the other metrics; a :class:`RecoveryPolicy` turns a nonzero flag
   into rollback to the last valid checkpoint, a skip past the bad round and
@@ -36,6 +41,7 @@ import collections
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.engine.recovery import RecoveryPolicy, TrainingAborted
@@ -83,6 +89,7 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
                rounds_per_dispatch: int | str = 1,
                span_batches_for: Callable[[int, int], Tree] | None = None,
                eval_batches_for: Callable[[int, int], Tree] | None = None,
+               participation_for: Callable[[int, int], Any] | None = None,
                on_round: Callable[[dict], None] | None = None,
                on_state: Callable[[int, Any], None] | None = None,
                on_state_every: int = 1,
@@ -103,7 +110,9 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
     ...] batches of rounds r0..r0+n-1 in one call (else the driver stacks
     ``batches_for``). ``eval_batches_for(r0, n)`` (optional) gives [n, B,
     ...] held-out batches; each round's post-sync eval loss is computed
-    inside the dispatch. ``rounds_per_dispatch`` is an int or ``"auto"``
+    inside the dispatch. ``participation_for(r0, n)`` (elastic runs) gives
+    the [n, K] float32 worker masks of those rounds, on the host.
+    ``rounds_per_dispatch`` is an int or ``"auto"``
     (the cost model of :mod:`repro_torch.engine.superstep`, fed
     ``host_overhead_s`` / ``device_round_s`` when measured; the whole span
     when not). ``on_round(record)`` fires per round as a dispatch drains;
@@ -197,7 +206,10 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
                 eb = eval_batches_for(r0, R) if eval_batches_for is not None else None
                 flags = ([(r0 + i + 1) % on_state_every == 0 for i in range(R)]
                          if in_prog_ckpt else None)
-                state, out = engine.superstep(state, batches, eb, ckpt_flags=flags)
+                masks = (None if participation_for is None
+                         else np.asarray(participation_for(r0, R), np.float32))
+                state, out = engine.superstep(state, batches, eb, participation=masks,
+                                              ckpt_flags=flags)
                 if telemetry is not None:
                     telemetry["dispatches"] += 1
                 # keep the metric buffers only: psi must be freeable now

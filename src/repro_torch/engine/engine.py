@@ -15,10 +15,15 @@ is no capture and the same program runs eagerly. Every R that divides a run
 is the same arithmetic, bit for bit, and so is a replay against the eager
 round.
 
-One graph holds a whole round (with and without the eval loss are two
-graphs, each captured at its first use). The first use of each runs one
-real round eagerly on a side stream (the warm-up: it builds the kernels,
-checks their tiles and makes PyTorch's lazy handles), then captures it.
+One graph holds a whole round. With and without the eval loss are two
+graphs, and an elastic run has two programs, dense (every worker takes
+part: the lockstep round's own operations) and masked (a worker dropped),
+which the host picks per round from its copy of the mask, as the
+reference's ``lax.cond`` picks on the device; each graph is captured at its
+first use, so a run that never drops a worker never captures the masked
+one. The first use of each runs one real round eagerly on a side stream
+(the warm-up: it builds the kernels, checks their tiles and makes
+PyTorch's lazy handles), then captures it.
 The graph reads and writes fixed addresses: the state it was captured on,
 updated in place, and static batch buffers the engine fills before each
 replay. A state passed in with other tensors (a restored checkpoint, a
@@ -29,6 +34,7 @@ the equality checks.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import time
 from typing import Any, Callable
@@ -39,6 +45,7 @@ from repro_torch.core.diloco import (
     DiLoCoConfig,
     diloco_init,
     diloco_round,
+    dp_config,
     make_optimizer,
     make_outer,
     make_streaming_masks,
@@ -151,7 +158,8 @@ class TrainEngine:
         self.outer = make_outer(dcfg, state_dtype=icfg.state_dtype)
         self._masks = None
         self._consts = None
-        self._graphs: dict[bool, CapturedRound] = {}
+        # (with the eval loss?, masked program?) -> its captured round
+        self._graphs: dict[tuple[bool, bool], CapturedRound] = {}
         # in-program checkpoints: the driver installs a sink for its run
         self.checkpoint_sink: Callable | None = None
         self.dispatch_count = 0
@@ -179,15 +187,17 @@ class TrainEngine:
             prepare_plans(self._masks, state["outer_params"], self.dcfg.compression)
         self._consts = round_constants(state, self.dcfg, self._masks)
 
-    def _round(self, state: dict, batches: dict) -> tuple[dict, dict]:
+    def _round(self, state: dict, batches: dict, masked: bool | None = None):
         return diloco_round(self.model, self.dcfg, self.opt, state, batches,
-                            masks=self._masks, outer=self.outer, consts=self._consts)
+                            masks=self._masks, outer=self.outer, consts=self._consts,
+                            masked=masked)
 
-    def _program(self, state: dict, batches: dict,
-                 eval_batch: dict | None = None) -> tuple[dict, dict]:
+    def _program(self, state: dict, batches: dict, eval_batch: dict | None = None,
+                 masked: bool | None = None) -> tuple[dict, dict]:
         # built per call, not kept: an engine holding closures over itself
         # would live (with its graphs and state) until the cyclic GC ran
-        return round_program(self._round, self.eval_loss)(state, batches, eval_batch)
+        return round_program(self._round, self.eval_loss)(state, batches, eval_batch,
+                                                          masked=masked)
 
     def _captures(self, state: dict) -> bool:
         on_cuda = state["round"].device.type == "cuda"
@@ -196,58 +206,71 @@ class TrainEngine:
                              f"is on {state['round'].device}")
         return on_cuda if self.capture is None else bool(self.capture)
 
-    def _dispatch_round(self, state: dict, batches: dict,
-                        eval_batch: dict | None = None) -> tuple[dict, dict]:
+    def _dispatch_round(self, state: dict, batches: dict, eval_batch: dict | None = None,
+                        masked: bool | None = None) -> tuple[dict, dict]:
         """One round: eager, or the captured graph's replay (warm-up and
-        capture at the first use of each graph)."""
+        capture at the first use of each graph). ``masked`` names an elastic
+        round's program; without it the state's mask is read back."""
         self._prepare(state)
-        if not self._captures(state):
-            return self._program(state, batches, eval_batch)
-        key = eval_batch is not None
+        captures = self._captures(state)
+        if captures and self._graphs:  # every graph runs on the first one's state
+            state = next(iter(self._graphs.values())).bind(state)
+        if masked is None:
+            part = state.get("participation")
+            masked = part is not None and not bool((part > 0).all())
+        if not captures:
+            return self._program(state, batches, eval_batch, masked=masked)
+        key = (eval_batch is not None, masked)
         graph = self._graphs.get(key)
         if graph is not None:
             self.replays += 1
             return graph.replay(state, batches, eval_batch)
-        if self._graphs:  # a second graph captures on the first one's state
-            state = next(iter(self._graphs.values())).bind(state)
         device = state["round"].device
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            state, info = self._program(state, batches, eval_batch)
+            state, info = self._program(state, batches, eval_batch, masked=masked)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         self.warmup_s.append(time.perf_counter() - t0)
-        graph = CapturedRound(self._program, state, batches, eval_batch)
+        graph = CapturedRound(functools.partial(self._program, masked=masked), state, batches,
+                              eval_batch)
         self.capture_s.append(graph.capture_s)
         self._graphs[key] = graph
         return state, info
 
     # -- execution -------------------------------------------------------------
 
-    def step(self, state: dict, batches: dict) -> tuple[dict, dict]:
+    def step(self, state: dict, batches: dict,
+             participation=None) -> tuple[dict, dict]:
         """One communication round (H inner steps + the outer sync(s)): the
         degenerate R = 1 :meth:`superstep`, with ``loss`` f32[H] and the
         round's ``psi`` (on a captured engine, the graph's buffers: valid
-        until the next dispatch)."""
-        state, out = self.superstep(state, {k: v[None] for k, v in batches.items()})
+        until the next dispatch). ``participation`` is the round's [K] mask
+        (elastic configs only; it stays in the state until overwritten)."""
+        if participation is not None:
+            participation = (participation[None] if hasattr(participation, "shape")
+                             else [participation])
+        state, out = self.superstep(state, {k: v[None] for k, v in batches.items()},
+                                    participation=participation)
         return state, {k: (v if k == "psi" else v[0]) for k, v in out.items()}
 
     def superstep(self, state: dict, batches: dict, eval_batches: dict | None = None,
-                  ckpt_flags=None) -> tuple[dict, dict]:
+                  participation=None, ckpt_flags=None) -> tuple[dict, dict]:
         """R rounds in one dispatch. ``batches`` leaves [R, H, K, B, ...];
-        ``eval_batches`` (optional) leaves [R, B, ...]; ``ckpt_flags``
-        (optional, R bools) emits each flagged round's post-round state to
-        :attr:`checkpoint_sink`. Returns ``(state, out)`` with ``loss``
-        f32[R, H], ``comm_bytes`` f32[R] (and ``active_workers``,
-        ``staleness``), ``eval_loss`` f32[R] with eval batches, ``health``
-        f32[R] with the sentinel on, and ``psi`` at R = 1."""
+        ``eval_batches`` (optional) leaves [R, B, ...]; ``participation``
+        (elastic configs only) the [R, K] fp32 {0, 1} masks, on the host;
+        ``ckpt_flags`` (optional, R bools) emits each flagged round's
+        post-round state to :attr:`checkpoint_sink`. Returns ``(state,
+        out)`` with ``loss`` f32[R, H], ``comm_bytes``, ``active_workers``
+        and ``staleness`` f32[R], ``eval_loss`` f32[R] with eval batches,
+        ``health`` f32[R] with the sentinel on, and ``psi`` at R = 1."""
         self.dispatch_count += 1
         superstep_fn = build_superstep_fn(self._round, eval_loss_fn=self.eval_loss,
                                           checkpoint_cb=self._emit_checkpoint,
                                           program=self._dispatch_round)
-        return superstep_fn(state, batches, eval_batches, ckpt_flags)
+        return superstep_fn(state, batches, eval_batches, participation, ckpt_flags)
 
     def _emit_checkpoint(self, state: dict) -> None:
         """Hand a flagged round's state to the sink as ``(host_state,
@@ -266,9 +289,9 @@ class TrainEngine:
         event.record()
         sink((host, event))
 
-    def launches_per_round(self, params: Tree) -> dict[str, int]:
-        """Hopper-kernel launches one round makes on the card (with an eval
-        loss): per worker step, the flash forward once per layer (twice
+    def launches_per_round(self, params: Tree, with_eval: bool = True) -> dict[str, int]:
+        """Hopper-kernel launches one round makes on the card (``with_eval``:
+        and its eval loss): per worker step, the flash forward once per layer (twice
         with ``remat``: the backward recomputes it), dq and dkv once per
         layer, and three matmul-epilogue launches per Newton-Schulz
         iteration per Muon leaf (one launch covers a whole [L, m, n] stack);
@@ -276,7 +299,9 @@ class TrainEngine:
         per round) launches the Nesterov kernel once per leaf, and the
         quantize and dequantize launches are :meth:`wire_launches_per_round`'s.
         A replayed round counts the launches its capture recorded, so the
-        formula holds for warm-up, eager and replayed rounds alike."""
+        formula holds for warm-up, eager and replayed rounds alike, and for
+        the dense and the masked program of an elastic run (the masked one
+        runs every worker's step and selects)."""
         from repro_torch.optim.muon import muon_label
         from repro_torch.utils.tree import tree_leaves_with_paths
 
@@ -286,10 +311,10 @@ class TrainEngine:
         attn = cfg.n_layers if cfg.attn_impl == "pallas" else 0
         ns = (3 * self.icfg.ns_iters * sum(muon_label(p, x) == "muon" for p, x in leaves)
               if dcfg.inner_name == "muon" and dcfg.ns_impl == "pallas" else 0)
-        outer = dcfg.outer_kernel and dcfg.outer_name == "nesterov"
+        outer = dcfg.outer_kernel and dcfg.outer_name == "nesterov" and dcfg.outer_enabled
         syncs = max(dcfg.streaming_partitions, 1)
         quantize, dequantize = self.wire_launches_per_round(params)
-        return {"flash_fwd": steps * attn * (2 if cfg.remat else 1) + attn,
+        return {"flash_fwd": steps * attn * (2 if cfg.remat else 1) + attn * with_eval,
                 "paged_decode": 0, "flash_dq": steps * attn, "flash_dkv": steps * attn,
                 "matmul_epilogue": steps * ns, "nesterov": syncs * len(leaves) if outer else 0,
                 "quantize": quantize, "dequantize": dequantize}
@@ -325,3 +350,13 @@ class TrainEngine:
         """Loss of the synced (outer) params on one un-stacked batch (the
         function the round program folds in)."""
         return self.model.loss(params, batch)[0]
+
+
+def dp_engine(model, inner_name: str, icfg: OptimizerConfig, *, ns_impl: str = "pallas",
+              **kw) -> TrainEngine:
+    """The data-parallel baseline as the degenerate engine config
+    (``dp_config``: K = 1, H = 1, no outer optimizer): a round is one step.
+    ``ns_impl`` defaults to 'pallas', as the trainer's ``--ns-impl`` does:
+    Muon's Newton-Schulz through the Hopper matmul kernel ('jnp': the bf16
+    plain version); ``kw`` goes to :class:`TrainEngine`."""
+    return TrainEngine(model, dp_config(inner_name, ns_impl=ns_impl), icfg, **kw)

@@ -7,13 +7,20 @@ with the reference's field names.
     inner-optimizer state (``None`` holes where ``partition`` left them);
   * ``round`` — the int32 round counter, on the device;
   * ``ef`` — the K-stacked error-feedback residuals (compressed syncs);
+  * ``participation`` — the [K] fp32 {0, 1} worker mask of an elastic run
+    (``DiLoCoConfig(elastic=True)``; all ones at init, then each round's
+    row, copied in by the engine before the round runs);
+  * ``pending`` — the delayed-sync FIFO (``sync_delay = d``): per leaf a
+    [d, ...] fp32 stack of pseudogradients, ``pending[0]`` the oldest, the
+    one the next descent applies;
   * ``health`` — the health sentinel's ``{"ema", "n"}`` running stats
     (:mod:`repro_torch.core.health`), checkpointed with the rest.
 
 Every field is updated in place, so a captured round sees the same
-tensors from round to round. The reference's ``participation`` and
-``pending`` belong to Slice 4b (elastic execution); like the reference's
-mapping view of a state without them, the dict simply has no such key.
+tensors from round to round. A field a config does not use is absent, as
+in the reference's mapping view of a state; the checkpoint paths of the
+two optional fields (``participation``, ``pending/<leaf path>``) are the
+reference's, so such a checkpoint loads in either package.
 ``utils.tree.state_from_numpy`` / ``state_to_numpy`` carry a state across
 the two packages field by field.
 """

@@ -16,6 +16,13 @@ them back to back with no host read in between:
     eval batches are passed, ``health`` f32[R] when the sentinel is on),
     which the driver drains once per dispatch;
   * the round counter lives in the state and advances on the device;
+  * an elastic run passes its ``[R, K]`` participation masks (host arrays,
+    ``core/faults.FaultPlan``): they are staged on the device once per
+    dispatch, each round's row is copied into the state's ``participation``
+    before it runs (a captured engine copies a state that is not its own
+    into its tensors, the mask with the rest), and the host's copy of the
+    row names the round's program (dense when every worker takes part,
+    masked otherwise), so nothing is read back;
   * R = 1 is the degenerate case and also returns the round's ``psi``.
 
 Every R that divides the run runs the same arithmetic, bit for bit.
@@ -28,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 Tree = Any
@@ -42,12 +50,15 @@ STACKED = ("loss", "comm_bytes", "active_workers", "staleness", "eval_loss", "he
 
 
 def round_program(round_fn: Callable, eval_loss_fn: Callable | None = None) -> Callable:
-    """``program(state, round_batches, eval_batch=None) -> (state, info)``:
-    one round, then (when ``eval_loss_fn`` and an eval batch are given)
-    ``info["eval_loss"]``, the loss of the post-sync outer params."""
+    """``program(state, round_batches, eval_batch=None, masked=None) ->
+    (state, info)``: one round, then (when ``eval_loss_fn`` and an eval
+    batch are given) ``info["eval_loss"]``, the loss of the post-sync outer
+    params. ``masked`` names an elastic round's program
+    (``round_fn(state, batches, masked=)``)."""
 
-    def program(state, batches, eval_batch=None):
-        state, info = round_fn(state, batches)
+    def program(state, batches, eval_batch=None, masked=None):
+        state, info = (round_fn(state, batches) if masked is None
+                       else round_fn(state, batches, masked=masked))
         if eval_loss_fn is not None and eval_batch is not None:
             info = {**info, "eval_loss": eval_loss_fn(state["outer_params"], eval_batch)}
         return state, info
@@ -59,35 +70,59 @@ def _slice(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
 
 
+def stage_masks(participation, R: int, device) -> tuple[list[bool], torch.Tensor]:
+    """``[R, K]`` host masks (numpy or lists) -> (per round: does it drop a
+    worker?, the masks on ``device``). On the card the copy goes through
+    pinned memory without a host wait."""
+    host = np.asarray(participation, np.float32).reshape(R, -1)
+    masked = [not bool((row > 0).all()) for row in host]
+    rows = torch.from_numpy(host.copy())
+    if torch.device(device).type == "cuda":
+        rows = rows.pin_memory().to(device, non_blocking=True)
+    return masked, rows
+
+
 def build_superstep_fn(round_fn: Callable, eval_loss_fn: Callable | None = None,
                        checkpoint_cb: Callable | None = None, *,
                        program: Callable | None = None) -> Callable:
     """Wrap a round function into the R-rounds-per-dispatch executor.
 
-    ``round_fn(state, round_batches) -> (state, {"loss": f32[H], "psi": ...,
-    ...})`` is :func:`repro_torch.core.diloco.diloco_round` bound to its
-    model and config. ``program`` (default :func:`round_program` of
-    ``round_fn`` and ``eval_loss_fn``) is what runs each round: the engine
-    passes its captured replay there. The returned
-    ``superstep_fn(state, batches, eval_batches=None, ckpt_flags=None)``
-    takes batches with leaves ``[R, H, K, B, ...]`` (and eval batches
-    ``[R, B, ...]``) and returns ``(state, out)``, ``out`` holding the
-    stacked metrics (module docstring) and, at R = 1, ``psi``."""
+    ``round_fn(state, round_batches[, masked=]) -> (state, {"loss": f32[H],
+    "psi": ..., ...})`` is :func:`repro_torch.core.diloco.diloco_round`
+    bound to its model and config. ``program`` (default
+    :func:`round_program` of ``round_fn`` and ``eval_loss_fn``) is what runs
+    each round: the engine passes its captured replay there. The returned
+    ``superstep_fn(state, batches, eval_batches=None, participation=None,
+    ckpt_flags=None)`` takes batches with leaves ``[R, H, K, B, ...]`` (and
+    eval batches ``[R, B, ...]``, host masks ``[R, K]``) and returns
+    ``(state, out)``, ``out`` holding the stacked metrics (module
+    docstring) and, at R = 1, ``psi``."""
     program = program or round_program(round_fn, eval_loss_fn)
 
     def superstep_fn(state: dict, batches: dict, eval_batches: dict | None = None,
-                     ckpt_flags=None) -> tuple[dict, dict]:
+                     participation=None, ckpt_flags=None) -> tuple[dict, dict]:
         R = batches["tokens"].shape[0]
+        if participation is not None and state.get("participation") is None:
+            raise ValueError("per-round participation masks need an elastic TrainState "
+                             "(DiLoCoConfig(elastic=True)): the state has no participation "
+                             "field")
         if ckpt_flags is not None and checkpoint_cb is None:
             raise ValueError("ckpt_flags passed but the superstep was built without a "
                              "checkpoint_cb host sink (build_superstep_fn(checkpoint_cb=))")
         if ckpt_flags is not None and len(ckpt_flags) != R:
             raise ValueError(f"ckpt_flags holds {len(ckpt_flags)} flags for {R} rounds")
         do_eval = eval_loss_fn is not None and eval_batches is not None
+        if participation is not None:
+            masked, rows = stage_masks(participation, R, state["round"].device)
         out: dict = {}
         for i in range(R):
+            kw = {}
+            if participation is not None:
+                with torch.no_grad():
+                    state["participation"].copy_(rows[i])
+                kw["masked"] = masked[i]
             state, info = program(state, _slice(batches, i),
-                                  _slice(eval_batches, i) if do_eval else None)
+                                  _slice(eval_batches, i) if do_eval else None, **kw)
             for k in STACKED:
                 if k in info:
                     v = info[k]

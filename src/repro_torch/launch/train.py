@@ -31,11 +31,17 @@ a flagged round back to the last checkpoint and skips it,
 ``--inject-{nan,spike,kill}-round`` injects faults, and SIGTERM / SIGINT
 drain in-flight rounds and write a resumable checkpoint.
 
-Flags of features later slices bring (``--drop-*``, ``--sync-delay``,
-``--mesh``) raise ``NotImplementedError`` naming ROADMAP.md.
-``--autotune`` and the attention block flags are accepted and change
-nothing here: the Hopper kernels tile themselves and the result does not
-depend on the blocks.
+Elastic execution as in the reference: ``--drop-schedule 'round:worker;...'``
+and ``--drop-prob p`` (with ``--drop-seed``) drop workers per round (the
+masks of ``core/faults.FaultPlan``), ``--sync-delay d`` applies each
+pseudogradient d rounds late; metrics.csv's ``active_workers`` and
+``staleness`` columns carry them.
+
+``--mesh`` (multi-GPU, a later slice) raises ``NotImplementedError``
+naming ROADMAP.md. ``--blockwise-threshold`` and ``--attn-block-q/kv`` set
+the plain path's (``--attn-impl xla``) blockwise attention as in the
+reference; ``--autotune`` is accepted and changes nothing here: the Hopper
+kernels tile themselves.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ import torch
 from repro_torch.checkpoint import load_checkpoint, load_latest_valid, save_round_checkpoint
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import CompressionConfig, DiLoCoConfig, HealthConfig
-from repro_torch.core.faults import CrashPlan
+from repro_torch.core.faults import CrashPlan, FaultPlan, parse_drop_schedule
 from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
 from repro_torch.engine import RecoveryPolicy, TrainEngine, run_rounds
 from repro_torch.models import build_model
@@ -81,16 +87,9 @@ def smoothed_eval_loss(losses: list[float], steps: list[int], H: int, alpha: flo
 
 def check_ported_flags(args) -> None:
     """Raise for the flags of features that later slices of the port bring."""
-    deferred = [
-        ("--drop-prob", args.drop_prob > 0, "4b"),
-        ("--drop-schedule", bool(args.drop_schedule), "4b"),
-        ("--sync-delay", bool(args.sync_delay), "4b"),
-        ("--mesh", args.mesh is not None, "5"),
-    ]
-    for flag, used, slice_no in deferred:
-        if used:
-            raise NotImplementedError(f"{flag} is not ported to repro_torch yet: "
-                                      f"ROADMAP.md, Queue 1, Slice {slice_no}")
+    if args.mesh is not None:
+        raise NotImplementedError("--mesh is not ported to repro_torch yet: "
+                                  "ROADMAP.md, Queue 1, Slice 5")
 
 
 def make_diloco_cfg(args) -> DiLoCoConfig:
@@ -99,14 +98,25 @@ def make_diloco_cfg(args) -> DiLoCoConfig:
         quant_mode=args.quant_mode, rowwise=args.rowwise,
         error_feedback=args.error_feedback,
         collective="gather" if args.compression == "topk" else "a2a_rs_ag")
+    # a drop knob switches elastic execution on: the participation mask only
+    # enters the state (and the masked program the rounds) when asked for
+    elastic = args.drop_prob > 0 or bool(args.drop_schedule)
     return DiLoCoConfig(
         n_workers=args.workers, sync_interval=args.sync_interval, inner_name=args.inner,
         outer_name=args.outer, outer_lr=args.outer_lr, outer_momentum=args.outer_momentum,
         compression=comp, streaming_partitions=args.streaming, ns_impl=args.ns_impl,
-        outer_kernel=args.outer_kernel, sync_delay=args.sync_delay,
+        outer_kernel=args.outer_kernel, elastic=elastic, sync_delay=args.sync_delay,
         health=HealthConfig(enabled=args.health_sentinel == "on",
                             spike_factor=args.health_spike_factor,
                             warmup_rounds=args.health_warmup))
+
+
+def make_fault_plan(args, n_workers: int) -> FaultPlan | None:
+    """The host-side participation-mask generator, or None for lockstep."""
+    schedule = parse_drop_schedule(args.drop_schedule) if args.drop_schedule else None
+    plan = FaultPlan(n_workers=n_workers, drop_prob=args.drop_prob,
+                     schedule=schedule, seed=args.drop_seed)
+    return None if plan.is_trivial else plan
 
 
 def train(args, *, capture: bool | None = None) -> dict:
@@ -122,7 +132,10 @@ def train(args, *, capture: bool | None = None) -> dict:
     cfg = cfg.replace(
         max_seq_len=seq_len,
         sliding_window=min(cfg.sliding_window, seq_len) if cfg.sliding_window else 0,
-        attn_impl=args.attn_impl)
+        attn_impl=args.attn_impl,
+        **{k: v for k, v in (("blockwise_threshold", args.blockwise_threshold),
+                             ("attn_block_q", args.attn_block_q),
+                             ("attn_block_kv", args.attn_block_kv)) if v is not None})
     model = build_model(cfg)
 
     dcfg = make_diloco_cfg(args)
@@ -174,6 +187,7 @@ def train(args, *, capture: bool | None = None) -> dict:
             losses.append(float(np.float32(row[3])))
             steps.append(int(row[1]))
     telemetry: dict = {}
+    fault_plan = make_fault_plan(args, dcfg.n_workers)
     crash = CrashPlan(nan_round=args.inject_nan_round, spike_round=args.inject_spike_round,
                       kill_round=args.inject_kill_round)
     t_start = time.time()
@@ -239,7 +253,9 @@ def train(args, *, capture: bool | None = None) -> dict:
                 engine, state, lambda r: batches_for_round(data, r, dcfg.sync_interval),
                 args.rounds, start=start_round, rounds_per_dispatch=rpd,
                 span_batches_for=lambda r0, n: batches_for_span(data, r0, dcfg.sync_interval, n),
-                eval_batches_for=eval_batches_for, on_round=on_round,
+                eval_batches_for=eval_batches_for,
+                participation_for=fault_plan.masks if fault_plan is not None else None,
+                on_round=on_round,
                 on_state=on_state if args.checkpoint_every else None,
                 on_state_every=args.checkpoint_every,
                 checkpoint_in_program=args.checkpoint_in_program, telemetry=telemetry,

@@ -1,8 +1,8 @@
 """Grouped-query attention with RoPE, QK-norm, sliding window and a paged KV
-cache (port of the serving parts of ``repro/models/attention.py``).
+cache (port of ``repro/models/attention.py``).
 
-Entry points of this slice:
-  * ``attend``              — full-sequence (prefill)
+Entry points:
+  * ``attend``              — full-sequence (training / prefill)
   * ``paged_attend_decode`` — one new token per slot against the paged pool
   * ``fill_paged_cache``    — scatter a batched prefill's K/V into pages
 
@@ -17,7 +17,13 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels.flash_attention import gqa_flash_attention, paged_decode_attention
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention import (
+    gqa_flash_attention,
+    paged_decode_attention,
+    visited_kv_range,
+)
 from repro_torch.models.common import ModelConfig, apply_rope, dense_init, rms_norm
 
 Tree = Any
@@ -77,14 +83,15 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
            causal: bool = True, return_kv: bool = False):
-    """Full-sequence self-attention (prefill).
+    """Full-sequence self-attention (training / prefill).
 
     ``cfg.attn_impl == 'pallas'`` runs the hand-written flash kernel
     (:func:`repro_torch.kernels.flash_attention.gqa_flash_attention`);
-    ``'xla'`` runs the dense softmax in plain torch below
-    ``cfg.blockwise_threshold``. Rows attend by absolute position
-    (``positions == arange(S)``). ``return_kv=True`` also returns the
-    post-RoPE ``(k, v)`` ([B, S, KV, hd] each) for filling a KV cache.
+    ``'xla'`` runs plain torch: the dense softmax below
+    ``cfg.blockwise_threshold``, the blockwise online softmax
+    (:func:`_blockwise_attention`) at and above it. Rows attend by absolute
+    position (``positions == arange(S)``). ``return_kv=True`` also returns
+    the post-RoPE ``(k, v)`` ([B, S, KV, hd] each) for filling a KV cache.
     """
     q, k, v = _project_qkv(p, cfg, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -97,9 +104,9 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
         o = o.reshape(B, S, -1)
     elif S >= cfg.blockwise_threshold:
-        raise NotImplementedError(
-            f"attn_impl='xla' at S={S} >= blockwise_threshold needs "
-            "_blockwise_attention, which comes with the training slice (ROADMAP.md)")
+        o = _blockwise_attention(cfg, q, k, v, causal=causal, block_q=cfg.attn_block_q,
+                                 block_kv=cfg.attn_block_kv)
+        o = o.reshape(B, S, -1)
     else:
         scores = _gqa_scores(q, k).float()  # [B,KV,G,S,S]
         if causal:
@@ -114,6 +121,66 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _blockwise_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, block_q: int = 512, block_kv: int = 1024,
+                         skip_blocks: bool = True) -> torch.Tensor:
+    """Exact attention through the online-softmax recurrence over kv blocks.
+
+    q [B,S,H,hd], k/v [B,S,KV,hd] -> o [B,S,H,hd], in fp32 inside, O(block_q
+    * block_kv) scores a step instead of O(S^2). Each q block walks only its
+    visit schedule (:func:`visited_kv_range`, the flash kernels' own: the
+    kv blocks below the causal diagonal and inside the sliding window).
+    Skipping is bitwise exact, since a fully masked block leaves (m, l, acc)
+    unchanged or is cancelled exactly by the next block's zero correction
+    (``skip_blocks=False`` walks every block). Each q block runs under
+    ``torch.utils.checkpoint``, as the reference ``jax.checkpoint``s it:
+    the backward recomputes its kv walk instead of keeping its scores.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    bq, bkv = min(block_q, S), min(block_kv, S)
+    nq, nkv = S // bq, S // bkv
+    assert S % bq == 0 and S % bkv == 0, (S, bq, bkv)
+    scale = (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).item()  # fp32, as XLA's
+    window = cfg.sliding_window if causal else 0
+    kb = k.reshape(B, nkv, bkv, KV, hd)
+    vb = v.reshape(B, nkv, bkv, KV, hd)
+    device = q.device
+
+    def q_block(q_i: torch.Tensor, qi: int, lo: int, hi: int) -> torch.Tensor:
+        q32 = q_i.float()  # [B, bq, KV, G, hd]
+        rows = qi * bq + torch.arange(bq, device=device)
+        m = torch.full((B, KV, G, bq), NEG_INF, dtype=torch.float32, device=device)
+        l = torch.zeros((B, KV, G, bq), dtype=torch.float32, device=device)
+        acc = torch.zeros((B, KV, G, bq, hd), dtype=torch.float32, device=device)
+        for kj in range(lo, hi):
+            s = torch.einsum("bqkgh,bskh->bkgqs", q32, kb[:, kj].float()) * scale
+            cols = kj * bkv + torch.arange(bkv, device=device)
+            mask = torch.ones((bq, bkv), dtype=torch.bool, device=device)
+            if causal:
+                mask &= rows[:, None] >= cols[None, :]
+            if window:
+                mask &= rows[:, None] - cols[None, :] < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vb[:, kj].float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # [B, KV, G, bq, hd]
+        return out.movedim(3, 1)  # [B, bq, KV, G, hd]
+
+    qb = q.reshape(B, nq, bq, KV, G, hd)
+    outs = []
+    for qi in range(nq):
+        lo, hi = ((0, nkv) if not skip_blocks else
+                  visited_kv_range(qi, nkv, bq, bkv, causal, window))
+        outs.append(checkpoint(q_block, qb[:, qi], qi, lo, hi, use_reentrant=False))
+    return torch.stack(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, n_layers: int,

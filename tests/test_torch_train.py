@@ -267,9 +267,10 @@ def test_one_diloco_round_matches_reference(inner, outer_kernel, K):
 
 
 def test_engine_eval_loss_and_deferred_configs():
-    """TrainEngine runs a round and evaluates the outer params; configs of
-    later slices (elastic, sync delay, the DP baseline) raise
-    NotImplementedError naming ROADMAP.md."""
+    """TrainEngine runs a round and evaluates the outer params. The configs
+    Slice 4b and the DP baseline brought (elastic, sync delay,
+    outer_enabled=False) build and run a round; an inner optimizer of a
+    later slice (muon_bp) raises NotImplementedError naming ROADMAP.md."""
     _, tcfg = _cfgs()
     model = tbuild_model(tcfg)
     dcfg = DiLoCoConfig(n_workers=2, sync_interval=1, inner_name="adamw")
@@ -282,9 +283,14 @@ def test_engine_eval_loss_and_deferred_configs():
     ev = engine.eval_loss(state["outer_params"], {k: v[0, 0] for k, v in
                                                   stream.batch_stack(5, 1).items()})
     assert math.isfinite(float(ev))
-    for bad in (dict(elastic=True), dict(sync_delay=1), dict(outer_enabled=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TrainEngine(model, DiLoCoConfig(**bad), OptimizerConfig())
+    for ported in (dict(elastic=True), dict(sync_delay=1), dict(outer_enabled=False)):
+        dcfg = DiLoCoConfig(n_workers=2, sync_interval=1, inner_name="adamw", **ported)
+        engine = TrainEngine(model, dcfg, OptimizerConfig(lr=1e-2))
+        state = engine.init(torch.Generator().manual_seed(0), "cpu")
+        state, info = engine.step(state, batches_for_round(stream, 0, 1))
+        assert int(state["round"]) == 1 and math.isfinite(float(info["loss"][0])), ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TrainEngine(model, DiLoCoConfig(inner_name="muon_bp"), OptimizerConfig())
 
 
 def test_launches_per_round_formula():
@@ -336,11 +342,37 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x2"], ["--drop-prob", "0.5"], ["--drop-schedule", "1:0"],
-    ["--sync-delay", "1"], ["--inner", "muon_bp"], ["--inner", "normuon"]])
+    ["--mesh", "2x2"], ["--inner", "muon_bp"], ["--inner", "normuon"]])
 def test_train_cli_deferred_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttrain.train(_args(tmp_path, *flags))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m", "whisper-large-v3"])
+def test_train_cli_unported_arch_raises(tmp_path, arch):
+    """An architecture not ported yet (MoE, the other families) raises the
+    config registry's KeyError naming ROADMAP.md."""
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        ttrain.train(_args(tmp_path, "--arch", arch))
+
+
+@pytest.mark.parametrize("flags,active,staleness", [
+    (["--drop-prob", "0.5"], None, 0.0),
+    (["--drop-schedule", "1:0"], [2.0, 1.0], 0.0),
+    (["--sync-delay", "1"], [2.0, 2.0], 1.0)])
+def test_train_cli_elastic_flags_run(tmp_path, flags, active, staleness):
+    """The elastic flags (Slice 4b) run: metrics.csv's active_workers follow
+    the run's masks (FaultPlan's, for --drop-prob) and staleness is the
+    sync delay."""
+    from repro_torch.core.faults import FaultPlan
+
+    out = ttrain.train(_args(tmp_path, *flags))
+    rows = [r for r in csv.DictReader(open(os.path.join(tmp_path, "metrics.csv")))]
+    if active is None:
+        active = FaultPlan(n_workers=2, drop_prob=0.5).masks(0, 2).sum(axis=1).tolist()
+    assert [float(r["active_workers"]) for r in rows] == active
+    assert all(float(r["staleness"]) == staleness for r in rows)
+    assert all(math.isfinite(v) for v in out["losses"])
 
 
 def test_train_parser_keeps_reference_flags():
