@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    registers, shared memory and spills for each kernel function, and the
    count of tensor-core instructions (HGMMA, HMMA) in each function's SASS
    (``cuobjdump --dump-sass``); fails if a bf16 flash sweep (forward, dq,
-   dkv) has no HGMMA or spills.
+   dkv, each at head dim 64 and 128) has no HGMMA or spills.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes in bf16 plus odd-length, sliding-window and fp32 cases
    (tolerances: bf16 outputs 2e-2, lse 1e-3, fp32 1e-5), and times each
@@ -130,8 +130,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    attn_impl='xla' at S = 4096 (the blockwise online softmax, plain torch)
    against the fp32 ``flash_fwd``, batch 1. Then each path's tokens/s, idle
    share and peak memory beside the card's name and power limit.
-11. Summary: one ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+12. The paper's Gemma3-style ladder at its rung paper-416m (``LADDER``:
+   head dim 128, MHA, QK-norm, post-norms, untied head, vocab 128256):
+   (12a) flash_fwd, flash_dq / flash_dkv and paged_decode at hd 128 against
+   their plain versions as 3a, 5a and 3b check them (``FLASH_FWD_CASES``,
+   ``FLASH_BWD_CASES``: ragged S, causal, windowed, non-causal, G = 1, 2
+   and 8, bf16 and fp32, bitwise from run to run), timed at the training
+   shape q [32, 2048, 1, 128] and the prefill shape [128, 512, 1, 128]
+   beside the bound, the plain version and SDPA; paged_decode at 8 kv heads,
+   G = 1; (12b) matmul_epilogue at the ladder's Newton-Schulz shapes, whose
+   widths are not multiples of the 96-wide tile, in all four layouts, and
+   nesterov over the ladder's 416,862,208 parameters; (12c) the full-width
+   fp32 agreements of 4a and 6a on paper-416m; (12d) the training main path
+   ``TRAIN_LADDER`` (the command of 6b at paper-416m, S = 2048, 4 sequences
+   a worker step), its launches against the formula, losses finite and
+   falling, a profiled replayed round, and the same command eager, bitwise
+   equal; (12e) the serving main path of 4b on paper-416m. Then the
+   ladder's rates, idle share and peak memory beside the card's name and
+   power limit.
+13. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+   paper-416m timing and launches under ``"paper-416m"``), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -170,6 +189,23 @@ TRAIN = ["--arch", "smollm-135m", "--inner", "muon", "--outer", "nesterov", "--w
          "--attn-impl", "pallas", "--ns-impl", "pallas", "--outer-kernel", "--seed", "0",
          "--lr", "3e-3", "--rounds-per-dispatch", "1",
          "--out", str(ROOT / "build" / "chip_smoke_train"), "--verbose"]
+# slice 6a (12d): the training main path on the paper's own model, paper-416m
+# (the rung the reference's launch/dryrun.py names), at the paper's sequence
+# length 2048; B x S a worker step stays 8192 tokens and a round 65,536
+LADDER = "paper-416m"
+
+
+def replace_flags(argv: list, **values) -> list:
+    """``argv`` with the value after each ``--name`` replaced (``_`` in a
+    keyword stands for ``-``)."""
+    out = list(argv)
+    for name, value in values.items():
+        out[out.index("--" + name.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+TRAIN_LADDER = replace_flags(TRAIN, arch=LADDER, seq_len=2048, batch_per_worker=4,
+                             out=ROOT / "build" / "chip_smoke_train_ladder")
 # the crash drill (8e): the training command at --reduced widths (a
 # full-width K = 2 state is ~3.4 GB a checkpoint), a checkpoint every round
 DRILL = ["--arch", "smollm-135m", "--reduced", "--inner", "muon", "--outer", "nesterov",
@@ -291,20 +327,22 @@ def phase_build(_build):
         for fn, ops in sass_counts(r["path"]).items():
             print(f"    {fn}: tensor-core instructions in SASS {ops}")
             sass[fn] = ops
-    for fn in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"):
+    for fn in (f"flash_{k}_wgmma_kernel<{hd}>" for k in ("fwd", "dq", "dkv") for hd in (64, 128)):
         if not sass.get(fn, {}).get("HGMMA"):
             raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ptxas.get(fn, "")):
             raise AssertionError(f"{fn}: spills (or no ptxas report): {ptxas.get(fn)}")
-    bq, bkv, rows, keys, smem = _build.kernel_tiles("flash_fwd")
+    bq, bkv, rows, keys, bq128, bkv128, smem, smem128 = _build.kernel_tiles("flash_fwd")
     print(f"  flash_fwd: bf16 sweep tiles of {rows} packed q rows x {keys} keys, one warpgroup "
-          f"a block, dynamic shared memory {smem} B; fp32 sweep {bq} positions x {bkv} keys")
-    rows, keys, dq_smem, dkv_smem = _build.kernel_tiles("flash_bwd")
-    print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys, one "
-          f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv)")
-    split, threads = _build.kernel_tiles("paged_decode")
-    print(f"  paged_decode: split-K pass of {split} positions a block of {threads} threads, "
-          "then a combine pass")
+          f"a block, dynamic shared memory {smem} B (hd 64) and {smem128} B (hd 128); fp32 "
+          f"sweep {bq} positions x {bkv} keys (hd 64), {bq128} x {bkv128} (hd 128)")
+    rows, keys, dq_smem, dkv_smem, dq128, dkv128 = _build.kernel_tiles("flash_bwd")
+    print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys; hd 64: one "
+          f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv); "
+          f"hd 128: {dq128} B (dq, one warpgroup), {dkv128} B (dkv, two warpgroups)")
+    split, threads, split128 = _build.kernel_tiles("paged_decode")
+    print(f"  paged_decode: split-K pass of {split} (hd 64) or {split128} (hd 128) positions a "
+          f"block of {threads} threads, then a combine pass")
     tm, tn, bk, threads = _build.kernel_tiles("matmul_epilogue")
     print(f"  matmul_epilogue: {tm} x {tn} tiles of C, K steps of {bk}, {threads} threads a "
           "block")
@@ -324,29 +362,50 @@ def flash_pairs(S: int, causal: bool, window: int) -> int:
     return total
 
 
-def phase_flash(torch, fa):
-    """[3a] flash_fwd against its plain version; bf16 outputs bitwise equal
-    from run to run. The serving and training shapes are timed beside the
-    plain version, the bound and SDPA's forward: returns {shape: row}."""
-    print("[3a] flash_fwd (replaces flash_attention.py:_fwd_kernel) against its plain version")
+_BF16, _FP32 = "bfloat16", "float32"
+# flash_fwd's cases per head dim: (BKV, S, G, dtype, causal, window, timed
+# as); the main paths' shapes first. hd 64: smollm-135m (serving: 16 slots x
+# 3 kv heads, S 512, G 3; training: 8 x 3, S 1024); hd 128: paper-416m
+# (serving prefill: 16 slots x 8 heads, S 512, G 1; training: 4 x 8, S 2048)
+FLASH_FWD_CASES = {
+    64: [(16 * 3, 512, 3, _BF16, True, 0, "serving"),
+         (8 * 3, 1024, 3, _BF16, True, 0, "training"),
+         (2 * 3, 77, 3, _BF16, True, 0, None),
+         (2 * 3, 300, 3, _BF16, True, 100, None),
+         # the tensor-core sweep at G = 1, 2 and 4, ragged, non-causal and windowed
+         (2 * 2, 130, 1, _BF16, True, 0, None),
+         (2 * 1, 96, 4, _BF16, False, 0, None),
+         (2 * 2, 77, 2, _BF16, False, 20, None),
+         (2 * 1, 130, 4, _BF16, True, 37, None),
+         (2 * 3, 130, 3, _FP32, True, 0, None),
+         (2 * 1, 96, 4, _FP32, False, 0, None)],
+    128: [(4 * 8, 2048, 1, _BF16, True, 0, "training"),
+          (16 * 8, 512, 1, _BF16, True, 0, "serving"),
+          (2 * 2, 77, 2, _BF16, True, 0, None),
+          (2 * 2, 300, 1, _BF16, True, 100, None),
+          (2 * 2, 130, 1, _BF16, False, 0, None),
+          (2 * 1, 77, 2, _BF16, False, 20, None),
+          (2 * 1, 130, 2, _BF16, True, 37, None),
+          (1, 70, 8, _BF16, True, 0, None),
+          (2 * 2, 130, 1, _FP32, True, 0, None),
+          (2 * 1, 96, 2, _FP32, False, 0, None),
+          (2 * 1, 77, 2, _FP32, True, 20, None),
+          (1, 50, 8, _FP32, True, 0, None)],
+}
+
+
+def phase_flash(torch, fa, hd: int = 64, phase: str = "3a"):
+    """[3a] flash_fwd against its plain version at head dim ``hd``; bf16
+    outputs bitwise equal from run to run. The shapes named in
+    ``FLASH_FWD_CASES`` are timed beside the plain version, the bound and
+    SDPA's forward: returns {shape: row}."""
+    print(f"[{phase}] flash_fwd (replaces flash_attention.py:_fwd_kernel) against its plain "
+          f"version, hd {hd}")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [  # (BKV, S, G, dtype, causal, window, timed as): the main paths' shapes first
-        (16 * 3, 512, 3, bf16, True, 0, "serving"),
-        (8 * 3, 1024, 3, bf16, True, 0, "training"),
-        (2 * 3, 77, 3, bf16, True, 0, None),
-        (2 * 3, 300, 3, bf16, True, 100, None),
-        # the tensor-core sweep at G = 1, 2 and 4, ragged, non-causal and windowed
-        (2 * 2, 130, 1, bf16, True, 0, None),
-        (2 * 1, 96, 4, bf16, False, 0, None),
-        (2 * 2, 77, 2, bf16, False, 20, None),
-        (2 * 1, 130, 4, bf16, True, 37, None),
-        (2 * 3, 130, 3, fp32, True, 0, None),
-        (2 * 1, 96, 4, fp32, False, 0, None),
-    ]
+    fp32 = torch.float32
     out = {}
-    for BKV, S, G, dt, causal, window, timed in cases:
-        hd = 64
+    for BKV, S, G, dt, causal, window, timed in FLASH_FWD_CASES[hd]:
+        dt = getattr(torch, dt)
         q = torch.randn((BKV, S, G, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt)
@@ -360,10 +419,9 @@ def phase_flash(torch, fa):
         err = check(f"{tag} o", (o.float() - o_ref.float()).abs().max().item(),
                     1e-5 if is_fp32 else 2e-2)
         check(f"{tag} lse", (lse - lse_ref).abs().max().item(), 1e-5 if is_fp32 else 1e-3)
-        if not is_fp32:
-            assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), \
-                f"{tag}: not deterministic"
-            print(f"  {tag}: bitwise equal over two runs")
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), \
+            f"{tag}: not deterministic"
+        print(f"  {tag}: bitwise equal over two runs")
         if not timed:
             continue
         ms = time_ms(torch, lambda: fa._fwd_cuda(q, k, v, **kw))
@@ -383,15 +441,19 @@ def phase_flash(torch, fa):
     return out
 
 
-def phase_paged(torch, fa):
-    """[3b] paged_decode against its plain version, bitwise equal from run to
-    run; the main path's shape timed beside the plain version and the bound."""
-    print("[3b] paged_decode (replaces flash_attention.py:_paged_kernel) against its plain version")
+def phase_paged(torch, fa, hd: int = 64, KV: int = 3, G: int = 3, phase: str = "3b"):
+    """[3b] paged_decode against its plain version at head dim ``hd`` (the
+    main path's KV heads and group size), bitwise equal from run to run; the
+    main path's shape timed beside the plain version and the bound."""
+    print(f"[{phase}] paged_decode (replaces flash_attention.py:_paged_kernel) against its "
+          f"plain version, hd {hd}, {KV} kv heads, G {G}")
     rng = torch.Generator().manual_seed(2)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    KV, G, hd, ps, table_w, n_pages = 3, 3, 64, 16, 37, 1024
-    print(f"  split-K: {fa.paged_splits(table_w, ps)} splits of {fa.PAGED_SPLIT} positions a "
-          f"(slot, kv head) at a table of {table_w} pages of {ps}")
+    ps, table_w, n_pages = 16, 37, 1024
+    split = fa.PAGED_SPLITS[hd]
+    n_split = fa.paged_splits(table_w, ps, split)
+    print(f"  split-K: {n_split} splits of {split} positions a (slot, kv head) at a table of "
+          f"{table_w} pages of {ps}")
     cases = [  # (B, dtype, window, min and max length); the first is the main path's
         (16, torch.bfloat16, 0, 512, 584),  # shape, lengths as its decode spans see them
         (16, torch.bfloat16, 100, 1, 584),
@@ -423,10 +485,9 @@ def phase_paged(torch, fa):
         assert torch.equal(o, again), f"{tag}: not bitwise equal from run to run"
         lens = lengths.cpu().tolist()
         empty = sum(p0 >= p1 for n in lens for p0, p1 in (
-            fa.paged_split_range(s, n, window, table_w, ps)
-            for s in range(fa.paged_splits(table_w, ps))))
-        print(f"  {tag}: bitwise equal over two runs; {empty} of "
-              f"{B * fa.paged_splits(table_w, ps)} (slot, split) pairs empty")
+            fa.paged_split_range(s, n, window, table_w, ps, split) for s in range(n_split)))
+        print(f"  {tag}: bitwise equal over two runs; {empty} of {B * n_split} (slot, split) "
+              "pairs empty")
         if not out:
             ms = time_ms(torch, lambda: fa._paged_decode_cuda(q, kp, vp, table, lengths,
                                                               window=window))
@@ -449,10 +510,12 @@ def phase_paged(torch, fa):
     return out
 
 
-def phase_agreement(torch, get_config, build_model):
+def phase_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
+                    phase: str = "4a"):
     """Full width, fp32: the kernel path against the plain torch path."""
-    print("[4a] full-width fp32 agreement: attn_impl pallas (kernels) vs xla (plain torch)")
-    base = get_config("smollm-135m").replace(dtype="float32")
+    print(f"[{phase}] full-width fp32 agreement, {arch}: attn_impl pallas (kernels) vs xla "
+          "(plain torch)")
+    base = get_config(arch).replace(dtype="float32")
     dev = torch.device("cuda")
     model_k, model_p = build_model(base.replace(attn_impl="pallas")), build_model(base)
     params = model_k.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -480,9 +543,9 @@ def phase_agreement(torch, get_config, build_model):
     torch.cuda.empty_cache()
 
 
-def phase_main(torch, fa, get_config, serve):
-    print("[4b] main path: repro_torch.launch.serve, smollm-135m full width, bf16, pallas")
-    cfg = get_config("smollm-135m").replace(attn_impl="pallas")
+def phase_main(torch, fa, get_config, serve, arch: str = "smollm-135m", phase: str = "4b"):
+    print(f"[{phase}] main path: repro_torch.launch.serve, {arch} full width, bf16, pallas")
+    cfg = get_config(arch).replace(attn_impl="pallas")
     fa.reset_launch_counts()
     results, seconds, engine, model, params = serve(cfg, device="cuda", **MAIN)
     launches = dict(fa.LAUNCHES)
@@ -496,7 +559,8 @@ def phase_main(torch, fa, get_config, serve):
     assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0, (launches, st)
     assert launches["paged_decode"] == L * st["decode_steps"] > 0, (launches, st)
     n_new = MAIN["batch"] * MAIN["max_new"]
-    print(f"  generated {n_new} tokens in {seconds:.3f} s ({n_new / seconds:.1f} tok/s)")
+    engine.tok_s = n_new / seconds
+    print(f"  generated {n_new} tokens in {seconds:.3f} s ({engine.tok_s:.1f} tok/s)")
     with torch.no_grad():
         prompt = torch.tensor([results["req0"].tolist()], dtype=torch.int32, device="cuda")
         logits, _ = model.forward(params, prompt)
@@ -592,29 +656,50 @@ def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int) -> float:
     return statistics.median(repeats)
 
 
-def phase_flash_bwd(torch, fa):
+# flash_dq / flash_dkv cases per head dim: (B, KV, S, G, dtype, causal,
+# window); the first is the main path's shape (hd 64: smollm-135m's
+# training step; hd 128: paper-416m's)
+FLASH_BWD_CASES = {
+    64: [(8, 3, 1024, 3, _BF16, True, 0),
+         (8, 3, 1024, 3, _FP32, True, 0),
+         (2, 3, 77, 3, _FP32, True, 0),
+         (2, 3, 300, 3, _BF16, True, 100),
+         (2, 1, 96, 4, _FP32, False, 0),
+         (2, 2, 130, 1, _FP32, True, 0),
+         # bf16 at the shapes above, so the tensor-core sweeps meet ragged
+         # tiles, G = 1 and 4, non-causal and windowed masks
+         (2, 3, 77, 3, _BF16, True, 0),
+         (2, 1, 96, 4, _BF16, False, 0),
+         (2, 2, 130, 1, _BF16, True, 0),
+         (2, 1, 130, 4, _BF16, True, 37),
+         (2, 2, 77, 2, _BF16, False, 20)],
+    128: [(4, 8, 2048, 1, _BF16, True, 0),
+          (2, 2, 300, 1, _FP32, True, 0),
+          (2, 3, 77, 2, _FP32, True, 0),
+          (2, 1, 96, 2, _FP32, False, 0),
+          (2, 1, 130, 1, _FP32, True, 37),
+          (1, 1, 50, 8, _FP32, True, 0),
+          (2, 3, 77, 2, _BF16, True, 0),
+          (2, 1, 96, 1, _BF16, False, 0),
+          (2, 2, 130, 1, _BF16, True, 0),
+          (2, 1, 130, 2, _BF16, True, 37),
+          (2, 2, 77, 2, _BF16, False, 20),
+          (2, 2, 300, 1, _BF16, True, 100),
+          (1, 1, 70, 8, _BF16, True, 0)],
+}
+
+
+def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
     """[5a] flash_dq and flash_dkv against autograd through the plain forward
-    and against their plain versions; bitwise equal from run to run."""
-    print("[5a] flash_dq / flash_dkv (replace flash_attention.py:_dq_kernel / _dkv_kernel)")
+    and against their plain versions at head dim ``hd``; bitwise equal from
+    run to run. The first case (the main path's shape) is timed."""
+    print(f"[{phase}] flash_dq / flash_dkv (replace flash_attention.py:_dq_kernel / "
+          f"_dkv_kernel), hd {hd}")
     gen = torch.Generator(device="cuda").manual_seed(11)
-    cases = [  # (B, KV, S, G, dtype, causal, window); the first is the main path's shape
-        (8, 3, 1024, 3, torch.bfloat16, True, 0),
-        (8, 3, 1024, 3, torch.float32, True, 0),
-        (2, 3, 77, 3, torch.float32, True, 0),
-        (2, 3, 300, 3, torch.bfloat16, True, 100),
-        (2, 1, 96, 4, torch.float32, False, 0),
-        (2, 2, 130, 1, torch.float32, True, 0),
-        # bf16 at the shapes above, so the tensor-core sweeps meet ragged
-        # tiles, G = 1 and 4, non-causal and windowed masks
-        (2, 3, 77, 3, torch.bfloat16, True, 0),
-        (2, 1, 96, 4, torch.bfloat16, False, 0),
-        (2, 2, 130, 1, torch.bfloat16, True, 0),
-        (2, 1, 130, 4, torch.bfloat16, True, 37),
-        (2, 2, 77, 2, torch.bfloat16, False, 20),
-    ]
     out = {}
-    for B, KV, S, G, dt, causal, window in cases:
-        BKV, hd = B * KV, 64
+    for B, KV, S, G, dt, causal, window in FLASH_BWD_CASES[hd]:
+        dt = getattr(torch, dt)
+        BKV = B * KV
         fp32 = dt == torch.float32
         q, do = (torch.randn((BKV, S, G, hd), generator=gen, device="cuda").to(dt) for _ in "qd")
         k, v = (torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt) for _ in "kv")
@@ -687,6 +772,57 @@ def operand_layouts(a, b, d):
     return out
 
 
+def check_matmul_cases(torch, mm, cases) -> None:
+    """Each (name, a, b, d, alpha, beta, symmetric) case in all four operand
+    layouts within 1e-5 of the largest output of the plain version; a
+    symmetric case also with symmetric=True, bitwise symmetric and bitwise
+    equal to the full computation."""
+    for name, a, b, d, alpha, beta, sym in cases:
+        cp = mm._matmul_plain(a, b, d, alpha=alpha, beta=beta, out_dtype=a.dtype)
+        # fp32 summation order only: 1e-5 of the largest output
+        tol = 1e-5 * max(1.0, cp.abs().max().item())
+        for layout, (av, bv, dv) in operand_layouts(a, b, d).items():
+            c = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta)
+            torch.cuda.synchronize()
+            check(f"{name}, {layout}", (c - cp).abs().max().item(), tol)
+            if sym:
+                cs = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta, symmetric=True)
+                torch.cuda.synchronize()
+                assert torch.equal(cs, cs.mT), f"{name}, {layout}: triangle not bitwise symmetric"
+                assert torch.equal(cs, c), f"{name}, {layout}: triangle != full computation"
+        if sym:
+            print(f"  {name}: symmetric=True bitwise symmetric and bitwise equal to "
+                  "symmetric=False in all four layouts")
+
+
+def time_matmul(torch, mm, name, a, b, d, alpha, beta, sym, flops, nbytes) -> dict:
+    """One matmul_epilogue call timed beside its plain version, its bound
+    (fp32 CUDA-core peak) and torch.baddbmm (the full product)."""
+    z, m, n = a.shape[0], a.shape[1], b.shape[-1]
+    kw = dict(alpha=alpha, beta=beta)
+    c = mm.matmul_epilogue(a, b, d, symmetric=sym, **kw)
+    cp = mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw)
+    torch.cuda.synchronize()
+    err = (c - cp).abs().max().item()
+    ms = time_ms(torch, lambda: mm.matmul_epilogue(a, b, d, symmetric=sym, **kw))
+    plain_ms = time_ms(torch, lambda: mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw))
+    dst = d if d is not None else torch.empty((z, m, n), device="cuda")
+    library_ms = time_ms(torch, lambda: torch.baddbmm(dst, a, b, beta=beta, alpha=alpha))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               **bound(flops, nbytes, PEAK_FP32_FLOPS))
+    print(f"  timed {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm "
+          f"{library_ms:.4f} ms (the full product), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {flops:.4g} flop at 67 TFLOP/s fp32, {nbytes:.4g} B)")
+    return row
+
+
+def normed(g):
+    """Newton-Schulz's first input: g over its Frobenius norm per matrix."""
+    import torch
+
+    return g / torch.sqrt(torch.sum(g * g, dim=(-2, -1), keepdim=True))
+
+
 def phase_matmul(torch, mm, ops, ref):
     """[5b] matmul_epilogue in fp32 at the Newton-Schulz shapes, every case
     in all four operand layouts; symmetric calls bitwise symmetric and
@@ -698,10 +834,6 @@ def phase_matmul(torch, mm, ops, ref):
 
     na, nb, nc = NS_COEFFS
     gen = torch.Generator(device="cuda").manual_seed(12)
-
-    def normed(g):  # Newton-Schulz's first input
-        return g / torch.sqrt(torch.sum(g * g, dim=(-2, -1), keepdim=True))
-
     g = torch.randn((30, 576, 1536), generator=gen, device="cuda")
     x = normed(g)
     x_kv = normed(torch.randn((30, 576, 192), generator=gen, device="cuda")).mT  # wk, wv
@@ -720,52 +852,20 @@ def phase_matmul(torch, mm, ops, ref):
         ("ragged X X^T [3, 77, 50]", g[:3, :77, :50], g[:3, :77, :50].mT, None, 1.0, 0.0, True),
         ("ragged X X^T + D [2, 200, 70]", r, r.mT, rr + rr.mT, 0.5, -1.5, True),
     ]
-    for name, a, b, d, alpha, beta, sym in cases:
-        cp = mm._matmul_plain(a, b, d, alpha=alpha, beta=beta, out_dtype=a.dtype)
-        # fp32 summation order only: 1e-5 of the largest output
-        tol = 1e-5 * max(1.0, cp.abs().max().item())
-        for layout, (av, bv, dv) in operand_layouts(a, b, d).items():
-            c = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta)
-            torch.cuda.synchronize()
-            check(f"{name}, {layout}", (c - cp).abs().max().item(), tol)
-            if sym:
-                cs = mm.matmul_epilogue(av, bv, dv, alpha=alpha, beta=beta, symmetric=True)
-                torch.cuda.synchronize()
-                assert torch.equal(cs, cs.mT), f"{name}, {layout}: triangle not bitwise symmetric"
-                assert torch.equal(cs, c), f"{name}, {layout}: triangle != full computation"
-        if sym:
-            print(f"  {name}: symmetric=True bitwise symmetric and bitwise equal to "
-                  "symmetric=False in all four layouts")
-
-    def timed(name, a, b, d, alpha, beta, sym, flops, nbytes):
-        z, m, n = a.shape[0], a.shape[1], b.shape[-1]
-        kw = dict(alpha=alpha, beta=beta)
-        c = mm.matmul_epilogue(a, b, d, symmetric=sym, **kw)
-        cp = mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw)
-        torch.cuda.synchronize()
-        err = (c - cp).abs().max().item()
-        ms = time_ms(torch, lambda: mm.matmul_epilogue(a, b, d, symmetric=sym, **kw))
-        plain_ms = time_ms(torch, lambda: mm._matmul_plain(a, b, d, out_dtype=a.dtype, **kw))
-        dst = d if d is not None else torch.empty((z, m, n), device="cuda")
-        library_ms = time_ms(torch, lambda: torch.baddbmm(dst, a, b, beta=beta, alpha=alpha))
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **bound(flops, nbytes, PEAK_FP32_FLOPS))
-        print(f"  timed {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm "
-              f"{library_ms:.4f} ms (the full product), bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}, {flops:.4g} flop at 67 TFLOP/s fp32, {nbytes:.4g} B)")
-        return row
+    check_matmul_cases(torch, mm, cases)
 
     z, m, k = x.shape
     # X X^T: X read once (A and B are the same tensor), C written once; the
     # triangle's bound counts its m(m + 1)/2 distinct entries a matrix
     xx_bytes = (x.numel() + z * m * m) * 4
-    out = timed("X X^T, w_in stack [30, 576, 1536], symmetric=True", x, x.mT, None, 1.0, 0.0,
-                True, 2.0 * z * (m * (m + 1) // 2) * k, xx_bytes)
-    full = timed("X X^T, w_in stack [30, 576, 1536], symmetric=False (the full product)", x,
-                 x.mT, None, 1.0, 0.0, False, 2.0 * z * m * m * k, xx_bytes)
+    out = time_matmul(torch, mm, "X X^T, w_in stack [30, 576, 1536], symmetric=True", x, x.mT,
+                      None, 1.0, 0.0, True, 2.0 * z * (m * (m + 1) // 2) * k, xx_bytes)
+    full = time_matmul(torch, mm,
+                       "X X^T, w_in stack [30, 576, 1536], symmetric=False (the full product)",
+                       x, x.mT, None, 1.0, 0.0, False, 2.0 * z * m * m * k, xx_bytes)
     # B X + a X: B read, X read once (B and D are the same tensor), C written
-    bx = timed("B X + a X, [30, 576, 576] x [30, 576, 1536]", Bm, x, x, 1.0, na, False,
-               2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
+    bx = time_matmul(torch, mm, "B X + a X, [30, 576, 576] x [30, 576, 1536]", Bm, x, x, 1.0,
+                     na, False, 2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
     y = ops.ns_orthogonalize(g)
     y_ref = ref.ns_orthogonalize_ref(g)
     torch.cuda.synchronize()
@@ -778,10 +878,57 @@ def phase_matmul(torch, mm, ops, ref):
     return out, full, bx
 
 
-def phase_nesterov(torch, ou):
-    """[5c] nesterov over the full parameter count: bitwise equal."""
-    print("[5c] nesterov (replaces outer_update.py:_nesterov_kernel) over 134,515,008 fp32")
-    n = 134_515_008
+def phase_matmul_ladder(torch, mm, ops, ref):
+    """[12b] matmul_epilogue at paper-416m's Newton-Schulz shapes, whose
+    widths are not multiples of the 96-wide tile (1024 = 10 x 96 + 64, 2816 =
+    29 x 96 + 32): the products of the w_in stack [12, 1024, 2816], of the
+    square stacks [12, 1024, 1024] and of w_down [12, 2816, 1024] (taken
+    transposed, as a view), each in all four operand layouts within 1e-5 of
+    the largest output, the symmetric ones bitwise symmetric; X X^T and
+    B X + a X of the w_in stack timed; the full Newton-Schulz of w_in."""
+    print("[12b] matmul_epilogue at paper-416m's shapes (ragged tile edges), fp32, TF32 off")
+    from repro_torch.optim.muon import NS_COEFFS
+
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    g = torch.randn((12, 1024, 2816), generator=gen, device="cuda")
+    x = normed(g)  # w_gate / w_up
+    xs = normed(torch.randn((12, 1024, 1024), generator=gen, device="cuda"))  # wq, wk, wv, wo
+    x_down = normed(torch.randn((12, 2816, 1024), generator=gen, device="cuda")).mT
+    A = mm.matmul_epilogue(x, x.mT, symmetric=True)
+    Bm = mm.matmul_epilogue(A, A, A, alpha=nc, beta=nb, symmetric=True)
+    As = mm.matmul_epilogue(xs, xs.mT, symmetric=True)
+    Bs = mm.matmul_epilogue(As, As, As, alpha=nc, beta=nb, symmetric=True)
+    check_matmul_cases(torch, mm, [
+        ("X X^T, w_in stack [12, 1024, 2816]", x, x.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, [12, 1024, 1024]", A, A, A, nc, nb, True),
+        ("B X + a X, [12, 1024, 1024] x [12, 1024, 2816]", Bm, x, x, 1.0, na, False),
+        ("X X^T, wq stack [12, 1024, 1024]", xs, xs.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, wq stack [12, 1024, 1024]", As, As, As, nc, nb, True),
+        ("B X + a X, wq stack [12, 1024, 1024] x [12, 1024, 1024]", Bs, xs, xs, 1.0, na, False),
+        ("X X^T, w_down stack transposed [12, 1024, 2816]", x_down, x_down.mT, None, 1.0, 0.0,
+         True),
+    ])
+    z, m, k = x.shape
+    xx_bytes = (x.numel() + z * m * m) * 4
+    out = time_matmul(torch, mm, "X X^T, w_in stack [12, 1024, 2816], symmetric=True", x, x.mT,
+                      None, 1.0, 0.0, True, 2.0 * z * (m * (m + 1) // 2) * k, xx_bytes)
+    bx = time_matmul(torch, mm, "B X + a X, [12, 1024, 1024] x [12, 1024, 2816]", Bm, x, x, 1.0,
+                     na, False, 2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
+    y = ops.ns_orthogonalize(g)
+    y_ref = ref.ns_orthogonalize_ref(g)
+    torch.cuda.synchronize()
+    check("full Newton-Schulz, w_in stack [12, 1024, 2816], kernel vs plain fp32",
+          (y - y_ref).abs().max().item(), 1e-5)
+    del g, x, xs, x_down, A, Bm, As, Bs, y, y_ref
+    torch.cuda.empty_cache()
+    return out, bx
+
+
+def phase_nesterov(torch, ou, n: int = 134_515_008, phase: str = "5c"):
+    """[5c] nesterov over the full parameter count ``n`` (smollm-135m's; at
+    12c paper-416m's): bitwise equal."""
+    print(f"[{phase}] nesterov (replaces outer_update.py:_nesterov_kernel) over {n:,} fp32")
     gen = torch.Generator(device="cuda").manual_seed(13)
     theta, psi, u = (torch.randn(n, generator=gen, device="cuda") * s for s in (1.0, 1e-2, 1e-1))
     kw = dict(lr=0.7, momentum=0.9)
@@ -805,17 +952,18 @@ def phase_nesterov(torch, ou):
     return out
 
 
-def phase_train_agreement(torch, get_config, build_model):
+def phase_train_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
+                          phase: str = "6a"):
     """[6a] full width, fp32: loss and gradients pallas vs xla, then one Muon
     step through the kernel vs the plain fp32 Newton-Schulz."""
-    print("[6a] full-width fp32 training agreement (B=1, S=256)")
+    print(f"[{phase}] full-width fp32 training agreement, {arch} (B=1, S=256)")
     from repro_torch.kernels import ref
     from repro_torch.optim import OptimizerConfig, chain, descend, stateless, trace_momentum
     from repro_torch.optim.muon import muon, muon_mults, muon_partition
     from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_paths, tree_map,
                                        tree_map_with_path)
 
-    base = get_config("smollm-135m").replace(dtype="float32")
+    base = get_config(arch).replace(dtype="float32")
     dev = torch.device("cuda")
     model_k, model_p = build_model(base.replace(attn_impl="pallas")), build_model(base)
     params = model_k.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -852,12 +1000,12 @@ def phase_train_agreement(torch, get_config, build_model):
     torch.cuda.empty_cache()
 
 
-def phase_train_main(torch, build_parser, train):
+def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str = "6b"):
     """[6b] the training main path through the CLI entry point, in-process."""
     from repro_torch.kernels import _build
 
-    print("[6b] main path: repro_torch.launch.train " + " ".join(TRAIN))
-    args = build_parser().parse_args(TRAIN)
+    print(f"[{phase}] main path: repro_torch.launch.train " + " ".join(argv))
+    args = build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     out = train(args)
@@ -890,6 +1038,7 @@ def phase_train_main(torch, build_parser, train):
           "the ends of two dispatches on the card's clock)")
     print(f"  peak device memory {peak_gb:.2f} GB; final smoothed eval loss "
           f"{out['final_loss']:.4f}")
+    out.update(tok_s=tok_s, peak_gb=peak_gb)
     return launches, out
 
 
@@ -988,17 +1137,21 @@ def _leaf_diffs(torch, a: dict, b: dict) -> list:
             for (p, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
 
 
-def phase_train_equal(torch, build_parser, train, ref_hist: list, ref_state: dict):
+def phase_train_equal(torch, build_parser, train, ref_hist: list, ref_state: dict,
+                      base: list = TRAIN, phase: str = "6d", with_r3: bool = True):
     """[6d] the main path's run (R = 1: round 1 eager as the warm-up, rounds
     2 and 3 replays of the captured round) against the same command with
-    ``capture=False`` (every round eager) and at ``--rounds-per-dispatch 3``
-    (one dispatch), from one TrainState (seed 0): losses, eval losses,
-    comm_bytes and the final state, bitwise."""
-    print("[6d] captured = eager and R = 3 = R = 1, bitwise, full width, from one TrainState")
+    ``capture=False`` (every round eager) and, ``with_r3``, at
+    ``--rounds-per-dispatch 3`` (one dispatch), from one TrainState (seed 0):
+    losses, eval losses, comm_bytes and the final state, bitwise."""
+    print(f"[{phase}] captured = eager" + (" and R = 3 = R = 1" if with_r3 else "")
+          + ", bitwise, full width, from one TrainState")
     keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
-    for tag, extra, capture in (("eager (capture=False)", [], False),
-                                ("--rounds-per-dispatch 3", ["--rounds-per-dispatch", "3"], None)):
-        argv = list(TRAIN) + extra
+    variants = [("eager (capture=False)", [], False)]
+    if with_r3:
+        variants.append(("--rounds-per-dispatch 3", ["--rounds-per-dispatch", "3"], None))
+    for tag, extra, capture in variants:
+        argv = list(base) + extra
         argv[argv.index("--out") + 1] = str(ROOT / "build" / "chip_smoke_train_equal")
         out = train(build_parser().parse_args(argv), capture=capture)
         torch.cuda.synchronize()
@@ -1657,6 +1810,76 @@ def slice_4b(torch, get_config, build_model, build_parser, train, ref_hist: list
               f"{ {k: v for k, v in r['launches'].items() if v} }; {smi_line}")
 
 
+def ladder_param_count(cfg) -> int:
+    """The parameter count of a dense config with QK-norm, post-norms and an
+    untied head (the paper's ladder), from its widths."""
+    d, L, F, hd = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.hd
+    layer = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * F + 2 * hd + 4 * d
+    return 2 * cfg.vocab * d + d + L * layer
+
+
+def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, serve,
+             smi: str) -> dict:
+    """Phases 12a-12e: the paper's Gemma3-style ladder on the card, at its
+    rung paper-416m (head dim 128, MHA, QK-norm, post-norms, untied head,
+    vocab 128256). Returns each kernel's row for the summary."""
+    fa, mm, ops, ref, ou = (mods[k] for k in ("fa", "mm", "ops", "ref", "ou"))
+    cfg = get_config(LADDER)
+    flash = phase_flash(torch, fa, hd=128, phase="12a")
+    bwd = phase_flash_bwd(torch, fa, hd=128, phase="12a")
+    paged = phase_paged(torch, fa, hd=128, KV=cfg.n_kv_heads, G=cfg.n_heads // cfg.n_kv_heads,
+                        phase="12a")
+    matmul, matmul_bx = phase_matmul_ladder(torch, mm, ops, ref)
+    n_params = ladder_param_count(cfg)
+    nesterov = phase_nesterov(torch, ou, n_params, phase="12b")
+    torch.cuda.empty_cache()
+    phase_agreement(torch, get_config, build_model, LADDER, "12c")
+    phase_train_agreement(torch, get_config, build_model, LADDER, "12c")
+
+    train_launches, out = phase_train_main(torch, build_parser, train, TRAIN_LADDER, "12d")
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    assert sum(t.numel() for t in tree_leaves(out["state"]["outer_params"])) == n_params
+    ref_hist = out["history"]
+    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
+    prof = phase_train_profile(
+        torch, out, TRAIN_LADDER, tag="12d'",
+        focus=("flash_fwd_wgmma_kernel<128>", "flash_dq_wgmma_kernel<128>",
+               "flash_dkv_wgmma_kernel<128>", "matmul_epilogue_kernel", "nesterov",
+               "softmax", "nvjet", "gemm"),
+        beside={"flash_fwd_wgmma_kernel<128>": ("12a", flash["training"]["ms"]),
+                "flash_dq_wgmma_kernel<128>": ("12a", bwd["flash_dq"]["ms"]),
+                "flash_dkv_wgmma_kernel<128>": ("12a", bwd["flash_dkv"]["ms"]),
+                "matmul_epilogue_kernel": ("12b (X X^T on w_in, symmetric)", matmul["ms"])})
+    rate, peak = out["tok_s"], out["peak_gb"]
+    del out
+    torch.cuda.empty_cache()
+    phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=TRAIN_LADDER,
+                      phase="12d''", with_r3=False)
+    del ref_state
+    torch.cuda.empty_cache()
+    serve_launches, engine = phase_main(torch, fa, get_config, serve, LADDER, "12e")
+    serve_rate = engine.tok_s
+    del engine
+    torch.cuda.empty_cache()
+    print(f"{LADDER} training ({' '.join(TRAIN_LADDER[:TRAIN_LADDER.index('--out')])}): "
+          f"{rate:.1f} tokens/s over rounds 2-3, one replayed round {prof['tok_s']:.1f} tokens/s "
+          f"at idle {prof['idle']:.1f}%, peak {peak:.2f} GB; serving {serve_rate:.1f} tok/s, "
+          f"launches flash_fwd {serve_launches['flash_fwd']}, paged_decode "
+          f"{serve_launches['paged_decode']}; card (nvidia-smi name, power.limit): {smi}")
+    return {
+        "flash_fwd": {"launches": {"serving": serve_launches["flash_fwd"],
+                                   "training": train_launches["flash_fwd"]},
+                      "serving": flash["serving"], "training": flash["training"]},
+        "paged_decode": {"launches": serve_launches["paged_decode"], **paged},
+        "flash_dq": {"launches": train_launches["flash_dq"], **bwd["flash_dq"]},
+        "flash_dkv": {"launches": train_launches["flash_dkv"], **bwd["flash_dkv"]},
+        "matmul_epilogue": {"launches": train_launches["matmul_epilogue"], **matmul,
+                            "b_x_plus_a_x": matmul_bx},
+        "nesterov": {"launches": train_launches["nesterov"], **nesterov},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1731,28 +1954,32 @@ def main() -> int:
     phase_crash_drill(torch, build_parser, train)
 
     slice_4b(torch, get_config, build_model, build_parser, train, ref_hist, smi)
+    ladder = slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
+                      build_model, build_parser, train, serve, smi)
 
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"
     summary = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:184",
-         "launches": launches["flash_fwd"], **flash["serving"]},
+         "launches": launches["flash_fwd"], **flash["serving"], LADDER: ladder["flash_fwd"]},
         {"name": "paged_decode", "route": "cuda", "source": f"{src}/paged_decode.cu",
          "replaces": f"{jax_src}/flash_attention.py:439",
-         "launches": launches["paged_decode"], **paged},
+         "launches": launches["paged_decode"], **paged, LADDER: ladder["paged_decode"]},
         {"name": "flash_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:230",
-         "launches": train_launches["flash_dq"], **bwd["flash_dq"]},
+         "launches": train_launches["flash_dq"], **bwd["flash_dq"], LADDER: ladder["flash_dq"]},
         {"name": "flash_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:254",
-         "launches": train_launches["flash_dkv"], **bwd["flash_dkv"]},
+         "launches": train_launches["flash_dkv"], **bwd["flash_dkv"],
+         LADDER: ladder["flash_dkv"]},
         {"name": "matmul_epilogue", "route": "cuda", "source": f"{src}/matmul_epilogue.cu",
          "replaces": f"{jax_src}/matmul.py:47",
-         "launches": train_launches["matmul_epilogue"], **matmul},
+         "launches": train_launches["matmul_epilogue"], **matmul,
+         LADDER: ladder["matmul_epilogue"]},
         {"name": "nesterov", "route": "cuda", "source": f"{src}/outer_update.cu",
          "replaces": f"{jax_src}/outer_update.py:58",
-         "launches": train_launches["nesterov"], **nesterov},
+         "launches": train_launches["nesterov"], **nesterov, LADDER: ladder["nesterov"]},
         {"name": "quantize", "route": "cuda", "source": f"{src}/quantize.cu",
          "replaces": f"{jax_src}/quantize.py:40",
          "launches": run_a["quantize"], **quant["quantize"]},
@@ -1773,7 +2000,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[11] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[13] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

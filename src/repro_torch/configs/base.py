@@ -1,8 +1,9 @@
 """Config registry (port of ``repro/configs/base.py``).
 
-Only ``smollm-135m`` is registered in this slice of the port; every other
-architecture of the reference raises a ``KeyError`` that points at
-``ROADMAP.md``. ``reduce_config`` and ``InputShape`` are copied exactly, so
+Registered so far: ``smollm-135m`` and the paper's Gemma3-style ladder
+(``paper-150m`` ... ``paper-15.23b``); every other architecture of the
+reference raises a ``KeyError`` that points at ``ROADMAP.md``.
+``reduce_config`` and ``InputShape`` are copied exactly, so
 the port's reduced and full configs equal the reference's field for field.
 """
 from __future__ import annotations
@@ -96,4 +97,4 @@ def list_configs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import smollm_135m  # noqa: F401
+    from repro_torch.configs import paper_gemma3, smollm_135m  # noqa: F401

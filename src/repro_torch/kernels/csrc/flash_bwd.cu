@@ -54,13 +54,38 @@
 //   * Numbers: p and ds are rounded to bf16 as operands of the second
 //     products (the plain versions keep them in fp32); the sums stay fp32.
 //
+// Head dim 128 (the paper's Gemma3-style ladder): rows of two 64-column
+// panels (csrc/hopper_tiles.cuh), 8 k16 steps for the products that
+// contract over hd, and one m64n64 product per panel for those whose N is
+// hd. A staged tile is 16 KB.
+//   * dq: one warpgroup; dQ is two m64n64 accumulators (64 registers a
+//     thread) beside S and dP (32 each). Q, dO and 2 x (K, V) are 96 KB of
+//     dynamic shared memory, two blocks an SM.
+//   * dkv: dK and dV of a whole 128-wide row would be 128 accumulator
+//     registers a thread, with S^T and dP^T 64 more and the bf16 operands
+//     32: past the 255 a thread has, so it would spill. So a block is two
+//     warpgroups, warpgroup p owning columns 64 p .. 64 p + 63 of dK and dV
+//     (the hd-64 sweep's 32 + 32 registers). Each warpgroup recomputes the
+//     full S^T and dP^T (both contract over all 128 dims) and multiplies
+//     them into its panel of dO and Q. The cost: the two score products run
+//     twice, 6 products of a tile instead of 4 (1.5x the tensor-core work of
+//     dkv); the gain: no spills, the staged K, V, Q, dO tiles read by both
+//     warpgroups from one copy. K, V and 2 x (Q, dO) are 96 KB (+ lse, dl),
+//     one block (8 warps) an SM, as the hd-64 sweep's two blocks of 4.
+//   * ptxas gives dq 201 and dkv 222 registers a thread at hd 128, no
+//     spills.
+//
 // fp32 inputs keep the CUDA-core sweeps (no fp32 tensor-core product does
-// the same arithmetic): blocks as above but over positions, two neighbouring
-// threads share a 64-wide row (32 dims each, float2 reads; the dot products
-// are summed across the pair by one shuffle), K/V (dq) or q/do (dkv) staged
-// in shared memory as fp32. Masked pairs are never computed in either route
-// (explicit masking: they add exactly zero), and ragged tile edges are
-// masked, so any S works.
+// the same arithmetic): blocks as above but over positions, TPR = hd / 32
+// neighbouring threads share a row (32 dims each, float2 reads, float2
+// group TPR i + t for part t; the dot products are summed across the group
+// by shuffles), K/V (dq) or q/do (dkv) staged in shared memory as fp32. The
+// tiles shrink with hd so that a thread holds the same registers and a
+// block the same 32 KB of static shared memory: dq 16 (hd 64) or 8 (hd 128)
+// positions a block against staged K/V tiles of 64 or 32 keys; dkv 32 keys
+// a block against staged q/do tiles of 64 or 32 rows. Masked pairs are never
+// computed in either route (explicit masking: they add exactly zero), and
+// ragged tile edges are masked, so any S works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,82 +93,107 @@
 
 namespace {
 
-constexpr int HD = 64;
-constexpr int HALF = HD / 2;
-// fp32 sweeps (the bf16 sweeps' tiles are below)
-constexpr int DQ_BQ = 16;     // q positions per dq block (times G heads, times 2 threads)
-constexpr int DQ_BKV = 64;    // kv positions per staged K/V tile (dq sweep)
-constexpr int DKV_BKV = 32;   // kv positions per dkv block (times 2 threads)
-constexpr int DKV_ROWS = 64;  // q rows (positions x G heads) per staged q/do tile
-
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core sweeps over positions
 // ---------------------------------------------------------------------------
 
-// the two lanes of a thread pair (for __shfl_xor_sync)
-__device__ __forceinline__ unsigned pair_mask() { return 3u << ((threadIdx.x & 31) & ~1); }
+// the fp32 sweeps' tiles at head dim HD (the bf16 sweeps' are below)
+template <int HD>
+struct Fp32Tiles {
+  static constexpr int TPR = HD / 32;        // threads a row, 32 dims each
+  static constexpr int PART = HD / TPR;      // = 32
+  static constexpr int DQ_BQ = 32 / TPR;     // q positions per dq block (times G, times TPR)
+  static constexpr int DQ_BKV = 4096 / HD;   // kv positions per staged K/V tile (dq)
+  static constexpr int DKV_BKV = 32;         // kv positions per dkv block (times TPR threads)
+  static constexpr int DKV_ROWS = 4096 / HD; // q rows (positions x G) per staged q/do tile
+};
 
-__device__ __forceinline__ void load_half(const float* __restrict__ row, int h, float* dst) {
+// the lanes of this thread's group of TPR (for __shfl_xor_sync)
+template <int TPR>
+__device__ __forceinline__ unsigned group_mask() {
+  return ((1u << TPR) - 1) << ((threadIdx.x & 31) & ~(TPR - 1));
+}
+
+template <int TPR>
+__device__ __forceinline__ float group_sum(float d, unsigned mask) {
 #pragma unroll
-  for (int i = 0; i < HALF / 2; ++i) {
-    dst[2 * i] = row[4 * i + 2 * h];
-    dst[2 * i + 1] = row[4 * i + 2 * h + 1];
+  for (int off = 1; off < TPR; off <<= 1) d += __shfl_xor_sync(mask, d, off);
+  return d;
+}
+
+// part h of a row: its float2 groups TPR i + h, i < PART / 2
+template <int HD>
+__device__ __forceinline__ void load_part(const float* __restrict__ row, int h, float* dst) {
+  constexpr int TPR = Fp32Tiles<HD>::TPR;
+#pragma unroll
+  for (int i = 0; i < Fp32Tiles<HD>::PART / 2; ++i) {
+    dst[2 * i] = row[2 * (TPR * i + h)];
+    dst[2 * i + 1] = row[2 * (TPR * i + h) + 1];
   }
 }
 
-__device__ __forceinline__ void store_half(float* __restrict__ row, int h, const float* src,
+template <int HD>
+__device__ __forceinline__ void store_part(float* __restrict__ row, int h, const float* src,
                                            float mult) {
+  constexpr int TPR = Fp32Tiles<HD>::TPR;
 #pragma unroll
-  for (int i = 0; i < HALF / 2; ++i) {
-    row[4 * i + 2 * h] = mult * src[2 * i];
-    row[4 * i + 2 * h + 1] = mult * src[2 * i + 1];
+  for (int i = 0; i < Fp32Tiles<HD>::PART / 2; ++i) {
+    row[2 * (TPR * i + h)] = mult * src[2 * i];
+    row[2 * (TPR * i + h) + 1] = mult * src[2 * i + 1];
   }
 }
 
-// partial dot of a register half-row with the matching half of a shared row
-__device__ __forceinline__ float dot_half(const float* r, const float* srow, int h) {
+// partial dot of a register part-row with the matching part of a shared row
+template <int HD>
+__device__ __forceinline__ float dot_part(const float* r, const float* srow, int h) {
+  constexpr int TPR = Fp32Tiles<HD>::TPR;
   const float2* s2 = reinterpret_cast<const float2*>(srow);
   float d = 0.f;
 #pragma unroll
-  for (int i = 0; i < HALF / 2; ++i) {
-    const float2 x = s2[2 * i + h];
+  for (int i = 0; i < Fp32Tiles<HD>::PART / 2; ++i) {
+    const float2 x = s2[TPR * i + h];
     d = fmaf(r[2 * i], x.x, d);
     d = fmaf(r[2 * i + 1], x.y, d);
   }
   return d;
 }
 
-__device__ __forceinline__ void axpy_half(float a, const float* srow, int h, float* acc) {
+template <int HD>
+__device__ __forceinline__ void axpy_part(float a, const float* srow, int h, float* acc) {
+  constexpr int TPR = Fp32Tiles<HD>::TPR;
   const float2* s2 = reinterpret_cast<const float2*>(srow);
 #pragma unroll
-  for (int i = 0; i < HALF / 2; ++i) {
-    const float2 x = s2[2 * i + h];
+  for (int i = 0; i < Fp32Tiles<HD>::PART / 2; ++i) {
+    const float2 x = s2[TPR * i + h];
     acc[2 * i] = fmaf(a, x.x, acc[2 * i]);
     acc[2 * i + 1] = fmaf(a, x.y, acc[2 * i + 1]);
   }
 }
 
-__global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_fp32_kernel(
+template <int HD>
+__global__ void __launch_bounds__(256) flash_dq_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     float* __restrict__ dq, int S, int G, int nq, int causal, int window, float scale) {
+  using T = Fp32Tiles<HD>;
+  constexpr int TPR = T::TPR, PART = T::PART, DQ_BQ = T::DQ_BQ, DQ_BKV = T::DQ_BKV;
   __shared__ __align__(16) float Ks[DQ_BKV][HD];
   __shared__ __align__(16) float Vs[DQ_BKV][HD];
 
   const int b = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // longest causal rows first
   const int tid = threadIdx.x;
-  const int r = tid >> 1, h = tid & 1;
+  const int r = tid / TPR, h = tid % TPR;
   const int pos = qi * DQ_BQ + r / G;
   const bool row_ok = pos < S;
   const long long row = ((long long)b * S + (row_ok ? pos : 0)) * G + r % G;
-  const unsigned pm = pair_mask();
+  const unsigned gm = group_mask<TPR>();
 
-  float qr[HALF], dor[HALF], acc[HALF];
-  load_half(q + row * HD, h, qr);
-  load_half(dout + row * HD, h, dor);
+  float qr[PART], dor[PART], acc[PART];
+  load_part<HD>(q + row * HD, h, qr);
+  load_part<HD>(dout + row * HD, h, dor);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) acc[i] = 0.f;
+  for (int i = 0; i < PART; ++i) acc[i] = 0.f;
   const float lse_r = lse[row], dl_r = dl[row];
 
   // visited kv tiles [lo, hi): visited_kv_range at tile sizes (DQ_BQ, DQ_BKV)
@@ -174,22 +224,24 @@ __global__ void __launch_bounds__(2 * DQ_BQ * 8) flash_dq_fp32_kernel(
     if (causal) j_hi = min(j_hi, pos - kv0 + 1);
     const int j_lo = window ? max(0, pos - window + 1 - kv0) : 0;
     for (int j = j_lo; j < j_hi; ++j) {
-      float s = dot_half(qr, Ks[j], h);
-      float dp = dot_half(dor, Vs[j], h);
-      s += __shfl_xor_sync(pm, s, 1);
-      dp += __shfl_xor_sync(pm, dp, 1);
+      const float s = group_sum<TPR>(dot_part<HD>(qr, Ks[j], h), gm);
+      const float dp = group_sum<TPR>(dot_part<HD>(dor, Vs[j], h), gm);
       const float p = expf(s * scale - lse_r);
-      axpy_half(p * (dp - dl_r), Ks[j], h, acc);
+      axpy_part<HD>(p * (dp - dl_r), Ks[j], h, acc);
     }
   }
-  if (row_ok) store_half(dq + row * HD, h, acc, scale);
+  if (row_ok) store_part<HD>(dq + row * HD, h, acc, scale);
 }
 
-__global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_fp32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int G, int nkv, int causal, int window,
-    float scale) {
+template <int HD>
+__global__ void __launch_bounds__(Fp32Tiles<HD>::TPR * Fp32Tiles<HD>::DKV_BKV)
+    flash_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dl,
+                          float* __restrict__ dk, float* __restrict__ dv, int S, int G, int nkv,
+                          int causal, int window, float scale) {
+  using T = Fp32Tiles<HD>;
+  constexpr int TPR = T::TPR, PART = T::PART, DKV_BKV = T::DKV_BKV, DKV_ROWS = T::DKV_ROWS;
   __shared__ __align__(16) float Qs[DKV_ROWS][HD];
   __shared__ __align__(16) float Ds[DKV_ROWS][HD];
   __shared__ float Ls[DKV_ROWS], Dls[DKV_ROWS];
@@ -197,16 +249,16 @@ __global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_fp32_kernel(
   const int b = blockIdx.x / nkv;
   const int kv0 = (int)(blockIdx.x % nkv) * DKV_BKV;
   const int tid = threadIdx.x;
-  const int col = kv0 + (tid >> 1), h = tid & 1;
+  const int col = kv0 + tid / TPR, h = tid % TPR;
   const bool col_ok = col < S;
   const long long krow = (long long)b * S + (col_ok ? col : 0);
-  const unsigned pm = pair_mask();
+  const unsigned gm = group_mask<TPR>();
 
-  float kr[HALF], vr[HALF], dka[HALF], dva[HALF];
-  load_half(k + krow * HD, h, kr);
-  load_half(v + krow * HD, h, vr);
+  float kr[PART], vr[PART], dka[PART], dva[PART];
+  load_part<HD>(k + krow * HD, h, kr);
+  load_part<HD>(v + krow * HD, h, vr);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < PART; ++i) dka[i] = dva[i] = 0.f;
 
   // q positions that see any key of this tile: from the causal diagonal to
   // the window's far edge
@@ -230,18 +282,16 @@ __global__ void __launch_bounds__(2 * DKV_BKV) flash_dkv_fp32_kernel(
     for (int rr = 0; rr < nrows; ++rr) {
       const int pos = p0 + rr / G;
       if ((causal && col > pos) || (window && pos - col >= window)) continue;
-      float s = dot_half(kr, Qs[rr], h);
-      float dp = dot_half(vr, Ds[rr], h);
-      s += __shfl_xor_sync(pm, s, 1);
-      dp += __shfl_xor_sync(pm, dp, 1);
+      const float s = group_sum<TPR>(dot_part<HD>(kr, Qs[rr], h), gm);
+      const float dp = group_sum<TPR>(dot_part<HD>(vr, Ds[rr], h), gm);
       const float p = expf(s * scale - Ls[rr]);
-      axpy_half(p, Ds[rr], h, dva);
-      axpy_half(p * (dp - Dls[rr]), Qs[rr], h, dka);
+      axpy_part<HD>(p, Ds[rr], h, dva);
+      axpy_part<HD>(p * (dp - Dls[rr]), Qs[rr], h, dka);
     }
   }
   if (col_ok) {
-    store_half(dk + krow * HD, h, dka, scale);
-    store_half(dv + krow * HD, h, dva, 1.f);
+    store_part<HD>(dk + krow * HD, h, dka, scale);
+    store_part<HD>(dv + krow * HD, h, dva, 1.f);
   }
 }
 
@@ -254,20 +304,30 @@ using hopper::TILE_BYTES;
 constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per tile
 constexpr int WG = hopper::WARPGROUP;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int DQ_SMEM = 6 * TILE_BYTES + 1024;                  // Q, dO, 2 x (K, V); alignment
-constexpr int DKV_SMEM = 6 * TILE_BYTES + 4 * TILE * 4 + 1024;  // K, V, 2 x (Q, dO, lse, dl)
+// dq: Q, dO, 2 x (K, V); dkv: K, V, 2 x (Q, dO, lse, dl); tiles of HD / 64
+// panels; alignment
+template <int HD>
+constexpr int dq_smem() { return 6 * (HD / 64) * TILE_BYTES + 1024; }
+template <int HD>
+constexpr int dkv_smem() { return 6 * (HD / 64) * TILE_BYTES + 4 * TILE * 4 + 1024; }
 
-__global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
+// one warpgroup a block at hd 64 (two blocks an SM); at hd 128 one
+// warpgroup per 64-column panel of dK and dV (see the top note)
+template <int HD>
+__global__ void __launch_bounds__(WG * (HD / 64), HD == 64 ? 2 : 1) flash_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int bkv, int S, int G, int causal, int window,
     float scale) {
   using namespace hopper;
+  constexpr int NP = HD / 64;          // panels of a row, and warpgroups of the block
+  constexpr int THREADS = NP * WG;
+  constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  const uint32_t sK = smem_u32(smem), sV = sK + TILE_BYTES;
-  const uint32_t sQ0 = sK + 2 * TILE_BYTES;  // Q of stage s at sQ0 + s TILE_BYTES, dO at + 2
-  float* sL = reinterpret_cast<float*>(smem + 6 * TILE_BYTES);  // lse of stage s at sL + s TILE
+  const uint32_t sK = smem_u32(smem), sV = sK + TB;
+  const uint32_t sQ0 = sK + 2 * TB;  // Q of stage s at sQ0 + s TB, dO at + 2 TB
+  float* sL = reinterpret_cast<float*>(smem + 6 * TB);  // lse of stage s at sL + s TILE
   float* sDl = sL + 2 * TILE;
 
   const int tid = threadIdx.x;
@@ -287,61 +347,67 @@ __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
   const float* dlb = dl + qbase;
   auto stage_q = [&](int t, int s) {
     const int r0 = t * TILE, n = min(TILE, SG - r0);
-    stage_tile(sQ0 + s * TILE_BYTES, qb + (long long)r0 * HD, n, tid);
-    stage_tile(sQ0 + (2 + s) * TILE_BYTES, dob + (long long)r0 * HD, n, tid);
-    const int i = tid & (TILE - 1);
-    const float* src = (tid < TILE ? lb : dlb) + r0 + (i < n ? i : 0);
-    cp_async_4(smem_u32((tid < TILE ? sL : sDl) + s * TILE + i), src, i < n);
+    stage_tile<HD, THREADS>(sQ0 + s * TB, qb + (long long)r0 * HD, n, tid);
+    stage_tile<HD, THREADS>(sQ0 + (2 + s) * TB, dob + (long long)r0 * HD, n, tid);
+    if (NP == 1 || tid < 2 * TILE) {
+      const int i = tid & (TILE - 1);
+      const float* src = (tid < TILE ? lb : dlb) + r0 + (i < n ? i : 0);
+      cp_async_4(smem_u32((tid < TILE ? sL : sDl) + s * TILE + i), src, i < n);
+    }
     cp_async_commit();
   };
   const long long kbase = ((long long)b * S + k0) * HD;
-  stage_tile(sK, k + kbase, k1 - k0, tid);  // in the first stage's group
-  stage_tile(sV, v + kbase, k1 - k0, tid);
+  stage_tile<HD, THREADS>(sK, k + kbase, k1 - k0, tid);  // in the first stage's group
+  stage_tile<HD, THREADS>(sV, v + kbase, k1 - k0, tid);
   stage_q(t_lo, 0);
 
-  const int w = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  // this warpgroup's panel of dK and dV, and its thread
+  const int wg = NP == 1 ? 0 : tid / WG, t = NP == 1 ? tid : tid % WG;
+  const int w = t >> 5, g = (t & 31) >> 2, c = t & 3;
   const int key_a = k0 + 16 * w + g;  // accumulator rows: keys key_a and key_a + 8
   const float scale_log2 = scale * LOG2E;
   float dK[32], dV[32], st[32], dpt[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dK[i] = dV[i] = st[i] = dpt[i] = 0.f;
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int s = (t - t_lo) & 1;
-    if (t + 1 < t_hi) {
-      stage_q(t + 1, s ^ 1);
+  for (int t_ = t_lo; t_ < t_hi; ++t_) {
+    const int s = (t_ - t_lo) & 1;
+    if (t_ + 1 < t_hi) {
+      stage_q(t_ + 1, s ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     fence_async_smem();
     __syncthreads();
-    const uint32_t sQ = sQ0 + s * TILE_BYTES, sD = sQ0 + (2 + s) * TILE_BYTES;
+    const uint32_t sQ = sQ0 + s * TB, sD = sQ0 + (2 + s) * TB;
 
     // S^T = K Q^T and dP^T = V dO^T ([64 keys, 64 q rows], contraction over
     // hd) as two groups; then dV += P^T dO and dK += dS^T Q (contraction over
-    // the q rows), each issued as soon as its operand is formed, so the
-    // exponentials and the products overlap
+    // the q rows, into this warpgroup's panel), each issued as soon as its
+    // operand is formed, so the exponentials and the products overlap
     fence_regs(st);
     fence_regs(dpt);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(st, desc_k_major(sK, kk), desc_k_major(sQ, kk), kk);
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(st, desc_k_major(sK, kk), desc_k_major(sQ, kk), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dpt, desc_k_major(sV, kk), desc_k_major(sD, kk), kk);
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(dpt, desc_k_major(sV, kk), desc_k_major(sD, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // S^T is in
     fence_regs(st);
 
-    // P^T in place, masked explicitly; column n is q row t TILE + n
+    // P^T in place, masked explicitly; column n is q row t_ TILE + n
     const float* L = sL + s * TILE;
     const float* Dl = sDl + s * TILE;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int n = 8 * j + 2 * c + e, row = t * TILE + n;
+        const int n = 8 * j + 2 * c + e, row = t_ * TILE + n;
         const int pos = row / G;
         const bool row_ok = row < SG;
         const float lse2 = L[n] * LOG2E;
@@ -359,7 +425,8 @@ __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
     fence_regs(dV);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dV, pf[kk], desc_mn_major(sD, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dV, pf[kk], desc_mn_major(sD + wg * TILE_BYTES, kk), 1);
     wgmma_commit();
     wgmma_wait<1>();  // dP^T is in (dV may still run)
     fence_regs(dpt);
@@ -382,7 +449,8 @@ __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
     fence_regs(dK);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dK, dsf[kk], desc_mn_major(sQ, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dK, dsf[kk], desc_mn_major(sQ + wg * TILE_BYTES, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dV);
@@ -392,14 +460,14 @@ __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
       fence_regs(pf[kk]);
       fence_regs(dsf[kk]);
     }
-    __syncthreads();  // stage s is free for tile t + 2
+    __syncthreads();  // stage s is free for tile t_ + 2
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key_a + 8 * h;
     if (key >= S) continue;
-    const long long off = ((long long)b * S + key) * HD + 2 * c;
+    const long long off = ((long long)b * S + key) * HD + 64 * wg + 2 * c;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * h;
@@ -410,15 +478,18 @@ __global__ void __launch_bounds__(WG, 2) flash_dkv_wgmma_kernel(
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     bf16* __restrict__ dq, int bkv, int S, int G, int causal, int window, float scale) {
   using namespace hopper;
+  constexpr int NP = HD / 64;          // 64-column panels of a row
+  constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  const uint32_t sQ = smem_u32(smem), sD = sQ + TILE_BYTES;
-  const uint32_t sK0 = sQ + 2 * TILE_BYTES;  // K of stage s at sK0 + s TILE_BYTES, V at + 2
+  const uint32_t sQ = smem_u32(smem), sD = sQ + TB;
+  const uint32_t sK0 = sQ + 2 * TB;  // K of stage s at sK0 + s TB, V at + 2 TB
 
   const int tid = threadIdx.x;
   const int SG = S * G;
@@ -432,14 +503,14 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
   const int hi = causal ? p_last / TILE + 1 : (S + TILE - 1) / TILE;
 
   const long long qrow0 = (long long)b * SG + r0;
-  stage_tile(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
-  stage_tile(sD, dout + qrow0 * HD, nrows, tid);
+  stage_tile<HD>(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
+  stage_tile<HD>(sD, dout + qrow0 * HD, nrows, tid);
   const bf16* kb = k + (long long)b * S * HD;
   const bf16* vb = v + (long long)b * S * HD;
   auto stage_kv = [&](int kj, int s) {
     const int n = min(TILE, S - kj * TILE);
-    stage_tile(sK0 + s * TILE_BYTES, kb + (long long)kj * TILE * HD, n, tid);
-    stage_tile(sK0 + (2 + s) * TILE_BYTES, vb + (long long)kj * TILE * HD, n, tid);
+    stage_tile<HD>(sK0 + s * TB, kb + (long long)kj * TILE * HD, n, tid);
+    stage_tile<HD>(sK0 + (2 + s) * TB, vb + (long long)kj * TILE * HD, n, tid);
     cp_async_commit();
   };
   stage_kv(lo, 0);
@@ -457,9 +528,13 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     dlr[h] = row_ok[h] ? dl[qrow0 - r0 + row] : 0.f;
   }
   const float scale_log2 = scale * LOG2E;
-  float dQ[32], sa[32], dpa[32];
+  float dQ[NP][32], sa[32], dpa[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dQ[i] = sa[i] = dpa[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    sa[i] = dpa[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dQ[p][i] = 0.f;
+  }
 
   for (int kj = lo; kj < hi; ++kj) {
     const int s = (kj - lo) & 1;
@@ -471,7 +546,7 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     }
     fence_async_smem();
     __syncthreads();
-    const uint32_t sK = sK0 + s * TILE_BYTES, sV = sK0 + (2 + s) * TILE_BYTES;
+    const uint32_t sK = sK0 + s * TB, sV = sK0 + (2 + s) * TB;
 
     // S = Q K^T and dP = dO V^T ([64 q rows, 64 keys], contraction over hd)
     // as two groups: P is formed while dP runs
@@ -479,10 +554,12 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     fence_regs(dpa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dpa, desc_k_major(sD, kk), desc_k_major(sV, kk), kk);
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(dpa, desc_k_major(sD, kk), desc_k_major(sV, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // S is in
     fence_regs(sa);
@@ -510,14 +587,20 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) acc_to_frag(dpa, kk, dsf[kk]);
 
-    // dQ += dS K: contraction over the keys
-    fence_regs(dQ);
+    // dQ += dS K: contraction over the keys, one panel of dQ at a time
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(dQ[p]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(dQ, dsf[kk], desc_mn_major(sK, kk), 1);
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_mn(dQ[p], dsf[kk], desc_mn_major(sK + p * TILE_BYTES, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dQ);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(dQ[p]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_regs(dsf[kk]);
     __syncthreads();  // stage s is free for tile kj + 2
@@ -526,45 +609,81 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!row_ok[h]) continue;
-    bf16* out = dq + (qrow0 + 16 * w + g + 8 * h) * HD + 2 * c;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * h;
-      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16x2(scale * dQ[i], scale * dQ[i + 1]);
+    for (int p = 0; p < NP; ++p) {
+      bf16* out = dq + (qrow0 + 16 * w + g + 8 * h) * HD + 64 * p + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+            pack_bf16x2(scale * dQ[p][i], scale * dQ[p][i + 1]);
+      }
     }
   }
 }
 
 int check(int G, int hd, int dtype) {
-  if (hd != HD || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
+  if ((hd != 64 && hd != 128) || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// The dynamic shared memory limit is raised once per device, at the first
-// launch, so a launch inside a CUDA graph capture makes no attribute call.
-constexpr int kMaxDevices = 64;
-bool dq_smem_set[kMaxDevices] = {};
-bool dkv_smem_set[kMaxDevices] = {};
+// the dynamic shared memory limit of each bf16 sweep, raised once per device
+// (hopper::allow_smem), at hd 64 and 128
+bool dq_smem_set[2][hopper::kMaxDevices] = {};
+bool dkv_smem_set[2][hopper::kMaxDevices] = {};
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool* done) {
-  int dev = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    if (cudaError_t e =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))
-      return (int)e;
-    done[dev] = true;
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* l,
+              const float* d, void* dq, int bkv, int S, int G, int causal, int window,
+              float scale, int dtype, cudaStream_t st) {
+  if (dtype == 0) {
+    const int nq = (S + Fp32Tiles<HD>::DQ_BQ - 1) / Fp32Tiles<HD>::DQ_BQ;
+    flash_dq_fp32_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
+        scale);
+  } else {
+    if (int rc = hopper::allow_smem(flash_dq_wgmma_kernel<HD>, dq_smem<HD>(),
+                                    dq_smem_set[HD == 128]))
+      return rc;
+    const int nqt = (S * G + TILE - 1) / TILE;
+    flash_dq_wgmma_kernel<HD><<<bkv * nqt, WG, dq_smem<HD>(), st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dq), bkv, S, G, causal, window,
+        scale);
   }
-  return 0;
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* l,
+               const float* d, void* dk, void* dv, int bkv, int S, int G, int causal, int window,
+               float scale, int dtype, cudaStream_t st) {
+  if (dtype == 0) {
+    using T = Fp32Tiles<HD>;
+    const int nkv = (S + T::DKV_BKV - 1) / T::DKV_BKV;
+    flash_dkv_fp32_kernel<HD><<<bkv * nkv, T::TPR * T::DKV_BKV, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv),
+        S, G, nkv, causal, window, scale);
+  } else {
+    if (int rc = hopper::allow_smem(flash_dkv_wgmma_kernel<HD>, dkv_smem<HD>(),
+                                    dkv_smem_set[HD == 128]))
+      return rc;
+    const int nkt = (S + TILE - 1) / TILE;
+    flash_dkv_wgmma_kernel<HD><<<bkv * nkt, WG * (HD / 64), dkv_smem<HD>(), st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bkv,
+        S, G, causal, window, scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps).
-// Each returns cudaGetLastError() after its launch.
+// dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps);
+// hd 64 or 128. Each returns cudaGetLastError() after its launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* dl, void* dq, int bkv, int S, int G, int hd,
                         int causal, int window, float scale, int dtype, void* stream) {
@@ -572,21 +691,10 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  if (dtype == 0) {
-    const int nq = (S + DQ_BQ - 1) / DQ_BQ;
-    flash_dq_fp32_kernel<<<bkv * nq, 2 * DQ_BQ * G, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
-        scale);
-  } else {
-    if (int rc = allow_smem(flash_dq_wgmma_kernel, DQ_SMEM, dq_smem_set)) return rc;
-    const int nqt = (S * G + TILE - 1) / TILE;
-    flash_dq_wgmma_kernel<<<bkv * nqt, WG, DQ_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dq), bkv, S, G, causal, window,
-        scale);
-  }
-  return (int)cudaGetLastError();
+  return hd == 64 ? launch_dq<64>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale,
+                                  dtype, st)
+                  : launch_dq<128>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale,
+                                   dtype, st);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -596,31 +704,23 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  if (dtype == 0) {
-    const int nkv = (S + DKV_BKV - 1) / DKV_BKV;
-    flash_dkv_fp32_kernel<<<bkv * nkv, 2 * DKV_BKV, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv),
-        S, G, nkv, causal, window, scale);
-  } else {
-    if (int rc = allow_smem(flash_dkv_wgmma_kernel, DKV_SMEM, dkv_smem_set)) return rc;
-    const int nkt = (S + TILE - 1) / TILE;
-    flash_dkv_wgmma_kernel<<<bkv * nkt, WG, DKV_SMEM, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bkv,
-        S, G, causal, window, scale);
-  }
-  return (int)cudaGetLastError();
+  return hd == 64 ? launch_dkv<64>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale,
+                                   dtype, st)
+                  : launch_dkv<128>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale,
+                                    dtype, st);
 }
 
 // The bf16 sweeps' tiles (packed q rows, kv positions), checked by the wrapper
 // against flash_attention.FLASH_BWD_ROWS / FLASH_BWD_KEYS, and their dynamic
-// shared memory per block in bytes.
-extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem, int* dkv_smem) {
+// shared memory per block in bytes (dq, dkv) at hd 64, then at hd 128.
+extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem64, int* dkv_smem64,
+                               int* dq_smem128, int* dkv_smem128) {
   *rows = TILE;
   *keys = TILE;
-  *dq_smem = DQ_SMEM;
-  *dkv_smem = DKV_SMEM;
+  *dq_smem64 = dq_smem<64>();
+  *dkv_smem64 = dkv_smem<64>();
+  *dq_smem128 = dq_smem<128>();
+  *dkv_smem128 = dkv_smem<128>();
   return 0;
 }
 

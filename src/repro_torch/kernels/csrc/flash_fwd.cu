@@ -50,13 +50,27 @@
 //     bf16 as the operand of the PV product; scores, max, sums and the
 //     accumulator stay fp32.
 //
+// Head dim 128 (the paper's Gemma3-style ladder, every rung): the same sweep
+// with rows of two 64-column panels (csrc/hopper_tiles.cuh). S = Q K^T takes
+// 8 k16 steps across the panels, O is two m64n64 accumulators (64 registers
+// a thread), one PV product per panel of V. A staged tile is 16 KB, so Q +
+// 2 x (K, V) is 80 KB + 1 KB alignment (82,944 bytes, set once per device
+// with cudaFuncSetAttribute); two blocks share an SM (166 of 227 KB), at
+// 160 registers a thread (ptxas, no spills). At
+// the ladder's training shape (BKV = 32, S = 2048, G = 1, hd = 128, causal)
+// the products are ~34 GFLOP (35 us on the tensor cores) against ~67 MB
+// of q, k, v and o (20 us): operations bound.
+//
 // fp32 inputs keep the CUDA-core sweep: one block per (row of BKV, tile of BQ
-// positions); each thread owns one (position, query head) row and keeps q and
-// acc in registers. A loop inside the block walks the kv tiles of
-// flash_attention.visited_kv_range at the tile sizes (BQ, BKV); each K/V tile
-// is staged once in fp32 shared memory and read by all G heads of the block
-// (broadcast reads). The online softmax updates once per CH keys; masked
-// entries get p = 0 explicitly.
+// positions); TPR = hd / 64 threads own one (position, query head) row, each
+// keeping 64 of its dims of q and acc in registers (float4 groups TPR i + t
+// of the row for part t), the parts' partial dot products summed by a
+// shuffle. A loop inside the block walks the kv tiles of
+// flash_attention.visited_kv_range at the tile sizes (BQ, BKV) = (32, 64) at
+// hd 64 and (16, 32) at hd 128 (the same registers a thread, 32 KB of
+// static shared memory); each K/V tile is staged once in fp32 shared memory
+// and read by all G heads of the block (broadcast reads). The online softmax
+// updates once per CH keys; masked entries get p = 0 explicitly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -64,37 +78,51 @@
 
 namespace {
 
-constexpr int HD = 64;
 constexpr float NEG_INF = -2.0e38f;
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA-core sweep over positions
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 32;   // q positions per block (times G heads = threads)
-constexpr int BKV = 64;  // kv positions per shared-memory tile
-constexpr int CH = 16;   // keys per online-softmax update
+// the fp32 sweep's tiles at head dim HD: TPR threads a row, BQ q positions a
+// block (times G heads times TPR threads <= 256), BKV kv positions a staged tile
+template <int HD>
+struct Fp32Tiles {
+  static constexpr int TPR = HD / 64;
+  static constexpr int BQ = 32 / TPR;
+  static constexpr int BKV = 64 / TPR;
+};
+constexpr int CH = 16;  // keys per online-softmax update
 
+template <int HD>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int S, int G, int nq, int causal,
     int window, float scale) {
+  constexpr int TPR = Fp32Tiles<HD>::TPR, BQ = Fp32Tiles<HD>::BQ, BKV = Fp32Tiles<HD>::BKV;
+  constexpr int D = HD / TPR;  // dims a thread holds: 64
   __shared__ __align__(16) float Ks[BKV][HD];
   __shared__ __align__(16) float Vs[BKV][HD];
 
   const int b = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // longest causal rows first
   const int tid = threadIdx.x;
-  const int pos = qi * BQ + tid / G;
-  const int g = tid % G;
+  const int r = tid / TPR, part = tid % TPR;
+  const int pos = qi * BQ + r / G;
+  const int g = r % G;
   const bool row_ok = pos < S;
   const long long row = ((long long)b * S + pos) * G + g;
+  // the lanes of this row's TPR threads (for __shfl_xor_sync)
+  const unsigned rmask = ((1u << TPR) - 1) << ((tid & 31) & ~(TPR - 1));
 
-  float qr[HD], acc[HD];
+  float qr[D], acc[D];
 #pragma unroll
-  for (int h = 0; h < HD; ++h) {
-    qr[h] = row_ok ? q[row * HD + h] : 0.f;
-    acc[h] = 0.f;
+  for (int h4 = 0; h4 < D / 4; ++h4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qr[4 * h4 + e] = row_ok ? q[row * HD + 4 * (TPR * h4 + part) + e] : 0.f;
+      acc[4 * h4 + e] = 0.f;
+    }
   }
   float m = NEG_INF, l = 0.f;
 
@@ -137,13 +165,15 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
         const float4* kr = reinterpret_cast<const float4*>(Ks[j0 + c]);
         float d = 0.f;
 #pragma unroll
-        for (int h4 = 0; h4 < HD / 4; ++h4) {
-          const float4 kk = kr[h4];
+        for (int h4 = 0; h4 < D / 4; ++h4) {
+          const float4 kk = kr[TPR * h4 + part];
           d = fmaf(qr[4 * h4], kk.x, d);
           d = fmaf(qr[4 * h4 + 1], kk.y, d);
           d = fmaf(qr[4 * h4 + 2], kk.z, d);
           d = fmaf(qr[4 * h4 + 3], kk.w, d);
         }
+#pragma unroll
+        for (int off = 1; off < TPR; off <<= 1) d += __shfl_xor_sync(rmask, d, off);
         s[c] = ok ? d * scale : NEG_INF;
         valid |= ok ? (1u << c) : 0u;
         cmax = fmaxf(cmax, s[c]);
@@ -152,15 +182,15 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
       const float corr = expf(m - m_new);
       l *= corr;
 #pragma unroll
-      for (int h = 0; h < HD; ++h) acc[h] *= corr;
+      for (int h = 0; h < D; ++h) acc[h] *= corr;
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const float p = ((valid >> c) & 1u) ? expf(s[c] - m_new) : 0.f;
         l += p;
         const float4* vr = reinterpret_cast<const float4*>(Vs[j0 + c]);
 #pragma unroll
-        for (int h4 = 0; h4 < HD / 4; ++h4) {
-          const float4 vv = vr[h4];
+        for (int h4 = 0; h4 < D / 4; ++h4) {
+          const float4 vv = vr[TPR * h4 + part];
           acc[4 * h4] = fmaf(p, vv.x, acc[4 * h4]);
           acc[4 * h4 + 1] = fmaf(p, vv.y, acc[4 * h4 + 1]);
           acc[4 * h4 + 2] = fmaf(p, vv.z, acc[4 * h4 + 2]);
@@ -173,8 +203,11 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
   if (!row_ok) return;
   l = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int h = 0; h < HD; ++h) o[row * HD + h] = acc[h] / l;
-  lse[row] = m + logf(l);
+  for (int h4 = 0; h4 < D / 4; ++h4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[row * HD + 4 * (TPR * h4 + part) + e] = acc[4 * h4 + e] / l;
+  }
+  if (part == 0) lse[row] = m + logf(l);
 }
 
 // ---------------------------------------------------------------------------
@@ -187,17 +220,22 @@ constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per t
 constexpr int WG = hopper::WARPGROUP;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int SMEM = 5 * TILE_BYTES + 1024;  // Q, 2 x (K, V); alignment
+// Q, 2 x (K, V) tiles of HD / 64 panels each; alignment
+template <int HD>
+constexpr int smem_bytes() { return 5 * (HD / 64) * TILE_BYTES + 1024; }
 
+template <int HD>
 __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ lse, int bkv, int S, int G, int causal, int window,
     float scale) {
   using namespace hopper;
+  constexpr int NP = HD / 64;          // 64-column panels of a row
+  constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   const uint32_t sQ = smem_u32(smem);
-  const uint32_t sK0 = sQ + TILE_BYTES;  // K of stage s at sK0 + s TILE_BYTES, V at + 2
+  const uint32_t sK0 = sQ + TB;  // K of stage s at sK0 + s TB, V at + 2 TB
 
   const int tid = threadIdx.x;
   const int SG = S * G;
@@ -211,13 +249,13 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
   const int hi = causal ? p_last / TILE + 1 : (S + TILE - 1) / TILE;
 
   const long long qrow0 = (long long)b * SG + r0;
-  stage_tile(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
+  stage_tile<HD>(sQ, q + qrow0 * HD, nrows, tid);  // in the first stage's group
   const bf16* kb = k + (long long)b * S * HD;
   const bf16* vb = v + (long long)b * S * HD;
   auto stage_kv = [&](int kj, int s) {
     const int n = min(TILE, S - kj * TILE);
-    stage_tile(sK0 + s * TILE_BYTES, kb + (long long)kj * TILE * HD, n, tid);
-    stage_tile(sK0 + (2 + s) * TILE_BYTES, vb + (long long)kj * TILE * HD, n, tid);
+    stage_tile<HD>(sK0 + s * TB, kb + (long long)kj * TILE * HD, n, tid);
+    stage_tile<HD>(sK0 + (2 + s) * TB, vb + (long long)kj * TILE * HD, n, tid);
     cp_async_commit();
   };
   stage_kv(lo, 0);
@@ -237,9 +275,13 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     l[h] = 0.f;
   }
   const float scale_log2 = scale * LOG2E;
-  float acc[32], sa[32];
+  float acc[NP][32], sa[32];  // O's panels; S, then P
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = sa[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    sa[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) acc[p][i] = 0.f;
+  }
 
   for (int kj = lo; kj < hi; ++kj) {
     const int s = (kj - lo) & 1;
@@ -251,13 +293,14 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     }
     fence_async_smem();
     __syncthreads();
-    const uint32_t sK = sK0 + s * TILE_BYTES, sV = sK0 + (2 + s) * TILE_BYTES;
+    const uint32_t sK = sK0 + s * TB, sV = sK0 + (2 + s) * TB;
 
     // S = Q K^T ([64 q rows, 64 keys], contraction over hd)
     fence_regs(sa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sa);
@@ -299,20 +342,27 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
       const int h = (i >> 1) & 1;
       sa[i] = ((okm >> i) & 1u) ? exp2f(sa[i] - m[h]) : 0.f;
       l[h] += sa[i];
-      acc[i] *= corr[h];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) acc[p][i] *= corr[h];
     }
     uint32_t pf[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) acc_to_frag(sa, kk, pf[kk]);
 
-    // O += P V: contraction over the keys, V MN-major
-    fence_regs(acc);
+    // O += P V: contraction over the keys, V MN-major, one panel of O at a time
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(acc, pf[kk], desc_mn_major(sV, kk), 1);
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_mn(acc[p], pf[kk], desc_mn_major(sV + p * TILE_BYTES, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_regs(pf[kk]);
     __syncthreads();  // stage s is free for tile kj + 2
@@ -330,33 +380,39 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     if (!row_ok[h]) continue;
     const float lsum = fmaxf(l[h], 1e-30f);
     const long long row = qrow0 + 16 * w + g + 8 * h;
-    bf16* out = o + row * HD + 2 * c;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * h;
-      *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16x2(acc[i] / lsum, acc[i + 1] / lsum);
+    for (int p = 0; p < NP; ++p) {
+      bf16* out = o + row * HD + 64 * p + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+            pack_bf16x2(acc[p][i] / lsum, acc[p][i + 1] / lsum);
+      }
     }
     if (c == 0) lse[row] = m[h] * LN2 + logf(lsum);
   }
 }
 
-}  // namespace
+bool wgmma128_smem_set[hopper::kMaxDevices] = {};
 
-// dtype: 0 = float32 (CUDA-core sweep), 1 = bfloat16 (tensor-core sweep).
-// Returns cudaGetLastError() after the launch.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int bkv, int S, int G, int hd, int causal, int window, float scale,
-                         int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != HD || G < 1 || BQ * G > 256) return (int)cudaErrorInvalidValue;
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bkv, int S,
+           int G, int causal, int window, float scale, int dtype, cudaStream_t st) {
   if (dtype == 0) {
-    const int nq = (S + BQ - 1) / BQ;
-    flash_fwd_kernel<<<bkv * nq, BQ * G, 0, st>>>(
+    const int nq = (S + Fp32Tiles<HD>::BQ - 1) / Fp32Tiles<HD>::BQ;
+    flash_fwd_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
   } else if (dtype == 1) {
+    // above 48 KB of dynamic shared memory (hd 128) the limit must be raised
+    if (HD > 64) {
+      if (int rc = hopper::allow_smem(flash_fwd_wgmma_kernel<HD>, smem_bytes<HD>(),
+                                      wgmma128_smem_set))
+        return rc;
+    }
     const int nqt = (S * G + TILE - 1) / TILE;
-    flash_fwd_wgmma_kernel<<<bkv * nqt, WG, SMEM, st>>>(
+    flash_fwd_wgmma_kernel<HD><<<bkv * nqt, WG, smem_bytes<HD>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), static_cast<float*>(lse), bkv, S, G, causal, window, scale);
   } else {
@@ -365,19 +421,38 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// dtype: 0 = float32 (CUDA-core sweep), 1 = bfloat16 (tensor-core sweep);
+// hd 64 or 128. Returns cudaGetLastError() after the launch.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int bkv, int S, int G, int hd, int causal, int window, float scale,
+                         int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || 32 * G > 256) return (int)cudaErrorInvalidValue;
+  if (hd == 64) return launch<64>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
+  if (hd == 128) return launch<128>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" const char* flash_fwd_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The fp32 sweep's tiles (q positions, kv positions), the bf16 sweep's
-// (packed q rows, kv positions), checked by the wrapper against
-// flash_attention.FLASH_BLOCK_Q / FLASH_BLOCK_KV and FLASH_BWD_ROWS /
-// FLASH_BWD_KEYS, and the bf16 block's dynamic shared memory in bytes.
-extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* smem) {
-  *bq = BQ;
-  *bkv = BKV;
+// The fp32 sweep's tiles (q positions, kv positions) at hd 64, the bf16
+// sweep's (packed q rows, kv positions), the fp32 sweep's at hd 128, checked
+// by the wrapper against flash_attention.FP32_TILES, FLASH_BWD_ROWS and
+// FLASH_BWD_KEYS; then the bf16 block's dynamic shared memory in bytes at hd
+// 64 and 128.
+extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* bq128, int* bkv128,
+                               int* smem, int* smem128) {
+  *bq = Fp32Tiles<64>::BQ;
+  *bkv = Fp32Tiles<64>::BKV;
   *rows = TILE;
   *keys = TILE;
-  *smem = SMEM;
+  *bq128 = Fp32Tiles<128>::BQ;
+  *bkv128 = Fp32Tiles<128>::BKV;
+  *smem = smem_bytes<64>();
+  *smem128 = smem_bytes<128>();
   return 0;
 }

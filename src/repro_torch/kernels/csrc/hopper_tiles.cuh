@@ -7,6 +7,11 @@
 // 16-byte chunk c at chunk c ^ (r % 8) of the row (the layout TMA's
 // SWIZZLE_128B writes and wgmma's 128B layout reads; the tile must start on
 // a 1024-byte boundary, since the swizzle is taken from address bits).
+// A row of hd = 128 bf16 (256 bytes) is staged as two such tiles, panels
+// of 64 columns TILE_BYTES apart: columns 64 p .. 64 p + 63 in panel p. A
+// K-major k-slice (16 columns) lies inside one panel, and an MN-major
+// operand whose N is the head dim is taken one 64-wide panel (one swizzle
+// atom) at a time, as one m64n64 product per panel.
 //
 // Register fragments of one warpgroup (128 threads; warp w, lane l, g = l / 4,
 // c = l % 4). The m64nN accumulator d[] holds rows 16 w + g (d[4 j + 0, 1])
@@ -67,18 +72,24 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Stage a tile of TILE_ROWS rows of 64 bf16 (row i at rows + 64 i) into the
-// swizzled tile at `tile`; rows >= nvalid are zero-filled. All 128 threads of
-// the warpgroup call it; 8 neighbouring threads read one 128-byte row.
+// Stage a tile of TILE_ROWS rows of HD bf16 (row i at rows + HD i) into the
+// swizzled tile at `tile` (HD / 64 panels); rows >= nvalid are zero-filled.
+// All THREADS threads of the block call it; HD / 8 neighbouring threads read
+// one row.
+template <int HD = 64, int THREADS = WARPGROUP>
 __device__ __forceinline__ void stage_tile(uint32_t tile, const __nv_bfloat16* rows, int nvalid,
                                            int tid) {
+  constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
+  constexpr int SHIFT = HD == 64 ? 3 : 4;
+  static_assert((HD == 64 || HD == 128) && TILE_ROWS * CHUNKS % THREADS == 0,
+                "one or two panels, whole chunks a thread");
 #pragma unroll
-  for (int it = 0; it < TILE_ROWS * 8 / WARPGROUP; ++it) {
-    const int i = tid + it * WARPGROUP;
-    const int r = i >> 3, ch = i & 7;
+  for (int it = 0; it < TILE_ROWS * CHUNKS / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    const int r = i >> SHIFT, ch = i & (CHUNKS - 1);
     const bool ok = r < nvalid;
-    cp_async_16(tile + r * ROW_BYTES + ((ch ^ (r & 7)) << 4), rows + (ok ? r : 0) * 64 + ch * 8,
-                ok);
+    cp_async_16(tile + (ch >> 3) * TILE_BYTES + r * ROW_BYTES + (((ch & 7) ^ (r & 7)) << 4),
+                rows + (ok ? r : 0) * HD + ch * 8, ok);
   }
 }
 
@@ -90,17 +101,18 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// K-major operand (the contraction runs along the 64-wide rows): k-slice kk
-// of 16 elements starts 32 bytes further into each row; the leading offset is
-// unused in this layout.
+// K-major operand (the contraction runs along the rows): k-slice kk of 16
+// elements starts 32 bytes further into each row of its panel kk / 4; the
+// leading offset is unused in this layout.
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 32, 16);
+  return make_desc(tile + (kk >> 2) * TILE_BYTES + (kk & 3) * 32, 16);
 }
 
-// MN-major operand (the contraction runs along the rows, N = the 64-wide row):
-// k-slice kk is rows 16 kk .. 16 kk + 15, two 8-row groups 1024 bytes apart.
-// N = 64 is one swizzle atom wide, so the leading offset (the next atom along
-// N) is never taken; it is set to the group stride too.
+// MN-major operand (the contraction runs along the rows, N = the 64 columns
+// of one panel; pass the panel's address): k-slice kk is rows 16 kk .. 16 kk
+// + 15, two 8-row groups 1024 bytes apart. N = 64 is one swizzle atom wide,
+// so the leading offset (the next atom along N) is never taken; it is set to
+// the group stride too.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
   return make_desc(tile + kk * 16 * ROW_BYTES, 1024);
 }
@@ -177,5 +189,24 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
 }
 
 #undef HOPPER_D32
+
+// A kernel's dynamic shared memory limit, raised once per device at its first
+// launch (above 48 KB it must be), so that a launch inside a CUDA graph
+// capture makes no attribute call. `done` is the kernel's own flag array.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int bytes, bool* done) {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    if (cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes))
+      return (int)e;
+    done[dev] = true;
+  }
+  return 0;
+}
 
 }  // namespace hopper

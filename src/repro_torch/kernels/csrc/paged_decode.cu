@@ -27,7 +27,7 @@
 //    lengths[b] and the table entries of positions [s SPLIT, (s + 1) SPLIT)
 //    cut to the attended [lo, length) - lo = length - window with a sliding
 //    window - so only the pages that hold them are read. Each K and V row of
-//    the head (hd = 64 elements, 128 contiguous bytes in bf16) is read as
+//    the head (hd elements, 128 or 256 contiguous bytes in bf16) is read as
 //    16-byte vectors, all of a block's loads issued before the first is
 //    used, and staged in fp32 in shared memory (rows padded to hd + 1
 //    floats: conflict-free column reads). The block scores its positions
@@ -37,6 +37,9 @@
 //    partial (unnormalised acc, m, l) to scratch the wrapper allocates. An
 //    empty split (past the length, wholly below the window, or the idle
 //    slot's) writes m = NEG_INF, l = 0, acc = 0.
+//    SPLIT is 64 positions at hd 64 and 32 at hd 128: the same bytes of K
+//    and V a split, and the fp32 staging of 64 x 129 floats each for K and
+//    V would pass the 48 KB of static shared memory at hd 128.
 // 2. paged_decode_combine_kernel, one block per (slot, kv head), merges the
 //    n_split partials of each query row in split order: M = max m_s, weights
 //    exp(m_s - M), l = sum w_s l_s, out = sum w_s acc_s / max(l, 1e-30). No
@@ -51,7 +54,10 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int SPLIT = 64;  // positions a split block folds (two per lane)
+// positions a split block folds at head dim HD (SPLIT / 32 per lane in the
+// softmax step)
+template <int HD>
+__host__ __device__ constexpr int split_of() { return 4096 / HD; }
 constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_G = 16;
 constexpr float NEG_INF = -2.0e38f;
@@ -86,7 +92,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
     float* __restrict__ m_part, float* __restrict__ l_part, int KV, int G, int ps, int max_pages,
     int n_pages, long long page_stride, long long pos_stride, long long head_stride, int window,
     float scale) {
-  static_assert(SPLIT == 64, "the softmax step gives each lane two positions");
+  constexpr int SPLIT = split_of<HD>();
+  constexpr int PL = SPLIT / 32;  // positions a lane takes in the softmax step
+  static_assert(SPLIT % 32 == 0, "whole positions per lane");
   constexpr int VE = 16 / sizeof(T);         // elements of a 16-byte vector
   constexpr int ROW_VECS = HD / VE;          // vectors of one K or V row
   constexpr int VECS = SPLIT * ROW_VECS;     // of one operand's split
@@ -164,16 +172,22 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   }
   __syncthreads();
   for (int g = warp; g < G; g += THREADS / 32) {
-    const float x0 = Ps[g][lane], x1 = Ps[g][lane + 32];
-    float m = fmaxf(x0, x1);
+    float x[PL];
+#pragma unroll
+    for (int e = 0; e < PL; ++e) x[e] = Ps[g][lane + 32 * e];
+    float m = x[0];
+#pragma unroll
+    for (int e = 1; e < PL; ++e) m = fmaxf(m, x[e]);
 #pragma unroll
     for (int off = 16; off; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const int q0 = s0 + lane, q1 = s0 + lane + 32;
-    const float e0 = (q0 >= p0 && q0 < p1) ? expf(x0 - m) : 0.f;
-    const float e1 = (q1 >= p0 && q1 < p1) ? expf(x1 - m) : 0.f;
-    Ps[g][lane] = e0;
-    Ps[g][lane + 32] = e1;
-    float l = e0 + e1;
+    float l = 0.f;
+#pragma unroll
+    for (int e = 0; e < PL; ++e) {
+      const int qp = s0 + lane + 32 * e;
+      const float ex = (qp >= p0 && qp < p1) ? expf(x[e] - m) : 0.f;
+      Ps[g][lane + 32 * e] = ex;
+      l += ex;
+    }
 #pragma unroll
     for (int off = 16; off; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
     if (lane == 0) {
@@ -218,6 +232,7 @@ void launch(const void* q, const void* kp, const void* vp, const void* table, co
             void* out, float* acc, float* m, float* l, int B, int KV, int G, int ps,
             int max_pages, int n_pages, long long page_stride, long long pos_stride,
             long long head_stride, int window, float scale, cudaStream_t st) {
+  constexpr int SPLIT = split_of<HD>();
   const int n_split = (max_pages * ps + SPLIT - 1) / SPLIT;
   paged_decode_split_kernel<T, HD><<<dim3(n_split, KV, B), THREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
@@ -229,10 +244,11 @@ void launch(const void* q, const void* kp, const void* vp, const void* table, co
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. acc [B, KV, n_split, G, hd], m and l [B,
-// KV, n_split, G] fp32 are the caller's scratch, n_split = ceil(max_pages *
-// ps / SPLIT). Both passes launch on `stream`; returns cudaGetLastError()
-// after the second.
+// dtype: 0 = float32, 1 = bfloat16; hd 64 or 128. acc [B, KV, n_split, G,
+// hd], m and l [B, KV, n_split, G] fp32 are the caller's scratch, n_split =
+// ceil(max_pages * ps / SPLIT) with SPLIT = 64 at hd 64 and 32 at hd 128.
+// Both passes launch on `stream`; returns cudaGetLastError() after the
+// second.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const void* table,
                             const void* lengths, void* out, void* acc, void* m, void* l, int B,
                             int KV, int G, int hd, int ps, int max_pages, int n_pages,
@@ -247,16 +263,20 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const
                    n_pages, page_stride, pos_stride, head_stride, window, scale, st
   if (dtype == 0 && hd == 64) launch<float, 64>(PAGED_ARGS);
   else if (dtype == 1 && hd == 64) launch<__nv_bfloat16, 64>(PAGED_ARGS);
+  else if (dtype == 0 && hd == 128) launch<float, 128>(PAGED_ARGS);
+  else if (dtype == 1 && hd == 128) launch<__nv_bfloat16, 128>(PAGED_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef PAGED_ARGS
   return (int)cudaGetLastError();
 }
 
 // the tile sizes the wrapper and its Python mirror (flash_attention.
-// paged_split_range) assume: positions a split, threads a split block
-extern "C" int paged_decode_tiles(int* split, int* threads) {
-  *split = SPLIT;
+// paged_split_range) assume: positions a split at hd 64, threads a split
+// block, positions a split at hd 128
+extern "C" int paged_decode_tiles(int* split, int* threads, int* split128) {
+  *split = split_of<64>();
   *threads = THREADS;
+  *split128 = split_of<128>();
   return 0;
 }
 

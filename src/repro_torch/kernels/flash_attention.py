@@ -11,9 +11,11 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   (the G query heads of a position are adjacent rows; tiles of
   ``FLASH_BWD_ROWS`` rows and ``FLASH_BWD_KEYS`` keys, walked as
   :func:`dq_kv_tiles` says) with an online softmax on the accumulator's
-  rows; fp32 inputs take a CUDA-core sweep over ``FLASH_BLOCK_Q``
-  positions and ``FLASH_BLOCK_KV`` keys (the rule of
-  :func:`visited_kv_range` at those tiles).
+  rows; fp32 inputs take a CUDA-core sweep over the (positions, keys)
+  tiles of ``FP32_TILES[hd]``, walked by the rule of
+  :func:`visited_kv_range`.
+  Each kernel is built for the head dims of ``KERNEL_HEAD_DIM`` (64 and
+  128); a row of hd 128 is staged as two 64-column panels.
 * ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace
   ``_dq_kernel`` and ``_dkv_kernel``: the backward's q-major and kv-major
   sweeps, recomputing the probabilities from the saved logsumexp. bf16
@@ -24,8 +26,8 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   forward and these two (the reference's custom VJP).
 * ``paged_decode`` replaces ``_paged_kernel``: one new token per slot
   against the paged KV pool, read in its stored layout, in two passes of
-  one launch: each block folds ``PAGED_SPLIT`` positions of one (slot, kv
-  head) (split-K: :func:`paged_split_range`), then a combine pass merges
+  one launch: each block folds ``PAGED_SPLITS[hd]`` positions of one (slot,
+  kv head) (split-K: :func:`paged_split_range`), then a combine pass merges
   the splits in a fixed order (:func:`_paged_decode_split_merge` mirrors
   both in fp32).
 
@@ -50,21 +52,27 @@ from repro_torch.kernels._build import LAUNCHES, reset_launch_counts  # noqa: F4
 NEG_INF = -2.0e38
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
-# tile sizes of csrc/flash_fwd.cu's fp32 sweep (q positions, kv positions) and
-# of the bf16 tensor-core sweeps of flash_fwd.cu and flash_bwd.cu (packed q
-# rows, kv positions); checked against the built libraries at first launch
+# tile sizes of csrc/flash_fwd.cu's fp32 sweep (q positions, kv positions) at
+# hd 64 and per head dim, and of the bf16 tensor-core sweeps of flash_fwd.cu
+# and flash_bwd.cu (packed q rows, kv positions, at every head dim); checked
+# against the built libraries at first launch
 FLASH_BLOCK_Q = 32
 FLASH_BLOCK_KV = 64
+FP32_TILES = {64: (FLASH_BLOCK_Q, FLASH_BLOCK_KV), 128: (16, 32)}
 FLASH_BWD_ROWS = 64
 FLASH_BWD_KEYS = 64
 # query heads per kv head each kernel takes; the bf16 sweeps take any G
 # (packed rows), the fp32 sweeps of flash_fwd and flash_dq run 32 threads per
 # head in one block of at most 256
 MAX_GROUP = {"flash_fwd": 8, "paged_decode": 16, "flash_bwd": 8}
-KERNEL_HEAD_DIM = 64  # the head dim of the configs ported so far
+# the head dims the libraries are built for: smollm-135m's 64, and 128 of
+# every rung of the paper's ladder
+KERNEL_HEAD_DIM = (64, 128)
 # positions a block of csrc/paged_decode.cu's split-K pass folds (a multiple
-# of the serving page size 16); checked against the built library
+# of the serving page size 16) per head dim: the same bytes of K and V a
+# block; checked against the built library
 PAGED_SPLIT = 64
+PAGED_SPLITS = {64: PAGED_SPLIT, 128: 32}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -160,14 +168,16 @@ _ARGTYPES = {
 }
 # the tile sizes each library's <lib>_tiles function must report (checked at
 # its first launch): (the count of ints it reports, the leading ones).
-# flash_fwd: the fp32 sweep's positions and keys, the bf16 sweep's rows and
-# keys, then its block's dynamic shared memory in bytes; flash_bwd: rows,
-# keys, then the dq and dkv blocks' dynamic shared memory; paged_decode:
-# positions a split, threads a split block
+# flash_fwd: the fp32 sweep's positions and keys at hd 64, the bf16 sweep's
+# rows and keys, the fp32 sweep's positions and keys at hd 128, then the
+# bf16 block's dynamic shared memory in bytes at hd 64 and 128; flash_bwd:
+# rows, keys, then the dq and dkv blocks' dynamic shared memory at hd 64 and
+# 128; paged_decode: positions a split at hd 64, threads a split block,
+# positions a split at hd 128
 _build.TILES.update({
-    "flash_fwd": (5, (FLASH_BLOCK_Q, FLASH_BLOCK_KV, FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
-    "flash_bwd": (4, (FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
-    "paged_decode": (2, (PAGED_SPLIT,))})
+    "flash_fwd": (8, (*FP32_TILES[64], FLASH_BWD_ROWS, FLASH_BWD_KEYS, *FP32_TILES[128])),
+    "flash_bwd": (6, (FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
+    "paged_decode": (3, (PAGED_SPLITS[64], 128, PAGED_SPLITS[128]))})
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -192,8 +202,10 @@ def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
 def _check_head(name: str, dtype: torch.dtype, hd: int, G: int) -> None:
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {dtype} (kernel takes float32 or bfloat16)")
-    if hd != KERNEL_HEAD_DIM:
-        raise NotImplementedError(f"{name}: head dim {hd} (kernel is built for {KERNEL_HEAD_DIM})")
+    if hd not in KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: head dim {hd} (the kernels are built for {KERNEL_HEAD_DIM}); other head "
+            "dims come with their model families (ROADMAP.md)")
     if not 1 <= G <= MAX_GROUP[name]:
         raise NotImplementedError(f"{name}: {G} query heads per kv head (at most {MAX_GROUP[name]})")
 
@@ -368,9 +380,8 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_kv`` shape the reference's TPU grid and are accepted so callers
     pass the config unchanged: the Hopper kernels choose their own tiles
     (bf16: ``FLASH_BWD_ROWS`` packed q rows x ``FLASH_BWD_KEYS`` keys on the
-    tensor cores, forward and backward; fp32: ``FLASH_BLOCK_Q`` positions x
-    ``FLASH_BLOCK_KV`` keys in the forward) and the result does not depend
-    on either.
+    tensor cores, forward and backward; fp32: ``FP32_TILES[hd]`` positions x
+    keys in the forward) and the result does not depend on either.
     """
     del block_q, block_kv
     B, S, H, hd = q.shape
@@ -510,7 +521,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, *, window):
         raise ValueError(f"paged_decode: pool rows must start on 16-byte boundaries (strides "
                          f"{k_pages.stride()})")
     out = torch.empty_like(q)
-    n_split = paged_splits(page_table.shape[1], ps)
+    n_split = paged_splits(page_table.shape[1], ps, PAGED_SPLITS[hd])
     # the split-K pass's partials: acc [B, KV, n_split, G, hd], m and l [B, KV, n_split, G]
     acc = torch.empty((B, KV, n_split, G, hd), dtype=torch.float32, device=q.device)
     ml = torch.empty((2, B, KV, n_split, G), dtype=torch.float32, device=q.device)

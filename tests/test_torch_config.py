@@ -55,10 +55,63 @@ def test_smollm_config_equals_reference(reduced):
             256, 4, 1, 2, 512)
 
 
+LADDER = ["paper-150m", "paper-416m", "paper-914m", "paper-1.76b", "paper-3.07b",
+          "paper-15.23b"]
+# the paper's ladder at a narrow hd-128 width, built the same way in both
+# packages (reduce_config would give it hd 64)
+LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512,
+                    vocab=512, dtype="float32", remat=False)
+
+
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tconfigs.get_config("mamba2-370m")
-    assert tconfigs.list_configs() == ["smollm-135m"]
+    assert tconfigs.list_configs() == sorted(["smollm-135m", *LADDER])
+
+
+@pytest.mark.parametrize("name", LADDER)
+def test_ladder_config_equals_reference(name):
+    """Every rung of the paper's Tab. 1 ladder equals the reference's field
+    for field: full MHA at head dim 128, SwiGLU, QK-norm, post-norms, an
+    untied head, vocab 128256."""
+    ref, port = get_config(name), tconfigs.get_config(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd == 128 and port.n_kv_heads == port.n_heads
+    assert port.post_norm and port.qk_norm and not port.tie_embeddings
+    assert port.vocab == 128256 and port.activation == "swiglu"
+
+
+def test_ladder_tree_paths_labels_and_roundtrip():
+    """The ladder's parameter tree at the narrow hd-128 width (post-norm
+    scales, q/k norm scales, the untied head): the reference's init crosses
+    the numpy bridge and back exactly, the port's own init has the same
+    paths, shapes and dtypes, and muon_label labels every path as the
+    reference's does (the head and the norms AdamW, the hidden matrices
+    Muon)."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim import muon_label
+
+    jcfg = get_config("paper-150m").replace(**LADDER_SMALL)
+    tcfg = tconfigs.get_config("paper-150m").replace(**LADDER_SMALL)
+    ref = jax.tree.map(np.asarray, build_model(jcfg).init(jax.random.PRNGKey(0)))
+    back = params_to_numpy(params_from_numpy(ref, "cpu"))
+    ref_leaves = {"/".join(str(k.key) for k in p): x
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    back_leaves = dict(tree_leaves_with_paths(back))
+    own = dict(tree_leaves_with_paths(params_to_numpy(
+        tbuild_model(tcfg).init(torch.Generator().manual_seed(0), "cpu"))))
+    assert sorted(ref_leaves) == sorted(back_leaves) == sorted(own)
+    for path in ("head", "layers/ln1_post_scale", "layers/ln2_post_scale",
+                 "layers/attn/q_norm_scale", "layers/attn/k_norm_scale"):
+        assert path in ref_leaves, path
+    assert ref_leaves["layers/attn/wq"].shape == (2, 256, 2 * 128)
+    for path, x in ref_leaves.items():
+        np.testing.assert_array_equal(back_leaves[path], x)
+        assert back_leaves[path].dtype == x.dtype
+        assert own[path].shape == x.shape and own[path].dtype == x.dtype, path
+        assert muon_label(path, x) == jmuon_label(path, x), path
+    assert muon_label("head", ref_leaves["head"]) == "adamw"
+    assert muon_label("layers/mlp/w_out", ref_leaves["layers/mlp/w_out"]) == "muon"
 
 
 @pytest.mark.parametrize("arch_type", ["moe", "ssm", "hybrid", "audio", "vlm"])

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_train import _cfgs, _jstate_numpy, assert_tree_close  # noqa: E402
+from test_torch_train import _cfgs, _jstate_numpy, _ladder_cfgs, assert_tree_close  # noqa: E402
 
 from repro.checkpoint import load_checkpoint as jload_checkpoint  # noqa: E402
 from repro.checkpoint import save_checkpoint as jsave_checkpoint  # noqa: E402
@@ -246,10 +246,10 @@ def test_superstep_r2_matches_reference(inner):
 
 # ------------------------------------------------------------- checkpoints
 
-def _bf16_state():
+def _bf16_state(jcfg=None):
     """A reference TrainState with bf16 leaves (bf16 inner state) and the
-    port's copy of it."""
-    jcfg, _ = _cfgs()
+    port's copy of it (reduced smollm-135m unless ``jcfg`` is given)."""
+    jcfg = jcfg or _cfgs()[0]
     jd = JDiLoCoConfig(n_workers=2, sync_interval=2, inner_name="muon")
     jstate = jdiloco_init(jbuild_model(jcfg), jd, JOptimizerConfig(state_dtype="bfloat16"),
                           jax.random.PRNGKey(0))
@@ -313,6 +313,25 @@ def test_port_checkpoint_loads_in_reference(tmp_path):
         assert set(meta) == {"step", "paths", "dtypes", "crc32"}
         i = meta["dtypes"].index("bfloat16")
         assert z[f"leaf_{i}"].dtype == np.uint16
+
+
+def test_ladder_checkpoint_crosses_both_ways(tmp_path):
+    """The paper's ladder at hd 128 (post-norm and q/k norm scales, the
+    untied head, Muon momenta on the hidden matrices and AdamW moments on
+    the rest): a reference checkpoint of its TrainState loads into the port
+    bit for bit, and the port's loads into the reference."""
+    jstate, tstate = _bf16_state(_ladder_cfgs()[0])
+    paths = [p for p, _ in tree_leaves_with_paths(tstate["outer_params"])]
+    assert "head" in paths and "layers/ln2_post_scale" in paths
+    ref_path, port_path = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    jsave_checkpoint(ref_path, jstate, step=3)
+    loaded, step = load_checkpoint(ref_path, tstate)
+    assert step == 3
+    _assert_bits_equal(loaded, jstate)
+    save_checkpoint(port_path, tstate, step=4)
+    jloaded, step = jload_checkpoint(port_path, jstate)
+    assert step == 4
+    _assert_bits_equal(tstate, jloaded)
 
 
 def test_in_program_checkpoint_bytes_identical_to_host_path(tmp_path):

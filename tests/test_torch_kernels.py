@@ -48,8 +48,21 @@ def _np(rng, shape):
 def test_flash_fwd_plain_matches_pallas(causal, window, H, KV, S):
     """o and lse of the port's plain flash forward == the reference's Pallas
     ``_fwd`` in interpret mode, on the kernel layout [B*KV, S, G, hd]."""
+    _check_flash_fwd_plain(causal, window, H, KV, S, hd=16)
+
+
+@pytest.mark.parametrize("S", [16, 13])
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_fwd_plain_matches_pallas_hd128(causal, window, H, KV, S):
+    """As above at head dim 128 (every rung of the paper's ladder), G = 1
+    (the ladder's MHA) and G = 2."""
+    _check_flash_fwd_plain(causal, window, H, KV, S, hd=128)
+
+
+def _check_flash_fwd_plain(causal, window, H, KV, S, hd):
     rng = np.random.default_rng(S * 100 + H * 10 + KV + window)
-    B, hd = 2, 16
+    B = 2
     G = H // KV
     q, k, v = _np(rng, (B * KV, S, G, hd)), _np(rng, (B * KV, S, hd)), _np(rng, (B * KV, S, hd))
     scale = 1.0 / math.sqrt(hd)
@@ -118,6 +131,32 @@ def test_paged_decode_plain_matches_pallas_and_xla(window):
     np.testing.assert_allclose(t_pal.numpy(), t_ref.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("window", [0, 5])
+def test_paged_decode_plain_matches_pallas_hd128(window):
+    """The paged decode at head dim 128, MHA (KV = H = 2) and G = 2 (H = 4,
+    KV = 2): the port's plain version == the reference's Pallas kernel in
+    interpret mode and its gather path; ragged allocations, null-padded rows
+    and an idle slot."""
+    rng = np.random.default_rng(41 + window)
+    B, hd, ps, max_pages = 4, 128, 4, 4
+    n_pool = 1 + B * max_pages
+    for H, KV in ((2, 2), (4, 2)):
+        q = _np(rng, (B, H, hd))
+        kp, vp = _np(rng, (n_pool, ps, KV, hd)), _np(rng, (n_pool, ps, KV, hd))
+        perm = rng.permutation(np.arange(1, n_pool)).astype(np.int32)
+        table = np.zeros((B, max_pages), np.int32)
+        for b, n in enumerate([1, 3, 4]):
+            table[b, :n] = perm[b * max_pages: b * max_pages + n]
+        lengths = np.asarray([2, 11, 16, 1], np.int32)
+        j_in = tuple(map(jnp.asarray, (q, kp, vp, table, lengths)))
+        t_in = tuple(map(torch.from_numpy, (q, kp, vp, table, lengths)))
+        j_pal = jfa.paged_decode_attention(*j_in, window=window, impl="pallas", interpret=True)
+        j_xla = jfa.paged_decode_attention(*j_in, window=window, impl="xla")
+        t_pal = tfa.paged_decode_attention(*t_in, window=window, impl="pallas")
+        np.testing.assert_allclose(t_pal.numpy(), np.asarray(j_pal), **TOL)
+        np.testing.assert_allclose(t_pal.numpy(), np.asarray(j_xla), **TOL)
+
+
 def test_paged_decode_null_page_is_inert():
     """Garbage in the null page and in pages past a slot's length changes
     nothing for the live slots (the idle slot's output is discarded)."""
@@ -183,6 +222,24 @@ def test_paged_splits_at_the_serving_shape():
     64 positions: 480 blocks for the split-K pass."""
     assert tfa.paged_splits(37, 16) == 10
     assert 16 * 3 * tfa.paged_splits(37, 16) == 480
+
+
+def test_paged_splits_per_head_dim():
+    """At hd 128 a split folds 32 positions (the same bytes of K and V a
+    block as 64 at hd 64): 19 splits a (slot, kv head) at the serving table
+    of 37 pages of 16, and the split-K mirror at that split == the plain
+    version at hd 128."""
+    assert tfa.PAGED_SPLITS == {64: 64, 128: 32}
+    assert all(s * hd == 4096 for hd, s in tfa.PAGED_SPLITS.items())
+    assert tfa.paged_splits(37, 16, tfa.PAGED_SPLITS[128]) == 19
+    q, kp, vp, table, lengths = _split_inputs(9, 16, 37, 32, 0)
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(_np(rng, (*q.shape[:3], 128)))
+    kp, vp = (torch.from_numpy(_np(rng, (*kp.shape[:3], 128))) for _ in "kv")
+    for window in (0, 100):
+        got = tfa._paged_decode_split_merge(q, kp, vp, table, lengths, window=window, split=32)
+        want = tfa._paged_decode_plain(q, kp, vp, table, lengths, window=window)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_paged_cuda_wrapper_refuses_unaligned_pool_rows():
@@ -273,11 +330,13 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
 
 
 @pytest.mark.parametrize("lib,name,tiles", [
-    ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
-    ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200)),
+    ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
+                               100352)),
+    ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
+                                100352)),
     ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV, tfa.FLASH_BWD_ROWS,
-                                tfa.FLASH_BWD_KEYS, 41984)),
-    ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128)),
+                                tfa.FLASH_BWD_KEYS, *tfa.FP32_TILES[128], 41984, 82944)),
+    ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128, tfa.PAGED_SPLITS[128])),
     ("matmul_epilogue", "matmul_epilogue", (tmm.MATMUL_TILE, tmm.MATMUL_TILE, tmm.MATMUL_BK,
                                             256)),
     ("quantize", "quantize", (tquantize.WARP_ROW_MAX, tquantize.BLOCK_ROW_MAX,
@@ -331,8 +390,19 @@ def test_flash_backward_matches_jax_grad(causal, window, H, KV, S):
     and both backward sweeps in interpret mode), for G = 1 and G = 3, at an
     odd S, a sliding window and non-causal. fp32; atol 1e-5 plus rtol 1e-5
     (gradients reach ~10, and the frameworks sum in another order)."""
+    _check_flash_backward(causal, window, H, KV, S, hd=16)
+
+
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_backward_matches_jax_grad_hd128(causal, window, H, KV):
+    """As above at head dim 128 (the paper's ladder), G = 1 and 2, odd S."""
+    _check_flash_backward(causal, window, H, KV, 13, hd=128)
+
+
+def _check_flash_backward(causal, window, H, KV, S, hd):
     rng = np.random.default_rng(1000 + S * 10 + H + window)
-    B, hd = 2, 16
+    B = 2
     q, k, v = _np(rng, (B, S, H, hd)), _np(rng, (B, S, KV, hd)), _np(rng, (B, S, KV, hd))
     do = _np(rng, (B, S, H, hd))
 
@@ -396,6 +466,95 @@ def test_bf16_bwd_sweeps_visit_each_unmasked_pair_once(causal, window, G):
                         assert pairs[tile].any(), (name, S, rows, keys, t, kj)
                         count[tile] += 1
                 assert (count[pairs] == 1).all() and count.max() <= 1, (name, S, rows, keys)
+
+
+def _dkv_panel_sweep(q, k, v, do, lse, dl, *, causal: bool, window: int, scale: float,
+                     rows: int = tfa.FLASH_BWD_ROWS, keys: int = tfa.FLASH_BWD_KEYS,
+                     panel: int = 64):
+    """flash_bwd.cu's bf16 dkv sweep at hd 128 in fp32 torch: per kv tile of
+    ``keys`` positions, one warpgroup per ``panel`` columns of dk and dv, each
+    walking the q-row tiles of dkv_row_tiles and recomputing the whole S^T =
+    K Q^T and dP^T = V dO^T (contractions over every dim), then multiplying
+    P^T and dS^T into its own panel of dO and Q."""
+    BKV, S, G, hd = q.shape
+    SG = S * G
+    qr, dor = q.float().reshape(BKV, SG, hd), do.float().reshape(BKV, SG, hd)
+    lr, dlr = lse.reshape(BKV, SG), dl.reshape(BKV, SG)
+    mask = tfa._mask(S, causal, window, "cpu")[0, :, 0, :]
+    pos = torch.arange(SG) // G
+    dk, dv = torch.zeros(BKV, S, hd), torch.zeros(BKV, S, hd)
+    for kt in range(-(-S // keys)):
+        kc = slice(kt * keys, min(S, (kt + 1) * keys))
+        for c0 in range(0, hd, panel):
+            cols = slice(c0, c0 + panel)
+            for t in range(*tfa.dkv_row_tiles(kt, S, G, causal, window, rows, keys)):
+                r = slice(t * rows, min(SG, (t + 1) * rows))
+                ok = mask[pos[r]][:, kc].T  # [keys, rows]
+                st = k[:, kc].float() @ qr[:, r].transpose(1, 2)
+                dpt = v[:, kc].float() @ dor[:, r].transpose(1, 2)
+                pt = torch.where(ok, torch.exp(st * scale - lr[:, None, r]), 0.0)
+                dst = pt * (dpt - dlr[:, None, r])
+                dv[:, kc, cols] += pt @ dor[:, r, cols]
+                dk[:, kc, cols] += scale * (dst @ qr[:, r, cols])
+    return dk, dv
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
+def test_bwd_sweeps_at_hd128_equal_plain(causal, window, G):
+    """At head dim 128 the bf16 dkv sweep splits dk and dv by 64-column
+    panels, each panel's warpgroup recomputing the full scores; the dq sweep
+    keeps one warpgroup (two accumulator panels) and walks dq_kv_tiles. Both
+    schedules, mirrored in fp32, == _dq_plain / _dkv_plain at 1e-5, and
+    every unmasked (row, key) pair is visited once per panel: at small tiles
+    (ragged edges, many tiles) and at the kernels' own, ragged S."""
+    rng = np.random.default_rng(51 + 10 * G + window)
+    for rows, keys, S in ((8, 4, 13), (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 77)):
+        BKV, hd = 2, 128
+        q, do = (torch.from_numpy(_np(rng, (BKV, S, G, hd))) for _ in "qd")
+        k, v = (torch.from_numpy(_np(rng, (BKV, S, hd))) for _ in "kv")
+        kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(hd))
+        o, lse = tfa._fwd_plain(q, k, v, **kw)
+        dl = torch.sum(do * o, dim=-1)
+        args = (q, k, v, do, lse, dl)
+        dk, dv = _dkv_panel_sweep(*args, rows=rows, keys=keys, **kw)
+        pk, pv = tfa._dkv_plain(*args, **kw)
+        np.testing.assert_allclose(dk.numpy(), pk.numpy(), err_msg=f"dk {rows}x{keys}", **TOL)
+        np.testing.assert_allclose(dv.numpy(), pv.numpy(), err_msg=f"dv {rows}x{keys}", **TOL)
+        # dq: per packed q-row tile, the kv tiles of dq_kv_tiles
+        SG = S * G
+        mask = tfa._mask(S, causal, window, "cpu")[0, :, 0, :]
+        pos = torch.arange(SG) // G
+        qr, dor = q.reshape(BKV, SG, hd), do.reshape(BKV, SG, hd)
+        dq = torch.zeros(BKV, SG, hd)
+        for t in range(-(-SG // rows)):
+            r = slice(t * rows, min(SG, (t + 1) * rows))
+            for kj in range(*tfa.dq_kv_tiles(t, S, G, causal, window, rows, keys)):
+                kc = slice(kj * keys, min(S, (kj + 1) * keys))
+                ok = mask[pos[r]][:, kc]
+                p = torch.where(ok, torch.exp(qr[:, r] @ k[:, kc].transpose(1, 2) * kw["scale"]
+                                              - lse.reshape(BKV, SG)[:, r, None]), 0.0)
+                ds = p * (dor[:, r] @ v[:, kc].transpose(1, 2) - dl.reshape(BKV, SG)[:, r, None])
+                dq[:, r] += kw["scale"] * (ds @ k[:, kc])
+        np.testing.assert_allclose(dq.reshape(q.shape).numpy(),
+                                   tfa._dq_plain(*args, **kw).numpy(), **TOL)
+
+
+def test_fp32_sweep_tiles_at_hd128_visit_contiguous_ranges():
+    """The fp32 CUDA-core sweeps shrink their tiles at hd 128 so that a
+    thread keeps the registers and a block the 32 KB of static shared memory
+    of hd 64: the forward's (FP32_TILES[128]) walk [lo, hi) of
+    visited_kv_range at the ladder's S = 2048, about half the grid when
+    causal, and hd x tile sizes stay those of hd 64."""
+    bq, bkv = tfa.FP32_TILES[128]
+    assert (bq, bkv) == (16, 32) and tfa.FP32_TILES[64] == (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV)
+    assert 2 * bq * 128 == tfa.FLASH_BLOCK_Q * 64 * 2 and bkv * 128 == tfa.FLASH_BLOCK_KV * 64
+    S = 2048
+    nq, nkv = -(-S // bq), -(-S // bkv)
+    tiles = sum(hi - lo for lo, hi in (
+        tfa.visited_kv_range(qi, nkv, bq, bkv, True, 0) for qi in range(nq)))
+    assert tiles == len(tfa.attention_schedule(nq, nkv, bq, bkv, True, 0))
+    assert tiles < 0.6 * nq * nkv
 
 
 def test_bf16_operand_rounding_stays_within_phase_5a_tolerance():
@@ -482,6 +641,51 @@ def test_fwd_sweep_online_softmax_equals_plain(causal, window, G):
         np.testing.assert_allclose(lse.numpy(), plse.numpy(), err_msg=f"lse {rows}x{keys}", **TOL)
 
 
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
+def test_fwd_sweep_online_softmax_equals_plain_hd128(causal, window, G):
+    """The forward sweep's algorithm at head dim 128 (the ladder's; the
+    kernel holds O as two 64-column panels, which changes no sum) == the
+    plain forward at 1e-5, at small tiles and at the kernel's own."""
+    rng = np.random.default_rng(61 + 10 * G + window)
+    for rows, keys, S in ((8, 4, 13), (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 77)):
+        q, k, v = (torch.from_numpy(_np(rng, shape)) for shape in
+                   ((2, S, G, 128), (2, S, 128), (2, S, 128)))
+        kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(128))
+        o, lse = _fwd_sweep(q, k, v, rows=rows, keys=keys, **kw)
+        po, plse = tfa._fwd_plain(q, k, v, **kw)
+        np.testing.assert_allclose(o.numpy(), po.numpy(), err_msg=f"o {rows}x{keys}", **TOL)
+        np.testing.assert_allclose(lse.numpy(), plse.numpy(), err_msg=f"lse {rows}x{keys}", **TOL)
+
+
+def test_bf16_rounding_at_the_ladder_training_shape_stays_within_tolerance():
+    """The bf16 sweeps' arithmetic at paper-416m's training shape (S = 2048,
+    G = 1, hd = 128, causal; two kv heads of the 32), inputs drawn as
+    chip_smoke.py phase 12a draws them: the forward (p rounded to bf16 as the
+    PV operand, o stored in bf16) within phase 3a's tolerances (o 2e-2, lse
+    1e-3), the backward (p and ds rounded to bf16 as operands, bf16 outputs)
+    within phase 5a's, 1e-2 * max(1, max |grad|)."""
+    rng = np.random.default_rng(16)
+    BKV, S, G, hd = 2, 2048, 1, 128
+    q, do = (torch.from_numpy(_np(rng, (BKV, S, G, hd))).bfloat16() for _ in "qd")
+    k, v = (torch.from_numpy(_np(rng, (BKV, S, hd))).bfloat16() for _ in "kv")
+    kw = dict(causal=True, window=0, scale=1.0 / math.sqrt(hd))
+    o, lse = _fwd_sweep(q, k, v, p_dtype=torch.bfloat16, **kw)
+    po, plse = tfa._fwd_plain(q, k, v, **kw)
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-3
+    dl = torch.sum(do.float() * po.float(), dim=-1)
+    args = (q, k, v, do, plse, dl)
+    p, ds = (x.bfloat16().float() for x in tfa._probs_plain(*args, **kw))
+    got = ((kw["scale"] * torch.einsum("bqgs,bsh->bqgh", ds, k.float())).bfloat16(),
+           (kw["scale"] * torch.einsum("bqgs,bqgh->bsh", ds, q.float())).bfloat16(),
+           torch.einsum("bqgs,bqgh->bsh", p, do.float()).bfloat16())
+    plain = (tfa._dq_plain(*args, **kw), *tfa._dkv_plain(*args, **kw))
+    for name, g, w in zip(("dq", "dk", "dv"), got, plain):
+        tol = 1e-2 * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+
+
 @pytest.mark.parametrize("S", [512, 1024])
 def test_bf16_fwd_rounding_stays_within_phase_3a_tolerance(S):
     """The bf16 forward sweep's arithmetic (bf16 q, k, v; fp32 scores, online
@@ -507,6 +711,28 @@ def test_bf16_fwd_rounding_stays_within_phase_3a_tolerance(S):
     assert o.dtype == torch.bfloat16
     assert (o.float() - po.float()).abs().max().item() <= 2e-2
     assert (lse - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("hd", [80, 112, 256])
+def test_kernels_refuse_unbuilt_head_dims_and_name_roadmap(hd):
+    """The libraries are built for head dims 64 and 128 only: any other hd
+    raises NotImplementedError naming ROADMAP.md before any launch."""
+    tfa.reset_launch_counts()
+    q = torch.zeros((1, 8, 1, hd), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, hd), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 8, 1))
+    kw = dict(causal=True, window=0, scale=0.125)
+    pool = torch.zeros((4, 4, 1, hd), dtype=torch.bfloat16)
+    table, lengths = torch.ones((1, 2), dtype=torch.int32), torch.ones((1,), dtype=torch.int32)
+    for call in (lambda: tfa._fwd_cuda(q, k, k, **kw),
+                 lambda: tfa._dq_cuda(q, k, k, q, lse, lse, **kw),
+                 lambda: tfa._dkv_cuda(q, k, k, q, lse, lse, **kw),
+                 lambda: tfa._paged_decode_cuda(q[:, 0:1, 0:1].reshape(1, 1, 1, hd), pool, pool,
+                                                table, lengths, window=0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            call()
+    assert tfa.KERNEL_HEAD_DIM == (64, 128)
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])

@@ -43,6 +43,21 @@ def _pair(impl: str, dtype: str = "float32", window: int = 0):
     return jmodel, jparams, tbuild_model(tcfg), tparams
 
 
+# the paper's ladder at a narrow hd-128 width (post-norms, QK-norm at hd 128,
+# MHA, the untied head), built the same way in both packages
+LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512,
+                    vocab=512, dtype="float32", remat=False)
+
+
+def _ladder_pair(impl: str):
+    jcfg = get_config("paper-150m").replace(attn_impl=impl, **LADDER_SMALL)
+    tcfg = tconfigs.get_config("paper-150m").replace(attn_impl=impl, **LADDER_SMALL)
+    jmodel = build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jmodel, jparams, tbuild_model(tcfg), tparams
+
+
 def _tokens(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
 
@@ -95,6 +110,64 @@ def test_prefill_lm_kv_match_reference(impl):
     assert tuple(tk.shape) == jk.shape == (2, 2, 9, 1, 64)
     for t, j in ((tl, jl), (tk, jk), (tv, jv)):
         np.testing.assert_allclose(_f32(t), _f32(j), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ladder_forward_and_prefill_match_reference(impl):
+    """The paper's ladder at hd 128 (post-norms, QK-norm, MHA, untied head):
+    logits of the forward and the prefill's per-layer K/V == the reference's
+    at fp32 atol 1e-4 (test_forward_lm_logits_match_reference's bound), the
+    same greedy tokens; the post-norm scales and the head really act (a
+    change to either changes the logits)."""
+    jmodel, jparams, tmodel, tparams = _ladder_pair(impl)
+    assert tmodel.cfg.post_norm and tmodel.cfg.hd == 128 and "head" in tparams
+    toks = _tokens(11, (2, 12), jmodel.cfg.vocab)
+    jl, _ = jax.jit(jmodel.forward)(jparams, jnp.asarray(toks))
+    tl, _ = tmodel.forward(tparams, torch.from_numpy(toks))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    np.testing.assert_array_equal(tl.argmax(-1).numpy(), np.asarray(jl.argmax(-1)))
+    jl, jk, jv = jax.jit(lambda p, t: jlm.prefill_lm(jmodel.cfg, p, t))(jparams, jnp.asarray(toks))
+    tl, tk, tv = tlm.prefill_lm(tmodel.cfg, tparams, torch.from_numpy(toks))
+    assert tuple(tk.shape) == jk.shape == (2, 2, 12, 2, 128)
+    for t, j in ((tl, jl), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_f32(t), _f32(j), **TOL["float32"])
+    base = tmodel.forward(tparams, torch.from_numpy(toks))[0]
+    for path in ("ln1_post_scale", "ln2_post_scale"):
+        moved = dict(tparams, layers=dict(tparams["layers"], **{
+            path: tparams["layers"][path] + 0.5}))
+        assert not torch.allclose(tmodel.forward(moved, torch.from_numpy(toks))[0], base), path
+    moved = dict(tparams, head=tparams["head"] * 2)
+    assert not torch.allclose(tmodel.forward(moved, torch.from_numpy(toks))[0], base)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ladder_paged_decode_step_logits_match_reference(impl):
+    """Paged prefill, then 3 decode steps of the ladder at hd 128 fed the
+    reference's greedy tokens: per-step logits within fp32 atol 1e-4 and the
+    same greedy tokens."""
+    jmodel, jparams, tmodel, tparams = _ladder_pair(impl)
+    B, P, ps, steps = 2, 6, 4, 3
+    alloc, table = _paged_setup(B, P, steps, ps, seed=7)
+    toks = _tokens(12, (B, P), jmodel.cfg.vocab)
+    lens = np.asarray([P, P - 2], np.int32)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jcache = jmodel.init_paged_cache(alloc.n_pages, ps)
+    jl, jcache = jax.jit(jmodel.paged_prefill)(jparams, jcache, jnp.asarray(toks), jt,
+                                               jnp.asarray(lens))
+    tcache = tmodel.init_paged_cache(alloc.n_pages, ps, "cpu")
+    tl, tcache = tmodel.paged_prefill(tparams, tcache, torch.from_numpy(toks), tt,
+                                      torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    tok = np.asarray(jl)[np.arange(B), lens - 1].argmax(-1).astype(np.int32)
+    jstep = jax.jit(lambda p, c, t, n: jmodel.paged_decode_step(p, c, t, jt, n, impl=impl))
+    for t in range(steps):
+        n = lens + t
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.asarray(n))
+        tlog, tcache = tmodel.paged_decode_step(tparams, tcache, torch.from_numpy(tok), tt,
+                                                torch.from_numpy(n), impl=impl)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        np.testing.assert_array_equal(tlog.argmax(-1).numpy(), np.asarray(jlog.argmax(-1)))
+        tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
 
 
 # ------------------------------------------------------------- paged serving

@@ -130,6 +130,31 @@ def test_engine_tokens_equal_reference(impl, workload):
     assert eng.stats["prefill_dispatches"] >= 2  # slots < requests: more than one admission
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ladder_engine_tokens_equal_reference(impl):
+    """The paper's ladder at a narrow hd-128 width (post-norms, QK-norm, MHA,
+    the untied head; fp32, reference params, built the same way in both
+    packages) through the engine on the staggered-arrival workload: greedy
+    tokens equal the reference engine's."""
+    small = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512,
+                 vocab=512, dtype="float32", remat=False, attn_impl=impl)
+    jmodel = build_model(get_config("paper-150m").replace(**small))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tmodel = tbuild_model(tconfigs.get_config("paper-150m").replace(**small))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    span, shape = WORKLOADS["late_join"]
+    specs = [(f"r{i}", _prompt(30 + i, n, 512), new, arr)
+             for i, (n, new, arr) in enumerate(shape)]
+    kw = dict(slots=2, page_size=4, max_pages=32, decode_steps_per_dispatch=span)
+    ref = JPagedEngine(jmodel, jparams, attn_impl=impl, **kw).run(
+        [JRequest(*s) for s in specs])
+    out = PagedEngine(tmodel, tparams, attn_impl=impl, device="cpu", **kw).run(
+        [Request(*s) for s in specs])
+    assert sorted(out) == sorted(ref)
+    for rid in ref:
+        np.testing.assert_array_equal(out[rid], np.asarray(ref[rid]))
+
+
 def test_engine_releases_pages_and_rejects_oversized():
     _, _, tmodel, tparams = _models("pallas")
     eng = PagedEngine(tmodel, tparams, slots=1, page_size=4, max_pages=8,

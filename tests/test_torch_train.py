@@ -56,6 +56,17 @@ def _cfgs(**upd):
     return j, t
 
 
+# the paper's ladder at a narrow hd-128 width, built the same way in both
+# packages (reduce_config would give it hd 64)
+LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512,
+                    vocab=512, dtype="float32", remat=False)
+
+
+def _ladder_cfgs(**upd):
+    return (get_config("paper-150m").replace(**LADDER_SMALL, **upd),
+            tconfigs.get_config("paper-150m").replace(**LADDER_SMALL, **upd))
+
+
 def _batch(vocab, B=2, S=16, seed=0):
     """One reference batch ([B, S] tokens and labels) as numpy."""
     st = JMarkovStream(JDataConfig(vocab=vocab, seq_len=S, batch_per_worker=B, seed=seed))
@@ -129,7 +140,18 @@ def test_loss_and_grads_match_reference(impl, fused):
     8 positions here (S = 16) to run the chunk loop. Loss atol 1e-5; grads
     atol 2e-5 + rtol 1e-4: the two frameworks sum in another order through
     two layers and the backward of the tied embedding (a scatter-add)."""
-    jcfg, tcfg = _cfgs(attn_impl=impl)
+    _check_loss_and_grads(*_cfgs(attn_impl=impl), fused)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ladder_loss_and_grads_match_reference(impl):
+    """As above (the same tolerances) for the paper's ladder at hd 128:
+    post-norm scales, QK-norm at hd 128, MHA and the untied head, whose
+    gradient comes from the fused loss's chunks."""
+    _check_loss_and_grads(*_ladder_cfgs(attn_impl=impl), True)
+
+
+def _check_loss_and_grads(jcfg, tcfg, fused):
     jmodel, tmodel = build_model(jcfg), tbuild_model(tcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
@@ -231,7 +253,20 @@ def test_one_diloco_round_matches_reference(inner, outer_kernel, K):
     leaves (embed, norms) hold 99% of entries to those bounds and all to
     lr = 2e-2 (see assert_tree_close); with the AdamW inner optimizer that
     is every leaf."""
-    jcfg, tcfg = _cfgs(attn_impl="pallas")
+    _check_one_round(*_cfgs(attn_impl="pallas"), inner, outer_kernel, K)
+
+
+@pytest.mark.parametrize("inner,outer_kernel", [("muon", True), ("adamw", False)])
+def test_ladder_diloco_round_matches_reference(inner, outer_kernel):
+    """One MuLoCo (Muon inner) and one DiLoCo (AdamW inner) round of the
+    paper's ladder at hd 128, K = 2, with the tolerances of
+    test_one_diloco_round_matches_reference; Muon takes the hidden matrices
+    (q/k/v/o, w_in, w_gate, w_out) and AdamW the embed, the untied head and
+    every norm scale, post-norms and q/k norms included."""
+    _check_one_round(*_ladder_cfgs(attn_impl="pallas"), inner, outer_kernel, 2)
+
+
+def _check_one_round(jcfg, tcfg, inner, outer_kernel, K):
     dkw = dict(n_workers=K, sync_interval=2, inner_name=inner, ns_impl="pallas",
                outer_kernel=outer_kernel)
     jd, td = JDiLoCoConfig(**dkw), DiLoCoConfig(**dkw)
@@ -339,6 +374,19 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     np.testing.assert_allclose(ttrain.smoothed_eval_loss(out["losses"], out["steps"], 2),
                                jtrain.smoothed_eval_loss(out["losses"], out["steps"], 2),
                                rtol=1e-6)
+
+
+def test_train_cli_ladder_reduced_on_cpu(tmp_path):
+    """``--arch paper-150m --reduced --device cpu`` runs end to end: the
+    ladder's rung cut by reduce_config (2 layers, d 256, hd 64, post-norms,
+    the untied head), finite losses in metrics.csv."""
+    out = ttrain.train(_args(tmp_path, "--arch", "paper-150m", "--outer-kernel"))
+    assert out["model"].cfg.post_norm and not out["model"].cfg.tie_embeddings
+    assert "head" in out["state"]["outer_params"]
+    with open(os.path.join(tmp_path, "metrics.csv")) as f:
+        rows = list(csv.reader(f))
+    assert [r[0] for r in rows[1:]] == ["0", "1"]
+    assert all(math.isfinite(v) for v in out["losses"]) and math.isfinite(out["final_loss"])
 
 
 @pytest.mark.parametrize("flags", [
