@@ -24,18 +24,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    training shape, both timed, and at ragged S, G = 1, 2 and 4, windowed
    and non-causal cases, bitwise equal from run to run; fp32 (the CUDA-core
    sweep).
-4. A full-width fp32 agreement check (kernel path against the plain torch
-   path, logits of a prefill and three decode steps), then the main path:
-   ``repro_torch.launch.serve`` at full width (smollm-135m, seeded random
-   weights, bf16, attn_impl='pallas'), 32 requests of 512 prompt tokens and
-   64 new tokens over 16 slots. The launch counters are set to 0 just before
-   this run and read just after; every kernel must have launched exactly
-   30 times per prefill dispatch / decode step. Then one shorter run of the
-   same engine under torch.profiler: wall time, device busy share and the
-   kernels that take the device time, with ``paged_decode``'s two passes
-   summed apart beside phase 3b's event time (3b: ``paged_decode`` at the
-   decode shape in bf16, windowed, with most splits empty, and fp32, each
-   bitwise equal from run to run).
+4. (4a) A full-width fp32 agreement check (kernel path against the plain
+   torch path, logits of a prefill and three decode steps), then (4b) the
+   main path: ``repro_torch.launch.serve`` at full width (smollm-135m,
+   seeded random weights, bf16, attn_impl='pallas'), 32 requests of 512
+   prompt tokens and 64 new tokens over 16 slots, each decode span of 8
+   steps one replay of a captured CUDA graph (the first span of a page-table
+   width runs eagerly as the warm-up, then is captured). The launch
+   counters are set to 0 just before this run and read just after, and
+   must equal the engine's formula (``PagedEngine.launches``): 30
+   ``flash_fwd`` a prefill dispatch, 30 x 8 ``paged_decode`` a span, the
+   spans counted as captures + replays, each capture recording one span's
+   formula; the capture seconds print apart from the rate. A second run on
+   the same engine only replays, and the same workload through the eager
+   span (``capture=False``): greedy tokens bitwise equal to the first run's.
+   (4b') temperature 1.0 through the captured span repeats bitwise from the
+   same seed. (4c) One shorter run of the same engine under torch.profiler:
+   wall time, device busy share, the host's seconds in prefill dispatches
+   and spans, the kernels that take the device time, with
+   ``paged_decode``'s two passes summed apart beside phase 3b's event time
+   (3b: ``paged_decode`` at the decode shape in bf16, windowed, with most
+   splits empty, and fp32, each bitwise equal from run to run); then one
+   captured span replayed alone: its kernels a decode step and its device
+   time a step beside the step's memory-bound floor. (4d) The naive
+   dense-cache engine: its fp32 logits against the paged engine's over a
+   prefill and three decode steps (1e-3), then 4b's prompts as one lockstep
+   batch in bf16 (``flash_fwd`` launched 30 times, for its one prefill),
+   its rate beside the paged engine's.
 5. The training kernels against their plain PyTorch versions at the
    training main path's shapes, each timed beside its plain version, its
    bound and, where one PyTorch call computes the same function, that call:
@@ -145,12 +160,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``TRAIN_LADDER`` (the command of 6b at paper-416m, S = 2048, 4 sequences
    a worker step), its launches against the formula, losses finite and
    falling, a profiled replayed round, and the same command eager, bitwise
-   equal; (12e) the serving main path of 4b on paper-416m. Then the
-   ladder's rates, idle share and peak memory beside the card's name and
-   power limit.
-13. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
-   paper-416m timing and launches under ``"paper-416m"``), then the last
-   line ``{"ok": true, "device": {...}}``.
+   equal; (12e) the serving main path of 4b on paper-416m, captured, and
+   (12e') its profile as 4c's. Then the ladder's rates, idle share and peak
+   memory beside the card's name and power limit.
+13. nemotron-4-15b (``NEMOTRON``: 32 layers, d 6144, 48:8 heads so G = 6,
+   hd 128, relu2, vocab 256,000, untied): (13a) flash_fwd
+   (``NEMOTRON_FWD_CASES``) and paged_decode at G = 6 against their plain
+   versions, bitwise from run to run, timed at the model's serving shapes;
+   (13b) 4a's fp32 agreement at full width, depth cut to 2 layers; (13c)
+   4b's serving main path at full width and depth with bf16 weights through
+   the captured span (launches, peak memory, capture seconds, eager =
+   captured bitwise) and (13c') its profile, a decode step beside its
+   memory-bound floor.
+14. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+   paper-416m timing and launches under ``"paper-416m"``, and flash_fwd's
+   and paged_decode's at G = 6 under ``"nemotron-4-15b"``), the script's
+   seconds, then the last line ``{"ok": true, "device": {...}}``.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -394,17 +419,29 @@ FLASH_FWD_CASES = {
 }
 
 
-def phase_flash(torch, fa, hd: int = 64, phase: str = "3a"):
-    """[3a] flash_fwd against its plain version at head dim ``hd``; bf16
-    outputs bitwise equal from run to run. The shapes named in
-    ``FLASH_FWD_CASES`` are timed beside the plain version, the bound and
-    SDPA's forward: returns {shape: row}."""
+# nemotron-4-15b (13a): flash_fwd at hd 128 and G = 6 (48:8 heads), the
+# prefill shape of 4b's workload (16 slots x 8 kv heads, S 512) first
+NEMOTRON_FWD_CASES = [(16 * 8, 512, 6, _BF16, True, 0, "serving"),
+                      (2 * 2, 77, 6, _BF16, True, 0, None),
+                      (2 * 1, 300, 6, _BF16, True, 100, None),
+                      (2 * 1, 130, 6, _BF16, False, 0, None),
+                      (2 * 1, 96, 6, _BF16, False, 20, None),
+                      (1, 70, 6, _FP32, True, 0, None),
+                      (2, 77, 6, _FP32, False, 20, None)]
+
+
+def phase_flash(torch, fa, hd: int = 64, phase: str = "3a", cases: list | None = None):
+    """[3a] flash_fwd against its plain version at head dim ``hd`` (the
+    cases of ``FLASH_FWD_CASES[hd]`` unless ``cases`` are given); bf16
+    outputs bitwise equal from run to run. The shapes named there are timed
+    beside the plain version, the bound and SDPA's forward: returns {shape:
+    row}."""
     print(f"[{phase}] flash_fwd (replaces flash_attention.py:_fwd_kernel) against its plain "
           f"version, hd {hd}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     fp32 = torch.float32
     out = {}
-    for BKV, S, G, dt, causal, window, timed in FLASH_FWD_CASES[hd]:
+    for BKV, S, G, dt, causal, window, timed in cases or FLASH_FWD_CASES[hd]:
         dt = getattr(torch, dt)
         q = torch.randn((BKV, S, G, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((BKV, S, hd), generator=gen, device="cuda").to(dt)
@@ -511,11 +548,14 @@ def phase_paged(torch, fa, hd: int = 64, KV: int = 3, G: int = 3, phase: str = "
 
 
 def phase_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
-                    phase: str = "4a"):
-    """Full width, fp32: the kernel path against the plain torch path."""
+                    phase: str = "4a", n_layers: int | None = None):
+    """Full width, fp32: the kernel path against the plain torch path
+    (``n_layers`` cuts the depth, never a width)."""
     print(f"[{phase}] full-width fp32 agreement, {arch}: attn_impl pallas (kernels) vs xla "
-          "(plain torch)")
+          "(plain torch)" + (f", depth cut to {n_layers} layers" if n_layers else ""))
     base = get_config(arch).replace(dtype="float32")
+    if n_layers:
+        base = base.replace(n_layers=n_layers)
     dev = torch.device("cuda")
     model_k, model_p = build_model(base.replace(attn_impl="pallas")), build_model(base)
     params = model_k.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -543,29 +583,171 @@ def phase_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
     torch.cuda.empty_cache()
 
 
-def phase_main(torch, fa, get_config, serve, arch: str = "smollm-135m", phase: str = "4b"):
-    print(f"[{phase}] main path: repro_torch.launch.serve, {arch} full width, bf16, pallas")
-    cfg = get_config(arch).replace(attn_impl="pallas")
+def check_serving_launches(engine, launches: dict, stats: dict) -> None:
+    """A serving run's launches against the engine's formula: prefill
+    dispatches x L ``flash_fwd`` plus spans x L x span ``paged_decode``,
+    the spans counted as captures (each a warm-up span run eagerly) plus
+    replays (each what its capture recorded); every captured span recorded
+    one span's formula."""
+    want = engine.launches(stats)
+    got = {k: launches[k] for k in want}
+    assert got == want and all(v > 0 for v in want.values()), (got, want, stats)
+    assert stats["spans"] == stats["captures"] + stats["replays"], stats
+    per_span = engine.launches_per_span()
+    for key, graph in engine._span_fn.graphs.items():
+        recorded = {k: v for k, v in graph.launches.items() if v}
+        assert recorded == per_span, (key, recorded, per_span)
+    print(f"  launches {got} = {stats['prefill_dispatches']} prefill dispatches x "
+          f"{engine.launches_per_prefill()} + ({stats['captures']} captures + "
+          f"{stats['replays']} replays) x {per_span} (L x span)")
+
+
+def phase_main(torch, fa, get_config, serve, arch: str = "smollm-135m", phase: str = "4b",
+               overrides: dict | None = None):
+    """The serving main path: ``serve`` at full width through the captured
+    span; then a second run on the same engine (replays only) and the same
+    workload through the eager span (``capture=False``), both bitwise equal
+    in their greedy tokens."""
+    from repro_torch.launch.serve import random_prompts, requests_for
+    from repro_torch.serving import PagedEngine
+
+    print(f"[{phase}] main path: repro_torch.launch.serve, {arch} full width, bf16, pallas, "
+          f"captured decode spans {overrides or ''}")
+    cfg = get_config(arch).replace(attn_impl="pallas", **(overrides or {}))
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     results, seconds, engine, model, params = serve(cfg, device="cuda", **MAIN)
     launches = dict(fa.LAUNCHES)
-    st = engine.stats
-    print(f"  {st}, launches {launches}")
+    st = dict(engine.stats)
+    engine.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {st}, peak {engine.peak_gb:.2f} GB")
     assert len(results) == MAIN["batch"], sorted(results)
     for rid, toks in results.items():
         assert toks.shape == (MAIN["max_new"],), (rid, toks.shape)
         assert ((toks >= 0) & (toks < cfg.vocab)).all(), rid
-    L = cfg.n_layers
-    assert launches["flash_fwd"] == L * st["prefill_dispatches"] > 0, (launches, st)
-    assert launches["paged_decode"] == L * st["decode_steps"] > 0, (launches, st)
+    assert st["captures"] >= 1 and st["replays"] >= 1, st
+    check_serving_launches(engine, launches, st)
     n_new = MAIN["batch"] * MAIN["max_new"]
     engine.tok_s = n_new / seconds
-    print(f"  generated {n_new} tokens in {seconds:.3f} s ({engine.tok_s:.1f} tok/s)")
+    engine.capture_s = st["capture_s"]
+    print(f"  generated {n_new} tokens in {seconds:.3f} s ({engine.tok_s:.1f} tok/s), the "
+          f"first span's warm-up {st['warmup_s']:.3f} s and capture {st['capture_s']:.3f} s "
+          "included")
+    reqs = requests_for(random_prompts(cfg.vocab, MAIN["batch"], MAIN["prompt_len"]),
+                        MAIN["max_new"])
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = engine.run(reqs)
+    torch.cuda.synchronize()
+    engine.replay_tok_s = n_new / (time.perf_counter() - t0)
+    st2 = dict(engine.stats)
+    assert st2["captures"] == 0 and st2["replays"] == st2["spans"] > 0, st2
+    check_serving_launches(engine, dict(fa.LAUNCHES), st2)
+    for rid in results:
+        assert (again[rid] == results[rid]).all(), f"{rid}: second run differs"
+    print(f"  second run on the same engine (replays only, {st2['replays']} spans): "
+          f"{engine.replay_tok_s:.1f} tok/s, tokens bitwise equal")
+    eager = PagedEngine(model, params, capture=False, attn_impl="pallas", device="cuda",
+                        **{k: MAIN[k] for k in ("slots", "page_size", "max_pages",
+                                                "decode_steps_per_dispatch")})
+    t0 = time.perf_counter()
+    eager_out = eager.run(reqs)
+    torch.cuda.synchronize()
+    engine.eager_tok_s = n_new / (time.perf_counter() - t0)
+    for rid in results:
+        assert (eager_out[rid] == results[rid]).all(), f"{rid}: eager span differs"
+    assert eager.stats["captures"] == eager.stats["replays"] == 0
+    print(f"  the eager span (capture=False): {engine.eager_tok_s:.1f} tok/s, greedy tokens "
+          f"bitwise equal to the captured span's ({n_new} tokens)")
+    del eager
     with torch.no_grad():
         prompt = torch.tensor([results["req0"].tolist()], dtype=torch.int32, device="cuda")
         logits, _ = model.forward(params, prompt)
     assert torch.isfinite(logits).all(), "non-finite logits"
     return launches, engine
+
+
+def phase_sampled(torch, engine) -> None:
+    """[4b'] temperature 1.0 through the captured span (the engine's
+    generator registered with the graph): two engines from seed 7 give the
+    same tokens bitwise, seed 8 other tokens."""
+    from repro_torch.serving import PagedEngine, Request
+
+    print("[4b'] sampled decoding (temperature 1.0) through the captured span")
+    gen = torch.Generator().manual_seed(9)
+    reqs = [Request(f"t{i}", tuple(torch.randint(0, engine.model.cfg.vocab, (64,),
+                                                 generator=gen).tolist()), 24)
+            for i in range(8)]
+    runs = []
+    for seed in (7, 7, 8):
+        eng = PagedEngine(engine.model, engine.params, slots=8, page_size=16, max_pages=64,
+                          decode_steps_per_dispatch=8, temperature=1.0, attn_impl="pallas",
+                          device="cuda", seed=seed)
+        runs.append(eng.run(reqs))
+        assert eng.stats["captures"] == 1 and eng.stats["replays"] >= 1, eng.stats
+        del eng
+    for rid in runs[0]:
+        assert (runs[0][rid] == runs[1][rid]).all(), f"{rid}: seed 7 does not repeat"
+    differ = sum(int((runs[0][r] != runs[2][r]).sum()) for r in runs[0])
+    assert differ > 0, "seed 8 gave seed 7's tokens"
+    print(f"  seed 7 twice: bitwise equal ({8 * 24} tokens); seed 8: {differ} of them differ")
+
+
+def phase_naive(torch, fa, get_config, build_model, serve, paged_tok_s: float,
+                arch: str = "smollm-135m", phase: str = "4d") -> float:
+    """The naive dense-cache engine at full width: fp32 logits against the
+    paged engine's over a prefill and three decode steps (within 1e-3, as
+    4a), then 4b's prompts as one lockstep batch in bf16 through
+    ``serve(engine='naive')``: flash_fwd launched L times for its one
+    prefill, no paged_decode; its rate beside the paged engine's."""
+    from repro_torch.serving import naive_generate
+
+    print(f"[{phase}] naive engine, {arch} full width: fp32 agreement with the paged engine, "
+          f"then {MAIN['batch']} x ({MAIN['prompt_len']} + {MAIN['max_new']}) in bf16 as one "
+          "lockstep batch")
+    dev = torch.device("cuda")
+    cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    B, P, ps = 2, 45, 16
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(5))
+    tokens = tokens.to(dev, torch.int32)
+    table = torch.arange(1, 1 + B * 4, dtype=torch.int32, device=dev).reshape(B, 4)
+    lengths = torch.full((B,), P, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        pool = model.init_paged_cache(1 + B * 4, ps, dev)
+        lp, _ = model.paged_prefill(params, pool, tokens, table, lengths)
+        cache = model.init_cache(params, B, P + 8)
+        ln, cache = model.prefill_with_cache(params, cache, tokens)
+        check("prefill logits (naive vs paged)", (ln - lp).abs().max().item(), 1e-3)
+        tok = torch.argmax(lp[:, -1], -1).int()
+        for t in range(3):
+            dp, _ = model.paged_decode_step(params, pool, tok, table, lengths + t,
+                                            impl="pallas")
+            dn, cache = model.decode_step(params, cache, tok, P + t)
+            assert torch.isfinite(dn).all()
+            check(f"decode step {t} logits (naive vs paged)", (dn - dp).abs().max().item(), 1e-3)
+            tok = torch.argmax(dp, -1).int()
+        ref = naive_generate(model, params, tokens, 4, batched_prefill=False)
+        got = naive_generate(model, params, tokens, 4)
+        assert torch.equal(ref[:, P:], got[:, P:]), (ref[:, P:], got[:, P:])
+        print("  greedy tokens of the batched and the token-stepped prefill equal (fp32)")
+    del params, pool, cache
+    torch.cuda.empty_cache()
+    cfg = get_config(arch).replace(attn_impl="pallas")
+    fa.reset_launch_counts()
+    results, seconds, _, model, params = serve(cfg, engine="naive", device="cuda", **MAIN)
+    launches = dict(fa.LAUNCHES)
+    assert launches["flash_fwd"] == cfg.n_layers and launches["paged_decode"] == 0, launches
+    for rid, toks in results.items():
+        assert toks.shape == (MAIN["max_new"],) and ((toks >= 0) & (toks < cfg.vocab)).all()
+    n_new = MAIN["batch"] * MAIN["max_new"]
+    print(f"  launches {({k: v for k, v in launches.items() if v})} (L = {cfg.n_layers} for the "
+          f"one prefill); generated {n_new} tokens in {seconds:.3f} s: {n_new / seconds:.1f} "
+          f"tok/s beside the paged engine's {paged_tok_s:.1f} (4b, captured spans)")
+    del params
+    torch.cuda.empty_cache()
+    return n_new / seconds
 
 
 def device_times(torch, prof) -> dict:
@@ -595,25 +777,47 @@ def print_focus(by_name: dict, wall_ms: float, focus: tuple, beside: dict | None
             print(f"    beside phase {phase}'s event time {event_ms:.4f} ms per call (L2 flushed)")
 
 
-def phase_profile(torch, engine, paged_ms: float):
+def decode_floor_ms(engine, lengths: list) -> tuple[float, float, float]:
+    """The memory-bound floor of one decode step: every weight read once (of
+    an untied embedding only the B gathered rows), each slot's K and V rows
+    up to its position read once and the new ones written, at 3.35 TB/s.
+    Returns (ms, weight bytes, KV bytes)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, params = engine.model.cfg, engine.params
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if "head" in params:  # the untied embedding: only the gathered rows
+        emb = params["embed"]
+        weights -= emb.numel() * emb.element_size()
+        weights += len(lengths) * emb.shape[1] * emb.element_size()
+    row = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * engine._pool["k"].element_size()
+    kv = sum(n + 1 for n in lengths) * row
+    return (weights + kv) / PEAK_BYTES * 1e3, weights, kv
+
+
+def phase_profile(torch, engine, paged_ms: float, phase: str = "4c") -> dict:
     """Where the time goes: one engine run (16 requests, prompt 512, 16 new
-    tokens: one prefill dispatch and two decode spans) under torch.profiler;
-    paged_decode's two passes summed apart."""
-    print("[4c] profile: 16 requests x (512 prompt + 16 new) through the same engine")
+    tokens: one prefill dispatch and two decode spans, captured) under
+    torch.profiler; paged_decode's two passes summed apart; the host's
+    seconds in prefill dispatches and spans (``PagedEngine.stats``); then
+    one captured span replayed alone: its kernels a decode step and its
+    device time a decode step beside the step's memory-bound floor."""
+    print(f"[{phase}] profile: 16 requests x (512 prompt + 16 new) through the same engine")
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request
+    from repro_torch.serving import Request, pages_needed
 
     gen = torch.Generator().manual_seed(7)
     reqs = [Request(f"p{i}", tuple(torch.randint(0, engine.model.cfg.vocab, (512,),
                                                  generator=gen).tolist()), 16)
             for i in range(16)]
-    engine.run(reqs)  # warm
+    engine.run(reqs)  # warm: captures the span at this run's table width
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run(reqs)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    st = dict(engine.stats)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(reqs)
@@ -621,11 +825,14 @@ def phase_profile(torch, engine, paged_ms: float):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_times(torch, prof)
     busy = sum(v[0] for v in by_name.values())
+    idle = 100 * (1 - busy / plain_wall_ms)
     # kernel times are the card's own; the profiler slows the host, so the
     # idle share is taken against the same run's wall time unprofiled
     print(f"  wall {plain_wall_ms:.1f} ms unprofiled ({wall_ms:.1f} ms profiled), device busy "
-          f"{busy:.1f} ms: idle {100 * (1 - busy / plain_wall_ms):.1f}% of the unprofiled "
-          f"wall, {engine.stats}")
+          f"{busy:.1f} ms: idle {idle:.1f}% of the unprofiled wall, {engine.stats}")
+    print(f"  host (unprofiled run): prefill dispatches {1e3 * st['prefill_s']:.1f} ms, spans "
+          f"{1e3 * st['span_s']:.1f} ms ({st['replays']} replays), the engine's own "
+          f"scheduling {plain_wall_ms - 1e3 * (st['prefill_s'] + st['span_s']):.1f} ms")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {ms:9.3f} ms {100 * ms / plain_wall_ms:5.1f}%  x{n:<6d} {name}")
     # a call launches two kernels: the split-K pass and the combine pass
@@ -636,6 +843,31 @@ def phase_profile(torch, engine, paged_ms: float):
           f"({n // 2} calls), {100 * ms / plain_wall_ms:.2f}% of the unprofiled wall; "
           f"{ms / calls:.4f} ms per call beside phase 3b's event time {paged_ms:.4f} ms "
           "(L2 flushed)")
+    # one span replayed alone, on the static inputs of this run's last span
+    graph = engine._span_fn.graphs[(engine.slots,
+                                    pages_needed(512 + 16 + engine.span, engine.page_size))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    kernels = sum(n for _, n in device_times(torch, prof).values())
+    times = []
+    for _ in range(7):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = statistics.median(times) / engine.span
+    lengths = [n + (engine.span - 1) / 2 for n in graph.lengths.tolist()]
+    floor_ms, wbytes, kvbytes = decode_floor_ms(engine, lengths)
+    print(f"  one captured span replayed alone: {kernels} kernels, {kernels / engine.span:.0f} "
+          f"a decode step; {step_ms:.4f} ms device time a decode step (median of 7 replays / "
+          f"{engine.span}) beside its memory-bound floor {floor_ms:.4f} ms (weights "
+          f"{wbytes / 1e9:.3f} GB + K/V {kvbytes / 1e9:.4f} GB read once, 3.35 TB/s): "
+          f"{step_ms / floor_ms:.2f}x")
+    return dict(idle=idle, wall_ms=plain_wall_ms, busy_ms=busy, step_ms=step_ms,
+                floor_ms=floor_ms, kernels_per_step=kernels / engine.span)
 
 
 def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int) -> float:
@@ -1859,14 +2091,17 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
     del ref_state
     torch.cuda.empty_cache()
     serve_launches, engine = phase_main(torch, fa, get_config, serve, LADDER, "12e")
-    serve_rate = engine.tok_s
+    serve_prof = phase_profile(torch, engine, paged["ms"], phase="12e'")
+    serve_rate, replay_rate, capture_s = engine.tok_s, engine.replay_tok_s, engine.capture_s
     del engine
     torch.cuda.empty_cache()
     print(f"{LADDER} training ({' '.join(TRAIN_LADDER[:TRAIN_LADDER.index('--out')])}): "
           f"{rate:.1f} tokens/s over rounds 2-3, one replayed round {prof['tok_s']:.1f} tokens/s "
-          f"at idle {prof['idle']:.1f}%, peak {peak:.2f} GB; serving {serve_rate:.1f} tok/s, "
-          f"launches flash_fwd {serve_launches['flash_fwd']}, paged_decode "
-          f"{serve_launches['paged_decode']}; card (nvidia-smi name, power.limit): {smi}")
+          f"at idle {prof['idle']:.1f}%, peak {peak:.2f} GB; serving (captured spans) "
+          f"{serve_rate:.1f} tok/s (capture {capture_s:.3f} s apart), replays only "
+          f"{replay_rate:.1f} tok/s, idle {serve_prof['idle']:.1f}%, launches flash_fwd "
+          f"{serve_launches['flash_fwd']}, paged_decode {serve_launches['paged_decode']}; "
+          f"card (nvidia-smi name, power.limit): {smi}")
     return {
         "flash_fwd": {"launches": {"serving": serve_launches["flash_fwd"],
                                    "training": train_launches["flash_fwd"]},
@@ -1878,6 +2113,50 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
                             "b_x_plus_a_x": matmul_bx},
         "nesterov": {"launches": train_launches["nesterov"], **nesterov},
     }
+
+
+# nemotron-4-15b (13c) serves 4b's workload with bf16 weights: ~15.6B
+# parameters are ~31 GB in bf16 (fp32, ~62.6 GB, would leave no room for the
+# prefill's [16, 512, 256000] logits)
+NEMOTRON = "nemotron-4-15b"
+
+
+def slice_nemotron(torch, fa, get_config, build_model, serve, smi: str) -> dict:
+    """Phase 13: nemotron-4-15b (32 layers, d 6144, 48:8 heads so G = 6,
+    hd 128, relu2, vocab 256,000, untied). (13a) flash_fwd and
+    paged_decode at G = 6 against their plain versions, bitwise from run to
+    run, timed at the model's serving shapes; (13b) the full-width fp32
+    agreement of 4a at depth 2; (13c) the serving main path of 4b at full
+    width and depth, bf16 weights, through the captured span, with its peak
+    memory; (13c') its profile and a decode step beside its memory-bound
+    floor. Returns the two kernels' rows for the summary."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[13] {NEMOTRON}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier "
+          "phases")
+    cfg = get_config(NEMOTRON)
+    G = cfg.n_heads // cfg.n_kv_heads
+    flash = phase_flash(torch, fa, hd=cfg.hd, phase="13a", cases=NEMOTRON_FWD_CASES)
+    paged = phase_paged(torch, fa, hd=cfg.hd, KV=cfg.n_kv_heads, G=G, phase="13a")
+    phase_agreement(torch, get_config, build_model, NEMOTRON, "13b", n_layers=2)
+    torch.cuda.empty_cache()
+    launches, engine = phase_main(torch, fa, get_config, serve, NEMOTRON, "13c",
+                                  overrides=dict(param_dtype="bfloat16"))
+    prof = phase_profile(torch, engine, paged["ms"], phase="13c'")
+    print(f"{NEMOTRON} serving ({cfg.n_layers} layers, bf16 weights, {MAIN['batch']} x "
+          f"({MAIN['prompt_len']} + {MAIN['max_new']}), {MAIN['slots']} slots, captured spans): "
+          f"{engine.tok_s:.1f} tok/s (capture {engine.capture_s:.3f} s apart), replays only "
+          f"{engine.replay_tok_s:.1f} tok/s, eager span {engine.eager_tok_s:.1f} tok/s; peak "
+          f"{engine.peak_gb:.2f} GB; a decode step {prof['step_ms']:.4f} ms on the card against "
+          f"its floor {prof['floor_ms']:.4f} ms; idle {prof['idle']:.1f}%; launches flash_fwd "
+          f"{launches['flash_fwd']}, paged_decode {launches['paged_decode']}; card (nvidia-smi "
+          f"name, power.limit): {smi}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"flash_fwd": {"launches": launches["flash_fwd"], **flash["serving"]},
+            "paged_decode": {"launches": launches["paged_decode"], **paged}}
 
 
 def main() -> int:
@@ -1915,9 +2194,17 @@ def main() -> int:
     paged = phase_paged(torch, fa)
     phase_agreement(torch, get_config, build_model)
     launches, engine = phase_main(torch, fa, get_config, serve)
-    phase_profile(torch, engine, paged["ms"])
+    phase_sampled(torch, engine)
+    serve_prof = phase_profile(torch, engine, paged["ms"])
+    serve_rates = (engine.tok_s, engine.replay_tok_s, engine.eager_tok_s, engine.capture_s)
     del engine
     torch.cuda.empty_cache()
+    naive_rate = phase_naive(torch, fa, get_config, build_model, serve, serve_rates[0])
+    print(f"smollm-135m serving: paged, captured spans {serve_rates[0]:.1f} tok/s (capture "
+          f"{serve_rates[3]:.3f} s apart), replays only {serve_rates[1]:.1f}, eager spans "
+          f"{serve_rates[2]:.1f}; idle {serve_prof['idle']:.1f}%, "
+          f"{serve_prof['kernels_per_step']:.0f} kernels a decode step; naive "
+          f"{naive_rate:.1f} tok/s; card (nvidia-smi name, power.limit): {smi}")
 
     bwd = phase_flash_bwd(torch, fa)
     matmul, matmul_full, matmul_bx = phase_matmul(torch, mm, ops, ref)
@@ -1956,16 +2243,19 @@ def main() -> int:
     slice_4b(torch, get_config, build_model, build_parser, train, ref_hist, smi)
     ladder = slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
                       build_model, build_parser, train, serve, smi)
+    nemotron = slice_nemotron(torch, fa, get_config, build_model, serve, smi)
 
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"
     summary = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:184",
-         "launches": launches["flash_fwd"], **flash["serving"], LADDER: ladder["flash_fwd"]},
+         "launches": launches["flash_fwd"], **flash["serving"], LADDER: ladder["flash_fwd"],
+         NEMOTRON: nemotron["flash_fwd"]},
         {"name": "paged_decode", "route": "cuda", "source": f"{src}/paged_decode.cu",
          "replaces": f"{jax_src}/flash_attention.py:439",
-         "launches": launches["paged_decode"], **paged, LADDER: ladder["paged_decode"]},
+         "launches": launches["paged_decode"], **paged, LADDER: ladder["paged_decode"],
+         NEMOTRON: nemotron["paged_decode"]},
         {"name": "flash_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:230",
          "launches": train_launches["flash_dq"], **bwd["flash_dq"], LADDER: ladder["flash_dq"]},
@@ -2000,7 +2290,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[13] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[14] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

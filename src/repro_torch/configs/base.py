@@ -1,8 +1,10 @@
 """Config registry (port of ``repro/configs/base.py``).
 
-Registered so far: ``smollm-135m`` and the paper's Gemma3-style ladder
-(``paper-150m`` ... ``paper-15.23b``); every other architecture of the
-reference raises a ``KeyError`` that points at ``ROADMAP.md``.
+Registered so far: ``smollm-135m``, the paper's Gemma3-style ladder
+(``paper-150m`` ... ``paper-15.23b``) and ``nemotron-4-15b`` (relu2, 48:8
+heads, served on one card with ``param_dtype='bfloat16'``); every other
+architecture of the reference raises a ``KeyError`` that points at
+``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
 the port's reduced and full configs equal the reference's field for field.
 """
@@ -97,4 +99,4 @@ def list_configs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import paper_gemma3, smollm_135m  # noqa: F401
+    from repro_torch.configs import nemotron_4_15b, paper_gemma3, smollm_135m  # noqa: F401

@@ -13,6 +13,12 @@ reference samples with ``jax.random`` (threefry), the port with a
 batch is still a pure function of its step (resumable, the same for any
 chunking) and has the reference's shapes. Tests that compare the two
 packages feed both the reference's batches through numpy.
+
+Chain starts are drawn by inverse CDF: one uniform each, looked up in the
+start distribution's CDF, summed once on the host in float64. Not
+``torch.multinomial``: on the card it sums the CDF itself with a scan whose
+rounding varies from call to call, so now and then a uniform near a bucket
+edge lands in the neighbouring bucket and the same step draws another batch.
 """
 from __future__ import annotations
 
@@ -51,7 +57,9 @@ class MarkovStream:
         self.device = torch.device(device)
         self.table = torch.from_numpy(_transition_table(cfg)).long().to(self.device)
         zipf = 1.0 / (np.arange(1, cfg.vocab + 1) ** 1.2)
-        self.start_probs = torch.from_numpy(zipf / zipf.sum()).float().to(self.device)
+        cdf = np.cumsum(zipf / zipf.sum())
+        cdf[-1] = 1.0  # every uniform in [0, 1) falls in a bucket
+        self.start_cdf = torch.from_numpy(cdf).to(self.device)
 
     def batch_stack(self, start_step: int, n_steps: int) -> dict:
         """``n_steps`` consecutive batches: leaves ``[n, K, B, S]`` int32
@@ -62,8 +70,8 @@ class MarkovStream:
         for h in range(n_steps):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(_step_seed(cfg.seed, start_step + h))
-            states.append(torch.multinomial(self.start_probs, K * B, replacement=True,
-                                            generator=gen))
+            u = torch.rand(K * B, generator=gen, dtype=torch.float64, device=self.device)
+            states.append(torch.searchsorted(self.start_cdf, u, right=True))
             choices.append(torch.randint(0, cfg.branching, (K * B, length - 1),
                                          generator=gen, device=self.device))
         state = torch.cat(states)           # [n*K*B] chain starts

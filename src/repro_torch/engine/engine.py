@@ -35,7 +35,6 @@ the equality checks.
 from __future__ import annotations
 
 import functools
-import gc
 import time
 from typing import Any, Callable
 
@@ -69,30 +68,13 @@ class CapturedRound:
                  eval_batch: dict | None):
         from repro_torch.kernels import _build
 
-        device = state["round"].device
         self.state = state
         self._leaves = [t for _, t in tree_leaves_with_paths(state)]
         self.batches = {k: torch.empty_like(v) for k, v in batches.items()}
         self.eval_batch = (None if eval_batch is None else
                            {k: torch.empty_like(v) for k, v in eval_batch.items()})
-        before = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        # no collection during the capture: destroying an unreachable
-        # engine's graph there would end the capture (torch.cuda.graph
-        # collects once on entry)
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
-                _, self.info = program(state, self.batches, self.eval_batch)
-        finally:
-            if gc_was_on:
-                gc.enable()
-        torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
-        self.launches = {k: _build.LAUNCHES[k] - n for k, n in before.items()}
-        _build.LAUNCHES.update(before)
+        self.graph, (_, self.info), self.launches, self.capture_s = _build.capture_graph(
+            lambda: program(state, self.batches, self.eval_batch), state["round"].device)
 
     def bind(self, state: dict) -> dict:
         """The captured state, holding ``state``'s values: a state with

@@ -12,8 +12,8 @@ binds a C entry point, ``launch`` calls it on PyTorch's current stream,
 raises if the launch failed and adds one to ``LAUNCHES[name]``, so a run
 can show that its path went through the kernels. A launch made while a CUDA
 graph is being captured executes nothing then; the engine takes back what
-a capture counted and adds it once per replay (:func:`add_launch_counts`),
-so the counts stay kernel executions. Before a library's first
+a capture counted and adds it once per replay (:func:`capture_graph`,
+:func:`add_launch_counts`), so the counts stay kernel executions. Before a library's first
 launch, ``launch`` reads the tile sizes its ``<lib>_tiles`` function
 reports and raises if they differ from those the launching module
 registered in ``TILES`` (its Python mirrors of the schedules assume them).
@@ -21,12 +21,14 @@ registered in ``TILES`` (its Python mirrors of the schedules assume them).
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -61,6 +63,40 @@ def add_launch_counts(counts: dict[str, int]) -> None:
     per replay)."""
     for name, n in counts.items():
         LAUNCHES[name] += n
+
+
+def capture_graph(fn: Callable, device, generators: tuple = ()) -> tuple:
+    """Capture ``fn()`` in one ``torch.cuda.CUDAGraph`` on ``device``.
+
+    Returns ``(graph, fn's result, the launches the capture recorded,
+    seconds)``. A capture executes nothing, so what it counted in
+    ``LAUNCHES`` is taken back: add it once per replay with
+    :func:`add_launch_counts`. ``generators`` (CUDA ``torch.Generator``s that
+    ``fn`` draws from) are registered with the graph, so each replay draws
+    fresh numbers. No garbage collection runs during the capture: destroying
+    an unreachable graph there would end it. A capture that fails raises.
+    """
+    import torch
+
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(device):
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            with torch.cuda.graph(graph):
+                result = fn()
+    finally:
+        if gc_was_on:
+            gc.enable()
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - n for k, n in before.items()}
+    LAUNCHES.update(before)
+    return graph, result, launches, seconds
 
 
 def _nvcc() -> str:

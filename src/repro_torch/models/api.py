@@ -4,12 +4,17 @@
     params = model.init(gen, device)
     logits, aux = model.forward(params, tokens)
     loss, metrics = model.loss(params, batch)
+    cache = model.init_cache(params, batch_size, cache_len)
+    logits, cache = model.decode_step(params, cache, token, pos)
+    logits, cache = model.prefill_with_cache(params, cache, tokens)
+    logits_last = model.prefill(params, tokens)
     cache = model.init_paged_cache(n_pages, page_size, device)
     logits, cache = model.paged_prefill(params, cache, tokens, page_table, lengths)
     logits, cache = model.paged_decode_step(params, cache, token, page_table, lengths)
 
-The other families (moe, ssm, hybrid, audio, vlm) come with later slices of
-the port (ROADMAP.md).
+Caches are written in place (the reference returns new ones). The other
+families (moe, ssm, hybrid, audio, vlm) come with later slices of the port
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ Tree = Any
 _FAMILIES: dict[str, dict[str, Callable]] = {
     "dense": {
         "init": lm.init_lm, "forward": lm.forward_lm,
+        "init_cache": lm.init_cache_lm, "decode_step": lm.decode_step_lm,
+        "prefill_cache": lm.prefill_with_cache_lm,
         "paged_prefill": lm.paged_prefill_lm, "paged_decode": lm.paged_decode_step_lm,
     },
 }
@@ -65,6 +72,37 @@ class Model:
             loss, metrics = softmax_cross_entropy(logits, batch["labels"])
         metrics["loss_total"] = loss
         return loss, metrics
+
+    # --- serving ---
+    def init_cache(self, params: Tree, batch: int, cache_len: int) -> Tree:
+        return self._fam["init_cache"](self.cfg, params, batch, cache_len)
+
+    def decode_step(self, params: Tree, cache: Tree, token: torch.Tensor, pos: int):
+        return self._fam["decode_step"](self.cfg, params, cache, token, pos)
+
+    def fill_context(self, params: Tree, cache: Tree, context: torch.Tensor) -> Tree:
+        """Condition a decode cache on the request context (audio frames /
+        image patches). Families without cross-attention return the cache
+        unchanged, so serving paths can call this unconditionally."""
+        fn = self._fam.get("fill_context")
+        return fn(self.cfg, params, cache, context) if fn is not None else cache
+
+    @property
+    def supports_batched_prefill(self) -> bool:
+        """True when the family fills a dense cache at every prompt position
+        in one forward dispatch (attention-cache families)."""
+        return "prefill_cache" in self._fam
+
+    def prefill_with_cache(self, params: Tree, cache: Tree, tokens: torch.Tensor):
+        """Batched prefill: (per-position logits [B, P, V], filled cache)."""
+        return self._fam["prefill_cache"](self.cfg, params, cache, tokens)
+
+    def prefill(self, params: Tree, tokens: torch.Tensor, context: torch.Tensor | None = None):
+        """Full-sequence forward returning the last position's logits [B, V]
+        (the [B, S, V] logits are never materialised)."""
+        logits, _ = self._fam["forward"](self.cfg, params, tokens, context=context,
+                                         last_only=True)
+        return logits[:, -1]
 
     # --- paged serving (repro_torch.serving) ---
     @property

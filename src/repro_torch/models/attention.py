@@ -3,12 +3,14 @@ cache (port of ``repro/models/attention.py``).
 
 Entry points:
   * ``attend``              — full-sequence (training / prefill)
+  * ``attend_decode``       — one new token against the dense (or ring) cache
   * ``paged_attend_decode`` — one new token per slot against the paged pool
   * ``fill_paged_cache``    — scatter a batched prefill's K/V into pages
 
-The paged pool is a dict ``{"k": [L, n_pages, page_size, KV, hd], "v": ...}``.
-Where the reference returns a new pool (JAX donates the old one), the port
-writes the pool in place and returns the same dict.
+The dense cache is ``{"k": [L, B, W, KV, hd], "v": ...}`` (``init_cache``),
+the paged pool ``{"k": [L, n_pages, page_size, KV, hd], "v": ...}``. Where
+the reference returns a new cache (JAX donates the old one), the port
+writes the cache in place and returns the same dict.
 """
 from __future__ import annotations
 
@@ -181,6 +183,60 @@ def _blockwise_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: 
                   visited_kv_range(qi, nkv, bq, bkv, causal, window))
         outs.append(checkpoint(q_block, qb[:, qi], qi, lo, hi, use_reentrant=False))
     return torch.stack(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int, device,
+               dtype: torch.dtype | None = None) -> Tree:
+    """Dense KV cache ``[L, batch, cache_len, KV, hd]`` (the naive engine's)."""
+    dt = dtype or cfg.compute_dtype
+    shape = (n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def fill_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, cache_layer: Tree) -> Tree:
+    """Write full-sequence prefill K/V ([B, S, KV, hd]) into the first S
+    positions of one layer's (larger) cache buffers, in place."""
+    S = k.shape[1]
+    cache_layer["k"][:, :S] = k
+    cache_layer["v"][:, :S] = v
+    return cache_layer
+
+
+def attend_decode(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache_layer: Tree,
+                  pos: int) -> tuple[torch.Tensor, Tree]:
+    """Decode one token. x [B, 1, d]; cache k/v [B, W, KV, hd] (one layer,
+    written in place); ``pos`` the new token's absolute position.
+
+    With ``cfg.sliding_window`` the cache is a ring buffer of W = window
+    slots (slot = pos % W), so decode memory is O(window); slot s holds
+    absolute position ``pos - ((pos - s) % W)``, valid when it is >= 0 and
+    inside the window. Without it the cache holds absolute positions
+    (W >= the sequence length).
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+
+    W = cache_layer["k"].shape[1]
+    slot = pos % W if cfg.sliding_window else pos
+    cache_layer["k"][:, slot] = k_new[:, 0]
+    cache_layer["v"][:, slot] = v_new[:, 0]
+
+    scores = _gqa_scores(q, cache_layer["k"]).float()  # [B,KV,G,1,W]
+    idx = torch.arange(W, device=x.device)
+    if cfg.sliding_window:
+        slot_pos = pos - ((pos - idx) % W)
+        valid = (slot_pos >= 0) & (slot_pos > pos - W)
+    else:
+        valid = idx <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = _gqa_out(probs, cache_layer["v"])
+    out = o @ p["wo"].to(cfg.compute_dtype)
+    return out, cache_layer
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, n_layers: int,

@@ -160,17 +160,39 @@ def _truncated_normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return x.clamp_(-_TRUNC, _TRUNC)
 
 
+# entries of one fp32 draw of a leaf stored narrower than fp32 (see _scaled_draw)
+_PIECE = 1 << 28
+
+
+def _scaled_draw(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """``_truncated_normal / scale`` cast to ``dtype``. An fp32 leaf is drawn
+    whole. A narrower leaf is drawn in pieces of whole rows of its first
+    axis (a layer of a stacked leaf), each of at most ``_PIECE`` entries
+    where a row allows, so the fp32 draw and its temporaries hold one piece
+    at a time, not the whole leaf: nemotron-4-15b's stacked bf16 ``w_in`` is
+    19.3 GB in fp32."""
+    if dtype == torch.float32 or len(shape) < 2:
+        return (_truncated_normal(gen, shape, device) / scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, _PIECE // math.prod(shape[1:]))
+    for i in range(0, shape[0], rows):
+        piece = out[i:i + rows]
+        piece.copy_(_truncated_normal(gen, piece.shape, device) / scale)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape, fan_in: int | None = None,
                dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     fan = fan_in if fan_in is not None else shape[-2]
-    return (_truncated_normal(gen, shape, device) / math.sqrt(fan)).to(dtype)
+    return _scaled_draw(gen, shape, math.sqrt(fan), dtype, device)
 
 
 def embed_init(gen: torch.Generator, shape, dtype: torch.dtype = torch.float32,
                device=None) -> torch.Tensor:
     # std 1/sqrt(d): with the sqrt(d) input scaling this keeps the residual
     # stream O(1) AND keeps tied-embedding logits O(1).
-    return (_truncated_normal(gen, shape, device) / math.sqrt(shape[-1])).to(dtype)
+    return _scaled_draw(gen, shape, math.sqrt(shape[-1]), dtype, device)
 
 
 # ---------------------------------------------------------------------------

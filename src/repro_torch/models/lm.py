@@ -171,3 +171,47 @@ def paged_prefill_lm(cfg: ModelConfig, params: Tree, cache: Tree, tokens: torch.
     for i in range(cfg.n_layers):
         attn.fill_paged_cache(_layer(cache, i), k[i], v[i], page_table, lengths)
     return logits, cache
+
+
+def prefill_with_cache_lm(cfg: ModelConfig, params: Tree, cache: Tree, tokens: torch.Tensor
+                          ) -> tuple[torch.Tensor, Tree]:
+    """Single-dispatch prefill into a dense (``init_cache_lm``) cache, in place.
+
+    Returns (per-position logits [B, P, V], the filled cache). With a
+    sliding window the cache is the W-slot ring buffer, so only the last W
+    prompt positions are written (at slot ``pos % W``): exactly the state
+    the token-stepped prefill would have left.
+    """
+    logits, k, v = prefill_lm(cfg, params, tokens)
+    P = tokens.shape[1]
+    W = cache["k"].shape[2]
+    if cfg.sliding_window and W < P:
+        slots = torch.arange(P - W, P, device=tokens.device) % W
+        cache["k"][:, :, slots] = k[:, :, P - W:]
+        cache["v"][:, :, slots] = v[:, :, P - W:]
+    else:
+        for i in range(cfg.n_layers):
+            attn.fill_cache_from_prefill(k[i], v[i], _layer(cache, i))
+    return logits, cache
+
+
+def init_cache_lm(cfg: ModelConfig, params: Tree, batch: int, cache_len: int) -> Tree:
+    """Dense KV cache for ``batch`` sequences of up to ``cache_len`` tokens
+    (the W-slot ring with a sliding window), on the params' device."""
+    if cfg.sliding_window:
+        cache_len = min(cache_len, cfg.sliding_window)
+    return attn.init_cache(cfg, batch, cache_len, cfg.n_layers, params["embed"].device)
+
+
+def decode_step_lm(cfg: ModelConfig, params: Tree, cache: Tree, token: torch.Tensor,
+                   pos: int, **_) -> tuple[torch.Tensor, Tree]:
+    """One decode step. token [B] int32; cache from ``init_cache_lm`` (written
+    in place); ``pos`` the token's position (a Python int). Returns (logits
+    [B, V], cache)."""
+    x = _embed(cfg, params, token[:, None])
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h, _ = attn.attend_decode(lp["attn"], cfg, rms_norm(x, lp["ln1_scale"]),
+                                  _layer(cache, i), pos)
+        x = _ffn(cfg, x, h, lp)
+    return _logits(cfg, params, x)[:, 0], cache

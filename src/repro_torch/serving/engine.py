@@ -1,24 +1,27 @@
-"""Continuous-batching serving engine over the paged KV cache (port of
+"""Serving engines over the dense model family (port of
 ``repro/serving/engine.py``).
 
 * :class:`PageAllocator` (``serving.paging``) owns a fixed pool of KV pages
   on the host; the device holds the page contents
-  (``model.init_paged_cache``).
+  (``model.init_paged_cache``), made once per engine and kept across
+  ``run`` calls, so the captured spans keep their addresses.
 * :class:`Scheduler` admits pending requests into freed batch slots as soon
   as pages are available; its admission check accounts for the worst-case
   remaining growth of every in-flight request, so allocate-on-demand
   (``PageAllocator.ensure``) can never fail mid-span.
 * Admitted requests are prefilled in one batched call (``model.paged_prefill``).
 * Decode runs ``decode_steps_per_dispatch`` tokens for all active slots per
-  call (``decode.build_span_fn``); the host syncs once per span.
-
-The naive lockstep engine of the reference (``naive_generate``) comes with a
-later slice (ROADMAP.md).
+  call (``decode.build_span_fn``): on the card one replay of a captured CUDA
+  graph; the host syncs once per span.
+* :func:`naive_generate` is the reference's lockstep dense-cache loop
+  (``--engine naive``): one batched prefill (or the token-stepped one), then
+  one decode step per token against the dense (or ring) cache.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -115,13 +118,22 @@ class PagedEngine:
 
     ``run(requests)`` drives every request to completion and returns
     ``{rid: np.ndarray[max_new] generated tokens}``. ``stats`` counts the
-    last run's prefill dispatches, decode spans and decode steps.
+    last run's prefill dispatches, decode spans and decode steps, and of
+    the spans the ``captures`` (each one a real span run eagerly as the
+    warm-up, then captured) and ``replays``, with the run's ``capture_s``
+    and ``warmup_s`` seconds; ``prefill_s`` and ``span_s`` are the host
+    seconds from issuing each prefill dispatch or span to its tokens on the
+    host (capture included), the rest of the run's wall is the host's own
+    scheduling. ``capture`` (default: on a CUDA device) runs
+    the spans as CUDA graphs (``decode.SpanFn``); ``capture=False`` keeps
+    them eager on the card. The graphs and the pool are kept across runs:
+    a later run with the same page-table width only replays.
     """
 
     def __init__(self, model, params, *, slots: int = 4, page_size: int = 16,
                  max_pages: int = 64, decode_steps_per_dispatch: int = 8,
                  temperature: float = 0.0, attn_impl: str = "xla",
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, capture: bool | None = None):
         if not model.supports_paged_decode:
             raise ValueError(f"arch_type {model.cfg.arch_type!r} has no paged decode path")
         self.model, self.params = model, params
@@ -132,12 +144,49 @@ class PagedEngine:
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill = _decode.build_prefill_fn(model, temperature)
-        self._span_fn = _decode.build_span_fn(model, self.span, temperature, impl=attn_impl)
-        self.stats = {"prefill_dispatches": 0, "spans": 0, "decode_steps": 0}
+        self.attn_impl = attn_impl
+        self._span_fn = _decode.build_span_fn(model, self.span, temperature, impl=attn_impl,
+                                              capture=capture)
+        self._span_fn.captures_on(self.device)  # capture=True off the card raises here
+        self._pool = None
+        self.stats = self._new_stats()
+
+    @staticmethod
+    def _new_stats() -> dict:
+        return {"prefill_dispatches": 0, "spans": 0, "decode_steps": 0, "captures": 0,
+                "replays": 0, "capture_s": 0.0, "warmup_s": 0.0, "prefill_s": 0.0,
+                "span_s": 0.0}
+
+    def launches_per_prefill(self) -> dict[str, int]:
+        """Hopper-kernel launches of one prefill dispatch: the flash forward
+        once per layer (``attn_impl='pallas'``)."""
+        cfg = self.model.cfg
+        return {"flash_fwd": cfg.n_layers if cfg.attn_impl == "pallas" else 0}
+
+    def launches_per_span(self) -> dict[str, int]:
+        """Hopper-kernel launches of one span (eager, warm-up or replay: a
+        replay counts what its capture recorded): ``paged_decode`` once per
+        layer per decode step, L x span."""
+        L = self.model.cfg.n_layers
+        return {"paged_decode": L * self.span if self.attn_impl == "pallas" else 0}
+
+    def launches(self, stats: dict | None = None) -> dict[str, int]:
+        """The launches a run with ``stats`` (default: the last run's) makes:
+        prefill dispatches x :meth:`launches_per_prefill` + spans (captures +
+        replays on the captured path) x :meth:`launches_per_span`."""
+        st = self.stats if stats is None else stats
+        pre, span = self.launches_per_prefill(), self.launches_per_span()
+        return {"flash_fwd": st["prefill_dispatches"] * pre["flash_fwd"],
+                "paged_decode": st["spans"] * span["paged_decode"]}
 
     def _init_state(self) -> DecodeState:
+        if self._pool is None:
+            self._pool = self.model.init_paged_cache(self.max_pages, self.page_size, self.device)
+        else:  # every run starts from the pool a fresh engine has
+            for t in self._pool.values():
+                t.zero_()
         return DecodeState(
-            cache=self.model.init_paged_cache(self.max_pages, self.page_size, self.device),
+            cache=self._pool,
             tok=np.zeros((self.slots,), np.int32),
             lengths=np.zeros((self.slots,), np.int64),
             owners=[None] * self.slots,
@@ -157,7 +206,7 @@ class PagedEngine:
         state = self._init_state()
         emitted: dict[str, list[int]] = {r.rid: [] for r in requests}
         results: dict[str, np.ndarray] = {}
-        self.stats = {"prefill_dispatches": 0, "spans": 0, "decode_steps": 0}
+        self.stats = self._new_stats()
         step = 0
 
         def _maybe_finish(slot: int) -> None:
@@ -177,11 +226,13 @@ class PagedEngine:
                     toks[i, : len(r.tokens)] = r.tokens
                     lens[i] = len(r.tokens)
                 rows = np.stack([sched.alloc.page_table_row(r.rid, table_w) for _, r in admitted])
+                t0 = time.perf_counter()
                 state.cache, first = self._prefill(
                     self.params, state.cache, self._dev(toks), self._dev(rows),
                     self._dev(lens), self.gen)
                 self.stats["prefill_dispatches"] += 1
                 first = first.cpu().numpy()
+                self.stats["prefill_s"] += time.perf_counter() - t0
                 for i, (slot, r) in enumerate(admitted):
                     state.tok[slot] = first[i]
                     state.lengths[slot] = len(r.tokens)
@@ -194,12 +245,14 @@ class PagedEngine:
                     sched.alloc.ensure(state.owners[i].rid, int(state.lengths[i]) + self.span)
                 table = sched.alloc.page_table(
                     [o.rid if o is not None else None for o in state.owners], table_w)
+                t0 = time.perf_counter()
                 state.cache, toks = self._span_fn(
                     self.params, state.cache, self._dev(state.tok), self._dev(state.lengths),
-                    self._dev(table), self.gen)
+                    self._dev(table), self.gen, self.stats)
                 self.stats["spans"] += 1
                 self.stats["decode_steps"] += self.span
                 toks = toks.cpu().numpy()  # [span, B]: the span's one copy to the host
+                self.stats["span_s"] += time.perf_counter() - t0
                 for i in active:
                     emitted[state.owners[i].rid].extend(toks[:, i].tolist())
                     state.lengths[i] += self.span
@@ -214,3 +267,38 @@ class PagedEngine:
                         "raise --max-pages or lower --page-size waste")
             step += 1
         return results
+
+
+@torch.no_grad()
+def naive_generate(model, params, prompts: torch.Tensor, max_new: int,
+                   temperature: float = 0.0, context: torch.Tensor | None = None,
+                   rng: torch.Generator | None = None,
+                   batched_prefill: bool = True) -> torch.Tensor:
+    """Dense-cache lockstep serving (``--engine naive``): ``context`` is
+    threaded into the cache through ``model.fill_context``, and attention
+    families prefill the whole prompt in one dispatch (``batched_prefill``),
+    else step the decode path through it token by token. ``rng`` is the
+    sampling generator at ``temperature > 0`` (the reference takes a JAX
+    key; None draws from torch's default generator).
+
+    prompts [B, P] int32 on the params' device -> tokens [B, P + max_new].
+    """
+    B, P = prompts.shape
+    cache = model.init_cache(params, B, P + max_new)
+    if context is not None:
+        cache = model.fill_context(params, cache, context)
+    out = [prompts[:, t] for t in range(P)]
+    if batched_prefill and model.supports_batched_prefill:
+        logits, cache = model.prefill_with_cache(params, cache, prompts)
+        logits = logits[:, -1]
+    else:
+        # recurrent-state families: prefill by stepping the decode path
+        for t in range(P):
+            logits, cache = model.decode_step(params, cache, prompts[:, t], t)
+    tok = _decode.sample_tokens(logits, rng, temperature)
+    out.append(tok)
+    for t in range(P, P + max_new - 1):
+        logits, cache = model.decode_step(params, cache, tok, t)
+        tok = _decode.sample_tokens(logits, rng, temperature)
+        out.append(tok)
+    return torch.stack(out, dim=1)

@@ -66,7 +66,51 @@ LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=1
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tconfigs.get_config("mamba2-370m")
-    assert tconfigs.list_configs() == sorted(["smollm-135m", *LADDER])
+    assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER])
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_nemotron_config_equals_reference(reduced):
+    """nemotron-4-15b equals the reference's config field for field (and
+    reduced): 32 layers, d 6144, 48:8 heads (G = 6) of 128, relu2 d_ff
+    24576, vocab 256,000, untied, no QK-norm; ~15.6B parameters."""
+    ref, port = get_config("nemotron-4-15b"), tconfigs.get_config("nemotron-4-15b")
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd
+    if reduced:
+        return
+    assert (port.n_heads // port.n_kv_heads, port.hd, port.activation) == (6, 128, "relu2")
+    assert not port.tie_embeddings and not port.qk_norm
+    d, L, F, V = port.d_model, port.n_layers, port.d_ff, port.vocab
+    layer = 2 * d * port.n_heads * port.hd + 2 * d * port.n_kv_heads * port.hd + 2 * d * F
+    n = 2 * V * d + d + L * (layer + 2 * d)
+    assert 15.5e9 < n < 15.7e9, n
+
+
+def test_narrow_leaves_are_drawn_a_piece_at_a_time(monkeypatch):
+    """dense_init and embed_init draw an fp32 leaf whole, as before (smollm's
+    and the ladder's draws do not move), and a bf16 leaf in pieces of whole
+    rows of its first axis: each piece the fp32 draw of its own shape, cast."""
+    from repro_torch.models import common
+
+    monkeypatch.setattr(common, "_PIECE", 2 * 16 * 8)
+
+    def gen():
+        return torch.Generator().manual_seed(4)
+
+    shape = (5, 16, 8)
+    whole = common._truncated_normal(gen(), shape, "cpu") / 4.0
+    assert torch.equal(common.dense_init(gen(), shape, fan_in=16), whole)
+    g = gen()
+    pieces = [common._truncated_normal(g, (n, 16, 8), "cpu") / 4.0 for n in (2, 2, 1)]
+    want = torch.cat(pieces).to(torch.bfloat16)
+    assert torch.equal(common.dense_init(gen(), shape, fan_in=16, dtype=torch.bfloat16), want)
+    emb = common.embed_init(gen(), (6, 64), dtype=torch.bfloat16)  # 4 rows a piece
+    g = gen()
+    want = torch.cat([common._truncated_normal(g, (n, 64), "cpu") / 8.0 for n in (4, 2)])
+    assert torch.equal(emb, want.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("name", LADDER)

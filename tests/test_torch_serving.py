@@ -3,9 +3,12 @@
 The port's ``PagedEngine.run`` must emit exactly the reference engine's
 greedy tokens (reduced smollm-135m, fp32, reference params) for each
 ``attn_impl``, on the reference's continuous-batching workloads: more
-requests than slots, staggered arrivals, decode spans of 2 and 3. The
-allocator tests mirror tests/test_serving.py. ``chip_smoke.py`` must refuse
-to run without CUDA.
+requests than slots, staggered arrivals, decode spans of 2 and 3; so must
+its ``naive_generate`` (the dense and the ring cache), and nemotron-4-15b
+through both engines. The span's static-buffer path (the steps a CUDA graph
+captures) runs eagerly here and equals a plain loop bitwise. The allocator
+tests mirror tests/test_serving.py. ``chip_smoke.py`` must refuse to run
+without CUDA.
 """
 import os
 import shutil
@@ -22,6 +25,7 @@ import jax  # noqa: E402
 from repro.configs import get_config, reduce_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro.serving import PagedEngine as JPagedEngine, Request as JRequest  # noqa: E402
+from repro.serving import naive_generate as jnaive_generate  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import build_model as tbuild_model  # noqa: E402
@@ -30,8 +34,10 @@ from repro_torch.serving import (  # noqa: E402
     PageAllocator,
     PagedEngine,
     Request,
+    naive_generate,
     pages_needed,
 )
+from repro_torch.serving import decode as tdecode  # noqa: E402
 from repro_torch.utils.tree import params_from_numpy  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,8 +193,21 @@ def test_serve_main_runs_reduced_on_cpu(capsys):
     assert sorted(out) == ["req0", "req1", "req2"]
     assert all(v.shape == (5,) for v in out.values())
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tserve.main(["--reduced", "--device", "cpu", "--engine", "naive"])
+
+
+def test_serve_main_runs_naive_on_cpu(capsys):
+    """``--engine naive`` runs (it raised before the naive engine was
+    ported), and its greedy tokens equal the paged engine's on the same
+    seeded weights and prompts."""
+    argv = ["--reduced", "--device", "cpu", "--batch", "3", "--prompt-len", "6",
+            "--max-new", "5", "--slots", "2", "--page-size", "4", "--max-pages", "32"]
+    naive = tserve.main(argv + ["--engine", "naive"])
+    assert "[naive] generated 15 tokens" in capsys.readouterr().out
+    paged = tserve.main(argv + ["--engine", "paged"])
+    assert sorted(naive) == sorted(paged) == ["req0", "req1", "req2"]
+    for rid in naive:
+        assert naive[rid].shape == (5,) and naive[rid].dtype == np.int32
+        np.testing.assert_array_equal(naive[rid], paged[rid])
 
 
 def test_serve_parser_defaults_to_the_kernels_on_cuda():
@@ -210,3 +229,146 @@ def test_chip_smoke_fails_without_cuda(alone, tmp_path):
                          env=env, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# -------------------------------------------------------------- naive engine
+
+@pytest.mark.parametrize("window", [0, 4], ids=["dense", "ring"])
+@pytest.mark.parametrize("batched", [True, False], ids=["batched-prefill", "stepped-prefill"])
+def test_naive_generate_matches_reference_and_paged(batched, window):
+    """naive_generate's greedy tokens (3 prompts of 7, 6 new, fp32) equal the
+    reference's naive_generate with the same ``batched_prefill``, and (no
+    window) the port's PagedEngine on the same prompts: the reference's
+    test_paged_decode_matches_dense, held across packages. With window 4
+    the cache is the 4-slot ring, wrapped by prefill and decode."""
+    jmodel, jparams, tmodel, tparams = _models("xla")
+    if window:
+        jmodel = build_model(jmodel.cfg.replace(sliding_window=window))
+        tmodel = tbuild_model(tmodel.cfg.replace(sliding_window=window))
+    B, P, new = 3, 7, 6
+    prompts = np.random.default_rng(16).integers(0, 512, (B, P)).astype(np.int32)
+    ref = np.asarray(jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), new,
+                                     batched_prefill=batched))
+    out = naive_generate(tmodel, tparams, torch.from_numpy(prompts), new,
+                         batched_prefill=batched)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (B, P + new)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    if window:
+        assert tmodel.init_cache(tparams, B, P + new)["k"].shape[2] == window
+        return
+    eng = PagedEngine(tmodel, tparams, slots=2, page_size=4, max_pages=32,
+                      decode_steps_per_dispatch=2, device="cpu")
+    paged = eng.run([Request(f"n{i}", tuple(prompts[i].tolist()), new) for i in range(B)])
+    for i in range(B):
+        np.testing.assert_array_equal(paged[f"n{i}"], ref[i, P:])
+
+
+# nemotron-4-15b's head dim 128 and G = 6 at a narrow width (test_torch_models.py's)
+NEMOTRON_G6 = dict(n_layers=2, d_model=256, n_heads=6, n_kv_heads=1, head_dim=128, d_ff=512,
+                   vocab=512, dtype="float32", remat=False)
+
+
+def _nemotron(g6: bool):
+    jcfg, tcfg = get_config("nemotron-4-15b"), tconfigs.get_config("nemotron-4-15b")
+    if g6:
+        jcfg, tcfg = jcfg.replace(**NEMOTRON_G6), tcfg.replace(**NEMOTRON_G6)
+    else:
+        jcfg, tcfg = reduce_config(jcfg), tconfigs.reduce_config(tcfg)
+    jmodel = build_model(jcfg.replace(attn_impl="pallas"))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jmodel, jparams, tbuild_model(tcfg.replace(attn_impl="pallas")), tparams
+
+
+@pytest.mark.parametrize("g6", [False, True], ids=["reduced", "hd128-G6"])
+def test_nemotron_engines_match_reference(g6):
+    """nemotron-4-15b, reduced and at hd 128 with G = 6 (fp32, the kernels'
+    plain versions): the PagedEngine's greedy token streams on the
+    staggered-arrival workload equal the reference engine's, and
+    naive_generate's equal the reference's naive_generate."""
+    jmodel, jparams, tmodel, tparams = _nemotron(g6)
+    span, shape = WORKLOADS["late_join"]
+    specs = [(f"r{i}", _prompt(40 + i, n, 512), new, arr)
+             for i, (n, new, arr) in enumerate(shape)]
+    kw = dict(slots=2, page_size=4, max_pages=32, decode_steps_per_dispatch=span)
+    ref = JPagedEngine(jmodel, jparams, attn_impl="pallas", **kw).run(
+        [JRequest(*s) for s in specs])
+    out = PagedEngine(tmodel, tparams, attn_impl="pallas", device="cpu", **kw).run(
+        [Request(*s) for s in specs])
+    assert sorted(out) == sorted(ref)
+    for rid in ref:
+        np.testing.assert_array_equal(out[rid], np.asarray(ref[rid]))
+    prompts = np.random.default_rng(17).integers(0, 512, (2, 5)).astype(np.int32)
+    jtoks = jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), 4)
+    ttoks = naive_generate(tmodel, tparams, torch.from_numpy(prompts), 4)
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+# ---------------------------------------------------------- the decode span
+
+def test_span_static_buffers_equal_the_python_loop():
+    """span_steps, the body a CUDA graph captures (tokens written into a
+    static [span, B] buffer, the inputs only read), run eagerly on the CPU:
+    tokens and pool bitwise equal to the plain loop it replaced, with a
+    sampled span repeating bitwise from the same seed; the inputs are left
+    as they were."""
+    _, _, tmodel, tparams = _models("pallas")
+    B, span, ps = 3, 4, 4
+    table = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 0], [0, 0, 0, 0]], dtype=torch.int32)
+    lengths = torch.tensor([5, 2, 1], dtype=torch.int32)
+    tok = torch.tensor([7, 8, 9], dtype=torch.int32)
+    pool = tmodel.init_paged_cache(8, ps, "cpu")
+    for key in pool:
+        pool[key].copy_(torch.randn(pool[key].shape, generator=torch.Generator().manual_seed(3)))
+
+    def plain_loop(cache, gen, temperature):
+        t, n, toks = tok, lengths, []
+        for _ in range(span):
+            logits, cache = tmodel.paged_decode_step(tparams, cache, t, table, n, impl="pallas")
+            t = tdecode.sample_tokens(logits, gen, temperature)
+            n = n + 1
+            toks.append(t)
+        return cache, torch.stack(toks)
+
+    for temperature in (0.0, 1.0):
+        runs = []
+        for body in ("loop", "static", "static"):
+            cache = {k: v.clone() for k, v in pool.items()}
+            gen = torch.Generator().manual_seed(5)
+            inputs = [x.clone() for x in (tok, lengths, table)]
+            if body == "loop":
+                cache, toks = plain_loop(cache, gen, temperature)
+            else:
+                toks = torch.full((span, B), -1, dtype=torch.int32)
+                cache = tdecode.span_steps(tmodel, tparams, cache, *inputs, gen, toks,
+                                           temperature, "pallas")
+                for a, b in zip(inputs, (tok, lengths, table)):
+                    assert torch.equal(a, b)
+            runs.append((toks, cache))
+        for toks, cache in runs[1:]:
+            assert torch.equal(toks, runs[0][0])
+            for key in pool:
+                assert torch.equal(cache[key][:, 1:], runs[0][1][key][:, 1:])
+
+
+def test_span_fn_eager_on_cpu_and_capture_needs_cuda():
+    """SpanFn on CPU tensors runs eagerly (no graph, no capture counted), and
+    an engine asked to capture off the card raises; a second run on one
+    engine reuses its pool and gives the same tokens."""
+    _, _, tmodel, tparams = _models("pallas")
+    with pytest.raises(ValueError, match="CUDA graphs"):
+        PagedEngine(tmodel, tparams, device="cpu", capture=True)
+    eng = PagedEngine(tmodel, tparams, slots=2, page_size=4, max_pages=16,
+                      decode_steps_per_dispatch=3, attn_impl="pallas", device="cpu")
+    reqs = [Request(f"s{i}", (3 + i, 4, 5), 7) for i in range(3)]
+    first = eng.run(reqs)
+    pool = eng._pool
+    second = eng.run(reqs)
+    assert eng._pool is pool and not eng._span_fn.graphs
+    for rid in first:
+        np.testing.assert_array_equal(first[rid], second[rid])
+    st = eng.stats
+    assert st["captures"] == st["replays"] == 0 and st["spans"] > 0
+    L = tmodel.cfg.n_layers
+    assert eng.launches() == {"flash_fwd": L * st["prefill_dispatches"],
+                              "paged_decode": L * 3 * st["spans"]}

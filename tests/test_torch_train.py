@@ -130,6 +130,27 @@ def test_markov_stream_table_and_shapes():
     assert stream.entropy_floor_nats() == JMarkovStream(jcfg).entropy_floor_nats()
 
 
+def test_markov_stream_starts_by_inverse_cdf():
+    """Chain starts are the step generator's first K*B float64 uniforms
+    looked up in the Zipf start distribution's CDF, summed once in numpy
+    (a fixed table, so a step's draws repeat bit for bit on any device), and
+    their frequencies follow that distribution."""
+    cfg = DataConfig(vocab=64, seq_len=4, batch_per_worker=512, n_workers=2, seed=7)
+    stream = MarkovStream(cfg)
+    starts = stream.batch_stack(3, 2)["tokens"][..., 0].reshape(2, -1).numpy()
+    zipf = 1.0 / (np.arange(1, cfg.vocab + 1) ** 1.2)
+    cdf = np.cumsum(zipf / zipf.sum())
+    np.testing.assert_array_equal(stream.start_cdf.numpy()[:-1], cdf[:-1])
+    assert stream.start_cdf.dtype == torch.float64 and float(stream.start_cdf[-1]) == 1.0
+    for h in range(2):
+        gen = torch.Generator().manual_seed(tsynthetic._step_seed(cfg.seed, 3 + h))
+        u = torch.rand(1024, generator=gen, dtype=torch.float64).numpy()
+        np.testing.assert_array_equal(starts[h], np.searchsorted(stream.start_cdf.numpy(), u,
+                                                                 side="right"))
+    freq = np.bincount(starts.ravel(), minlength=cfg.vocab) / starts.size
+    assert np.abs(freq - zipf / zipf.sum()).max() < 0.03
+
+
 # --------------------------------------------------------- loss and grads
 
 @pytest.mark.parametrize("fused", [True, False])
