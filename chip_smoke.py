@@ -172,10 +172,45 @@ Phases, in order; any failure raises and the script exits nonzero:
    the captured span (launches, peak memory, capture seconds, eager =
    captured bitwise) and (13c') its profile, a decode step beside its
    memory-bound floor.
-14. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
-   paper-416m timing and launches under ``"paper-416m"``, and flash_fwd's
-   and paged_decode's at G = 6 under ``"nemotron-4-15b"``), the script's
-   seconds, then the last line ``{"ok": true, "device": {...}}``.
+14. The Muon variants on the training main path (slice 6b, Part A): (14a)
+   ``--inner muon_bp --ns-period 1`` (``TRAIN`` otherwise) captured, every
+   round's losses and the final state bitwise equal to 6b's ``--inner
+   muon`` run; (14b) ``--inner muon_bp --ns-period 4`` and ``--inner
+   normuon`` (``VARIANTS``), 3 rounds captured: launches against the formula
+   (``matmul_epilogue`` 105 a worker step: MuonBP's off-period steps select
+   the momentum over the orthogonalized update, so Newton-Schulz runs every
+   step), finite losses (NorMuon's eval falls), the optimizers' own counters,
+   and (14b') the same command eager, bitwise; each rate beside 6b's.
+15. The paper's pseudogradient measurements (Parts B and C) on paper-150m at
+   full width (``PROBE``): a DP checkpoint warmed up with ``dp_init`` /
+   ``dp_step`` (32 steps of 16 x 1024), then K workers at 16 / K sequences
+   and one at 16 branch from it for H = 8 ``inner_step``s (benchmarks/
+   common.py's method); for Muon (15a) and AdamW (15b) at K = 2, 4, 8: Fig.
+   2's per-matrix cosines of Psi_K against Psi_1 (mean, std, min), Fig. 3's
+   relative top-25% interference gap of w_in, Fig. 5's step-norm coefficient
+   of variation, and for Muon Prop. 4.2's relative error at H = 1 (within
+   1e-4); every branch's launches against its formula; at K = 2 the card's
+   cosines and gaps against float64 on the CPU (1e-5). (15c) the
+   scaling-law fits of fixed synthetic points on the host (scipy), equal to
+   the CPU's (``FIT_EXPECT``).
+16. deepseek-moe-16b (``MOE``: 28 layers, d 2048, 16:16 heads of hd 128, 64
+   routed experts top-6 of d_ff 1408 plus 2 shared, vocab 102,400, untied):
+   (16a) paged_decode at its 16 kv heads, and 4a's fp32 agreement at depth
+   2; (16b) 4b's serving main path at full width and depth with bf16
+   weights through the captured span, and (16b') its profile, a decode step
+   beside its memory-bound floor; (16c) matmul_epilogue at the expert
+   banks' and the router's Newton-Schulz shapes in all four layouts, timed
+   at the bank beside its plain version, bound and torch.baddbmm; (16c') one
+   captured MuLoCo round at full width, depth cut (``MOE_TRAIN``): launches,
+   the aux term in the loss, eager bitwise, matmul_epilogue's share of the
+   round, peak memory.
+17. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+   paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
+   paged_decode's at G = 6 under ``"nemotron-4-15b"``, and the launches of
+   slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
+   pseudogradients"`` and ``"deepseek-moe-16b"``, with matmul_epilogue's
+   expert-bank timing), the script's seconds, then the last line ``{"ok":
+   true, "device": {...}}``.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -1232,8 +1267,11 @@ def phase_train_agreement(torch, get_config, build_model, arch: str = "smollm-13
     torch.cuda.empty_cache()
 
 
-def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str = "6b"):
-    """[6b] the training main path through the CLI entry point, in-process."""
+def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str = "6b",
+                     falls: bool = True):
+    """[6b] the training main path through the CLI entry point, in-process;
+    ``falls``: the train and eval losses must fall from the first round to
+    the last."""
     from repro_torch.kernels import _build
 
     print(f"[{phase}] main path: repro_torch.launch.train " + " ".join(argv))
@@ -1261,8 +1299,9 @@ def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str 
         print(f"  round {rec['round']}: train {rec['train_loss']:.4f}, eval "
               f"{rec['eval_loss']:.4f}, wall {rec['wall_s']:.3f} s "
               f"({tokens / rec['wall_s']:.0f} tok/s)")
-    assert hist[-1]["train_loss"] < hist[0]["train_loss"], "train loss did not fall"
-    assert hist[-1]["eval_loss"] < hist[0]["eval_loss"], "eval loss did not fall"
+    if falls:
+        assert hist[-1]["train_loss"] < hist[0]["train_loss"], "train loss did not fall"
+        assert hist[-1]["eval_loss"] < hist[0]["eval_loss"], "eval loss did not fall"
     later = hist[1:]
     tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
     print(f"  training tokens/s over rounds 2-{len(hist)}: {tok_s:.1f} "
@@ -2159,6 +2198,588 @@ def slice_nemotron(torch, fa, get_config, build_model, serve, smi: str) -> dict:
             "paged_decode": {"launches": launches["paged_decode"], **paged}}
 
 
+# ---------------------------------------------------------------------------
+# Slice 6b: the Muon variants (14), the paper's pseudogradient analysis and
+# scaling-law fits (15), the MoE family's deepseek-moe-16b (16)
+# ---------------------------------------------------------------------------
+
+# the Muon variants (14b): the 6b command with another inner optimizer
+VARIANTS = {"muon_bp": ["--ns-period", "4"], "normuon": []}
+
+
+def variant_argv(inner: str) -> list:
+    """The 6b command (``TRAIN``) with ``--inner inner`` and its flags."""
+    return replace_flags(TRAIN, inner=inner,
+                         out=ROOT / "build" / f"chip_smoke_train_{inner}") + VARIANTS[inner]
+
+
+def phase_muon_bp_is_muon(torch, build_parser, train, ref_hist: list, ref_host: dict) -> None:
+    """[14a] ``--inner muon_bp --ns-period 1`` through the captured path (round
+    1 the warm-up, rounds 2 and 3 replays) against 6b's ``--inner muon`` run
+    from the same TrainState (seed 0): every round's losses, eval loss and
+    comm_bytes and the final state, bitwise. At period 1 the periodic stage
+    is bypassed, so the two runs launch the same kernels on the same data."""
+    from repro_torch.utils.tree import tree_map
+
+    argv = replace_flags(TRAIN, inner="muon_bp", out=ROOT / "build" / "chip_smoke_train_bp1")
+    argv += ["--ns-period", "1"]
+    print("[14a] repro_torch.launch.train " + " ".join(argv) + ": bitwise 6b's --inner muon")
+    out = train(build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    hist = out["history"]
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    assert len(hist) == len(ref_hist)
+    for a, b in zip(ref_hist, hist):
+        for k in keys:
+            assert a[k] == b[k], (a["round"], k, a[k], b[k])
+    diffs = _leaf_diffs(torch, ref_host, tree_map(lambda t: t.cpu(), out["state"]))
+    assert not diffs, diffs
+    assert out["engine"].replays == len(hist) - 1
+    print(f"  {len(hist)} rounds ({out['engine'].replays} replayed): {', '.join(keys)} and "
+          "every state leaf bitwise equal to 6b's --inner muon")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_variant(torch, build_parser, train, inner: str, muon_tok_s: float) -> dict:
+    """[14b] the 6b command with ``--inner muon_bp --ns-period 4`` or
+    ``--inner normuon``, captured, 3 rounds: launches against the formula
+    (``matmul_epilogue`` 105 a worker step, as Muon's: MuonBP's off-period
+    steps select the momentum over the orthogonalized update, so NS runs on
+    every step), finite losses (NorMuon's eval loss falls), then (14b') the
+    same command eager, bitwise; the rate beside 6b's."""
+    from repro_torch.utils.tree import tree_map
+
+    argv = variant_argv(inner)
+    launches, out = phase_train_main(torch, build_parser, train, argv, phase=f"14b {inner}",
+                                     falls=inner == "normuon")
+    per_round = out["engine"].launches_per_round(out["state"]["outer_params"])
+    steps = 2 * 4  # K x H
+    assert per_round["matmul_epilogue"] == 105 * steps, per_round
+    counter = out["state"]["inner_state"]["tx"]["muon"][1 if inner == "muon_bp" else 2]["count"]
+    assert counter.tolist() == [12, 12], counter  # 3 rounds x H = 4, per worker
+    ref_hist = out["history"]
+    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
+    tok_s = out["tok_s"]
+    print(f"  {inner}: {tok_s:.1f} tokens/s over rounds 2-3 beside 6b's --inner muon "
+          f"{muon_tok_s:.1f}; matmul_epilogue 105 a worker step (K x H = {steps} a round)")
+    del out
+    torch.cuda.empty_cache()
+    phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=argv,
+                      phase=f"14b' {inner}", with_r3=False)
+    del ref_state
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tok_s=tok_s)
+
+
+def slice_variants(torch, build_parser, train, ref_hist: list, ref_host: dict,
+                   muon_tok_s: float, smi: str) -> dict:
+    """Phase 14: the Muon variants (Part A of slice 6b) on the training main
+    path. Returns each variant's launches and rate."""
+    phase_muon_bp_is_muon(torch, build_parser, train, ref_hist, ref_host)
+    out = {inner: phase_variant(torch, build_parser, train, inner, muon_tok_s)
+           for inner in VARIANTS}
+    for inner, r in out.items():
+        print(f"--inner {inner} {' '.join(VARIANTS[inner])}: {r['tok_s']:.1f} tokens/s beside "
+              f"--inner muon's {muon_tok_s:.1f} (6b); card (nvidia-smi name, power.limit): {smi}")
+    return out
+
+
+# the paper's pseudogradient measurements (15), benchmarks/common.py's
+# methodology on paper-150m at full width: a DP checkpoint warmed up for
+# 4 x H steps at B_tot sequences a step, then K workers at B_tot / K and one
+# worker at B_tot branch from it (optimizer state included) for H steps
+PROBE = dict(arch="paper-150m", seq_len=1024, b_tot=16, H=8, Ks=(2, 4, 8), warm=32,
+             lr=3e-3, weight_decay=1e-4, seed=0)
+
+
+def probe_stream(vocab: int, n_workers: int, bpw: int, seed: int):
+    from repro_torch.data import DataConfig, MarkovStream
+
+    return MarkovStream(DataConfig(vocab=vocab, seq_len=PROBE["seq_len"], batch_per_worker=bpw,
+                                   n_workers=n_workers, seed=seed), "cuda")
+
+
+def warm_checkpoint(torch, model, opt, inner: str, icfg) -> dict:
+    """The DP checkpoint: ``dp_init`` (its optimizer state has the same
+    leaves for either Newton-Schulz mode) then ``PROBE['warm']`` ``dp_step``s
+    of ``opt`` at ``B_tot`` sequences a step (the reference's stream seed
+    11)."""
+    from repro_torch.core import dp_init, dp_step
+
+    state, _ = dp_init(model, inner, icfg, torch.Generator(device="cuda").manual_seed(
+        PROBE["seed"]), "cuda")
+    data = probe_stream(model.cfg.vocab, 1, PROBE["b_tot"], seed=11).batch_stack(0, PROBE["warm"])
+    losses = []
+    for t in range(PROBE["warm"]):
+        state, m = dp_step(model, opt, state, {k: v[t, 0] for k, v in data.items()})
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    assert all(math.isfinite(v) for v in losses), losses
+    print(f"  {inner}: warm-up {PROBE['warm']} DP steps of {PROBE['b_tot']} x "
+          f"{PROBE['seq_len']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return state
+
+
+def branch(torch, model, opt, ckpt: dict, n_workers: int, H: int, track: bool = False):
+    """K = ``n_workers`` workers at B_tot / K sequences each from the
+    checkpoint (params and optimizer state), H ``inner_step``s on the
+    reference's stream seed 5. Returns (``compute_deltas`` [K, ...], the
+    Frobenius norms of each step of w_in [K, H, L] when ``track``)."""
+    from repro_torch.core import compute_deltas, inner_step
+    from repro_torch.utils.tree import tree_map
+
+    def stack(t):
+        return t[None].expand(n_workers, *t.shape).clone()
+
+    state = {"outer_params": ckpt["params"],
+             "worker_params": tree_map(stack, ckpt["params"]),
+             "inner_state": tree_map(stack, ckpt["opt_state"])}
+    data = probe_stream(model.cfg.vocab, n_workers, PROBE["b_tot"] // n_workers,
+                        seed=5).batch_stack(0, H)
+    norms = []
+    for h in range(H):
+        w_in = state["worker_params"]["layers"]["mlp"]["w_in"]
+        prev = w_in.float().clone() if track else None
+        state, _ = inner_step(model, opt, state, {k: v[h] for k, v in data.items()})
+        if track:
+            step = w_in.float() - prev
+            norms.append(torch.sqrt(torch.sum(step * step, dim=(-2, -1))))  # [K, L]
+    deltas = compute_deltas(state)
+    del state
+    return deltas, (torch.stack(norms, dim=1) if track else None)
+
+
+def branch_launches(model, inner: str, icfg, params, n_workers: int, H: int) -> dict:
+    """Kernel launches of a branch: ``TrainEngine.launches_per_round``'s
+    worker steps (K x H of them) without the eval loss or an outer sync."""
+    from repro_torch.core import DiLoCoConfig
+    from repro_torch.engine import TrainEngine
+
+    dcfg = DiLoCoConfig(n_workers=n_workers, sync_interval=H, inner_name=inner, ns_impl="pallas")
+    n = TrainEngine(model, dcfg, icfg).launches_per_round(params, with_eval=False)
+    return {k: n[k] for k in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue")}
+
+
+def relative_gaps(torch, w) -> list:
+    """paper_figures.py's Fig. 3 number per layer: the top-25% interference
+    gap of the K workers' w_in deltas [K, L, m, n] over the workers' mean
+    top-S singular-value mass."""
+    from repro_torch.core.analysis import interference_gap, singular_values
+
+    rels = []
+    for layer in range(w.shape[1]):
+        mats = w[:, layer]
+        gap = float(interference_gap(mats, s_frac=0.25))
+        sv = singular_values(mats)
+        S = max(int(round(0.25 * sv.shape[-1])), 1)
+        mass = float(torch.mean(torch.sum(sv[:, :S], dim=-1)))
+        rels.append(gap / (mass + 1e-12))
+    return rels
+
+
+def float64_check(torch, deltas, psi_k, psi_1, cos: dict, rels: list) -> tuple[float, float]:
+    """The card's fp32 per_matrix_cosines and relative interference gaps
+    against the same quantities in float64 on the CPU (numpy), on the same
+    deltas: within 1e-5."""
+    import numpy as np
+
+    from repro_torch.core.analysis import hidden_matrix_leaves
+
+    b = {p: x.double().cpu().numpy() for p, x in hidden_matrix_leaves(psi_1)}
+    worst_cos = 0.0
+    for p, x in hidden_matrix_leaves(psi_k):
+        a2 = x.double().cpu().numpy().reshape(-1, *x.shape[-2:])
+        b2 = b[p].reshape(a2.shape)
+        for i in range(a2.shape[0]):
+            c = float(np.vdot(a2[i], b2[i]) / (np.linalg.norm(a2[i]) * np.linalg.norm(b2[i])
+                                                + 1e-12))
+            worst_cos = max(worst_cos, abs(c - cos[f"{p}[{i}]"]))
+    w = deltas["layers"]["mlp"]["w_in"].double().cpu().numpy()
+    worst_gap = 0.0
+    for layer in range(w.shape[1]):
+        mats = w[:, layer]
+        sv = np.linalg.svd(mats, compute_uv=False)
+        S = max(int(round(0.25 * sv.shape[-1])), 1)
+        sv_mean = np.linalg.svd(mats.mean(0), compute_uv=False)
+        mass = float(np.mean(np.sum(sv[:, :S], axis=-1)))
+        rel = (mass - float(np.sum(sv_mean[:S]))) / (mass + 1e-12)
+        worst_gap = max(worst_gap, abs(rel - rels[layer]))
+    check("per_matrix_cosines, card fp32 vs CPU float64", worst_cos, 1e-5)
+    check("relative interference gaps of w_in, card fp32 vs CPU float64", worst_gap, 1e-5)
+    return worst_cos, worst_gap
+
+
+def phase_pseudogradients(torch, get_config, build_model, smi: str) -> dict:
+    """[15a] / [15b] the paper's Figs. 2, 3 and 5 and Prop. 4.2 on paper-150m
+    at full width (bf16 compute, the kernels: attn_impl 'pallas', Muon's
+    Newton-Schulz through matmul_epilogue), for Muon and AdamW at K = 2, 4
+    and 8 (``PROBE``). Per (inner, K): the mean, std and min of the
+    per-matrix cosines of Psi_K against Psi_1 (Fig. 2), the relative top-25%
+    interference gap of w_in per layer and averaged (Fig. 3), the
+    coefficient of variation of the per-step Frobenius norms of w_in over
+    workers and steps (Fig. 5) and, for Muon, Prop. 4.2's relative error on
+    the K workers' single-step w_in deltas (H = 1 from the same checkpoint).
+    Checks: cosines finite in [-1, 1]; Prop. 4.2 within 1e-4; launches of
+    every branch equal its formula; at K = 2, the card's cosines and gaps
+    against float64 on the CPU within 1e-5. Whether Muon's cosines beat
+    AdamW's is recorded, not gated."""
+    from repro_torch.core.analysis import per_matrix_cosines, prop42_nuclear_identity
+    from repro_torch.kernels import _build
+    from repro_torch.optim import OptimizerConfig, make_inner_optimizer
+    from repro_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    H, B = PROBE["H"], PROBE["b_tot"]
+    cfg = get_config(PROBE["arch"]).replace(attn_impl="pallas", max_seq_len=PROBE["seq_len"])
+    model = build_model(cfg)
+    icfg = OptimizerConfig(lr=PROBE["lr"], weight_decay=PROBE["weight_decay"])
+    rows = {}
+    launches_total: dict = {}
+    for inner in ("muon", "adamw"):
+        phase = {"muon": "15a", "adamw": "15b"}[inner]
+        print(f"[{phase}] pseudogradients, {PROBE['arch']} full width, --inner {inner}: B_tot "
+              f"{B} x {PROBE['seq_len']}, H {H}, K {PROBE['Ks']}, inner lr {PROBE['lr']}, "
+              f"weight decay {PROBE['weight_decay']}")
+        opt = make_inner_optimizer(inner, icfg, ns_impl="pallas")
+        ckpt = warm_checkpoint(torch, model, opt, inner, icfg)
+        deltas_1, _ = branch(torch, model, opt, ckpt, 1, H)
+        psi_1 = tree_map(lambda d: d[0], deltas_1)
+        for K in PROBE["Ks"]:
+            _build.reset_launch_counts()
+            deltas, norms = branch(torch, model, opt, ckpt, K, H, track=True)
+            got = {k: _build.LAUNCHES[k] for k in ("flash_fwd", "flash_dq", "flash_dkv",
+                                                   "matmul_epilogue")}
+            want = branch_launches(model, inner, icfg, ckpt["params"], K, H)
+            assert got == want, (inner, K, got, want)
+            for k, v in got.items():
+                launches_total[k] = launches_total.get(k, 0) + v
+            psi_k = tree_map(lambda d: torch.mean(d, dim=0), deltas)
+            cos = per_matrix_cosines(psi_k, psi_1)
+            vals = torch.tensor(list(cos.values()), dtype=torch.float64)
+            assert torch.isfinite(vals).all() and vals.abs().max() <= 1 + 1e-6, vals
+            rels = relative_gaps(torch, deltas["layers"]["mlp"]["w_in"])
+            cv = float((torch.std(norms, dim=(0, 1), correction=0)
+                        / (torch.mean(norms, dim=(0, 1)) + 1e-12)).mean())
+            row = dict(cos_mean=float(vals.mean()), cos_std=float(vals.std(correction=0)),
+                       cos_min=float(vals.min()), gap=sum(rels) / len(rels), gaps=rels,
+                       step_norm_cv=cv, n_matrices=len(cos))
+            if K == PROBE["Ks"][0]:
+                row["float64"] = float64_check(torch, deltas, psi_k, psi_1, cos, rels)
+            del deltas, psi_k
+            if inner == "muon":
+                one, _ = branch(torch, model, opt, ckpt, K, 1)
+                w = one["layers"]["mlp"]["w_in"][:, 0]  # [K, m, n], layer 0
+                lhs, rhs = prop42_nuclear_identity(w[:, None], torch.ones(1, device="cuda"))
+                row["prop42_rel_err"] = float(abs(lhs - rhs) / (abs(lhs) + 1e-12))
+                check(f"Prop. 4.2, K = {K}, H = 1, w_in layer 0: |lhs - rhs| / |lhs|",
+                      row["prop42_rel_err"], 1e-4)
+                del one
+            rows[(inner, K)] = row
+            print(f"  {inner} K = {K} (bpw {B // K}): Fig. 2 cosines over {row['n_matrices']} "
+                  f"matrices mean {row['cos_mean']:.4f}, std {row['cos_std']:.4f}, min "
+                  f"{row['cos_min']:.4f}; Fig. 3 relative top-25% gap of w_in "
+                  f"{row['gap']:.4f} (per layer {[round(g, 4) for g in rels]}); Fig. 5 "
+                  f"step-norm CV of w_in {row['step_norm_cv']:.4f}"
+                  + (f"; Prop. 4.2 relative error {row['prop42_rel_err']:.3e}"
+                     if inner == "muon" else "")
+                  + f"; launches {got} = the branch's formula")
+            torch.cuda.empty_cache()
+        del ckpt, deltas_1, psi_1, opt
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    for K in PROBE["Ks"]:
+        m, a = rows[("muon", K)], rows[("adamw", K)]
+        print(f"Fig. 2-5 at K = {K}, {PROBE['arch']}: mean cosine muon {m['cos_mean']:.4f} vs "
+              f"adamw {a['cos_mean']:.4f} ({'muon' if m['cos_mean'] > a['cos_mean'] else 'adamw'}"
+              f" higher; recorded, not gated); relative gap muon {m['gap']:.4f} vs adamw "
+              f"{a['gap']:.4f}; step-norm CV muon {m['step_norm_cv']:.4f} vs adamw "
+              f"{a['step_norm_cv']:.4f}; card (nvidia-smi name, power.limit): {smi}")
+    print(f"  phases 15a-15b took {seconds:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches_total, seconds=seconds)
+
+
+# 15c's fits of fixed, noise-free synthetic points (L = 30 C^-0.08 + 1.6 and
+# 25 C^-0.07 + 1.7 at C = 1e17 ... 1e21), as the session CPU computed them
+# (numpy 2, scipy 1.17.0, seed 0)
+FIT_EXPECT = dict(a=30.10953143197206, alpha=-0.08011810022530783, irr=1.6013438674331049,
+                  joint_irr=1.236312250231642, muon_alpha=-0.05718532841447603,
+                  adamw_alpha=-0.050192431625926355)
+
+
+def phase_scaling_laws() -> dict:
+    """[15c] core/scaling_laws.py on the card's host: scipy is there, and the
+    fits of fixed synthetic points equal the CPU's (``FIT_EXPECT``): within
+    1e-4 relative, what L-BFGS-B's stopping rule resolves (bitwise with the
+    same scipy; another version's L-BFGS-B may stop a step apart)."""
+    import numpy as np
+    import scipy
+
+    from repro_torch.core import scaling_laws as sl
+
+    print(f"[15c] scaling-law fits on the host: numpy {np.__version__}, scipy {scipy.__version__}")
+    C = np.logspace(17, 21, 7)
+    L = 30.0 * C ** -0.08 + 1.6
+    L2 = 25.0 * C ** -0.07 + 1.7
+    fit = sl.fit_power_law(C, L, fit_irr=True, restarts=8)
+    irr, fits = sl.fit_joint_irreducible({"muon": (C, L), "adamw": (C, L2)}, n_grid=3,
+                                         restarts=2)
+    got = dict(a=fit.a, alpha=fit.alpha, irr=fit.irr, joint_irr=irr,
+               muon_alpha=fits["muon"].alpha, adamw_alpha=fits["adamw"].alpha)
+    for k, want in FIT_EXPECT.items():
+        check(f"fit {k}: {got[k]!r} vs the CPU's {want!r} (relative)",
+              abs(got[k] - want) / max(abs(want), 1e-30), 1e-4)
+    return got
+
+
+# the MoE family (16): deepseek-moe-16b (28 layers, d 2048, 16:16 heads of hd
+# 128, 64 routed experts of d_ff 1408, top-6, plus 2 shared, vocab 102,400,
+# untied; ~16.9B parameters). Served at full width and depth with bf16
+# weights (~33.8 GB); one captured MuLoCo round at full width with the depth
+# cut to MOE_TRAIN["depth"] layers (fp32 params: a K = 2 TrainState of the
+# whole model would be ~0.4 TB). Depth 1, not 2: at depth 2 (1.595B
+# parameters, a ~42 GB state) the eager warm-up round held 72 GB and ran out
+# of the card's 79.18 GiB (an NVIDIA H100 80GB HBM3), less than the 10 GB to
+# spare the phase keeps; depth 1 is 1.007B parameters
+MOE = "deepseek-moe-16b"
+MOE_TRAIN = dict(depth=1, K=2, H=2, batch=8, seq_len=1024, rounds=2, lr=3e-3)
+
+
+def moe_param_count(cfg) -> int:
+    """The parameter count of an MoE config with QK-norm and an untied head,
+    from its widths."""
+    d, E, F, hd = cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.hd
+    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + 2 * hd + 2 * d + d * E
+             + 3 * E * d * F + 3 * d * F * cfg.n_shared_experts)
+    return 2 * cfg.vocab * d + d + cfg.n_layers * layer
+
+
+def phase_matmul_moe(torch, mm, ops, ref) -> tuple[dict, dict]:
+    """[16c] matmul_epilogue at deepseek-moe-16b's new Newton-Schulz shapes
+    (the stacks of two layers; 16c''s depth-1 round runs the same matrices,
+    half as many), whose widths are not multiples of the 96-wide tile (64; 1408
+    = 14 x 96 + 64; 2048 = 21 x 96 + 32): the expert banks [2 x 64, 1408,
+    2048] (w_out as it is, w_in / w_gate as the transposed view) and the
+    router [2, 64, 2048] (transposed), each product in all four operand
+    layouts within 1e-5 of the largest output, the symmetric ones bitwise
+    symmetric; then X X^T and B X + a X of the bank timed beside the plain
+    version, the bound and torch.baddbmm, and the full Newton-Schulz of the
+    bank through the kernel against the plain fp32 one."""
+    print("[16c] matmul_epilogue at deepseek-moe-16b's expert-bank and router shapes "
+          "(ragged tile edges), fp32, TF32 off")
+    from repro_torch.optim.muon import NS_COEFFS
+
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    g = torch.randn((128, 1408, 2048), generator=gen, device="cuda")
+    x = normed(g)  # experts/w_out [2, 64, 1408, 2048] as one stack
+    x_in = normed(torch.randn((128, 2048, 1408), generator=gen, device="cuda")).mT  # w_in
+    xr = normed(torch.randn((2, 2048, 64), generator=gen, device="cuda")).mT  # the router
+    A = mm.matmul_epilogue(x, x.mT, symmetric=True)
+    Bm = mm.matmul_epilogue(A, A, A, alpha=nc, beta=nb, symmetric=True)
+    Ar = mm.matmul_epilogue(xr, xr.mT, symmetric=True)
+    Br = mm.matmul_epilogue(Ar, Ar, Ar, alpha=nc, beta=nb, symmetric=True)
+    check_matmul_cases(torch, mm, [
+        ("X X^T, expert bank w_out [128, 1408, 2048]", x, x.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, [128, 1408, 1408]", A, A, A, nc, nb, True),
+        ("B X + a X, [128, 1408, 1408] x [128, 1408, 2048]", Bm, x, x, 1.0, na, False),
+        ("X X^T, expert bank w_in transposed [128, 1408, 2048]", x_in, x_in.mT, None, 1.0, 0.0,
+         True),
+        ("X X^T, router transposed [2, 64, 2048]", xr, xr.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, router [2, 64, 64]", Ar, Ar, Ar, nc, nb, True),
+        ("B X + a X, router [2, 64, 64] x [2, 64, 2048]", Br, xr, xr, 1.0, na, False),
+    ])
+    z, m, k = x.shape
+    xx_bytes = (x.numel() + z * m * m) * 4
+    out = time_matmul(torch, mm, "X X^T, expert bank [128, 1408, 2048], symmetric=True", x,
+                      x.mT, None, 1.0, 0.0, True, 2.0 * z * (m * (m + 1) // 2) * k, xx_bytes)
+    bx = time_matmul(torch, mm, "B X + a X, [128, 1408, 1408] x [128, 1408, 2048]", Bm, x, x,
+                     1.0, na, False, 2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
+    del x_in, xr, A, Ar, Br, Bm, x
+    y = ops.ns_orthogonalize(g)
+    y_ref = ref.ns_orthogonalize_ref(g)
+    torch.cuda.synchronize()
+    check("full Newton-Schulz, expert bank [128, 1408, 2048], kernel vs plain fp32",
+          (y - y_ref).abs().max().item(), 1e-5)
+    del g, y, y_ref
+    torch.cuda.empty_cache()
+    return out, bx
+
+
+def _state_diffs_host(torch, ref_host: dict, state: dict) -> list:
+    """The paths of ``state``'s leaves (on the card) that differ from
+    ``ref_host``'s (on the host), compared one leaf at a time."""
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    la, lb = tree_leaves_with_paths(ref_host), tree_leaves_with_paths(state)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    return [p for (p, a), (_, b) in zip(la, lb) if not torch.equal(a, b.cpu())]
+
+
+def phase_moe_train(torch, get_config, build_model, matmul_ms: dict) -> dict:
+    """[16c'] one captured MuLoCo round of deepseek-moe-16b at full width,
+    depth cut to ``MOE_TRAIN['depth']``: K = 2, H = 2, fp32 params, bf16
+    compute, the flash kernels, Newton-Schulz through matmul_epilogue (the
+    expert banks, the router and the attention and shared matrices: 11 Muon
+    leaves) and the outer Nesterov kernel, 8 x 1024 tokens a worker step.
+    Round 1 is the warm-up (eager) and the capture, round 2 a replay;
+    launches against the formula; finite losses with the aux term in them;
+    the same rounds eager, bitwise (the state compared leaf by leaf against
+    a host copy); one more replayed round profiled: matmul_epilogue's share
+    of its device time; the peak memory."""
+    from repro_torch.core import DiLoCoConfig
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import TrainEngine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    T = MOE_TRAIN
+    K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
+    cfg = get_config(MOE).replace(n_layers=T["depth"], max_seq_len=S, attn_impl="pallas")
+    print(f"[16c'] one captured MuLoCo round, {MOE} full width, depth {cfg.n_layers}: K {K}, "
+          f"H {H}, {B} x {S} tokens a worker step, fp32 params, --ns-impl pallas, "
+          f"--outer-kernel, inner lr {T['lr']}, {n} rounds (the first the warm-up)")
+    model = build_model(cfg)
+    dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name="muon", ns_impl="pallas",
+                        outer_kernel=True)
+    icfg = OptimizerConfig(lr=T["lr"], weight_decay=1e-4, schedule="cosine", warmup_steps=5,
+                           total_steps=n * H)
+    data = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=S, batch_per_worker=B,
+                                   n_workers=K, seed=0), "cuda")
+
+    def run(capture):
+        engine = TrainEngine(model, dcfg, icfg, capture=capture)
+        state = engine.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state, hist = run_rounds(engine, state, lambda r: batches_for_round(data, r, H), n,
+                                 rounds_per_dispatch=1,
+                                 span_batches_for=lambda r0, m: batches_for_span(data, r0, H, m))
+        torch.cuda.synchronize()
+        return engine, state, hist
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine, state, hist = run(None)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state["outer_params"]))
+    assert n_params == moe_param_count(cfg), (n_params, moe_param_count(cfg))
+    per_round = engine.launches_per_round(state["outer_params"], with_eval=False)
+    want = {k: n * v for k, v in per_round.items()}
+    print(f"  {n_params:,} parameters; launches {launches}")
+    print(f"  formula  {want} (rounds x TrainEngine.launches_per_round)")
+    assert launches == want, (launches, want)
+    assert per_round["matmul_epilogue"] == K * H * 3 * 5 * 11, per_round
+    check_captures(engine, per_round, n, [(False, False)])
+    losses = [r["train_loss"] for r in hist]
+    assert all(math.isfinite(v) for v in losses), losses
+    with torch.no_grad():
+        batch = {k: v[0, 0] for k, v in data.batch_stack(10_000, 1).items()}
+        loss, metrics = model.loss(state["outer_params"], batch)
+    aux = metrics["moe_aux"].item()
+    assert math.isfinite(loss.item()) and aux > 0, (loss, aux)
+    assert loss.item() == (metrics["loss"] + cfg.router_aux_coef * metrics["moe_aux"]).item()
+    tokens = K * H * B * S
+    print(f"  losses {[round(v, 4) for v in losses]}; the synced params' loss on a held-out "
+          f"batch {loss.item():.4f} = cross-entropy {metrics['loss'].item():.4f} + "
+          f"{cfg.router_aux_coef} x aux {aux:.4f} (summed over {cfg.n_layers} layers); round "
+          f"walls {[round(r['wall_s'], 3) for r in hist]} s (round 1: warm-up "
+          f"{engine.warmup_s[0]:.3f} s + capture {engine.capture_s[0]:.3f} s); peak device "
+          f"memory {peak_gb:.2f} GB")
+    ref_hist = hist
+    ref_host = tree_map(lambda t: t.to("cpu", copy=True), state)
+
+    def dispatch(i):
+        nonlocal state
+        state, _ = engine.superstep(state, batches_for_span(data, n + i, H, 1))
+
+    replays = engine.replays
+    prof = profile_dispatch(torch, dispatch, tokens, "1 round a dispatch")
+    assert engine.replays == replays + 2, "the profiled rounds were not replays"
+    hits = [(ms, c) for name, (ms, c) in prof["by_name"].items()
+            if "matmul_epilogue_kernel" in name]
+    mm_ms, mm_n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    assert mm_n == per_round["matmul_epilogue"], (mm_n, per_round)
+    share = 100 * mm_ms / prof["busy_ms"]
+    print(f"  matmul_epilogue: {mm_ms:.1f} ms of the round's {prof['busy_ms']:.1f} ms device "
+          f"time ({share:.1f}%), x{mm_n}; beside 16c's event times X X^T "
+          f"{matmul_ms['xx']['ms']:.4f} and B X + a X {matmul_ms['bx']['ms']:.4f} ms on the bank")
+    del engine, state
+    torch.cuda.empty_cache()
+    engine, state, hist = run(False)
+    keys = ("train_loss", "train_loss_last", "comm_bytes", "active_workers")
+    for a, b in zip(ref_hist, hist):
+        for k in keys:
+            assert a[k] == b[k], ("eager", a["round"], k, a[k], b[k])
+    diffs = _state_diffs_host(torch, ref_host, state)
+    assert not diffs, diffs
+    print(f"  eager (capture=False): {len(hist)} rounds' {', '.join(keys)} and every state "
+          "leaf bitwise equal to the captured run's")
+    del engine, state, ref_host, model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_gb=peak_gb, tok_s=prof["tok_s"], idle=prof["idle"],
+                matmul_share=share, busy_ms=prof["busy_ms"], n_params=n_params)
+
+
+def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> dict:
+    """Phase 16: deepseek-moe-16b. (16a) paged_decode at its 16 kv heads
+    (G = 1, hd 128) against its plain version, and the full-width fp32
+    agreement of 4a at depth 2; (16b) the serving main path of 4b at full
+    width and depth with bf16 weights through the captured span, and
+    (16b') its profile, a decode step beside its memory-bound floor (every
+    expert's weights are read: the capacity dispatch runs all E experts on
+    their [C, d] slots); (16c) matmul_epilogue at the expert-bank and router
+    shapes and (16c') one captured MuLoCo round at depth
+    ``MOE_TRAIN['depth']``. Returns the kernels' rows for the summary."""
+    import gc
+
+    fa, mm, ops, ref = (mods[k] for k in ("fa", "mm", "ops", "ref"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE)
+    print(f"[16] {MOE}: {moe_param_count(cfg):,} parameters; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier phases")
+    paged = phase_paged(torch, fa, hd=cfg.hd, KV=cfg.n_kv_heads,
+                        G=cfg.n_heads // cfg.n_kv_heads, phase="16a")
+    phase_agreement(torch, get_config, build_model, MOE, "16a", n_layers=2)
+    torch.cuda.empty_cache()
+    launches, engine = phase_main(torch, fa, get_config, serve, MOE, "16b",
+                                  overrides=dict(param_dtype="bfloat16"))
+    prof = phase_profile(torch, engine, paged["ms"], phase="16b'")
+    serving = dict(tok_s=engine.tok_s, replay_tok_s=engine.replay_tok_s,
+                   eager_tok_s=engine.eager_tok_s, capture_s=engine.capture_s,
+                   peak_gb=engine.peak_gb, step_ms=prof["step_ms"], floor_ms=prof["floor_ms"],
+                   idle=prof["idle"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    xx, bx = phase_matmul_moe(torch, mm, ops, ref)
+    train_out = phase_moe_train(torch, get_config, build_model, dict(xx=xx, bx=bx))
+    s = serving
+    print(f"{MOE} serving ({cfg.n_layers} layers, bf16 weights, {MAIN['batch']} x "
+          f"({MAIN['prompt_len']} + {MAIN['max_new']}), {MAIN['slots']} slots, captured spans): "
+          f"{s['tok_s']:.1f} tok/s (capture {s['capture_s']:.3f} s apart), replays only "
+          f"{s['replay_tok_s']:.1f} tok/s, eager span {s['eager_tok_s']:.1f} tok/s; peak "
+          f"{s['peak_gb']:.2f} GB; a decode step {s['step_ms']:.4f} ms on the card against its "
+          f"floor {s['floor_ms']:.4f} ms; idle {s['idle']:.1f}%; launches flash_fwd "
+          f"{launches['flash_fwd']}, paged_decode {launches['paged_decode']}; card "
+          f"(nvidia-smi name, power.limit): {smi}")
+    t = train_out
+    print(f"{MOE} training (depth {MOE_TRAIN['depth']}, {t['n_params']:,} parameters, K 2, H 2, "
+          f"8 x 1024 tokens a worker step): one replayed round {t['tok_s']:.1f} tokens/s, idle "
+          f"{t['idle']:.1f}%, matmul_epilogue {t['matmul_share']:.1f}% of the device time, "
+          f"peak {t['peak_gb']:.2f} GB; card (nvidia-smi name, power.limit): {smi}")
+    tl = t["launches"]
+    return {"flash_fwd": {"launches": {"serving": launches["flash_fwd"],
+                                       "training": tl["flash_fwd"]}},
+            "paged_decode": {"launches": launches["paged_decode"], **paged},
+            "flash_dq": {"launches": tl["flash_dq"]}, "flash_dkv": {"launches": tl["flash_dkv"]},
+            "matmul_epilogue": {"launches": tl["matmul_epilogue"], **xx, "b_x_plus_a_x": bx},
+            "nesterov": {"launches": tl["nesterov"]}}
+
+
 def main() -> int:
     import torch
 
@@ -2215,6 +2836,7 @@ def main() -> int:
 
     ref_hist = out["history"]
     ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
+    muon_tok_s = out["tok_s"]
     phase_train_profile(torch, out, TRAIN, focus=("flash_fwd_wgmma_kernel",
                                                   "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                                                   "matmul_epilogue_kernel"),
@@ -2228,6 +2850,7 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state)
+    ref_host = tree_map(lambda t: t.to("cpu", copy=True), ref_state)  # phase 14a's reference
     del ref_state
     torch.cuda.empty_cache()
 
@@ -2244,6 +2867,21 @@ def main() -> int:
     ladder = slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
                       build_model, build_parser, train, serve, smi)
     nemotron = slice_nemotron(torch, fa, get_config, build_model, serve, smi)
+    variants = slice_variants(torch, build_parser, train, ref_hist, ref_host, muon_tok_s, smi)
+    del ref_host
+    probe = phase_pseudogradients(torch, get_config, build_model, smi)
+    phase_scaling_laws()
+    moe = slice_moe(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref), get_config, build_model,
+                    serve, smi)
+
+    def new_paths(name: str) -> dict:
+        """A kernel's launches on slice 6b's paths (14b, 15, 16)."""
+        rows = {inner: {"launches": v["launches"][name]} for inner, v in variants.items()
+                if name != "paged_decode"}
+        if name in probe["launches"]:
+            rows[f"{PROBE['arch']} pseudogradients"] = {"launches": probe["launches"][name]}
+        rows[MOE] = moe[name]
+        return rows
 
     src = "src/repro_torch/kernels/csrc"
     jax_src = "src/repro/kernels"
@@ -2251,25 +2889,27 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:184",
          "launches": launches["flash_fwd"], **flash["serving"], LADDER: ladder["flash_fwd"],
-         NEMOTRON: nemotron["flash_fwd"]},
+         NEMOTRON: nemotron["flash_fwd"], **new_paths("flash_fwd")},
         {"name": "paged_decode", "route": "cuda", "source": f"{src}/paged_decode.cu",
          "replaces": f"{jax_src}/flash_attention.py:439",
          "launches": launches["paged_decode"], **paged, LADDER: ladder["paged_decode"],
-         NEMOTRON: nemotron["paged_decode"]},
+         NEMOTRON: nemotron["paged_decode"], **new_paths("paged_decode")},
         {"name": "flash_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:230",
-         "launches": train_launches["flash_dq"], **bwd["flash_dq"], LADDER: ladder["flash_dq"]},
+         "launches": train_launches["flash_dq"], **bwd["flash_dq"], LADDER: ladder["flash_dq"],
+         **new_paths("flash_dq")},
         {"name": "flash_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{jax_src}/flash_attention.py:254",
          "launches": train_launches["flash_dkv"], **bwd["flash_dkv"],
-         LADDER: ladder["flash_dkv"]},
+         LADDER: ladder["flash_dkv"], **new_paths("flash_dkv")},
         {"name": "matmul_epilogue", "route": "cuda", "source": f"{src}/matmul_epilogue.cu",
          "replaces": f"{jax_src}/matmul.py:47",
          "launches": train_launches["matmul_epilogue"], **matmul,
-         LADDER: ladder["matmul_epilogue"]},
+         LADDER: ladder["matmul_epilogue"], **new_paths("matmul_epilogue")},
         {"name": "nesterov", "route": "cuda", "source": f"{src}/outer_update.cu",
          "replaces": f"{jax_src}/outer_update.py:58",
-         "launches": train_launches["nesterov"], **nesterov, LADDER: ladder["nesterov"]},
+         "launches": train_launches["nesterov"], **nesterov, LADDER: ladder["nesterov"],
+         **new_paths("nesterov")},
         {"name": "quantize", "route": "cuda", "source": f"{src}/quantize.cu",
          "replaces": f"{jax_src}/quantize.py:40",
          "launches": run_a["quantize"], **quant["quantize"]},
@@ -2290,7 +2930,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[14] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[17] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Config registry (port of ``repro/configs/base.py``).
 
 Registered so far: ``smollm-135m``, the paper's Gemma3-style ladder
-(``paper-150m`` ... ``paper-15.23b``) and ``nemotron-4-15b`` (relu2, 48:8
-heads, served on one card with ``param_dtype='bfloat16'``); every other
+(``paper-150m`` ... ``paper-15.23b``), ``nemotron-4-15b`` (relu2, 48:8
+heads, served on one card with ``param_dtype='bfloat16'``) and the MoE
+family's ``deepseek-moe-16b`` and ``moonshot-v1-16b-a3b``; every other
 architecture of the reference raises a ``KeyError`` that points at
 ``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
@@ -99,4 +100,10 @@ def list_configs() -> list[str]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import nemotron_4_15b, paper_gemma3, smollm_135m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_moe_16b,
+        moonshot_v1_16b_a3b,
+        nemotron_4_15b,
+        paper_gemma3,
+        smollm_135m,
+    )

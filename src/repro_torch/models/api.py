@@ -1,4 +1,4 @@
-"""Model API (port of ``repro/models/api.py``), dense family only.
+"""Model API (port of ``repro/models/api.py``), the dense and MoE families.
 
     model = build_model(cfg)
     params = model.init(gen, device)
@@ -12,9 +12,10 @@
     logits, cache = model.paged_prefill(params, cache, tokens, page_table, lengths)
     logits, cache = model.paged_decode_step(params, cache, token, page_table, lengths)
 
-Caches are written in place (the reference returns new ones). The other
-families (moe, ssm, hybrid, audio, vlm) come with later slices of the port
-(ROADMAP.md).
+Caches are written in place (the reference returns new ones). The MoE
+loss adds ``router_aux_coef`` times the layers' summed load-balance aux and
+reports it as ``metrics["moe_aux"]``. The other families (ssm, hybrid,
+audio, vlm) come with later slices of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,14 +29,13 @@ from repro_torch.models.common import ModelConfig, fused_cross_entropy, softmax_
 
 Tree = Any
 
-_FAMILIES: dict[str, dict[str, Callable]] = {
-    "dense": {
-        "init": lm.init_lm, "forward": lm.forward_lm,
-        "init_cache": lm.init_cache_lm, "decode_step": lm.decode_step_lm,
-        "prefill_cache": lm.prefill_with_cache_lm,
-        "paged_prefill": lm.paged_prefill_lm, "paged_decode": lm.paged_decode_step_lm,
-    },
+_LM_FAMILY: dict[str, Callable] = {
+    "init": lm.init_lm, "forward": lm.forward_lm,
+    "init_cache": lm.init_cache_lm, "decode_step": lm.decode_step_lm,
+    "prefill_cache": lm.prefill_with_cache_lm,
+    "paged_prefill": lm.paged_prefill_lm, "paged_decode": lm.paged_decode_step_lm,
 }
+_FAMILIES: dict[str, dict[str, Callable]] = {"dense": _LM_FAMILY, "moe": _LM_FAMILY}
 
 
 @dataclass(frozen=True)
@@ -63,13 +63,16 @@ class Model:
         ``fused`` uses the chunked head + cross-entropy (never materialises
         the [B, S, V] logits); disabled automatically for softcap."""
         if fused and not self.cfg.logit_softcap:
-            hidden, _ = self._fam["forward"](self.cfg, params, batch["tokens"],
-                                             hidden_only=True)
+            hidden, aux = self._fam["forward"](self.cfg, params, batch["tokens"],
+                                               hidden_only=True)
             loss, metrics = fused_cross_entropy(hidden, self.head_weight(params),
                                                 batch["labels"])
         else:
-            logits, _ = self.forward(params, batch["tokens"])
+            logits, aux = self.forward(params, batch["tokens"])
             loss, metrics = softmax_cross_entropy(logits, batch["labels"])
+        if self.cfg.n_experts and self.cfg.router_aux_coef:
+            loss = loss + self.cfg.router_aux_coef * aux
+            metrics["moe_aux"] = aux
         metrics["loss_total"] = loss
         return loss, metrics
 
@@ -126,7 +129,6 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.arch_type not in _FAMILIES:
         raise ValueError(f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
-                         "(only 'dense'); see ROADMAP.md for the order of slices")
-    if cfg.n_experts:
-        raise ValueError("MoE layers are not ported to repro_torch yet; see ROADMAP.md")
+                         f"(ported: {sorted(_FAMILIES)}); see ROADMAP.md for the order of "
+                         "slices")
     return Model(cfg)

@@ -1,4 +1,4 @@
-"""Decoder-only language model, dense family (port of ``repro/models/lm.py``).
+"""Decoder-only language models, dense and MoE (port of ``repro/models/lm.py``).
 
 Layers are stacked along a leading ``[L, ...]`` axis as in the reference;
 where the reference scans over that axis, the port loops in Python. The
@@ -6,7 +6,8 @@ training forward takes the layers apart with one ``torch.unbind`` per leaf
 (its backward stacks the L layer gradients once, where indexing each layer
 would write a full-size gradient of the stack per layer), and with
 ``cfg.remat`` runs each block under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` around the scan body).
+reference's ``jax.checkpoint`` around the scan body). An MoE layer's
+load-balance aux is summed over the layers in the reference's order.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, dense_init, embed_init, rms_norm
-from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
 
 Tree = Any
 
@@ -37,8 +38,6 @@ def _unstack(tree: Tree, n: int) -> list[Tree]:
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers come with a later slice of the port (ROADMAP.md)")
     L = cfg.n_layers
     pd = cfg.pdtype
     layers = {
@@ -49,7 +48,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
     if cfg.post_norm:
         layers["ln1_post_scale"] = torch.zeros((L, cfg.d_model), dtype=pd, device=device)
         layers["ln2_post_scale"] = torch.zeros((L, cfg.d_model), dtype=pd, device=device)
-    layers["mlp"] = init_mlp(gen, cfg, device, n_layers=L)
+    if cfg.n_experts:
+        layers["moe"] = init_moe(gen, cfg, device, n_layers=L)
+    else:
+        layers["mlp"] = init_mlp(gen, cfg, device, n_layers=L)
     params = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype=pd, device=device),
         "layers": layers,
@@ -61,26 +63,31 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
     return params
 
 
-def _ffn(cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor, lp: Tree) -> torch.Tensor:
-    """Residual add of the attention output, then the MLP sublayer."""
+def _ffn(cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor, lp: Tree):
+    """Residual add of the attention output, then the MLP or MoE sublayer.
+    Returns (x, the MoE aux; None for a dense layer)."""
     if cfg.post_norm:
         h = rms_norm(h, lp["ln1_post_scale"])
     x = x + h
-    h = mlp(lp["mlp"], cfg, rms_norm(x, lp["ln2_scale"]))
+    hin = rms_norm(x, lp["ln2_scale"])
+    if cfg.n_experts:
+        h, aux = moe(lp["moe"], cfg, hin)
+    else:
+        h, aux = mlp(lp["mlp"], cfg, hin), None
     if cfg.post_norm:
         h = rms_norm(h, lp["ln2_post_scale"])
-    return x + h
+    return x + h, aux
 
 
 def _block(cfg: ModelConfig, x: torch.Tensor, lp: Tree, positions: torch.Tensor,
            return_kv: bool = False):
-    """One transformer block. Returns x (and the block's post-RoPE (k, v)
-    when ``return_kv``, for cache-filling prefill)."""
+    """One transformer block. Returns (x, moe_aux or None) (+ the block's
+    post-RoPE (k, v) when ``return_kv``, for cache-filling prefill)."""
     h = attn.attend(lp["attn"], cfg, rms_norm(x, lp["ln1_scale"]), positions,
                     return_kv=return_kv)
     if return_kv:
         h, kv = h
-        return _ffn(cfg, x, h, lp), kv
+        return (*_ffn(cfg, x, h, lp), kv)
     return _ffn(cfg, x, h, lp)
 
 
@@ -105,17 +112,20 @@ def _logits(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
 
 def forward_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor, last_only: bool = False,
                hidden_only: bool = False, **_) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward. tokens [B, S] -> (logits [B,S,V], aux = 0 for the dense family)."""
+    """Forward. tokens [B, S] -> (logits [B,S,V], the MoE aux summed over
+    layers; 0 for the dense family)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x = checkpoint(lambda x, lp=lp: _block(cfg, x, lp, positions), x,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(lambda x, lp=lp: _block(cfg, x, lp, positions), x,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(cfg, x, lp, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block(cfg, x, lp, positions)
+        if a is not None:
+            aux = aux + a
     if last_only:
         x = x[:, -1:]
     if hidden_only:
@@ -134,7 +144,7 @@ def prefill_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _block(cfg, x, _layer(params["layers"], i), positions, return_kv=True)
+        x, _, (k, v) = _block(cfg, x, _layer(params["layers"], i), positions, return_kv=True)
         ks.append(k)
         vs.append(v)
     return _logits(cfg, params, x), torch.stack(ks), torch.stack(vs)
@@ -154,7 +164,7 @@ def paged_decode_step_lm(cfg: ModelConfig, params: Tree, cache: Tree, token: tor
         lp = _layer(params["layers"], i)
         h, _ = attn.paged_attend_decode(lp["attn"], cfg, rms_norm(x, lp["ln1_scale"]),
                                         _layer(cache, i), page_table, lengths, impl=impl)
-        x = _ffn(cfg, x, h, lp)
+        x, _ = _ffn(cfg, x, h, lp)
     return _logits(cfg, params, x)[:, 0], cache
 
 
@@ -213,5 +223,5 @@ def decode_step_lm(cfg: ModelConfig, params: Tree, cache: Tree, token: torch.Ten
         lp = _layer(params["layers"], i)
         h, _ = attn.attend_decode(lp["attn"], cfg, rms_norm(x, lp["ln1_scale"]),
                                   _layer(cache, i), pos)
-        x = _ffn(cfg, x, h, lp)
+        x, _ = _ffn(cfg, x, h, lp)
     return _logits(cfg, params, x)[:, 0], cache

@@ -5,9 +5,11 @@ protocol from the inner step to the outer sync.
   ``partition`` (``None`` holes), ``stateless``, ``scale_by_schedule``;
 * :func:`repro_torch.optim.base.descend` — a direction chain -> an
   ``Optimizer`` (schedule, per-leaf lr scale, decoupled weight decay);
-* inner optimizers (``--inner``): ``adamw`` (DiLoCo) and ``muon``
-  (MuLoCo). ``muon_bp`` and ``normuon`` are named in the registry and
-  raise until their slice (ROADMAP.md, Slice 6);
+* inner optimizers (``--inner``): ``adamw`` (DiLoCo), ``muon``
+  (MuLoCo), and the chain-built variants of
+  :mod:`repro_torch.optim.muon_variants`: ``muon_bp`` (block-periodic
+  Newton–Schulz every ``OptimizerConfig.ns_period`` steps) and ``normuon``
+  (a neuron-wise RMS post-scale);
 * outer transforms (``--outer``): ``nesterov`` (paper Eq. 3, optionally
   through the fused Hopper kernel) and ``sgd``.
 """
@@ -30,6 +32,12 @@ from repro_torch.optim.muon import (  # noqa: F401
     param_labels,
     trace_momentum,
 )
+from repro_torch.optim.muon_variants import (  # noqa: F401
+    muon_bp,
+    normuon,
+    orthogonalize_periodic,
+    scale_by_neuron_rms,
+)
 from repro_torch.optim.nesterov import nesterov, outer_sgd  # noqa: F401
 from repro_torch.optim.transform import (  # noqa: F401
     Transform,
@@ -41,19 +49,10 @@ from repro_torch.optim.transform import (  # noqa: F401
 )
 
 
-def _deferred(name: str):
-    def build(*args, **kw):
-        raise NotImplementedError(
-            f"inner optimizer {name!r} (optim/muon_variants.py) is not ported to "
-            "repro_torch yet: ROADMAP.md, Queue 1, Slice 6")
-
-    return build
-
-
 # Single-source registries: the CLI choice lists and the builder dispatch
 # derive from the same dicts.
-_INNER_BUILDERS = {"adamw": adamw, "muon": muon, "muon_bp": _deferred("muon_bp"),
-                   "normuon": _deferred("normuon")}
+_INNER_BUILDERS = {"adamw": adamw, "muon": muon, "muon_bp": muon_bp,
+                   "normuon": normuon}
 _OUTER_BUILDERS = {
     "nesterov": lambda lr, momentum, state_dtype, kernel: nesterov(
         lr, momentum, state_dtype=state_dtype, kernel=kernel),
@@ -64,7 +63,8 @@ OUTER_OPTIMIZERS = tuple(_OUTER_BUILDERS)
 
 
 def make_inner_optimizer(name: str, cfg: OptimizerConfig, **kw) -> Optimizer:
-    """'adamw' -> DiLoCo, 'muon' -> MuLoCo."""
+    """'adamw' -> DiLoCo, 'muon' -> MuLoCo, plus the chain-built variants
+    'muon_bp' (block-periodic NS) and 'normuon'."""
     if name not in _INNER_BUILDERS:
         raise ValueError(f"unknown inner optimizer {name!r} "
                          f"(have {sorted(_INNER_BUILDERS)})")

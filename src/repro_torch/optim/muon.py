@@ -19,8 +19,8 @@ matmul-epilogue kernel (``kernels/ops.ns_orthogonalize``, fp32 iterations,
 one launch per call for the whole stack); ``'jnp'`` is the reference's
 plain mode, normalised in fp32 and iterated in bf16, in plain PyTorch. The
 reference's ``shard_hint`` resharding hints are no-ops on one card and are
-left out. ``muon_bp`` and ``normuon`` (``optim/muon_variants.py``) come
-with a later slice (ROADMAP.md).
+left out. Variants (MuonBP, NorMuon) swap or extend the "muon" chain:
+:mod:`repro_torch.optim.muon_variants`.
 """
 from __future__ import annotations
 

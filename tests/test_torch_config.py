@@ -66,7 +66,8 @@ LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=1
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tconfigs.get_config("mamba2-370m")
-    assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER])
+    assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER,
+                                              *MOE])
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -160,9 +161,70 @@ def test_ladder_tree_paths_labels_and_roundtrip():
 
 @pytest.mark.parametrize("arch_type", ["moe", "ssm", "hybrid", "audio", "vlm"])
 def test_unported_family_names_roadmap(arch_type):
+    """The families still to port raise naming ROADMAP.md; ``moe`` (a case
+    that raised before the MoE family was ported) builds, as the
+    reference's does."""
     cfg = tconfigs.get_config("smollm-135m").replace(arch_type=arch_type)
+    if arch_type == "moe":
+        assert tbuild_model(cfg).cfg.arch_type == "moe"
+        return
     with pytest.raises(ValueError, match="ROADMAP.md"):
         tbuild_model(cfg)
+
+
+MOE = ["deepseek-moe-16b", "moonshot-v1-16b-a3b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_config_equals_reference(name, reduced):
+    """The MoE configs equal the reference's field for field (and reduced:
+    4 experts, top-2, one shared). deepseek-moe-16b: 28 layers, d 2048,
+    16:16 heads of 128, 64 routed experts of d_ff 1408 top-6 plus 2 shared,
+    vocab 102,400, untied, ~16.9B parameters; moonshot-v1-16b-a3b ~28.9B
+    (CPU, reduced widths only)."""
+    ref, port = get_config(name), tconfigs.get_config(name)
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd
+    if reduced:
+        assert (port.n_experts, port.experts_per_token, port.n_shared_experts) == (4, 2, 1)
+        return
+    assert (port.arch_type, port.hd, port.n_heads // port.n_kv_heads) == ("moe", 128, 1)
+    d, L, F, V, E = port.d_model, port.n_layers, port.d_ff, port.vocab, port.n_experts
+    layer = 4 * d * port.n_heads * port.hd + d * E + 3 * E * d * F + 3 * d * F * 2 + 2 * d
+    layer += 2 * port.hd  # q/k norm scales
+    n = 2 * V * d + d + L * layer
+    lo, hi = (16.8e9, 17.0e9) if name == "deepseek-moe-16b" else (28.8e9, 29.0e9)
+    assert lo < n < hi, n
+
+
+def test_moe_tree_paths_labels_and_roundtrip():
+    """A reduced deepseek-moe-16b tree: the reference's init crosses the
+    numpy bridge and back exactly, the port's own init has the same paths
+    (layers/moe/router, layers/moe/experts/*, layers/moe/shared/*), shapes
+    and dtypes, and muon_label labels each as the reference's does (the
+    router and the expert banks Muon)."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim.muon import muon_label
+
+    jcfg = reduce_config(get_config("deepseek-moe-16b"))
+    tcfg = tconfigs.reduce_config(tconfigs.get_config("deepseek-moe-16b"))
+    ref = jax.tree.map(np.asarray, jax.jit(build_model(jcfg).init)(jax.random.PRNGKey(0)))
+    back = dict(tree_leaves_with_paths(params_to_numpy(params_from_numpy(ref, "cpu"))))
+    own = dict(tree_leaves_with_paths(params_to_numpy(
+        tbuild_model(tcfg).init(torch.Generator().manual_seed(0), "cpu"))))
+    ref_leaves = {"/".join(str(k.key) for k in p): x
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert sorted(ref_leaves) == sorted(back) == sorted(own)
+    assert ref_leaves["layers/moe/experts/w_in"].shape == (2, 4, 256, 512)
+    for path, x in ref_leaves.items():
+        np.testing.assert_array_equal(back[path], x)
+        assert own[path].shape == x.shape and own[path].dtype == x.dtype, path
+        assert muon_label(path, x) == jmuon_label(path, x), path
+    for path in ("layers/moe/router", "layers/moe/experts/w_out", "layers/moe/shared/w_gate"):
+        assert muon_label(path, ref_leaves[path]) == "muon", path
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -9,6 +9,7 @@ other, bf16 leaves included. The captured path on the card is held to the
 same equalities by ``chip_smoke.py``.
 """
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -242,6 +243,61 @@ def test_superstep_r2_matches_reference(inner):
                       atol=2e-4, rtol=1e-4, **adam)
     assert int(tnew["round"]) == int(jnew.round) == 2
     assert np.array_equal(tout["comm_bytes"].numpy(), np.asarray(jout["comm_bytes"]))
+
+
+# deepseek-moe-16b at a narrow width (test_torch_models.py's MOE_SMALL)
+MOE_SMALL = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=32,
+                 vocab=128, n_experts=8, experts_per_token=2, n_shared_experts=1, moe_groups=2,
+                 dtype="float32", remat=False, attn_impl="pallas")
+
+
+def test_moe_round_matches_reference(monkeypatch):
+    """One MuLoCo round (K = 2, H = 2, fp32 Newton-Schulz, the outer
+    Nesterov) of the narrow deepseek-moe-16b from one bridged TrainState:
+    losses (aux included), worker and outer params and the outer momentum
+    against the reference's superstep at the dense round's tolerances. The port runs its kernels' plain versions
+    (``ns_impl='pallas'``, ``outer_kernel``); the reference runs its fp32
+    Newton-Schulz through its own plain oracle (``kernels/ref.py``, which
+    its tests hold its Pallas kernel to; interpret mode would take ~10 s)
+    and its XLA outer update. The launch formula counts 11 Muon leaves (four
+    attention matrices, the router, three expert banks, three shared
+    matrices) among 18."""
+    from repro.configs import get_config as jget_config
+    from repro.kernels import ref as jref
+    from repro_torch.configs import get_config as tget_config
+
+    jmuon = sys.modules["repro.optim.muon"]  # the module (repro.optim.muon is the function)
+
+    def ns_plain(g, iters=5, eps=1e-7):
+        *batch, m, n = g.shape
+        return jref.ns_orthogonalize_ref(g.reshape(-1, m, n), iters, eps).reshape(g.shape)
+
+    monkeypatch.setattr(jmuon, "newton_schulz_pallas", ns_plain)
+    jcfg = jget_config("deepseek-moe-16b").replace(**MOE_SMALL)
+    tcfg = tget_config("deepseek-moe-16b").replace(**MOE_SMALL)
+    dkw = dict(n_workers=2, sync_interval=2, inner_name="muon", ns_impl="pallas")
+    jd, td = JDiLoCoConfig(**dkw), DiLoCoConfig(**dkw, outer_kernel=True)
+    okw = dict(lr=2e-2, weight_decay=1e-4, schedule="cosine", warmup_steps=1, total_steps=2)
+    jo, to = JOptimizerConfig(**okw), OptimizerConfig(**okw)
+    jmodel = jbuild_model(jcfg)
+    # one compile for the whole init (eager, each draw compiles on its own)
+    jstate = jax.jit(lambda key: jdiloco_init(jmodel, jd, jo, key))(jax.random.PRNGKey(0))
+    tstate = train_state(**state_from_numpy(_jstate_numpy(jstate), "cpu"))
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab, (2, 2, 2, 17)).astype(np.int32)
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}  # [H, K, B, S]
+    jnew, jout = JTrainEngine(jmodel, jd, jo).superstep(
+        jstate, {k: jnp.asarray(v)[None] for k, v in batches.items()})
+    tengine = TrainEngine(build_model(tcfg), td, to)
+    tnew, tout = tengine.superstep(
+        tstate, {k: torch.from_numpy(v)[None] for k, v in batches.items()})
+    tight = dict(atol=2e-5, rtol=1e-4, adamw_tol=okw["lr"])
+    assert_tree_close(tout["loss"], jout["loss"], "loss", **tight)
+    assert_tree_close(tnew["worker_params"], jnew.worker_params, "workers", **tight)
+    assert_tree_close(tnew["outer_params"], jnew.outer_params, "outer", **tight)
+    assert_tree_close(tnew["outer_opt"], jax.tree.map(np.asarray, jnew.outer_opt), "u",
+                      atol=2e-4, rtol=1e-4, adamw_tol=okw["lr"])
+    n = tengine.launches_per_round(tnew["outer_params"])
+    assert n["matmul_epilogue"] == 2 * 2 * 3 * 5 * 11 and n["nesterov"] == 18
 
 
 # ------------------------------------------------------------- checkpoints

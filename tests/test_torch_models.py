@@ -10,6 +10,8 @@ the logits' typical scale of 1-2) plus rtol 2**-7, one bf16 ulp of the
 value: the largest logits reach ~12, where one ulp is 0.0625 and the two
 frameworks, which round at different points, differ by that ulp.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -452,4 +454,145 @@ def test_nemotron_logits_match_reference(impl, g6):
         tlog, tcache = tmodel.paged_decode_step(tparams, tcache, torch.from_numpy(tok), tt,
                                                 torch.from_numpy(n), impl=impl)
         np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
+
+
+# ------------------------------------------------------------------------ MoE
+
+# deepseek-moe-16b at a narrow width (both packages): 2 layers, d 64, 8
+# routed experts top-2 plus one shared, 2 token groups
+MOE_SMALL = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=32,
+                 vocab=128, n_experts=8, experts_per_token=2, n_shared_experts=1, moe_groups=2,
+                 dtype="float32", remat=False)
+MOE_LAYERS = {
+    # tests/test_models.py::test_moe_capacity_overflow_drops_gracefully: C = 4 of 8
+    # tokens x 2 slots a group, so most pairs drop
+    "overflow": (dict(d_model=16, d_ff=32, n_experts=4, experts_per_token=2,
+                      n_shared_experts=1, capacity_factor=0.01, moe_groups=2), (2, 8, 16)),
+    # G = 4 groups of 8 tokens, 8 experts top-2, two shared experts; C = 4, some drops
+    "grouped-shared": (dict(d_model=32, d_ff=24, n_experts=8, experts_per_token=2,
+                            n_shared_experts=2, moe_groups=4), (2, 16, 32)),
+}
+
+
+def _assert_no_topk_ties(gates: np.ndarray, k: int):
+    """torch.topk and lax.top_k may order tied gates differently: the inputs
+    are drawn so that the k-th and (k+1)-th gates of every token differ."""
+    s = np.sort(gates, axis=-1)[..., ::-1]
+    assert (s[..., k - 1] - s[..., k]).min() > 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(MOE_LAYERS))
+def test_moe_layer_matches_reference(case):
+    """The MoE layer's grouped capacity dispatch (top-k, renormalised gates,
+    the per-expert rank and keep mask, dropped pairs, shared experts, the
+    Switch aux) against the reference's, fp32: output and aux within 1e-5,
+    and the gradients of sum(out * r) + aux with respect to every weight and
+    to x within 1e-5."""
+    from repro.models.common import ModelConfig as JModelConfig
+    from repro.models.mlp import init_moe as jinit_moe, moe as jmoe
+    from repro_torch.models.mlp import _n_groups, moe as tmoe
+
+    kw, shape = MOE_LAYERS[case]
+    jcfg = JModelConfig(arch_type="moe", dtype="float32", **kw)
+    tcfg = tcommon.ModelConfig(arch_type="moe", dtype="float32", **kw)
+    jp = jax.tree.map(np.asarray, jinit_moe(jax.random.PRNGKey(0), jcfg, n_layers=None))
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(shape).astype(np.float32)
+    r = rng.standard_normal(shape).astype(np.float32)
+    G = _n_groups(tcfg, shape[0] * shape[1])
+    logits = x.reshape(G, -1, shape[2]) @ jp["router"]
+    gates = np.exp(logits - logits.max(-1, keepdims=True))
+    _assert_no_topk_ties(gates / gates.sum(-1, keepdims=True), tcfg.experts_per_token)
+
+    def jf(p, x):
+        out, aux = jmoe(p, jcfg, x)
+        return jnp.sum(out * r) + aux, (out, aux)
+
+    (_, (jout, jaux)), (jgp, jgx) = jax.jit(jax.value_and_grad(jf, argnums=(0, 1),
+                                                                has_aux=True))(
+        jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)).requires_grad_(True), jp)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tout, taux = tmoe(tp, tcfg, tx)
+    (torch.sum(tout * torch.from_numpy(r)) + taux).backward()
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(taux.item(), float(jaux), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=1e-5, rtol=0)
+    for (path, g), (_, t) in zip(jax.tree_util.tree_flatten_with_path(jgp)[0],
+                                 jax.tree_util.tree_flatten_with_path(tp)[0]):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-5, rtol=0,
+                                   err_msg=str(path))
+    assert torch.isfinite(tout).all() and tout.shape == shape
+
+
+@functools.lru_cache(maxsize=1)
+def _moe_params():
+    """The narrow deepseek-moe-16b's reference init as numpy (attn_impl does
+    not enter the init): one compile for the file's MoE tests."""
+    jmodel = build_model(get_config("deepseek-moe-16b").replace(**MOE_SMALL))
+    return jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+
+
+def _moe_pair(impl: str):
+    jcfg = get_config("deepseek-moe-16b").replace(attn_impl=impl, **MOE_SMALL)
+    tcfg = tconfigs.get_config("deepseek-moe-16b").replace(attn_impl=impl, **MOE_SMALL)
+    jparams = jax.tree.map(jnp.asarray, _moe_params())
+    return build_model(jcfg), jparams, tbuild_model(tcfg), params_from_numpy(_moe_params(), "cpu")
+
+
+def test_moe_lm_forward_loss_and_grads_match_reference():
+    """A narrow deepseek-moe-16b (fp32, reference params): the forward's
+    logits and summed aux within 1e-5, the loss with router_aux_coef x aux
+    within 1e-6 and its ``moe_aux`` metric, and every gradient leaf within
+    1e-6 (~1e-7 measured)."""
+    jmodel, jparams, tmodel, tparams = _moe_pair("xla")
+    toks = _tokens(22, (2, 17), 128)
+    jl, jaux = jax.jit(jmodel.forward)(jparams, jnp.asarray(toks[:, :-1]))
+    tl, taux = tmodel.forward(tparams, torch.from_numpy(toks[:, :-1]))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(taux), float(jaux), atol=1e-5, rtol=0)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    tb = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    (jloss, jm), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jb)
+    leaves = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    tloss, tm = tmodel.loss(leaves, tb)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tm["moe_aux"].item(), float(jm["moe_aux"]), atol=1e-5, rtol=0)
+    assert tloss.item() > tm["loss"].item()  # the aux term is in the loss
+    for (path, g), (_, t) in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
+                                 jax.tree_util.tree_flatten_with_path(leaves)[0]):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-6, rtol=0,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_moe_paged_decode_step_logits_match_reference(impl):
+    """The narrow deepseek-moe-16b through a paged prefill (a right-padded
+    row) and 3 decode steps fed the reference's greedy tokens: logits within
+    fp32 atol 1e-4 and the same greedy tokens (the MoE routes the pads and
+    both slots of a step together, on both sides)."""
+    jmodel, jparams, tmodel, tparams = _moe_pair(impl)
+    B, P, ps, steps = 2, 6, 4, 3
+    alloc, table = _paged_setup(B, P, steps, ps, seed=8)
+    toks = _tokens(23, (B, P), jmodel.cfg.vocab)
+    lens = np.asarray([P, P - 2], np.int32)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jcache = jmodel.init_paged_cache(alloc.n_pages, ps)
+    jl, jcache = jax.jit(jmodel.paged_prefill)(jparams, jcache, jnp.asarray(toks), jt,
+                                               jnp.asarray(lens))
+    tcache = tmodel.init_paged_cache(alloc.n_pages, ps, "cpu")
+    tl, tcache = tmodel.paged_prefill(tparams, tcache, torch.from_numpy(toks), tt,
+                                      torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    tok = np.asarray(jl)[np.arange(B), lens - 1].argmax(-1).astype(np.int32)
+    jstep = jax.jit(lambda p, c, t, n: jmodel.paged_decode_step(p, c, t, jt, n, impl=impl))
+    for t in range(steps):
+        n = lens + t
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.asarray(n))
+        tlog, tcache = tmodel.paged_decode_step(tparams, tcache, torch.from_numpy(tok), tt,
+                                                torch.from_numpy(n), impl=impl)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        np.testing.assert_array_equal(tlog.argmax(-1).numpy(), np.asarray(jlog.argmax(-1)))
         tok = np.asarray(jlog.argmax(-1)).astype(np.int32)

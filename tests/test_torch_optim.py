@@ -6,6 +6,9 @@ optimizer takes two steps on both sides (the second from the first's
 state), so momenta, bias corrections and the schedule's counter are held
 too. Every state leaf and every ``None`` hole is compared.
 """
+import dataclasses
+import sys
+
 import numpy as np
 import pytest
 
@@ -205,9 +208,16 @@ def test_outer_transforms_match_reference():
 def test_registries_name_the_reference_optimizers():
     assert toptim.INNER_OPTIMIZERS == joptim.INNER_OPTIMIZERS
     assert toptim.OUTER_OPTIMIZERS == joptim.OUTER_OPTIMIZERS
+    p = _small()
     for name in ("muon_bp", "normuon"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            toptim.make_inner_optimizer(name, toptim.OptimizerConfig())
+        for period in (1, 4):
+            cfg = dict(ns_period=period)
+            jst = jax.tree.map(np.asarray, joptim.make_inner_optimizer(
+                name, joptim.OptimizerConfig(**cfg)).init(jax.tree.map(jnp.asarray, p)))
+            tst = toptim.make_inner_optimizer(name, toptim.OptimizerConfig(**cfg)).init(
+                params_from_numpy(p, "cpu"))
+            assert_tree_close(tst, jst, f"{name} init", atol=0, rtol=0)
+            assert tree_map(lambda x: x.dtype, tst)["count"] == torch.int32
     with pytest.raises(ValueError):
         toptim.make_inner_optimizer("sgd", toptim.OptimizerConfig())
     np_state = jax.tree.map(np.asarray, joptim.muon(joptim.OptimizerConfig()).init(
@@ -215,3 +225,214 @@ def test_registries_name_the_reference_optimizers():
     bridged = state_from_numpy(np_state, "cpu")
     assert_tree_close(bridged, np_state, "bridge", atol=0, rtol=0)
     assert tree_map(lambda x: x.dtype, bridged)["count"] == torch.int32
+
+
+# ------------------------------------------------------------ Muon variants
+
+def _variant_tree(seed):
+    """A small tree with Muon leaves of both orientations (m < n and m > n,
+    at most 64 x 96) and AdamW leaves, plus N(0, 1e-2) gradients."""
+    rng = np.random.default_rng(seed)
+    shapes = {"embed": (16, 8), "layers": {"w_in": (2, 64, 96), "w_out": (2, 96, 64),
+                                           "ln1_scale": (2, 64)}}
+    p = jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32) * 0.1, shapes,
+                     is_leaf=lambda x: isinstance(x, tuple))
+    return p, lambda: jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 1e-2)
+                                   .astype(np.float32), p)
+
+
+def _run_steps(jopt, topt, p, draw, n):
+    jp, tp = jax.tree.map(jnp.asarray, p), params_from_numpy(p, "cpu")
+    js, ts = jopt.init(jp), topt.init(tp)
+    out = []
+    for _ in range(n):
+        g = draw()
+        jp, js = jopt.step(jp, jax.tree.map(jnp.asarray, g), js)
+        tp, ts = topt.step(tp, params_from_numpy(g, "cpu"), ts)
+        out.append(((tp, ts), (jax.tree.map(np.asarray, jp), jax.tree.map(np.asarray, js))))
+    return out
+
+
+@pytest.mark.parametrize("ns_impl", ["jnp", "pallas"])
+def test_muon_bp_period_one_is_muon_bitwise(ns_impl):
+    """At ns_period 1 the periodic stage is bypassed: muon_bp is muon, every
+    param and state leaf bitwise over three steps, bf16 and fp32 NS (the
+    reference's docstring pins the same)."""
+    p, draw = _variant_tree(7)
+    cfg = toptim.OptimizerConfig(**CFG, ns_period=1)
+    a, b = toptim.muon_bp(cfg, ns_impl=ns_impl), toptim.muon(cfg, ns_impl=ns_impl)
+    pa, pb = params_from_numpy(p, "cpu"), params_from_numpy(p, "cpu")
+    sa, sb = a.init(pa), b.init(pb)
+    for _ in range(3):
+        g = params_from_numpy(draw(), "cpu")
+        pa, sa = a.step(pa, g, sa)
+        pb, sb = b.step(pb, g, sb)
+        for (path, x), (_, y) in zip(tree_leaves_with_paths((pa, sa)),
+                                     tree_leaves_with_paths((pb, sb))):
+            assert torch.equal(x, y), path
+
+
+def _reference_plain_fp32_ns(monkeypatch):
+    """Route the reference's ns_impl='pallas' through its own plain fp32
+    oracle (``kernels/ref.py``, which its tests hold its Pallas kernel to):
+    the same fp32 iterations without interpret mode's cost."""
+    jmuon = sys.modules["repro.optim.muon"]  # the module (repro.optim.muon is the function)
+
+    def ns_plain(g, iters=5, eps=1e-7):
+        *_, m, n = g.shape
+        return jref.ns_orthogonalize_ref(g.reshape(-1, m, n), iters, eps).reshape(g.shape)
+
+    monkeypatch.setattr(jmuon, "newton_schulz_pallas", ns_plain)
+
+
+def test_muon_bp_periodic_steps_match_reference(monkeypatch):
+    """ns_period 3 over 7 steps with fp32 Newton-Schulz on both sides (the
+    reference's through its plain oracle): NS on steps 1, 4 and 7, the fp32
+    momentum on the others. Params within atol 2e-6 + rtol 1e-5 and state
+    within 1e-6 + 1e-5 at every step (the Muon test's tolerances); the own
+    counter equals the reference's."""
+    _reference_plain_fp32_ns(monkeypatch)
+    p, draw = _variant_tree(8)
+    jcfg = joptim.OptimizerConfig(**CFG, ns_period=3)
+    tcfg = toptim.OptimizerConfig(**CFG, ns_period=3)
+    steps = _run_steps(joptim.muon_bp(jcfg, ns_impl="pallas"),
+                       toptim.muon_bp(tcfg, ns_impl="pallas"), p, draw, 7)
+    for i, ((tp, ts), (jp, js)) in enumerate(steps):
+        assert_tree_close(tp, jp, f"step {i + 1} params", atol=2e-6, rtol=1e-5)
+        assert_tree_close(ts, js, f"step {i + 1} state", atol=1e-6, rtol=1e-5)
+    assert int(ts["tx"]["muon"][1]["count"]) == 7
+
+
+def test_normuon_steps_match_reference(monkeypatch):
+    """NorMuon over 3 steps, fp32 Newton-Schulz on both sides (the
+    reference's through its plain oracle): the neuron-wise second moment v
+    [..., m, 1] and the restored per-matrix norm. Params within atol 2e-6 +
+    rtol 1e-5, state (momenta, v, counters) within 1e-6 + 1e-5."""
+    _reference_plain_fp32_ns(monkeypatch)
+    p, draw = _variant_tree(9)
+    steps = _run_steps(joptim.normuon(joptim.OptimizerConfig(**CFG), ns_impl="pallas"),
+                       toptim.normuon(toptim.OptimizerConfig(**CFG), ns_impl="pallas"),
+                       p, draw, 3)
+    for i, ((tp, ts), (jp, js)) in enumerate(steps):
+        assert_tree_close(tp, jp, f"step {i + 1} params", atol=2e-6, rtol=1e-5)
+        assert_tree_close(ts, js, f"step {i + 1} state", atol=1e-6, rtol=1e-5)
+    v = ts["tx"]["muon"][2]["v"]
+    assert v["layers"]["w_in"].shape == (2, 64, 1) and v["embed"] is None
+
+
+# ------------------------------------------------------------ core/analysis
+
+def _delta_trees(seed, K=3):
+    rng = np.random.default_rng(seed)
+    shapes = {"embed": (16, 8), "layers": {"w_in": (2, 48, 64), "w_out": (2, 64, 48),
+                                           "ln1_scale": (2, 48)}, "proj": (40, 24)}
+    return [jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32), shapes,
+                         is_leaf=lambda x: isinstance(x, tuple)) for _ in range(K)]
+
+
+def test_analysis_tree_functions_match_reference():
+    """hidden_matrix_leaves (through muon_label), per_matrix_cosines (one
+    cosine per [L, m, n] slice, keys ``path[i]``) and frobenius_norms
+    against the reference's on the same numpy trees: the same keys, values
+    within 1e-6 (fp32 dot products of ~3,000 terms)."""
+    from repro.core import analysis as janalysis
+    from repro_torch.core import analysis as tanalysis
+
+    a, b = _delta_trees(11, K=2)
+    ja = [(pth, np.asarray(x)) for pth, x in
+          janalysis.hidden_matrix_leaves(jax.tree.map(jnp.asarray, a))]
+    ta = tanalysis.hidden_matrix_leaves(params_from_numpy(a, "cpu"))
+    assert sorted(pth for pth, _ in ja) == [pth for pth, _ in ta] == [
+        "layers/w_in", "layers/w_out", "proj"]
+    jc = janalysis.per_matrix_cosines(jax.tree.map(jnp.asarray, a), jax.tree.map(jnp.asarray, b))
+    tc = tanalysis.per_matrix_cosines(params_from_numpy(a, "cpu"), params_from_numpy(b, "cpu"))
+    assert sorted(jc) == sorted(tc) and "layers/w_in[1]" in tc
+    for key in jc:
+        np.testing.assert_allclose(tc[key], jc[key], atol=1e-6, err_msg=key)
+    jf = janalysis.frobenius_norms(jax.tree.map(jnp.asarray, a))
+    tf = tanalysis.frobenius_norms(params_from_numpy(a, "cpu"))
+    assert sorted(jf) == sorted(tf)
+    for key in jf:
+        np.testing.assert_allclose(tf[key], jf[key], rtol=1e-6, err_msg=key)
+    x = torch.from_numpy(a["proj"])
+    np.testing.assert_allclose(float(tanalysis.cosine(x, 2 * x)), 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 48), (3, 64, 40)])
+def test_analysis_spectral_functions_match_reference(shape):
+    """singular_values, orthonormal_factor, nuclear_norm and the top-S
+    interference gap (Def. 4.1) on [K, m, n] worker matrices (m < n and
+    m > n), against the reference's jnp.linalg results: singular values and
+    nuclear norms within rtol 1e-5, U V^T within 1e-5 (distinct singular
+    values, so the factor is unique), the gap within 1e-4 of the top-S mass."""
+    from repro.core import analysis as janalysis
+    from repro_torch.core import analysis as tanalysis
+
+    w = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    tw, jw = torch.from_numpy(w), jnp.asarray(w)
+    np.testing.assert_allclose(tanalysis.singular_values(tw[0]).numpy(),
+                               np.asarray(janalysis.singular_values(jw[0])), rtol=1e-5)
+    np.testing.assert_allclose(tanalysis.orthonormal_factor(tw[0]).numpy(),
+                               np.asarray(janalysis.orthonormal_factor(jw[0])), atol=1e-5)
+    np.testing.assert_allclose(float(tanalysis.nuclear_norm(tw[1])),
+                               float(janalysis.nuclear_norm(jw[1])), rtol=1e-5)
+    for s_frac in (0.05, 0.25):
+        jg = float(janalysis.interference_gap(jw, s_frac))
+        tg = float(tanalysis.interference_gap(tw, s_frac))
+        mass = float(janalysis.nuclear_norm(jw[0]))
+        assert abs(tg - jg) <= 1e-4 * mass, (s_frac, tg, jg)
+
+
+def test_prop42_identity_matches_reference():
+    """Proposition 4.2 on a [K, H, m, n] stack of steps with uneven alphas:
+    the port's (lhs, rhs) equal the reference's within rtol 1e-5, and lhs
+    equals rhs within 1e-4 relative (the identity is exact)."""
+    from repro.core import analysis as janalysis
+    from repro_torch.core import analysis as tanalysis
+
+    rng = np.random.default_rng(13)
+    steps = rng.standard_normal((3, 4, 32, 48)).astype(np.float32)
+    alphas = np.array([1.0, 0.5, 0.25, 2.0], np.float32)
+    jl, jr = janalysis.prop42_nuclear_identity(jnp.asarray(steps), jnp.asarray(alphas))
+    tl, tr = tanalysis.prop42_nuclear_identity(torch.from_numpy(steps), torch.from_numpy(alphas))
+    np.testing.assert_allclose([float(tl), float(tr)], [float(jl), float(jr)], rtol=1e-5)
+    assert abs(float(tl) - float(tr)) <= 1e-4 * float(tl)
+
+
+# -------------------------------------------------------- core/scaling_laws
+
+def _power_law_points(seed):
+    rng = np.random.default_rng(seed)
+    C = np.logspace(17, 21, 7)
+    return C, 30.0 * C ** -0.08 + 1.6 + rng.normal(0, 1e-3, C.shape)
+
+
+def test_scaling_law_fits_match_reference():
+    """fit_power_law (fixed and fitted irreducible), fit_joint_irreducible,
+    optimal_and_critical_batch and iso_loss_time_ratio on fixed synthetic
+    points: the port's copy of the reference's numpy/scipy code gives the
+    reference's numbers exactly with the same seed (8 restarts at most)."""
+    from repro.core import scaling_laws as jsl
+    from repro_torch.core import scaling_laws as tsl
+
+    C, L = _power_law_points(14)
+    asdict = dataclasses.asdict
+    for kw in (dict(irr=1.6, restarts=8), dict(fit_irr=True, restarts=8)):
+        assert asdict(tsl.fit_power_law(C, L, **kw)) == asdict(jsl.fit_power_law(C, L, **kw))
+    data = {"muon": (C, L), "adamw": _power_law_points(15)}
+    kw = dict(n_grid=3, restarts=2)
+    (ti, tfits), (ji, jfits) = tsl.fit_joint_irreducible(data, **kw), \
+        jsl.fit_joint_irreducible(data, **kw)
+    assert ti == ji and {k: asdict(f) for k, f in tfits.items()} == {
+        k: asdict(f) for k, f in jfits.items()}
+    np.testing.assert_array_equal(tsl.huber(L - 2.0), jsl.huber(L - 2.0))
+    batches, losses = [64, 128, 256, 512, 1024], [3.1, 3.0, 3.01, 3.05, 3.2]
+    assert tsl.optimal_and_critical_batch(batches, losses) == \
+        jsl.optimal_and_critical_batch(batches, losses)
+    fits = [tsl.PowerLawFit(a=30.0, alpha=-0.08, irr=1.6, objective=0.0),
+            tsl.PowerLawFit(a=2.0, alpha=0.3, irr=0.0, objective=0.0),
+            tsl.PowerLawFit(a=28.0, alpha=-0.08, irr=1.6, objective=0.0),
+            tsl.PowerLawFit(a=2.5, alpha=0.3, irr=0.0, objective=0.0)]
+    jfits = [jsl.PowerLawFit(**asdict(f)) for f in fits]
+    assert tsl.iso_loss_time_ratio(*fits, target_loss=2.5) == \
+        jsl.iso_loss_time_ratio(*jfits, target_loss=2.5)

@@ -372,3 +372,39 @@ def test_span_fn_eager_on_cpu_and_capture_needs_cuda():
     L = tmodel.cfg.n_layers
     assert eng.launches() == {"flash_fwd": L * st["prefill_dispatches"],
                               "paged_decode": L * 3 * st["spans"]}
+
+
+# ------------------------------------------------------------------------ MoE
+
+# deepseek-moe-16b at a narrow width (test_torch_models.py's MOE_SMALL)
+MOE_SMALL = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=32,
+                 vocab=128, n_experts=8, experts_per_token=2, n_shared_experts=1, moe_groups=2,
+                 dtype="float32", remat=False, attn_impl="pallas")
+
+
+def test_moe_engines_match_reference():
+    """The narrow deepseek-moe-16b (fp32, reference params, the kernels'
+    plain versions) through the PagedEngine on the staggered-arrival
+    workload: greedy tokens equal the reference engine's. A slot's MoE
+    output depends on its group's other rows (idle slots and prompt pads
+    included), so this also holds that both engines fill those alike. Then
+    naive_generate against the reference's naive_generate."""
+    jmodel = build_model(get_config("deepseek-moe-16b").replace(**MOE_SMALL))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))  # one compile, not one a draw
+    tmodel = tbuild_model(tconfigs.get_config("deepseek-moe-16b").replace(**MOE_SMALL))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    span, shape = WORKLOADS["late_join"]
+    specs = [(f"r{i}", _prompt(50 + i, n, 128), new, arr)
+             for i, (n, new, arr) in enumerate(shape)]
+    kw = dict(slots=2, page_size=4, max_pages=32, decode_steps_per_dispatch=span)
+    ref = JPagedEngine(jmodel, jparams, attn_impl="pallas", **kw).run(
+        [JRequest(*s) for s in specs])
+    out = PagedEngine(tmodel, tparams, attn_impl="pallas", device="cpu", **kw).run(
+        [Request(*s) for s in specs])
+    assert sorted(out) == sorted(ref)
+    for rid in ref:
+        np.testing.assert_array_equal(out[rid], np.asarray(ref[rid]))
+    prompts = np.random.default_rng(18).integers(0, 128, (2, 5)).astype(np.int32)
+    jtoks = jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), 4)
+    ttoks = naive_generate(tmodel, tparams, torch.from_numpy(prompts), 4)
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))

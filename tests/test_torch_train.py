@@ -325,8 +325,8 @@ def _check_one_round(jcfg, tcfg, inner, outer_kernel, K):
 def test_engine_eval_loss_and_deferred_configs():
     """TrainEngine runs a round and evaluates the outer params. The configs
     Slice 4b and the DP baseline brought (elastic, sync delay,
-    outer_enabled=False) build and run a round; an inner optimizer of a
-    later slice (muon_bp) raises NotImplementedError naming ROADMAP.md."""
+    outer_enabled=False) build and run a round; the Muon variants (muon_bp,
+    normuon) build an engine and its state."""
     _, tcfg = _cfgs()
     model = tbuild_model(tcfg)
     dcfg = DiLoCoConfig(n_workers=2, sync_interval=1, inner_name="adamw")
@@ -345,8 +345,11 @@ def test_engine_eval_loss_and_deferred_configs():
         state = engine.init(torch.Generator().manual_seed(0), "cpu")
         state, info = engine.step(state, batches_for_round(stream, 0, 1))
         assert int(state["round"]) == 1 and math.isfinite(float(info["loss"][0])), ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainEngine(model, DiLoCoConfig(inner_name="muon_bp"), OptimizerConfig())
+    for inner, stage in (("muon_bp", 1), ("normuon", 2)):  # the stage with a counter
+        engine = TrainEngine(model, DiLoCoConfig(n_workers=2, sync_interval=1, inner_name=inner),
+                             OptimizerConfig(ns_period=2))
+        state = engine.init(torch.Generator().manual_seed(0), "cpu")
+        assert state["inner_state"]["tx"]["muon"][stage]["count"].tolist() == [0, 0], inner
 
 
 def test_launches_per_round_formula():
@@ -410,17 +413,31 @@ def test_train_cli_ladder_reduced_on_cpu(tmp_path):
     assert all(math.isfinite(v) for v in out["losses"]) and math.isfinite(out["final_loss"])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "2x2"], ["--inner", "muon_bp"], ["--inner", "normuon"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2x2"]])
 def test_train_cli_deferred_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttrain.train(_args(tmp_path, *flags))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-370m", "whisper-large-v3"])
+@pytest.mark.parametrize("flags", [["--inner", "muon_bp", "--ns-period", "2"],
+                                   ["--inner", "normuon"]])
+def test_train_cli_muon_variants_run(tmp_path, flags):
+    """``--inner muon_bp --ns-period b`` and ``--inner normuon`` run through
+    the CLI (once raising cases of the test above): finite losses, and
+    muon_bp's own NS counter counted every inner step (K·H per round)."""
+    out = ttrain.train(_args(tmp_path, *flags))
+    assert all(math.isfinite(v) for v in out["losses"]) and math.isfinite(out["final_loss"])
+    tx = out["state"]["inner_state"]["tx"]["muon"]
+    if flags[1] == "muon_bp":
+        assert tx[1]["count"].tolist() == [4, 4]  # 2 rounds x H = 2, per worker
+    else:
+        assert tx[2]["v"]["layers"]["mlp"]["w_in"].shape[-1] == 1
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mamba2-370m", "whisper-large-v3"])
 def test_train_cli_unported_arch_raises(tmp_path, arch):
-    """An architecture not ported yet (MoE, the other families) raises the
-    config registry's KeyError naming ROADMAP.md."""
+    """An architecture not ported yet (kimi-k2's hd 112, the other families)
+    raises the config registry's KeyError naming ROADMAP.md."""
     with pytest.raises(KeyError, match="ROADMAP.md"):
         ttrain.train(_args(tmp_path, "--arch", arch))
 
