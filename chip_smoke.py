@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    registers, shared memory and spills for each kernel function, and the
    count of tensor-core instructions (HGMMA, HMMA) in each function's SASS
    (``cuobjdump --dump-sass``); fails if a bf16 flash sweep (forward, dq,
-   dkv, each at head dim 64 and 128) has no HGMMA or spills.
+   dkv, each at head dim 64, 80 and 128) has no HGMMA or spills.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes in bf16 plus odd-length, sliding-window and fp32 cases
    (tolerances: bf16 outputs 2e-2, lse 1e-3, fp32 1e-5), and times each
@@ -204,13 +204,38 @@ Phases, in order; any failure raises and the script exits nonzero:
    captured MuLoCo round at full width, depth cut (``MOE_TRAIN``): launches,
    the aux term in the loss, eager bitwise, matmul_epilogue's share of the
    round, peak memory.
-17. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+17. The SSM and hybrid families (slice 7a): mamba2-370m (``MAMBA``: 48
+   Mamba2 layers, d 1024, no attention) and zamba2-2.7b (``ZAMBA``: 54
+   Mamba2 layers of d 2560 in 9 superblocks, one shared attention block of
+   32:32 heads at hd 80, window 4096): (17a) ptxas of the flash sweeps at hd
+   64, 80 and 128, then flash_fwd and flash_dq / flash_dkv at hd 80 against
+   their plain versions as 3a and 5a check them (``FLASH_FWD_CASES[80]``,
+   ``FLASH_BWD_CASES[80]``, bitwise from run to run), timed at zamba2's
+   training shape q [32, 8192, 1, 80] with the window beside the bound, the
+   plain version and SDPA (the window as a boolean mask); (17b)
+   matmul_epilogue at the SSM Newton-Schulz shapes (``SSM_NS_SHAPES``) in
+   all four layouts, each in_proj's X X^T and B X + a X timed; (17c) 6a's
+   fp32 agreement on mamba2-370m at depth 2 and zamba2-2.7b at one
+   superblock and S = 8192, and decode_step stepped over 256 tokens against
+   the forward's logits (1e-3); (17d) mamba2-370m's training command
+   ``TRAIN_MAMBA`` at full width and depth, captured: launches against the
+   formula (no flash; matmul_epilogue 30 a worker step), losses falling,
+   (17d') a profiled replayed round with the SSD scan's share, (17d'') eager
+   bitwise; (17e) zamba2-2.7b at one superblock (``ZAMBA_TRAIN``), captured,
+   the same checks; (17f) both served through the naive engine, 4b's
+   workload as one lockstep batch (zamba2 in bf16 weights): tok/s, a decode
+   step's device time beside its floor, peak memory, a shorter repeat
+   bitwise.
+18. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
-   paged_decode's at G = 6 under ``"nemotron-4-15b"``, and the launches of
+   paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
    pseudogradients"`` and ``"deepseek-moe-16b"``, with matmul_epilogue's
-   expert-bank timing), the script's seconds, then the last line ``{"ok":
-   true, "device": {...}}``.
+   expert-bank timing, and slice 7a's launches and timings under
+   ``"mamba2-370m"`` and ``"zamba2-2.7b"``: the flash rows at hd 80,
+   matmul_epilogue at each in_proj; the serving paths launch none), the
+   script's seconds, then the last line ``{"ok": true, "device": {...}}``.
+   A line ``-- phases ... done at N s`` follows each group of phases.
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -387,19 +412,23 @@ def phase_build(_build):
         for fn, ops in sass_counts(r["path"]).items():
             print(f"    {fn}: tensor-core instructions in SASS {ops}")
             sass[fn] = ops
-    for fn in (f"flash_{k}_wgmma_kernel<{hd}>" for k in ("fwd", "dq", "dkv") for hd in (64, 128)):
+    for fn in (f"flash_{k}_wgmma_kernel<{hd}>" for k in ("fwd", "dq", "dkv")
+               for hd in (64, 80, 128)):
         if not sass.get(fn, {}).get("HGMMA"):
             raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ptxas.get(fn, "")):
             raise AssertionError(f"{fn}: spills (or no ptxas report): {ptxas.get(fn)}")
-    bq, bkv, rows, keys, bq128, bkv128, smem, smem128 = _build.kernel_tiles("flash_fwd")
+    bq, bkv, rows, keys, bq128, bkv128, bq80, bkv80, smem, smem128, smem80 = \
+        _build.kernel_tiles("flash_fwd")
     print(f"  flash_fwd: bf16 sweep tiles of {rows} packed q rows x {keys} keys, one warpgroup "
-          f"a block, dynamic shared memory {smem} B (hd 64) and {smem128} B (hd 128); fp32 "
-          f"sweep {bq} positions x {bkv} keys (hd 64), {bq128} x {bkv128} (hd 128)")
-    rows, keys, dq_smem, dkv_smem, dq128, dkv128 = _build.kernel_tiles("flash_bwd")
+          f"a block, dynamic shared memory {smem} B (hd 64), {smem80} B (hd 80) and {smem128} B "
+          f"(hd 128); fp32 sweep {bq} positions x {bkv} keys (hd 64), {bq80} x {bkv80} (hd 80), "
+          f"{bq128} x {bkv128} (hd 128)")
+    rows, keys, dq_smem, dkv_smem, dq128, dkv128, dq80, dkv80 = _build.kernel_tiles("flash_bwd")
     print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys; hd 64: one "
           f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv); "
-          f"hd 128: {dq128} B (dq, one warpgroup), {dkv128} B (dkv, two warpgroups)")
+          f"hd 128: {dq128} B (dq, one warpgroup), {dkv128} B (dkv, two warpgroups); hd 80: "
+          f"{dq80} B (dq), {dkv80} B (dkv, two warpgroups)")
     split, threads, split128 = _build.kernel_tiles("paged_decode")
     print(f"  paged_decode: split-K pass of {split} (hd 64) or {split128} (hd 128) positions a "
           f"block of {threads} threads, then a combine pass")
@@ -410,6 +439,7 @@ def phase_build(_build):
     print(f"  quantize: a row of up to {warp_max} entries in a warp's registers, up to "
           f"{block_max} in a block's (read once); longer rows read twice over ~{blocks} blocks "
           f"of at least {groups} float4 groups")
+    return ptxas
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -451,6 +481,19 @@ FLASH_FWD_CASES = {
           (2 * 1, 96, 2, _FP32, False, 0, None),
           (2 * 1, 77, 2, _FP32, True, 20, None),
           (1, 50, 8, _FP32, True, 0, None)],
+    # hd 80: zamba2-2.7b's shared block (17a), the training shape (one
+    # sequence of 8192 x 32 kv heads, G = 1, window 4096) first
+    80: [(32, 8192, 1, _BF16, True, 4096, "training"),
+         (2 * 2, 77, 2, _BF16, True, 0, None),
+         (2 * 2, 300, 1, _BF16, True, 100, None),
+         (2 * 2, 130, 1, _BF16, False, 0, None),
+         (2 * 1, 77, 2, _BF16, False, 20, None),
+         (2 * 1, 130, 2, _BF16, True, 37, None),
+         (1, 70, 8, _BF16, True, 0, None),
+         (2 * 2, 130, 1, _FP32, True, 0, None),
+         (2 * 1, 96, 2, _FP32, False, 0, None),
+         (2 * 1, 77, 2, _FP32, True, 20, None),
+         (1, 50, 8, _FP32, True, 0, None)],
 }
 
 
@@ -502,7 +545,11 @@ def phase_flash(torch, fa, hd: int = 64, phase: str = "3a", cases: list | None =
         ks = k[:, None].expand(BKV, G, S, hd).contiguous()
         vs = v[:, None].expand(BKV, G, S, hd).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=causal))
+        mask = window_mask(torch, S, window) if window else None
+        library_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=causal and not window,
+                                                 attn_mask=mask))
+        if window:
+            print(f"  sdpa with the window as a boolean mask: {sdpa_backend(torch, qs, ks, vs, mask)}")
         flops = 4 * hd * flash_pairs(S, causal, window) * BKV * G
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
         out[timed] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -905,17 +952,33 @@ def phase_profile(torch, engine, paged_ms: float, phase: str = "4c") -> dict:
                 floor_ms=floor_ms, kernels_per_step=kernels / engine.span)
 
 
-def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int) -> float:
+def window_mask(torch, S: int, window: int):
+    """The causal sliding window as SDPA's boolean mask [S, S] (True: attend)."""
+    i = torch.arange(S, device="cuda")
+    return (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+
+def sdpa_backend(torch, q, k, v, mask) -> str:
+    """The backend SDPA takes for these inputs, by the name of its backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    return type(o.grad_fn).__name__
+
+
+def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int, window: int = 0) -> float:
     """The library yardstick of the flash backward: SDPA's backward alone (dq,
     dk and dv in one autograd call), from one causal forward with enable_gqa
-    kept with retain_graph. Prints the backend and three repeats of
-    ``time_ms``; returns their median."""
+    (with ``window``, the window as a boolean mask) kept with retain_graph.
+    Prints the backend and three repeats of ``time_ms``; returns their
+    median."""
     _, S, G, hd = q.shape
     qs = q.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
     dos = do.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
     leaves = [t.detach().requires_grad_(True)
               for t in (qs, k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd))]
-    o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    mask = window_mask(torch, S, window) if window else None
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=not window,
+                                                         attn_mask=mask, enable_gqa=True)
     repeats = [time_ms(torch, lambda: torch.autograd.grad(o, leaves, dos, retain_graph=True))
                for _ in range(3)]
     print(f"  sdpa backward ({type(o.grad_fn).__name__}): "
@@ -953,6 +1016,19 @@ FLASH_BWD_CASES = {
           (2, 2, 77, 2, _BF16, False, 20),
           (2, 2, 300, 1, _BF16, True, 100),
           (1, 1, 70, 8, _BF16, True, 0)],
+    80: [(1, 32, 8192, 1, _BF16, True, 4096),
+         (2, 2, 300, 1, _FP32, True, 0),
+         (2, 3, 77, 2, _FP32, True, 0),
+         (2, 1, 96, 2, _FP32, False, 0),
+         (2, 1, 130, 1, _FP32, True, 37),
+         (1, 1, 50, 8, _FP32, True, 0),
+         (2, 3, 77, 2, _BF16, True, 0),
+         (2, 1, 96, 1, _BF16, False, 0),
+         (2, 2, 130, 1, _BF16, True, 0),
+         (2, 1, 130, 2, _BF16, True, 37),
+         (2, 2, 77, 2, _BF16, False, 20),
+         (2, 2, 300, 1, _BF16, True, 100),
+         (1, 1, 70, 8, _BF16, True, 0)],
 }
 
 
@@ -977,9 +1053,17 @@ def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
         got = fa._bwd_cuda(*args, **kw)
         again = fa._bwd_cuda(*args, **kw)
         plain = (fa._dq_plain(*args, **kw), *fa._dkv_plain(*args, **kw))
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o_ref, _ = fa._fwd_plain(*leaves, **kw)
-        auto = torch.autograd.grad(o_ref, leaves, do)
+        # autograd through the plain forward, a few rows of BKV at a time at
+        # S = 8192 (its fp32 scores and probabilities are 8.6 GB a tensor)
+        step = max(1, (1 << 28) // (S * S * G))
+        parts = []
+        for r in range(0, BKV, step):
+            leaves = [t[r:r + step].detach().requires_grad_(True) for t in (q, k, v)]
+            o_ref, _ = fa._fwd_plain(*leaves, **kw)
+            parts.append(torch.autograd.grad(o_ref, leaves, do[r:r + step]))
+            del o_ref, leaves
+        auto = [torch.cat(p) for p in zip(*parts)]
+        del parts
         torch.cuda.synchronize()
         tag = f"{str(dt)[6:]} q{[BKV, S, G, hd]} causal={causal} window={window}"
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag}: not deterministic"
@@ -1004,7 +1088,7 @@ def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
         dkv_ms = time_ms(torch, lambda: fa._dkv_cuda(*args, **kw))
         dq_plain = time_ms(torch, lambda: fa._dq_plain(*args, **kw), runs=5)
         dkv_plain = time_ms(torch, lambda: fa._dkv_plain(*args, **kw), runs=5)
-        lib_ms = sdpa_backward_ms(torch, q, k, v, do, B, KV)
+        lib_ms = sdpa_backward_ms(torch, q, k, v, do, B, KV, window)
         out["flash_dq"] = dict(max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain,
                                library_ms=lib_ms,
                                **bound(6 * hd * rows, io + q.numel() * q.element_size(),
@@ -1220,21 +1304,24 @@ def phase_nesterov(torch, ou, n: int = 134_515_008, phase: str = "5c"):
 
 
 def phase_train_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
-                          phase: str = "6a"):
+                          phase: str = "6a", n_layers: int | None = None, S: int = 256):
     """[6a] full width, fp32: loss and gradients pallas vs xla, then one Muon
-    step through the kernel vs the plain fp32 Newton-Schulz."""
-    print(f"[{phase}] full-width fp32 training agreement, {arch} (B=1, S=256)")
+    step through the kernel vs the plain fp32 Newton-Schulz (``n_layers``
+    cuts the depth, never a width)."""
+    print(f"[{phase}] full-width fp32 training agreement, {arch} (B=1, S={S})"
+          + (f", depth cut to {n_layers} layers" if n_layers else ""))
     from repro_torch.kernels import ref
     from repro_torch.optim import OptimizerConfig, chain, descend, stateless, trace_momentum
     from repro_torch.optim.muon import muon, muon_mults, muon_partition
     from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_paths, tree_map,
                                        tree_map_with_path)
 
-    base = get_config(arch).replace(dtype="float32")
+    base = get_config(arch).replace(dtype="float32", **({"n_layers": n_layers} if n_layers
+                                                         else {}))
     dev = torch.device("cuda")
     model_k, model_p = build_model(base.replace(attn_impl="pallas")), build_model(base)
     params = model_k.init(torch.Generator(device=dev).manual_seed(0), dev)
-    toks = torch.randint(0, base.vocab, (1, 257), generator=torch.Generator().manual_seed(6))
+    toks = torch.randint(0, base.vocab, (1, S + 1), generator=torch.Generator().manual_seed(6))
     batch = {"tokens": toks[:, :-1].to(dev, torch.int32), "labels": toks[:, 1:].to(dev, torch.int32)}
     paths = []
     tree_map_with_path(lambda p, _: paths.append(p), params)  # tree_leaves' order
@@ -1268,10 +1355,12 @@ def phase_train_agreement(torch, get_config, build_model, arch: str = "smollm-13
 
 
 def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str = "6b",
-                     falls: bool = True):
+                     falls: bool = True,
+                     kernels: tuple = ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue",
+                                       "nesterov")):
     """[6b] the training main path through the CLI entry point, in-process;
     ``falls``: the train and eval losses must fall from the first round to
-    the last."""
+    the last; each of ``kernels`` must have launched."""
     from repro_torch.kernels import _build
 
     print(f"[{phase}] main path: repro_torch.launch.train " + " ".join(argv))
@@ -1288,7 +1377,7 @@ def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str 
     print(f"  launches {launches}")
     print(f"  formula  {want} (rounds x TrainEngine.launches_per_round)")
     assert launches == want, (launches, want)
-    for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov"):
+    for name in kernels:
         assert launches[name] > 0, name
     check_captures(engine, per_round, args.rounds, [(True, False)])
     print(f"  round 1's wall {hist[0]['wall_s']:.3f} s holds the warm-up round (eager, kernel "
@@ -2779,6 +2868,463 @@ def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> di
             "matmul_epilogue": {"launches": tl["matmul_epilogue"], **xx, "b_x_plus_a_x": bx},
             "nesterov": {"launches": tl["nesterov"]}}
 
+# ---------------------------------------------------------------------------
+# Slice 7a: the SSM and hybrid families (17): mamba2-370m and zamba2-2.7b
+# ---------------------------------------------------------------------------
+
+MAMBA, ZAMBA = "mamba2-370m", "zamba2-2.7b"
+# 17d: the training command at mamba2-370m, full width and depth; B x S a
+# worker step stays 8192 tokens (seq 1024 is 4 SSD chunks of 256)
+TRAIN_MAMBA = replace_flags(TRAIN, arch=MAMBA, seq_len=1024, batch_per_worker=8,
+                            out=ROOT / "build" / "chip_smoke_train_mamba")
+# 17e: zamba2-2.7b at full width, depth cut to one superblock (6 mamba layers
+# and the shared block), one sequence of 8192 a worker step (the window of
+# 4096 masks), K = 2, H = 4, 3 rounds, the training command's lr
+ZAMBA_TRAIN = dict(depth=6, K=2, H=4, batch=1, seq_len=8192, rounds=3, lr=3e-3)
+# 17f: the run-to-run repeat of the naive serving workload, (prompt, new)
+SERVE_REPEAT = (32, 16)
+# 17b: the Newton-Schulz stacks of the Muon leaves, (name, shape, taken
+# transposed): each model's in_proj first (timed)
+SSM_NS_SHAPES = {
+    MAMBA: [("in_proj", (48, 1024, 4384), False), ("out_proj", (48, 2048, 1024), True)],
+    ZAMBA: [("in_proj", (6, 2560, 10448), False), ("out_proj", (6, 5120, 2560), True),
+            ("shared wq", (1, 2560, 2560), False), ("shared w_in", (1, 2560, 10240), False),
+            ("shared w_out", (1, 10240, 2560), True)]}
+
+
+def ssm_param_count(cfg) -> int:
+    """The parameter count of an ssm or hybrid config, from its widths."""
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    mamba = (d * (2 * di + 2 * N + H) + (cfg.conv_width + 1) * (di + 2 * N) + 3 * H + di
+             + di * d + d)
+    n = 2 * cfg.vocab * d + d + cfg.n_layers * mamba
+    if cfg.arch_type == "hybrid":  # the shared block, once
+        n += 4 * d * cfg.n_heads * cfg.hd + 2 * cfg.hd + 3 * d * cfg.d_ff + 2 * d
+    return n
+
+
+def phase_ptxas_head_dims(ptxas: dict) -> None:
+    """[17a] ptxas's registers, shared memory and spills of the three bf16
+    flash sweeps at each head dim, side by side."""
+    print("[17a] ptxas at the three head dims (registers, shared memory, spills)")
+    for k in ("fwd", "dq", "dkv"):
+        for hd in (64, 80, 128):
+            fn = f"flash_{k}_wgmma_kernel<{hd}>"
+            print(f"  {fn}: {ptxas.get(fn)}")
+
+
+def phase_matmul_ssm(torch, mm) -> dict:
+    """[17b] matmul_epilogue at the SSM families' Newton-Schulz shapes: the
+    mamba2-370m stacks in_proj [48, 1024, 4384] and out_proj [48, 2048, 1024]
+    (transposed view), zamba2-2.7b's in_proj [6, 2560, 10448] and out_proj
+    [6, 5120, 2560] (transposed; 17e's one superblock: the 4-D [ns, 6, ...]
+    leaves fold into the stack) and the shared block's 2-D leaves as stacks
+    of 1 (wq [2560, 2560], w_in [2560, 10240], w_out [10240, 2560]
+    transposed); each product in all four operand layouts within 1e-5 of the
+    largest output, the symmetric ones bitwise symmetric; X X^T and B X + a
+    X of each in_proj timed beside the plain version, the bound and
+    torch.baddbmm."""
+    print("[17b] matmul_epilogue at mamba2-370m's and zamba2-2.7b's Newton-Schulz shapes, "
+          "fp32, TF32 off")
+    from repro_torch.optim.muon import NS_COEFFS
+
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for arch, leaves in SSM_NS_SHAPES.items():
+        for name, shape, transposed in leaves:
+            x = normed(torch.randn(shape, generator=gen, device="cuda"))
+            x = x.mT if transposed else x  # m <= n, as Newton-Schulz takes it
+            z, m, k = x.shape
+            A = mm.matmul_epilogue(x, x.mT, symmetric=True)
+            Bm = mm.matmul_epilogue(A, A, A, alpha=nc, beta=nb, symmetric=True)
+            tag = f"{arch} {name} {list(shape)}" + (" transposed" if transposed else "")
+            check_matmul_cases(torch, mm, [
+                (f"X X^T, {tag}", x, x.mT, None, 1.0, 0.0, True),
+                (f"c A A + b A, [{z}, {m}, {m}]", A, A, A, nc, nb, True),
+                (f"B X + a X, [{z}, {m}, {m}] x [{z}, {m}, {k}]", Bm, x, x, 1.0, na, False)])
+            if name == "in_proj":
+                xx = time_matmul(torch, mm, f"X X^T, {tag}, symmetric=True", x, x.mT, None, 1.0,
+                                 0.0, True, 2.0 * z * (m * (m + 1) // 2) * k,
+                                 (x.numel() + z * m * m) * 4)
+                bx = time_matmul(torch, mm, f"B X + a X, {tag}", Bm, x, x, 1.0, na, False,
+                                 2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
+                out[arch] = dict(xx=xx, bx=bx)
+            del x, A, Bm
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm_decode_agreement(torch, get_config, build_model, arch: str, n_layers: int,
+                               P: int = 256) -> None:
+    """[17c] fp32 at full width, depth cut to ``n_layers``: decode_step
+    stepped over a prompt of ``P`` tokens (the recurrent SSM update, and
+    zamba2's ring cache) against the full forward's logits at every position
+    (the chunked SSD and, for zamba2, the fp32 flash kernel), within 1e-3
+    as 4a."""
+    cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas", n_layers=n_layers)
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    B = 2
+    toks = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(9))
+    toks = toks.to(dev, torch.int32)
+    with torch.no_grad():
+        full, _ = model.forward(params, toks)
+        cache = model.init_cache(params, B, P)
+        worst = 0.0
+        for t in range(P):
+            logits, cache = model.decode_step(params, cache, toks[:, t], t)
+            worst = max(worst, (logits - full[:, t]).abs().max().item())
+        assert torch.isfinite(full).all()
+    check(f"{arch}, depth {n_layers}: {P} decode steps against the forward's logits", worst,
+          1e-3)
+    del params, cache, full
+    torch.cuda.empty_cache()
+
+
+def ssd_share(torch, cfg, B: int, S: int, layers: int, steps: int, busy_ms: float) -> float:
+    """The chunked SSD scan's share of a round's device time: one layer's
+    ``ssm._ssd`` forward and backward timed alone at the round's shapes (CUDA
+    events, L2 flushed), times the forwards a worker step runs (two with
+    remat: the backward recomputes it) and one backward, over ``layers`` x
+    ``steps``, against ``busy_ms`` (the profiled round's device time)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    xs = torch.randn((B, S, cfg.d_inner), generator=gen, device="cuda").to(cfg.compute_dtype)
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda").to(cfg.compute_dtype)
+              for _ in "BC")
+    dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.1
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    leaves = [t.requires_grad_(True) for t in (xs, dt, Bm, Cm)]
+    y = ssm._ssd(cfg, leaves[0], leaves[1], A, leaves[2], leaves[3])
+    g = torch.randn_like(y)
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ssm._ssd(cfg, xs, dt, A, Bm, Cm), runs=10)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), runs=10)
+    per_step = (2 if cfg.remat else 1) * fwd_ms + bwd_ms
+    share = 100 * per_step * layers * steps / busy_ms
+    print(f"  SSD scan (models/ssm._ssd) alone at [{B}, {S}], {H} heads: forward {fwd_ms:.3f} ms, "
+          f"backward {bwd_ms:.3f} ms; x {layers} layers x {steps} worker steps "
+          f"({'2 forwards with remat' if cfg.remat else '1 forward'}): {share:.1f}% of the "
+          f"round's {busy_ms:.1f} ms device time")
+    del y, leaves, g
+    return share
+
+
+def phase_mamba_train(torch, build_parser, train) -> dict:
+    """[17d] mamba2-370m's training main path at full width and depth through
+    the CLI (``TRAIN_MAMBA``): launches against the formula (matmul_epilogue
+    30 a worker step, 3 products x 5 iterations x 2 Muon leaves; no flash),
+    losses finite and falling, (17d') a profiled replayed round with the SSD
+    scan's share, and (17d'') the same command eager, bitwise."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    args = build_parser().parse_args(TRAIN_MAMBA)
+    launches, out = phase_train_main(torch, build_parser, train, TRAIN_MAMBA, phase="17d",
+                                     kernels=("matmul_epilogue", "nesterov"))
+    steps = args.workers * args.sync_interval
+    assert launches["matmul_epilogue"] == args.rounds * steps * 30, launches
+    assert launches["flash_fwd"] == launches["flash_dq"] == launches["flash_dkv"] == 0, launches
+    n_params = sum(t.numel() for t in tree_leaves(out["state"]["outer_params"]))
+    cfg = out["model"].cfg
+    assert n_params == ssm_param_count(cfg), (n_params, ssm_param_count(cfg))
+    ref_hist = out["history"]
+    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])  # before the profile
+    prof = phase_train_profile(torch, out, TRAIN_MAMBA, tag="17d'",
+                               focus=("matmul_epilogue_kernel",))
+    share = ssd_share(torch, cfg, args.batch_per_worker, args.seq_len, cfg.n_layers, steps,
+                      prof["busy_ms"])
+    res = dict(launches=launches, tok_s=out["tok_s"], peak_gb=out["peak_gb"], idle=prof["idle"],
+               replay_tok_s=prof["tok_s"], ssd_share=share, n_params=n_params)
+    del out
+    torch.cuda.empty_cache()
+    phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=TRAIN_MAMBA,
+                      phase="17d''", with_r3=False)
+    del ref_state
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zamba_train(torch, get_config, build_model) -> dict:
+    """[17e] zamba2-2.7b at full width, depth cut to ``ZAMBA_TRAIN['depth']``
+    (one superblock: 6 mamba layers and the shared block), one sequence of
+    8192 a worker step (the window of 4096 masks), K = 2, H = 4, fp32
+    params, bf16 compute, the hd-80 flash kernels, Newton-Schulz through
+    matmul_epilogue (in_proj and out_proj as [6, ...] stacks, the shared
+    block's 7 matrices as stacks of 1), the outer Nesterov kernel, the eval
+    loss in the round. Round 1 is the warm-up (eager) and the capture,
+    rounds 2 and 3 replays; launches against the formula (flash_fwd twice a
+    worker step with remat, once for the eval; flash_dq and flash_dkv once;
+    matmul_epilogue 15 x 9 Muon leaves); losses finite and falling; (17e')
+    one more replayed round profiled, with the SSD scan's share; (17e'') the
+    same rounds eager, bitwise (the state compared leaf by leaf against a
+    host copy); the peak memory."""
+    from repro_torch.core import DiLoCoConfig
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import TrainEngine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    T = ZAMBA_TRAIN
+    K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
+    cfg = get_config(ZAMBA).replace(n_layers=T["depth"], max_seq_len=S, attn_impl="pallas")
+    print(f"[17e] captured MuLoCo rounds, {ZAMBA} full width, depth {cfg.n_layers} mamba layers "
+          f"+ the shared block: K {K}, H {H}, {B} x {S} tokens a worker step, window "
+          f"{cfg.sliding_window}, fp32 params, --ns-impl pallas, --outer-kernel, inner lr "
+          f"{T['lr']}, {n} rounds (the first the warm-up)")
+    model = build_model(cfg)
+    dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name="muon", ns_impl="pallas",
+                        outer_kernel=True)
+    icfg = OptimizerConfig(lr=T["lr"], weight_decay=1e-4, schedule="cosine", warmup_steps=5,
+                           total_steps=n * H)
+    dkw = dict(vocab=cfg.vocab, seq_len=S, batch_per_worker=B)
+    data = MarkovStream(DataConfig(**dkw, n_workers=K, seed=0), "cuda")
+    evals = MarkovStream(DataConfig(**dkw, n_workers=1, seed=10_000), "cuda")
+
+    def eval_for(r0, m):
+        return {k: v[:, 0] for k, v in evals.batch_stack(r0, m).items()}
+
+    def run(capture):
+        engine = TrainEngine(model, dcfg, icfg, capture=capture)
+        state = engine.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state, hist = run_rounds(engine, state, lambda r: batches_for_round(data, r, H), n,
+                                 rounds_per_dispatch=1,
+                                 span_batches_for=lambda r0, m: batches_for_span(data, r0, H, m),
+                                 eval_batches_for=eval_for)
+        torch.cuda.synchronize()
+        return engine, state, hist
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine, state, hist = run(None)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state["outer_params"]))
+    assert n_params == ssm_param_count(cfg), (n_params, ssm_param_count(cfg))
+    per_round = engine.launches_per_round(state["outer_params"])
+    want = {k: n * v for k, v in per_round.items()}
+    print(f"  {n_params:,} parameters; launches {launches}")
+    print(f"  formula  {want} (rounds x TrainEngine.launches_per_round)")
+    assert launches == want, (launches, want)
+    steps, ns = K * H, cfg.n_layers // cfg.hybrid_period
+    assert per_round["flash_fwd"] == (2 * steps + 1) * ns, per_round
+    assert per_round["flash_dq"] == per_round["flash_dkv"] == steps * ns, per_round
+    assert per_round["matmul_epilogue"] == steps * 3 * 5 * 9, per_round
+    check_captures(engine, per_round, n, [(True, False)])
+    losses = [r["train_loss"] for r in hist]
+    evl = [r["eval_loss"] for r in hist]
+    assert all(math.isfinite(v) for v in losses + evl), (losses, evl)
+    assert losses[-1] < losses[0] and evl[-1] < evl[0], (losses, evl)
+    tokens = K * H * B * S
+    print(f"  losses {[round(v, 4) for v in losses]}, eval {[round(v, 4) for v in evl]}; round "
+          f"walls {[round(r['wall_s'], 3) for r in hist]} s (round 1: warm-up "
+          f"{engine.warmup_s[0]:.3f} s + capture {engine.capture_s[0]:.3f} s); peak device "
+          f"memory {peak_gb:.2f} GB")
+    later = hist[1:]
+    tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
+    ref_hist = hist
+    ref_host = tree_map(lambda t: t.to("cpu", copy=True), state)
+
+    def dispatch(i):
+        nonlocal state
+        state, _ = engine.superstep(state, batches_for_span(data, n + i, H, 1),
+                                    eval_for(n + i, 1))
+
+    print("[17e'] profile: one more replayed round, then one under torch.profiler")
+    replays = engine.replays
+    prof = profile_dispatch(torch, dispatch, tokens, "1 round a dispatch")
+    assert engine.replays == replays + 2, "the profiled rounds were not replays"
+    print_focus(prof["by_name"], prof["wall_ms"], ("flash_fwd_wgmma_kernel",
+                                                   "flash_dq_wgmma_kernel",
+                                                   "flash_dkv_wgmma_kernel",
+                                                   "matmul_epilogue_kernel"))
+    share = ssd_share(torch, cfg, B, S, cfg.n_layers, steps, prof["busy_ms"])
+    del engine, state
+    torch.cuda.empty_cache()
+    print("[17e''] the same rounds eager (capture=False)")
+    engine, state, hist = run(False)
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    for a, b in zip(ref_hist, hist):
+        for k in keys:
+            assert a[k] == b[k], ("eager", a["round"], k, a[k], b[k])
+    diffs = _state_diffs_host(torch, ref_host, state)
+    assert not diffs, diffs
+    print(f"  eager: {len(hist)} rounds' {', '.join(keys)} and every state leaf bitwise equal "
+          "to the captured run's")
+    del engine, state, ref_host, model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_gb=peak_gb, tok_s=tok_s, replay_tok_s=prof["tok_s"],
+                idle=prof["idle"], ssd_share=share, n_params=n_params)
+
+
+def ssm_decode_floor_ms(params, cache, batch: int) -> tuple[float, float, float]:
+    """The memory-bound floor of one naive decode step: every weight read once
+    (of the untied embedding only the ``batch`` gathered rows), the SSM state
+    (h and the conv buffer) read and written once, and zamba2's ring cache
+    read once, at 3.35 TB/s. Returns (ms, weight bytes, state bytes)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    emb = params["embed"]
+    weights = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * emb.element_size()
+    state = 2 * nbytes(cache.get("ssm", cache)) + (nbytes(cache["attn"]) if "attn" in cache
+                                                   else 0)
+    return (weights + state) / PEAK_BYTES * 1e3, weights, state
+
+
+def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None = None) -> dict:
+    """[17f] serving through the naive engine: 4b's workload (32 requests x
+    (512 prompt + 64 new), greedy) as one lockstep batch, the prompt stepped
+    through the decode path: tok/s; peak memory; no kernel launched (the
+    reference's SSM and hybrid serving has no Pallas kernel: the recurrent
+    update and the ring cache's one-token attention are plain). The steps
+    are eager and bound by the host, ~40-60 s a run, so the run-to-run
+    check runs 32 requests of ``SERVE_REPEAT`` (prompt, new) tokens twice
+    through ``launch.serve.generate`` on the same weights: greedy tokens
+    bitwise equal. Then three decode steps of
+    the batch under torch.profiler: a step's device time beside its floor
+    (:func:`ssm_decode_floor_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate, random_prompts
+
+    print(f"[17f] {arch} serving through the naive engine (stepped prefill), full width and "
+          f"depth{' ' + str(overrides) if overrides else ''}: {MAIN['batch']} x "
+          f"({MAIN['prompt_len']} + {MAIN['max_new']}) greedy, as one lockstep batch")
+    cfg = get_config(arch).replace(attn_impl="pallas", **(overrides or {}))
+    kw = {k: MAIN[k] for k in ("batch", "prompt_len", "max_new")}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    first, seconds, _, model, params = serve(cfg, engine="naive", device="cuda", **kw)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert not launches, launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rid, toks in first.items():
+        assert toks.shape == (MAIN["max_new"],) and ((toks >= 0) & (toks < cfg.vocab)).all()
+    prompts = random_prompts(cfg.vocab, MAIN["batch"], SERVE_REPEAT[0]).to("cuda", torch.int32)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(generate(model, params, prompts, SERVE_REPEAT[1]))
+        torch.cuda.synchronize()
+    seconds2 = time.perf_counter() - t0
+    assert torch.equal(runs[0], runs[1]), "the repeated run's greedy tokens differ"
+    del runs
+    n_new = MAIN["batch"] * MAIN["max_new"]
+    steps = MAIN["prompt_len"] + MAIN["max_new"] - 1
+    tok_s = n_new / seconds
+    host_step_ms = 1e3 * seconds / steps
+    print(f"  {ssm_param_count(cfg):,} parameters; generated {n_new} tokens in {seconds:.3f} s "
+          f"({tok_s:.1f} tok/s; {steps} decode steps, {host_step_ms:.2f} ms a step on the "
+          f"host's clock); no kernel launched; peak {peak_gb:.2f} GB; two runs of "
+          f"{SERVE_REPEAT[0]} + {SERVE_REPEAT[1]} tokens (the second {seconds2:.3f} s): greedy "
+          "tokens bitwise equal")
+    B = MAIN["batch"]
+    with torch.no_grad():
+        cache = model.init_cache(params, B, MAIN["prompt_len"] + MAIN["max_new"])
+        tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        for t in range(3):  # warm
+            model.decode_step(params, cache, tok, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for t in range(3, 6):
+                model.decode_step(params, cache, tok, t)
+            torch.cuda.synchronize()
+    by_name = device_times(torch, prof)
+    step_ms = sum(v[0] for v in by_name.values()) / 3
+    kernels = sum(v[1] for v in by_name.values()) / 3
+    floor_ms, wbytes, sbytes = ssm_decode_floor_ms(params, cache, B)
+    print(f"  a decode step: {kernels:.0f} kernels, {step_ms:.4f} ms device time (profiled, "
+          f"mean of 3) beside its floor {floor_ms:.4f} ms (weights {wbytes / 1e9:.3f} GB read, "
+          f"state {sbytes / 1e9:.3f} GB moved, 3.35 TB/s): {step_ms / floor_ms:.2f}x; the host "
+          f"takes {host_step_ms:.2f} ms a step")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms / 3:9.4f} ms a step  x{n // 3:<5d} {name}")
+    del cache, params, model
+    torch.cuda.empty_cache()
+    return dict(tok_s=tok_s, step_ms=step_ms, floor_ms=floor_ms, peak_gb=peak_gb,
+                host_step_ms=host_step_ms)
+
+
+def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, serve,
+             ptxas: dict, smi: str) -> dict:
+    """Phase 17: the SSM and hybrid families. (17a) the flash kernels at hd
+    80 against their plain versions (``FLASH_FWD_CASES[80]``,
+    ``FLASH_BWD_CASES[80]``: ragged S, causal, windowed, non-causal, G = 1,
+    2 and 8, bf16 and fp32, bitwise from run to run), timed at zamba2's
+    training shape q [32, 8192, 1, 80] with the window 4096 beside the
+    bound, the plain version and SDPA (the window as a boolean mask), and
+    ptxas's report at hd 64, 80 and 128; (17b) matmul_epilogue at the SSM
+    Newton-Schulz shapes; (17c) fp32 agreements at full width; (17d)
+    mamba2-370m training; (17e) zamba2-2.7b training, depth cut; (17f) both
+    served through the naive engine. Returns the kernels' rows."""
+    import gc
+
+    fa, mm = mods["fa"], mods["mm"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"-- {phase}: {time.perf_counter() - t0:.1f} s into phase 17", flush=True)
+
+    print(f"[17] {MAMBA} ({ssm_param_count(get_config(MAMBA)):,} parameters) and {ZAMBA} "
+          f"({ssm_param_count(get_config(ZAMBA)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} "
+          "GB held by earlier phases")
+    phase_ptxas_head_dims(ptxas)
+    flash = phase_flash(torch, fa, hd=80, phase="17a")
+    bwd = phase_flash_bwd(torch, fa, hd=80, phase="17a")
+    torch.cuda.empty_cache()
+    lap("17a")
+    matmul = phase_matmul_ssm(torch, mm)
+    lap("17b")
+    print("[17c] full-width fp32 agreements")
+    phase_train_agreement(torch, get_config, build_model, MAMBA, "17c", n_layers=2, S=256)
+    phase_train_agreement(torch, get_config, build_model, ZAMBA, "17c",
+                          n_layers=ZAMBA_TRAIN["depth"], S=8192)
+    phase_ssm_decode_agreement(torch, get_config, build_model, MAMBA, 2)
+    phase_ssm_decode_agreement(torch, get_config, build_model, ZAMBA, ZAMBA_TRAIN["depth"])
+    lap("17c")
+    mamba = phase_mamba_train(torch, build_parser, train)
+    lap("17d")
+    zamba = phase_zamba_train(torch, get_config, build_model)
+    lap("17e")
+    serving = {MAMBA: phase_ssm_serve(torch, get_config, serve, MAMBA),
+               ZAMBA: phase_ssm_serve(torch, get_config, serve, ZAMBA,
+                                      dict(param_dtype="bfloat16"))}
+    lap("17f")
+    for arch, t in ((MAMBA, mamba), (ZAMBA, zamba)):
+        depth = "full depth" if arch == MAMBA else f"depth {ZAMBA_TRAIN['depth']} + shared block"
+        print(f"{arch} training ({depth}, {t['n_params']:,} parameters, K 2, H 4, 8192 tokens a "
+              f"worker step): {t['tok_s']:.1f} tokens/s over rounds 2-3, one profiled replayed "
+              f"round {t['replay_tok_s']:.1f}, idle {t['idle']:.1f}%, SSD scan "
+              f"{t['ssd_share']:.1f}% of the device time, peak {t['peak_gb']:.2f} GB; card "
+              f"(nvidia-smi name, power.limit): {smi}")
+        s = serving[arch]
+        print(f"{arch} serving (naive engine, full depth, {MAIN['batch']} x "
+              f"({MAIN['prompt_len']} + {MAIN['max_new']}), stepped prefill): {s['tok_s']:.1f} "
+              f"tok/s, a decode step {s['step_ms']:.4f} ms on the card against its floor "
+              f"{s['floor_ms']:.4f} ms and {s['host_step_ms']:.2f} ms on the host's clock; peak "
+              f"{s['peak_gb']:.2f} GB; no kernel launched (the reference serves these families "
+              f"with no Pallas kernel); card (nvidia-smi name, power.limit): {smi}")
+    ml, zl = mamba["launches"], zamba["launches"]
+    return {"flash_fwd": {ZAMBA: {"launches": zl["flash_fwd"], **flash["training"]}},
+            "flash_dq": {ZAMBA: {"launches": zl["flash_dq"], **bwd["flash_dq"]}},
+            "flash_dkv": {ZAMBA: {"launches": zl["flash_dkv"], **bwd["flash_dkv"]}},
+            "matmul_epilogue": {MAMBA: {"launches": ml["matmul_epilogue"], **matmul[MAMBA]["xx"],
+                                        "b_x_plus_a_x": matmul[MAMBA]["bx"]},
+                                ZAMBA: {"launches": zl["matmul_epilogue"], **matmul[ZAMBA]["xx"],
+                                        "b_x_plus_a_x": matmul[ZAMBA]["bx"]}},
+            "nesterov": {MAMBA: {"launches": ml["nesterov"]},
+                         ZAMBA: {"launches": zl["nesterov"]}}}
+
 
 def main() -> int:
     import torch
@@ -2798,6 +3344,10 @@ def main() -> int:
     from repro_torch.models import build_model
 
     t_start = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        print(f"-- phases {phases} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     print("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
@@ -2810,7 +3360,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
-    phase_build(_build)
+    ptxas = phase_build(_build)
     flash = phase_flash(torch, fa)
     paged = phase_paged(torch, fa)
     phase_agreement(torch, get_config, build_model)
@@ -2826,6 +3376,7 @@ def main() -> int:
           f"{serve_rates[2]:.1f}; idle {serve_prof['idle']:.1f}%, "
           f"{serve_prof['kernels_per_step']:.0f} kernels a decode step; naive "
           f"{naive_rate:.1f} tok/s; card (nvidia-smi name, power.limit): {smi}")
+    lap("1-4")
 
     bwd = phase_flash_bwd(torch, fa)
     matmul, matmul_full, matmul_bx = phase_matmul(torch, mm, ops, ref)
@@ -2850,6 +3401,7 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state)
+    lap("5-6")
     ref_host = tree_map(lambda t: t.to("cpu", copy=True), ref_state)  # phase 14a's reference
     del ref_state
     torch.cuda.empty_cache()
@@ -2862,25 +3414,36 @@ def main() -> int:
     run_b = phase_compressed_run(torch, build_parser, train, "b", COMPRESSED + ROWWISE, 2,
                                  COMM_BYTES["b"], falls=False)
     phase_crash_drill(torch, build_parser, train)
-
+    lap("8")
     slice_4b(torch, get_config, build_model, build_parser, train, ref_hist, smi)
+    lap("9-10")
     ladder = slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
                       build_model, build_parser, train, serve, smi)
+    lap("12")
     nemotron = slice_nemotron(torch, fa, get_config, build_model, serve, smi)
+    lap("13")
     variants = slice_variants(torch, build_parser, train, ref_hist, ref_host, muon_tok_s, smi)
+    lap("14")
     del ref_host
     probe = phase_pseudogradients(torch, get_config, build_model, smi)
     phase_scaling_laws()
+    lap("15")
     moe = slice_moe(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref), get_config, build_model,
                     serve, smi)
+    lap("16")
+    ssm = slice_7a(torch, dict(fa=fa, mm=mm), get_config, build_model, build_parser, train,
+                   serve, ptxas, smi)
+    lap("17")
 
     def new_paths(name: str) -> dict:
-        """A kernel's launches on slice 6b's paths (14b, 15, 16)."""
+        """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
+        launches and timings on slice 7a's (17)."""
         rows = {inner: {"launches": v["launches"][name]} for inner, v in variants.items()
                 if name != "paged_decode"}
         if name in probe["launches"]:
             rows[f"{PROBE['arch']} pseudogradients"] = {"launches": probe["launches"][name]}
         rows[MOE] = moe[name]
+        rows.update(ssm.get(name, {}))
         return rows
 
     src = "src/repro_torch/kernels/csrc"
@@ -2930,7 +3493,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[17] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[18] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

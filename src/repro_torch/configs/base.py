@@ -2,8 +2,9 @@
 
 Registered so far: ``smollm-135m``, the paper's Gemma3-style ladder
 (``paper-150m`` ... ``paper-15.23b``), ``nemotron-4-15b`` (relu2, 48:8
-heads, served on one card with ``param_dtype='bfloat16'``) and the MoE
-family's ``deepseek-moe-16b`` and ``moonshot-v1-16b-a3b``; every other
+heads, served on one card with ``param_dtype='bfloat16'``), the MoE
+family's ``deepseek-moe-16b`` and ``moonshot-v1-16b-a3b``, the SSM
+family's ``mamba2-370m`` and the hybrid ``zamba2-2.7b``; every other
 architecture of the reference raises a ``KeyError`` that points at
 ``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
@@ -102,8 +103,10 @@ def list_configs() -> list[str]:
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b,
+        mamba2_370m,
         moonshot_v1_16b_a3b,
         nemotron_4_15b,
         paper_gemma3,
         smollm_135m,
+        zamba2_2_7b,
     )

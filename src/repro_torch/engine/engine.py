@@ -273,13 +273,15 @@ class TrainEngine:
 
     def launches_per_round(self, params: Tree, with_eval: bool = True) -> dict[str, int]:
         """Hopper-kernel launches one round makes on the card (``with_eval``:
-        and its eval loss): per worker step, the flash forward once per layer (twice
-        with ``remat``: the backward recomputes it), dq and dkv once per
-        layer, and three matmul-epilogue launches per Newton-Schulz
+        and its eval loss): per worker step, the flash forward once per
+        attention layer (``Model.attention_layers``: none in the SSM family,
+        the shared block once a superblock in the hybrid; twice with
+        ``remat``: the backward recomputes it), dq and dkv once per
+        attention layer, and three matmul-epilogue launches per Newton-Schulz
         iteration per Muon leaf (one launch covers a whole [L, m, n] stack;
         ``muon_bp`` and ``normuon`` too: MuonBP's off-period steps select
         the momentum over the orthogonalized update, so NS runs every step);
-        the eval loss runs the forward once per layer; each outer sync (J
+        the eval loss runs the forward once per attention layer; each outer sync (J
         per round) launches the Nesterov kernel once per leaf, and the
         quantize and dequantize launches are :meth:`wire_launches_per_round`'s.
         A replayed round counts the launches its capture recorded, so the
@@ -292,7 +294,7 @@ class TrainEngine:
         cfg, dcfg = self.model.cfg, self.dcfg
         leaves = tree_leaves_with_paths(params)
         steps = dcfg.n_workers * dcfg.sync_interval
-        attn = cfg.n_layers if cfg.attn_impl == "pallas" else 0
+        attn = self.model.attention_layers if cfg.attn_impl == "pallas" else 0
         ns = (3 * self.icfg.ns_iters * sum(muon_label(p, x) == "muon" for p, x in leaves)
               if dcfg.inner_name != "adamw" and dcfg.ns_impl == "pallas" else 0)
         outer = dcfg.outer_kernel and dcfg.outer_name == "nesterov" and dcfg.outer_enabled

@@ -75,6 +75,13 @@
 //   * ptxas gives dq 201 and dkv 222 registers a thread at hd 128, no
 //     spills.
 //
+// Head dim 80 (zamba2's shared block): hd 128's layout, two panels a row,
+// the second zero-filled past column 79 when staged (csrc/hopper_tiles.cuh);
+// the products that contract over hd take the 5 live k16 steps, dq keeps two
+// m64n64 dQ accumulators and stores columns < 80, and dkv runs hd 128's two
+// warpgroups, the second owning dK and dV's columns 64 .. 127 of which it
+// stores 64 .. 79. Shared memory as hd 128's.
+//
 // fp32 inputs keep the CUDA-core sweeps (no fp32 tensor-core product does
 // the same arithmetic): blocks as above but over positions, TPR = hd / 32
 // neighbouring threads share a row (32 dims each, float2 reads, float2
@@ -100,12 +107,13 @@ namespace {
 // the fp32 sweeps' tiles at head dim HD (the bf16 sweeps' are below)
 template <int HD>
 struct Fp32Tiles {
-  static constexpr int TPR = HD / 32;        // threads a row, 32 dims each
-  static constexpr int PART = HD / TPR;      // = 32
+  static constexpr int TPR = HD / 32;        // threads a row, 32 dims each (40 at hd 80)
+  static constexpr int PART = HD / TPR;      // = 32 (40)
   static constexpr int DQ_BQ = 32 / TPR;     // q positions per dq block (times G, times TPR)
   static constexpr int DQ_BKV = 4096 / HD;   // kv positions per staged K/V tile (dq)
   static constexpr int DKV_BKV = 32;         // kv positions per dkv block (times TPR threads)
   static constexpr int DKV_ROWS = 4096 / HD; // q rows (positions x G) per staged q/do tile
+  static_assert(HD == TPR * PART && PART % 2 == 0, "whole float2 groups a thread");
 };
 
 // the lanes of this thread's group of TPR (for __shfl_xor_sync)
@@ -304,23 +312,24 @@ using hopper::TILE_BYTES;
 constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per tile
 constexpr int WG = hopper::WARPGROUP;
 constexpr float LOG2E = 1.4426950408889634f;
-// dq: Q, dO, 2 x (K, V); dkv: K, V, 2 x (Q, dO, lse, dl); tiles of HD / 64
-// panels; alignment
+// dq: Q, dO, 2 x (K, V); dkv: K, V, 2 x (Q, dO, lse, dl); tiles of
+// panels<HD>() panels; alignment
 template <int HD>
-constexpr int dq_smem() { return 6 * (HD / 64) * TILE_BYTES + 1024; }
+constexpr int dq_smem() { return 6 * hopper::panels<HD>() * TILE_BYTES + 1024; }
 template <int HD>
-constexpr int dkv_smem() { return 6 * (HD / 64) * TILE_BYTES + 4 * TILE * 4 + 1024; }
+constexpr int dkv_smem() { return 6 * hopper::panels<HD>() * TILE_BYTES + 4 * TILE * 4 + 1024; }
 
-// one warpgroup a block at hd 64 (two blocks an SM); at hd 128 one
+// one warpgroup a block at hd 64 (two blocks an SM); at hd 80 and 128 one
 // warpgroup per 64-column panel of dK and dV (see the top note)
 template <int HD>
-__global__ void __launch_bounds__(WG * (HD / 64), HD == 64 ? 2 : 1) flash_dkv_wgmma_kernel(
+__global__ void __launch_bounds__(WG * hopper::panels<HD>(), HD == 64 ? 2 : 1)
+    flash_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int bkv, int S, int G, int causal, int window,
     float scale) {
   using namespace hopper;
-  constexpr int NP = HD / 64;          // panels of a row, and warpgroups of the block
+  constexpr int NP = panels<HD>();     // panels of a row, and warpgroups of the block
   constexpr int THREADS = NP * WG;
   constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
@@ -390,11 +399,11 @@ __global__ void __launch_bounds__(WG * (HD / 64), HD == 64 ? 2 : 1) flash_dkv_wg
     fence_regs(dpt);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss(st, desc_k_major(sK, kk), desc_k_major(sQ, kk), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss(dpt, desc_k_major(sV, kk), desc_k_major(sD, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // S^T is in
@@ -470,6 +479,7 @@ __global__ void __launch_bounds__(WG * (HD / 64), HD == 64 ? 2 : 1) flash_dkv_wg
     const long long off = ((long long)b * S + key) * HD + 64 * wg + 2 * c;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (HD % 64 && 64 * wg + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
       const int i = 4 * j + 2 * h;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
           pack_bf16x2(scale * dK[i], scale * dK[i + 1]);
@@ -484,7 +494,7 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     bf16* __restrict__ dq, int bkv, int S, int G, int causal, int window, float scale) {
   using namespace hopper;
-  constexpr int NP = HD / 64;          // 64-column panels of a row
+  constexpr int NP = panels<HD>();     // 64-column panels of a row
   constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -554,11 +564,11 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
     fence_regs(dpa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss(dpa, desc_k_major(sD, kk), desc_k_major(sV, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();  // S is in
@@ -614,6 +624,7 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
       bf16* out = dq + (qrow0 + 16 * w + g + 8 * h) * HD + 64 * p + 2 * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
         const int i = 4 * j + 2 * h;
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16x2(scale * dQ[p][i], scale * dQ[p][i + 1]);
@@ -623,20 +634,19 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
 }
 
 int check(int G, int hd, int dtype) {
-  if ((hd != 64 && hd != 128) || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
+  if ((hd != 64 && hd != 80 && hd != 128) || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// the dynamic shared memory limit of each bf16 sweep, raised once per device
-// (hopper::allow_smem), at hd 64 and 128
-bool dq_smem_set[2][hopper::kMaxDevices] = {};
-bool dkv_smem_set[2][hopper::kMaxDevices] = {};
+// the dynamic shared memory limit of each bf16 sweep is raised once per device
+// (hopper::allow_smem), with one flag array per sweep and head dim
 
 template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* l,
               const float* d, void* dq, int bkv, int S, int G, int causal, int window,
               float scale, int dtype, cudaStream_t st) {
+  static bool smem_set[hopper::kMaxDevices] = {};
   if (dtype == 0) {
     const int nq = (S + Fp32Tiles<HD>::DQ_BQ - 1) / Fp32Tiles<HD>::DQ_BQ;
     flash_dq_fp32_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
@@ -644,8 +654,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
         static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
         scale);
   } else {
-    if (int rc = hopper::allow_smem(flash_dq_wgmma_kernel<HD>, dq_smem<HD>(),
-                                    dq_smem_set[HD == 128]))
+    if (int rc = hopper::allow_smem(flash_dq_wgmma_kernel<HD>, dq_smem<HD>(), smem_set))
       return rc;
     const int nqt = (S * G + TILE - 1) / TILE;
     flash_dq_wgmma_kernel<HD><<<bkv * nqt, WG, dq_smem<HD>(), st>>>(
@@ -660,6 +669,7 @@ template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* l,
                const float* d, void* dk, void* dv, int bkv, int S, int G, int causal, int window,
                float scale, int dtype, cudaStream_t st) {
+  static bool smem_set[hopper::kMaxDevices] = {};
   if (dtype == 0) {
     using T = Fp32Tiles<HD>;
     const int nkv = (S + T::DKV_BKV - 1) / T::DKV_BKV;
@@ -668,11 +678,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
         static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv),
         S, G, nkv, causal, window, scale);
   } else {
-    if (int rc = hopper::allow_smem(flash_dkv_wgmma_kernel<HD>, dkv_smem<HD>(),
-                                    dkv_smem_set[HD == 128]))
+    if (int rc = hopper::allow_smem(flash_dkv_wgmma_kernel<HD>, dkv_smem<HD>(), smem_set))
       return rc;
     const int nkt = (S + TILE - 1) / TILE;
-    flash_dkv_wgmma_kernel<HD><<<bkv * nkt, WG * (HD / 64), dkv_smem<HD>(), st>>>(
+    flash_dkv_wgmma_kernel<HD><<<bkv * nkt, WG * hopper::panels<HD>(), dkv_smem<HD>(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), l, d, static_cast<bf16*>(dk), static_cast<bf16*>(dv), bkv,
         S, G, causal, window, scale);
@@ -683,7 +692,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps);
-// hd 64 or 128. Each returns cudaGetLastError() after its launch.
+// hd 64, 80 or 128. Each returns cudaGetLastError() after its launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* dl, void* dq, int bkv, int S, int G, int hd,
                         int causal, int window, float scale, int dtype, void* stream) {
@@ -691,10 +700,11 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  return hd == 64 ? launch_dq<64>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale,
-                                  dtype, st)
-                  : launch_dq<128>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale,
-                                   dtype, st);
+  if (hd == 64)
+    return launch_dq<64>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
+  if (hd == 80)
+    return launch_dq<80>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
+  return launch_dq<128>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -704,23 +714,31 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dl);
-  return hd == 64 ? launch_dkv<64>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale,
-                                   dtype, st)
-                  : launch_dkv<128>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale,
-                                    dtype, st);
+  if (hd == 64)
+    return launch_dkv<64>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
+                          st);
+  if (hd == 80)
+    return launch_dkv<80>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
+                          st);
+  return launch_dkv<128>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
+                         st);
 }
 
 // The bf16 sweeps' tiles (packed q rows, kv positions), checked by the wrapper
 // against flash_attention.FLASH_BWD_ROWS / FLASH_BWD_KEYS, and their dynamic
-// shared memory per block in bytes (dq, dkv) at hd 64, then at hd 128.
+// shared memory per block in bytes (dq, dkv) at hd 64, then at hd 128, then
+// at hd 80.
 extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem64, int* dkv_smem64,
-                               int* dq_smem128, int* dkv_smem128) {
+                               int* dq_smem128, int* dkv_smem128, int* dq_smem80,
+                               int* dkv_smem80) {
   *rows = TILE;
   *keys = TILE;
   *dq_smem64 = dq_smem<64>();
   *dkv_smem64 = dkv_smem<64>();
   *dq_smem128 = dq_smem<128>();
   *dkv_smem128 = dkv_smem<128>();
+  *dq_smem80 = dq_smem<80>();
+  *dkv_smem80 = dkv_smem<80>();
   return 0;
 }
 

@@ -61,14 +61,24 @@
 // the products are ~34 GFLOP (35 us on the tensor cores) against ~67 MB
 // of q, k, v and o (20 us): operations bound.
 //
+// Head dim 80 (zamba2's shared block): the hd-128 sweep's two panels, the
+// second staged with its columns 80 .. 127 zero-filled by cp.async (16-byte
+// copies of nothing), so S = Q K^T takes the 5 live k16 steps and the PV
+// product computes 128 columns of which the first 80 are stored (zero
+// columns of V add only output columns that are never written). A row of 80
+// bf16 is 160 bytes: the 16-byte copies stay aligned, though rows no longer
+// start on 128-byte lines. Per tile 5 + 8 products against the 10 the head
+// dim needs; the shared memory and registers are hd 128's.
+//
 // fp32 inputs keep the CUDA-core sweep: one block per (row of BKV, tile of BQ
-// positions); TPR = hd / 64 threads own one (position, query head) row, each
-// keeping 64 of its dims of q and acc in registers (float4 groups TPR i + t
-// of the row for part t), the parts' partial dot products summed by a
-// shuffle. A loop inside the block walks the kv tiles of
-// flash_attention.visited_kv_range at the tile sizes (BQ, BKV) = (32, 64) at
-// hd 64 and (16, 32) at hd 128 (the same registers a thread, 32 KB of
-// static shared memory); each K/V tile is staged once in fp32 shared memory
+// positions); TPR = ceil(hd / 64) threads own one (position, query head)
+// row, each keeping hd / TPR of its dims (64; 40 at hd 80) of q and acc in
+// registers (float4 groups TPR i + t of the row for part t), the parts'
+// partial dot products summed by a shuffle. A loop inside the block walks
+// the kv tiles of flash_attention.visited_kv_range at the tile sizes (BQ,
+// BKV) = (32, 64) at hd 64 and (16, 32) at hd 80 and 128 (at most the same
+// registers a thread and 32 KB of static shared memory); each K/V tile is
+// staged once in fp32 shared memory
 // and read by all G heads of the block (broadcast reads). The online softmax
 // updates once per CH keys; masked entries get p = 0 explicitly.
 #include <cuda_bf16.h>
@@ -88,7 +98,7 @@ constexpr float NEG_INF = -2.0e38f;
 // block (times G heads times TPR threads <= 256), BKV kv positions a staged tile
 template <int HD>
 struct Fp32Tiles {
-  static constexpr int TPR = HD / 64;
+  static constexpr int TPR = hopper::panels<HD>();
   static constexpr int BQ = 32 / TPR;
   static constexpr int BKV = 64 / TPR;
 };
@@ -100,7 +110,7 @@ __global__ void __launch_bounds__(256) flash_fwd_kernel(
     float* __restrict__ o, float* __restrict__ lse, int S, int G, int nq, int causal,
     int window, float scale) {
   constexpr int TPR = Fp32Tiles<HD>::TPR, BQ = Fp32Tiles<HD>::BQ, BKV = Fp32Tiles<HD>::BKV;
-  constexpr int D = HD / TPR;  // dims a thread holds: 64
+  constexpr int D = HD / TPR;  // dims a thread holds: 64 (40 at hd 80)
   __shared__ __align__(16) float Ks[BKV][HD];
   __shared__ __align__(16) float Vs[BKV][HD];
 
@@ -220,9 +230,9 @@ constexpr int TILE = hopper::TILE_ROWS;  // packed q rows and kv positions per t
 constexpr int WG = hopper::WARPGROUP;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-// Q, 2 x (K, V) tiles of HD / 64 panels each; alignment
+// Q, 2 x (K, V) tiles of panels<HD>() panels each; alignment
 template <int HD>
-constexpr int smem_bytes() { return 5 * (HD / 64) * TILE_BYTES + 1024; }
+constexpr int smem_bytes() { return 5 * hopper::panels<HD>() * TILE_BYTES + 1024; }
 
 template <int HD>
 __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
@@ -230,7 +240,7 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     bf16* __restrict__ o, float* __restrict__ lse, int bkv, int S, int G, int causal, int window,
     float scale) {
   using namespace hopper;
-  constexpr int NP = HD / 64;          // 64-column panels of a row
+  constexpr int NP = panels<HD>();     // 64-column panels of a row
   constexpr int TB = NP * TILE_BYTES;  // bytes of one staged tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -299,7 +309,7 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
     fence_regs(sa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss(sa, desc_k_major(sQ, kk), desc_k_major(sK, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
@@ -385,6 +395,7 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
       bf16* out = o + row * HD + 64 * p + 2 * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
         const int i = 4 * j + 2 * h;
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16x2(acc[p][i] / lsum, acc[p][i + 1] / lsum);
@@ -394,21 +405,19 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
   }
 }
 
-bool wgmma128_smem_set[hopper::kMaxDevices] = {};
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bkv, int S,
            int G, int causal, int window, float scale, int dtype, cudaStream_t st) {
+  static bool smem_set[hopper::kMaxDevices] = {};  // one flag array per head dim
   if (dtype == 0) {
     const int nq = (S + Fp32Tiles<HD>::BQ - 1) / Fp32Tiles<HD>::BQ;
     flash_fwd_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
   } else if (dtype == 1) {
-    // above 48 KB of dynamic shared memory (hd 128) the limit must be raised
+    // above 48 KB of dynamic shared memory (hd 80 and 128) the limit must be raised
     if (HD > 64) {
-      if (int rc = hopper::allow_smem(flash_fwd_wgmma_kernel<HD>, smem_bytes<HD>(),
-                                      wgmma128_smem_set))
+      if (int rc = hopper::allow_smem(flash_fwd_wgmma_kernel<HD>, smem_bytes<HD>(), smem_set))
         return rc;
     }
     const int nqt = (S * G + TILE - 1) / TILE;
@@ -424,7 +433,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core sweep), 1 = bfloat16 (tensor-core sweep);
-// hd 64 or 128. Returns cudaGetLastError() after the launch.
+// hd 64, 80 or 128. Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bkv, int S, int G, int hd, int causal, int window, float scale,
                          int dtype, void* stream) {
@@ -432,6 +441,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   if (G < 1 || 32 * G > 256) return (int)cudaErrorInvalidValue;
   if (hd == 64) return launch<64>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
   if (hd == 128) return launch<128>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
+  if (hd == 80) return launch<80>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -440,19 +450,22 @@ extern "C" const char* flash_fwd_error(int code) {
 }
 
 // The fp32 sweep's tiles (q positions, kv positions) at hd 64, the bf16
-// sweep's (packed q rows, kv positions), the fp32 sweep's at hd 128, checked
-// by the wrapper against flash_attention.FP32_TILES, FLASH_BWD_ROWS and
-// FLASH_BWD_KEYS; then the bf16 block's dynamic shared memory in bytes at hd
-// 64 and 128.
+// sweep's (packed q rows, kv positions), the fp32 sweep's at hd 128 and at hd
+// 80, checked by the wrapper against flash_attention.FP32_TILES,
+// FLASH_BWD_ROWS and FLASH_BWD_KEYS; then the bf16 block's dynamic shared
+// memory in bytes at hd 64, 128 and 80.
 extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* bq128, int* bkv128,
-                               int* smem, int* smem128) {
+                               int* bq80, int* bkv80, int* smem, int* smem128, int* smem80) {
   *bq = Fp32Tiles<64>::BQ;
   *bkv = Fp32Tiles<64>::BKV;
   *rows = TILE;
   *keys = TILE;
   *bq128 = Fp32Tiles<128>::BQ;
   *bkv128 = Fp32Tiles<128>::BKV;
+  *bq80 = Fp32Tiles<80>::BQ;
+  *bkv80 = Fp32Tiles<80>::BKV;
   *smem = smem_bytes<64>();
   *smem128 = smem_bytes<128>();
+  *smem80 = smem_bytes<80>();
   return 0;
 }

@@ -11,7 +11,10 @@
 // of 64 columns TILE_BYTES apart: columns 64 p .. 64 p + 63 in panel p. A
 // K-major k-slice (16 columns) lies inside one panel, and an MN-major
 // operand whose N is the head dim is taken one 64-wide panel (one swizzle
-// atom) at a time, as one m64n64 product per panel.
+// atom) at a time, as one m64n64 product per panel. A row of hd = 80 is two
+// panels too, the second zero-filled past column 79: a product contracting
+// over the head dim takes the 5 live k16 slices, one whose N is the head dim
+// computes the second panel's 64 columns, and only the first 16 are stored.
 //
 // Register fragments of one warpgroup (128 threads; warp w, lane l, g = l / 4,
 // c = l % 4). The m64nN accumulator d[] holds rows 16 w + g (d[4 j + 0, 1])
@@ -72,24 +75,38 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 64-column panels a staged row of HD bf16 takes: HD = 80 (zamba2) takes two,
+// the second holding columns 64 .. 79 and zeros
+template <int HD>
+__host__ __device__ constexpr int panels() { return (HD + 63) / 64; }
+
 // Stage a tile of TILE_ROWS rows of HD bf16 (row i at rows + HD i) into the
-// swizzled tile at `tile` (HD / 64 panels); rows >= nvalid are zero-filled.
-// All THREADS threads of the block call it; HD / 8 neighbouring threads read
-// one row.
+// swizzled tile at `tile` (panels<HD>() panels); rows >= nvalid, and the
+// columns of the last panel past HD, are zero-filled (so they add nothing to
+// a product that contracts over the head dim). All THREADS threads of the
+// block call it; 8 panels<HD>() neighbouring threads stage one row.
 template <int HD = 64, int THREADS = WARPGROUP>
 __device__ __forceinline__ void stage_tile(uint32_t tile, const __nv_bfloat16* rows, int nvalid,
                                            int tid) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks of a row
-  constexpr int SHIFT = HD == 64 ? 3 : 4;
-  static_assert((HD == 64 || HD == 128) && TILE_ROWS * CHUNKS % THREADS == 0,
-                "one or two panels, whole chunks a thread");
+  constexpr int NP = panels<HD>();
+  constexpr int CHUNKS = 8 * NP;  // 16-byte chunks of a staged row
+  constexpr int LIVE = HD / 8;    // of them, the ones that hold columns < HD
+  constexpr int SHIFT = NP == 1 ? 3 : 4;
+  static_assert(HD % 16 == 0 && NP <= 2 && TILE_ROWS * CHUNKS % THREADS == 0,
+                "one or two panels, whole k16 slices, whole chunks a thread");
 #pragma unroll
   for (int it = 0; it < TILE_ROWS * CHUNKS / THREADS; ++it) {
     const int i = tid + it * THREADS;
     const int r = i >> SHIFT, ch = i & (CHUNKS - 1);
-    const bool ok = r < nvalid;
-    cp_async_16(tile + (ch >> 3) * TILE_BYTES + r * ROW_BYTES + (((ch & 7) ^ (r & 7)) << 4),
-                rows + (ok ? r : 0) * HD + ch * 8, ok);
+    if (LIVE == CHUNKS) {
+      const bool ok = r < nvalid;
+      cp_async_16(tile + (ch >> 3) * TILE_BYTES + r * ROW_BYTES + (((ch & 7) ^ (r & 7)) << 4),
+                  rows + (ok ? r : 0) * HD + ch * 8, ok);
+    } else {
+      const bool ok = r < nvalid && ch < LIVE;
+      cp_async_16(tile + (ch >> 3) * TILE_BYTES + r * ROW_BYTES + (((ch & 7) ^ (r & 7)) << 4),
+                  rows + (ok ? r * HD + ch * 8 : 0), ok);
+    }
   }
 }
 

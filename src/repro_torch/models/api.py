@@ -1,4 +1,5 @@
-"""Model API (port of ``repro/models/api.py``), the dense and MoE families.
+"""Model API (port of ``repro/models/api.py``): the dense, MoE, SSM and
+hybrid families.
 
     model = build_model(cfg)
     params = model.init(gen, device)
@@ -14,8 +15,10 @@
 
 Caches are written in place (the reference returns new ones). The MoE
 loss adds ``router_aux_coef`` times the layers' summed load-balance aux and
-reports it as ``metrics["moe_aux"]``. The other families (ssm, hybrid,
-audio, vlm) come with later slices of the port (ROADMAP.md).
+reports it as ``metrics["moe_aux"]``. The SSM and hybrid families have
+neither a batched prefill nor a paged decode path: they serve through the
+naive engine, which prefills by stepping the decode path. The other
+families (audio, vlm) come with later slices of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, lm, ssm_lm
 from repro_torch.models.common import ModelConfig, fused_cross_entropy, softmax_cross_entropy
 
 Tree = Any
@@ -35,7 +38,17 @@ _LM_FAMILY: dict[str, Callable] = {
     "prefill_cache": lm.prefill_with_cache_lm,
     "paged_prefill": lm.paged_prefill_lm, "paged_decode": lm.paged_decode_step_lm,
 }
-_FAMILIES: dict[str, dict[str, Callable]] = {"dense": _LM_FAMILY, "moe": _LM_FAMILY}
+_FAMILIES: dict[str, dict[str, Callable]] = {
+    "dense": _LM_FAMILY, "moe": _LM_FAMILY,
+    "ssm": {
+        "init": ssm_lm.init_ssm_lm, "forward": ssm_lm.forward_ssm_lm,
+        "init_cache": ssm_lm.init_cache_ssm_lm, "decode_step": ssm_lm.decode_step_ssm_lm,
+    },
+    "hybrid": {
+        "init": ssm_lm.init_hybrid_lm, "forward": ssm_lm.forward_hybrid_lm,
+        "init_cache": ssm_lm.init_cache_hybrid_lm, "decode_step": ssm_lm.decode_step_hybrid_lm,
+    },
+}
 
 
 @dataclass(frozen=True)
@@ -89,6 +102,18 @@ class Model:
         unchanged, so serving paths can call this unconditionally."""
         fn = self._fam.get("fill_context")
         return fn(self.cfg, params, cache, context) if fn is not None else cache
+
+    @property
+    def attention_layers(self) -> int:
+        """Attention layers a forward runs: every layer of the dense and MoE
+        families, none of the SSM family, and the shared block once a
+        superblock of the hybrid."""
+        kind = self.cfg.arch_type
+        if kind == "ssm":
+            return 0
+        if kind == "hybrid":
+            return ssm_lm._n_super(self.cfg)
+        return self.cfg.n_layers
 
     @property
     def supports_batched_prefill(self) -> bool:

@@ -135,7 +135,9 @@ class PagedEngine:
                  temperature: float = 0.0, attn_impl: str = "xla",
                  device="cuda", seed: int = 0, capture: bool | None = None):
         if not model.supports_paged_decode:
-            raise ValueError(f"arch_type {model.cfg.arch_type!r} has no paged decode path")
+            raise ValueError(
+                f"arch_type {model.cfg.arch_type!r} has no paged decode path; "
+                "serve it with --engine naive")
         self.model, self.params = model, params
         self.slots = slots
         self.page_size = page_size

@@ -65,9 +65,9 @@ LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=1
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        tconfigs.get_config("mamba2-370m")
+        tconfigs.get_config("whisper-large-v3")
     assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER,
-                                              *MOE])
+                                              *MOE, *SSM])
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -161,18 +161,19 @@ def test_ladder_tree_paths_labels_and_roundtrip():
 
 @pytest.mark.parametrize("arch_type", ["moe", "ssm", "hybrid", "audio", "vlm"])
 def test_unported_family_names_roadmap(arch_type):
-    """The families still to port raise naming ROADMAP.md; ``moe`` (a case
-    that raised before the MoE family was ported) builds, as the
-    reference's does."""
+    """The families still to port raise naming ROADMAP.md; ``moe``, ``ssm``
+    and ``hybrid`` (cases that raised before their families were ported)
+    build, as the reference's do."""
     cfg = tconfigs.get_config("smollm-135m").replace(arch_type=arch_type)
-    if arch_type == "moe":
-        assert tbuild_model(cfg).cfg.arch_type == "moe"
+    if arch_type in ("moe", "ssm", "hybrid"):
+        assert tbuild_model(cfg).cfg.arch_type == arch_type
         return
     with pytest.raises(ValueError, match="ROADMAP.md"):
         tbuild_model(cfg)
 
 
 MOE = ["deepseek-moe-16b", "moonshot-v1-16b-a3b"]
+SSM = ["mamba2-370m", "zamba2-2.7b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -288,3 +289,65 @@ def test_port_init_matches_reference_tree():
         assert port_leaves[p].shape == x.shape and port_leaves[p].dtype == x.dtype, p
     w = port_leaves["layers/attn/wq"]
     assert abs(w.std() * np.sqrt(cfg.d_model) - 0.98) < 0.05 and np.abs(w).max() <= 3.0 / 16
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_config_equals_reference(name, reduced):
+    """mamba2-370m and zamba2-2.7b equal the reference's configs field for
+    field, full and reduced. mamba2-370m: 48 layers, d 1024, 32 SSD heads of
+    64, N 128, ~420M parameters in the reference's layout; zamba2-2.7b: 54
+    mamba layers of d 2560 (80 SSD heads, N 64) in 9 superblocks of 6, one
+    shared block of 32:32 heads at hd 80 with window 4096, ~2.42B."""
+    ref, port = get_config(name), tconfigs.get_config(name)
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.hd, port.d_inner, port.ssm_heads) == (ref.hd, ref.d_inner, ref.ssm_heads)
+    if reduced:
+        return
+    d, di, N, H, V = port.d_model, port.d_inner, port.ssm_state, port.ssm_heads, port.vocab
+    mamba = (d * (2 * di + 2 * N + H) + (port.conv_width + 1) * (di + 2 * N) + 3 * H + di
+             + di * d + d)
+    n = 2 * V * d + d + port.n_layers * mamba
+    if name == "mamba2-370m":
+        assert (port.arch_type, H, port.ssm_head_dim) == ("ssm", 32, 64)
+        assert 4.1e8 < n < 4.3e8, n
+    else:
+        assert (port.arch_type, port.hd, port.n_heads, port.n_kv_heads) == ("hybrid", 80, 32, 32)
+        assert (port.sliding_window, port.n_layers // port.hybrid_period, H) == (4096, 9, 80)
+        n += 4 * d * port.n_heads * port.hd + 2 * port.hd + 3 * d * port.d_ff + 2 * d
+        assert 2.40e9 < n < 2.44e9, n
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_tree_paths_labels_and_roundtrip(name):
+    """A reduced mamba2-370m / zamba2-2.7b tree: the reference's init
+    crosses the numpy bridge and back exactly, the port's own init has the
+    same paths, shapes and dtypes (zamba2's mamba leaves [ns, period, ...],
+    its shared block unstacked), and muon_label labels each as the
+    reference's does: in_proj, out_proj and the shared block's matrices
+    Muon; conv_*, a_log, dt_bias, d_skip, the scales, embed and head AdamW."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim.muon import muon_label
+
+    jcfg = reduce_config(get_config(name))
+    tcfg = tconfigs.reduce_config(tconfigs.get_config(name))
+    ref = jax.tree.map(np.asarray, jax.jit(build_model(jcfg).init)(jax.random.PRNGKey(0)))
+    back = dict(tree_leaves_with_paths(params_to_numpy(params_from_numpy(ref, "cpu"))))
+    own = dict(tree_leaves_with_paths(params_to_numpy(
+        tbuild_model(tcfg).init(torch.Generator().manual_seed(0), "cpu"))))
+    ref_leaves = {"/".join(str(k.key) for k in p): x
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert sorted(ref_leaves) == sorted(back) == sorted(own)
+    for path, x in ref_leaves.items():
+        np.testing.assert_array_equal(back[path], x)
+        assert own[path].shape == x.shape and own[path].dtype == x.dtype, path
+        assert muon_label(path, x) == jmuon_label(path, x), path
+    muon = {p for p, x in ref_leaves.items() if muon_label(p, x) == "muon"}
+    want = {"layers/mamba/in_proj", "layers/mamba/out_proj"}
+    if name == "zamba2-2.7b":
+        assert ref_leaves["layers/mamba/in_proj"].shape == (2, 2, 256, 2 * 512 + 2 * 16 + 32)
+        want |= {f"shared_block/attn/{w}" for w in ("wq", "wk", "wv", "wo")}
+        want |= {f"shared_block/mlp/{w}" for w in ("w_in", "w_gate", "w_out")}
+    assert muon == want, sorted(muon)

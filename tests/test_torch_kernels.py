@@ -60,6 +60,14 @@ def test_flash_fwd_plain_matches_pallas_hd128(causal, window, H, KV, S):
     _check_flash_fwd_plain(causal, window, H, KV, S, hd=128)
 
 
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_fwd_plain_matches_pallas_hd80(causal, window, H, KV):
+    """As above at head dim 80 (zamba2's shared block), G = 1 (its 32:32
+    heads) and G = 2, odd S."""
+    _check_flash_fwd_plain(causal, window, H, KV, 13, hd=80)
+
+
 def _check_flash_fwd_plain(causal, window, H, KV, S, hd):
     rng = np.random.default_rng(S * 100 + H * 10 + KV + window)
     B = 2
@@ -331,11 +339,12 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
 
 @pytest.mark.parametrize("lib,name,tiles", [
     ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
-                               100352)),
+                               100352, 99328, 100352)),
     ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
-                                100352)),
+                                100352, 99328, 100352)),
     ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV, tfa.FLASH_BWD_ROWS,
-                                tfa.FLASH_BWD_KEYS, *tfa.FP32_TILES[128], 41984, 82944)),
+                                tfa.FLASH_BWD_KEYS, *tfa.FP32_TILES[128], *tfa.FP32_TILES[80],
+                                41984, 82944, 82944)),
     ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128, tfa.PAGED_SPLITS[128])),
     ("matmul_epilogue", "matmul_epilogue", (tmm.MATMUL_TILE, tmm.MATMUL_TILE, tmm.MATMUL_BK,
                                             256)),
@@ -398,6 +407,14 @@ def test_flash_backward_matches_jax_grad(causal, window, H, KV, S):
 def test_flash_backward_matches_jax_grad_hd128(causal, window, H, KV):
     """As above at head dim 128 (the paper's ladder), G = 1 and 2, odd S."""
     _check_flash_backward(causal, window, H, KV, 13, hd=128)
+
+
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5)])
+def test_flash_backward_matches_jax_grad_hd80(causal, window, H, KV):
+    """As above at head dim 80 (zamba2's shared block, causal, windowed as
+    zamba2 is), G = 1 and 2, odd S."""
+    _check_flash_backward(causal, window, H, KV, 13, hd=80)
 
 
 def _check_flash_backward(causal, window, H, KV, S, hd):
@@ -715,8 +732,11 @@ def test_bf16_fwd_rounding_stays_within_phase_3a_tolerance(S):
 
 @pytest.mark.parametrize("hd", [80, 112, 256])
 def test_kernels_refuse_unbuilt_head_dims_and_name_roadmap(hd):
-    """The libraries are built for head dims 64 and 128 only: any other hd
-    raises NotImplementedError naming ROADMAP.md before any launch."""
+    """The flash libraries are built for head dims 64, 80 and 128 and
+    paged_decode for 64 and 128: any other hd raises NotImplementedError
+    naming ROADMAP.md before any launch. At hd 80 (zamba2, served through the
+    dense-cache engine) only paged_decode refuses; the flash sweeps' head
+    check takes it at every G they take."""
     tfa.reset_launch_counts()
     q = torch.zeros((1, 8, 1, hd), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, hd), dtype=torch.bfloat16)
@@ -724,14 +744,20 @@ def test_kernels_refuse_unbuilt_head_dims_and_name_roadmap(hd):
     kw = dict(causal=True, window=0, scale=0.125)
     pool = torch.zeros((4, 4, 1, hd), dtype=torch.bfloat16)
     table, lengths = torch.ones((1, 2), dtype=torch.int32), torch.ones((1,), dtype=torch.int32)
-    for call in (lambda: tfa._fwd_cuda(q, k, k, **kw),
-                 lambda: tfa._dq_cuda(q, k, k, q, lse, lse, **kw),
-                 lambda: tfa._dkv_cuda(q, k, k, q, lse, lse, **kw),
-                 lambda: tfa._paged_decode_cuda(q[:, 0:1, 0:1].reshape(1, 1, 1, hd), pool, pool,
-                                                table, lengths, window=0)):
+    flash = [lambda: tfa._fwd_cuda(q, k, k, **kw),
+             lambda: tfa._dq_cuda(q, k, k, q, lse, lse, **kw),
+             lambda: tfa._dkv_cuda(q, k, k, q, lse, lse, **kw)]
+    paged = [lambda: tfa._paged_decode_cuda(q[:, 0:1, 0:1].reshape(1, 1, 1, hd), pool, pool,
+                                            table, lengths, window=0)]
+    for call in paged + ([] if hd in tfa.KERNEL_HEAD_DIM else flash):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    assert tfa.KERNEL_HEAD_DIM == (64, 128)
+    if hd == 80:
+        for name in ("flash_fwd", "flash_bwd"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for G in range(1, tfa.MAX_GROUP[name] + 1):
+                    tfa._check_head(name, dtype, hd, G)
+    assert tfa.KERNEL_HEAD_DIM == (64, 80, 128) and tuple(tfa.PAGED_SPLITS) == (64, 128)
     assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 

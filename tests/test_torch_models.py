@@ -596,3 +596,151 @@ def test_moe_paged_decode_step_logits_match_reference(impl):
         np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
         np.testing.assert_array_equal(tlog.argmax(-1).numpy(), np.asarray(jlog.argmax(-1)))
         tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
+
+
+# ------------------------------------------------------- SSM and hybrid (mamba2, zamba2)
+#
+# Tolerances: the SSD's primitives and a layer at rtol 1e-4 / atol 1e-5, the
+# reference's own chunk-invariance tolerance (the port's pairs of products sum
+# in another order than the reference's three-operand einsums); the reduced
+# models' logits, loss and gradients as the dense ones' (fp32 atol 1e-4).
+
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+SSM_TOL = dict(rtol=1e-4, atol=1e-5)
+SSM_ARCHS = {"ssm": "mamba2-370m", "hybrid": "zamba2-2.7b"}
+
+
+def _ssm_cfgs(**upd):
+    base = dict(arch_type="ssm", d_model=32, ssm_state=8, ssm_head_dim=8, ssm_chunk=4, vocab=16,
+                dtype="float32")
+    base.update(upd)
+    return jcommon.ModelConfig(**base), tcommon.ModelConfig(**base)
+
+
+def _mamba_params(jcfg, seed=0):
+    jp = jssm.init_mamba(jax.random.PRNGKey(seed), jcfg)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def test_ssm_primitives_match_reference():
+    """_segsum and _causal_conv against the reference's; the gradient through
+    _segsum's masked exponentials is finite (exactly 0 at the masked entries)."""
+    rng = np.random.default_rng(30)
+    x = -np.abs(rng.standard_normal((2, 3, 8))).astype(np.float32)
+    np.testing.assert_allclose(torch.exp(tssm._segsum(torch.from_numpy(x))).numpy(),
+                               np.asarray(jnp.exp(jssm._segsum(jnp.asarray(x)))), **SSM_TOL)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    torch.exp(tssm._segsum(tx)).sum().backward()
+    assert torch.isfinite(tx.grad).all()
+    jg = jax.grad(lambda v: jnp.exp(jssm._segsum(v)).sum())(jnp.asarray(x))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg), **SSM_TOL)
+    xbc = rng.standard_normal((2, 9, 12)).astype(np.float32)
+    w = rng.standard_normal((4, 12)).astype(np.float32)
+    b = rng.standard_normal((12,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tssm._causal_conv(*map(torch.from_numpy, (xbc, w, b))).numpy(),
+        np.asarray(jssm._causal_conv(*map(jnp.asarray, (xbc, w, b)))), **SSM_TOL)
+
+
+def test_mamba_forward_and_decode_match_reference():
+    """One Mamba2 layer: the chunked SSD forward (4 chunks), and three
+    recurrent decode steps from a zero state, against the reference's."""
+    jcfg, tcfg = _ssm_cfgs()
+    jp, tp = _mamba_params(jcfg)
+    x = np.random.default_rng(31).standard_normal((2, 16, 32)).astype(np.float32)
+    jfwd = jax.jit(jssm.mamba_forward, static_argnums=1)
+    jdecode = jax.jit(jssm.mamba_decode, static_argnums=1)
+    np.testing.assert_allclose(tssm.mamba_forward(tp, tcfg, torch.from_numpy(x)).numpy(),
+                               np.asarray(jfwd(jp, jcfg, jnp.asarray(x))), **SSM_TOL)
+    with pytest.raises(AssertionError, match="divisible by ssm_chunk"):
+        tssm.mamba_forward(tp, tcfg, torch.from_numpy(x[:, :6]))
+    jst = jax.tree.map(lambda t: t[0], jssm.init_ssm_state(jcfg, 2, 1))
+    tst = jax.tree.map(lambda t: t[0], tssm.init_ssm_state(tcfg, 2, 1, "cpu"))
+    for t in range(3):
+        jo, jst = jdecode(jp, jcfg, jnp.asarray(x[:, t:t + 1]), jst)
+        to, tst = tssm.mamba_decode(tp, tcfg, torch.from_numpy(x[:, t:t + 1]), tst)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), **SSM_TOL)
+        for k in ("h", "conv"):
+            np.testing.assert_allclose(tst[k].numpy(), np.asarray(jst[k]), **SSM_TOL)
+
+
+def test_mamba_chunk_invariance():
+    """The port's chunked SSD is invariant to the chunk size (the twin of
+    tests/test_models.py's), on the reference's params and input."""
+    jcfg, tcfg = _ssm_cfgs()
+    _, tp = _mamba_params(jcfg)
+    x = torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(1), (2, 32, 32))))
+    y4 = tssm.mamba_forward(tp, tcfg, x).numpy()
+    for q in (8, 16):
+        np.testing.assert_allclose(y4, tssm.mamba_forward(tp, tcfg.replace(ssm_chunk=q),
+                                                          x).numpy(), **SSM_TOL)
+
+
+@functools.lru_cache(maxsize=2)
+def _ssm_params(kind: str):
+    """The reduced config's reference init as numpy (one compile a family)."""
+    jmodel = build_model(reduce_config(get_config(SSM_ARCHS[kind])))
+    return jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+
+
+def _ssm_pair(kind: str, impl: str = "xla", remat: bool = False):
+    name = SSM_ARCHS[kind]
+    jcfg = reduce_config(get_config(name)).replace(attn_impl=impl)
+    tcfg = tconfigs.reduce_config(tconfigs.get_config(name)).replace(attn_impl=impl,
+                                                                      remat=remat)
+    jparams = jax.tree.map(jnp.asarray, _ssm_params(kind))
+    return build_model(jcfg), jparams, tbuild_model(tcfg), params_from_numpy(_ssm_params(kind),
+                                                                              "cpu")
+
+
+@pytest.mark.parametrize("kind", sorted(SSM_ARCHS))
+def test_ssm_family_forward_loss_and_grads_match_reference(kind):
+    """The reduced mamba2-370m and zamba2-2.7b (fp32, reference params, S = 32
+    = 4 chunks; zamba2's window 16 masks): logits, the fused loss and every
+    gradient leaf (the shared block's summed over its 2 invocations) within
+    fp32 atol 1e-4, the port's side with remat on (torch.utils.checkpoint
+    per layer or superblock)."""
+    jmodel, jparams, tmodel, tparams = _ssm_pair(kind, remat=True)
+    toks = _tokens(32, (2, 33), jmodel.cfg.vocab)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    tb = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+
+    @jax.jit  # one compile for the forward and the loss's gradients
+    def jrun(p, b):
+        return jmodel.forward(p, b["tokens"])[0], jax.value_and_grad(jmodel.loss,
+                                                                     has_aux=True)(p, b)
+
+    jl, ((jloss, _), jg) = jrun(jparams, jb)
+    tl, _ = tmodel.forward(tparams, tb["tokens"])
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    leaves = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    tloss, _ = tmodel.loss(leaves, tb)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), **TOL["float32"])
+    jflat = jax.tree_util.tree_flatten_with_path(jg)[0]
+    tflat = jax.tree_util.tree_flatten_with_path(leaves)[0]
+    assert [p for p, _ in jflat] == [p for p, _ in tflat]
+    for (path, g), (_, t) in zip(jflat, tflat):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL["float32"],
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("kind", sorted(SSM_ARCHS))
+def test_ssm_family_stepped_decode_matches_forward_and_reference(kind):
+    """Stepping decode_step over 20 tokens (past zamba2's reduced window of
+    16, so the ring cache wraps): each step's logits equal the full forward's
+    at that position and the reference's decode_step, fp32 atol 1e-4."""
+    jmodel, jparams, tmodel, tparams = _ssm_pair(kind)
+    B, T = 2, 20
+    toks = _tokens(33, (B, 24), jmodel.cfg.vocab)
+    tfull, _ = tmodel.forward(tparams, torch.from_numpy(toks))
+    jcache = jmodel.init_cache(jparams, B, T)
+    tcache = tmodel.init_cache(tparams, B, T)
+    jstep = jax.jit(jmodel.decode_step)
+    for t in range(T):
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(toks[:, t]), jnp.int32(t))
+        tlog, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(toks[:, t]), t)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        np.testing.assert_allclose(_f32(tlog), _f32(tfull[:, t]), **TOL["float32"])

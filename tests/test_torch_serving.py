@@ -408,3 +408,31 @@ def test_moe_engines_match_reference():
     jtoks = jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), 4)
     ttoks = naive_generate(tmodel, tparams, torch.from_numpy(prompts), 4)
     np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+SSM_ARCHS = {"ssm": "mamba2-370m", "hybrid": "zamba2-2.7b"}
+
+
+@pytest.mark.parametrize("kind", sorted(SSM_ARCHS))
+def test_ssm_naive_generate_matches_reference(kind, capsys):
+    """The reduced mamba2-370m and zamba2-2.7b (fp32, reference params)
+    through naive_generate, which steps the decode path through the prompt
+    (neither family has a batched prefill): greedy tokens (2 prompts of 12,
+    8 new, past zamba2's reduced window of 16) equal the reference's
+    naive_generate. The paged engine refuses both with the reference's
+    message, and ``launch.serve --engine naive`` serves them on the CPU."""
+    name = SSM_ARCHS[kind]
+    jmodel = build_model(reduce_config(get_config(name)))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    tmodel = tbuild_model(tconfigs.reduce_config(tconfigs.get_config(name)))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert not (tmodel.supports_batched_prefill or tmodel.supports_paged_decode)
+    prompts = np.random.default_rng(19).integers(0, 512, (2, 12)).astype(np.int32)
+    ref = np.asarray(jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), 8))
+    out = naive_generate(tmodel, tparams, torch.from_numpy(prompts), 8)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    with pytest.raises(ValueError, match="serve it with --engine naive"):
+        PagedEngine(tmodel, tparams, device="cpu")
+    tserve.main(["--arch", name, "--reduced", "--engine", "naive", "--batch", "2",
+                 "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
+    assert "[naive] generated 8 tokens" in capsys.readouterr().out
