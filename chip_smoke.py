@@ -80,8 +80,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    round's eager launches plus, per replay, what the capture recorded,
    which must be one round's formula. Losses must be finite and fall from
    the first round to the last; the capture time prints apart from round
-   1's wall. Then (6c) one more replayed round, and a dispatch of three,
-   under torch.profiler: device busy share, kernel count, the kernels that
+   1's wall. Then (6c) one more replayed round under torch.profiler: device busy share, kernel count, the kernels that
    take the time, and the per-launch device time of the bf16 flash
    forward, the two flash backward sweeps and ``matmul_epilogue`` beside
    phase 3a's, 5a's and 5b's event times. Then (6d) the same command with
@@ -179,8 +178,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    normuon`` (``VARIANTS``), 3 rounds captured: launches against the formula
    (``matmul_epilogue`` 105 a worker step: MuonBP's off-period steps select
    the momentum over the orthogonalized update, so Newton-Schulz runs every
-   step), finite losses (NorMuon's eval falls), the optimizers' own counters,
-   and (14b') the same command eager, bitwise; each rate beside 6b's.
+   step), finite losses (NorMuon's eval falls), the optimizers' own counters;
+   each rate beside 6b's.
 15. The paper's pseudogradient measurements (Parts B and C) on paper-150m at
    full width (``PROBE``): a DP checkpoint warmed up with ``dp_init`` /
    ``dp_step`` (32 steps of 16 x 1024), then K workers at 16 / K sequences
@@ -220,22 +219,62 @@ Phases, in order; any failure raises and the script exits nonzero:
    the forward's logits (1e-3); (17d) mamba2-370m's training command
    ``TRAIN_MAMBA`` at full width and depth, captured: launches against the
    formula (no flash; matmul_epilogue 30 a worker step), losses falling,
-   (17d') a profiled replayed round with the SSD scan's share, (17d'') eager
-   bitwise; (17e) zamba2-2.7b at one superblock (``ZAMBA_TRAIN``), captured,
-   the same checks; (17f) both served through the naive engine, 4b's
+   (17d') a profiled replayed round with the SSD scan's share; (17e)
+   zamba2-2.7b at one superblock (``ZAMBA_TRAIN``), captured, the same
+   checks; (17f) both served through the naive engine, 4b's
    workload as one lockstep batch (zamba2 in bf16 weights): tok/s, a decode
    step's device time beside its floor, peak memory, a shorter repeat
    bitwise.
-18. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+18. The audio and VLM families (slice 8): whisper-large-v3 (``WHISPER``: 32
+   encoder and 32 decoder layers of d 1280, 20:20 heads of 64, gelu, 1500
+   audio frames, 1,602,629,120 parameters) and llama-3.2-vision-90b
+   (``VLM``: 100 layers of d 8192 in 20 superblocks of 1 gated cross + 4
+   self layers, 64:8 heads of 128, so G = 8): (18a) ptxas of the flash
+   sweeps at hd 64, 80 and 128, then flash_fwd and flash_dq / flash_dkv at
+   the slice's new shapes against their plain versions as 3a and 5a check
+   them (``WHISPER_FWD_CASES``, ``WHISPER_BWD_CASES``: whisper's encoder, q
+   [80, 1500, 1, 64], non-causal, a ragged 28-key tail; ``VLM_FWD_CASES``,
+   ``VLM_BWD_CASES``: the VLM's self layers, q [8, 2048, 8, 128], causal;
+   bf16 and fp32, bitwise from run to run), the bf16 ones timed beside the
+   bound, the plain version and SDPA; (18b) matmul_epilogue at whisper's
+   Newton-Schulz shapes ([32, 1280, 5120], [32, 1280, 1280]) in all four
+   layouts, X X^T on w_in and B X + a X timed beside torch.baddbmm, and
+   nesterov over whisper's parameter count; (18c) whisper's fp32 agreement
+   at full width and depth, kernels against plain torch: forward logits,
+   then fill_context and three decode steps against the forward (1e-3);
+   (18d) one MuLoCo run of whisper through TrainEngine at full width and
+   depth (``WHISPER_TRAIN``: K 2, H 2, 4 x 448 tokens and their 4 x 1500
+   frames a worker step, the batch's "context" leaf), captured: launches
+   against the formula, losses falling, (18d') a profiled replayed round
+   with the shares of matmul_epilogue, the flash kernels and the rest,
+   (18d'') eager bitwise; (18e) whisper served through
+   ``launch.serve.serve(engine='naive')`` at full depth (``WHISPER_SERVE``),
+   its encoder's 32 non-causal flash_fwd launches counted, two runs bitwise,
+   another context other tokens; (18f) the VLM at full width with one
+   superblock (``VLM_DEPTH``, bf16 weights, gates opened): served through
+   the naive engine over 1600 image tokens (``VLM_SERVE``), then one
+   2048-token forward and backward through the G = 8 flash kernels against
+   the plain path (loss, the gradients' relative error over the tree and
+   on each of the self layers' attention leaves).
+19. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
    paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
    pseudogradients"`` and ``"deepseek-moe-16b"``, with matmul_epilogue's
-   expert-bank timing, and slice 7a's launches and timings under
+   expert-bank timing, slice 7a's launches and timings under
    ``"mamba2-370m"`` and ``"zamba2-2.7b"``: the flash rows at hd 80,
-   matmul_epilogue at each in_proj; the serving paths launch none), the
-   script's seconds, then the last line ``{"ok": true, "device": {...}}``.
+   matmul_epilogue at each in_proj; the serving paths launch none, and
+   slice 8's under ``"whisper-large-v3"`` and ``"llama-3.2-vision-90b"``:
+   the flash rows at the encoder's non-causal and the VLM's G = 8 shapes,
+   matmul_epilogue at whisper's w_in, nesterov over whisper's parameters),
+   the script's seconds, then the last line ``{"ok": true, "device": {...}}``.
    A line ``-- phases ... done at N s`` follows each group of phases.
+
+Cut for time (the script's limit is 1200 s; slice 8 adds ~150 s): the
+earlier slices' repeats 6c's dispatch of three, 14b' and 17d''/17e'' (the
+variants', mamba2's and zamba2's rounds again eager, bitwise, which earlier
+full runs held), and 17f's repeat shortened to 8 + 8 tokens; no kernel
+check was cut (PERF.md section 4).
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -965,19 +1004,20 @@ def sdpa_backend(torch, q, k, v, mask) -> str:
     return type(o.grad_fn).__name__
 
 
-def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int, window: int = 0) -> float:
+def sdpa_backward_ms(torch, q, k, v, do, B: int, KV: int, window: int = 0,
+                     causal: bool = True) -> float:
     """The library yardstick of the flash backward: SDPA's backward alone (dq,
-    dk and dv in one autograd call), from one causal forward with enable_gqa
-    (with ``window``, the window as a boolean mask) kept with retain_graph.
-    Prints the backend and three repeats of ``time_ms``; returns their
-    median."""
+    dk and dv in one autograd call), from one forward with enable_gqa
+    (causal, or with ``window`` the window as a boolean mask, or neither)
+    kept with retain_graph. Prints the backend and three repeats of
+    ``time_ms``; returns their median."""
     _, S, G, hd = q.shape
     qs = q.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
     dos = do.reshape(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
     leaves = [t.detach().requires_grad_(True)
               for t in (qs, k.reshape(B, KV, S, hd), v.reshape(B, KV, S, hd))]
     mask = window_mask(torch, S, window) if window else None
-    o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=not window,
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal and not window,
                                                          attn_mask=mask, enable_gqa=True)
     repeats = [time_ms(torch, lambda: torch.autograd.grad(o, leaves, dos, retain_graph=True))
                for _ in range(3)]
@@ -1032,15 +1072,16 @@ FLASH_BWD_CASES = {
 }
 
 
-def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
+def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a", cases: list | None = None):
     """[5a] flash_dq and flash_dkv against autograd through the plain forward
-    and against their plain versions at head dim ``hd``; bitwise equal from
+    and against their plain versions at head dim ``hd`` (the cases of
+    ``FLASH_BWD_CASES[hd]`` unless ``cases`` are given); bitwise equal from
     run to run. The first case (the main path's shape) is timed."""
     print(f"[{phase}] flash_dq / flash_dkv (replace flash_attention.py:_dq_kernel / "
           f"_dkv_kernel), hd {hd}")
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = {}
-    for B, KV, S, G, dt, causal, window in FLASH_BWD_CASES[hd]:
+    for B, KV, S, G, dt, causal, window in cases or FLASH_BWD_CASES[hd]:
         dt = getattr(torch, dt)
         BKV = B * KV
         fp32 = dt == torch.float32
@@ -1088,7 +1129,7 @@ def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
         dkv_ms = time_ms(torch, lambda: fa._dkv_cuda(*args, **kw))
         dq_plain = time_ms(torch, lambda: fa._dq_plain(*args, **kw), runs=5)
         dkv_plain = time_ms(torch, lambda: fa._dkv_plain(*args, **kw), runs=5)
-        lib_ms = sdpa_backward_ms(torch, q, k, v, do, B, KV, window)
+        lib_ms = sdpa_backward_ms(torch, q, k, v, do, B, KV, window, causal)
         out["flash_dq"] = dict(max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain,
                                library_ms=lib_ms,
                                **bound(6 * hd * rows, io + q.numel() * q.element_size(),
@@ -1101,7 +1142,7 @@ def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a"):
             r = out[name]
             print(f"  timed {name} {tag}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), sdpa backward "
-                  f"(dq, dk, dv) {lib_ms:.4f} ms; {pairs} causal pairs per head")
+                  f"(dq, dk, dv) {lib_ms:.4f} ms; {pairs} unmasked pairs per head")
     return out
 
 
@@ -1294,6 +1335,7 @@ def phase_nesterov(torch, ou, n: int = 134_515_008, phase: str = "5c"):
                         ((small[2], small[3]), "bf16 theta")]:
         assert all(torch.equal(x, y) for x, y in zip(a, b)), f"nesterov {tag}: not bitwise"
         print(f"  {tag}: theta' and u' bitwise equal to the plain version")
+    del got, want, small
     ms = time_ms(torch, lambda: ou._nesterov_cuda(theta, psi, u, **kw))
     plain_ms = time_ms(torch, lambda: ou._nesterov_plain(theta, psi, u, **kw))
     out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -1528,8 +1570,8 @@ def phase_train_equal(torch, build_parser, train, ref_hist: list, ref_state: dic
         tokens = 65536 * len(later)
         print(f"    round walls {[round(r['wall_s'], 3) for r in hist]} s; tokens/s over "
               f"rounds 2-{len(hist)}: {tokens / sum(r['wall_s'] for r in later):.1f}"
-              + (" (one dispatch: each wall is a third of it, warm-up and capture included;"
-                 " 6c's R = 3 line times a dispatch of replays)" if capture is None else ""))
+              + (" (one dispatch: each wall is a third of it, warm-up and capture included)"
+                 if capture is None else ""))
         if capture is None:
             assert tel["dispatches"] == 1 and tel["rounds_per_dispatch"] == 3, tel
             print(f"    warm-up round {out['engine'].warmup_s[0]:.3f} s, capture "
@@ -2335,10 +2377,9 @@ def phase_variant(torch, build_parser, train, inner: str, muon_tok_s: float) -> 
     ``--inner normuon``, captured, 3 rounds: launches against the formula
     (``matmul_epilogue`` 105 a worker step, as Muon's: MuonBP's off-period
     steps select the momentum over the orthogonalized update, so NS runs on
-    every step), finite losses (NorMuon's eval loss falls), then (14b') the
-    same command eager, bitwise; the rate beside 6b's."""
-    from repro_torch.utils.tree import tree_map
-
+    every step), finite losses (NorMuon's eval loss falls); the rate beside
+    6b's. (The eager repeat, 14b', is cut for time; earlier full runs held
+    it bitwise.)"""
     argv = variant_argv(inner)
     launches, out = phase_train_main(torch, build_parser, train, argv, phase=f"14b {inner}",
                                      falls=inner == "normuon")
@@ -2347,16 +2388,10 @@ def phase_variant(torch, build_parser, train, inner: str, muon_tok_s: float) -> 
     assert per_round["matmul_epilogue"] == 105 * steps, per_round
     counter = out["state"]["inner_state"]["tx"]["muon"][1 if inner == "muon_bp" else 2]["count"]
     assert counter.tolist() == [12, 12], counter  # 3 rounds x H = 4, per worker
-    ref_hist = out["history"]
-    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
     tok_s = out["tok_s"]
     print(f"  {inner}: {tok_s:.1f} tokens/s over rounds 2-3 beside 6b's --inner muon "
           f"{muon_tok_s:.1f}; matmul_epilogue 105 a worker step (K x H = {steps} a round)")
     del out
-    torch.cuda.empty_cache()
-    phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=argv,
-                      phase=f"14b' {inner}", with_r3=False)
-    del ref_state
     torch.cuda.empty_cache()
     return dict(launches=launches, tok_s=tok_s)
 
@@ -2882,7 +2917,7 @@ TRAIN_MAMBA = replace_flags(TRAIN, arch=MAMBA, seq_len=1024, batch_per_worker=8,
 # 4096 masks), K = 2, H = 4, 3 rounds, the training command's lr
 ZAMBA_TRAIN = dict(depth=6, K=2, H=4, batch=1, seq_len=8192, rounds=3, lr=3e-3)
 # 17f: the run-to-run repeat of the naive serving workload, (prompt, new)
-SERVE_REPEAT = (32, 16)
+SERVE_REPEAT = (8, 8)
 # 17b: the Newton-Schulz stacks of the Muon leaves, (name, shape, taken
 # transposed): each model's in_proj first (timed)
 SSM_NS_SHAPES = {
@@ -3018,9 +3053,10 @@ def phase_mamba_train(torch, build_parser, train) -> dict:
     """[17d] mamba2-370m's training main path at full width and depth through
     the CLI (``TRAIN_MAMBA``): launches against the formula (matmul_epilogue
     30 a worker step, 3 products x 5 iterations x 2 Muon leaves; no flash),
-    losses finite and falling, (17d') a profiled replayed round with the SSD
-    scan's share, and (17d'') the same command eager, bitwise."""
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    losses finite and falling, and (17d') a profiled replayed round with the
+    SSD scan's share. (The eager repeat, 17d'', is cut for time; earlier
+    full runs held it bitwise.)"""
+    from repro_torch.utils.tree import tree_leaves
 
     args = build_parser().parse_args(TRAIN_MAMBA)
     launches, out = phase_train_main(torch, build_parser, train, TRAIN_MAMBA, phase="17d",
@@ -3031,8 +3067,6 @@ def phase_mamba_train(torch, build_parser, train) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(out["state"]["outer_params"]))
     cfg = out["model"].cfg
     assert n_params == ssm_param_count(cfg), (n_params, ssm_param_count(cfg))
-    ref_hist = out["history"]
-    ref_state = tree_map(lambda t: t.detach().clone(), out["state"])  # before the profile
     prof = phase_train_profile(torch, out, TRAIN_MAMBA, tag="17d'",
                                focus=("matmul_epilogue_kernel",))
     share = ssd_share(torch, cfg, args.batch_per_worker, args.seq_len, cfg.n_layers, steps,
@@ -3040,10 +3074,6 @@ def phase_mamba_train(torch, build_parser, train) -> dict:
     res = dict(launches=launches, tok_s=out["tok_s"], peak_gb=out["peak_gb"], idle=prof["idle"],
                replay_tok_s=prof["tok_s"], ssd_share=share, n_params=n_params)
     del out
-    torch.cuda.empty_cache()
-    phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=TRAIN_MAMBA,
-                      phase="17d''", with_r3=False)
-    del ref_state
     torch.cuda.empty_cache()
     return res
 
@@ -3059,15 +3089,15 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     rounds 2 and 3 replays; launches against the formula (flash_fwd twice a
     worker step with remat, once for the eval; flash_dq and flash_dkv once;
     matmul_epilogue 15 x 9 Muon leaves); losses finite and falling; (17e')
-    one more replayed round profiled, with the SSD scan's share; (17e'') the
-    same rounds eager, bitwise (the state compared leaf by leaf against a
-    host copy); the peak memory."""
+    one more replayed round profiled, with the SSD scan's share; the peak
+    memory. (The eager repeat, 17e'', is cut for time; earlier full runs
+    held it bitwise.)"""
     from repro_torch.core import DiLoCoConfig
     from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
     from repro_torch.engine import TrainEngine, run_rounds
     from repro_torch.kernels import _build
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_leaves
 
     T = ZAMBA_TRAIN
     K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
@@ -3088,8 +3118,8 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     def eval_for(r0, m):
         return {k: v[:, 0] for k, v in evals.batch_stack(r0, m).items()}
 
-    def run(capture):
-        engine = TrainEngine(model, dcfg, icfg, capture=capture)
+    def run():
+        engine = TrainEngine(model, dcfg, icfg)
         state = engine.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
         state, hist = run_rounds(engine, state, lambda r: batches_for_round(data, r, H), n,
                                  rounds_per_dispatch=1,
@@ -3100,7 +3130,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    engine, state, hist = run(None)
+    engine, state, hist = run()
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in tree_leaves(state["outer_params"]))
@@ -3126,8 +3156,6 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
           f"memory {peak_gb:.2f} GB")
     later = hist[1:]
     tok_s = len(later) * tokens / sum(r["wall_s"] for r in later)
-    ref_hist = hist
-    ref_host = tree_map(lambda t: t.to("cpu", copy=True), state)
 
     def dispatch(i):
         nonlocal state
@@ -3143,19 +3171,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
                                                    "flash_dkv_wgmma_kernel",
                                                    "matmul_epilogue_kernel"))
     share = ssd_share(torch, cfg, B, S, cfg.n_layers, steps, prof["busy_ms"])
-    del engine, state
-    torch.cuda.empty_cache()
-    print("[17e''] the same rounds eager (capture=False)")
-    engine, state, hist = run(False)
-    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
-    for a, b in zip(ref_hist, hist):
-        for k in keys:
-            assert a[k] == b[k], ("eager", a["round"], k, a[k], b[k])
-    diffs = _state_diffs_host(torch, ref_host, state)
-    assert not diffs, diffs
-    print(f"  eager: {len(hist)} rounds' {', '.join(keys)} and every state leaf bitwise equal "
-          "to the captured run's")
-    del engine, state, ref_host, model
+    del engine, state, model
     torch.cuda.empty_cache()
     return dict(launches=launches, peak_gb=peak_gb, tok_s=tok_s, replay_tok_s=prof["tok_s"],
                 idle=prof["idle"], ssd_share=share, n_params=n_params)
@@ -3326,6 +3342,547 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
                          ZAMBA: {"launches": zl["nesterov"]}}}
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the audio and VLM families (18): whisper-large-v3 and
+# llama-3.2-vision-90b
+# ---------------------------------------------------------------------------
+
+WHISPER, VLM = "whisper-large-v3", "llama-3.2-vision-90b"
+# 18a: the kernel shapes the slice brings. whisper's encoder: 4 sequences x 20
+# kv heads of 1500 frames at hd 64, non-causal (a ragged 28-key tail on the
+# 64-key tile), the 18d round's shape; the VLM's self layers: one sequence of
+# 2048 tokens x 8 kv heads at hd 128 with G = 8 (64:8 heads), causal, 18f's
+WHISPER_FWD_CASES = [(4 * 20, 1500, 1, _BF16, False, 0, "whisper encoder"),
+                     (4 * 20, 1500, 1, _FP32, False, 0, None)]
+VLM_FWD_CASES = [(8, 2048, 8, _BF16, True, 0, "vlm self"),
+                 (8, 2048, 8, _FP32, True, 0, None)]
+WHISPER_BWD_CASES = [(4, 20, 1500, 1, _BF16, False, 0), (4, 20, 1500, 1, _FP32, False, 0)]
+VLM_BWD_CASES = [(1, 8, 2048, 8, _BF16, True, 0), (1, 8, 2048, 8, _FP32, True, 0)]
+# 18d: one MuLoCo run of whisper-large-v3 at full width and depth: K 2, H 2,
+# B sequences of 448 decoder tokens (whisper's context length) with their
+# [B, 1500, 1280] frames a worker step, 3 rounds (warm-up and capture, two
+# replays), the training command's lr
+WHISPER_TRAIN = dict(K=2, H=2, batch=4, seq_len=448, rounds=3, lr=3e-3)
+# 18e / 18f: the served workloads, (requests, prompt, new tokens)
+WHISPER_SERVE = dict(batch=4, prompt_len=16, max_new=64)
+WHISPER_REPEAT_NEW = 8  # 18e's run-to-run and context checks: new tokens a run
+VLM_SERVE = dict(batch=4, prompt_len=16, max_new=32)
+# 18f: the VLM at full width, depth cut to one superblock (1 gated cross and
+# 4 self layers), bf16 weights; one sequence of 2048 tokens differentiated
+VLM_DEPTH, VLM_SEQ = 5, 2048
+# 18f: the self layers' attention leaves ([1, 4, ...] stacks), each held on
+# its own: a fault in one flash kernel moves these leaves' gradients, and
+# hardly the whole tree's norm. On an H100 the sound run reads 1.08e-2 to
+# 1.55e-2 here; query head G - 1 dropped from flash_dq or flash_dkv reads
+# 0.357 and 0.431 on the leaf it feeds (tools/slice8_probe.py --faults),
+# while dq's fault moves the whole tree's error only to 3.79e-2
+VLM_ATTN_LEAVES = tuple(f"self_layers/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
+VLM_ATTN_TOL = 3e-2
+
+
+def n_params(cfg) -> int:
+    """The parameter count of a config, from its init on the meta device."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def context_draw(torch, cfg, lead: tuple, seed: int):
+    """Audio frames or image patches [*lead, N, d_model] in the compute
+    dtype, a normal draw from a generator seeded with ``seed``."""
+    n = cfg.n_audio_frames if cfg.arch_type == "audio" else cfg.n_image_tokens
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((*lead, n, cfg.d_model), generator=gen, device="cuda").to(cfg.compute_dtype)
+
+
+def phase_matmul_whisper(torch, mm) -> tuple[dict, dict]:
+    """[18b] matmul_epilogue at whisper-large-v3's Newton-Schulz shapes: the
+    MLP stacks [32, 1280, 5120] (w_in; w_out taken transposed) and the
+    square attention stacks [32, 1280, 1280] (1280 = 13 x 96 + 32, ragged on
+    the 96-wide tile), each product in all four operand layouts within 1e-5
+    of the largest output, the symmetric ones bitwise symmetric; X X^T on
+    w_in (symmetric) and B X + a X [32, 1280, 1280] x [32, 1280, 5120] timed
+    beside the plain version, the bound and torch.baddbmm."""
+    print("[18b] matmul_epilogue at whisper-large-v3's Newton-Schulz shapes, fp32, TF32 off")
+    from repro_torch.optim.muon import NS_COEFFS
+
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = normed(torch.randn((32, 1280, 5120), generator=gen, device="cuda"))
+    xs = normed(torch.randn((32, 1280, 1280), generator=gen, device="cuda"))
+    A = mm.matmul_epilogue(x, x.mT, symmetric=True)
+    Bm = mm.matmul_epilogue(A, A, A, alpha=nc, beta=nb, symmetric=True)
+    As = mm.matmul_epilogue(xs, xs.mT, symmetric=True)
+    Bs = mm.matmul_epilogue(As, As, As, alpha=nc, beta=nb, symmetric=True)
+    check_matmul_cases(torch, mm, [
+        ("X X^T, w_in stack [32, 1280, 5120]", x, x.mT, None, 1.0, 0.0, True),
+        ("c A A + b A, [32, 1280, 1280]", A, A, A, nc, nb, True),
+        ("B X + a X, [32, 1280, 1280] x [32, 1280, 5120]", Bm, x, x, 1.0, na, False),
+        ("X X^T, wq stack [32, 1280, 1280]", xs, xs.mT, None, 1.0, 0.0, True),
+        ("B X + a X, wq stack [32, 1280, 1280] x [32, 1280, 1280]", Bs, xs, xs, 1.0, na, False)])
+    z, m, k = x.shape
+    xx = time_matmul(torch, mm, "X X^T, w_in stack [32, 1280, 5120], symmetric=True", x, x.mT,
+                     None, 1.0, 0.0, True, 2.0 * z * (m * (m + 1) // 2) * k,
+                     (x.numel() + z * m * m) * 4)
+    bx = time_matmul(torch, mm, "B X + a X, [32, 1280, 1280] x [32, 1280, 5120]", Bm, x, x, 1.0,
+                     na, False, 2.0 * z * m * m * k, (Bm.numel() + 2 * x.numel()) * 4)
+    del x, xs, A, Bm, As, Bs
+    torch.cuda.empty_cache()
+    return xx, bx
+
+
+def phase_whisper_agreement(torch, get_config, build_model) -> None:
+    """[18c] whisper-large-v3 at full width and depth in fp32: the kernel path
+    (attn_impl pallas: the encoder's non-causal and the decoder's causal fp32
+    flash_fwd) against the plain torch path (xla) on one context, forward
+    logits within 1e-3 (as 4a); then fill_context (the encoder through the
+    kernel, every decoder layer's cross K/V) and three decode steps, each
+    step's logits against the forward's at its position (1e-3)."""
+    print(f"[18c] full-width fp32 agreement, {WHISPER}: attn_impl pallas (kernels) vs xla (plain "
+          "torch), then fill_context + 3 decode steps against the forward")
+    dev = torch.device("cuda")
+    base = get_config(WHISPER).replace(dtype="float32")
+    model_k, model_p = build_model(base.replace(attn_impl="pallas")), build_model(base)
+    params = model_k.init(torch.Generator(device=dev).manual_seed(0), dev)
+    B, S = 2, 64
+    toks = torch.randint(0, base.vocab, (B, S), generator=torch.Generator().manual_seed(5))
+    toks = toks.to(dev, torch.int32)
+    ctx = context_draw(torch, base, (B,), 41)
+    with torch.no_grad():
+        lk, _ = model_k.forward(params, toks, context=ctx)
+        lp, _ = model_p.forward(params, toks, context=ctx)
+        assert torch.isfinite(lk).all()
+        check("forward logits (pallas vs xla)", (lk - lp).abs().max().item(), 1e-3)
+        cache = model_k.fill_context(params, model_k.init_cache(params, B, S), ctx)
+        for t in range(3):
+            logits, cache = model_k.decode_step(params, cache, toks[:, t], t)
+            err = (logits - lk[:, t]).abs().max().item()
+            check(f"decode step {t} logits against the forward's", err, 1e-3)
+    del params, cache, lk, lp
+    torch.cuda.empty_cache()
+
+
+def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
+    """[18d] whisper-large-v3 at full width and depth through TrainEngine
+    (``WHISPER_TRAIN``): K = 2, H = 2, fp32 params, bf16 compute, the flash
+    kernels (the encoder's 32 non-causal layers and the decoder's 32 causal
+    ones), Newton-Schulz through matmul_epilogue (17 Muon leaves), the outer
+    Nesterov kernel, each worker step B sequences of 448 tokens with their
+    frames (the batch's "context" leaf, a seeded draw a round), the eval loss
+    in the round. Round 1 is the warm-up (eager) and the capture, rounds 2
+    and 3 replays: launches against the formula (flash_fwd twice a worker
+    step with remat and once for the eval, 64 layers; flash_dq and
+    flash_dkv once; matmul_epilogue 15 x 17); losses finite and falling;
+    (18d') one more replayed round profiled: the shares of matmul_epilogue,
+    the flash kernels and the rest; (18d'') the same rounds eager, bitwise
+    (the state compared leaf by leaf against a host copy); the peak memory."""
+    from repro_torch.core import DiLoCoConfig
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import TrainEngine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.optim import OptimizerConfig, muon_label
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_paths, tree_map
+
+    T = WHISPER_TRAIN
+    K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
+    cfg = get_config(WHISPER).replace(max_seq_len=S, attn_impl="pallas")
+    F = cfg.n_audio_frames
+    print(f"[18d] captured MuLoCo rounds, {WHISPER} full width and depth: K {K}, H {H}, {B} x {S} "
+          f"tokens and {B} x {F} frames a worker step, fp32 params, --ns-impl pallas, "
+          f"--outer-kernel, inner lr {T['lr']}, {n} rounds (the first the warm-up)")
+    model = build_model(cfg)
+    dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name="muon", ns_impl="pallas",
+                        outer_kernel=True)
+    icfg = OptimizerConfig(lr=T["lr"], weight_decay=1e-4, schedule="cosine", warmup_steps=1,
+                           total_steps=n * H)
+    dkw = dict(vocab=cfg.vocab, seq_len=S, batch_per_worker=B)
+    data = MarkovStream(DataConfig(**dkw, n_workers=K, seed=0), "cuda")
+    evals = MarkovStream(DataConfig(**dkw, n_workers=1, seed=10_000), "cuda")
+
+    def frames(lead, r0, m, seed):  # m rounds' frames, stacked
+        return torch.stack([context_draw(torch, cfg, lead, seed + r) for r in range(r0, r0 + m)])
+
+    def round_batches(r):
+        return {**batches_for_round(data, r, H), "context": frames((H, K, B), r, 1, 1000)[0]}
+
+    def span_batches(r0, m):
+        return {**batches_for_span(data, r0, H, m), "context": frames((H, K, B), r0, m, 1000)}
+
+    def eval_for(r0, m):
+        return {**{k: v[:, 0] for k, v in evals.batch_stack(r0, m).items()},
+                "context": frames((B,), r0, m, 2000)}
+
+    def run(capture):
+        engine = TrainEngine(model, dcfg, icfg, capture=capture)
+        state = engine.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state, hist = run_rounds(engine, state, round_batches, n, rounds_per_dispatch=1,
+                                 span_batches_for=span_batches, eval_batches_for=eval_for)
+        torch.cuda.synchronize()
+        return engine, state, hist
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    engine, state, hist = run(None)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    count = sum(t.numel() for t in tree_leaves(state["outer_params"]))
+    assert count == n_params(cfg), count
+    per_round = engine.launches_per_round(state["outer_params"])
+    want = {k: n * v for k, v in per_round.items()}
+    print(f"  {count:,} parameters; launches {launches}")
+    print(f"  formula  {want} (rounds x TrainEngine.launches_per_round)")
+    assert launches == want, (launches, want)
+    steps, L = K * H, model.attention_layers
+    n_muon = sum(muon_label(p, t) == "muon" for p, t in tree_leaves_with_paths(state["outer_params"]))
+    assert L == cfg.n_encoder_layers + cfg.n_layers and n_muon == 17, (L, n_muon)
+    assert per_round["flash_fwd"] == (2 * steps + 1) * L, per_round
+    assert per_round["flash_dq"] == per_round["flash_dkv"] == steps * L, per_round
+    assert per_round["matmul_epilogue"] == steps * 3 * 5 * n_muon, per_round
+    check_captures(engine, per_round, n, [(True, False)])
+    losses = [r["train_loss"] for r in hist]
+    evl = [r["eval_loss"] for r in hist]
+    assert all(math.isfinite(v) for v in losses + evl), (losses, evl)
+    assert losses[-1] < losses[0] and evl[-1] < evl[0], (losses, evl)
+    tokens, n_frames = steps * B * S, steps * B * F
+    later = hist[1:]
+    wall = sum(r["wall_s"] for r in later)
+    tok_s, frames_s = len(later) * tokens / wall, len(later) * n_frames / wall
+    print(f"  losses {[round(v, 4) for v in losses]}, eval {[round(v, 4) for v in evl]}; round "
+          f"walls {[round(r['wall_s'], 3) for r in hist]} s (round 1: warm-up "
+          f"{engine.warmup_s[0]:.3f} s + capture {engine.capture_s[0]:.3f} s); rounds 2-{n}: "
+          f"{tok_s:.1f} decoder tokens/s ({frames_s:.1f} frames/s); peak device memory "
+          f"{peak_gb:.2f} GB")
+    ref_hist = hist
+    ref_host = tree_map(lambda t: t.to("cpu", copy=True), state)
+
+    def dispatch(i):
+        nonlocal state
+        state, _ = engine.superstep(state, span_batches(n + i, 1), eval_for(n + i, 1))
+
+    print("[18d'] profile: one more replayed round, then one under torch.profiler")
+    replays = engine.replays
+    prof = profile_dispatch(torch, dispatch, tokens, "1 round a dispatch")
+    assert engine.replays == replays + 2, "the profiled rounds were not replays"
+    print_focus(prof["by_name"], prof["wall_ms"], ("flash_fwd_wgmma_kernel",
+                                                   "flash_dq_wgmma_kernel",
+                                                   "flash_dkv_wgmma_kernel",
+                                                   "matmul_epilogue_kernel"),
+                beside={"matmul_epilogue_kernel": ("18b (X X^T on w_in, symmetric)",
+                                                   mm_ms["ms"])})
+    busy = prof["busy_ms"]
+    shares = {}
+    for key in ("matmul_epilogue", "flash_"):
+        shares[key] = 100 * sum(ms for name, (ms, _) in prof["by_name"].items()
+                                if key in name) / busy
+    shares["rest"] = 100 - sum(shares.values())
+    print(f"  of the round's {busy:.1f} ms device time: matmul_epilogue "
+          f"{shares['matmul_epilogue']:.1f}%, the flash kernels {shares['flash_']:.1f}%, the rest "
+          f"{shares['rest']:.1f}%")
+    del engine, state
+    torch.cuda.empty_cache()
+    print("[18d''] the same rounds eager (capture=False)")
+    engine, state, hist = run(False)
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    for a, b in zip(ref_hist, hist):
+        for k in keys:
+            assert a[k] == b[k], ("eager", a["round"], k, a[k], b[k])
+    diffs = _state_diffs_host(torch, ref_host, state)
+    assert not diffs, diffs
+    print(f"  eager: {len(hist)} rounds' {', '.join(keys)} and every state leaf bitwise equal "
+          "to the captured run's")
+    del engine, state, ref_host, model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_gb=peak_gb, tok_s=tok_s, frames_s=frames_s,
+                replay_tok_s=prof["tok_s"], idle=prof["idle"], shares=shares, n_params=count)
+
+
+def decode_profile(torch, model, params, cache, batch: int, pos: int) -> float:
+    """A decode step's device time (torch.profiler, mean of 3 steps after 3
+    warm ones from position ``pos``), printed with its busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.zeros((batch,), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for t in range(pos, pos + 3):
+            model.decode_step(params, cache, tok, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for t in range(pos + 3, pos + 6):
+                model.decode_step(params, cache, tok, t)
+            torch.cuda.synchronize()
+    by_name = device_times(torch, prof)
+    step_ms = sum(v[0] for v in by_name.values()) / 3
+    kernels = sum(v[1] for v in by_name.values()) / 3
+    print(f"  a decode step: {kernels:.0f} kernels, {step_ms:.4f} ms device time (profiled, mean "
+          "of 3)")
+    for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {ms / 3:9.4f} ms a step  x{c // 3:<5d} {name}")
+    return step_ms
+
+
+def phase_whisper_serve(torch, get_config, serve) -> dict:
+    """[18e] whisper-large-v3 served through ``launch.serve.serve(engine=
+    'naive')`` at full width and depth (fp32 weights, bf16 compute,
+    ``WHISPER_SERVE``: 4 requests of 16 prompt + 64 new tokens, greedy, the
+    reference's zero context): fill_context runs the encoder once, its 32
+    non-causal flash_fwd launches counted against the formula (the encoder
+    layers; the decode steps launch none), then the prompt and the new tokens
+    are stepped through the decode path. The same prompts and context
+    through ``generate`` again (``WHISPER_REPEAT_NEW`` new tokens: greedy,
+    so the first run's prefix) give the same tokens bitwise, and a seeded
+    random context other tokens. Tok/s, the host's time a step, a step's
+    device time (profiled)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate, random_prompts, zero_context
+    from repro_torch.models.whisper import _n_encoder
+
+    W = WHISPER_SERVE
+    print(f"[18e] {WHISPER} serving through the naive engine, full width and depth, fp32 weights, "
+          f"bf16 compute: {W['batch']} x ({W['prompt_len']} + {W['max_new']}) greedy, zero context")
+    cfg = get_config(WHISPER).replace(attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    first, seconds, _, model, params = serve(cfg, engine="naive", device="cuda", **W)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert launches == {"flash_fwd": _n_encoder(cfg)}, launches
+    for toks in first.values():
+        assert toks.shape == (W["max_new"],) and ((toks >= 0) & (toks < cfg.vocab)).all()
+    prompts = random_prompts(cfg.vocab, W["batch"], W["prompt_len"]).to("cuda", torch.int32)
+    n = WHISPER_REPEAT_NEW  # greedy: a shorter repeat is the first run's prefix
+    again = generate(model, params, prompts, n,
+                     context=zero_context(cfg, W["batch"], "cuda"))[:, W["prompt_len"]:].cpu()
+    assert all((again[i].numpy() == first[f"req{i}"][:n]).all() for i in range(W["batch"])), \
+        "the repeated run's greedy tokens differ"
+    other = generate(model, params, prompts, n,
+                     context=context_draw(torch, cfg, (W["batch"],), 43))[:, W["prompt_len"]:]
+    differ = int((other.cpu() != again).sum())
+    assert differ > 0, "another context gave the same tokens"
+    n_new = W["batch"] * W["max_new"]
+    steps = W["prompt_len"] + W["max_new"] - 1
+    tok_s, host_step_ms = n_new / seconds, 1e3 * seconds / steps
+    print(f"  launches {launches} ({_n_encoder(cfg)} encoder layers, one fill_context); generated "
+          f"{n_new} tokens in {seconds:.3f} s ({tok_s:.1f} tok/s; {steps} decode steps, "
+          f"{host_step_ms:.2f} ms a step on the host's clock, the encoder included); peak "
+          f"{peak_gb:.2f} GB; a second run of {n} new tokens bitwise equal to the first's, a "
+          f"random context changes {differ} of its {W['batch'] * n}")
+    with torch.no_grad():
+        cache = model.init_cache(params, W["batch"], W["prompt_len"] + W["max_new"])
+        model.fill_context(params, cache, zero_context(cfg, W["batch"], "cuda"))
+        step_ms = decode_profile(torch, model, params, cache, W["batch"], 0)
+    del cache, params, model
+    torch.cuda.empty_cache()
+    return dict(tok_s=tok_s, host_step_ms=host_step_ms, step_ms=step_ms, peak_gb=peak_gb,
+                launches=launches)
+
+
+def vlm_grads(torch, model, params, batch) -> tuple:
+    """One forward and backward of ``batch``: (loss, {leaf path: gradient})."""
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    paths, leaves = zip(*tree_leaves_with_paths(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def grad_errors(grads: dict, ref: dict) -> tuple[float, dict]:
+    """The relative error ||g - g_ref|| / ||g_ref|| over the whole tree, and
+    leaf by leaf (leaves whose reference is zero left out)."""
+    num = den = 0.0
+    per_leaf = {}
+    for path, g in grads.items():
+        d2 = (g.float() - ref[path].float()).square().sum().item()
+        p2 = ref[path].float().square().sum().item()
+        num, den = num + d2, den + p2
+        if p2 > 0:
+            per_leaf[path] = (d2 / p2) ** 0.5
+    return (num / den) ** 0.5, per_leaf
+
+
+def phase_vlm(torch, get_config, build_model, after_grads=None) -> dict:
+    """[18f] llama-3.2-vision-90b at full width, depth cut to one superblock
+    (``VLM_DEPTH``: 1 gated cross + 4 self layers), bf16 weights, the gates
+    opened (``gate``, ``mlp_gate`` = 1, as the reference's serving test
+    opens them, so the cross path does work): served through the naive
+    engine (``launch.serve.generate``, ``VLM_SERVE``: 4 requests of 16 + 32
+    tokens over 1600 seeded image tokens; twice bitwise, another context
+    other tokens; no kernel launched: the decode path is plain), then one
+    forward and backward of one sequence of ``VLM_SEQ`` tokens through the
+    kernels (flash_fwd twice a self layer with remat, flash_dq and
+    flash_dkv once, all at G = 8, hd 128) against the plain path (xla): the
+    loss within 1e-2 (bf16 logits: ~0.1% of the loss, ln V = 11.76), the
+    gradients' relative error (||g_k - g_p|| / ||g_p||, globally and the
+    largest of any leaf) printed, the global one under 5e-2, and each of
+    the self layers' attention leaves (``VLM_ATTN_LEAVES``) under
+    ``VLM_ATTN_TOL``. ``after_grads(model, params, batch, plain grads)``,
+    when given, runs before the weights are freed."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate, random_prompts
+
+    V = VLM_SERVE
+    cfg = get_config(VLM).replace(n_layers=VLM_DEPTH, param_dtype="bfloat16", attn_impl="pallas")
+    count = n_params(cfg)
+    print(f"[18f] {VLM} full width, depth {cfg.n_layers} (one superblock), bf16 weights "
+          f"({count:,} parameters), gates open: {V['batch']} x ({V['prompt_len']} + "
+          f"{V['max_new']}) through the naive engine, then one {VLM_SEQ}-token forward and "
+          "backward, kernels against the plain path")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cl = params["cross_layers"]
+    cl["attn"]["gate"].fill_(1.0)
+    cl["mlp_gate"].fill_(1.0)
+    prompts = random_prompts(cfg.vocab, V["batch"], V["prompt_len"]).to("cuda", torch.int32)
+    ctx = context_draw(torch, cfg, (V["batch"],), 45)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompts, V["max_new"], context=ctx)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+    again = generate(model, params, prompts, V["max_new"], context=ctx)
+    other = generate(model, params, prompts, V["max_new"],
+                     context=context_draw(torch, cfg, (V["batch"],), 46))
+    assert torch.equal(toks, again), "the repeated run's greedy tokens differ"
+    new = slice(V["prompt_len"], None)
+    differ = int((other[:, new] != toks[:, new]).sum())
+    assert differ > 0, "another image context gave the same tokens"
+    n_new = V["batch"] * V["max_new"]
+    steps = V["prompt_len"] + V["max_new"] - 1
+    tok_s = n_new / seconds
+    print(f"  generated {n_new} tokens in {seconds:.3f} s ({tok_s:.1f} tok/s, "
+          f"{1e3 * seconds / steps:.2f} ms a step on the host's clock); no kernel launched; a "
+          f"second run bitwise equal; another context changes {differ} of {n_new} tokens")
+    with torch.no_grad():
+        cache = model.init_cache(params, V["batch"], V["prompt_len"] + V["max_new"])
+        model.fill_context(params, cache, ctx)
+        step_ms = decode_profile(torch, model, params, cache, V["batch"], 0)
+    del cache, toks, again, other
+    # one forward and backward, the kernels against the plain path
+    tokens = torch.randint(0, cfg.vocab, (1, VLM_SEQ + 1),
+                           generator=torch.Generator().manual_seed(47)).to("cuda", torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "context": context_draw(torch, cfg, (1,), 48)}
+    _build.reset_launch_counts()
+    loss_k, grads_k = vlm_grads(torch, model, params, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    L = model.attention_layers
+    assert L == VLM_DEPTH - 1 and launches == {"flash_fwd": 2 * L, "flash_dq": L,
+                                                "flash_dkv": L}, launches
+    plain = build_model(cfg.replace(attn_impl="xla"))
+    loss_p, grads_p = vlm_grads(torch, plain, params, batch)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(torch.isfinite(g).all() for g in grads_k.values())
+    rel, per_leaf = grad_errors(grads_k, grads_p)
+    worst = max(per_leaf.items(), key=lambda kv: kv[1])
+    err = check("loss (pallas vs xla, bf16)", abs(loss_k.item() - loss_p.item()), 1e-2)
+    print(f"  loss {loss_k.item():.5f} (kernels) vs {loss_p.item():.5f} (plain); launches "
+          f"{launches} ({L} self layers, the forward twice with remat); gradients' relative "
+          f"error {rel:.3e} globally, largest {worst[1]:.3e} ({worst[0]}); peak {peak_gb:.2f} GB")
+    assert rel < 5e-2, rel
+    attn_err = {p: per_leaf[p] for p in VLM_ATTN_LEAVES}
+    print("  the self layers' attention leaves, relative error (tol "
+          f"{VLM_ATTN_TOL:g} each): " + ", ".join(f"{p.rsplit('/', 1)[1]} {e:.3e}"
+                                                 for p, e in attn_err.items()))
+    bad = {p: e for p, e in attn_err.items() if not e <= VLM_ATTN_TOL}
+    assert not bad, f"attention leaves' gradients off the plain path's: {bad}"
+    if after_grads is not None:
+        del grads_k
+        after_grads(model, params, batch, grads_p)
+    del params, grads_p, model, plain, batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, tok_s=tok_s, step_ms=step_ms, peak_gb=peak_gb, loss_err=err,
+                grad_rel=rel, n_params=count)
+
+
+def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi: str) -> dict:
+    """Phase 18: the audio and VLM families. (18a) the flash kernels at the
+    slice's new shapes against their plain versions (whisper's encoder
+    non-causal at S 1500, the VLM's self layers at hd 128 and G = 8; bf16
+    and fp32, bitwise from run to run), timed beside the bound, the plain
+    version and SDPA, and ptxas's report at hd 64, 80 and 128; (18b)
+    matmul_epilogue at whisper's Newton-Schulz shapes and nesterov over its
+    1,602,629,120 parameters; (18c) the fp32 agreement at full width;
+    (18d) whisper training; (18e) whisper serving; (18f) the VLM at one
+    superblock. Returns the kernels' rows."""
+    import gc
+
+    fa, mm, ou = mods["fa"], mods["mm"], mods["ou"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"-- {phase}: {time.perf_counter() - t0:.1f} s into phase 18", flush=True)
+
+    w_params = n_params(get_config(WHISPER))
+    print(f"[18] {WHISPER} ({w_params:,} parameters) and {VLM} "
+          f"({n_params(get_config(VLM)):,}; {n_params(get_config(VLM).replace(n_layers=VLM_DEPTH)):,}"
+          f" at one superblock); {torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier "
+          "phases")
+    phase_ptxas_head_dims(ptxas)
+    flash = {WHISPER: phase_flash(torch, fa, hd=64, phase="18a", cases=WHISPER_FWD_CASES),
+             VLM: phase_flash(torch, fa, hd=128, phase="18a", cases=VLM_FWD_CASES)}
+    bwd = {WHISPER: phase_flash_bwd(torch, fa, hd=64, phase="18a", cases=WHISPER_BWD_CASES),
+           VLM: phase_flash_bwd(torch, fa, hd=128, phase="18a", cases=VLM_BWD_CASES)}
+    torch.cuda.empty_cache()
+    lap("18a")
+    xx, bx = phase_matmul_whisper(torch, mm)
+    nesterov = phase_nesterov(torch, ou, w_params, phase="18b")
+    torch.cuda.empty_cache()
+    lap("18b")
+    phase_whisper_agreement(torch, get_config, build_model)
+    lap("18c")
+    train = phase_whisper_train(torch, get_config, build_model, xx)
+    lap("18d")
+    serving = phase_whisper_serve(torch, get_config, serve)
+    lap("18e")
+    vlm = phase_vlm(torch, get_config, build_model)
+    lap("18f")
+    t, s = train, serving
+    print(f"{WHISPER} training (full width and depth, {t['n_params']:,} parameters, K 2, H 2, "
+          f"{WHISPER_TRAIN['batch']} x {WHISPER_TRAIN['seq_len']} tokens and their frames a worker "
+          f"step): {t['tok_s']:.1f} decoder tokens/s ({t['frames_s']:.1f} frames/s) over rounds "
+          f"2-3, one profiled replayed round {t['replay_tok_s']:.1f}, idle {t['idle']:.1f}%, "
+          f"matmul_epilogue {t['shares']['matmul_epilogue']:.1f}% / flash "
+          f"{t['shares']['flash_']:.1f}% / rest {t['shares']['rest']:.1f}% of the device time, "
+          f"peak {t['peak_gb']:.2f} GB; card (nvidia-smi name, power.limit): {smi}")
+    print(f"{WHISPER} serving (naive engine, full depth, fp32 weights, {WHISPER_SERVE['batch']} x "
+          f"({WHISPER_SERVE['prompt_len']} + {WHISPER_SERVE['max_new']})): {s['tok_s']:.1f} tok/s, "
+          f"{s['host_step_ms']:.2f} ms a step on the host's clock, {s['step_ms']:.4f} ms of device "
+          f"time a decode step; peak {s['peak_gb']:.2f} GB; card (nvidia-smi name, power.limit): "
+          f"{smi}")
+    print(f"{VLM} (one superblock, bf16 weights, {vlm['n_params']:,} parameters): serving "
+          f"{vlm['tok_s']:.1f} tok/s, {vlm['step_ms']:.4f} ms of device time a decode step; "
+          f"{VLM_SEQ}-token forward and backward: loss within {vlm['loss_err']:.2e} of the plain "
+          f"path, gradients' relative error {vlm['grad_rel']:.3e}; peak {vlm['peak_gb']:.2f} GB; "
+          f"card (nvidia-smi name, power.limit): {smi}")
+    tl, vl = train["launches"], vlm["launches"]
+    return {"flash_fwd": {WHISPER: {"launches": {"training": tl["flash_fwd"],
+                                                 "serving": serving["launches"]["flash_fwd"]},
+                                    **flash[WHISPER]["whisper encoder"]},
+                          VLM: {"launches": vl["flash_fwd"], **flash[VLM]["vlm self"]}},
+            "flash_dq": {WHISPER: {"launches": tl["flash_dq"], **bwd[WHISPER]["flash_dq"]},
+                         VLM: {"launches": vl["flash_dq"], **bwd[VLM]["flash_dq"]}},
+            "flash_dkv": {WHISPER: {"launches": tl["flash_dkv"], **bwd[WHISPER]["flash_dkv"]},
+                          VLM: {"launches": vl["flash_dkv"], **bwd[VLM]["flash_dkv"]}},
+            "matmul_epilogue": {WHISPER: {"launches": tl["matmul_epilogue"], **xx,
+                                          "b_x_plus_a_x": bx}},
+            "nesterov": {WHISPER: {"launches": tl["nesterov"], **nesterov}}}
+
+
 def main() -> int:
     import torch
 
@@ -3396,7 +3953,6 @@ def main() -> int:
                                 "flash_dkv_wgmma_kernel": ("5a", bwd["flash_dkv"]["ms"]),
                                 "matmul_epilogue_kernel": ("5b (X X^T on w_in, symmetric)",
                                                            matmul["ms"])})
-    phase_train_profile(torch, out, TRAIN, tag="6c, R = 3", rounds=3)
     params = out["state"]["outer_params"]
     del out
     torch.cuda.empty_cache()
@@ -3434,16 +3990,19 @@ def main() -> int:
     ssm = slice_7a(torch, dict(fa=fa, mm=mm), get_config, build_model, build_parser, train,
                    serve, ptxas, smi)
     lap("17")
+    eight = slice_8(torch, dict(fa=fa, mm=mm, ou=ou), get_config, build_model, serve, ptxas, smi)
+    lap("18")
 
     def new_paths(name: str) -> dict:
         """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
-        launches and timings on slice 7a's (17)."""
+        launches and timings on slice 7a's (17) and slice 8's (18)."""
         rows = {inner: {"launches": v["launches"][name]} for inner, v in variants.items()
                 if name != "paged_decode"}
         if name in probe["launches"]:
             rows[f"{PROBE['arch']} pseudogradients"] = {"launches": probe["launches"][name]}
         rows[MOE] = moe[name]
         rows.update(ssm.get(name, {}))
+        rows.update(eight.get(name, {}))
         return rows
 
     src = "src/repro_torch/kernels/csrc"
@@ -3493,7 +4052,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[18] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[19] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

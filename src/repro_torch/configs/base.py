@@ -4,9 +4,10 @@ Registered so far: ``smollm-135m``, the paper's Gemma3-style ladder
 (``paper-150m`` ... ``paper-15.23b``), ``nemotron-4-15b`` (relu2, 48:8
 heads, served on one card with ``param_dtype='bfloat16'``), the MoE
 family's ``deepseek-moe-16b`` and ``moonshot-v1-16b-a3b``, the SSM
-family's ``mamba2-370m`` and the hybrid ``zamba2-2.7b``; every other
-architecture of the reference raises a ``KeyError`` that points at
-``ROADMAP.md``.
+family's ``mamba2-370m``, the hybrid ``zamba2-2.7b``, the audio family's
+``whisper-large-v3`` and the VLM ``llama-3.2-vision-90b`` (64:8 heads of
+128, G = 8); every other architecture of the reference raises a
+``KeyError`` that points at ``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
 the port's reduced and full configs equal the reference's field for field.
 """
@@ -103,10 +104,12 @@ def list_configs() -> list[str]:
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b,
+        llama_3_2_vision_90b,
         mamba2_370m,
         moonshot_v1_16b_a3b,
         nemotron_4_15b,
         paper_gemma3,
         smollm_135m,
+        whisper_large_v3,
         zamba2_2_7b,
     )

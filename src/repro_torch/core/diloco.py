@@ -66,7 +66,7 @@ from repro_torch.optim import (
     make_inner_optimizer,
     make_outer_transform,
 )
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
 
 Tree = Any
 
@@ -147,31 +147,45 @@ class OuterOptimizer:
         return error_feedback(self.dcfg.compression).init(template)
 
     def reduce(self, params: Tree, deltas: Tree, ef: Tree | None, mask: Tree | None = None,
-               participation: torch.Tensor | None = None):
+               participation: torch.Tensor | None = None, delta=None):
         """The communication half of the sync: worker stage (compress / EF)
         and the pseudogradient all-reduce. Returns ``(psi, new_ef)``. A
-        streaming segment (``mask``) with wire compression goes through
-        ``segment_sync_update``, whose buffers shrink to the segment's rows.
+        streaming segment (``mask``) multiplies Δ by its mask; with wire
+        compression it goes through ``segment_sync_update``, whose buffers
+        shrink to the segment's rows.
+
+        The stages run one leaf at a time (every stage is leafwise, so this
+        is the whole-tree chain's arithmetic). ``delta(o, x)``, when given,
+        makes a leaf's [K, ...] Δ from its outer leaf and its ``deltas``
+        leaf: ``outer_step`` passes the worker params, so only one leaf's Δ
+        is ever alive.
 
         A ``participation`` mask ([K] fp32 {0, 1}) restricts the mean to the
         surviving workers and freezes the dropped workers' EF residuals:
         their packets were never sent, so the residuals come back
         bit-identical (a select, not an EF decay)."""
         ccfg = self.dcfg.compression
-        if mask is not None and self.has_wire:
-            psi, seg_ef = segment_sync_update(deltas, ef if self.has_ef else None, mask, ccfg,
-                                              participation=participation)
-            new_ef = seg_ef if self.has_ef else ef
-        else:
-            sub = chain(self.worker_stage, reduce_mean(ccfg, participation))
-            psi, sub_state = sub.update(deltas, (ef if self.has_ef else (), ()), params)
-            new_ef = sub_state[0] if self.has_ef else ef
-        if participation is not None and self.has_ef and ef is not None:
-            keep = participation.float() > 0
-            new_ef = tree_map(lambda ne, oe: torch.where(
-                keep.reshape((keep.shape[0],) + (1,) * (ne.dim() - 1)), ne, oe.to(ne.dtype)),
-                new_ef, ef)
-        return psi, new_ef
+        sub = chain(self.worker_stage, reduce_mean(ccfg, participation))
+        holes = tree_map(lambda _: None, params)
+
+        def per_leaf(o, x, e, m):
+            d = delta(o, x) if delta is not None else x
+            if m is not None:
+                d = _masked(m) * d
+            if m is not None and self.has_wire:
+                psi, new_e = segment_sync_update(d, e, m, ccfg, participation=participation)
+            else:
+                psi, (new_e, _) = sub.update(d, (e if self.has_ef else (), ()), o)
+            if participation is not None and self.has_ef:
+                keep = participation.float() > 0
+                new_e = torch.where(keep.reshape((keep.shape[0],) + (1,) * (new_e.dim() - 1)),
+                                    new_e, e.to(new_e.dtype))
+            return psi, new_e
+
+        psi, new_ef = tree_unzip(tree_map(per_leaf, params, deltas,
+                                          ef if self.has_ef else holes,
+                                          holes if mask is None else mask), 2)
+        return psi, (new_ef if self.has_ef else ef)
 
     def descend(self, params: Tree, psi: Tree, opt_state: Tree):
         """The terminal half: outer transform update + parameter descent.
@@ -180,10 +194,12 @@ class OuterOptimizer:
         return self.terminal.apply(params, psi, opt_after)
 
     def step(self, params: Tree, deltas: Tree, opt_state: Tree, ef: Tree | None,
-             mask: Tree | None = None, participation: torch.Tensor | None = None):
+             mask: Tree | None = None, participation: torch.Tensor | None = None,
+             delta=None):
         """:meth:`reduce` then :meth:`descend`, plus the streaming merges.
         Returns ``(new_params, new_opt_state, new_ef, psi)``."""
-        psi, new_ef = self.reduce(params, deltas, ef, mask=mask, participation=participation)
+        psi, new_ef = self.reduce(params, deltas, ef, mask=mask, participation=participation,
+                                  delta=delta)
         cand_params, new_opt = self.descend(params, psi, opt_state)
         if mask is None:
             return cand_params, new_opt, new_ef, psi
@@ -294,6 +310,12 @@ def _copy_into(dst: Tree, src: Tree) -> None:
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
+def _grads(loss: torch.Tensor, leaves: Tree) -> Tree:
+    """d loss / d leaves, as a tree shaped like ``leaves``."""
+    it = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    return tree_map(lambda _: next(it), leaves)
+
+
 def inner_step(model, opt, state: dict, batch: dict,
                participation: torch.Tensor | None = None) -> tuple[dict, dict]:
     """One local optimizer step on every worker. batch leaves: [K, B, ...].
@@ -313,11 +335,9 @@ def inner_step(model, opt, state: dict, batch: dict,
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params_k)
         with torch.enable_grad():
             loss, _ = model.loss(leaves, {n: v[k] for n, v in batch.items()})
-            flat = tree_leaves(leaves)
-            grads_flat = torch.autograd.grad(loss, flat)
-        it = iter(grads_flat)
-        grads = tree_map(lambda _: next(it), leaves)
-        new_p, new_s = opt.step(params_k, grads, inner_k)
+        # the gradient tree is handed over without a name here, so the step
+        # frees it once its directions are computed
+        new_p, new_s = opt.step(params_k, _grads(loss, leaves), inner_k)
         with torch.no_grad():
             if participation is None:
                 _copy_into(params_k, new_p)
@@ -326,6 +346,8 @@ def inner_step(model, opt, state: dict, batch: dict,
                 keep = participation[k] > 0
                 for dst, src in ((params_k, new_p), (inner_k, new_s)):
                     tree_map(lambda d, s: d.copy_(torch.where(keep, s, d)), dst, src)
+        # copied in: freed before the next worker's step allocates its own
+        del new_p, new_s
         losses.append(loss.detach())
     losses = torch.stack(losses)
     return state, {"loss": participation_mean(losses, participation),
@@ -337,10 +359,14 @@ def inner_step(model, opt, state: dict, batch: dict,
 # ---------------------------------------------------------------------------
 
 
+def _delta(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One leaf's Δ_k = θ_outer − θ_k, stacked [K, ...] (paper Alg. 1 line 9)."""
+    return o.float()[None] - w.float()
+
+
 def compute_deltas(state: dict) -> Tree:
     """Δ_k = θ_outer − θ_k, stacked [K, ...] (paper Alg. 1 line 9)."""
-    return tree_map(lambda o, w: o.float()[None] - w.float(),
-                    state["outer_params"], state["worker_params"])
+    return tree_map(_delta, state["outer_params"], state["worker_params"])
 
 
 def _masked(m: torch.Tensor) -> torch.Tensor:
@@ -386,7 +412,6 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
     """
     if participation is _FROM_STATE:
         participation = state.get("participation")
-    deltas = compute_deltas(state)
     if not dcfg.outer_enabled:
         if mask is not None:
             raise ValueError(
@@ -394,7 +419,8 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
                 "outer_enabled=False cannot be combined with streaming_partitions > 1")
         if dcfg.n_workers == 1:  # a K = 1 elastic mask is always all-ones
             participation = None
-        psi = tree_map(lambda d: participation_mean(d, participation), deltas)
+        psi = tree_map(lambda o, w: participation_mean(_delta(o, w), participation),
+                       state["outer_params"], state["worker_params"])
         new_outer = tree_map(
             lambda o, w: (participation_mean(w.float(), participation).to(o.dtype)
                           if w.shape[0] > 1 or participation is not None else w[0]),
@@ -404,8 +430,6 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
                  state["outer_params"], state["worker_params"])
         state["round"].add_(1)
         return state, psi
-    if mask is not None:
-        deltas = tree_map(lambda m, d: _masked(m) * d, mask, deltas)
     outer = outer or make_outer(dcfg)
     if dcfg.sync_delay:
         if mask is not None:
@@ -415,16 +439,16 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
         if pending is None:
             raise ValueError("sync_delay > 0 needs the pending FIFO in the TrainState; "
                              "build it with diloco_init on a config with the same sync_delay")
-        psi, new_ef = outer.reduce(state["outer_params"], deltas, state.get("ef"),
-                                   participation=participation)
+        psi, new_ef = outer.reduce(state["outer_params"], state["worker_params"],
+                                   state.get("ef"), participation=participation, delta=_delta)
         new_outer, new_opt = outer.descend(state["outer_params"],
                                            tree_map(lambda q: q[0], pending),
                                            state["outer_opt"])
         tree_map(_shift_in, pending, psi)
     else:
         new_outer, new_opt, new_ef, psi = outer.step(
-            state["outer_params"], deltas, state["outer_opt"], state.get("ef"), mask=mask,
-            participation=participation)
+            state["outer_params"], state["worker_params"], state["outer_opt"], state.get("ef"),
+            mask=mask, participation=participation, delta=_delta)
     _copy_into(state["outer_params"], new_outer)
     _copy_into(state["outer_opt"], new_opt)
     if new_ef is not None:

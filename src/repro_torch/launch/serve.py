@@ -74,6 +74,15 @@ def random_prompts(vocab: int, batch: int, prompt_len: int) -> torch.Tensor:
     return torch.randint(0, vocab, (batch, prompt_len), generator=torch.Generator().manual_seed(0))
 
 
+def zero_context(cfg, batch: int, device) -> torch.Tensor | None:
+    """The reference's request context for the audio and VLM families: zero
+    frames or patches [batch, N, d_model] in fp32 (None for the others)."""
+    n = {"audio": cfg.n_audio_frames, "vlm": cfg.n_image_tokens}.get(cfg.arch_type)
+    if n is None:
+        return None
+    return torch.zeros((batch, n, cfg.d_model), dtype=torch.float32, device=device)
+
+
 def requests_for(prompts: torch.Tensor, max_new: int) -> list[Request]:
     """One request ``req<i>`` of ``max_new`` new tokens per prompt row."""
     return [Request(f"req{i}", tuple(row.tolist()), max_new) for i, row in enumerate(prompts)]
@@ -87,7 +96,9 @@ def serve(cfg, *, batch: int, prompt_len: int, max_new: int, slots: int = 4,
     ``req<i>`` to its ``max_new`` generated tokens; ``seconds`` covers the
     engine's run (``PagedEngine.run`` or one :func:`generate` call) and ends
     after a device synchronise; ``engine`` is the PagedEngine (None for the
-    naive one). The slot and page options are the paged engine's."""
+    naive one). The slot and page options are the paged engine's. The audio
+    and VLM families are served the reference's zero context
+    (:func:`zero_context`) through the naive engine."""
     device = torch.device(device)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
@@ -109,7 +120,8 @@ def serve(cfg, *, batch: int, prompt_len: int, max_new: int, slots: int = 4,
     else:
         rng = torch.Generator(device=device).manual_seed(0)
         toks = generate(model, params, prompts.to(device, torch.int32), max_new,
-                        temperature=temperature, rng=rng)
+                        temperature=temperature, context=zero_context(cfg, batch, device),
+                        rng=rng)
         results = {f"req{i}": row for i, row in
                    enumerate(toks[:, prompt_len:].cpu().numpy().astype(np.int32))}
     if device.type == "cuda":

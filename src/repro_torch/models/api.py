@@ -1,9 +1,9 @@
-"""Model API (port of ``repro/models/api.py``): the dense, MoE, SSM and
-hybrid families.
+"""Model API (port of ``repro/models/api.py``): the dense, MoE, SSM,
+hybrid, audio and VLM families, all six of the reference's.
 
     model = build_model(cfg)
     params = model.init(gen, device)
-    logits, aux = model.forward(params, tokens)
+    logits, aux = model.forward(params, tokens, context=None)
     loss, metrics = model.loss(params, batch)
     cache = model.init_cache(params, batch_size, cache_len)
     logits, cache = model.decode_step(params, cache, token, pos)
@@ -15,10 +15,13 @@ hybrid families.
 
 Caches are written in place (the reference returns new ones). The MoE
 loss adds ``router_aux_coef`` times the layers' summed load-balance aux and
-reports it as ``metrics["moe_aux"]``. The SSM and hybrid families have
-neither a batched prefill nor a paged decode path: they serve through the
-naive engine, which prefills by stepping the decode path. The other
-families (audio, vlm) come with later slices of the port (ROADMAP.md).
+reports it as ``metrics["moe_aux"]``. The SSM, hybrid, audio and VLM
+families have neither a batched prefill nor a paged decode path: they serve
+through the naive engine, which prefills by stepping the decode path. The
+audio (whisper) and VLM (llama-3.2-vision) families take a context, audio
+frames or image patches [B, N, d_model]: the forward and ``loss`` (from
+``batch["context"]``) require it, and ``fill_context`` writes it into a
+decode cache as cross-attention K/V.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import attention, lm, ssm_lm
+from repro_torch.models import attention, lm, ssm_lm, vlm, whisper
 from repro_torch.models.common import ModelConfig, fused_cross_entropy, softmax_cross_entropy
 
 Tree = Any
@@ -48,6 +51,16 @@ _FAMILIES: dict[str, dict[str, Callable]] = {
         "init": ssm_lm.init_hybrid_lm, "forward": ssm_lm.forward_hybrid_lm,
         "init_cache": ssm_lm.init_cache_hybrid_lm, "decode_step": ssm_lm.decode_step_hybrid_lm,
     },
+    "audio": {
+        "init": whisper.init_whisper, "forward": whisper.forward_whisper,
+        "init_cache": whisper.init_cache_whisper, "decode_step": whisper.decode_step_whisper,
+        "fill_context": whisper.fill_context_whisper,
+    },
+    "vlm": {
+        "init": vlm.init_vlm, "forward": vlm.forward_vlm,
+        "init_cache": vlm.init_cache_vlm, "decode_step": vlm.decode_step_vlm,
+        "fill_context": vlm.fill_context_vlm,
+    },
 }
 
 
@@ -62,8 +75,10 @@ class Model:
     def init(self, gen: torch.Generator, device) -> Tree:
         return self._fam["init"](gen, self.cfg, device)
 
-    def forward(self, params: Tree, tokens: torch.Tensor, last_only: bool = False):
-        return self._fam["forward"](self.cfg, params, tokens, last_only=last_only)
+    def forward(self, params: Tree, tokens: torch.Tensor, context: torch.Tensor | None = None,
+                last_only: bool = False):
+        return self._fam["forward"](self.cfg, params, tokens, context=context,
+                                    last_only=last_only)
 
     # --- training ---
     def head_weight(self, params: Tree) -> torch.Tensor:
@@ -72,16 +87,18 @@ class Model:
         return params["head"]
 
     def loss(self, params: Tree, batch: dict, fused: bool = True) -> tuple[torch.Tensor, dict]:
-        """Training loss of ``batch`` ({"tokens", "labels"} int [B, S]).
-        ``fused`` uses the chunked head + cross-entropy (never materialises
-        the [B, S, V] logits); disabled automatically for softcap."""
+        """Training loss of ``batch`` ({"tokens", "labels"} int [B, S], and
+        for the audio and VLM families "context" [B, N, d_model]). ``fused``
+        uses the chunked head + cross-entropy (never materialises the [B, S,
+        V] logits); disabled automatically for softcap."""
+        context = batch.get("context")
         if fused and not self.cfg.logit_softcap:
             hidden, aux = self._fam["forward"](self.cfg, params, batch["tokens"],
-                                               hidden_only=True)
+                                               context=context, hidden_only=True)
             loss, metrics = fused_cross_entropy(hidden, self.head_weight(params),
                                                 batch["labels"])
         else:
-            logits, aux = self.forward(params, batch["tokens"])
+            logits, aux = self.forward(params, batch["tokens"], context=context)
             loss, metrics = softmax_cross_entropy(logits, batch["labels"])
         if self.cfg.n_experts and self.cfg.router_aux_coef:
             loss = loss + self.cfg.router_aux_coef * aux
@@ -105,15 +122,22 @@ class Model:
 
     @property
     def attention_layers(self) -> int:
-        """Attention layers a forward runs: every layer of the dense and MoE
-        families, none of the SSM family, and the shared block once a
-        superblock of the hybrid."""
-        kind = self.cfg.arch_type
+        """Self-attention layers a forward runs through the flash kernel:
+        every layer of the dense and MoE families, none of the SSM family,
+        the shared block once a superblock of the hybrid, the encoder's and
+        the decoder's of whisper, and the self layers of the VLM (its cross
+        layers are plain torch)."""
+        kind, cfg = self.cfg.arch_type, self.cfg
         if kind == "ssm":
             return 0
         if kind == "hybrid":
-            return ssm_lm._n_super(self.cfg)
-        return self.cfg.n_layers
+            return ssm_lm._n_super(cfg)
+        if kind == "audio":
+            return whisper._n_encoder(cfg) + cfg.n_layers
+        if kind == "vlm":
+            ns, per = vlm._blocks(cfg)
+            return ns * per
+        return cfg.n_layers
 
     @property
     def supports_batched_prefill(self) -> bool:
@@ -153,7 +177,5 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.arch_type not in _FAMILIES:
-        raise ValueError(f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
-                         f"(ported: {sorted(_FAMILIES)}); see ROADMAP.md for the order of "
-                         "slices")
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r} (families: {sorted(_FAMILIES)})")
     return Model(cfg)

@@ -6,6 +6,9 @@ Entry points:
   * ``attend_decode``       — one new token against the dense (or ring) cache
   * ``paged_attend_decode`` — one new token per slot against the paged pool
   * ``fill_paged_cache``    — scatter a batched prefill's K/V into pages
+  * ``cross_attend``        — encoder-decoder / VLM cross attention (dense
+    softmax in plain torch, as the reference computes it outside any kernel)
+  * ``cross_kv``            — a context's cross-attention K/V, once a request
 
 The dense cache is ``{"k": [L, B, W, KV, hd], "v": ...}`` (``init_cache``),
 the paged pool ``{"k": [L, n_pages, page_size, KV, hd], "v": ...}``. Where
@@ -33,8 +36,10 @@ NEG_INF = -2.0e38
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
-                   n_layers: int | None = None) -> Tree:
-    """Attention params; stacked over n_layers when given (leading L axis)."""
+                   n_layers: int | None = None, cross: bool = False) -> Tree:
+    """Attention params; stacked over n_layers when given (leading L axis).
+    ``cross`` adds llama-3.2-vision's tanh ``gate`` (zero: the gated cross
+    path starts closed)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     L = (n_layers,) if n_layers else ()
     pd = cfg.pdtype
@@ -47,6 +52,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     if cfg.qk_norm:
         params["q_norm_scale"] = torch.zeros((*L, hd), dtype=pd, device=device)
         params["k_norm_scale"] = torch.zeros((*L, hd), dtype=pd, device=device)
+    if cross:
+        params["gate"] = torch.zeros(L, dtype=pd, device=device)
     return params
 
 
@@ -306,3 +313,37 @@ def fill_paged_cache(cache_layer: Tree, k: torch.Tensor, v: torch.Tensor,
     cache_layer["k"].index_put_(idx, k.reshape(B * P, *k.shape[2:]))
     cache_layer["v"].index_put_(idx, v.reshape(B * P, *v.shape[2:]))
     return cache_layer
+
+
+def cross_attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, kv, gated: bool = False
+                 ) -> torch.Tensor:
+    """Cross attention of x [B, Sq, d] to a context: ``kv`` is the context's
+    states [B, Sk, d] or a precomputed ``(k, v)`` pair ([B, Sk, KV, hd]
+    each, :func:`cross_kv`) for cached decoding. No mask and no RoPE; with
+    ``gated`` the output is scaled by ``tanh(gate)`` in fp32, cast to the
+    compute dtype."""
+    dt = cfg.compute_dtype
+    B, Sq, _ = x.shape
+    q = (x @ p["wq"].to(dt)).reshape(B, Sq, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm_scale"])
+    k, v = kv if isinstance(kv, tuple) else cross_kv(p, cfg, kv)
+    probs = torch.softmax(_gqa_scores(q, k).float(), dim=-1).to(x.dtype)
+    out = _gqa_out(probs, v) @ p["wo"].to(dt)
+    if gated:
+        out = torch.tanh(p["gate"].float()).to(dt) * out
+    return out
+
+
+def cross_kv(p: Tree, cfg: ModelConfig, context: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention K/V of context states [B, Sk, d] ([B, Sk, KV, hd]
+    each, QK-normed when the config has it): computed once a request for
+    the decode path."""
+    dt = cfg.compute_dtype
+    B, Sk, _ = context.shape
+    k = (context @ p["wk"].to(dt)).reshape(B, Sk, cfg.n_kv_heads, cfg.hd)
+    v = (context @ p["wv"].to(dt)).reshape(B, Sk, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm_scale"])
+    return k, v

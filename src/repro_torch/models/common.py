@@ -142,6 +142,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [n, d] in fp32."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def remat(fn, x: torch.Tensor, *args):
+    """``fn(x, *args)``, under ``torch.utils.checkpoint`` when grads flow (the
+    reference's ``jax.checkpoint`` of a scan body)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(x, *args)
+
+
 # ---------------------------------------------------------------------------
 # Initializers (standalone runs only: tests hand the reference's params over)
 # ---------------------------------------------------------------------------

@@ -37,6 +37,13 @@ def _unstack(tree: Tree, n: int) -> list[Tree]:
     return list(torch.unbind(tree, 0))
 
 
+def _group(tree: Tree, ns: int, per: int) -> Tree:
+    """[L, ...] leaves as [ns, per, ...] views."""
+    if isinstance(tree, dict):
+        return {k: _group(v, ns, per) for k, v in tree.items()}
+    return tree.reshape(ns, per, *tree.shape[1:])
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
     L = cfg.n_layers
     pd = cfg.pdtype

@@ -20,22 +20,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, dense_init, embed_init, rms_norm
-from repro_torch.models.lm import _embed, _layer, _logits, _unstack
+from repro_torch.models.common import ModelConfig, dense_init, embed_init, remat, rms_norm
+from repro_torch.models.lm import _embed, _group, _layer, _logits, _unstack
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.ssm import init_mamba, init_ssm_state, mamba_decode, mamba_forward
 
 Tree = Any
-
-
-def _remat(fn, x: torch.Tensor, *args):
-    """``fn(x, *args)``, under ``torch.utils.checkpoint`` when grads flow."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(x, *args)
 
 
 def _final(cfg: ModelConfig, params: Tree, x: torch.Tensor, last_only: bool,
@@ -80,7 +72,7 @@ def forward_ssm_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     for lp in _unstack(params["layers"], cfg.n_layers):
         if cfg.remat:
-            x = _remat(lambda x, lp=lp: _mamba_layer(cfg, x, lp), x)
+            x = remat(lambda x, lp=lp: _mamba_layer(cfg, x, lp), x)
         else:
             x = _mamba_layer(cfg, x, lp)
     return _final(cfg, params, x, last_only, hidden_only)
@@ -112,13 +104,6 @@ def decode_step_ssm_lm(cfg: ModelConfig, params: Tree, cache: Tree, token: torch
 def _n_super(cfg: ModelConfig) -> int:
     assert cfg.n_layers % cfg.hybrid_period == 0, "n_layers must divide into superblocks"
     return cfg.n_layers // cfg.hybrid_period
-
-
-def _group(tree: Tree, ns: int, per: int) -> Tree:
-    """[L, ...] leaves as [ns, per, ...] views."""
-    if isinstance(tree, dict):
-        return {k: _group(v, ns, per) for k, v in tree.items()}
-    return tree.reshape(ns, per, *tree.shape[1:])
 
 
 def init_hybrid_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Tree:
@@ -158,7 +143,7 @@ def forward_hybrid_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
         return x
 
     for group in _unstack(params["layers"], _n_super(cfg)):
-        x = _remat(superblock, x, group) if cfg.remat else superblock(x, group)
+        x = remat(superblock, x, group) if cfg.remat else superblock(x, group)
     return _final(cfg, params, x, last_only, hidden_only)
 
 

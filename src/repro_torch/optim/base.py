@@ -21,7 +21,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Tree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]  # step -> lr (absolute)
@@ -99,8 +99,12 @@ MultsFn = Callable[[str, Any], tuple[float, float]]
 
 def _descend_tree(params: Tree, u: Tree, lr, wd: float, mults_fn: MultsFn | None,
                   prefix: str = "") -> Tree:
+    """The descended params. Consumes ``u``'s dicts: each direction leaf is
+    popped as it is applied, so the directions are freed while the new params
+    are allocated (at no time are both trees whole). ``descend`` hands it a
+    copy of the dicts that it owns."""
     if isinstance(params, dict):
-        return {k: _descend_tree(params[k], u[k], lr, wd, mults_fn,
+        return {k: _descend_tree(params[k], u.pop(k), lr, wd, mults_fn,
                                  f"{prefix}/{k}" if prefix else str(k))
                 for k in params}
     u_scale, d_scale = mults_fn(prefix, params) if mults_fn else (1.0, 1.0)
@@ -130,6 +134,10 @@ def descend(tx, cfg: OptimizerConfig, mults_fn: MultsFn | None = None,
         count = state["count"] + 1
         lr = sched(count)
         u, tx_state = tx.update(grads, state["tx"], params)
+        del grads  # freed here when the caller holds no other reference
+        # the descent empties dicts of its own: a stage whose state shares
+        # its updates' dicts keeps them whole
+        u = tree_map(lambda x: x, u)
         return _descend_tree(params, u, lr, wd, mults_fn), {"tx": tx_state, "count": count}
 
     return Optimizer(init=init, step=step)

@@ -65,9 +65,9 @@ LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=1
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        tconfigs.get_config("whisper-large-v3")
+        tconfigs.get_config("kimi-k2-1t-a32b")
     assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER,
-                                              *MOE, *SSM])
+                                              *MOE, *SSM, *CONTEXT])
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -161,19 +161,18 @@ def test_ladder_tree_paths_labels_and_roundtrip():
 
 @pytest.mark.parametrize("arch_type", ["moe", "ssm", "hybrid", "audio", "vlm"])
 def test_unported_family_names_roadmap(arch_type):
-    """The families still to port raise naming ROADMAP.md; ``moe``, ``ssm``
-    and ``hybrid`` (cases that raised before their families were ported)
-    build, as the reference's do."""
+    """Every family of the reference builds (each case raised naming
+    ROADMAP.md until its family was ported; ``audio`` and ``vlm`` came
+    last), and an arch_type the reference does not know raises."""
     cfg = tconfigs.get_config("smollm-135m").replace(arch_type=arch_type)
-    if arch_type in ("moe", "ssm", "hybrid"):
-        assert tbuild_model(cfg).cfg.arch_type == arch_type
-        return
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tbuild_model(cfg)
+    assert tbuild_model(cfg).cfg.arch_type == arch_type
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        tbuild_model(cfg.replace(arch_type="diffusion"))
 
 
 MOE = ["deepseek-moe-16b", "moonshot-v1-16b-a3b"]
 SSM = ["mamba2-370m", "zamba2-2.7b"]
+CONTEXT = ["whisper-large-v3", "llama-3.2-vision-90b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -351,3 +350,61 @@ def test_ssm_tree_paths_labels_and_roundtrip(name):
         want |= {f"shared_block/attn/{w}" for w in ("wq", "wk", "wv", "wo")}
         want |= {f"shared_block/mlp/{w}" for w in ("w_in", "w_gate", "w_out")}
     assert muon == want, sorted(muon)
+
+
+# ----------------------------------------------- the audio and VLM families
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", CONTEXT)
+def test_context_config_equals_reference(name, reduced):
+    """whisper-large-v3 and llama-3.2-vision-90b equal the reference's
+    configs field for field, full and reduced. whisper: 32 encoder and 32
+    decoder layers of d 1280, 20:20 heads of 64, gelu, no QK-norm, 1500
+    frames; the VLM: 100 layers (20 superblocks of 1 gated cross + 4 self)
+    of d 8192, 64:8 heads of 128 (G = 8), 1600 image tokens."""
+    ref, port = get_config(name), tconfigs.get_config(name)
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd
+    if reduced:
+        assert (port.n_layers, port.d_model) == (2 if name == CONTEXT[0] else 4, 256)
+    elif name == CONTEXT[0]:
+        assert (port.arch_type, port.n_encoder_layers, port.hd, port.n_audio_frames) == (
+            "audio", 32, 64, 1500)
+    else:
+        assert (port.arch_type, port.n_heads // port.n_kv_heads, port.hd,
+                port.n_layers // port.vlm_period) == ("vlm", 8, 128, 20)
+
+
+@pytest.mark.parametrize("name", CONTEXT)
+def test_context_full_tree_matches_reference(name):
+    """At full size, the port's init (on the meta device: shapes only) has
+    the reference's ``init_abstract`` paths, shapes and dtypes, and each
+    leaf the reference's muon_label: whisper 1,602,629,120 parameters in 26
+    leaves, its 16 [32, ...] stacks and frontend_proj Muon; the VLM
+    87,733,929,000 in 28, its self layers [20, 4, ...] and cross layers
+    [20, ...], the tanh gates [20] AdamW."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim.muon import muon_label
+
+    ref = {"/".join(str(k.key) for k in p): x for p, x in jax.tree_util.tree_flatten_with_path(
+        build_model(get_config(name)).init_abstract())[0]}
+    own = dict(tree_leaves_with_paths(tbuild_model(tconfigs.get_config(name)).init(
+        torch.Generator().manual_seed(0), "meta")))
+    assert sorted(own) == sorted(ref)
+    for path, x in ref.items():
+        assert tuple(own[path].shape) == x.shape, path
+        assert str(own[path].dtype) == f"torch.{x.dtype}", path
+        assert muon_label(path, own[path]) == jmuon_label(path, x), path
+    n = sum(int(np.prod(x.shape)) for x in ref.values())
+    muon = sorted(p for p, x in ref.items() if jmuon_label(p, x) == "muon")
+    if name == CONTEXT[0]:
+        assert (n, len(ref), len(muon)) == (1_602_629_120, 26, 17)
+        assert ref["decoder/layers/mlp/w_out"].shape == (32, 5120, 1280)
+    else:
+        assert (n, len(ref)) == (87_733_929_000, 28)
+        assert ref["self_layers/attn/wq"].shape == (20, 4, 8192, 8192)
+        assert ref["cross_layers/attn/gate"].shape == ref["cross_layers/mlp_gate"].shape == (20,)
+        assert "cross_layers/attn/gate" not in muon and "image_proj" in muon

@@ -744,3 +744,200 @@ def test_ssm_family_stepped_decode_matches_forward_and_reference(kind):
         tlog, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(toks[:, t]), t)
         np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
         np.testing.assert_allclose(_f32(tlog), _f32(tfull[:, t]), **TOL["float32"])
+
+
+# ------------------------------------------------- the audio and VLM families
+#
+# whisper-large-v3 and llama-3.2-vision-90b at reduce_config (fp32) on the
+# reference's params, the VLM's tanh gates opened (zero-init would make its
+# cross path exactly zero), and a narrow hand-built VLM at hd 128 with
+# G = 8 (VLM_G8: 64:8 heads as the full model, so the flash path runs at
+# the kernels' MAX_GROUP). Contexts are numpy normal draws. Tolerances as
+# the dense ones' (fp32 atol 1e-4).
+
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+CONTEXT_ARCHS = {"audio": "whisper-large-v3", "vlm": "llama-3.2-vision-90b"}
+VLM_G8 = dict(n_layers=2, vlm_period=2, d_model=256, n_heads=8, n_kv_heads=1, head_dim=128,
+              d_ff=256, vocab=256, n_image_tokens=8, dtype="float32", remat=False)
+
+
+def _open_gates(params):
+    """The VLM's tanh gates set to 1 (in place on a dict of numpy leaves)."""
+    cl = params["cross_layers"]
+    cl["attn"]["gate"] = np.ones_like(cl["attn"]["gate"])
+    cl["mlp_gate"] = np.ones_like(cl["mlp_gate"])
+    return params
+
+
+@functools.lru_cache(maxsize=3)
+def _context_params(kind: str, g8: bool = False):
+    """The reference's init as numpy, gates opened (one compile a family)."""
+    jcfg = _context_cfgs(kind, "xla", g8)[0]
+    params = jax.tree.map(np.asarray, jax.jit(build_model(jcfg).init)(jax.random.PRNGKey(0)))
+    return _open_gates(params) if kind == "vlm" else params
+
+
+def _context_cfgs(kind: str, impl: str, g8: bool = False, remat: bool = False):
+    name = CONTEXT_ARCHS[kind]
+    if g8:
+        return (get_config(name).replace(attn_impl=impl, **VLM_G8),
+                tconfigs.get_config(name).replace(attn_impl=impl, **{**VLM_G8, "remat": remat}))
+    return (reduce_config(get_config(name)).replace(attn_impl=impl),
+            tconfigs.reduce_config(tconfigs.get_config(name)).replace(attn_impl=impl,
+                                                                      remat=remat))
+
+
+def _context_pair(kind: str, impl: str = "xla", g8: bool = False, remat: bool = False):
+    jcfg, tcfg = _context_cfgs(kind, impl, g8, remat)
+    params = _context_params(kind, g8)
+    return (build_model(jcfg), jax.tree.map(jnp.asarray, params), tbuild_model(tcfg),
+            params_from_numpy(params, "cpu"))
+
+
+def _context(cfg, B: int, seed: int) -> np.ndarray:
+    n = cfg.n_audio_frames if cfg.arch_type == "audio" else cfg.n_image_tokens
+    return np.random.default_rng(seed).standard_normal((B, n, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,d", [(1500, 1280), (16, 256), (5, 2)])
+def test_sinusoidal_positions_match_reference(n, d):
+    """Whisper's fixed encoder embeddings, at the full model's [1500, 1280],
+    the reduced one's and the degenerate d = 2 (one frequency). The two
+    libraries' fp32 ``exp`` differ by an ulp in some frequencies (43 of
+    640 at d 1280), and position p multiplies that into the angle, so the
+    tolerance is atol n * 2**-23 + 1e-6 (1.8e-4 at n = 1500, where the two
+    differ by 1.2e-4; 3e-6 at n = 16)."""
+    t = tcommon.sinusoidal_positions(n, d)
+    assert t.shape == (n, d) and t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), np.asarray(jcommon.sinusoidal_positions(n, d)),
+                               atol=n * 2.0 ** -23 + 1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["plain", "gated", "qk_norm-bf16"])
+def test_cross_attend_and_cross_kv_match_reference(case):
+    """cross_attend from context states and from cross_kv's precomputed
+    (k, v) (the decode path), GQA 4:2, against the reference's: plain, the
+    VLM's tanh gate (0.7), and QK-norm in bf16 (atol 5e-2 + one bf16 ulp,
+    as the dense logits)."""
+    dtype = "bfloat16" if case.endswith("bf16") else "float32"
+    kw = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qk_norm=case != "plain",
+              dtype=dtype)
+    jcfg, tcfg = jcommon.ModelConfig(**kw), tcommon.ModelConfig(**kw)
+    jp = jattn.init_attention(jax.random.PRNGKey(3), jcfg, cross=True)
+    jp = {**jp, "gate": jnp.float32(0.7)}
+    if jcfg.qk_norm:
+        jp["q_norm_scale"] = jnp.full((8,), 0.3)
+        jp["k_norm_scale"] = jnp.full((8,), -0.2)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(34)
+    x, ctx = (rng.standard_normal(s).astype(np.float32) for s in ((2, 5, 32), (2, 7, 32)))
+    cast = getattr(torch, dtype)
+    tx, tctx = torch.from_numpy(x).to(cast), torch.from_numpy(ctx).to(cast)
+    jx, jctx = jnp.asarray(x, jcfg.compute_dtype), jnp.asarray(ctx, jcfg.compute_dtype)
+    gated = case == "gated"
+    jk, jv = jattn.cross_kv(jp, jcfg, jctx)
+    tk, tv = tattn.cross_kv(tp, tcfg, tctx)
+    want = jattn.cross_attend(jp, jcfg, jx, jctx, gated=gated)
+    for t, j in ((tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_f32(t), _f32(j), **TOL[dtype])
+    for kv in (tctx, (tk, tv)):
+        out = tattn.cross_attend(tp, tcfg, tx, kv, gated=gated)
+        assert out.dtype == cast and out.shape == (2, 5, 32)
+        np.testing.assert_allclose(_f32(out), _f32(want), **TOL[dtype])
+    if gated:
+        plain = tattn.cross_attend(tp, tcfg, tx, tctx)
+        np.testing.assert_allclose(_f32(out), np.tanh(0.7) * _f32(plain), atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("kind", sorted(CONTEXT_ARCHS))
+def test_context_family_forward_loss_and_grads_match_reference(kind, impl):
+    """The reduced whisper-large-v3 (2 + 2 layers, 16 frames, the encoder's
+    attention non-causal) and llama-3.2-vision-90b (2 superblocks, 16 image
+    tokens, gates open), fp32, on a context: logits, the fused loss from
+    ``batch["context"]`` and every gradient leaf within fp32 atol 1e-4, the
+    port's side with remat on (a layer or superblock under
+    torch.utils.checkpoint); the forward without a context raises the
+    reference's assertion."""
+    jmodel, jparams, tmodel, tparams = _context_pair(kind, impl, remat=True)
+    cfg = tmodel.cfg
+    toks = _tokens(35, (2, 13), cfg.vocab)
+    ctx = _context(cfg, 2, 36)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:]),
+          "context": jnp.asarray(ctx)}
+    tb = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:]),
+          "context": torch.from_numpy(ctx)}
+
+    @jax.jit
+    def jrun(p, b):
+        return (jmodel.forward(p, b["tokens"], context=b["context"])[0],
+                jax.value_and_grad(jmodel.loss, has_aux=True)(p, b))
+
+    jl, ((jloss, _), jg) = jrun(jparams, jb)
+    tl, _ = tmodel.forward(tparams, tb["tokens"], context=tb["context"])
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    leaves = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    tloss, _ = tmodel.loss(leaves, tb)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), **TOL["float32"])
+    jflat = jax.tree_util.tree_flatten_with_path(jg)[0]
+    tflat = jax.tree_util.tree_flatten_with_path(leaves)[0]
+    assert [p for p, _ in jflat] == [p for p, _ in tflat]
+    for (path, g), (_, t) in zip(jflat, tflat):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL["float32"],
+                                   err_msg=str(path))
+    with pytest.raises(AssertionError, match="requires .* context"):
+        tmodel.forward(tparams, tb["tokens"])
+
+
+@pytest.mark.parametrize("kind", sorted(CONTEXT_ARCHS))
+def test_context_family_stepped_decode_matches_forward_and_reference(kind):
+    """fill_context (whisper: the encoder once, every decoder layer's cross
+    K/V; the VLM: the projected patches' K/V a superblock), then decode_step
+    over 12 tokens: each step's logits equal the full forward's at that
+    position and the reference's fill_context + decode_step (fp32 atol
+    1e-4), and the cross K/V equal the reference's."""
+    jmodel, jparams, tmodel, tparams = _context_pair(kind)
+    B, T = 2, 12
+    toks = _tokens(37, (B, T), tmodel.cfg.vocab)
+    ctx = _context(tmodel.cfg, B, 38)
+    tfull, _ = tmodel.forward(tparams, torch.from_numpy(toks), context=torch.from_numpy(ctx))
+    jcache = jax.jit(jmodel.fill_context)(jparams, jmodel.init_cache(jparams, B, T),
+                                          jnp.asarray(ctx))
+    tcache = tmodel.init_cache(tparams, B, T)
+    assert tmodel.fill_context(tparams, tcache, torch.from_numpy(ctx)) is tcache
+    for k in ("cross_k", "cross_v"):
+        np.testing.assert_allclose(_f32(tcache[k]), _f32(jcache[k]), **TOL["float32"])
+    jstep = jax.jit(jmodel.decode_step)
+    for t in range(T):
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(toks[:, t]), jnp.int32(t))
+        tlog, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(toks[:, t]), t)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        np.testing.assert_allclose(_f32(tlog), _f32(tfull[:, t]), **TOL["float32"])
+
+
+def test_vlm_g8_hd128_matches_reference():
+    """A narrow llama-3.2-vision (``VLM_G8``: 8:1 heads of 128, so G = 8 as
+    the full model's 64:8; one superblock of 1 cross + 1 self layer, gates
+    open), fp32, attn_impl 'pallas': loss and gradients as the test above
+    (the reference's flash kernel in interpret mode, the port's plain
+    versions of flash_fwd / flash_dq / flash_dkv at G = 8, hd 128)."""
+    jmodel, jparams, tmodel, tparams = _context_pair("vlm", "pallas", g8=True)
+    cfg = tmodel.cfg
+    assert (cfg.hd, cfg.n_heads // cfg.n_kv_heads, tmodel.attention_layers) == (128, 8, 1)
+    toks = _tokens(39, (1, 17), cfg.vocab)
+    ctx = _context(cfg, 1, 40)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:]),
+          "context": jnp.asarray(ctx)}
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+    (jloss, _), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jb)
+    leaves = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    tloss, _ = tmodel.loss(leaves, tb)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), **TOL["float32"])
+    for (path, g), (_, t) in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
+                                 jax.tree_util.tree_flatten_with_path(leaves)[0]):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL["float32"],
+                                   err_msg=str(path))

@@ -436,3 +436,21 @@ def test_scaling_law_fits_match_reference():
     jfits = [jsl.PowerLawFit(**asdict(f)) for f in fits]
     assert tsl.iso_loss_time_ratio(*fits, target_loss=2.5) == \
         jsl.iso_loss_time_ratio(*jfits, target_loss=2.5)
+
+
+def test_descend_keeps_state_that_aliases_its_updates():
+    """A stage may return one dict as both its updates and its state (as
+    optax's ``trace`` does): the descent frees directions from dicts of its
+    own, so the state comes back whole and the step is p - lr * u."""
+    from repro_torch.optim.transform import Transform
+
+    alias = Transform(init=lambda p: tree_map(torch.zeros_like, p),
+                      update=lambda g, s, p: (g, g))
+    opt = tbase.descend(alias, toptim.OptimizerConfig(lr=0.5))
+    params = {"a": torch.ones(3), "b": {"c": torch.full((2, 2), 2.0)}}
+    grads = {"a": torch.full((3,), 4.0), "b": {"c": torch.ones(2, 2)}}
+    new_params, state = opt.step(params, grads, opt.init(params))
+    assert set(state["tx"]) == {"a", "b"} and set(state["tx"]["b"]) == {"c"}
+    torch.testing.assert_close(state["tx"]["b"]["c"], torch.ones(2, 2), atol=0, rtol=0)
+    torch.testing.assert_close(new_params["a"], torch.full((3,), -1.0), atol=0, rtol=0)
+    torch.testing.assert_close(new_params["b"]["c"], torch.full((2, 2), 1.5), atol=0, rtol=0)

@@ -436,3 +436,51 @@ def test_ssm_naive_generate_matches_reference(kind, capsys):
     tserve.main(["--arch", name, "--reduced", "--engine", "naive", "--batch", "2",
                  "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
     assert "[naive] generated 8 tokens" in capsys.readouterr().out
+
+
+CONTEXT_ARCHS = {"audio": "whisper-large-v3", "vlm": "llama-3.2-vision-90b"}
+
+
+@pytest.mark.parametrize("kind", sorted(CONTEXT_ARCHS))
+def test_context_naive_generate_matches_reference(kind, capsys):
+    """The reduced whisper-large-v3 and llama-3.2-vision-90b (fp32,
+    reference params; the VLM's tanh gates opened, as the reference's
+    tests/test_serving.py opens them, so the context reaches the logits)
+    through naive_generate, which fills the context into the cache and
+    steps the decode path through the prompt: greedy tokens (2 prompts of
+    5, 6 new) equal the reference's naive_generate on the same context;
+    the same context twice gives the same tokens and another context other
+    tokens (the reference's context-threading regression). The paged
+    engine refuses both families, and ``launch.serve --engine naive``
+    serves them on the CPU with the reference's zero context."""
+    name = CONTEXT_ARCHS[kind]
+    jmodel = build_model(reduce_config(get_config(name)))
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+    if kind == "vlm":
+        cl = params["cross_layers"]
+        cl["attn"]["gate"] = np.ones_like(cl["attn"]["gate"])
+        cl["mlp_gate"] = np.ones_like(cl["mlp_gate"])
+    cfg = jmodel.cfg
+    tmodel = tbuild_model(tconfigs.reduce_config(tconfigs.get_config(name)))
+    tparams = params_from_numpy(params, "cpu")
+    assert not (tmodel.supports_batched_prefill or tmodel.supports_paged_decode)
+    n = cfg.n_audio_frames if kind == "audio" else cfg.n_image_tokens
+    rng = np.random.default_rng(20)
+    prompts = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
+    ctx_a, ctx_b = (rng.standard_normal((2, n, cfg.d_model)).astype(np.float32)
+                    for _ in "ab")
+    ref = np.asarray(jnaive_generate(jmodel, jax.tree.map(jax.numpy.asarray, params),
+                                     jax.numpy.asarray(prompts), 6,
+                                     context=jax.numpy.asarray(ctx_a)))
+    out_a, out_a2, out_b = (
+        naive_generate(tmodel, tparams, torch.from_numpy(prompts), 6,
+                       context=torch.from_numpy(c)).numpy() for c in (ctx_a, ctx_a, ctx_b))
+    np.testing.assert_array_equal(out_a, ref)
+    np.testing.assert_array_equal(out_a, out_a2)
+    assert not np.array_equal(out_a[:, 5:], out_b[:, 5:])
+    with pytest.raises(ValueError, match="serve it with --engine naive"):
+        PagedEngine(tmodel, tparams, device="cpu")
+    assert tuple(tserve.zero_context(tmodel.cfg, 3, "cpu").shape) == (3, n, cfg.d_model)
+    tserve.main(["--arch", name, "--reduced", "--engine", "naive", "--batch", "2",
+                 "--prompt-len", "4", "--max-new", "3", "--device", "cpu"])
+    assert "[naive] generated 6 tokens" in capsys.readouterr().out

@@ -287,7 +287,10 @@ def test_ladder_diloco_round_matches_reference(inner, outer_kernel):
     _check_one_round(*_ladder_cfgs(attn_impl="pallas"), inner, outer_kernel, 2)
 
 
-def _check_one_round(jcfg, tcfg, inner, outer_kernel, K, atol=2e-5):
+def _check_one_round(jcfg, tcfg, inner, outer_kernel, K, atol=2e-5, context: int = 0):
+    """One round of both packages from one TrainState on the same batches
+    ([H, K, B, S] tokens, and with ``context`` a [H, K, B, context,
+    d_model] normal draw as the batch's "context" leaf)."""
     dkw = dict(n_workers=K, sync_interval=2, inner_name=inner, ns_impl="pallas",
                outer_kernel=outer_kernel)
     jd, td = JDiLoCoConfig(**dkw), DiLoCoConfig(**dkw)
@@ -299,6 +302,9 @@ def _check_one_round(jcfg, tcfg, inner, outer_kernel, K, atol=2e-5):
     stream = JMarkovStream(JDataConfig(vocab=jcfg.vocab, seq_len=16, batch_per_worker=2,
                                        n_workers=K, seed=3))
     batches = {k: np.array(v) for k, v in stream.batch_stack(0, 2).items()}
+    if context:
+        batches["context"] = np.random.default_rng(4).standard_normal(
+            (2, K, 2, context, jcfg.d_model)).astype(np.float32)
 
     jnew, jinfo = jdiloco_round(jmodel, jd, jmake_optimizer(jd, jo), jstate,
                                 {k: jnp.asarray(v) for k, v in batches.items()},
@@ -341,6 +347,17 @@ def test_ssm_diloco_round_matches_reference(kind, tmp_path, monkeypatch):
     adamw_tol), which reaches 4e-5 in 8 of the 1,048,576 entries of the
     hybrid's out_proj momentum; then the new state crosses the two packages'
     .npz checkpoints both ways bit for bit."""
+    name = SSM_ARCHS[kind]
+    _round_and_checkpoints(reduce_config(get_config(name)),
+                           tconfigs.reduce_config(tconfigs.get_config(name)), tmp_path,
+                           monkeypatch)
+
+
+def _round_and_checkpoints(jcfg, tcfg, tmp_path, monkeypatch, context: int = 0):
+    """One MuLoCo round (Muon, the reference's Newton-Schulz through its
+    plain oracle, the outer Nesterov kernel) as ``_check_one_round`` at atol
+    1e-4, then the new state through the two packages' .npz checkpoints
+    both ways, bit for bit."""
     import sys
 
     from repro.checkpoint import load_checkpoint as jload_checkpoint
@@ -353,10 +370,7 @@ def test_ssm_diloco_round_matches_reference(kind, tmp_path, monkeypatch):
         return jref.ns_orthogonalize_ref(g.reshape(-1, m, n), iters, eps).reshape(g.shape)
 
     monkeypatch.setattr(sys.modules["repro.optim.muon"], "newton_schulz_pallas", ns_plain)
-    name = SSM_ARCHS[kind]
-    jcfg = reduce_config(get_config(name))
-    tcfg = tconfigs.reduce_config(tconfigs.get_config(name))
-    tnew, jnew = _check_one_round(jcfg, tcfg, "muon", True, 2, atol=1e-4)
+    tnew, jnew = _check_one_round(jcfg, tcfg, "muon", True, 2, atol=1e-4, context=context)
     save_checkpoint(str(tmp_path / "port.npz"), tnew, step=1)
     loaded, step = jload_checkpoint(str(tmp_path / "port.npz"), jnew)
     assert step == 1
@@ -365,6 +379,51 @@ def test_ssm_diloco_round_matches_reference(kind, tmp_path, monkeypatch):
     tloaded, step = load_checkpoint(str(tmp_path / "ref.npz"), tnew)
     assert step == 2
     assert_tree_close(tloaded, _jstate_numpy(jnew), atol=0, rtol=0)
+    return tnew
+
+
+CONTEXT_ARCHS = {"audio": "whisper-large-v3", "vlm": "llama-3.2-vision-90b"}
+
+
+@pytest.mark.parametrize("kind", sorted(CONTEXT_ARCHS))
+def test_context_diloco_round_matches_reference(kind, tmp_path, monkeypatch):
+    """One MuLoCo round of the reduced whisper-large-v3 and
+    llama-3.2-vision-90b from one TrainState, each batch carrying a
+    "context" leaf [H, K, B, N, d_model] (the reference's step plans'
+    layout), as test_ssm_diloco_round_matches_reference (atol 1e-4, the
+    .npz checkpoints both ways): whisper's 17 Muon stacks, frontend_proj
+    among them, and the VLM's 4-D [ns, per, ...] self-layer stacks through
+    Newton-Schulz per matrix; its gates [ns] through AdamW (they leave zero
+    in the round)."""
+    name = CONTEXT_ARCHS[kind]
+    jcfg = reduce_config(get_config(name))
+    n = jcfg.n_audio_frames if kind == "audio" else jcfg.n_image_tokens
+    tnew = _round_and_checkpoints(jcfg, tconfigs.reduce_config(tconfigs.get_config(name)),
+                                  tmp_path, monkeypatch, context=n)
+    if kind == "vlm":
+        assert (tnew["outer_params"]["cross_layers"]["mlp_gate"] != 0).all()
+
+
+@pytest.mark.parametrize("kind", sorted(CONTEXT_ARCHS))
+def test_context_launches_per_round_formula(kind):
+    """The launch formula of the audio family (the encoder's and the
+    decoder's self-attention through the flash kernels: 4 layers at reduced
+    depth; 17 Muon leaves of 26) and of the VLM (its self layers only: 2
+    superblocks x 1 at reduced depth; cross-attention is plain torch; 15
+    Muon leaves of 28, the 4-D stacks one launch each), remat on."""
+    tcfg = tconfigs.reduce_config(tconfigs.get_config(CONTEXT_ARCHS[kind])).replace(
+        attn_impl="pallas", remat=True)
+    dcfg = DiLoCoConfig(n_workers=2, sync_interval=3, ns_impl="pallas", outer_kernel=True)
+    model = tbuild_model(tcfg)
+    engine = TrainEngine(model, dcfg, OptimizerConfig())
+    n = engine.launches_per_round(model.init(torch.Generator().manual_seed(0), "cpu"))
+    attn, muon, leaves = (4, 17, 26) if kind == "audio" else (2, 15, 28)
+    assert model.attention_layers == attn
+    assert n == {"flash_fwd": 6 * attn * 2 + attn, "paged_decode": 0, "flash_dq": 6 * attn,
+                 "flash_dkv": 6 * attn, "matmul_epilogue": 6 * 3 * 5 * muon,
+                 "nesterov": leaves, "quantize": 0, "dequantize": 0}
+    full = tbuild_model(tconfigs.get_config(CONTEXT_ARCHS[kind]))
+    assert full.attention_layers == (64 if kind == "audio" else 80)
 
 
 def test_engine_eval_loss_and_deferred_configs():
@@ -501,10 +560,21 @@ def test_train_cli_muon_variants_run(tmp_path, flags):
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama-3.2-vision-90b",
                                   "whisper-large-v3"])
 def test_train_cli_unported_arch_raises(tmp_path, arch):
-    """An architecture not ported yet (kimi-k2's hd 112, the vlm and audio
-    families) raises the config registry's KeyError naming ROADMAP.md."""
-    with pytest.raises(KeyError, match="ROADMAP.md"):
+    """An architecture not ported yet (kimi-k2's hd 112) raises the config
+    registry's KeyError naming ROADMAP.md. The vlm and audio families are
+    ported but, as the reference's CLI, it feeds them no context, so their
+    forward's assertion stops the run (the reference trains them only
+    through its step plans, whose batches carry a "context" leaf)."""
+    if arch == "kimi-k2-1t-a32b":
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            ttrain.train(_args(tmp_path, "--arch", arch))
+        return
+    with pytest.raises(AssertionError, match="forward requires .* context"):
         ttrain.train(_args(tmp_path, "--arch", arch))
+    with pytest.raises(AssertionError, match="forward requires .* context"):
+        jtrain.train(jtrain.build_parser().parse_args([
+            "--arch", arch, "--reduced", "--workers", "2", "--sync-interval", "2", "--rounds",
+            "1", "--seq-len", "16", "--batch-per-worker", "2", "--out", str(tmp_path / "ref")]))
 
 
 @pytest.mark.parametrize("flags,active,staleness", [
