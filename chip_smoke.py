@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 17,19]
 
-Phases, in order; any failure raises and the script exits nonzero:
+Phases, in order; any failure raises and the script exits nonzero.
+``--only`` runs phases 1 and 2 and then only the named groups of phases
+among 12-19 (``ALONE``; 14 runs 6b's training first), each even when an
+earlier one failed, and prints no summary:
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles every kernel of the serving and training paths from
@@ -12,7 +15,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    registers, shared memory and spills for each kernel function, and the
    count of tensor-core instructions (HGMMA, HMMA) in each function's SASS
    (``cuobjdump --dump-sass``); fails if a bf16 flash sweep (forward, dq,
-   dkv, each at head dim 64, 80 and 128) has no HGMMA or spills.
+   dkv, each at head dim 64, 80, 112 and 128) has no HGMMA or spills.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes in bf16 plus odd-length, sliding-window and fp32 cases
    (tolerances: bf16 outputs 2e-2, lse 1e-3, fp32 1e-5), and times each
@@ -111,8 +114,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    one more round (8c'): the device time of the quantize kernels against
    the round. (8e) Crash drills at ``--reduced`` widths (``DRILL``): the
    command with ``--checkpoint-every 1 --inject-kill-round 2`` in a
-   subprocess (SIGKILL), then ``--resume auto``, whose metrics.csv less
-   wall_s must equal an uninterrupted run's byte for byte; then a NaN
+   subprocess (SIGKILL), then ``--resume auto`` in a new subprocess (a cold
+   restart), whose metrics.csv less wall_s must equal an uninterrupted
+   run's byte for byte; then a NaN
    injected at round 2 with the health sentinel on, rolled back into the
    captured round.
 9. Elastic MuLoCo, in-process through the CLI entry point: the command in
@@ -167,10 +171,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    (``NEMOTRON_FWD_CASES``) and paged_decode at G = 6 against their plain
    versions, bitwise from run to run, timed at the model's serving shapes;
    (13b) 4a's fp32 agreement at full width, depth cut to 2 layers; (13c)
-   4b's serving main path at full width and depth with bf16 weights through
-   the captured span (launches, peak memory, capture seconds, eager =
-   captured bitwise) and (13c') its profile, a decode step beside its
-   memory-bound floor.
+   4b's serving main path at full width, depth cut to 8 layers
+   (``NEMOTRON_SERVE_DEPTH``), with bf16 weights through the captured span
+   (launches, peak memory, capture seconds, eager = captured bitwise) and
+   (13c') its profile, a decode step beside its memory-bound floor.
 14. The Muon variants on the training main path (slice 6b, Part A): (14a)
    ``--inner muon_bp --ns-period 1`` (``TRAIN`` otherwise) captured, every
    round's losses and the final state bitwise equal to 6b's ``--inner
@@ -195,8 +199,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 16. deepseek-moe-16b (``MOE``: 28 layers, d 2048, 16:16 heads of hd 128, 64
    routed experts top-6 of d_ff 1408 plus 2 shared, vocab 102,400, untied):
    (16a) paged_decode at its 16 kv heads, and 4a's fp32 agreement at depth
-   2; (16b) 4b's serving main path at full width and depth with bf16
-   weights through the captured span, and (16b') its profile, a decode step
+   2; (16b) 4b's serving main path at full width, depth cut to 8 layers
+   (``MOE_SERVE_DEPTH``), with bf16 weights through the captured span, and
+   (16b') its profile, a decode step
    beside its memory-bound floor; (16c) matmul_epilogue at the expert
    banks' and the router's Newton-Schulz shapes in all four layouts, timed
    at the bank beside its plain version, bound and torch.baddbmm; (16c') one
@@ -207,7 +212,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    Mamba2 layers, d 1024, no attention) and zamba2-2.7b (``ZAMBA``: 54
    Mamba2 layers of d 2560 in 9 superblocks, one shared attention block of
    32:32 heads at hd 80, window 4096): (17a) ptxas of the flash sweeps at hd
-   64, 80 and 128, then flash_fwd and flash_dq / flash_dkv at hd 80 against
+   64, 80, 112 and 128, then flash_fwd and flash_dq / flash_dkv at hd 80 against
    their plain versions as 3a and 5a check them (``FLASH_FWD_CASES[80]``,
    ``FLASH_BWD_CASES[80]``, bitwise from run to run), timed at zamba2's
    training shape q [32, 8192, 1, 80] with the window beside the bound, the
@@ -217,20 +222,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    fp32 agreement on mamba2-370m at depth 2 and zamba2-2.7b at one
    superblock and S = 8192, and decode_step stepped over 256 tokens against
    the forward's logits (1e-3); (17d) mamba2-370m's training command
-   ``TRAIN_MAMBA`` at full width and depth, captured: launches against the
+   ``TRAIN_MAMBA`` at full width and depth, 2 rounds, captured: launches against the
    formula (no flash; matmul_epilogue 30 a worker step), losses falling,
    (17d') a profiled replayed round with the SSD scan's share; (17e)
    zamba2-2.7b at one superblock (``ZAMBA_TRAIN``), captured, the same
-   checks; (17f) both served through the naive engine, 4b's
-   workload as one lockstep batch (zamba2 in bf16 weights): tok/s, a decode
-   step's device time beside its floor, peak memory, a shorter repeat
-   bitwise.
+   checks; (17f) both served through the naive engine, 4b's 32 requests
+   and 64 new tokens with 128-token prompts (``SSM_SERVE``) as one lockstep
+   batch (zamba2 in bf16 weights): tok/s, a decode step's device time
+   beside its floor, peak memory, a shorter repeat bitwise.
 18. The audio and VLM families (slice 8): whisper-large-v3 (``WHISPER``: 32
    encoder and 32 decoder layers of d 1280, 20:20 heads of 64, gelu, 1500
    audio frames, 1,602,629,120 parameters) and llama-3.2-vision-90b
    (``VLM``: 100 layers of d 8192 in 20 superblocks of 1 gated cross + 4
    self layers, 64:8 heads of 128, so G = 8): (18a) ptxas of the flash
-   sweeps at hd 64, 80 and 128, then flash_fwd and flash_dq / flash_dkv at
+   sweeps at hd 64, 80, 112 and 128, then flash_fwd and flash_dq / flash_dkv at
    the slice's new shapes against their plain versions as 3a and 5a check
    them (``WHISPER_FWD_CASES``, ``WHISPER_BWD_CASES``: whisper's encoder, q
    [80, 1500, 1, 64], non-causal, a ragged 28-key tail; ``VLM_FWD_CASES``,
@@ -256,25 +261,57 @@ Phases, in order; any failure raises and the script exits nonzero:
    2048-token forward and backward through the G = 8 flash kernels against
    the plain path (loss, the gradients' relative error over the tree and
    on each of the self layers' attention leaves).
-19. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+19. The last two configurations (slice 9): kimi-k2-1t-a32b (``KIMI``: 61
+   MoE layers of d 7168, 64:8 heads of 112, 384 routed experts of d_ff 2048
+   top-8 plus one shared, vocab 163,840) and mistral-large-123b
+   (``MISTRAL``: 88 dense layers of d 12288, 96:8 heads of 128, so G = 12):
+   (19a) ptxas of the flash sweeps at hd 64, 80, 112 and 128, then
+   flash_fwd, flash_dq / flash_dkv and paged_decode at hd 112 against their
+   plain versions as 3a, 5a and 3b check them (``FLASH_FWD_CASES[112]``,
+   ``FLASH_BWD_CASES[112]``: kimi-k2's prefill q [128, 512, 8, 112] and
+   training q [32, 2048, 8, 112], ragged, windowed, non-causal, bf16 and
+   fp32; paged q [16, 8, 8, 112] over a [1024, 16, 8, 112] pool; bitwise
+   from run to run), timed beside the bound, the plain version and SDPA;
+   (19b) the same at G = 12 and hd 128 (``MISTRAL_FWD_CASES``,
+   ``MISTRAL_BWD_CASES``, paged q [16, 8, 12, 128]), G = 16 once, and the
+   fp32 backward at the training shape against float64 (``BWD_FP64_CASES``,
+   1e-5 of the largest entry); (19c)
+   kimi-k2: 4a's fp32 agreement at depth 1 with 64 experts, 4b's serving
+   main path at full width with one layer and all 384 experts, bf16
+   weights, through the captured span (launches, replays and the eager
+   span bitwise), its profile (a decode step beside its floor), and one 4 x
+   2048-token forward and backward at depth 1 with 64 experts against the
+   plain path (the loss, the tree's relative error, each attention leaf
+   under ``VLM_ATTN_TOL``); (19d) mistral-large: the same at depth 2
+   (agreement), 8 (serving) and 1 (forward and backward). Every cut is in
+   ``KIMI_CUT`` and ``MISTRAL_CUT`` (PERF.md section 4).
+20. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
    paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
    pseudogradients"`` and ``"deepseek-moe-16b"``, with matmul_epilogue's
    expert-bank timing, slice 7a's launches and timings under
    ``"mamba2-370m"`` and ``"zamba2-2.7b"``: the flash rows at hd 80,
-   matmul_epilogue at each in_proj; the serving paths launch none, and
-   slice 8's under ``"whisper-large-v3"`` and ``"llama-3.2-vision-90b"``:
-   the flash rows at the encoder's non-causal and the VLM's G = 8 shapes,
-   matmul_epilogue at whisper's w_in, nesterov over whisper's parameters),
-   the script's seconds, then the last line ``{"ok": true, "device": {...}}``.
-   A line ``-- phases ... done at N s`` follows each group of phases.
+   matmul_epilogue at each in_proj; the serving paths launch none, slice
+   8's under ``"whisper-large-v3"`` and ``"llama-3.2-vision-90b"``: the
+   flash rows at the encoder's non-causal and the VLM's G = 8 shapes,
+   matmul_epilogue at whisper's w_in, nesterov over whisper's parameters,
+   and slice 9's under ``"kimi-k2-1t-a32b"`` and ``"mistral-large-123b"``:
+   the flash and paged rows at hd 112 and at G = 12, their serving and
+   forward-and-backward launches), the script's seconds, then the last line
+   ``{"ok": true, "device": {...}}``.
+   A line ``-- 12a: N s (T s in all)`` follows each phase: its seconds
+   and the script's.
 
-Cut for time (the script's limit is 1200 s; slice 8 adds ~150 s): the
-earlier slices' repeats 6c's dispatch of three, 14b' and 17d''/17e'' (the
-variants', mamba2's and zamba2's rounds again eager, bitwise, which earlier
-full runs held), and 17f's repeat shortened to 8 + 8 tokens; no kernel
-check was cut (PERF.md section 4).
+Cut for time (the script's limit is 1200 s; slice 8 added ~150 s, slice 9
+~50 s with its builds, and hosts differ by ~20%): the earlier slices'
+repeats 6c's dispatch of three, 14b' and 17d''/17e'' (the variants',
+mamba2's and zamba2's rounds again eager, bitwise, which earlier full runs
+held), 17f's repeat shortened to 8 + 8 tokens and its prompts to 128
+tokens, the serving depth of 13c and 16b cut to 8 layers, 17d and 17e at
+2 rounds (the warm-up and capture, one replay) of H = 2; no kernel check
+and no bitwise check was cut (PERF.md section 4). The profiles read the
+profiler's raw events (:func:`device_times`).
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
 GEMMs keep PyTorch's default reduced-precision reduction setting, printed
@@ -285,6 +322,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -348,6 +386,18 @@ ELASTIC = {"i": ["--drop-schedule", "1:1"], "ii": ["--sync-delay", "1"],
 # the data-parallel baselines (10a, 10b): one worker, 16 x 1024 tokens a
 # step (= K * B of the training command), 12 steps (its 3 rounds' tokens)
 DP = dict(steps=12, batch=16, seq_len=1024, lr=3e-3)
+
+
+_T0 = time.perf_counter()
+_LAP = [_T0]
+
+
+def lap(label: str) -> None:
+    """``-- label: N s (T s in all)``: the seconds since the last lap and
+    since the script started."""
+    now = time.perf_counter()
+    print(f"-- {label}: {now - _LAP[0]:.1f} s ({now - _T0:.1f} s in all)", flush=True)
+    _LAP[0] = now
 
 
 def time_ms(torch, fn, runs: int = 30) -> float:
@@ -452,25 +502,28 @@ def phase_build(_build):
             print(f"    {fn}: tensor-core instructions in SASS {ops}")
             sass[fn] = ops
     for fn in (f"flash_{k}_wgmma_kernel<{hd}>" for k in ("fwd", "dq", "dkv")
-               for hd in (64, 80, 128)):
+               for hd in HEAD_DIMS):
         if not sass.get(fn, {}).get("HGMMA"):
             raise AssertionError(f"{fn}: no HGMMA in its SASS (or no such kernel)")
         if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ptxas.get(fn, "")):
             raise AssertionError(f"{fn}: spills (or no ptxas report): {ptxas.get(fn)}")
-    bq, bkv, rows, keys, bq128, bkv128, bq80, bkv80, smem, smem128, smem80 = \
-        _build.kernel_tiles("flash_fwd")
+    (bq, bkv, rows, keys, bq128, bkv128, bq80, bkv80, bq112, bkv112, smem, smem128, smem80,
+     smem112) = _build.kernel_tiles("flash_fwd")
     print(f"  flash_fwd: bf16 sweep tiles of {rows} packed q rows x {keys} keys, one warpgroup "
-          f"a block, dynamic shared memory {smem} B (hd 64), {smem80} B (hd 80) and {smem128} B "
-          f"(hd 128); fp32 sweep {bq} positions x {bkv} keys (hd 64), {bq80} x {bkv80} (hd 80), "
-          f"{bq128} x {bkv128} (hd 128)")
-    rows, keys, dq_smem, dkv_smem, dq128, dkv128, dq80, dkv80 = _build.kernel_tiles("flash_bwd")
+          f"a block, dynamic shared memory {smem} B (hd 64), {smem80} B (hd 80), {smem112} B (hd "
+          f"112) and {smem128} B (hd 128); fp32 sweep {bq} positions x {bkv} keys (hd 64), {bq80} "
+          f"x {bkv80} (hd 80), {bq112} x {bkv112} (hd 112), {bq128} x {bkv128} (hd 128), half the "
+          "positions past G = 8")
+    rows, keys, dq_smem, dkv_smem, dq128, dkv128, dq80, dkv80, dq112, dkv112 = \
+        _build.kernel_tiles("flash_bwd")
     print(f"  flash_bwd bf16 sweeps: tiles of {rows} packed q rows x {keys} keys; hd 64: one "
           f"warpgroup a block, dynamic shared memory {dq_smem} B (dq) and {dkv_smem} B (dkv); "
           f"hd 128: {dq128} B (dq, one warpgroup), {dkv128} B (dkv, two warpgroups); hd 80: "
-          f"{dq80} B (dq), {dkv80} B (dkv, two warpgroups)")
-    split, threads, split128 = _build.kernel_tiles("paged_decode")
-    print(f"  paged_decode: split-K pass of {split} (hd 64) or {split128} (hd 128) positions a "
-          f"block of {threads} threads, then a combine pass")
+          f"{dq80} B (dq), {dkv80} B (dkv, two warpgroups); hd 112: {dq112} B (dq), {dkv112} B "
+          "(dkv, two warpgroups)")
+    split, threads, split128, split112 = _build.kernel_tiles("paged_decode")
+    print(f"  paged_decode: split-K pass of {split} (hd 64), {split112} (hd 112) or {split128} "
+          f"(hd 128) positions a block of {threads} threads, then a combine pass")
     tm, tn, bk, threads = _build.kernel_tiles("matmul_epilogue")
     print(f"  matmul_epilogue: {tm} x {tn} tiles of C, K steps of {bk}, {threads} threads a "
           "block")
@@ -492,6 +545,8 @@ def flash_pairs(S: int, causal: bool, window: int) -> int:
 
 
 _BF16, _FP32 = "bfloat16", "float32"
+# the head dims the flash kernels are built for (flash_attention.KERNEL_HEAD_DIM)
+HEAD_DIMS = (64, 80, 112, 128)
 # flash_fwd's cases per head dim: (BKV, S, G, dtype, causal, window, timed
 # as); the main paths' shapes first. hd 64: smollm-135m (serving: 16 slots x
 # 3 kv heads, S 512, G 3; training: 8 x 3, S 1024); hd 128: paper-416m
@@ -533,6 +588,19 @@ FLASH_FWD_CASES = {
          (2 * 1, 96, 2, _FP32, False, 0, None),
          (2 * 1, 77, 2, _FP32, True, 20, None),
          (1, 50, 8, _FP32, True, 0, None)],
+    # hd 112: kimi-k2-1t-a32b (19a: 64:8 heads, so G = 8), the serving
+    # prefill (16 slots x 8 kv heads, S 512) and the training shape (4
+    # sequences x 8 kv heads, S 2048) first
+    112: [(16 * 8, 512, 8, _BF16, True, 0, "serving"),
+          (4 * 8, 2048, 8, _BF16, True, 0, "training"),
+          (2 * 2, 77, 2, _BF16, True, 0, None),
+          (2 * 2, 300, 1, _BF16, True, 100, None),
+          (2 * 1, 130, 8, _BF16, False, 0, None),
+          (2 * 1, 77, 8, _BF16, False, 20, None),
+          (2 * 1, 130, 4, _BF16, True, 37, None),
+          (4 * 8, 2048, 8, _FP32, True, 0, None),
+          (2 * 1, 96, 2, _FP32, False, 0, None),
+          (2 * 1, 77, 8, _FP32, True, 20, None)],
 }
 
 
@@ -669,12 +737,15 @@ def phase_paged(torch, fa, hd: int = 64, KV: int = 3, G: int = 3, phase: str = "
 
 
 def phase_agreement(torch, get_config, build_model, arch: str = "smollm-135m",
-                    phase: str = "4a", n_layers: int | None = None):
+                    phase: str = "4a", n_layers: int | None = None,
+                    overrides: dict | None = None):
     """Full width, fp32: the kernel path against the plain torch path
-    (``n_layers`` cuts the depth, never a width)."""
+    (``n_layers`` cuts the depth, never a width; ``overrides``, e.g. an
+    expert count, are printed)."""
     print(f"[{phase}] full-width fp32 agreement, {arch}: attn_impl pallas (kernels) vs xla "
-          "(plain torch)" + (f", depth cut to {n_layers} layers" if n_layers else ""))
-    base = get_config(arch).replace(dtype="float32")
+          "(plain torch)" + (f", depth cut to {n_layers} layers" if n_layers else "")
+          + (f", {overrides}" if overrides else ""))
+    base = get_config(arch).replace(dtype="float32", **(overrides or {}))
     if n_layers:
         base = base.replace(n_layers=n_layers)
     dev = torch.device("cuda")
@@ -873,13 +944,16 @@ def phase_naive(torch, fa, get_config, build_model, serve, paged_tok_s: float,
 
 def device_times(torch, prof) -> dict:
     """{kernel name (cut to 70 characters): [device ms, launches]} of a
-    torch.profiler run."""
+    torch.profiler run, read off the profiler's raw events: ``prof.events()``
+    would first build a Python object for each of them (a profiled round has
+    up to ~160,000 kernels)."""
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name if len(e.name) < 70 else e.name[:67] + "..."
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            name = e.name()
+            name = name if len(name) < 70 else name[:67] + "..."
             acc = by_name.setdefault(name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[0] += e.duration_ns() / 1e6
             acc[1] += 1
     return by_name
 
@@ -1069,6 +1143,18 @@ FLASH_BWD_CASES = {
          (2, 2, 77, 2, _BF16, False, 20),
          (2, 2, 300, 1, _BF16, True, 100),
          (1, 1, 70, 8, _BF16, True, 0)],
+    # hd 112: kimi-k2's training shape (4 sequences x 8 kv heads of 2048, G
+    # = 8) first, in bf16 and fp32
+    112: [(4, 8, 2048, 8, _BF16, True, 0),
+          (4, 8, 2048, 8, _FP32, True, 0),
+          (2, 2, 300, 1, _FP32, True, 0),
+          (2, 1, 96, 8, _FP32, False, 0),
+          (2, 1, 130, 4, _FP32, True, 37),
+          (2, 3, 77, 2, _BF16, True, 0),
+          (2, 1, 96, 8, _BF16, False, 0),
+          (2, 1, 130, 8, _BF16, True, 37),
+          (2, 2, 77, 2, _BF16, False, 20),
+          (2, 2, 300, 1, _BF16, True, 100)],
 }
 
 
@@ -1814,39 +1900,47 @@ def _rows_sans_wall(path: Path) -> list:
 
 def phase_crash_drill(torch, build_parser, train):
     """[8e] crash drills on the card, at --reduced widths (``DRILL``): SIGKILL
-    at round 2 in a subprocess, then ``--resume auto`` (the restored state
-    is warmed up and captured anew); metrics.csv, less wall_s, must equal an
-    uninterrupted run's byte for byte. Then, in-process, a NaN injected at
-    round 2 with the health sentinel on: the rollback copies the checkpoint
-    into the captured round's tensors and the run completes on replays."""
+    at round 2 in a subprocess, then ``--resume auto`` in a new subprocess,
+    a cold restart (the restored state is warmed up and captured anew);
+    metrics.csv, less wall_s, must equal an uninterrupted run's (in this
+    process, while the killed run starts) byte for byte. Then a NaN injected
+    at round 2 with the health sentinel on (in this process, while the
+    resumed run starts): the rollback copies the checkpoint into the
+    captured round's tensors and the run completes on replays."""
+    import contextlib
+    import io
     import shutil
 
     print("[8e] crash drill: repro_torch.launch.train " + " ".join(DRILL))
     root = ROOT / "build" / "chip_smoke_drill"
     shutil.rmtree(root, ignore_errors=True)
-    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
-    def cli(extra: list, out: Path):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *DRILL, *extra,
-                              "--out", str(out)], capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=600)
-        print(f"  {' '.join(extra) or '(uninterrupted)'}: exit {res.returncode} in "
+    def start(extra: list, out: Path):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *DRILL, *extra, "--out", str(out)]
+        return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env, cwd=ROOT), time.perf_counter(), " ".join(extra))
+
+    def finish(run) -> tuple[int, str, str]:
+        proc, t0, what = run
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        print(f"  {what}, a subprocess: exit {proc.returncode} in "
               f"{time.perf_counter() - t0:.1f} s")
-        return res
+        return proc.returncode, stdout, stderr
 
-    ref = cli([], root / "ref")
-    assert ref.returncode == 0, ref.stderr[-3000:]
-    killed = cli(["--inject-kill-round", "2"], root / "crash")
-    assert killed.returncode == -9, (killed.returncode, killed.stderr[-3000:])
+    killed = start(["--inject-kill-round", "2"], root / "crash")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train(build_parser().parse_args([*DRILL, "--out", str(root / "ref")]))
+    print(f"  (uninterrupted), in this process: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    rc, _, err = finish(killed)
+    assert rc == -9, (rc, err[-3000:])
     assert (root / "crash" / "ckpt_2.npz").exists() and not (root / "crash" / "ckpt_3.npz").exists()
-    resumed = cli(["--resume", "auto"], root / "crash")
-    assert resumed.returncode == 0, resumed.stderr[-3000:]
-    assert "resume telemetry: resumed_from=ckpt_2.npz start_round=2" in resumed.stdout
-    got, want = _rows_sans_wall(root / "crash" / "metrics.csv"), _rows_sans_wall(root / "ref" / "metrics.csv")
-    assert got == want, (got, want)
-    print(f"  SIGKILL at round 2 + --resume auto: metrics.csv rows equal the uninterrupted "
-          f"run's, less wall_s ({len(got) - 1} rounds)")
+    resumed = start(["--resume", "auto"], root / "crash")
     argv = DRILL + ["--health-sentinel", "on", "--health-warmup", "1", "--inject-nan-round", "2",
                     "--out", str(root / "nan")]
     out = train(build_parser().parse_args(argv))
@@ -1860,6 +1954,13 @@ def phase_crash_drill(torch, build_parser, train):
           f"{[r['round'] for r in hist]} finite")
     del out, engine
     torch.cuda.empty_cache()
+    rc, stdout, err = finish(resumed)
+    assert rc == 0, (rc, err[-3000:])
+    assert "resume telemetry: resumed_from=ckpt_2.npz start_round=2" in stdout, stdout[-3000:]
+    got, want = _rows_sans_wall(root / "crash" / "metrics.csv"), _rows_sans_wall(root / "ref" / "metrics.csv")
+    assert got == want, (got, want)
+    print(f"  SIGKILL at round 2 + --resume auto: metrics.csv rows equal the uninterrupted "
+          f"run's, less wall_s ({len(got) - 1} rounds)")
 
 
 class RoundSpy:
@@ -2198,10 +2299,16 @@ def slice_4b(torch, get_config, build_model, build_parser, train, ref_hist: list
     """Phases 9 and 10 (elastic MuLoCo, the DP baselines, blockwise
     attention), then each path's rate, idle share and peak memory beside the
     card's name and power limit."""
-    elastic = {tag: phase_elastic(torch, build_parser, train, tag, ref_hist)
-               for tag in ("i", "ii", "iii")}
-    dp = {inner: phase_dp(torch, get_config, build_model, inner) for inner in ("muon", "adamw")}
+    elastic = {}
+    for tag in ("i", "ii", "iii"):
+        elastic[tag] = phase_elastic(torch, build_parser, train, tag, ref_hist)
+        lap({"i": "9a", "ii": "9b", "iii": "9c"}[tag])
+    dp = {}
+    for inner in ("muon", "adamw"):
+        dp[inner] = phase_dp(torch, get_config, build_model, inner)
+        lap({"muon": "10a", "adamw": "10b"}[inner])
     phase_blockwise(torch, get_config)
+    lap("10c")
     smi_line = f"card (nvidia-smi name, power.limit): {smi}"
     for tag, r in elastic.items():
         print(f"elastic MuLoCo ({tag}) {' '.join(ELASTIC[tag])}: {r['tok_s']:.1f} tokens/s, "
@@ -2231,12 +2338,15 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
     bwd = phase_flash_bwd(torch, fa, hd=128, phase="12a")
     paged = phase_paged(torch, fa, hd=128, KV=cfg.n_kv_heads, G=cfg.n_heads // cfg.n_kv_heads,
                         phase="12a")
+    lap("12a")
     matmul, matmul_bx = phase_matmul_ladder(torch, mm, ops, ref)
     n_params = ladder_param_count(cfg)
     nesterov = phase_nesterov(torch, ou, n_params, phase="12b")
     torch.cuda.empty_cache()
+    lap("12b")
     phase_agreement(torch, get_config, build_model, LADDER, "12c")
     phase_train_agreement(torch, get_config, build_model, LADDER, "12c")
+    lap("12c")
 
     train_launches, out = phase_train_main(torch, build_parser, train, TRAIN_LADDER, "12d")
     from repro_torch.utils.tree import tree_leaves, tree_map
@@ -2260,11 +2370,13 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
                       phase="12d''", with_r3=False)
     del ref_state
     torch.cuda.empty_cache()
+    lap("12d")
     serve_launches, engine = phase_main(torch, fa, get_config, serve, LADDER, "12e")
     serve_prof = phase_profile(torch, engine, paged["ms"], phase="12e'")
     serve_rate, replay_rate, capture_s = engine.tok_s, engine.replay_tok_s, engine.capture_s
     del engine
     torch.cuda.empty_cache()
+    lap("12e")
     print(f"{LADDER} training ({' '.join(TRAIN_LADDER[:TRAIN_LADDER.index('--out')])}): "
           f"{rate:.1f} tokens/s over rounds 2-3, one replayed round {prof['tok_s']:.1f} tokens/s "
           f"at idle {prof['idle']:.1f}%, peak {peak:.2f} GB; serving (captured spans) "
@@ -2285,10 +2397,46 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
     }
 
 
+def phase_serve_profiled(torch, fa, get_config, serve, arch: str, phase: str, depth: int,
+                         paged_ms: float) -> dict:
+    """4b's serving main path at full width, depth ``depth``, bf16 weights,
+    through the captured span (:func:`phase_main`: launches against the
+    formula, the replays and the eager span bitwise equal), then its
+    profile (:func:`phase_profile`: the idle share and a decode step beside
+    its memory-bound floor)."""
+    launches, engine = phase_main(torch, fa, get_config, serve, arch, phase,
+                                  overrides=dict(param_dtype="bfloat16", n_layers=depth))
+    prof = phase_profile(torch, engine, paged_ms, phase=phase + "'")
+    out = dict(tok_s=engine.tok_s, replay_tok_s=engine.replay_tok_s,
+               eager_tok_s=engine.eager_tok_s, capture_s=engine.capture_s,
+               peak_gb=engine.peak_gb, step_ms=prof["step_ms"], floor_ms=prof["floor_ms"],
+               idle=prof["idle"], launches=launches, depth=depth,
+               n_params=n_params(engine.model.cfg))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_serving(arch: str, s: dict, smi: str) -> None:
+    """The summary line of a :func:`phase_serve_profiled` run."""
+    print(f"{arch} serving (depth {s['depth']}, bf16 weights, {s['n_params']:,} parameters, "
+          f"{MAIN['batch']} x ({MAIN['prompt_len']} + {MAIN['max_new']}), {MAIN['slots']} "
+          f"slots, captured spans): {s['tok_s']:.1f} tok/s (capture {s['capture_s']:.3f} s "
+          f"apart), replays only {s['replay_tok_s']:.1f} tok/s, eager span "
+          f"{s['eager_tok_s']:.1f} tok/s; peak {s['peak_gb']:.2f} GB; a decode step "
+          f"{s['step_ms']:.4f} ms on the card against its floor {s['floor_ms']:.4f} ms; idle "
+          f"{s['idle']:.1f}%; launches {s['launches']['flash_fwd']} flash_fwd, "
+          f"{s['launches']['paged_decode']} paged_decode; card (nvidia-smi name, "
+          f"power.limit): {smi}")
+
+
 # nemotron-4-15b (13c) serves 4b's workload with bf16 weights: ~15.6B
 # parameters are ~31 GB in bf16 (fp32, ~62.6 GB, would leave no room for the
-# prefill's [16, 512, 256000] logits)
+# prefill's [16, 512, 256000] logits). For the script's time it serves at
+# depth 8 of its 32 layers (PERF.md section 4): the kernels' shapes a layer
+# are the full model's
 NEMOTRON = "nemotron-4-15b"
+NEMOTRON_SERVE_DEPTH = 8
 
 
 def slice_nemotron(torch, fa, get_config, build_model, serve, smi: str) -> dict:
@@ -2310,21 +2458,15 @@ def slice_nemotron(torch, fa, get_config, build_model, serve, smi: str) -> dict:
     G = cfg.n_heads // cfg.n_kv_heads
     flash = phase_flash(torch, fa, hd=cfg.hd, phase="13a", cases=NEMOTRON_FWD_CASES)
     paged = phase_paged(torch, fa, hd=cfg.hd, KV=cfg.n_kv_heads, G=G, phase="13a")
+    lap("13a")
     phase_agreement(torch, get_config, build_model, NEMOTRON, "13b", n_layers=2)
     torch.cuda.empty_cache()
-    launches, engine = phase_main(torch, fa, get_config, serve, NEMOTRON, "13c",
-                                  overrides=dict(param_dtype="bfloat16"))
-    prof = phase_profile(torch, engine, paged["ms"], phase="13c'")
-    print(f"{NEMOTRON} serving ({cfg.n_layers} layers, bf16 weights, {MAIN['batch']} x "
-          f"({MAIN['prompt_len']} + {MAIN['max_new']}), {MAIN['slots']} slots, captured spans): "
-          f"{engine.tok_s:.1f} tok/s (capture {engine.capture_s:.3f} s apart), replays only "
-          f"{engine.replay_tok_s:.1f} tok/s, eager span {engine.eager_tok_s:.1f} tok/s; peak "
-          f"{engine.peak_gb:.2f} GB; a decode step {prof['step_ms']:.4f} ms on the card against "
-          f"its floor {prof['floor_ms']:.4f} ms; idle {prof['idle']:.1f}%; launches flash_fwd "
-          f"{launches['flash_fwd']}, paged_decode {launches['paged_decode']}; card (nvidia-smi "
-          f"name, power.limit): {smi}")
-    del engine
-    torch.cuda.empty_cache()
+    lap("13b")
+    s = phase_serve_profiled(torch, fa, get_config, serve, NEMOTRON, "13c",
+                             NEMOTRON_SERVE_DEPTH, paged["ms"])
+    print_serving(NEMOTRON, s, smi)
+    lap("13c")
+    launches = s["launches"]
     return {"flash_fwd": {"launches": launches["flash_fwd"], **flash["serving"]},
             "paged_decode": {"launches": launches["paged_decode"], **paged}}
 
@@ -2401,8 +2543,10 @@ def slice_variants(torch, build_parser, train, ref_hist: list, ref_host: dict,
     """Phase 14: the Muon variants (Part A of slice 6b) on the training main
     path. Returns each variant's launches and rate."""
     phase_muon_bp_is_muon(torch, build_parser, train, ref_hist, ref_host)
+    lap("14a")
     out = {inner: phase_variant(torch, build_parser, train, inner, muon_tok_s)
            for inner in VARIANTS}
+    lap("14b")
     for inner, r in out.items():
         print(f"--inner {inner} {' '.join(VARIANTS[inner])}: {r['tok_s']:.1f} tokens/s beside "
               f"--inner muon's {muon_tok_s:.1f} (6b); card (nvidia-smi name, power.limit): {smi}")
@@ -2669,6 +2813,9 @@ def phase_scaling_laws() -> dict:
 # spare the phase keeps; depth 1 is 1.007B parameters
 MOE = "deepseek-moe-16b"
 MOE_TRAIN = dict(depth=1, K=2, H=2, batch=8, seq_len=1024, rounds=2, lr=3e-3)
+# 16b: deepseek-moe-16b serves at depth 8 of its 28 layers for the script's
+# time (PERF.md section 4)
+MOE_SERVE_DEPTH = 8
 
 
 def moe_param_count(cfg) -> int:
@@ -2869,27 +3016,18 @@ def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> di
                         G=cfg.n_heads // cfg.n_kv_heads, phase="16a")
     phase_agreement(torch, get_config, build_model, MOE, "16a", n_layers=2)
     torch.cuda.empty_cache()
-    launches, engine = phase_main(torch, fa, get_config, serve, MOE, "16b",
-                                  overrides=dict(param_dtype="bfloat16"))
-    prof = phase_profile(torch, engine, paged["ms"], phase="16b'")
-    serving = dict(tok_s=engine.tok_s, replay_tok_s=engine.replay_tok_s,
-                   eager_tok_s=engine.eager_tok_s, capture_s=engine.capture_s,
-                   peak_gb=engine.peak_gb, step_ms=prof["step_ms"], floor_ms=prof["floor_ms"],
-                   idle=prof["idle"])
-    del engine
+    lap("16a")
+    serving = phase_serve_profiled(torch, fa, get_config, serve, MOE, "16b", MOE_SERVE_DEPTH,
+                                   paged["ms"])
+    launches = serving["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    lap("16b")
     xx, bx = phase_matmul_moe(torch, mm, ops, ref)
+    lap("16c")
     train_out = phase_moe_train(torch, get_config, build_model, dict(xx=xx, bx=bx))
-    s = serving
-    print(f"{MOE} serving ({cfg.n_layers} layers, bf16 weights, {MAIN['batch']} x "
-          f"({MAIN['prompt_len']} + {MAIN['max_new']}), {MAIN['slots']} slots, captured spans): "
-          f"{s['tok_s']:.1f} tok/s (capture {s['capture_s']:.3f} s apart), replays only "
-          f"{s['replay_tok_s']:.1f} tok/s, eager span {s['eager_tok_s']:.1f} tok/s; peak "
-          f"{s['peak_gb']:.2f} GB; a decode step {s['step_ms']:.4f} ms on the card against its "
-          f"floor {s['floor_ms']:.4f} ms; idle {s['idle']:.1f}%; launches flash_fwd "
-          f"{launches['flash_fwd']}, paged_decode {launches['paged_decode']}; card "
-          f"(nvidia-smi name, power.limit): {smi}")
+    lap("16c'")
+    print_serving(MOE, serving, smi)
     t = train_out
     print(f"{MOE} training (depth {MOE_TRAIN['depth']}, {t['n_params']:,} parameters, K 2, H 2, "
           f"8 x 1024 tokens a worker step): one replayed round {t['tok_s']:.1f} tokens/s, idle "
@@ -2909,14 +3047,19 @@ def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> di
 
 MAMBA, ZAMBA = "mamba2-370m", "zamba2-2.7b"
 # 17d: the training command at mamba2-370m, full width and depth; B x S a
-# worker step stays 8192 tokens (seq 1024 is 4 SSD chunks of 256)
-TRAIN_MAMBA = replace_flags(TRAIN, arch=MAMBA, seq_len=1024, batch_per_worker=8,
-                            out=ROOT / "build" / "chip_smoke_train_mamba")
+# worker step stays 8192 tokens (seq 1024 is 4 SSD chunks of 256); for the
+# script's time H = 2 and 2 rounds (the warm-up and capture, one replay)
+TRAIN_MAMBA = replace_flags(TRAIN, arch=MAMBA, seq_len=1024, batch_per_worker=8, rounds=2,
+                            sync_interval=2, out=ROOT / "build" / "chip_smoke_train_mamba")
 # 17e: zamba2-2.7b at full width, depth cut to one superblock (6 mamba layers
 # and the shared block), one sequence of 8192 a worker step (the window of
-# 4096 masks), K = 2, H = 4, 3 rounds, the training command's lr
-ZAMBA_TRAIN = dict(depth=6, K=2, H=4, batch=1, seq_len=8192, rounds=3, lr=3e-3)
-# 17f: the run-to-run repeat of the naive serving workload, (prompt, new)
+# 4096 masks), K = 2, H = 2 (for the script's time), 2 rounds, the training
+# command's lr
+ZAMBA_TRAIN = dict(depth=6, K=2, H=2, batch=1, seq_len=8192, rounds=2, lr=3e-3)
+# 17f: the naive serving workload, 4b's 32 requests and 64 new tokens with the
+# prompt cut to 128 (a stepped prefill is host-bound: ~50-130 ms a step), and
+# its run-to-run repeat, (prompt, new)
+SSM_SERVE = dict(batch=MAIN["batch"], prompt_len=128, max_new=MAIN["max_new"])
 SERVE_REPEAT = (8, 8)
 # 17b: the Newton-Schulz stacks of the Muon leaves, (name, shape, taken
 # transposed): each model's in_proj first (timed)
@@ -2941,9 +3084,9 @@ def ssm_param_count(cfg) -> int:
 def phase_ptxas_head_dims(ptxas: dict) -> None:
     """[17a] ptxas's registers, shared memory and spills of the three bf16
     flash sweeps at each head dim, side by side."""
-    print("[17a] ptxas at the three head dims (registers, shared memory, spills)")
+    print(f"[17a] ptxas at the head dims {HEAD_DIMS} (registers, shared memory, spills)")
     for k in ("fwd", "dq", "dkv"):
-        for hd in (64, 80, 128):
+        for hd in HEAD_DIMS:
             fn = f"flash_{k}_wgmma_kernel<{hd}>"
             print(f"  {fn}: {ptxas.get(fn)}")
 
@@ -3081,12 +3224,12 @@ def phase_mamba_train(torch, build_parser, train) -> dict:
 def phase_zamba_train(torch, get_config, build_model) -> dict:
     """[17e] zamba2-2.7b at full width, depth cut to ``ZAMBA_TRAIN['depth']``
     (one superblock: 6 mamba layers and the shared block), one sequence of
-    8192 a worker step (the window of 4096 masks), K = 2, H = 4, fp32
+    8192 a worker step (the window of 4096 masks), K = 2, H = 2, fp32
     params, bf16 compute, the hd-80 flash kernels, Newton-Schulz through
     matmul_epilogue (in_proj and out_proj as [6, ...] stacks, the shared
     block's 7 matrices as stacks of 1), the outer Nesterov kernel, the eval
     loss in the round. Round 1 is the warm-up (eager) and the capture,
-    rounds 2 and 3 replays; launches against the formula (flash_fwd twice a
+    the later rounds replays; launches against the formula (flash_fwd twice a
     worker step with remat, once for the eval; flash_dq and flash_dkv once;
     matmul_epilogue 15 x 9 Muon leaves); losses finite and falling; (17e')
     one more replayed round profiled, with the SSD scan's share; the peak
@@ -3195,12 +3338,12 @@ def ssm_decode_floor_ms(params, cache, batch: int) -> tuple[float, float, float]
 
 
 def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None = None) -> dict:
-    """[17f] serving through the naive engine: 4b's workload (32 requests x
-    (512 prompt + 64 new), greedy) as one lockstep batch, the prompt stepped
+    """[17f] serving through the naive engine: ``SSM_SERVE`` (32 requests x
+    (128 prompt + 64 new), greedy) as one lockstep batch, the prompt stepped
     through the decode path: tok/s; peak memory; no kernel launched (the
     reference's SSM and hybrid serving has no Pallas kernel: the recurrent
     update and the ring cache's one-token attention are plain). The steps
-    are eager and bound by the host, ~40-60 s a run, so the run-to-run
+    are eager and bound by the host, ~60-95 ms a step, so the run-to-run
     check runs 32 requests of ``SERVE_REPEAT`` (prompt, new) tokens twice
     through ``launch.serve.generate`` on the same weights: greedy tokens
     bitwise equal. Then three decode steps of
@@ -3212,19 +3355,18 @@ def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None 
     from repro_torch.launch.serve import generate, random_prompts
 
     print(f"[17f] {arch} serving through the naive engine (stepped prefill), full width and "
-          f"depth{' ' + str(overrides) if overrides else ''}: {MAIN['batch']} x "
-          f"({MAIN['prompt_len']} + {MAIN['max_new']}) greedy, as one lockstep batch")
+          f"depth{' ' + str(overrides) if overrides else ''}: {SSM_SERVE['batch']} x "
+          f"({SSM_SERVE['prompt_len']} + {SSM_SERVE['max_new']}) greedy, as one lockstep batch")
     cfg = get_config(arch).replace(attn_impl="pallas", **(overrides or {}))
-    kw = {k: MAIN[k] for k in ("batch", "prompt_len", "max_new")}
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    first, seconds, _, model, params = serve(cfg, engine="naive", device="cuda", **kw)
+    first, seconds, _, model, params = serve(cfg, engine="naive", device="cuda", **SSM_SERVE)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     assert not launches, launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for rid, toks in first.items():
-        assert toks.shape == (MAIN["max_new"],) and ((toks >= 0) & (toks < cfg.vocab)).all()
-    prompts = random_prompts(cfg.vocab, MAIN["batch"], SERVE_REPEAT[0]).to("cuda", torch.int32)
+        assert toks.shape == (SSM_SERVE["max_new"],) and ((toks >= 0) & (toks < cfg.vocab)).all()
+    prompts = random_prompts(cfg.vocab, SSM_SERVE["batch"], SERVE_REPEAT[0]).to("cuda", torch.int32)
     runs = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -3233,8 +3375,8 @@ def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None 
     seconds2 = time.perf_counter() - t0
     assert torch.equal(runs[0], runs[1]), "the repeated run's greedy tokens differ"
     del runs
-    n_new = MAIN["batch"] * MAIN["max_new"]
-    steps = MAIN["prompt_len"] + MAIN["max_new"] - 1
+    n_new = SSM_SERVE["batch"] * SSM_SERVE["max_new"]
+    steps = SSM_SERVE["prompt_len"] + SSM_SERVE["max_new"] - 1
     tok_s = n_new / seconds
     host_step_ms = 1e3 * seconds / steps
     print(f"  {ssm_param_count(cfg):,} parameters; generated {n_new} tokens in {seconds:.3f} s "
@@ -3242,9 +3384,9 @@ def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None 
           f"host's clock); no kernel launched; peak {peak_gb:.2f} GB; two runs of "
           f"{SERVE_REPEAT[0]} + {SERVE_REPEAT[1]} tokens (the second {seconds2:.3f} s): greedy "
           "tokens bitwise equal")
-    B = MAIN["batch"]
+    B = SSM_SERVE["batch"]
     with torch.no_grad():
-        cache = model.init_cache(params, B, MAIN["prompt_len"] + MAIN["max_new"])
+        cache = model.init_cache(params, B, SSM_SERVE["prompt_len"] + SSM_SERVE["max_new"])
         tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
         for t in range(3):  # warm
             model.decode_step(params, cache, tok, t)
@@ -3277,7 +3419,7 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
     2 and 8, bf16 and fp32, bitwise from run to run), timed at zamba2's
     training shape q [32, 8192, 1, 80] with the window 4096 beside the
     bound, the plain version and SDPA (the window as a boolean mask), and
-    ptxas's report at hd 64, 80 and 128; (17b) matmul_epilogue at the SSM
+    ptxas's report at hd 64, 80, 112 and 128; (17b) matmul_epilogue at the SSM
     Newton-Schulz shapes; (17c) fp32 agreements at full width; (17d)
     mamba2-370m training; (17e) zamba2-2.7b training, depth cut; (17f) both
     served through the naive engine. Returns the kernels' rows."""
@@ -3286,11 +3428,6 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
     fa, mm = mods["fa"], mods["mm"]
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-
-    def lap(phase: str) -> None:
-        print(f"-- {phase}: {time.perf_counter() - t0:.1f} s into phase 17", flush=True)
-
     print(f"[17] {MAMBA} ({ssm_param_count(get_config(MAMBA)):,} parameters) and {ZAMBA} "
           f"({ssm_param_count(get_config(ZAMBA)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} "
           "GB held by earlier phases")
@@ -3318,14 +3455,16 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
     lap("17f")
     for arch, t in ((MAMBA, mamba), (ZAMBA, zamba)):
         depth = "full depth" if arch == MAMBA else f"depth {ZAMBA_TRAIN['depth']} + shared block"
-        print(f"{arch} training ({depth}, {t['n_params']:,} parameters, K 2, H 4, 8192 tokens a "
-              f"worker step): {t['tok_s']:.1f} tokens/s over rounds 2-3, one profiled replayed "
+        print(f"{arch} training ({depth}, {t['n_params']:,} parameters, K 2, H 2, 8192 tokens a "
+              f"worker step): {t['tok_s']:.1f} tokens/s over the replayed rounds, one profiled "
+              "replayed "
               f"round {t['replay_tok_s']:.1f}, idle {t['idle']:.1f}%, SSD scan "
               f"{t['ssd_share']:.1f}% of the device time, peak {t['peak_gb']:.2f} GB; card "
               f"(nvidia-smi name, power.limit): {smi}")
         s = serving[arch]
-        print(f"{arch} serving (naive engine, full depth, {MAIN['batch']} x "
-              f"({MAIN['prompt_len']} + {MAIN['max_new']}), stepped prefill): {s['tok_s']:.1f} "
+        print(f"{arch} serving (naive engine, full depth, {SSM_SERVE['batch']} x "
+              f"({SSM_SERVE['prompt_len']} + {SSM_SERVE['max_new']}), stepped prefill): "
+              f"{s['tok_s']:.1f} "
               f"tok/s, a decode step {s['step_ms']:.4f} ms on the card against its floor "
               f"{s['floor_ms']:.4f} ms and {s['host_step_ms']:.2f} ms on the host's clock; peak "
               f"{s['peak_gb']:.2f} GB; no kernel launched (the reference serves these families "
@@ -3361,7 +3500,8 @@ VLM_BWD_CASES = [(1, 8, 2048, 8, _BF16, True, 0), (1, 8, 2048, 8, _FP32, True, 0
 # 18d: one MuLoCo run of whisper-large-v3 at full width and depth: K 2, H 2,
 # B sequences of 448 decoder tokens (whisper's context length) with their
 # [B, 1500, 1280] frames a worker step, 3 rounds (warm-up and capture, two
-# replays), the training command's lr
+# replays: at 2 the train loss of the second round does not fall), the
+# training command's lr
 WHISPER_TRAIN = dict(K=2, H=2, batch=4, seq_len=448, rounds=3, lr=3e-3)
 # 18e / 18f: the served workloads, (requests, prompt, new tokens)
 WHISPER_SERVE = dict(batch=4, prompt_len=16, max_new=64)
@@ -3374,7 +3514,7 @@ VLM_DEPTH, VLM_SEQ = 5, 2048
 # its own: a fault in one flash kernel moves these leaves' gradients, and
 # hardly the whole tree's norm. On an H100 the sound run reads 1.08e-2 to
 # 1.55e-2 here; query head G - 1 dropped from flash_dq or flash_dkv reads
-# 0.357 and 0.431 on the leaf it feeds (tools/slice8_probe.py --faults),
+# 0.357 and 0.431 on the leaf it feeds (tools/chip_probe.py --faults),
 # while dq's fault moves the whole tree's error only to 3.79e-2
 VLM_ATTN_LEAVES = tuple(f"self_layers/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
 VLM_ATTN_TOL = 3e-2
@@ -3473,8 +3613,8 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     ones), Newton-Schulz through matmul_epilogue (17 Muon leaves), the outer
     Nesterov kernel, each worker step B sequences of 448 tokens with their
     frames (the batch's "context" leaf, a seeded draw a round), the eval loss
-    in the round. Round 1 is the warm-up (eager) and the capture, rounds 2
-    and 3 replays: launches against the formula (flash_fwd twice a worker
+    in the round. Round 1 is the warm-up (eager) and the capture, the later
+    rounds replays: launches against the formula (flash_fwd twice a worker
     step with remat and once for the eval, 64 layers; flash_dq and
     flash_dkv once; matmul_epilogue 15 x 17); losses finite and falling;
     (18d') one more replayed round profiled: the shares of matmul_epilogue,
@@ -3773,38 +3913,57 @@ def phase_vlm(torch, get_config, build_model, after_grads=None) -> dict:
                            generator=torch.Generator().manual_seed(47)).to("cuda", torch.int32)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
              "context": context_draw(torch, cfg, (1,), 48)}
+    assert model.attention_layers == VLM_DEPTH - 1
+    got = grads_against_plain(torch, build_model, model, params, batch, VLM_ATTN_LEAVES,
+                              "self layers")
+    grads_p = got.pop("grads_p")
+    if after_grads is not None:
+        after_grads(model, params, batch, grads_p)
+    del params, grads_p, model, batch
+    torch.cuda.empty_cache()
+    return dict(launches=got["launches"], tok_s=tok_s, step_ms=step_ms, peak_gb=got["peak_gb"],
+                loss_err=got["loss_err"], grad_rel=got["grad_rel"], n_params=count)
+
+
+def grads_against_plain(torch, build_model, model, params, batch, leaves: tuple,
+                        layers: str) -> dict:
+    """One forward and backward of ``batch`` through the kernels (the model's
+    attn_impl pallas: flash_fwd twice an attention layer with remat,
+    flash_dq and flash_dkv once) against the plain path (xla) on the same
+    weights: the loss within 1e-2 (bf16 logits: ~0.1% of a loss of ~ln V),
+    the gradients' relative error (||g_k - g_p|| / ||g_p||) printed
+    globally and for the largest leaf, the global one under 5e-2, and each
+    attention leaf of ``leaves`` under ``VLM_ATTN_TOL``. Returns the
+    launches, the errors, the peak memory and the plain path's gradients
+    (``grads_p``; the kernel path's are freed)."""
+    from repro_torch.kernels import _build
+
     _build.reset_launch_counts()
     loss_k, grads_k = vlm_grads(torch, model, params, batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     L = model.attention_layers
-    assert L == VLM_DEPTH - 1 and launches == {"flash_fwd": 2 * L, "flash_dq": L,
-                                                "flash_dkv": L}, launches
-    plain = build_model(cfg.replace(attn_impl="xla"))
+    assert launches == {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}, launches
+    plain = build_model(model.cfg.replace(attn_impl="xla"))
     loss_p, grads_p = vlm_grads(torch, plain, params, batch)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert all(torch.isfinite(g).all() for g in grads_k.values())
     rel, per_leaf = grad_errors(grads_k, grads_p)
+    del grads_k
     worst = max(per_leaf.items(), key=lambda kv: kv[1])
     err = check("loss (pallas vs xla, bf16)", abs(loss_k.item() - loss_p.item()), 1e-2)
     print(f"  loss {loss_k.item():.5f} (kernels) vs {loss_p.item():.5f} (plain); launches "
-          f"{launches} ({L} self layers, the forward twice with remat); gradients' relative "
+          f"{launches} ({L} {layers}, the forward twice with remat); gradients' relative "
           f"error {rel:.3e} globally, largest {worst[1]:.3e} ({worst[0]}); peak {peak_gb:.2f} GB")
     assert rel < 5e-2, rel
-    attn_err = {p: per_leaf[p] for p in VLM_ATTN_LEAVES}
-    print("  the self layers' attention leaves, relative error (tol "
-          f"{VLM_ATTN_TOL:g} each): " + ", ".join(f"{p.rsplit('/', 1)[1]} {e:.3e}"
-                                                 for p, e in attn_err.items()))
+    attn_err = {p: per_leaf[p] for p in leaves}
+    print(f"  the {layers}' attention leaves, relative error (tol {VLM_ATTN_TOL:g} each): "
+          + ", ".join(f"{p.rsplit('/', 1)[1]} {e:.3e}" for p, e in attn_err.items()))
     bad = {p: e for p, e in attn_err.items() if not e <= VLM_ATTN_TOL}
     assert not bad, f"attention leaves' gradients off the plain path's: {bad}"
-    if after_grads is not None:
-        del grads_k
-        after_grads(model, params, batch, grads_p)
-    del params, grads_p, model, plain, batch
-    torch.cuda.empty_cache()
-    return dict(launches=launches, tok_s=tok_s, step_ms=step_ms, peak_gb=peak_gb, loss_err=err,
-                grad_rel=rel, n_params=count)
+    return dict(launches=launches, loss_err=err, grad_rel=rel, attn_err=attn_err,
+                peak_gb=peak_gb, grads_p=grads_p)
 
 
 def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi: str) -> dict:
@@ -3812,7 +3971,7 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
     slice's new shapes against their plain versions (whisper's encoder
     non-causal at S 1500, the VLM's self layers at hd 128 and G = 8; bf16
     and fp32, bitwise from run to run), timed beside the bound, the plain
-    version and SDPA, and ptxas's report at hd 64, 80 and 128; (18b)
+    version and SDPA, and ptxas's report at hd 64, 80, 112 and 128; (18b)
     matmul_epilogue at whisper's Newton-Schulz shapes and nesterov over its
     1,602,629,120 parameters; (18c) the fp32 agreement at full width;
     (18d) whisper training; (18e) whisper serving; (18f) the VLM at one
@@ -3822,11 +3981,6 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
     fa, mm, ou = mods["fa"], mods["mm"], mods["ou"]
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-
-    def lap(phase: str) -> None:
-        print(f"-- {phase}: {time.perf_counter() - t0:.1f} s into phase 18", flush=True)
-
     w_params = n_params(get_config(WHISPER))
     print(f"[18] {WHISPER} ({w_params:,} parameters) and {VLM} "
           f"({n_params(get_config(VLM)):,}; {n_params(get_config(VLM).replace(n_layers=VLM_DEPTH)):,}"
@@ -3854,8 +4008,9 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
     t, s = train, serving
     print(f"{WHISPER} training (full width and depth, {t['n_params']:,} parameters, K 2, H 2, "
           f"{WHISPER_TRAIN['batch']} x {WHISPER_TRAIN['seq_len']} tokens and their frames a worker "
-          f"step): {t['tok_s']:.1f} decoder tokens/s ({t['frames_s']:.1f} frames/s) over rounds "
-          f"2-3, one profiled replayed round {t['replay_tok_s']:.1f}, idle {t['idle']:.1f}%, "
+          f"step): {t['tok_s']:.1f} decoder tokens/s ({t['frames_s']:.1f} frames/s) over the "
+          f"replayed rounds, one profiled replayed round {t['replay_tok_s']:.1f}, idle "
+          f"{t['idle']:.1f}%, "
           f"matmul_epilogue {t['shares']['matmul_epilogue']:.1f}% / flash "
           f"{t['shares']['flash_']:.1f}% / rest {t['shares']['rest']:.1f}% of the device time, "
           f"peak {t['peak_gb']:.2f} GB; card (nvidia-smi name, power.limit): {smi}")
@@ -3883,7 +4038,212 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
             "nesterov": {WHISPER: {"launches": tl["nesterov"], **nesterov}}}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Slice 9: the last two configurations (19): kimi-k2-1t-a32b (hd 112) and
+# mistral-large-123b (G = 12)
+# ---------------------------------------------------------------------------
+
+KIMI, MISTRAL = "kimi-k2-1t-a32b", "mistral-large-123b"
+# 19b: flash_fwd / flash_dq / flash_dkv at G = 12 (mistral-large's 96:8 heads)
+# and hd 128: the serving prefill (16 slots x 8 kv heads, S 512) and the
+# training shape (4 sequences x 8 kv heads, S 2048) first; G = 16, the most
+# the fp32 sweeps take, once each
+MISTRAL_FWD_CASES = [(16 * 8, 512, 12, _BF16, True, 0, "serving"),
+                     (4 * 8, 2048, 12, _BF16, True, 0, "training"),
+                     (2 * 1, 77, 12, _BF16, True, 0, None),
+                     (2 * 1, 300, 12, _BF16, True, 100, None),
+                     (2 * 1, 130, 12, _BF16, False, 0, None),
+                     (2 * 1, 96, 12, _BF16, False, 20, None),
+                     (1, 50, 16, _BF16, True, 0, None),
+                     (4 * 8, 2048, 12, _FP32, True, 0, None),
+                     (1, 70, 12, _FP32, True, 0, None),
+                     (2, 77, 12, _FP32, False, 20, None),
+                     (1, 50, 16, _FP32, True, 0, None)]
+# fp32 at S = 1024: a dk entry of the fp32 sweep and of its plain version each
+# sums S G rows in fp32, in two orders, and at S = 2048, G = 12 (24,576 rows)
+# their difference read 1.005x 5a's 1e-5 on an H100 while each was within
+# 7.8e-6 of float64: that shape is held against float64 instead
+# (``BWD_FP64_CASES``)
+MISTRAL_BWD_CASES = [(4, 8, 2048, 12, _BF16, True, 0),
+                     (4, 8, 1024, 12, _FP32, True, 0),
+                     (2, 1, 77, 12, _FP32, True, 0),
+                     (2, 1, 96, 12, _FP32, False, 20),
+                     (1, 1, 50, 16, _FP32, True, 0),
+                     (2, 1, 130, 12, _BF16, True, 37),
+                     (2, 1, 96, 12, _BF16, False, 0),
+                     (1, 1, 70, 16, _BF16, True, 0)]
+# 19c / 19d: the cuts that fit one card (PERF.md section 4). kimi-k2 serves at
+# depth 1 with all 384 experts (19.42B parameters, 38.8 GB in bf16) and is
+# held in fp32 and differentiated at depth 1 with its experts cut to 64
+# (5.33B: 21.3 GB in fp32; in bf16 the weights, their gradients and the plain
+# path's ~32 GB); mistral-large serves at depth 8 (11.9B, 23.8 GB in bf16), is
+# held in fp32 at depth 2 (14.3 GB) and differentiated at depth 1
+KIMI_CUT = dict(serve_depth=1, grad_depth=1, grad_experts=64)
+MISTRAL_CUT = dict(serve_depth=8, agree_depth=2, grad_depth=1)
+LAST_GRAD = dict(batch=4, seq_len=2048)  # 19c / 19d: one forward and backward
+LAST_ATTN_LEAVES = tuple(f"layers/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
+
+
+# 19b: (hd, S, G) of the fp32 backward held against float64 (two rows of kv
+# heads), mistral-large's training shape
+BWD_FP64_CASES = [(128, 2048, 12)]
+
+
+def bwd_fp64(torch, q, k, v, do, lse, dl, scale):
+    """dq, dk, dv of causal attention in float64 from the fp32 inputs and the
+    same lse and dl the kernels read."""
+    q, k, v, do, lse, dl = (t.double() for t in (q, k, v, do, lse, dl))
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[:, None] >= i[None, :])[None, :, None, :]
+    s = torch.einsum("bqgh,bsh->bqgs", q, k) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bqgh,bsh->bqgs", do, v) - dl[..., None])
+    return (scale * torch.einsum("bqgs,bsh->bqgh", ds, k),
+            scale * torch.einsum("bqgs,bqgh->bsh", ds, q), torch.einsum("bqgs,bqgh->bsh", p, do))
+
+
+def phase_fp32_bwd_fp64(torch, fa, cases: list, phase: str = "19b"):
+    """The fp32 flash backward (causal) and its plain version against a float64
+    recomputation from the same inputs, two rows of kv heads a case: the
+    largest error of dq, dk and dv over the largest float64 entry. The
+    kernel's is held to 5a's fp32 tolerance, 1e-5; the plain version's
+    prints beside it. The kernels run twice: bitwise equal from run to
+    run."""
+    print(f"[{phase}] fp32 flash_dq / flash_dkv against float64 (a dk entry sums S G rows)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for hd, S, G in cases:
+        q, do = (torch.randn((2, S, G, hd), generator=gen, device="cuda") for _ in "qd")
+        k, v = (torch.randn((2, S, hd), generator=gen, device="cuda") for _ in "kv")
+        kw = dict(causal=True, window=0, scale=1.0 / math.sqrt(hd))
+        o, lse = fa._fwd_cuda(q, k, v, **kw)
+        dl = torch.sum(do * o, dim=-1)
+        args = (q, k, v, do, lse, dl)
+        ref = bwd_fp64(torch, *args, kw["scale"])
+        got = {"kernel": fa._bwd_cuda(*args, **kw), "plain": fa._bwd_plain(*args, **kw)}
+        again = fa._bwd_cuda(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got["kernel"], again)), \
+            f"fp32 flash_dq / flash_dkv q[2, {S}, {G}, {hd}] differ from run to run"
+        print(f"  fp32 kernel q[2, {S}, {G}, {hd}]: dq, dk, dv bitwise equal from run to run")
+        del again
+        rel = {side: {n: ((g.double() - r).abs().max() / r.abs().max()).item()
+                      for n, g, r in zip(("dq", "dk", "dv"), outs, ref)}
+               for side, outs in got.items()}
+        for side in got:
+            print(f"  fp32 {side} q[2, {S}, {G}, {hd}] ({S * G} rows a dk entry), largest error "
+                  "/ largest float64 entry: " + ", ".join(f"{n} {e:.3e}"
+                                                          for n, e in rel[side].items()))
+        for n, e in rel["kernel"].items():
+            check(f"fp32 {n} q[2, {S}, {G}, {hd}] against float64 (relative)", e, 1e-5)
+        del ref, got
+        torch.cuda.empty_cache()
+
+
+def phase_last_grads(torch, get_config, build_model, arch: str, phase: str,
+                     overrides: dict) -> dict:
+    """One forward and backward of ``LAST_GRAD`` (4 x 2048 tokens) at full
+    width, bf16 weights, through the kernels against the plain path
+    (:func:`grads_against_plain`: the loss, the tree's relative error, each
+    attention leaf under ``VLM_ATTN_TOL``)."""
+    B, S = LAST_GRAD["batch"], LAST_GRAD["seq_len"]
+    cfg = get_config(arch).replace(param_dtype="bfloat16", attn_impl="pallas", **overrides)
+    count = n_params(cfg)
+    print(f"[{phase}] {arch} full width, {overrides}, bf16 weights ({count:,} parameters): one "
+          f"{B} x {S}-token forward and backward, kernels against the plain path")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1),
+                           generator=torch.Generator().manual_seed(49)).to("cuda", torch.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    got = grads_against_plain(torch, build_model, model, params, batch, LAST_ATTN_LEAVES,
+                              "layers")
+    del params, got["grads_p"], model, batch
+    torch.cuda.empty_cache()
+    return dict(got, n_params=count)
+
+
+def slice_9(torch, fa, get_config, build_model, serve, ptxas: dict, smi: str) -> dict:
+    """Phase 19: the last two configurations. (19a) flash_fwd, flash_dq /
+    flash_dkv and paged_decode at hd 112 (kimi-k2's shapes, G = 8) against
+    their plain versions, bf16 and fp32, bitwise from run to run, timed
+    beside the bound, the plain version and SDPA, with ptxas at hd 64, 80,
+    112 and 128; (19b) the same at G = 12 (mistral-large's shapes, hd 128);
+    (19c) kimi-k2: the fp32 agreement at depth 1 with 64 experts, serving
+    at depth 1 with all 384 experts, one forward and backward at depth 1
+    with 64 experts; (19d) mistral-large: the fp32 agreement at depth 2,
+    serving at depth 8, one forward and backward at depth 1. Returns the
+    kernels' rows."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[19] {KIMI} ({n_params(get_config(KIMI)):,} parameters) and {MISTRAL} "
+          f"({n_params(get_config(MISTRAL)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+          "by earlier phases")
+    phase_ptxas_head_dims(ptxas)
+    kimi_k = dict(flash=phase_flash(torch, fa, hd=112, phase="19a"),
+                  bwd=phase_flash_bwd(torch, fa, hd=112, phase="19a"),
+                  paged=phase_paged(torch, fa, hd=112, KV=8, G=8, phase="19a"))
+    torch.cuda.empty_cache()
+    lap("19a")
+    mistral_k = dict(flash=phase_flash(torch, fa, hd=128, phase="19b", cases=MISTRAL_FWD_CASES),
+                     bwd=phase_flash_bwd(torch, fa, hd=128, phase="19b", cases=MISTRAL_BWD_CASES),
+                     paged=phase_paged(torch, fa, hd=128, KV=8, G=12, phase="19b"))
+    phase_fp32_bwd_fp64(torch, fa, BWD_FP64_CASES)
+    torch.cuda.empty_cache()
+    lap("19b")
+    kc, mc = KIMI_CUT, MISTRAL_CUT
+    phase_agreement(torch, get_config, build_model, KIMI, "19c", n_layers=kc["grad_depth"],
+                    overrides=dict(n_experts=kc["grad_experts"]))
+    torch.cuda.empty_cache()
+    kimi = dict(serve=phase_serve_profiled(torch, fa, get_config, serve, KIMI, "19c",
+                                           kc["serve_depth"], kimi_k["paged"]["ms"]),
+                grads=phase_last_grads(torch, get_config, build_model, KIMI, "19c",
+                                       dict(n_layers=kc["grad_depth"],
+                                            n_experts=kc["grad_experts"])))
+    lap("19c")
+    phase_agreement(torch, get_config, build_model, MISTRAL, "19d", n_layers=mc["agree_depth"])
+    torch.cuda.empty_cache()
+    mistral = dict(serve=phase_serve_profiled(torch, fa, get_config, serve, MISTRAL, "19d",
+                                              mc["serve_depth"], mistral_k["paged"]["ms"]),
+                   grads=phase_last_grads(torch, get_config, build_model, MISTRAL, "19d",
+                                          dict(n_layers=mc["grad_depth"])))
+    lap("19d")
+    for arch, r in ((KIMI, kimi), (MISTRAL, mistral)):
+        g = r["grads"]
+        print_serving(arch, r["serve"], smi)
+        print(f"{arch} forward and backward ({g['n_params']:,} parameters, "
+              f"{LAST_GRAD['batch']} x {LAST_GRAD['seq_len']} tokens): loss within "
+              f"{g['loss_err']:.2e} of the plain path, gradients' relative error "
+              f"{g['grad_rel']:.3e}, attention leaves "
+              + ", ".join(f"{p.rsplit('/', 1)[1]} {e:.3e}" for p, e in g["attn_err"].items())
+              + f"; peak {g['peak_gb']:.2f} GB; card (nvidia-smi name, power.limit): {smi}")
+
+    def rows(k: dict, r: dict) -> dict:
+        sl, gl = r["serve"]["launches"], r["grads"]["launches"]
+        return {"flash_fwd": {"launches": {"serving": sl["flash_fwd"], "training": gl["flash_fwd"]},
+                              **k["flash"]["serving"], "training_shape": k["flash"]["training"]},
+                "flash_dq": {"launches": gl["flash_dq"], **k["bwd"]["flash_dq"]},
+                "flash_dkv": {"launches": gl["flash_dkv"], **k["bwd"]["flash_dkv"]},
+                "paged_decode": {"launches": sl["paged_decode"], **k["paged"]}}
+
+    kr, mr = rows(kimi_k, kimi), rows(mistral_k, mistral)
+    return {name: {KIMI: kr[name], MISTRAL: mr[name]} for name in kr}
+
+
+# the groups of phases that need nothing of the earlier ones but the build
+# (14 runs 6b's training first, its reference): ``--only`` runs these
+ALONE = ("12", "13", "14", "15", "16", "17", "18", "19")
+
+
+def main(argv: list | None = None) -> int:
+    """The whole script; ``--only 17,19`` runs phases 1 and 2 and then only
+    the named groups of phases (those of ``ALONE``), each even when an
+    earlier one failed, and exits 1 if any did, printing no summary."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[argv.index("--only") + 1].split(",") if "--only" in argv else None
+    if only is not None and not set(only) <= set(ALONE):
+        raise SystemExit(f"chip_smoke: --only takes groups of {ALONE}, not {only}")
     import torch
 
     if not torch.cuda.is_available():
@@ -3899,11 +4259,7 @@ def main() -> int:
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import build_parser, train
     from repro_torch.models import build_model
-
-    t_start = time.perf_counter()
-
-    def lap(phases: str) -> None:
-        print(f"-- phases {phases} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    from repro_torch.utils.tree import tree_map
 
     print("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3918,33 +4274,88 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     ptxas = phase_build(_build)
+    lap("2")
+    mods = dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou)
+
+    def run_variants(ref6b: tuple | None = None) -> dict:
+        if ref6b is None:  # alone: 6b's run is the reference
+            _, out = phase_train_main(torch, build_parser, train)
+            ref6b = (out["history"], tree_map(lambda t: t.to("cpu", copy=True), out["state"]),
+                     out["tok_s"])
+            del out
+            torch.cuda.empty_cache()
+        return slice_variants(torch, build_parser, train, *ref6b, smi)
+
+    def pseudogradients() -> dict:
+        probe = phase_pseudogradients(torch, get_config, build_model, smi)
+        lap("15a-15b")
+        phase_scaling_laws()
+        return probe
+
+    group = {
+        "12": lambda: slice_6a(torch, mods, get_config, build_model, build_parser, train, serve,
+                               smi),
+        "13": lambda: slice_nemotron(torch, fa, get_config, build_model, serve, smi),
+        "14": run_variants,
+        "15": pseudogradients,
+        "16": lambda: slice_moe(torch, mods, get_config, build_model, serve, smi),
+        "17": lambda: slice_7a(torch, mods, get_config, build_model, build_parser, train, serve,
+                               ptxas, smi),
+        "18": lambda: slice_8(torch, mods, get_config, build_model, serve, ptxas, smi),
+        "19": lambda: slice_9(torch, fa, get_config, build_model, serve, ptxas, smi),
+    }
+    if only is not None:
+        import gc
+        import traceback
+
+        failed = []
+        for name in only:
+            try:
+                group[name]()
+            except Exception:  # report every group, then fail
+                traceback.print_exc()
+                failed.append(name)
+            lap(f"phases {name}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"chip_smoke --only {','.join(only)}: "
+              + (f"FAILED {failed}" if failed else "every phase passed"))
+        return 1 if failed else 0
+
     flash = phase_flash(torch, fa)
+    lap("3a")
     paged = phase_paged(torch, fa)
+    lap("3b")
     phase_agreement(torch, get_config, build_model)
+    lap("4a")
     launches, engine = phase_main(torch, fa, get_config, serve)
     phase_sampled(torch, engine)
+    lap("4b")
     serve_prof = phase_profile(torch, engine, paged["ms"])
     serve_rates = (engine.tok_s, engine.replay_tok_s, engine.eager_tok_s, engine.capture_s)
     del engine
     torch.cuda.empty_cache()
+    lap("4c")
     naive_rate = phase_naive(torch, fa, get_config, build_model, serve, serve_rates[0])
     print(f"smollm-135m serving: paged, captured spans {serve_rates[0]:.1f} tok/s (capture "
           f"{serve_rates[3]:.3f} s apart), replays only {serve_rates[1]:.1f}, eager spans "
           f"{serve_rates[2]:.1f}; idle {serve_prof['idle']:.1f}%, "
           f"{serve_prof['kernels_per_step']:.0f} kernels a decode step; naive "
           f"{naive_rate:.1f} tok/s; card (nvidia-smi name, power.limit): {smi}")
-    lap("1-4")
+    lap("4d")
 
     bwd = phase_flash_bwd(torch, fa)
+    lap("5a")
     matmul, matmul_full, matmul_bx = phase_matmul(torch, mm, ops, ref)
     nesterov = phase_nesterov(torch, ou)
+    lap("5b-5c")
     phase_train_agreement(torch, get_config, build_model)
+    lap("6a")
     train_launches, out = phase_train_main(torch, build_parser, train)
-    from repro_torch.utils.tree import tree_map
-
     ref_hist = out["history"]
     ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
     muon_tok_s = out["tok_s"]
+    lap("6b")
     phase_train_profile(torch, out, TRAIN, focus=("flash_fwd_wgmma_kernel",
                                                   "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                                                   "matmul_epilogue_kernel"),
@@ -3956,8 +4367,9 @@ def main() -> int:
     params = out["state"]["outer_params"]
     del out
     torch.cuda.empty_cache()
+    lap("6c")
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state)
-    lap("5-6")
+    lap("6d")
     ref_host = tree_map(lambda t: t.to("cpu", copy=True), ref_state)  # phase 14a's reference
     del ref_state
     torch.cuda.empty_cache()
@@ -3965,37 +4377,31 @@ def main() -> int:
     quant = phase_quantize(torch, q, params)
     del params
     phase_wire_agreement(torch, get_config, build_model)
+    lap("8a-8b")
     run_a = phase_compressed_run(torch, build_parser, train, "a", COMPRESSED, 3,
                                  COMM_BYTES["a"], falls=True, profile="8c'")
+    lap("8c")
     run_b = phase_compressed_run(torch, build_parser, train, "b", COMPRESSED + ROWWISE, 2,
                                  COMM_BYTES["b"], falls=False)
+    lap("8d")
     phase_crash_drill(torch, build_parser, train)
-    lap("8")
+    lap("8e")
     slice_4b(torch, get_config, build_model, build_parser, train, ref_hist, smi)
-    lap("9-10")
-    ladder = slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
-                      build_model, build_parser, train, serve, smi)
-    lap("12")
-    nemotron = slice_nemotron(torch, fa, get_config, build_model, serve, smi)
-    lap("13")
-    variants = slice_variants(torch, build_parser, train, ref_hist, ref_host, muon_tok_s, smi)
-    lap("14")
+    ladder = group["12"]()
+    nemotron = group["13"]()
+    variants = run_variants((ref_hist, ref_host, muon_tok_s))
     del ref_host
-    probe = phase_pseudogradients(torch, get_config, build_model, smi)
-    phase_scaling_laws()
-    lap("15")
-    moe = slice_moe(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref), get_config, build_model,
-                    serve, smi)
-    lap("16")
-    ssm = slice_7a(torch, dict(fa=fa, mm=mm), get_config, build_model, build_parser, train,
-                   serve, ptxas, smi)
-    lap("17")
-    eight = slice_8(torch, dict(fa=fa, mm=mm, ou=ou), get_config, build_model, serve, ptxas, smi)
-    lap("18")
+    probe = group["15"]()
+    lap("15c")
+    moe = group["16"]()
+    ssm = group["17"]()
+    eight = group["18"]()
+    nine = group["19"]()
 
     def new_paths(name: str) -> dict:
         """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
-        launches and timings on slice 7a's (17) and slice 8's (18)."""
+        launches and timings on slice 7a's (17), slice 8's (18) and slice
+        9's (19)."""
         rows = {inner: {"launches": v["launches"][name]} for inner, v in variants.items()
                 if name != "paged_decode"}
         if name in probe["launches"]:
@@ -4003,6 +4409,7 @@ def main() -> int:
         rows[MOE] = moe[name]
         rows.update(ssm.get(name, {}))
         rows.update(eight.get(name, {}))
+        rows.update(nine.get(name, {}))
         return rows
 
     src = "src/repro_torch/kernels/csrc"
@@ -4052,7 +4459,7 @@ def main() -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[19] done in {time.perf_counter() - t_start:.1f} s")
+    print(f"[20] done in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Config registry (port of ``repro/configs/base.py``).
 
-Registered so far: ``smollm-135m``, the paper's Gemma3-style ladder
-(``paper-150m`` ... ``paper-15.23b``), ``nemotron-4-15b`` (relu2, 48:8
-heads, served on one card with ``param_dtype='bfloat16'``), the MoE
-family's ``deepseek-moe-16b`` and ``moonshot-v1-16b-a3b``, the SSM
+Registered: every configuration of the reference. ``smollm-135m``, the
+paper's Gemma3-style ladder (``paper-150m`` ... ``paper-15.23b``),
+``nemotron-4-15b`` (relu2, 48:8 heads, served on one card with
+``param_dtype='bfloat16'``), ``mistral-large-123b`` (96:8 heads of 128, G =
+12), the MoE family's ``deepseek-moe-16b``, ``moonshot-v1-16b-a3b`` and
+``kimi-k2-1t-a32b`` (64:8 heads of 112, 384 experts top-8), the SSM
 family's ``mamba2-370m``, the hybrid ``zamba2-2.7b``, the audio family's
 ``whisper-large-v3`` and the VLM ``llama-3.2-vision-90b`` (64:8 heads of
-128, G = 8); every other architecture of the reference raises a
-``KeyError`` that points at ``ROADMAP.md``.
+128, G = 8); a name no package registers raises a ``KeyError`` that points
+at ``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
 the port's reduced and full configs equal the reference's field for field.
 """
@@ -91,8 +93,8 @@ def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
         raise KeyError(
-            f"arch {name!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(_REGISTRY)}); see ROADMAP.md for the order of slices")
+            f"arch {name!r} is not a registered configuration (registered: "
+            f"{sorted(_REGISTRY)}); see ROADMAP.md for the port's slices")
     return _REGISTRY[name]
 
 
@@ -104,8 +106,10 @@ def list_configs() -> list[str]:
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b,
+        kimi_k2_1t_a32b,
         llama_3_2_vision_90b,
         mamba2_370m,
+        mistral_large_123b,
         moonshot_v1_16b_a3b,
         nemotron_4_15b,
         paper_gemma3,

@@ -82,17 +82,26 @@
 // warpgroups, the second owning dK and dV's columns 64 .. 127 of which it
 // stores 64 .. 79. Shared memory as hd 128's.
 //
+// Head dim 112 (kimi-k2): hd 80's route with columns 112 .. 127 zero-filled,
+// 7 k16 steps for the products that contract over hd; dq stores columns <
+// 112, dkv's second warpgroup its columns 64 .. 111.
+//
 // fp32 inputs keep the CUDA-core sweeps (no fp32 tensor-core product does
 // the same arithmetic): blocks as above but over positions, TPR = hd / 32
 // neighbouring threads share a row (32 dims each, float2 reads, float2
 // group TPR i + t for part t; the dot products are summed across the group
 // by shuffles), K/V (dq) or q/do (dkv) staged in shared memory as fp32. The
-// tiles shrink with hd so that a thread holds the same registers and a
-// block the same 32 KB of static shared memory: dq 16 (hd 64) or 8 (hd 128)
-// positions a block against staged K/V tiles of 64 or 32 keys; dkv 32 keys
-// a block against staged q/do tiles of 64 or 32 rows. Masked pairs are never
-// computed in either route (explicit masking: they add exactly zero), and
-// ragged tile edges are masked, so any S works.
+// shuffles' groups need a power of two, so hd 112 takes TPR = 4 parts of 28
+// dims (hd / 32 would be 3). The tiles shrink with hd so that a thread holds
+// the same registers and a block the same 32 KB of static shared memory: dq
+// 16 (hd 64) or 8 (hd 112, 128) positions a block against staged K/V tiles
+// of 4096 / hd keys (64, 51, 36, 32); dkv 32 keys a block against staged q/do
+// tiles of 4096 / hd rows (each loop takes a ragged last tile). A dq block
+// runs DQ_BQ G TPR = 32 G threads, so past G = 8 (mistral-large's 12) it
+// takes half the positions (16 G threads, at most 256 up to G = 16); a row's
+// arithmetic does not depend on them. dkv's blocks do not grow with G.
+// Masked pairs are never computed in either route (explicit masking: they add
+// exactly zero), and ragged tile edges are masked, so any S works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -107,9 +116,11 @@ namespace {
 // the fp32 sweeps' tiles at head dim HD (the bf16 sweeps' are below)
 template <int HD>
 struct Fp32Tiles {
-  static constexpr int TPR = HD / 32;        // threads a row, 32 dims each (40 at hd 80)
-  static constexpr int PART = HD / TPR;      // = 32 (40)
-  static constexpr int DQ_BQ = 32 / TPR;     // q positions per dq block (times G, times TPR)
+  // threads a row, 32 dims each (40 at hd 80); a power of two, so hd 112
+  // takes 4 parts of 28
+  static constexpr int TPR = HD == 112 ? 4 : HD / 32;
+  static constexpr int PART = HD / TPR;      // = 32 (40 at hd 80, 28 at hd 112)
+  static constexpr int DQ_BQ = 32 / TPR;     // q positions per dq block at G <= 8 (x G x TPR)
   static constexpr int DQ_BKV = 4096 / HD;   // kv positions per staged K/V tile (dq)
   static constexpr int DKV_BKV = 32;         // kv positions per dkv block (times TPR threads)
   static constexpr int DKV_ROWS = 4096 / HD; // q rows (positions x G) per staged q/do tile
@@ -178,13 +189,13 @@ __device__ __forceinline__ void axpy_part(float a, const float* srow, int h, flo
   }
 }
 
-template <int HD>
+template <int HD, int DQ_BQ>
 __global__ void __launch_bounds__(256) flash_dq_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dl,
     float* __restrict__ dq, int S, int G, int nq, int causal, int window, float scale) {
   using T = Fp32Tiles<HD>;
-  constexpr int TPR = T::TPR, PART = T::PART, DQ_BQ = T::DQ_BQ, DQ_BKV = T::DQ_BKV;
+  constexpr int TPR = T::TPR, PART = T::PART, DQ_BKV = T::DQ_BKV;
   __shared__ __align__(16) float Ks[DQ_BKV][HD];
   __shared__ __align__(16) float Vs[DQ_BKV][HD];
 
@@ -479,7 +490,7 @@ __global__ void __launch_bounds__(WG * hopper::panels<HD>(), HD == 64 ? 2 : 1)
     const long long off = ((long long)b * S + key) * HD + 64 * wg + 2 * c;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (HD % 64 && 64 * wg + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
+      if (HD % 64 && 64 * wg + 8 * j >= HD) continue;  // the zero-filled columns of hd 80, 112
       const int i = 4 * j + 2 * h;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
           pack_bf16x2(scale * dK[i], scale * dK[i + 1]);
@@ -624,7 +635,7 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
       bf16* out = dq + (qrow0 + 16 * w + g + 8 * h) * HD + 64 * p + 2 * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
+        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80 and 112
         const int i = 4 * j + 2 * h;
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16x2(scale * dQ[p][i], scale * dQ[p][i + 1]);
@@ -634,9 +645,21 @@ __global__ void __launch_bounds__(WG, 2) flash_dq_wgmma_kernel(
 }
 
 int check(int G, int hd, int dtype) {
-  if ((hd != 64 && hd != 80 && hd != 128) || G < 1 || G > 8 || (dtype != 0 && dtype != 1))
+  if ((hd != 64 && hd != 80 && hd != 112 && hd != 128) || G < 1 || G > 16 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+template <int HD, int DQ_BQ>
+void launch_dq_fp32(const void* q, const void* k, const void* v, const void* dout, const float* l,
+                    const float* d, void* dq, int bkv, int S, int G, int causal, int window,
+                    float scale, cudaStream_t st) {
+  const int nq = (S + DQ_BQ - 1) / DQ_BQ;
+  flash_dq_fp32_kernel<HD, DQ_BQ><<<bkv * nq, DQ_BQ * G * Fp32Tiles<HD>::TPR, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
+      scale);
 }
 
 // the dynamic shared memory limit of each bf16 sweep is raised once per device
@@ -648,11 +671,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               float scale, int dtype, cudaStream_t st) {
   static bool smem_set[hopper::kMaxDevices] = {};
   if (dtype == 0) {
-    const int nq = (S + Fp32Tiles<HD>::DQ_BQ - 1) / Fp32Tiles<HD>::DQ_BQ;
-    flash_dq_fp32_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, d, static_cast<float*>(dq), S, G, nq, causal, window,
-        scale);
+    constexpr int BQ = Fp32Tiles<HD>::DQ_BQ;
+    if (G <= 8)
+      launch_dq_fp32<HD, BQ>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, st);
+    else  // half the positions a block, so that DQ_BQ G TPR <= 256 (see the top note)
+      launch_dq_fp32<HD, BQ / 2>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, st);
   } else {
     if (int rc = hopper::allow_smem(flash_dq_wgmma_kernel<HD>, dq_smem<HD>(), smem_set))
       return rc;
@@ -692,7 +715,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core sweeps), 1 = bfloat16 (tensor-core sweeps);
-// hd 64, 80 or 128. Each returns cudaGetLastError() after its launch.
+// hd 64, 80, 112 or 128; G 1 .. 16. Each returns cudaGetLastError() after
+// its launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* dl, void* dq, int bkv, int S, int G, int hd,
                         int causal, int window, float scale, int dtype, void* stream) {
@@ -704,6 +728,8 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
     return launch_dq<64>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
   if (hd == 80)
     return launch_dq<80>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
+  if (hd == 112)
+    return launch_dq<112>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
   return launch_dq<128>(q, k, v, dout, l, d, dq, bkv, S, G, causal, window, scale, dtype, st);
 }
 
@@ -720,17 +746,20 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   if (hd == 80)
     return launch_dkv<80>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
                           st);
+  if (hd == 112)
+    return launch_dkv<112>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
+                           st);
   return launch_dkv<128>(q, k, v, dout, l, d, dk, dv, bkv, S, G, causal, window, scale, dtype,
                          st);
 }
 
 // The bf16 sweeps' tiles (packed q rows, kv positions), checked by the wrapper
 // against flash_attention.FLASH_BWD_ROWS / FLASH_BWD_KEYS, and their dynamic
-// shared memory per block in bytes (dq, dkv) at hd 64, then at hd 128, then
-// at hd 80.
+// shared memory per block in bytes (dq, dkv) at hd 64, then at hd 128, 80
+// and 112.
 extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem64, int* dkv_smem64,
                                int* dq_smem128, int* dkv_smem128, int* dq_smem80,
-                               int* dkv_smem80) {
+                               int* dkv_smem80, int* dq_smem112, int* dkv_smem112) {
   *rows = TILE;
   *keys = TILE;
   *dq_smem64 = dq_smem<64>();
@@ -739,6 +768,8 @@ extern "C" int flash_bwd_tiles(int* rows, int* keys, int* dq_smem64, int* dkv_sm
   *dkv_smem128 = dkv_smem<128>();
   *dq_smem80 = dq_smem<80>();
   *dkv_smem80 = dkv_smem<80>();
+  *dq_smem112 = dq_smem<112>();
+  *dkv_smem112 = dkv_smem<112>();
   return 0;
 }
 

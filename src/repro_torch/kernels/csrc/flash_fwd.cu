@@ -70,17 +70,27 @@
 // start on 128-byte lines. Per tile 5 + 8 products against the 10 the head
 // dim needs; the shared memory and registers are hd 128's.
 //
+// Head dim 112 (kimi-k2's 64:8 heads): hd 80's route with more of the
+// second panel live. Columns 112 .. 127 are zero-filled when staged, S = Q
+// K^T takes 7 k16 steps, and the PV product's second panel stores its
+// columns 64 .. 111. A row is 224 bytes, so the 16-byte copies stay aligned.
+// Shared memory and registers are hd 128's.
+//
 // fp32 inputs keep the CUDA-core sweep: one block per (row of BKV, tile of BQ
 // positions); TPR = ceil(hd / 64) threads own one (position, query head)
-// row, each keeping hd / TPR of its dims (64; 40 at hd 80) of q and acc in
-// registers (float4 groups TPR i + t of the row for part t), the parts'
-// partial dot products summed by a shuffle. A loop inside the block walks
-// the kv tiles of flash_attention.visited_kv_range at the tile sizes (BQ,
-// BKV) = (32, 64) at hd 64 and (16, 32) at hd 80 and 128 (at most the same
-// registers a thread and 32 KB of static shared memory); each K/V tile is
-// staged once in fp32 shared memory
-// and read by all G heads of the block (broadcast reads). The online softmax
-// updates once per CH keys; masked entries get p = 0 explicitly.
+// row, each keeping hd / TPR of its dims (64; 40 at hd 80, 56 at hd 112) of
+// q and acc in registers (float4 groups TPR i + t of the row for part t), the
+// parts' partial dot products summed by a shuffle. A loop inside the block
+// walks the kv tiles of flash_attention.visited_kv_range at the tile sizes
+// (BQ, BKV) = (32, 64) at hd 64 and (16, 32) at hd 80, 112 and 128 (at most
+// the same registers a thread and 32 KB of static shared memory); each K/V
+// tile is staged once in fp32 shared memory and read by all G heads of the
+// block (broadcast reads). The online softmax updates once per CH keys;
+// masked entries get p = 0 explicitly. A block runs BQ G TPR = 32 G threads,
+// so past G = 8 (mistral-large's G = 12) it takes BQ / 2 positions: 16 G
+// threads, at most 256 up to G = 16. The kv tiles stay (BQ, BKV)'s, and a
+// row's arithmetic does not depend on BQ (skipping a tile masked for the
+// whole row is exact), so the halved block computes the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,13 +114,13 @@ struct Fp32Tiles {
 };
 constexpr int CH = 16;  // keys per online-softmax update
 
-template <int HD>
+template <int HD, int BQ>
 __global__ void __launch_bounds__(256) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int S, int G, int nq, int causal,
     int window, float scale) {
-  constexpr int TPR = Fp32Tiles<HD>::TPR, BQ = Fp32Tiles<HD>::BQ, BKV = Fp32Tiles<HD>::BKV;
-  constexpr int D = HD / TPR;  // dims a thread holds: 64 (40 at hd 80)
+  constexpr int TPR = Fp32Tiles<HD>::TPR, BKV = Fp32Tiles<HD>::BKV;
+  constexpr int D = HD / TPR;  // dims a thread holds: 64 (40 at hd 80, 56 at hd 112)
   __shared__ __align__(16) float Ks[BKV][HD];
   __shared__ __align__(16) float Vs[BKV][HD];
 
@@ -395,7 +405,7 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
       bf16* out = o + row * HD + 64 * p + 2 * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80
+        if (64 * p + 8 * j >= HD) continue;  // the zero-filled columns of hd 80 and 112
         const int i = 4 * j + 2 * h;
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16x2(acc[p][i] / lsum, acc[p][i + 1] / lsum);
@@ -405,17 +415,27 @@ __global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma_kernel(
   }
 }
 
+template <int HD, int BQ>
+void launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int bkv, int S,
+                 int G, int causal, int window, float scale, cudaStream_t st) {
+  const int nq = (S + BQ - 1) / BQ;
+  flash_fwd_kernel<HD, BQ><<<bkv * nq, BQ * G * Fp32Tiles<HD>::TPR, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bkv, int S,
            int G, int causal, int window, float scale, int dtype, cudaStream_t st) {
   static bool smem_set[hopper::kMaxDevices] = {};  // one flag array per head dim
   if (dtype == 0) {
-    const int nq = (S + Fp32Tiles<HD>::BQ - 1) / Fp32Tiles<HD>::BQ;
-    flash_fwd_kernel<HD><<<bkv * nq, 32 * G, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), static_cast<float*>(lse), S, G, nq, causal, window, scale);
+    if (G <= 8)
+      launch_fp32<HD, Fp32Tiles<HD>::BQ>(q, k, v, o, lse, bkv, S, G, causal, window, scale, st);
+    else  // half the positions a block, so that BQ G TPR <= 256 (see the top note)
+      launch_fp32<HD, Fp32Tiles<HD>::BQ / 2>(q, k, v, o, lse, bkv, S, G, causal, window, scale,
+                                             st);
   } else if (dtype == 1) {
-    // above 48 KB of dynamic shared memory (hd 80 and 128) the limit must be raised
+    // above 48 KB of dynamic shared memory (hd 80, 112 and 128) the limit must be raised
     if (HD > 64) {
       if (int rc = hopper::allow_smem(flash_fwd_wgmma_kernel<HD>, smem_bytes<HD>(), smem_set))
         return rc;
@@ -433,15 +453,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core sweep), 1 = bfloat16 (tensor-core sweep);
-// hd 64, 80 or 128. Returns cudaGetLastError() after the launch.
+// hd 64, 80, 112 or 128; G 1 .. 16. Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bkv, int S, int G, int hd, int causal, int window, float scale,
                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || 32 * G > 256) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > 16) return (int)cudaErrorInvalidValue;
   if (hd == 64) return launch<64>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
   if (hd == 128) return launch<128>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
   if (hd == 80) return launch<80>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
+  if (hd == 112) return launch<112>(q, k, v, o, lse, bkv, S, G, causal, window, scale, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -450,12 +472,14 @@ extern "C" const char* flash_fwd_error(int code) {
 }
 
 // The fp32 sweep's tiles (q positions, kv positions) at hd 64, the bf16
-// sweep's (packed q rows, kv positions), the fp32 sweep's at hd 128 and at hd
-// 80, checked by the wrapper against flash_attention.FP32_TILES,
-// FLASH_BWD_ROWS and FLASH_BWD_KEYS; then the bf16 block's dynamic shared
-// memory in bytes at hd 64, 128 and 80.
+// sweep's (packed q rows, kv positions), the fp32 sweep's at hd 128, 80 and
+// 112 (each for G <= 8; past G = 8 a block takes half the positions), checked
+// by the wrapper against flash_attention.FP32_TILES, FLASH_BWD_ROWS and
+// FLASH_BWD_KEYS; then the bf16 block's dynamic shared memory in bytes at hd
+// 64, 128, 80 and 112.
 extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* bq128, int* bkv128,
-                               int* bq80, int* bkv80, int* smem, int* smem128, int* smem80) {
+                               int* bq80, int* bkv80, int* bq112, int* bkv112, int* smem,
+                               int* smem128, int* smem80, int* smem112) {
   *bq = Fp32Tiles<64>::BQ;
   *bkv = Fp32Tiles<64>::BKV;
   *rows = TILE;
@@ -464,8 +488,11 @@ extern "C" int flash_fwd_tiles(int* bq, int* bkv, int* rows, int* keys, int* bq1
   *bkv128 = Fp32Tiles<128>::BKV;
   *bq80 = Fp32Tiles<80>::BQ;
   *bkv80 = Fp32Tiles<80>::BKV;
+  *bq112 = Fp32Tiles<112>::BQ;
+  *bkv112 = Fp32Tiles<112>::BKV;
   *smem = smem_bytes<64>();
   *smem128 = smem_bytes<128>();
   *smem80 = smem_bytes<80>();
+  *smem112 = smem_bytes<112>();
   return 0;
 }

@@ -37,9 +37,15 @@
 //    partial (unnormalised acc, m, l) to scratch the wrapper allocates. An
 //    empty split (past the length, wholly below the window, or the idle
 //    slot's) writes m = NEG_INF, l = 0, acc = 0.
-//    SPLIT is 64 positions at hd 64 and 32 at hd 128: the same bytes of K
-//    and V a split, and the fp32 staging of 64 x 129 floats each for K and
-//    V would pass the 48 KB of static shared memory at hd 128.
+//    SPLIT is 64 positions at hd 64 and 32 at hd 112 and 128: the same bytes
+//    of K and V a split at hd 64 and 128, and the fp32 staging of 64 x 129
+//    floats each for K and V would pass the 48 KB of static shared memory at
+//    hd 128. At hd 112 (kimi-k2) 4096 / hd = 36 positions would be neither
+//    whole lanes of the softmax step nor whole pages, so it takes 32 (64 x
+//    113 floats each would pass the 48 KB too). A bf16 split of 32 rows of
+//    14 vectors is 448 vectors, not a multiple of the 128 threads: the last
+//    of each thread's loads is guarded (a tail that does not exist at hd 64
+//    and 128, where the guard folds away).
 // 2. paged_decode_combine_kernel, one block per (slot, kv head), merges the
 //    n_split partials of each query row in split order: M = max m_s, weights
 //    exp(m_s - M), l = sum w_s l_s, out = sum w_s acc_s / max(l, 1e-30). No
@@ -55,9 +61,9 @@ namespace {
 
 constexpr int THREADS = 128;
 // positions a split block folds at head dim HD (SPLIT / 32 per lane in the
-// softmax step)
+// softmax step; a multiple of the serving page size 16)
 template <int HD>
-__host__ __device__ constexpr int split_of() { return 4096 / HD; }
+__host__ __device__ constexpr int split_of() { return HD == 112 ? 32 : 4096 / HD; }
 constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_G = 16;
 constexpr float NEG_INF = -2.0e38f;
@@ -98,8 +104,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   constexpr int VE = 16 / sizeof(T);         // elements of a 16-byte vector
   constexpr int ROW_VECS = HD / VE;          // vectors of one K or V row
   constexpr int VECS = SPLIT * ROW_VECS;     // of one operand's split
-  constexpr int ITERS = VECS / THREADS;
-  static_assert(VECS % THREADS == 0, "whole vectors per thread");
+  constexpr int ITERS = (VECS + THREADS - 1) / THREADS;
+  constexpr bool TAIL = VECS % THREADS != 0;  // hd 112 in bf16: 448 vectors
+  static_assert(HD % VE == 0, "whole vectors a row");
   __shared__ float Ks[SPLIT][HD + 1];
   __shared__ float Vs[SPLIT][HD + 1];
   __shared__ float Qs[MAX_G][HD];
@@ -136,7 +143,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
     const int e = tid + it * THREADS;
     const int p = s0 + e / ROW_VECS, h = (e % ROW_VECS) * VE;
     kr[it] = vr[it] = make_uint4(0u, 0u, 0u, 0u);
-    if (p >= p0 && p < p1) {
+    if ((!TAIL || e < VECS) && p >= p0 && p < p1) {
       const int page = trow[p / ps];
       if (page >= 0 && page < n_pages) {
         const long long off = page * page_stride + (p % ps) * pos_stride + h;
@@ -150,6 +157,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
 #pragma unroll
   for (int it = 0; it < ITERS; ++it) {
     const int e = tid + it * THREADS;
+    if (TAIL && e >= VECS) continue;
     const int j = e / ROW_VECS, h = (e % ROW_VECS) * VE;
     float kx[VE], vx[VE];
     unpack(kr[it], kx, T());
@@ -244,9 +252,10 @@ void launch(const void* q, const void* kp, const void* vp, const void* table, co
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64 or 128. acc [B, KV, n_split, G,
-// hd], m and l [B, KV, n_split, G] fp32 are the caller's scratch, n_split =
-// ceil(max_pages * ps / SPLIT) with SPLIT = 64 at hd 64 and 32 at hd 128.
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 112 or 128. acc [B, KV, n_split,
+// G, hd], m and l [B, KV, n_split, G] fp32 are the caller's scratch, n_split
+// = ceil(max_pages * ps / SPLIT) with SPLIT = 64 at hd 64 and 32 at hd 112
+// and 128.
 // Both passes launch on `stream`; returns cudaGetLastError() after the
 // second.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const void* table,
@@ -265,6 +274,8 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const
   else if (dtype == 1 && hd == 64) launch<__nv_bfloat16, 64>(PAGED_ARGS);
   else if (dtype == 0 && hd == 128) launch<float, 128>(PAGED_ARGS);
   else if (dtype == 1 && hd == 128) launch<__nv_bfloat16, 128>(PAGED_ARGS);
+  else if (dtype == 0 && hd == 112) launch<float, 112>(PAGED_ARGS);
+  else if (dtype == 1 && hd == 112) launch<__nv_bfloat16, 112>(PAGED_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef PAGED_ARGS
   return (int)cudaGetLastError();
@@ -272,11 +283,12 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp, const
 
 // the tile sizes the wrapper and its Python mirror (flash_attention.
 // paged_split_range) assume: positions a split at hd 64, threads a split
-// block, positions a split at hd 128
-extern "C" int paged_decode_tiles(int* split, int* threads, int* split128) {
+// block, positions a split at hd 128 and at hd 112
+extern "C" int paged_decode_tiles(int* split, int* threads, int* split128, int* split112) {
   *split = split_of<64>();
   *threads = THREADS;
   *split128 = split_of<128>();
+  *split112 = split_of<112>();
   return 0;
 }
 

@@ -14,10 +14,10 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   rows; fp32 inputs take a CUDA-core sweep over the (positions, keys)
   tiles of ``FP32_TILES[hd]``, walked by the rule of
   :func:`visited_kv_range`.
-  Each kernel is built for the head dims of ``KERNEL_HEAD_DIM`` (64, 80
-  and 128); a row of hd 128 is staged as two 64-column panels, and a row of
-  hd 80 (zamba2's shared block) as two with the second zero-filled past
-  column 79 (only columns below 80 are stored).
+  Each kernel is built for the head dims of ``KERNEL_HEAD_DIM`` (64, 80,
+  112 and 128); a row of hd 128 is staged as two 64-column panels, and a
+  row of hd 80 (zamba2's shared block) or 112 (kimi-k2) as two with the
+  second zero-filled past column hd - 1 (only columns below hd are stored).
 * ``flash_dq`` and ``flash_dkv`` (``csrc/flash_bwd.cu``) replace
   ``_dq_kernel`` and ``_dkv_kernel``: the backward's q-major and kv-major
   sweeps, recomputing the probabilities from the saved logsumexp. bf16
@@ -31,8 +31,9 @@ Four Hopper kernels, written by hand in CUDA C++ (``csrc/``, built by
   one launch: each block folds ``PAGED_SPLITS[hd]`` positions of one (slot,
   kv head) (split-K: :func:`paged_split_range`), then a combine pass merges
   the splits in a fixed order (:func:`_paged_decode_split_merge` mirrors
-  both in fp32). It is built for the head dims of ``PAGED_SPLITS`` (64 and
-  128): the families with hd 80 serve through the dense-cache engine only.
+  both in fp32). It is built for the head dims of ``PAGED_SPLITS`` (64, 112
+  and 128): the families with hd 80 serve through the dense-cache engine
+  only.
 
 Each wrapper takes the kernel's plain PyTorch version for a tensor that
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Every
@@ -57,26 +58,30 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_KV = 1024
 # tile sizes of csrc/flash_fwd.cu's fp32 sweep (q positions, kv positions) at
 # hd 64 and per head dim (a row takes one thread per 64-column panel, so hd
-# 80 takes hd 128's tiles), and of the bf16 tensor-core sweeps of
-# flash_fwd.cu and flash_bwd.cu (packed q rows, kv positions, at every head
-# dim); checked against the built libraries at first launch
+# 80 and 112 take hd 128's tiles; past G = 8 a block takes half the
+# positions), and of the bf16 tensor-core sweeps of flash_fwd.cu and
+# flash_bwd.cu (packed q rows, kv positions, at every head dim); checked
+# against the built libraries at first launch
 FLASH_BLOCK_Q = 32
 FLASH_BLOCK_KV = 64
-FP32_TILES = {64: (FLASH_BLOCK_Q, FLASH_BLOCK_KV), 80: (16, 32), 128: (16, 32)}
+FP32_TILES = {64: (FLASH_BLOCK_Q, FLASH_BLOCK_KV), 80: (16, 32), 112: (16, 32), 128: (16, 32)}
 FLASH_BWD_ROWS = 64
 FLASH_BWD_KEYS = 64
-# query heads per kv head each kernel takes; the bf16 sweeps take any G
+# query heads per kv head the kernels take: the bf16 sweeps take any G
 # (packed rows), the fp32 sweeps of flash_fwd and flash_dq run 32 threads per
-# head in one block of at most 256
-MAX_GROUP = {"flash_fwd": 8, "paged_decode": 16, "flash_bwd": 8}
+# head up to G = 8 and 16 past it, in one block of at most 256 (mistral-large
+# has G = 12), and paged_decode stages up to 16 query rows
+MAX_GROUP = 16
 # the head dims the flash libraries are built for: smollm-135m's 64, zamba2's
-# 80 and 128 of every rung of the paper's ladder (paged_decode: PAGED_SPLITS)
-KERNEL_HEAD_DIM = (64, 80, 128)
+# 80, kimi-k2's 112 and 128 of every rung of the paper's ladder (paged_decode:
+# PAGED_SPLITS)
+KERNEL_HEAD_DIM = (64, 80, 112, 128)
 # positions a block of csrc/paged_decode.cu's split-K pass folds (a multiple
-# of the serving page size 16) per head dim: the same bytes of K and V a
-# block; checked against the built library
+# of the serving page size 16 and of the 32 lanes of its softmax step) per
+# head dim: the same bytes of K and V a block at hd 64 and 128; checked
+# against the built library
 PAGED_SPLIT = 64
-PAGED_SPLITS = {64: PAGED_SPLIT, 128: 32}
+PAGED_SPLITS = {64: PAGED_SPLIT, 112: 32, 128: 32}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -173,16 +178,16 @@ _ARGTYPES = {
 # the tile sizes each library's <lib>_tiles function must report (checked at
 # its first launch): (the count of ints it reports, the leading ones).
 # flash_fwd: the fp32 sweep's positions and keys at hd 64, the bf16 sweep's
-# rows and keys, the fp32 sweep's positions and keys at hd 128 and 80, then
-# the bf16 block's dynamic shared memory in bytes at hd 64, 128 and 80;
-# flash_bwd: rows, keys, then the dq and dkv blocks' dynamic shared memory at
-# hd 64, 128 and 80; paged_decode: positions a split at hd 64, threads a
-# split block, positions a split at hd 128
+# rows and keys, the fp32 sweep's positions and keys at hd 128, 80 and 112,
+# then the bf16 block's dynamic shared memory in bytes at hd 64, 128, 80 and
+# 112; flash_bwd: rows, keys, then the dq and dkv blocks' dynamic shared
+# memory at hd 64, 128, 80 and 112; paged_decode: positions a split at hd 64,
+# threads a split block, positions a split at hd 128 and at hd 112
 _build.TILES.update({
-    "flash_fwd": (11, (*FP32_TILES[64], FLASH_BWD_ROWS, FLASH_BWD_KEYS, *FP32_TILES[128],
-                       *FP32_TILES[80])),
-    "flash_bwd": (8, (FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
-    "paged_decode": (3, (PAGED_SPLITS[64], 128, PAGED_SPLITS[128]))})
+    "flash_fwd": (14, (*FP32_TILES[64], FLASH_BWD_ROWS, FLASH_BWD_KEYS, *FP32_TILES[128],
+                       *FP32_TILES[80], *FP32_TILES[112])),
+    "flash_bwd": (10, (FLASH_BWD_ROWS, FLASH_BWD_KEYS)),
+    "paged_decode": (4, (PAGED_SPLITS[64], 128, PAGED_SPLITS[128], PAGED_SPLITS[112]))})
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -199,7 +204,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 sweeps stage rows (128, 160 or 256 bytes) with 16-byte copies."""
+    """The bf16 sweeps stage rows (128, 160, 224 or 256 bytes) with 16-byte
+    copies."""
     if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: bf16 inputs must start on a 16-byte boundary")
 
@@ -212,8 +218,8 @@ def _check_head(name: str, dtype: torch.dtype, hd: int, G: int) -> None:
         raise NotImplementedError(
             f"{name}: head dim {hd} (the kernel is built for {built}); other head dims come "
             "with their model families (ROADMAP.md)")
-    if not 1 <= G <= MAX_GROUP[name]:
-        raise NotImplementedError(f"{name}: {G} query heads per kv head (at most {MAX_GROUP[name]})")
+    if not 1 <= G <= MAX_GROUP:
+        raise NotImplementedError(f"{name}: {G} query heads per kv head (at most {MAX_GROUP})")
 
 
 # ---------------------------------------------------------------------------

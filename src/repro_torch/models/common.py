@@ -188,15 +188,27 @@ def _scaled_draw(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
     axis (a layer of a stacked leaf), each of at most ``_PIECE`` entries
     where a row allows, so the fp32 draw and its temporaries hold one piece
     at a time, not the whole leaf: nemotron-4-15b's stacked bf16 ``w_in`` is
-    19.3 GB in fp32."""
+    19.3 GB in fp32. A row that is itself a stack of more than ``_PIECE``
+    entries (a layer of kimi-k2's expert bank, [384, 7168, 2048]: 22.5 GB in
+    fp32) is drawn the same way along its own first axis; a row that is one
+    matrix (mistral-large's [12288, 28672]) stays one piece."""
     if dtype == torch.float32 or len(shape) < 2:
         return (_truncated_normal(gen, shape, device) / scale).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
-    rows = max(1, _PIECE // math.prod(shape[1:]))
-    for i in range(0, shape[0], rows):
+    _draw_pieces(gen, out, scale, device)
+    return out
+
+
+def _draw_pieces(gen: torch.Generator, out: torch.Tensor, scale: float, device) -> None:
+    row = math.prod(out.shape[1:])
+    if row > _PIECE and out.dim() > 3:
+        for sub in out:
+            _draw_pieces(gen, sub, scale, device)
+        return
+    rows = max(1, _PIECE // row)
+    for i in range(0, out.shape[0], rows):
         piece = out[i:i + rows]
         piece.copy_(_truncated_normal(gen, piece.shape, device) / scale)
-    return out
 
 
 def dense_init(gen: torch.Generator, shape, fan_in: int | None = None,

@@ -64,10 +64,15 @@ LADDER_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=1
 
 
 def test_unported_arch_names_roadmap():
+    """The port registers every configuration of the reference (kimi-k2 and
+    mistral-large came last), and a name neither package registers raises
+    the registry's KeyError naming ROADMAP.md."""
+    from repro.configs import list_configs as jlist_configs
+
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        tconfigs.get_config("kimi-k2-1t-a32b")
-    assert tconfigs.list_configs() == sorted(["smollm-135m", "nemotron-4-15b", *LADDER,
-                                              *MOE, *SSM, *CONTEXT])
+        tconfigs.get_config("no-such-arch-7b")
+    assert tconfigs.list_configs() == jlist_configs() == sorted(
+        ["smollm-135m", "nemotron-4-15b", *LADDER, *MOE, *SSM, *CONTEXT, *LAST])
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -93,7 +98,11 @@ def test_nemotron_config_equals_reference(reduced):
 def test_narrow_leaves_are_drawn_a_piece_at_a_time(monkeypatch):
     """dense_init and embed_init draw an fp32 leaf whole, as before (smollm's
     and the ladder's draws do not move), and a bf16 leaf in pieces of whole
-    rows of its first axis: each piece the fp32 draw of its own shape, cast."""
+    rows of its first axis: each piece the fp32 draw of its own shape, cast.
+    A row of more entries than ``_PIECE`` is one piece when it is one
+    matrix (mistral-large's [12288, 28672]), and a stacked row (a layer of
+    kimi-k2's expert bank) is drawn in pieces of its own first axis, each
+    again the fp32 draw of its own shape, cast."""
     from repro_torch.models import common
 
     monkeypatch.setattr(common, "_PIECE", 2 * 16 * 8)
@@ -112,6 +121,23 @@ def test_narrow_leaves_are_drawn_a_piece_at_a_time(monkeypatch):
     g = gen()
     want = torch.cat([common._truncated_normal(g, (n, 64), "cpu") / 8.0 for n in (4, 2)])
     assert torch.equal(emb, want.to(torch.bfloat16))
+    # a row of 3 x 16 x 8 = 384 > _PIECE entries that is one matrix: a row a piece
+    g = gen()
+    want = torch.cat([common._truncated_normal(g, (1, 24, 16), "cpu") / 4.0 for _ in range(3)])
+    assert torch.equal(common.dense_init(gen(), (3, 24, 16), fan_in=16, dtype=torch.bfloat16),
+                       want.to(torch.bfloat16))
+    # stacked rows of 5 x 16 x 8 = 640 > _PIECE entries: each row in pieces of 2
+    # matrices of its second axis (2 x 16 x 8 = _PIECE), in order
+    g = gen()
+    want = torch.stack([torch.cat([common._truncated_normal(g, (n, 16, 8), "cpu") / 4.0
+                                   for n in (2, 2, 1)]) for _ in range(2)])
+    bank = common.dense_init(gen(), (2, 5, 16, 8), fan_in=16, dtype=torch.bfloat16)
+    assert torch.equal(bank, want.to(torch.bfloat16))
+    # a stacked row within _PIECE keeps today's pieces of whole rows
+    g = gen()
+    want = torch.cat([common._truncated_normal(g, (1, 2, 16, 8), "cpu") / 4.0 for _ in range(3)])
+    assert torch.equal(common.dense_init(gen(), (3, 2, 16, 8), fan_in=16, dtype=torch.bfloat16),
+                       want.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("name", LADDER)
@@ -173,6 +199,7 @@ def test_unported_family_names_roadmap(arch_type):
 MOE = ["deepseek-moe-16b", "moonshot-v1-16b-a3b"]
 SSM = ["mamba2-370m", "zamba2-2.7b"]
 CONTEXT = ["whisper-large-v3", "llama-3.2-vision-90b"]
+LAST = ["kimi-k2-1t-a32b", "mistral-large-123b"]
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -408,3 +435,103 @@ def test_context_full_tree_matches_reference(name):
         assert ref["self_layers/attn/wq"].shape == (20, 4, 8192, 8192)
         assert ref["cross_layers/attn/gate"].shape == ref["cross_layers/mlp_gate"].shape == (20,)
         assert "cross_layers/attn/gate" not in muon and "image_proj" in muon
+
+
+# ------------------------------------------- kimi-k2-1t-a32b, mistral-large-123b
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", LAST)
+def test_last_configs_equal_reference(name, reduced):
+    """kimi-k2-1t-a32b and mistral-large-123b equal the reference's configs
+    field for field, full and reduced. kimi-k2: 61 layers, d 7168, 64:8
+    heads of 112, 384 routed experts of d_ff 2048 top-8 plus one shared,
+    capacity factor 1.25, vocab 163,840, QK-norm, untied; mistral-large: 88
+    layers, d 12288, 96:8 heads of 128 (G = 12), SwiGLU d_ff 28672, vocab
+    32,768, rope theta 1e6, no QK-norm."""
+    ref, port = get_config(name), tconfigs.get_config(name)
+    if reduced:
+        ref, port = reduce_config(ref), tconfigs.reduce_config(port)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.hd == ref.hd
+    if reduced:
+        assert (port.n_layers, port.d_model, port.hd) == (2, 256, 64)
+    elif name == LAST[0]:
+        assert (port.arch_type, port.hd, port.n_heads // port.n_kv_heads) == ("moe", 112, 8)
+        assert (port.n_experts, port.experts_per_token, port.n_shared_experts) == (384, 8, 1)
+        assert port.qk_norm and not port.tie_embeddings and port.capacity_factor == 1.25
+    else:
+        assert (port.arch_type, port.hd, port.n_heads // port.n_kv_heads) == ("dense", 128, 12)
+        assert (port.d_ff, port.vocab, port.rope_theta, port.qk_norm) == (
+            28672, 32768, 1e6, False)
+
+
+@pytest.mark.parametrize("name", LAST)
+def test_last_full_trees_match_reference(name):
+    """At full size, the port's init (on the meta device: shapes only) has
+    the reference's ``init_abstract`` paths, shapes and dtypes and each leaf
+    the reference's muon_label: kimi-k2 1,043,853,453,664 parameters, its
+    expert bank [61, 384, 7168, 2048]; mistral-large 122,610,069,504. A
+    bf16 init draws kimi-k2's bank a piece of experts at a time
+    (``_scaled_draw``), so one layer (19.42B with the embedding and the
+    head) fits a card."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim.muon import muon_label
+
+    ref = {"/".join(str(k.key) for k in p): x for p, x in jax.tree_util.tree_flatten_with_path(
+        build_model(get_config(name)).init_abstract())[0]}
+    own = dict(tree_leaves_with_paths(tbuild_model(tconfigs.get_config(name)).init(
+        torch.Generator().manual_seed(0), "meta")))
+    assert sorted(own) == sorted(ref)
+    for path, x in ref.items():
+        assert tuple(own[path].shape) == x.shape, path
+        assert str(own[path].dtype) == f"torch.{x.dtype}", path
+        assert muon_label(path, own[path]) == jmuon_label(path, x), path
+    n = sum(int(np.prod(x.shape)) for x in ref.values())
+    if name == LAST[0]:
+        assert n == 1_043_853_453_664
+        assert ref["layers/moe/experts/w_in"].shape == (61, 384, 7168, 2048)
+        assert ref["layers/attn/wk"].shape == (61, 7168, 8 * 112)
+    else:
+        assert n == 122_610_069_504
+        assert ref["layers/attn/wq"].shape == (88, 12288, 96 * 128)
+
+
+@pytest.mark.parametrize("name", LAST)
+def test_last_narrow_tree_paths_labels_and_roundtrip(name):
+    """The narrow kimi-k2 (hd 112, G = 8, 6 experts) and mistral-large (G =
+    12 at hd 128) trees of test_torch_models.py's ``LAST_SMALL``: the
+    reference's init crosses the numpy bridge and back exactly, the port's
+    own init has the same paths, shapes and dtypes, and muon_label labels
+    each as the reference's does (kimi-k2's router, expert banks and shared
+    matrices Muon, its q/k norm scales AdamW; mistral-large's four attention
+    and three MLP matrices Muon)."""
+    from repro.optim.muon import muon_label as jmuon_label
+    from repro_torch.optim.muon import muon_label
+
+    from test_torch_models import LAST_SMALL
+
+    small = LAST_SMALL[name]
+    jcfg, tcfg = get_config(name).replace(**small), tconfigs.get_config(name).replace(**small)
+    ref = jax.tree.map(np.asarray, jax.jit(build_model(jcfg).init)(jax.random.PRNGKey(0)))
+    back = dict(tree_leaves_with_paths(params_to_numpy(params_from_numpy(ref, "cpu"))))
+    own = dict(tree_leaves_with_paths(params_to_numpy(
+        tbuild_model(tcfg).init(torch.Generator().manual_seed(0), "cpu"))))
+    ref_leaves = {"/".join(str(k.key) for k in p): x
+                  for p, x in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert sorted(ref_leaves) == sorted(back) == sorted(own)
+    for path, x in ref_leaves.items():
+        np.testing.assert_array_equal(back[path], x)
+        assert own[path].shape == x.shape and own[path].dtype == x.dtype, path
+        assert muon_label(path, x) == jmuon_label(path, x), path
+    muon = {p for p, x in ref_leaves.items() if muon_label(p, x) == "muon"}
+    attn = {f"layers/attn/{w}" for w in ("wq", "wk", "wv", "wo")}
+    if name == LAST[0]:
+        assert ref_leaves["layers/attn/wq"].shape == (2, 128, 8 * 112)
+        assert ref_leaves["layers/moe/experts/w_in"].shape == (2, 6, 128, 32)
+        assert muon == attn | {"layers/moe/router"} | {
+            f"layers/moe/{g}/{w}" for g in ("experts", "shared")
+            for w in ("w_in", "w_gate", "w_out")}
+        assert "layers/attn/q_norm_scale" in ref_leaves
+    else:
+        assert ref_leaves["layers/attn/wq"].shape == (2, 256, 12 * 128)
+        assert muon == attn | {f"layers/mlp/{w}" for w in ("w_in", "w_gate", "w_out")}

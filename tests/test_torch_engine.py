@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_models import LAST_SMALL  # noqa: E402  (kimi-k2's and mistral-large's narrow widths)
 from test_torch_train import _cfgs, _jstate_numpy, _ladder_cfgs, assert_tree_close  # noqa: E402
 
 from repro.checkpoint import load_checkpoint as jload_checkpoint  # noqa: E402
@@ -300,6 +301,65 @@ def test_moe_round_matches_reference(monkeypatch):
     assert n["matmul_epilogue"] == 2 * 2 * 3 * 5 * 11 and n["nesterov"] == 18
 
 
+def _last_cfgs(name: str):
+    """kimi-k2's or mistral-large's narrow widths (test_torch_models.py's
+    LAST_SMALL) in both packages: the reference on its XLA attention, the
+    port on the flash path (the kernels' plain versions, which
+    test_torch_kernels.py holds to the interpret-mode Pallas kernels)."""
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config as tget_config
+
+    small = LAST_SMALL[name]
+    return (jget_config(name).replace(attn_impl="xla", **small),
+            tget_config(name).replace(attn_impl="pallas", **small))
+
+
+@pytest.mark.parametrize("name", sorted(LAST_SMALL))
+def test_last_models_round_matches_reference(name, monkeypatch):
+    """One MuLoCo round (K = 2, H = 2, fp32 Newton-Schulz, the outer
+    Nesterov) of the narrow kimi-k2 (hd 112, G = 8, 6 experts top-2) and
+    mistral-large (G = 12) from one TrainState bridged by state_from_numpy:
+    losses, worker and outer params and the outer momentum against the
+    reference's superstep at the MoE round's tolerances (the reference's
+    Newton-Schulz through its plain oracle, as there); the launch formula's
+    Muon leaves: kimi-k2's four attention matrices, router, three expert
+    banks and three shared matrices (11), mistral-large's seven matrices."""
+    from repro.kernels import ref as jref
+
+    jmuon = sys.modules["repro.optim.muon"]
+
+    def ns_plain(g, iters=5, eps=1e-7):
+        *batch, m, n = g.shape
+        return jref.ns_orthogonalize_ref(g.reshape(-1, m, n), iters, eps).reshape(g.shape)
+
+    monkeypatch.setattr(jmuon, "newton_schulz_pallas", ns_plain)
+    jcfg, tcfg = _last_cfgs(name)
+    dkw = dict(n_workers=2, sync_interval=2, inner_name="muon", ns_impl="pallas")
+    jd, td = JDiLoCoConfig(**dkw), DiLoCoConfig(**dkw, outer_kernel=True)
+    okw = dict(lr=2e-2, weight_decay=1e-4, schedule="cosine", warmup_steps=1, total_steps=2)
+    jo, to = JOptimizerConfig(**okw), OptimizerConfig(**okw)
+    jmodel = jbuild_model(jcfg)
+    jstate = jax.jit(lambda key: jdiloco_init(jmodel, jd, jo, key))(jax.random.PRNGKey(0))
+    tstate = train_state(**state_from_numpy(_jstate_numpy(jstate), "cpu"))
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab, (2, 2, 2, 17)).astype(np.int32)
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}  # [H, K, B, S]
+    jnew, jout = JTrainEngine(jmodel, jd, jo).superstep(
+        jstate, {k: jnp.asarray(v)[None] for k, v in batches.items()})
+    tengine = TrainEngine(build_model(tcfg), td, to)
+    tnew, tout = tengine.superstep(
+        tstate, {k: torch.from_numpy(v)[None] for k, v in batches.items()})
+    tight = dict(atol=2e-5, rtol=1e-4, adamw_tol=okw["lr"])
+    assert_tree_close(tout["loss"], jout["loss"], "loss", **tight)
+    assert_tree_close(tnew["worker_params"], jnew.worker_params, "workers", **tight)
+    assert_tree_close(tnew["outer_params"], jnew.outer_params, "outer", **tight)
+    assert_tree_close(tnew["outer_opt"], jax.tree.map(np.asarray, jnew.outer_opt), "u",
+                      atol=2e-4, rtol=1e-4, adamw_tol=okw["lr"])
+    n = tengine.launches_per_round(tnew["outer_params"])
+    n_muon = 11 if jcfg.arch_type == "moe" else 7
+    assert n["matmul_epilogue"] == 2 * 2 * 3 * 5 * n_muon
+    assert n["flash_dq"] == n["flash_dkv"] == 2 * 2 * jcfg.n_layers
+
+
 # ------------------------------------------------------------- checkpoints
 
 def _bf16_state(jcfg=None):
@@ -307,8 +367,9 @@ def _bf16_state(jcfg=None):
     port's copy of it (reduced smollm-135m unless ``jcfg`` is given)."""
     jcfg = jcfg or _cfgs()[0]
     jd = JDiLoCoConfig(n_workers=2, sync_interval=2, inner_name="muon")
-    jstate = jdiloco_init(jbuild_model(jcfg), jd, JOptimizerConfig(state_dtype="bfloat16"),
-                          jax.random.PRNGKey(0))
+    jmodel = jbuild_model(jcfg)
+    jstate = jax.jit(lambda key: jdiloco_init(jmodel, jd, JOptimizerConfig(state_dtype="bfloat16"),
+                                              key))(jax.random.PRNGKey(0))
 
     def to_torch(x):
         x = np.asarray(x)
@@ -379,6 +440,27 @@ def test_ladder_checkpoint_crosses_both_ways(tmp_path):
     jstate, tstate = _bf16_state(_ladder_cfgs()[0])
     paths = [p for p, _ in tree_leaves_with_paths(tstate["outer_params"])]
     assert "head" in paths and "layers/ln2_post_scale" in paths
+    ref_path, port_path = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    jsave_checkpoint(ref_path, jstate, step=3)
+    loaded, step = load_checkpoint(ref_path, tstate)
+    assert step == 3
+    _assert_bits_equal(loaded, jstate)
+    save_checkpoint(port_path, tstate, step=4)
+    jloaded, step = jload_checkpoint(port_path, jstate)
+    assert step == 4
+    _assert_bits_equal(tstate, jloaded)
+
+
+@pytest.mark.parametrize("name", sorted(LAST_SMALL))
+def test_last_models_checkpoints_cross_both_ways(tmp_path, name):
+    """The narrow kimi-k2 (expert banks, router, shared experts, q/k norm
+    scales at hd 112) and mistral-large (G = 12) TrainStates with bf16 inner
+    state: a reference checkpoint loads into the port bit for bit, and the
+    port's loads into the reference."""
+    jcfg = _last_cfgs(name)[0]
+    jstate, tstate = _bf16_state(jcfg)
+    paths = [p for p, _ in tree_leaves_with_paths(tstate["outer_params"])]
+    assert ("layers/moe/experts/w_in" in paths) == (jcfg.arch_type == "moe")
     ref_path, port_path = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
     jsave_checkpoint(ref_path, jstate, step=3)
     loaded, step = load_checkpoint(ref_path, tstate)

@@ -68,6 +68,19 @@ def test_flash_fwd_plain_matches_pallas_hd80(causal, window, H, KV):
     _check_flash_fwd_plain(causal, window, H, KV, 13, hd=80)
 
 
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_fwd_plain_matches_pallas_hd112(causal, window):
+    """As above at head dim 112 and G = 8 (kimi-k2's 64:8 heads), odd S."""
+    _check_flash_fwd_plain(causal, window, 8, 1, 13, hd=112)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_flash_fwd_plain_matches_pallas_g12(causal, window):
+    """As above at G = 12 and head dim 128 (mistral-large's 96:8 heads), odd
+    S: past G = 8 the fp32 sweep's block takes half the positions."""
+    _check_flash_fwd_plain(causal, window, 12, 1, 13, hd=128)
+
+
 def _check_flash_fwd_plain(causal, window, H, KV, S, hd):
     rng = np.random.default_rng(S * 100 + H * 10 + KV + window)
     B = 2
@@ -165,6 +178,38 @@ def test_paged_decode_plain_matches_pallas_hd128(window):
         np.testing.assert_allclose(t_pal.numpy(), np.asarray(j_xla), **TOL)
 
 
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("H,hd", [(8, 112), (12, 128)], ids=["hd112-G8", "hd128-G12"])
+def test_paged_decode_plain_matches_pallas_kimi_and_mistral_heads(H, hd, window):
+    """The paged decode at kimi-k2's head dim 112 with G = 8 and at
+    mistral-large's G = 12 with head dim 128 (one kv head): the port's plain
+    version == the reference's Pallas kernel in interpret mode and its
+    gather path, and the split-K mirror at the kernel's split (32 positions
+    at both) == the plain version; ragged allocations, null-padded rows and
+    an idle slot."""
+    rng = np.random.default_rng(61 + H + window)
+    B, KV, ps, max_pages = 4, 1, 4, 4
+    n_pool = 1 + B * max_pages
+    q = _np(rng, (B, H, hd))
+    kp, vp = _np(rng, (n_pool, ps, KV, hd)), _np(rng, (n_pool, ps, KV, hd))
+    perm = rng.permutation(np.arange(1, n_pool)).astype(np.int32)
+    table = np.zeros((B, max_pages), np.int32)
+    for b, n in enumerate([1, 3, 4]):
+        table[b, :n] = perm[b * max_pages: b * max_pages + n]
+    lengths = np.asarray([2, 11, 16, 1], np.int32)
+    j_in = tuple(map(jnp.asarray, (q, kp, vp, table, lengths)))
+    t_in = tuple(map(torch.from_numpy, (q, kp, vp, table, lengths)))
+    j_pal = jfa.paged_decode_attention(*j_in, window=window, impl="pallas", interpret=True)
+    j_xla = jfa.paged_decode_attention(*j_in, window=window, impl="xla")
+    t_pal = tfa.paged_decode_attention(*t_in, window=window, impl="pallas")
+    np.testing.assert_allclose(t_pal.numpy(), np.asarray(j_pal), **TOL)
+    np.testing.assert_allclose(t_pal.numpy(), np.asarray(j_xla), **TOL)
+    split = tfa.PAGED_SPLITS[hd]
+    qg = t_in[0].reshape(B, KV, H // KV, hd)
+    merged = tfa._paged_decode_split_merge(qg, *t_in[1:], window=window, split=split)
+    np.testing.assert_allclose(merged.reshape(B, H, hd).numpy(), t_pal.numpy(), **TOL)
+
+
 def test_paged_decode_null_page_is_inert():
     """Garbage in the null page and in pages past a slot's length changes
     nothing for the live slots (the idle slot's output is discarded)."""
@@ -236,10 +281,14 @@ def test_paged_splits_per_head_dim():
     """At hd 128 a split folds 32 positions (the same bytes of K and V a
     block as 64 at hd 64): 19 splits a (slot, kv head) at the serving table
     of 37 pages of 16, and the split-K mirror at that split == the plain
-    version at hd 128."""
-    assert tfa.PAGED_SPLITS == {64: 64, 128: 32}
-    assert all(s * hd == 4096 for hd, s in tfa.PAGED_SPLITS.items())
+    version at hd 128. hd 112 folds 32 too: 4096 / 112 = 36 positions would
+    be neither whole pages of 16 nor whole lanes of the softmax step's
+    warp."""
+    assert tfa.PAGED_SPLITS == {64: 64, 112: 32, 128: 32}
+    assert all(tfa.PAGED_SPLITS[hd] * hd == 4096 for hd in (64, 128))
+    assert all(s % 16 == 0 and s % 32 == 0 for s in tfa.PAGED_SPLITS.values())
     assert tfa.paged_splits(37, 16, tfa.PAGED_SPLITS[128]) == 19
+    assert tfa.paged_splits(37, 16, tfa.PAGED_SPLITS[112]) == 19
     q, kp, vp, table, lengths = _split_inputs(9, 16, 37, 32, 0)
     rng = np.random.default_rng(10)
     q = torch.from_numpy(_np(rng, (*q.shape[:3], 128)))
@@ -339,13 +388,14 @@ def test_kernel_library_name_hashes_its_source_and_the_shared_headers(tmp_path, 
 
 @pytest.mark.parametrize("lib,name,tiles", [
     ("flash_bwd", "flash_dq", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
-                               100352, 99328, 100352)),
+                               100352, 99328, 100352, 99328, 100352)),
     ("flash_bwd", "flash_dkv", (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, 50176, 51200, 99328,
-                                100352, 99328, 100352)),
+                                100352, 99328, 100352, 99328, 100352)),
     ("flash_fwd", "flash_fwd", (tfa.FLASH_BLOCK_Q, tfa.FLASH_BLOCK_KV, tfa.FLASH_BWD_ROWS,
                                 tfa.FLASH_BWD_KEYS, *tfa.FP32_TILES[128], *tfa.FP32_TILES[80],
-                                41984, 82944, 82944)),
-    ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128, tfa.PAGED_SPLITS[128])),
+                                *tfa.FP32_TILES[112], 41984, 82944, 82944, 82944)),
+    ("paged_decode", "paged_decode", (tfa.PAGED_SPLIT, 128, tfa.PAGED_SPLITS[128],
+                                      tfa.PAGED_SPLITS[112])),
     ("matmul_epilogue", "matmul_epilogue", (tmm.MATMUL_TILE, tmm.MATMUL_TILE, tmm.MATMUL_BK,
                                             256)),
     ("quantize", "quantize", (tquantize.WARP_ROW_MAX, tquantize.BLOCK_ROW_MAX,
@@ -417,6 +467,13 @@ def test_flash_backward_matches_jax_grad_hd80(causal, window, H, KV):
     _check_flash_backward(causal, window, H, KV, 13, hd=80)
 
 
+@pytest.mark.parametrize("H,KV,hd", [(8, 1, 112), (12, 1, 128)], ids=["hd112-G8", "hd128-G12"])
+def test_flash_backward_matches_jax_grad_kimi_and_mistral_heads(H, KV, hd):
+    """As above at kimi-k2's head dim 112 with G = 8 and at mistral-large's G
+    = 12 with head dim 128, causal as both models are, odd S."""
+    _check_flash_backward(True, 0, H, KV, 13, hd=hd)
+
+
 def _check_flash_backward(causal, window, H, KV, S, hd):
     rng = np.random.default_rng(1000 + S * 10 + H + window)
     B = 2
@@ -454,7 +511,7 @@ def test_flash_plain_backward_matches_autograd(causal, window):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=f"d{name}", **TOL)
 
 
-@pytest.mark.parametrize("G", [1, 2, 3, 4])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 12])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0), (False, 5)])
 def test_bf16_bwd_sweeps_visit_each_unmasked_pair_once(causal, window, G):
     """The visit ranges of the bf16 tensor-core sweeps over packed rows (row
@@ -463,8 +520,8 @@ def test_bf16_bwd_sweeps_visit_each_unmasked_pair_once(causal, window, G):
     pair exactly once and visits no tile without an unmasked pair. The
     forward's sweep (flash_fwd.cu) walks the same kv tiles per q-row tile as
     flash_bwd.cu's dq sweep (dq_kv_tiles), so the first walk checks both.
-    G = 1 to 4, ragged S; small tiles (many tiles, ragged edges) and the
-    kernels' own."""
+    G = 1 to 4 and 12 (mistral-large: a 64-row tile holds 5 1/3 positions),
+    ragged S; small tiles (many tiles, ragged edges) and the kernels' own."""
     for rows, keys, sizes in ((4, 4, range(1, 30)), (8, 4, range(1, 30)),
                               (tfa.FLASH_BWD_ROWS, tfa.FLASH_BWD_KEYS, (1, 21, 77, 130, 200))):
         for S in sizes:
@@ -732,11 +789,13 @@ def test_bf16_fwd_rounding_stays_within_phase_3a_tolerance(S):
 
 @pytest.mark.parametrize("hd", [80, 112, 256])
 def test_kernels_refuse_unbuilt_head_dims_and_name_roadmap(hd):
-    """The flash libraries are built for head dims 64, 80 and 128 and
-    paged_decode for 64 and 128: any other hd raises NotImplementedError
-    naming ROADMAP.md before any launch. At hd 80 (zamba2, served through the
-    dense-cache engine) only paged_decode refuses; the flash sweeps' head
-    check takes it at every G they take."""
+    """The flash libraries are built for head dims 64, 80, 112 and 128 and
+    paged_decode for 64, 112 and 128: any other hd raises
+    NotImplementedError naming ROADMAP.md before any launch. At hd 80
+    (zamba2, served through the dense-cache engine) only paged_decode
+    refuses; at hd 112 (kimi-k2) none does. The head check takes hd 80 and
+    112 at every G the kernels take (up to 16: mistral-large's G = 12), and
+    refuses G = 17."""
     tfa.reset_launch_counts()
     q = torch.zeros((1, 8, 1, hd), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, hd), dtype=torch.bfloat16)
@@ -749,15 +808,21 @@ def test_kernels_refuse_unbuilt_head_dims_and_name_roadmap(hd):
              lambda: tfa._dkv_cuda(q, k, k, q, lse, lse, **kw)]
     paged = [lambda: tfa._paged_decode_cuda(q[:, 0:1, 0:1].reshape(1, 1, 1, hd), pool, pool,
                                             table, lengths, window=0)]
-    for call in paged + ([] if hd in tfa.KERNEL_HEAD_DIM else flash):
+    for call in ([] if hd in tfa.PAGED_SPLITS else paged) + (
+            [] if hd in tfa.KERNEL_HEAD_DIM else flash):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    if hd == 80:
-        for name in ("flash_fwd", "flash_bwd"):
+    if hd in (80, 112):
+        names = ("flash_fwd", "flash_bwd") + (("paged_decode",) if hd == 112 else ())
+        assert tfa.MAX_GROUP == 16
+        for name in names:
             for dtype in (torch.float32, torch.bfloat16):
-                for G in range(1, tfa.MAX_GROUP[name] + 1):
+                for G in range(1, tfa.MAX_GROUP + 1):
                     tfa._check_head(name, dtype, hd, G)
-    assert tfa.KERNEL_HEAD_DIM == (64, 80, 128) and tuple(tfa.PAGED_SPLITS) == (64, 128)
+            with pytest.raises(NotImplementedError, match="query heads per kv head"):
+                tfa._check_head(name, torch.bfloat16, hd, 17)
+    assert tfa.KERNEL_HEAD_DIM == (64, 80, 112, 128)
+    assert tuple(tfa.PAGED_SPLITS) == (64, 112, 128)
     assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 

@@ -598,6 +598,107 @@ def test_moe_paged_decode_step_logits_match_reference(impl):
         tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
 
 
+# ------------------------------------------- kimi-k2-1t-a32b, mistral-large-123b
+#
+# narrow widths at the full models' head dims and group sizes, built the same
+# way in both packages (reduce_config gives both hd 64): kimi-k2's hd 112 with
+# 8:1 heads (G = 8, QK-norm, untied), 6 routed experts top-2 plus one shared in
+# 2 token groups; mistral-large's 12:1 heads of 128 (G = 12, no QK-norm, rope
+# theta 1e6). fp32, the port's flash path (the kernels' plain versions) against
+# the reference's XLA attention, and its paged decode against the reference's
+# Pallas kernel in interpret mode. Tolerances as the dense and MoE tests':
+# logits fp32 atol 1e-4, the loss 1e-5 and each gradient leaf 1e-5 (the two
+# attention paths sum in other orders).
+
+# (the narrow widths of tests/test_torch_{config,serving,engine}.py too)
+LAST_SMALL = {
+    "kimi-k2-1t-a32b": dict(n_layers=2, d_model=128, n_heads=8, n_kv_heads=1, head_dim=112,
+                            d_ff=32, vocab=256, n_experts=6, experts_per_token=2,
+                            n_shared_experts=1, moe_groups=2, dtype="float32", remat=False),
+    "mistral-large-123b": dict(n_layers=2, d_model=256, n_heads=12, n_kv_heads=1, head_dim=128,
+                               d_ff=512, vocab=512, dtype="float32", remat=False)}
+
+
+@functools.lru_cache(maxsize=2)
+def _last_params(name: str):
+    """The reference's init of the narrow model as numpy (one compile)."""
+    jmodel = build_model(get_config(name).replace(**LAST_SMALL[name]))
+    return jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+
+
+def _last_pair(name: str, ref_impl: str = "xla"):
+    """The reference (its XLA attention unless ``ref_impl`` says otherwise:
+    test_torch_kernels.py holds the plain kernels at hd 112 and G = 12 to
+    the interpret-mode Pallas ones) and the port on the flash path."""
+    jcfg = get_config(name).replace(attn_impl=ref_impl, **LAST_SMALL[name])
+    tcfg = tconfigs.get_config(name).replace(attn_impl="pallas", **LAST_SMALL[name])
+    params = _last_params(name)
+    return (build_model(jcfg), jax.tree.map(jnp.asarray, params), tbuild_model(tcfg),
+            params_from_numpy(params, "cpu"))
+
+
+@pytest.mark.parametrize("name", sorted(LAST_SMALL))
+def test_last_models_forward_loss_and_grads_match_reference(name):
+    """The narrow kimi-k2 (hd 112, G = 8, MoE) and mistral-large (G = 12):
+    the forward's logits within fp32 atol 1e-4 and the same greedy tokens,
+    kimi-k2's summed aux within 1e-5, the loss (with the aux term) within
+    1e-5 and every gradient leaf within 1e-5, through the flash path (the
+    plain forward and backward at G = 8 and 12)."""
+    jmodel, jparams, tmodel, tparams = _last_pair(name)
+    cfg = tmodel.cfg
+    moe = cfg.arch_type == "moe"
+    assert (cfg.hd, cfg.n_heads // cfg.n_kv_heads) == ((112, 8) if moe else (128, 12))
+    toks = _tokens(24, (2, 17), cfg.vocab)
+    jl, jaux = jax.jit(jmodel.forward)(jparams, jnp.asarray(toks[:, :-1]))
+    tl, taux = tmodel.forward(tparams, torch.from_numpy(toks[:, :-1]))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    np.testing.assert_array_equal(tl.argmax(-1).numpy(), np.asarray(jl.argmax(-1)))
+    np.testing.assert_allclose(float(taux), float(jaux), atol=1e-5, rtol=0)
+    assert (float(taux) > 0) == moe
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    tb = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    (jloss, _), jg = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jb)
+    leaves = jax.tree.map(lambda t: t.clone().requires_grad_(True), tparams)
+    tloss, _ = tmodel.loss(leaves, tb)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), atol=1e-5, rtol=0)
+    for (path, g), (_, t) in zip(jax.tree_util.tree_flatten_with_path(jg)[0],
+                                 jax.tree_util.tree_flatten_with_path(leaves)[0]):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-5, rtol=0,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", sorted(LAST_SMALL))
+def test_last_models_paged_decode_steps_match_reference(name):
+    """The narrow kimi-k2 and mistral-large through a paged prefill (a
+    right-padded row) and 3 decode steps through the paged kernel's plain
+    version (hd 112 at G = 8; G = 12 at hd 128) fed the reference's greedy
+    tokens: logits within fp32 atol 1e-4 and the same greedy tokens."""
+    jmodel, jparams, tmodel, tparams = _last_pair(name)
+    B, P, ps, steps = 2, 6, 4, 3
+    alloc, table = _paged_setup(B, P, steps, ps, seed=12)
+    toks = _tokens(25, (B, P), jmodel.cfg.vocab)
+    lens = np.asarray([P, P - 2], np.int32)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jcache = jmodel.init_paged_cache(alloc.n_pages, ps)
+    jl, jcache = jax.jit(jmodel.paged_prefill)(jparams, jcache, jnp.asarray(toks), jt,
+                                               jnp.asarray(lens))
+    tcache = tmodel.init_paged_cache(alloc.n_pages, ps, "cpu")
+    tl, tcache = tmodel.paged_prefill(tparams, tcache, torch.from_numpy(toks), tt,
+                                      torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    tok = np.asarray(jl)[np.arange(B), lens - 1].argmax(-1).astype(np.int32)
+    jstep = jax.jit(lambda p, c, t, n: jmodel.paged_decode_step(p, c, t, jt, n, impl="pallas"))
+    for t in range(steps):
+        n = lens + t
+        jlog, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.asarray(n))
+        tlog, tcache = tmodel.paged_decode_step(tparams, tcache, torch.from_numpy(tok), tt,
+                                                torch.from_numpy(n), impl="pallas")
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), **TOL["float32"])
+        np.testing.assert_array_equal(tlog.argmax(-1).numpy(), np.asarray(jlog.argmax(-1)))
+        tok = np.asarray(jlog.argmax(-1)).astype(np.int32)
+
+
 # ------------------------------------------------------- SSM and hybrid (mamba2, zamba2)
 #
 # Tolerances: the SSD's primitives and a layer at rtol 1e-4 / atol 1e-5, the
@@ -752,7 +853,7 @@ def test_ssm_family_stepped_decode_matches_forward_and_reference(kind):
 # reference's params, the VLM's tanh gates opened (zero-init would make its
 # cross path exactly zero), and a narrow hand-built VLM at hd 128 with
 # G = 8 (VLM_G8: 64:8 heads as the full model, so the flash path runs at
-# the kernels' MAX_GROUP). Contexts are numpy normal draws. Tolerances as
+# the model's G). Contexts are numpy normal draws. Tolerances as
 # the dense ones' (fp32 atol 1e-4).
 
 from repro.models import attention as jattn  # noqa: E402

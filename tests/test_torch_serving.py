@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from test_torch_models import LAST_SMALL  # noqa: E402  (kimi-k2's and mistral-large's narrow widths)
 
 from repro.configs import get_config, reduce_config  # noqa: E402
 from repro.models import build_model  # noqa: E402
@@ -408,6 +409,32 @@ def test_moe_engines_match_reference():
     jtoks = jnaive_generate(jmodel, jparams, jax.numpy.asarray(prompts), 4)
     ttoks = naive_generate(tmodel, tparams, torch.from_numpy(prompts), 4)
     np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+@pytest.mark.parametrize("name", sorted(LAST_SMALL))
+def test_last_models_engines_match_reference(name):
+    """The narrow kimi-k2 and mistral-large (fp32, reference params, the
+    kernels' plain versions: flash_fwd and paged_decode at hd 112 with G = 8
+    and at G = 12) through the PagedEngine on the staggered-arrival
+    workload: greedy tokens equal the reference engine's (for kimi-k2 the
+    MoE routes each decode step's slots together on both sides)."""
+    small = dict(LAST_SMALL[name], attn_impl="pallas")
+    jmodel = build_model(get_config(name).replace(**small))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    tmodel = tbuild_model(tconfigs.get_config(name).replace(**small))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    vocab = tmodel.cfg.vocab
+    span, shape = WORKLOADS["late_join"]
+    specs = [(f"r{i}", _prompt(60 + i, n, vocab), new, arr)
+             for i, (n, new, arr) in enumerate(shape)]
+    kw = dict(slots=2, page_size=4, max_pages=32, decode_steps_per_dispatch=span)
+    ref = JPagedEngine(jmodel, jparams, attn_impl="pallas", **kw).run(
+        [JRequest(*s) for s in specs])
+    out = PagedEngine(tmodel, tparams, attn_impl="pallas", device="cpu", **kw).run(
+        [Request(*s) for s in specs])
+    assert sorted(out) == sorted(ref)
+    for rid in ref:
+        np.testing.assert_array_equal(out[rid], np.asarray(ref[rid]))
 
 
 SSM_ARCHS = {"ssm": "mamba2-370m", "hybrid": "zamba2-2.7b"}

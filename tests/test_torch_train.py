@@ -560,14 +560,20 @@ def test_train_cli_muon_variants_run(tmp_path, flags):
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama-3.2-vision-90b",
                                   "whisper-large-v3"])
 def test_train_cli_unported_arch_raises(tmp_path, arch):
-    """An architecture not ported yet (kimi-k2's hd 112) raises the config
-    registry's KeyError naming ROADMAP.md. The vlm and audio families are
-    ported but, as the reference's CLI, it feeds them no context, so their
-    forward's assertion stops the run (the reference trains them only
-    through its step plans, whose batches carry a "context" leaf)."""
+    """Every architecture is ported. ``--arch kimi-k2-1t-a32b --reduced``
+    (once a KeyError naming ROADMAP.md; reduced: 4 experts top-2 and one
+    shared at hd 64) trains a round through the CLI as the reference's does,
+    its losses finite. The vlm and audio
+    families are ported but, as the reference's CLI, it feeds them no
+    context, so their forward's assertion stops the run (the reference
+    trains them only through its step plans, whose batches carry a
+    "context" leaf)."""
     if arch == "kimi-k2-1t-a32b":
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            ttrain.train(_args(tmp_path, "--arch", arch))
+        out = ttrain.train(_args(tmp_path, "--arch", arch, "--rounds", "1"))
+        assert out["model"].cfg.n_experts == 4 and "moe" in out["state"]["outer_params"]["layers"]
+        with open(os.path.join(tmp_path, "metrics.csv")) as f:
+            assert [r[0] for r in list(csv.reader(f))[1:]] == ["0"]
+        assert all(math.isfinite(v) for v in out["losses"]) and math.isfinite(out["final_loss"])
         return
     with pytest.raises(AssertionError, match="forward requires .* context"):
         ttrain.train(_args(tmp_path, "--arch", arch))
