@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--only 17,19]
 
 Phases, in order; any failure raises and the script exits nonzero.
-``--only`` runs phases 1 and 2 and then only the named groups of phases
+``--only`` runs phases 1 and 2, then only the named groups of phases
 among 12-19 (``ALONE``; 14 runs 6b's training first), each even when an
-earlier one failed, and prints no summary:
+earlier one failed, then phase 20 on what they measured, and prints no
+summary:
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles every kernel of the serving and training paths from
@@ -285,7 +286,21 @@ earlier one failed, and prints no summary:
    under ``VLM_ATTN_TOL``); (19d) mistral-large: the same at depth 2
    (agreement), 8 (serving) and 1 (forward and backward). Every cut is in
    ``KIMI_CUT`` and ``MISTRAL_CUT`` (PERF.md section 4).
-20. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+20. The roofline (``repro_torch.roofline``): each captured training run
+   above (6b, 12d, 16c', 17d, 17e, 18d: the mean wall of its rounds 2 and
+   up) and each replayed decode step (4c, 12e', 13c', 16b', 19c', 19d': its
+   device time) read against one H100's peaks, from the results those
+   phases return (no new run; under ``--only``, those of the groups that
+   ran): ``analytic_terms`` at the run's own K, H, B, S and depth, or the
+   engine's slots, mean cache length and depth; the model FLOPs, the
+   analytic FLOPs and bytes, the compute, memory and wire terms, the
+   dominant one, the model FLOPs utilisation and the roofline share
+   (max(compute, memory) over the measured seconds), a round's compute
+   term with Newton-Schulz at the fp32 peak beside it, a decode step's
+   memory term beside its floor; one record each under
+   ``build/chip_smoke_roofline/`` and the roofline table of
+   ``repro_torch.roofline.report``. Fails if a share is above 1.05.
+21. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
    paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
@@ -333,11 +348,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W); fp32 is the
-# CUDA-core (non-tensor) rate
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W; fp32 the
+# CUDA-core rate) and the kernels' bound come from the roofline package, and
+# a config's parameter count from its init on the meta device
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW,
+    PEAK_FLOPS,
+    PEAK_FP32_FLOPS,
+    bound,
+)
+from repro_torch.roofline.terms import param_count  # noqa: E402
 
 MAIN = dict(batch=32, prompt_len=512, max_new=64, slots=16, page_size=16, max_pages=1024,
             decode_steps_per_dispatch=8)
@@ -420,11 +440,6 @@ def time_ms(torch, fn, runs: int = 30) -> float:
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
-def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(name: str, err: float, tol: float) -> float:
@@ -660,7 +675,7 @@ def phase_flash(torch, fa, hd: int = 64, phase: str = "3a", cases: list | None =
         flops = 4 * hd * flash_pairs(S, causal, window) * BKV * G
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
         out[timed] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          **bound(flops, nbytes, PEAK_BF16_FLOPS))
+                          **bound(flops, nbytes, PEAK_FLOPS))
         print(f"  timed ({timed}) {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {out[timed]['bound_ms']:.4f} ms "
               f"({out[timed]['bound_by']}: {flops:.4g} flop, {nbytes:.4g} B)")
@@ -725,11 +740,8 @@ def phase_paged(torch, fa, hd: int = 64, KV: int = 3, G: int = 3, phase: str = "
                       + 2 * q.numel() * q.element_size()             # q in, out
                       + sum(-(-n // ps) - a // ps for n, a in zip(lens, lo)) * 4 + B * 4)
             flops = 4 * hd * G * KV * positions
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = flops / PEAK_BF16_FLOPS * 1e3
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops > t_bytes else "bytes")
+                       **bound(flops, nbytes))
             print(f"  timed {tag}: kernel {ms:.4f} ms (both passes), plain {plain_ms:.4f} ms, "
                   f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}: {nbytes} B, "
                   f"{positions} positions)")
@@ -977,17 +989,17 @@ def decode_floor_ms(engine, lengths: list) -> tuple[float, float, float]:
     an untied embedding only the B gathered rows), each slot's K and V rows
     up to its position read once and the new ones written, at 3.35 TB/s.
     Returns (ms, weight bytes, KV bytes)."""
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_bytes
 
     cfg, params = engine.model.cfg, engine.params
-    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    weights = tree_bytes(params)
     if "head" in params:  # the untied embedding: only the gathered rows
         emb = params["embed"]
         weights -= emb.numel() * emb.element_size()
         weights += len(lengths) * emb.shape[1] * emb.element_size()
     row = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * engine._pool["k"].element_size()
     kv = sum(n + 1 for n in lengths) * row
-    return (weights + kv) / PEAK_BYTES * 1e3, weights, kv
+    return (weights + kv) / HBM_BW * 1e3, weights, kv
 
 
 def phase_profile(torch, engine, paged_ms: float, phase: str = "4c") -> dict:
@@ -1062,7 +1074,8 @@ def phase_profile(torch, engine, paged_ms: float, phase: str = "4c") -> dict:
           f"{wbytes / 1e9:.3f} GB + K/V {kvbytes / 1e9:.4f} GB read once, 3.35 TB/s): "
           f"{step_ms / floor_ms:.2f}x")
     return dict(idle=idle, wall_ms=plain_wall_ms, busy_ms=busy, step_ms=step_ms,
-                floor_ms=floor_ms, kernels_per_step=kernels / engine.span)
+                floor_ms=floor_ms, kernels_per_step=kernels / engine.span,
+                read=decode_read(phase, engine, lengths, step_ms, floor_ms))
 
 
 def window_mask(torch, S: int, window: int):
@@ -1219,11 +1232,11 @@ def phase_flash_bwd(torch, fa, hd: int = 64, phase: str = "5a", cases: list | No
         out["flash_dq"] = dict(max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain,
                                library_ms=lib_ms,
                                **bound(6 * hd * rows, io + q.numel() * q.element_size(),
-                                       PEAK_BF16_FLOPS))
+                                       PEAK_FLOPS))
         out["flash_dkv"] = dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms,
                                 plain_ms=dkv_plain, library_ms=lib_ms,
                                 **bound(8 * hd * rows, io + 2 * k.numel() * k.element_size(),
-                                        PEAK_BF16_FLOPS))
+                                        PEAK_FLOPS))
         for name in ("flash_dq", "flash_dkv"):
             r = out[name]
             print(f"  timed {name} {tag}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -1485,10 +1498,11 @@ def phase_train_agreement(torch, get_config, build_model, arch: str = "smollm-13
 def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str = "6b",
                      falls: bool = True,
                      kernels: tuple = ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue",
-                                       "nesterov")):
+                                       "nesterov"), keep: bool = False):
     """[6b] the training main path through the CLI entry point, in-process;
     ``falls``: the train and eval losses must fall from the first round to
-    the last; each of ``kernels`` must have launched."""
+    the last; each of ``kernels`` must have launched; ``keep``: the run's
+    read for phase 20 (:func:`round_read`) goes under ``out["read"]``."""
     from repro_torch.kernels import _build
 
     print(f"[{phase}] main path: repro_torch.launch.train " + " ".join(argv))
@@ -1526,6 +1540,9 @@ def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str 
           "the ends of two dispatches on the card's clock)")
     print(f"  peak device memory {peak_gb:.2f} GB; final smoothed eval loss "
           f"{out['final_loss']:.4f}")
+    if keep:
+        out["read"] = round_read(phase, out["model"].cfg, engine, state, hist,
+                                 args.batch_per_worker, args.seq_len, peak_gb)
     out.update(tok_s=tok_s, peak_gb=peak_gb)
     return launches, out
 
@@ -1772,7 +1789,7 @@ def phase_quantize(torch, q, params):
                 ("codes-only", lambda: q._quantize_cuda(x, bits, with_deq=False), 5, 9)):
             ms = time_ms(torch, fn)
             b = bound(6.0 * n, once * n + 8.0 * rows, PEAK_FP32_FLOPS)
-            floor = (twice * n + 8.0 * rows) / PEAK_BYTES * 1e3
+            floor = (twice * n + 8.0 * rows) / HBM_BW * 1e3
             print(f"  timed quantize {form}, {tag} [{rows}, {cols}] {bits}-bit ({regime}, "
                   f"{parts} parts a row): kernel {ms:.4f} ms, plain (full) {plain_ms:.4f} ms, "
                   f"bound read once {b['bound_ms']:.4f} ms ({b['bound_by']}: "
@@ -2319,14 +2336,6 @@ def slice_4b(torch, get_config, build_model, build_parser, train, ref_hist: list
               f"{ {k: v for k, v in r['launches'].items() if v} }; {smi_line}")
 
 
-def ladder_param_count(cfg) -> int:
-    """The parameter count of a dense config with QK-norm, post-norms and an
-    untied head (the paper's ladder), from its widths."""
-    d, L, F, hd = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.hd
-    layer = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * F + 2 * hd + 4 * d
-    return 2 * cfg.vocab * d + d + L * layer
-
-
 def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, serve,
              smi: str) -> dict:
     """Phases 12a-12e: the paper's Gemma3-style ladder on the card, at its
@@ -2340,7 +2349,7 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
                         phase="12a")
     lap("12a")
     matmul, matmul_bx = phase_matmul_ladder(torch, mm, ops, ref)
-    n_params = ladder_param_count(cfg)
+    n_params = param_count(cfg)
     nesterov = phase_nesterov(torch, ou, n_params, phase="12b")
     torch.cuda.empty_cache()
     lap("12b")
@@ -2348,10 +2357,10 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
     phase_train_agreement(torch, get_config, build_model, LADDER, "12c")
     lap("12c")
 
-    train_launches, out = phase_train_main(torch, build_parser, train, TRAIN_LADDER, "12d")
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    train_launches, out = phase_train_main(torch, build_parser, train, TRAIN_LADDER, "12d",
+                                           keep=True)
+    from repro_torch.utils.tree import tree_map
 
-    assert sum(t.numel() for t in tree_leaves(out["state"]["outer_params"])) == n_params
     ref_hist = out["history"]
     ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
     prof = phase_train_profile(
@@ -2363,7 +2372,7 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
                 "flash_dq_wgmma_kernel<128>": ("12a", bwd["flash_dq"]["ms"]),
                 "flash_dkv_wgmma_kernel<128>": ("12a", bwd["flash_dkv"]["ms"]),
                 "matmul_epilogue_kernel": ("12b (X X^T on w_in, symmetric)", matmul["ms"])})
-    rate, peak = out["tok_s"], out["peak_gb"]
+    rate, peak, train_read = out["tok_s"], out["peak_gb"], out["read"]
     del out
     torch.cuda.empty_cache()
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=TRAIN_LADDER,
@@ -2394,6 +2403,7 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
         "matmul_epilogue": {"launches": train_launches["matmul_epilogue"], **matmul,
                             "b_x_plus_a_x": matmul_bx},
         "nesterov": {"launches": train_launches["nesterov"], **nesterov},
+        "reads": [train_read, serve_prof["read"]],
     }
 
 
@@ -2411,7 +2421,7 @@ def phase_serve_profiled(torch, fa, get_config, serve, arch: str, phase: str, de
                eager_tok_s=engine.eager_tok_s, capture_s=engine.capture_s,
                peak_gb=engine.peak_gb, step_ms=prof["step_ms"], floor_ms=prof["floor_ms"],
                idle=prof["idle"], launches=launches, depth=depth,
-               n_params=n_params(engine.model.cfg))
+               n_params=param_count(engine.model.cfg), read=prof["read"])
     del engine
     torch.cuda.empty_cache()
     return out
@@ -2468,7 +2478,8 @@ def slice_nemotron(torch, fa, get_config, build_model, serve, smi: str) -> dict:
     lap("13c")
     launches = s["launches"]
     return {"flash_fwd": {"launches": launches["flash_fwd"], **flash["serving"]},
-            "paged_decode": {"launches": launches["paged_decode"], **paged}}
+            "paged_decode": {"launches": launches["paged_decode"], **paged},
+            "reads": [s["read"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -2818,15 +2829,6 @@ MOE_TRAIN = dict(depth=1, K=2, H=2, batch=8, seq_len=1024, rounds=2, lr=3e-3)
 MOE_SERVE_DEPTH = 8
 
 
-def moe_param_count(cfg) -> int:
-    """The parameter count of an MoE config with QK-norm and an untied head,
-    from its widths."""
-    d, E, F, hd = cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.hd
-    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + 2 * hd + 2 * d + d * E
-             + 3 * E * d * F + 3 * d * F * cfg.n_shared_experts)
-    return 2 * cfg.vocab * d + d + cfg.n_layers * layer
-
-
 def phase_matmul_moe(torch, mm, ops, ref) -> tuple[dict, dict]:
     """[16c] matmul_epilogue at deepseek-moe-16b's new Newton-Schulz shapes
     (the stacks of two layers; 16c''s depth-1 round runs the same matrices,
@@ -2905,7 +2907,7 @@ def phase_moe_train(torch, get_config, build_model, matmul_ms: dict) -> dict:
     from repro_torch.engine import TrainEngine, run_rounds
     from repro_torch.kernels import _build
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_count_params, tree_map
 
     T = MOE_TRAIN
     K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
@@ -2935,8 +2937,7 @@ def phase_moe_train(torch, get_config, build_model, matmul_ms: dict) -> dict:
     engine, state, hist = run(None)
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_params = sum(t.numel() for t in tree_leaves(state["outer_params"]))
-    assert n_params == moe_param_count(cfg), (n_params, moe_param_count(cfg))
+    n_params = tree_count_params(state["outer_params"])
     per_round = engine.launches_per_round(state["outer_params"], with_eval=False)
     want = {k: n * v for k, v in per_round.items()}
     print(f"  {n_params:,} parameters; launches {launches}")
@@ -2952,6 +2953,7 @@ def phase_moe_train(torch, get_config, build_model, matmul_ms: dict) -> dict:
     aux = metrics["moe_aux"].item()
     assert math.isfinite(loss.item()) and aux > 0, (loss, aux)
     assert loss.item() == (metrics["loss"] + cfg.router_aux_coef * metrics["moe_aux"]).item()
+    read = round_read("16c'", cfg, engine, state, hist, B, S, peak_gb)
     tokens = K * H * B * S
     print(f"  losses {[round(v, 4) for v in losses]}; the synced params' loss on a held-out "
           f"batch {loss.item():.4f} = cross-entropy {metrics['loss'].item():.4f} + "
@@ -2991,7 +2993,7 @@ def phase_moe_train(torch, get_config, build_model, matmul_ms: dict) -> dict:
     del engine, state, ref_host, model
     torch.cuda.empty_cache()
     return dict(launches=launches, peak_gb=peak_gb, tok_s=prof["tok_s"], idle=prof["idle"],
-                matmul_share=share, busy_ms=prof["busy_ms"], n_params=n_params)
+                matmul_share=share, busy_ms=prof["busy_ms"], n_params=n_params, read=read)
 
 
 def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> dict:
@@ -3010,7 +3012,7 @@ def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> di
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(MOE)
-    print(f"[16] {MOE}: {moe_param_count(cfg):,} parameters; "
+    print(f"[16] {MOE}: {param_count(cfg):,} parameters; "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier phases")
     paged = phase_paged(torch, fa, hd=cfg.hd, KV=cfg.n_kv_heads,
                         G=cfg.n_heads // cfg.n_kv_heads, phase="16a")
@@ -3039,7 +3041,7 @@ def slice_moe(torch, mods: dict, get_config, build_model, serve, smi: str) -> di
             "paged_decode": {"launches": launches["paged_decode"], **paged},
             "flash_dq": {"launches": tl["flash_dq"]}, "flash_dkv": {"launches": tl["flash_dkv"]},
             "matmul_epilogue": {"launches": tl["matmul_epilogue"], **xx, "b_x_plus_a_x": bx},
-            "nesterov": {"launches": tl["nesterov"]}}
+            "nesterov": {"launches": tl["nesterov"]}, "reads": [serving["read"], t["read"]]}
 
 # ---------------------------------------------------------------------------
 # Slice 7a: the SSM and hybrid families (17): mamba2-370m and zamba2-2.7b
@@ -3068,17 +3070,6 @@ SSM_NS_SHAPES = {
     ZAMBA: [("in_proj", (6, 2560, 10448), False), ("out_proj", (6, 5120, 2560), True),
             ("shared wq", (1, 2560, 2560), False), ("shared w_in", (1, 2560, 10240), False),
             ("shared w_out", (1, 10240, 2560), True)]}
-
-
-def ssm_param_count(cfg) -> int:
-    """The parameter count of an ssm or hybrid config, from its widths."""
-    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    mamba = (d * (2 * di + 2 * N + H) + (cfg.conv_width + 1) * (di + 2 * N) + 3 * H + di
-             + di * d + d)
-    n = 2 * cfg.vocab * d + d + cfg.n_layers * mamba
-    if cfg.arch_type == "hybrid":  # the shared block, once
-        n += 4 * d * cfg.n_heads * cfg.hd + 2 * cfg.hd + 3 * d * cfg.d_ff + 2 * d
-    return n
 
 
 def phase_ptxas_head_dims(ptxas: dict) -> None:
@@ -3199,23 +3190,22 @@ def phase_mamba_train(torch, build_parser, train) -> dict:
     losses finite and falling, and (17d') a profiled replayed round with the
     SSD scan's share. (The eager repeat, 17d'', is cut for time; earlier
     full runs held it bitwise.)"""
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_count_params
 
     args = build_parser().parse_args(TRAIN_MAMBA)
     launches, out = phase_train_main(torch, build_parser, train, TRAIN_MAMBA, phase="17d",
-                                     kernels=("matmul_epilogue", "nesterov"))
+                                     kernels=("matmul_epilogue", "nesterov"), keep=True)
     steps = args.workers * args.sync_interval
     assert launches["matmul_epilogue"] == args.rounds * steps * 30, launches
     assert launches["flash_fwd"] == launches["flash_dq"] == launches["flash_dkv"] == 0, launches
-    n_params = sum(t.numel() for t in tree_leaves(out["state"]["outer_params"]))
+    n_params = tree_count_params(out["state"]["outer_params"])
     cfg = out["model"].cfg
-    assert n_params == ssm_param_count(cfg), (n_params, ssm_param_count(cfg))
     prof = phase_train_profile(torch, out, TRAIN_MAMBA, tag="17d'",
                                focus=("matmul_epilogue_kernel",))
     share = ssd_share(torch, cfg, args.batch_per_worker, args.seq_len, cfg.n_layers, steps,
                       prof["busy_ms"])
     res = dict(launches=launches, tok_s=out["tok_s"], peak_gb=out["peak_gb"], idle=prof["idle"],
-               replay_tok_s=prof["tok_s"], ssd_share=share, n_params=n_params)
+               replay_tok_s=prof["tok_s"], ssd_share=share, n_params=n_params, read=out["read"])
     del out
     torch.cuda.empty_cache()
     return res
@@ -3240,7 +3230,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     from repro_torch.engine import TrainEngine, run_rounds
     from repro_torch.kernels import _build
     from repro_torch.optim import OptimizerConfig
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_count_params
 
     T = ZAMBA_TRAIN
     K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
@@ -3276,8 +3266,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     engine, state, hist = run()
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_params = sum(t.numel() for t in tree_leaves(state["outer_params"]))
-    assert n_params == ssm_param_count(cfg), (n_params, ssm_param_count(cfg))
+    n_params = tree_count_params(state["outer_params"])
     per_round = engine.launches_per_round(state["outer_params"])
     want = {k: n * v for k, v in per_round.items()}
     print(f"  {n_params:,} parameters; launches {launches}")
@@ -3292,6 +3281,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     evl = [r["eval_loss"] for r in hist]
     assert all(math.isfinite(v) for v in losses + evl), (losses, evl)
     assert losses[-1] < losses[0] and evl[-1] < evl[0], (losses, evl)
+    read = round_read("17e", cfg, engine, state, hist, B, S, peak_gb)
     tokens = K * H * B * S
     print(f"  losses {[round(v, 4) for v in losses]}, eval {[round(v, 4) for v in evl]}; round "
           f"walls {[round(r['wall_s'], 3) for r in hist]} s (round 1: warm-up "
@@ -3317,7 +3307,7 @@ def phase_zamba_train(torch, get_config, build_model) -> dict:
     del engine, state, model
     torch.cuda.empty_cache()
     return dict(launches=launches, peak_gb=peak_gb, tok_s=tok_s, replay_tok_s=prof["tok_s"],
-                idle=prof["idle"], ssd_share=share, n_params=n_params)
+                idle=prof["idle"], ssd_share=share, n_params=n_params, read=read)
 
 
 def ssm_decode_floor_ms(params, cache, batch: int) -> tuple[float, float, float]:
@@ -3325,16 +3315,13 @@ def ssm_decode_floor_ms(params, cache, batch: int) -> tuple[float, float, float]
     (of the untied embedding only the ``batch`` gathered rows), the SSM state
     (h and the conv buffer) read and written once, and zamba2's ring cache
     read once, at 3.35 TB/s. Returns (ms, weight bytes, state bytes)."""
-    from repro_torch.utils.tree import tree_leaves
-
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    from repro_torch.utils.tree import tree_bytes
 
     emb = params["embed"]
-    weights = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * emb.element_size()
-    state = 2 * nbytes(cache.get("ssm", cache)) + (nbytes(cache["attn"]) if "attn" in cache
-                                                   else 0)
-    return (weights + state) / PEAK_BYTES * 1e3, weights, state
+    weights = tree_bytes(params) - tree_bytes(emb) + batch * emb.shape[1] * emb.element_size()
+    state = 2 * tree_bytes(cache.get("ssm", cache)) + (tree_bytes(cache["attn"])
+                                                       if "attn" in cache else 0)
+    return (weights + state) / HBM_BW * 1e3, weights, state
 
 
 def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None = None) -> dict:
@@ -3379,7 +3366,7 @@ def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None 
     steps = SSM_SERVE["prompt_len"] + SSM_SERVE["max_new"] - 1
     tok_s = n_new / seconds
     host_step_ms = 1e3 * seconds / steps
-    print(f"  {ssm_param_count(cfg):,} parameters; generated {n_new} tokens in {seconds:.3f} s "
+    print(f"  {param_count(cfg):,} parameters; generated {n_new} tokens in {seconds:.3f} s "
           f"({tok_s:.1f} tok/s; {steps} decode steps, {host_step_ms:.2f} ms a step on the "
           f"host's clock); no kernel launched; peak {peak_gb:.2f} GB; two runs of "
           f"{SERVE_REPEAT[0]} + {SERVE_REPEAT[1]} tokens (the second {seconds2:.3f} s): greedy "
@@ -3428,8 +3415,8 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
     fa, mm = mods["fa"], mods["mm"]
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[17] {MAMBA} ({ssm_param_count(get_config(MAMBA)):,} parameters) and {ZAMBA} "
-          f"({ssm_param_count(get_config(ZAMBA)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} "
+    print(f"[17] {MAMBA} ({param_count(get_config(MAMBA)):,} parameters) and {ZAMBA} "
+          f"({param_count(get_config(ZAMBA)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} "
           "GB held by earlier phases")
     phase_ptxas_head_dims(ptxas)
     flash = phase_flash(torch, fa, hd=80, phase="17a")
@@ -3478,7 +3465,8 @@ def slice_7a(torch, mods: dict, get_config, build_model, build_parser, train, se
                                 ZAMBA: {"launches": zl["matmul_epilogue"], **matmul[ZAMBA]["xx"],
                                         "b_x_plus_a_x": matmul[ZAMBA]["bx"]}},
             "nesterov": {MAMBA: {"launches": ml["nesterov"]},
-                         ZAMBA: {"launches": zl["nesterov"]}}}
+                         ZAMBA: {"launches": zl["nesterov"]}},
+            "reads": [mamba["read"], zamba["read"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3518,17 +3506,6 @@ VLM_DEPTH, VLM_SEQ = 5, 2048
 # while dq's fault moves the whole tree's error only to 3.79e-2
 VLM_ATTN_LEAVES = tuple(f"self_layers/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
 VLM_ATTN_TOL = 3e-2
-
-
-def n_params(cfg) -> int:
-    """The parameter count of a config, from its init on the meta device."""
-    import torch
-
-    from repro_torch.models import build_model
-    from repro_torch.utils.tree import tree_leaves
-
-    params = build_model(cfg).init(torch.Generator().manual_seed(0), "meta")
-    return sum(t.numel() for t in tree_leaves(params))
 
 
 def context_draw(torch, cfg, lead: tuple, seed: int):
@@ -3625,7 +3602,7 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     from repro_torch.engine import TrainEngine, run_rounds
     from repro_torch.kernels import _build
     from repro_torch.optim import OptimizerConfig, muon_label
-    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_paths, tree_map
+    from repro_torch.utils.tree import tree_count_params, tree_leaves_with_paths, tree_map
 
     T = WHISPER_TRAIN
     K, H, B, S, n = T["K"], T["H"], T["batch"], T["seq_len"], T["rounds"]
@@ -3669,8 +3646,7 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     engine, state, hist = run(None)
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    count = sum(t.numel() for t in tree_leaves(state["outer_params"]))
-    assert count == n_params(cfg), count
+    count = tree_count_params(state["outer_params"])
     per_round = engine.launches_per_round(state["outer_params"])
     want = {k: n * v for k, v in per_round.items()}
     print(f"  {count:,} parameters; launches {launches}")
@@ -3687,6 +3663,7 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     evl = [r["eval_loss"] for r in hist]
     assert all(math.isfinite(v) for v in losses + evl), (losses, evl)
     assert losses[-1] < losses[0] and evl[-1] < evl[0], (losses, evl)
+    read = round_read("18d", cfg, engine, state, hist, B, S, peak_gb)
     tokens, n_frames = steps * B * S, steps * B * F
     later = hist[1:]
     wall = sum(r["wall_s"] for r in later)
@@ -3737,7 +3714,8 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     del engine, state, ref_host, model
     torch.cuda.empty_cache()
     return dict(launches=launches, peak_gb=peak_gb, tok_s=tok_s, frames_s=frames_s,
-                replay_tok_s=prof["tok_s"], idle=prof["idle"], shares=shares, n_params=count)
+                replay_tok_s=prof["tok_s"], idle=prof["idle"], shares=shares, n_params=count,
+                read=read)
 
 
 def decode_profile(torch, model, params, cache, batch: int, pos: int) -> float:
@@ -3870,7 +3848,7 @@ def phase_vlm(torch, get_config, build_model, after_grads=None) -> dict:
 
     V = VLM_SERVE
     cfg = get_config(VLM).replace(n_layers=VLM_DEPTH, param_dtype="bfloat16", attn_impl="pallas")
-    count = n_params(cfg)
+    count = param_count(cfg)
     print(f"[18f] {VLM} full width, depth {cfg.n_layers} (one superblock), bf16 weights "
           f"({count:,} parameters), gates open: {V['batch']} x ({V['prompt_len']} + "
           f"{V['max_new']}) through the naive engine, then one {VLM_SEQ}-token forward and "
@@ -3981,9 +3959,9 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
     fa, mm, ou = mods["fa"], mods["mm"], mods["ou"]
     gc.collect()
     torch.cuda.empty_cache()
-    w_params = n_params(get_config(WHISPER))
+    w_params = param_count(get_config(WHISPER))
     print(f"[18] {WHISPER} ({w_params:,} parameters) and {VLM} "
-          f"({n_params(get_config(VLM)):,}; {n_params(get_config(VLM).replace(n_layers=VLM_DEPTH)):,}"
+          f"({param_count(get_config(VLM)):,}; {param_count(get_config(VLM).replace(n_layers=VLM_DEPTH)):,}"
           f" at one superblock); {torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier "
           "phases")
     phase_ptxas_head_dims(ptxas)
@@ -4035,7 +4013,8 @@ def slice_8(torch, mods: dict, get_config, build_model, serve, ptxas: dict, smi:
                           VLM: {"launches": vl["flash_dkv"], **bwd[VLM]["flash_dkv"]}},
             "matmul_epilogue": {WHISPER: {"launches": tl["matmul_epilogue"], **xx,
                                           "b_x_plus_a_x": bx}},
-            "nesterov": {WHISPER: {"launches": tl["nesterov"], **nesterov}}}
+            "nesterov": {WHISPER: {"launches": tl["nesterov"], **nesterov}},
+            "reads": [train["read"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -4146,7 +4125,7 @@ def phase_last_grads(torch, get_config, build_model, arch: str, phase: str,
     attention leaf under ``VLM_ATTN_TOL``)."""
     B, S = LAST_GRAD["batch"], LAST_GRAD["seq_len"]
     cfg = get_config(arch).replace(param_dtype="bfloat16", attn_impl="pallas", **overrides)
-    count = n_params(cfg)
+    count = param_count(cfg)
     print(f"[{phase}] {arch} full width, {overrides}, bf16 weights ({count:,} parameters): one "
           f"{B} x {S}-token forward and backward, kernels against the plain path")
     model = build_model(cfg)
@@ -4177,8 +4156,8 @@ def slice_9(torch, fa, get_config, build_model, serve, ptxas: dict, smi: str) ->
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[19] {KIMI} ({n_params(get_config(KIMI)):,} parameters) and {MISTRAL} "
-          f"({n_params(get_config(MISTRAL)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+    print(f"[19] {KIMI} ({param_count(get_config(KIMI)):,} parameters) and {MISTRAL} "
+          f"({param_count(get_config(MISTRAL)):,}); {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
           "by earlier phases")
     phase_ptxas_head_dims(ptxas)
     kimi_k = dict(flash=phase_flash(torch, fa, hd=112, phase="19a"),
@@ -4228,7 +4207,145 @@ def slice_9(torch, fa, get_config, build_model, serve, ptxas: dict, smi: str) ->
                 "paged_decode": {"launches": sl["paged_decode"], **k["paged"]}}
 
     kr, mr = rows(kimi_k, kimi), rows(mistral_k, mistral)
-    return {name: {KIMI: kr[name], MISTRAL: mr[name]} for name in kr}
+    return {**{name: {KIMI: kr[name], MISTRAL: mr[name]} for name in kr},
+            "reads": [kimi["serve"]["read"], mistral["serve"]["read"]]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: every captured round and replayed decode step against its roofline
+# ---------------------------------------------------------------------------
+
+ROOFLINE_DIR = ROOT / "build" / "chip_smoke_roofline"
+# a share above this says the card beat its peak: a fault of the count
+SHARE_MAX = 1.05
+
+
+def round_read(phase: str, cfg, engine, state: dict, hist: list, B: int, S: int,
+               peak_gb: float) -> dict:
+    """What phase 20 reads of a captured training run: its config (depth
+    as run), the shapes of its parameters, inner and outer optimizer states,
+    its K, H, inner optimizer and compression (``engine.dcfg``), B sequences
+    of S tokens a worker step, the [B, S] of the eval batch whose forward the
+    captured round folds in (None for a round without one), the mean wall of
+    rounds 2 and up (replays), the capture's seconds and the state's bytes
+    beside the peak memory."""
+    from repro_torch.roofline.terms import meta_like
+    from repro_torch.utils.tree import tree_bytes
+
+    later = hist[1:]
+    (graph,) = engine._graphs.values()  # the one captured round the replays ran
+    evals = None if graph.eval_batch is None else tuple(graph.eval_batch["tokens"].shape)
+    return dict(kind="round", phase=phase, cfg=cfg, dcfg=engine.dcfg, B=B, S=S, evals=evals,
+                trees=meta_like({k: state[k] for k in ("outer_params", "inner_state",
+                                                       "outer_opt")}),
+                seconds=sum(r["wall_s"] for r in later) / len(later),
+                setup_s=engine.capture_s[0], state_bytes=tree_bytes(state),
+                peak_bytes=peak_gb * 1e9)
+
+
+def decode_read(phase: str, engine, lengths: list, step_ms: float, floor_ms: float) -> dict:
+    """What phase 20 reads of a replayed decode step: the engine's config
+    (depth as served), its weights' shapes, its slots, the slots' mean cache
+    length over the span (``lengths``), the step's device time and floor,
+    the span's capture seconds, and the weights' and paged pool's bytes
+    beside the peak memory."""
+    from repro_torch.roofline.terms import meta_like
+    from repro_torch.utils.tree import tree_bytes
+
+    return dict(kind="decode", phase=phase, cfg=engine.model.cfg,
+                params=meta_like(engine.params), B=engine.slots,
+                S=round(statistics.mean(lengths)), seconds=step_ms / 1e3, floor_ms=floor_ms,
+                setup_s=engine.capture_s, state_bytes=tree_bytes(engine.params),
+                pool_bytes=tree_bytes(engine._pool), peak_bytes=engine.peak_gb * 1e9)
+
+
+def phase_roofline(reads: list, smi: str) -> list:
+    """[20] each program the earlier phases measured and returned (``reads``:
+    :func:`round_read` of the captured training runs of 6b, 12d, 16c', 17d,
+    17e and 18d, :func:`decode_read` of the decode steps replayed in 4c,
+    12e', 13c', 16b', 19c' and 19d', those of the phases that ran) read
+    against the roofline of one H100:
+    ``repro_torch.roofline.terms.analytic_terms`` at the run's own shapes
+    (a round at its K, H, B, S and depth; a decode step at the engine's
+    slots, mean cache length and depth), the model FLOPs, the analytic FLOPs
+    and bytes, the compute, memory and wire terms, the dominant one, and the
+    measured seconds: the model FLOPs utilisation (model FLOPs over the
+    seconds at the bf16 peak) and the roofline share (max(compute, memory)
+    over the seconds). A round also prints its compute term with the
+    Newton-Schulz part priced at the fp32 peak; a decode step its memory
+    term beside ``decode_floor_ms``. Each read is one record of the
+    reference's schema under ``build/chip_smoke_roofline/``, and the phase
+    prints them as ``repro_torch.roofline.report.roofline_table``. Fails if a
+    share is above ``SHARE_MAX``."""
+    from repro_torch.core.collectives import measured_sync_bytes
+    from repro_torch.models import build_model
+    from repro_torch.roofline import report
+    from repro_torch.roofline.terms import analytic_terms, card_record, newton_schulz_part
+
+    print(f"[20] roofline: {len(reads)} programs measured above, read against one H100's peaks "
+          f"(bf16 {PEAK_FLOPS / 1e12:g} TFLOP/s, fp32 {PEAK_FP32_FLOPS / 1e12:g}, HBM "
+          f"{HBM_BW / 1e12:g} TB/s); card (nvidia-smi name, power.limit): {smi}")
+    ROOFLINE_DIR.mkdir(parents=True, exist_ok=True)
+    for old in ROOFLINE_DIR.glob("*.json"):
+        old.unlink()
+    records, over = [], []
+    for r in reads:
+        cfg, B, S = r["cfg"], r["B"], r["S"]
+        if r["kind"] == "round":
+            d, trees = r["dcfg"], r["trees"]
+            K, H, params = d.n_workers, d.sync_interval, trees["outer_params"]
+            flops, hbm = analytic_terms("round", cfg, params, seq_len=S, global_batch=K * B,
+                                        inner_state=trees["inner_state"],
+                                        outer_opt=trees["outer_opt"], inner_name=d.inner_name,
+                                        n_workers=K, H=H)
+            shape, eval_tokens = f"K{K} H{H} B{B} S{S} L{cfg.n_layers}", 0
+            if r["evals"] is not None:  # the round's eval forward, counted as a prefill
+                Be, Se = r["evals"]
+                ef, eb = analytic_terms("prefill", cfg, params, seq_len=Se, global_batch=Be)
+                flops, hbm, eval_tokens = flops + ef, hbm + eb, Be * Se
+                shape += f" eval B{Be} S{Se}"
+            kw = dict(plan="round_step", kind="round", shape=shape, tokens=K * B * S * H,
+                      forward_tokens=eval_tokens, inner=d.inner_name,
+                      ns_flops=H * newton_schulz_part(params, d.inner_name),
+                      wire_bytes=float(measured_sync_bytes(params, d.compression, K)),
+                      argument_bytes=r["state_bytes"], alias_bytes=r["state_bytes"])
+        else:
+            params = r["params"]
+            cache = build_model(cfg).init_cache(params, B, S)
+            flops, hbm = analytic_terms("decode", cfg, params, seq_len=S, global_batch=B,
+                                        cache=cache)
+            kw = dict(plan="serve_step", kind="decode", shape=f"B{B} S{S} L{cfg.n_layers}",
+                      tokens=B, argument_bytes=r["state_bytes"] + r["pool_bytes"],
+                      alias_bytes=r["pool_bytes"])
+        rec = card_record(arch=cfg.name, cfg=cfg, params=params, flops=flops, hbm=hbm,
+                          seconds=r["seconds"], setup_s=r["setup_s"],
+                          peak_bytes=r["peak_bytes"], card=smi, **kw)
+        t, m = rec["roofline"], rec["measured"]
+        fp32 = (f" (Newton-Schulz at the fp32 peak: {m['compute_fp32_ns_s'] * 1e3:.4f} ms)"
+                if r["kind"] == "round" else "")
+        print(f"  {r['phase']:6s} {cfg.name} {rec['plan']} {rec['shape']}: model FLOPs "
+              f"{t['model_flops']:.4e}, analytic FLOPs {flops:.4e} and bytes {hbm:.4e}; compute "
+              f"{t['compute_s'] * 1e3:.4f} ms{fp32}, memory {t['memory_s'] * 1e3:.4f} ms, "
+              f"wire {t['wire_comm_s'] * 1e3:.4f} ms, dominant {t['dominant']}; measured "
+              f"{m['seconds'] * 1e3:.4f} ms: model FLOPs utilisation {100 * m['mfu']:.3f}%, "
+              f"roofline share {100 * m['roofline_share']:.3f}%")
+        if r["kind"] == "decode":
+            print(f"         memory term {t['memory_s'] * 1e3:.4f} ms beside decode_floor_ms "
+                  f"{r['floor_ms']:.4f} ms: the roofline reads every weight once (all of an "
+                  "untied embedding), a dense B x S cache and 2 x (8 d + 2 d_ff) bytes of "
+                  "activations a token and layer; the floor reads the B embedding rows "
+                  "gathered and each slot's own K/V rows")
+        if not m["roofline_share"] <= SHARE_MAX:
+            over.append((r["phase"], m["roofline_share"]))
+        (ROOFLINE_DIR / f"{r['phase'].replace(chr(39), 'p')}.json").write_text(
+            json.dumps([rec], indent=1))
+        records.append(rec)
+    print(report.roofline_table(records))
+    print(f"  {len(records)} records in {ROOFLINE_DIR.relative_to(ROOT)}/ (python -m "
+          f"repro_torch.roofline.report --dryrun {ROOFLINE_DIR.relative_to(ROOT)}); "
+          f"card (nvidia-smi name, power.limit): {smi}")
+    assert not over, f"roofline share above {SHARE_MAX} (a count says the card beat its peak): {over}"
+    return records
 
 
 # the groups of phases that need nothing of the earlier ones but the build
@@ -4237,9 +4354,10 @@ ALONE = ("12", "13", "14", "15", "16", "17", "18", "19")
 
 
 def main(argv: list | None = None) -> int:
-    """The whole script; ``--only 17,19`` runs phases 1 and 2 and then only
+    """The whole script; ``--only 17,19`` runs phases 1 and 2, then only
     the named groups of phases (those of ``ALONE``), each even when an
-    earlier one failed, and exits 1 if any did, printing no summary."""
+    earlier one failed, then phase 20 on their reads, and exits 1 if any
+    failed, printing no summary."""
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv else None
     if only is not None and not set(only) <= set(ALONE):
@@ -4308,16 +4426,22 @@ def main(argv: list | None = None) -> int:
         import gc
         import traceback
 
-        failed = []
+        failed, reads = [], []
         for name in only:
             try:
-                group[name]()
+                reads += group[name]().get("reads", [])
             except Exception:  # report every group, then fail
                 traceback.print_exc()
                 failed.append(name)
             lap(f"phases {name}")
             gc.collect()
             torch.cuda.empty_cache()
+        try:  # the roofline of the groups that ran
+            phase_roofline(reads, smi)
+        except Exception:
+            traceback.print_exc()
+            failed.append("20")
+        lap("20")
         print(f"chip_smoke --only {','.join(only)}: "
               + (f"FAILED {failed}" if failed else "every phase passed"))
         return 1 if failed else 0
@@ -4351,7 +4475,8 @@ def main(argv: list | None = None) -> int:
     lap("5b-5c")
     phase_train_agreement(torch, get_config, build_model)
     lap("6a")
-    train_launches, out = phase_train_main(torch, build_parser, train)
+    train_launches, out = phase_train_main(torch, build_parser, train, keep=True)
+    reads = [serve_prof["read"], out["read"]]
     ref_hist = out["history"]
     ref_state = tree_map(lambda t: t.detach().clone(), out["state"])
     muon_tok_s = out["tok_s"]
@@ -4397,6 +4522,10 @@ def main(argv: list | None = None) -> int:
     ssm = group["17"]()
     eight = group["18"]()
     nine = group["19"]()
+    for g in (ladder, nemotron, moe, ssm, eight, nine):
+        reads += g.pop("reads")
+    phase_roofline(reads, smi)
+    lap("20")
 
     def new_paths(name: str) -> dict:
         """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
@@ -4459,7 +4588,7 @@ def main(argv: list | None = None) -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[20] done in {time.perf_counter() - _T0:.1f} s")
+    print(f"[21] done in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,11 @@ family's ``mamba2-370m``, the hybrid ``zamba2-2.7b``, the audio family's
 at ``ROADMAP.md``.
 ``reduce_config`` and ``InputShape`` are copied exactly, so
 the port's reduced and full configs equal the reference's field for field.
+The assigned input shapes (``INPUT_SHAPES``), the per-shape policy
+(``config_for_shape``: the sliding window dense-family archs take on
+``long_500k``), ``shape_supported`` and ``ASSIGNED_ARCHS`` equal the
+reference's; the roofline's per-plan terms read them
+(``repro_torch.roofline.terms.analytic_terms``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,21 @@ INPUT_SHAPES: dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+LONG_CONTEXT_WINDOW = 8_192  # sliding window used by dense archs on long_500k
+
+
+def config_for_shape(cfg: ModelConfig, shape: str) -> ModelConfig:
+    """Per-shape architecture policy (the reference's DESIGN.md section 4)."""
+    if shape == "long_500k" and cfg.arch_type in ("dense", "moe", "vlm"):
+        # dense-family archs run the 524k decode only via the sub-quadratic
+        # sliding-window variant
+        return cfg.replace(sliding_window=LONG_CONTEXT_WINDOW)
+    return cfg
+
+
+def shape_supported(cfg: ModelConfig, shape: str) -> bool:
+    return shape not in cfg.skip_shapes
 
 # ---------------------------------------------------------------------------
 # Reduced smoke-test variants
@@ -117,3 +137,17 @@ def _ensure_loaded():
         whisper_large_v3,
         zamba2_2_7b,
     )
+
+
+ASSIGNED_ARCHS = (
+    "mistral-large-123b",
+    "mamba2-370m",
+    "nemotron-4-15b",
+    "kimi-k2-1t-a32b",
+    "whisper-large-v3",
+    "llama-3.2-vision-90b",
+    "smollm-135m",
+    "deepseek-moe-16b",
+    "moonshot-v1-16b-a3b",
+    "zamba2-2.7b",
+)

@@ -13,7 +13,7 @@ coin; the sync waits for the slowest *surviving* worker, and the sampled
 per-round times answer what a p99 worker costs a lockstep sync, the tail
 that elastic DiLoCo (worker drops, a delayed sync) trades against.
 
-Numpy only, as in the reference.
+Numpy only, as in the reference (the peaks are the roofline's constants).
 """
 from __future__ import annotations
 
@@ -21,16 +21,18 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.roofline.analysis import HBM_BW, LINK_BW, PEAK_FLOPS
+
 
 @dataclasses.dataclass(frozen=True)
 class HardwareModel:
-    # defaults: one NVIDIA H100 SXM, from its data sheet: dense bf16 tensor
-    # rate, HBM3 bandwidth, and NVLink 4 per direction (900 GB/s both ways);
-    # the reference's defaults describe another chip, so pass one explicit
-    # HardwareModel to compare the two packages
-    peak_flops: float = 989e12
-    hbm_bw: float = 3.35e12
-    link_bw: float = 450e9
+    # defaults: one NVIDIA H100 SXM, the roofline's peaks
+    # (repro_torch.roofline.analysis); the reference's defaults describe
+    # another chip, so pass one explicit HardwareModel to compare the two
+    # packages
+    peak_flops: float = PEAK_FLOPS
+    hbm_bw: float = HBM_BW
+    link_bw: float = LINK_BW
     chips: int = 256
     assumed_mfu: float = 0.4
 

@@ -19,6 +19,7 @@ treat it as one leaf, as the reference's ``is_wire`` makes it one.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -44,6 +45,17 @@ def tree_leaves(tree: Tree) -> list[Any]:
     out: list[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_count_params(tree: Tree) -> int:
+    """Total number of elements (a Python int; shapes only, so ``meta``
+    tensors count too)."""
+    return sum(math.prod(t.shape) for t in tree_leaves(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total bytes of the leaves at their dtypes (shapes only)."""
+    return sum(math.prod(t.shape) * t.element_size() for t in tree_leaves(tree))
 
 
 def tree_unzip(tree_of_tuples: Tree, n: int) -> tuple[Tree, ...]:

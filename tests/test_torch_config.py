@@ -1,14 +1,26 @@
-"""PyTorch port: package hygiene, configs and the weight bridge.
+"""PyTorch port: package hygiene, configs, the weight bridge and the
+roofline tooling.
 
 The port (``src/repro_torch``) must equal the JAX reference's configs field
 for field, import neither ``jax`` nor anything of ``repro``, and carry
 parameter trees across the numpy bridge exactly.
+
+The roofline tooling (``repro_torch.roofline``) and the assigned input
+shapes of ``repro_torch.configs``: every count equals the reference's
+exactly (``==``) on the same config at full width. The port's trees are
+built on the ``meta`` device, the reference's with ``jax.eval_shape``, so
+nothing is allocated. Then the analytic forward count is held against
+``torch.utils.flop_counter`` on the port's plain forward, with the two known
+differences taken out explicitly.
 """
 import ast
 import dataclasses
+import json
+import math
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -17,13 +29,31 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from repro.configs import ASSIGNED_ARCHS as JASSIGNED  # noqa: E402
+from repro.configs import INPUT_SHAPES as JSHAPES  # noqa: E402
+from repro.configs import config_for_shape as jconfig_for_shape  # noqa: E402
 from repro.configs import get_config, reduce_config  # noqa: E402
+from repro.configs import shape_supported as jshape_supported  # noqa: E402
+from repro.core.diloco import DiLoCoConfig as JDiLoCoConfig  # noqa: E402
+from repro.core.diloco import diloco_init as jdiloco_init  # noqa: E402
 from repro.models import build_model  # noqa: E402
+from repro.optim import OptimizerConfig as JOptimizerConfig  # noqa: E402
+from repro.roofline import analysis as janalysis  # noqa: E402
+from repro.roofline import flops as jflops  # noqa: E402
+from repro.roofline import report as jreport  # noqa: E402
+from repro.utils.tree import tree_count_params as jcount  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core.diloco import DiLoCoConfig, diloco_init  # noqa: E402
 from repro_torch.models import build_model as tbuild_model  # noqa: E402
+from repro_torch.models import mlp as tmlp  # noqa: E402
+from repro_torch.optim import OptimizerConfig  # noqa: E402
+from repro_torch.optim.muon import muon_label  # noqa: E402
+from repro_torch.roofline import analysis, flops, report, terms  # noqa: E402
 from repro_torch.utils.tree import (  # noqa: E402
     params_from_numpy,
     params_to_numpy,
+    tree_bytes,
+    tree_count_params,
     tree_leaves_with_paths,
     tree_paths,
 )
@@ -535,3 +565,360 @@ def test_last_narrow_tree_paths_labels_and_roundtrip(name):
     else:
         assert ref_leaves["layers/attn/wq"].shape == (2, 256, 12 * 128)
         assert muon == attn | {f"layers/mlp/{w}" for w in ("w_in", "w_gate", "w_out")}
+
+
+# ------------------------------------------------------------- the roofline
+
+# the archs the reference's dry run takes (launch/dryrun.py --arch)
+ARCHS = list(JASSIGNED) + ["paper-416m", "paper-15.23b"]
+K, H = 2, 4
+TRAIN, DECODE = "train_4k", "decode_32k"
+
+
+def _reference_analytic_terms():
+    """The reference's ``_analytic_terms``. Importing ``repro.launch.dryrun``
+    sets ``XLA_FLAGS`` to a 512-device world; the backend is initialised
+    first (so this process keeps its one device) and the variable restored
+    (so no later subprocess inherits it)."""
+    jax.devices()
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch.dryrun import _analytic_terms
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return _analytic_terms
+
+
+_TREES: dict = {}
+
+
+def _trees(name: str) -> types.SimpleNamespace:
+    """Both packages' config, parameter tree, K = 2 training state and
+    decode_32k cache of ``name`` at full width, abstract (built once)."""
+    if name not in _TREES:
+        jcfg, tcfg = get_config(name), tconfigs.get_config(name)
+        jm, tm = build_model(jcfg), tbuild_model(tcfg)
+        key = jax.random.PRNGKey(0)
+        jp = jax.eval_shape(lambda: jm.init(key))
+        tp = terms.abstract_params(tcfg)
+        jstate = jax.eval_shape(lambda: jdiloco_init(
+            jm, JDiLoCoConfig(n_workers=K, sync_interval=H), JOptimizerConfig(), key))
+        tstate = diloco_init(tm, DiLoCoConfig(n_workers=K, sync_interval=H), OptimizerConfig(),
+                             torch.Generator(), torch.device("meta"))
+        spec = JSHAPES[DECODE]
+        jcache = jax.eval_shape(lambda: jm.init_cache(jp, spec.global_batch, spec.seq_len))
+        tcache = tm.init_cache(tp, spec.global_batch, spec.seq_len)
+        _TREES[name] = types.SimpleNamespace(jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp, jstate=jstate,
+                                             tstate=tstate, jcache=jcache, tcache=tcache)
+    return _TREES[name]
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_param_counts_and_model_flops_equal_reference(name):
+    t = _trees(name)
+    n = terms.param_count(t.tcfg)
+    assert n == jcount(t.jp) == tree_count_params(t.tp)
+    assert analysis.active_params(t.tcfg, n) == janalysis.active_params(t.jcfg, n)
+    n_active = analysis.active_params(t.tcfg, n)
+    for kind in ("train", "round", "superstep", "prefill", "decode", "sync"):
+        for tokens in (256 * 4096, 128):
+            assert (analysis.model_flops(kind, n_active, tokens)
+                    == janalysis.model_flops(kind, n_active, tokens)), kind
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_forward_flops_equal_reference(name):
+    """train_4k (B = 256, and one sequence, where the visit schedule
+    applies), prefill_32k and decode_32k, plus the flash impl's count."""
+    t = _trees(name)
+    cases = [dict(S=4096, B=256), dict(S=4096, B=1), dict(S=32768, B=32),
+             dict(S=32768, B=1), dict(S=32768, B=128, T=1, kv_len=32768),
+             dict(S=524288, B=1, T=1, kv_len=524288)]
+    for impl in ("xla", "pallas"):
+        jcfg, tcfg = t.jcfg.replace(attn_impl=impl), t.tcfg.replace(attn_impl=impl)
+        for c in cases:
+            assert flops.forward_flops(tcfg, **c) == jflops.forward_flops(jcfg, **c), (impl, c)
+
+
+@pytest.mark.parametrize("inner", ["muon", "adamw"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_step_flops_equal_reference(name, inner):
+    t = _trees(name)
+    got = flops.train_step_flops(t.tcfg, 4096, 256, t.tp, inner)
+    want = jflops.train_step_flops(t.jcfg, 4096, 256, t.jp, inner)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.total == want.total
+    assert flops.optimizer_flops(t.tp, inner) == jflops.optimizer_flops(t.jp, inner)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_newton_schulz_and_hbm_bytes_equal_reference(name):
+    """newton_schulz_flops at every Muon leaf's trailing shape (and its
+    transpose), and newton_schulz_part equal to optimizer_flops less its
+    elementwise terms; hbm_bytes of each kind at the tree's sizes."""
+    t = _trees(name)
+    leaves = [(p, x) for p, x in tree_leaves_with_paths(t.tp) if muon_label(p, x) == "muon"]
+    assert leaves
+    elementwise = 0.0
+    for path, leaf in tree_leaves_with_paths(t.tp):
+        size = math.prod(leaf.shape)
+        elementwise += 6.0 * size if muon_label(path, leaf) == "muon" else 12.0 * size
+    for _, x in leaves:
+        m, n = int(x.shape[-2]), int(x.shape[-1])
+        assert flops.newton_schulz_flops(m, n) == jflops.newton_schulz_flops(m, n)
+        assert flops.newton_schulz_flops(n, m, 3) == jflops.newton_schulz_flops(n, m, 3)
+    ns = terms.newton_schulz_part(t.tp, "muon")
+    assert ns > 0 and terms.newton_schulz_part(t.tp, "adamw") == 0.0
+    assert math.isclose(ns + elementwise, flops.optimizer_flops(t.tp, "muon"), rel_tol=1e-12)
+    pb, ob = float(tree_bytes(t.tp)), float(tree_bytes(t.tstate["inner_state"]))
+    for kind in ("train", "prefill", "decode", "sync"):
+        kw = dict(param_bytes_chip=pb, opt_state_bytes_chip=ob, act_bytes_chip=3.0e9,
+                  cache_bytes_chip=7.0e9)
+        assert flops.hbm_bytes(kind, **kw) == jflops.hbm_bytes(kind, **kw), kind
+    with pytest.raises(ValueError):
+        flops.hbm_bytes("nope", param_bytes_chip=pb, opt_state_bytes_chip=0.0,
+                        act_bytes_chip=0.0)
+
+
+@pytest.mark.parametrize("kind", ["train", "round", "superstep", "sync", "prefill", "decode"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_analytic_terms_equal_reference(name, kind):
+    """analytic_terms against the reference's dry-run arithmetic, handed a
+    stub plan that carries ``meta`` and ``args`` as the dry run's plans do:
+    the training kinds at train_4k (K = 2 workers, H = 4, R = 3 for the
+    superstep) on 2 and 256 chips, the serving kinds at prefill_32k and
+    decode_32k (the state's and the cache's bytes from each package's own
+    trees)."""
+    t = _trees(name)
+    ref = _reference_analytic_terms()
+    shape = {"prefill": "prefill_32k", "decode": DECODE}.get(kind, TRAIN)
+    R = 3 if kind == "superstep" else 1
+    dcfg = JDiLoCoConfig(n_workers=K, sync_interval=H, inner_name="muon")
+    meta = {"kind": kind, "dcfg": dcfg, "cfg": t.jcfg}
+    if kind == "superstep":
+        meta["rounds_per_dispatch"] = R
+    args = (t.jp, t.jcache) if kind == "decode" else (t.jstate,)
+    plan = types.SimpleNamespace(meta=meta, args=args)
+    for chips in (1, 2, 256):
+        want = ref(plan, t.jcfg, t.jp, chips, shape)
+        got = terms.analytic_terms(kind, t.tcfg, t.tp, shape=shape,
+                                   inner_state=t.tstate["inner_state"],
+                                   outer_opt=t.tstate["outer_opt"], cache=t.tcache,
+                                   chips=chips, inner_name="muon", n_workers=K, H=H, R=R)
+        assert got == want, (chips, got, want)
+    spec = JSHAPES[shape]
+    explicit = terms.analytic_terms(kind, t.tcfg, t.tp, seq_len=spec.seq_len,
+                                    global_batch=spec.global_batch,
+                                    inner_state=t.tstate["inner_state"],
+                                    outer_opt=t.tstate["outer_opt"], cache=t.tcache,
+                                    chips=1, n_workers=K, H=H, R=R)
+    assert explicit == ref(plan, t.jcfg, t.jp, 1, shape)
+
+
+def test_analytic_terms_refuses_what_the_reference_cannot_mean():
+    t = _trees("smollm-135m")
+    with pytest.raises(ValueError, match="plan kind"):
+        terms.analytic_terms("step", t.tcfg, t.tp, shape=TRAIN)
+    with pytest.raises(ValueError, match="shape name"):
+        terms.analytic_terms("prefill", t.tcfg, t.tp, seq_len=4096)
+    with pytest.raises(ValueError, match="superstep"):
+        terms.analytic_terms("round", t.tcfg, t.tp, shape=TRAIN, R=2)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_roofline_terms_as_dict_equal_reference(name, monkeypatch):
+    """RooflineTerms of one train_4k round at the H100's peaks: the
+    reference's class, with its TPU peaks swapped for the port's, gives the
+    same dict."""
+    for attr in ("PEAK_FLOPS", "HBM_BW", "LINK_BW"):
+        monkeypatch.setattr(janalysis, attr, getattr(analysis, attr))
+    t = _trees(name)
+    f, b = terms.analytic_terms("round", t.tcfg, t.tp, shape=TRAIN,
+                                inner_state=t.tstate["inner_state"],
+                                outer_opt=t.tstate["outer_opt"], n_workers=K, H=H)
+    n = terms.param_count(t.tcfg)
+    mf = analysis.model_flops("round", analysis.active_params(t.tcfg, n), 256 * 4096 * H)
+    for amortize, coll, wire in ((1.0, 0.0, 0.0), (float(H), 3.0e9, 1.1e9)):
+        kw = dict(flops=f, hlo_bytes=b, collective_bytes=coll, chips=1, model_flops=mf,
+                  amortize=amortize, wire_bytes=wire)
+        got, want = analysis.RooflineTerms(**kw).as_dict(), janalysis.RooflineTerms(**kw).as_dict()
+        assert got == want
+        assert list(got) == list(want)
+
+
+def test_peaks_are_the_h100_data_sheet_and_bound_reads_them():
+    from repro_torch.core.wallclock import HardwareModel
+
+    assert (analysis.PEAK_FLOPS, analysis.PEAK_FP32_FLOPS, analysis.HBM_BW,
+            analysis.LINK_BW) == (989e12, 67e12, 3.35e12, 450e9)
+    hw = HardwareModel()
+    assert (hw.peak_flops, hw.hbm_bw, hw.link_bw) == (989e12, 3.35e12, 450e9)
+    assert analysis.bound(989e9, 3.35e9) == dict(bound_ms=1.0, bound_by="operations")
+    assert analysis.bound(67e9, 6.7e9, analysis.PEAK_FP32_FLOPS) == dict(
+        bound_ms=2.0, bound_by="bytes")
+
+
+def test_input_shapes_and_shape_policy_equal_reference():
+    assert tconfigs.ASSIGNED_ARCHS == JASSIGNED
+    assert set(JASSIGNED) <= set(tconfigs.list_configs())
+    assert {k: dataclasses.asdict(v) for k, v in tconfigs.INPUT_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
+    windowed = 0
+    for name in tconfigs.list_configs():
+        for shape in JSHAPES:
+            jc, tc = get_config(name), tconfigs.get_config(name)
+            for j, p in ((jc, tc), (reduce_config(jc), tconfigs.reduce_config(tc))):
+                assert dataclasses.asdict(tconfigs.config_for_shape(p, shape)) == \
+                    dataclasses.asdict(jconfig_for_shape(j, shape)), (name, shape)
+                assert tconfigs.shape_supported(p, shape) == jshape_supported(j, shape)
+            windowed += tconfigs.config_for_shape(tc, shape).sliding_window != tc.sliding_window
+    assert windowed > 0  # the long_500k policy changed some config
+
+
+def _synthetic_records() -> list:
+    """Records of every status the tables render, on both meshes of the
+    reference and on one card."""
+    recs = []
+    for i, (arch, shape, mesh) in enumerate([
+            ("smollm-135m", "train_4k", "16x16"), ("smollm-135m", "decode_32k", "16x16"),
+            ("kimi-k2-1t-a32b", "train_4k", "2x16x16"), ("mamba2-370m", "long_500k", "16x16"),
+            ("zamba2-2.7b", "prefill_32k", terms.MESH), ("whisper-large-v3", "train_4k", "16x16")]):
+        t = analysis.RooflineTerms(flops=1.5e15 * (i + 1), hlo_bytes=2.5e12 / (i + 1),
+                                   collective_bytes=3.0e10 * i, chips=256,
+                                   model_flops=1.0e17 * (i + 2), wire_bytes=1e9 * i)
+        recs.append({"arch": arch, "shape": shape, "plan": f"plan{i}", "mesh": mesh,
+                     "status": "ok", "compile_s": 12.5 * i, "roofline": t.as_dict(),
+                     "memory": {"argument_bytes": 3 * 2**30 + i, "temp_bytes": 2**29 * i,
+                                "peak_per_chip_gib": 1.25 * i},
+                     "collectives": {"total": 2**31 * i, "flat_total": 2**30 * i}})
+    recs.append({"arch": "mistral-large-123b", "shape": "long_500k", "mesh": "16x16",
+                 "status": "skipped", "reason": "long_500k not applicable"})
+    recs.append({"arch": "nemotron-4-15b", "shape": "train_4k", "plan": "superstep",
+                 "mesh": "16x16", "status": "error", "error": "RuntimeError: " + "x" * 100})
+    return recs
+
+
+def test_report_tables_equal_reference(tmp_path):
+    recs = _synthetic_records()
+    for mesh in ("16x16", "2x16x16", terms.MESH):
+        assert report.roofline_table(recs, mesh=mesh) == jreport.roofline_table(recs, mesh=mesh)
+    assert report.dryrun_table(recs) == jreport.dryrun_table(recs)
+    assert report.roofline_table(recs) == jreport.roofline_table(recs, mesh=terms.MESH)
+    assert report.summarize_bottlenecks(recs, "16x16") == jreport.summarize_bottlenecks(recs)
+    assert "zamba2-2.7b/prefill_32k/plan4" in report.summarize_bottlenecks(recs)
+    (tmp_path / "a.json").write_text(json.dumps(recs[:3]))
+    (tmp_path / "b.json").write_text(json.dumps(recs[3:]))
+    assert report.load_records(str(tmp_path)) == jreport.load_records(str(tmp_path)) == recs
+
+
+def test_card_record_renders_in_the_reference_tables():
+    """A record of terms.card_record (one measured round) carries the keys
+    the reference's tables read, and its shares are the measured ones."""
+    cfg = tconfigs.get_config("smollm-135m").replace(attn_impl="pallas")
+    params = terms.abstract_params(cfg)
+    f, b = terms.analytic_terms("round", cfg, params, seq_len=1024, global_batch=16,
+                                n_workers=2, H=4)
+    ns = 4 * terms.newton_schulz_part(params, "muon")
+    rec = terms.card_record(arch=cfg.name, shape="K2 H4 B8 S1024", plan="round_step",
+                            kind="round", cfg=cfg, params=params, flops=f, hbm=b,
+                            tokens=16 * 1024 * 4, seconds=1.0, setup_s=0.42,
+                            argument_bytes=10 * 2**30, alias_bytes=9 * 2**30,
+                            peak_bytes=20 * 2**30, wire_bytes=1.0e9, inner="muon",
+                            ns_flops=ns, card="NVIDIA H100 80GB HBM3, 700.00 W")
+    assert rec["mesh"] == terms.MESH and rec["compile_s"] == 0.4
+    assert rec["memory"]["temp_bytes"] == 10 * 2**30 and rec["memory"]["peak_per_chip_gib"] == 20
+    m, r = rec["measured"], rec["roofline"]
+    assert m["mfu"] == 6.0 * rec["n_active_params"] * 16 * 1024 * 4 / analysis.PEAK_FLOPS
+    assert m["roofline_share"] == max(r["compute_s"], r["memory_s"])
+    assert m["compute_fp32_ns_s"] == (f - ns) / analysis.PEAK_FLOPS + ns / analysis.PEAK_FP32_FLOPS
+    assert m["compute_fp32_ns_s"] > r["compute_s"]
+    assert r["wire_comm_s"] == 1.0e9 / analysis.LINK_BW and r["collective_s"] == 0.0
+    for table in (report.roofline_table, jreport.roofline_table):
+        assert "| smollm-135m | K2 H4 B8 S1024 | round_step |" in table([rec], mesh=terms.MESH)
+    assert report.dryrun_table([rec]) == jreport.dryrun_table([rec])
+    # a round that folds in an eval forward of 8 x 1024 tokens: its model
+    # FLOPs gain that forward's 2 N_active a token
+    fe, be = terms.analytic_terms("prefill", cfg, params, seq_len=1024, global_batch=8)
+    ev = terms.card_record(arch=cfg.name, shape="K2 H4 B8 S1024 eval B8 S1024",
+                           plan="round_step", kind="round", cfg=cfg, params=params,
+                           flops=f + fe, hbm=b + be, tokens=16 * 1024 * 4, seconds=1.0,
+                           setup_s=0.42, argument_bytes=10 * 2**30, alias_bytes=9 * 2**30,
+                           peak_bytes=20 * 2**30, forward_tokens=8 * 1024)
+    assert ev["roofline"]["model_flops"] == (r["model_flops"]
+                                             + 2.0 * rec["n_active_params"] * 8 * 1024)
+    assert ev["measured"]["mfu"] > m["mfu"] and ev["roofline"]["compute_s"] > r["compute_s"]
+
+
+# ------------------------------------------------ the count against the port
+
+DENSE_SMALL = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=384,
+                   vocab=512, dtype="float32", remat=False)
+MOE_SMALL = dict(DENSE_SMALL, d_ff=96)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_forward_flops_count_what_the_port_computes(family, B):
+    """forward_flops against FlopCounterMode on the port's plain forward (the
+    'xla' path, S below the blockwise threshold), at a narrow dense and MoE
+    config. The projection, MLP, router, shared-expert and head terms agree
+    exactly. Two differences are taken out explicitly:
+
+    * the attention scores: the plain forward multiplies the whole S x S
+      score and probability matrices (4 B S^2 H hd a layer); the reference
+      counts the causal half at B = 1 (``ctx / 2``, flops.py:48-49) and, at
+      B > 1, the whole context (its ``full_seq`` test compares the B S
+      tokens with S), so at B = 2 the counts agree with nothing taken out;
+    * the routed experts: the port's capacity dispatch runs every expert
+      over its C capacity slots of each token group (G E C rows), where the
+      reference counts the k routed rows of each token (B S k).
+
+    Tolerance: none, the counts are integers well below 2^53."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    base = tconfigs.get_config("smollm-135m" if family == "dense" else "deepseek-moe-16b")
+    cfg = base.replace(**(DENSE_SMALL if family == "dense" else MOE_SMALL))
+    if family == "moe":
+        cfg = cfg.replace(n_experts=8, experts_per_token=2, n_shared_experts=1)
+    S = 64
+    assert S < cfg.blockwise_threshold and cfg.attn_impl == "xla"
+    model = tbuild_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model.forward(params, tokens)
+    counted = counter.get_total_flops()
+    T = B * S
+    model_scores = 2.0 * T * cfg.n_heads * cfg.hd * (S / 2.0 if B == 1 else S) * 2.0
+    plain_scores = 4.0 * B * S * S * cfg.n_heads * cfg.hd
+    want = flops.forward_flops(cfg, S, B) + cfg.n_layers * (plain_scores - model_scores)
+    if family == "moe":
+        G = tmlp._n_groups(cfg, T)
+        C = max(int(T // G * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor), 4)
+        per_row = 3.0 * 2.0 * cfg.d_model * cfg.d_ff
+        want += cfg.n_layers * per_row * (G * cfg.n_experts * C - T * cfg.experts_per_token)
+    if B == 2:
+        assert plain_scores == model_scores
+    assert counted == want, (counted, want)
+
+
+def test_round_counts_one_replicas_optimizer_step():
+    """The reference's round counts the optimizer once a step for the whole
+    global batch (``train_step_flops`` over one replica's tree), however
+    many workers take that step: on one card K = 2 workers each run it, so
+    the round's FLOPs at K = 2 equal K = 1's at the same global batch and the
+    optimizer's part is a lower bound there (ROADMAP Queue 3). The bytes
+    grow with K: each worker's parameters are read."""
+    cfg = tconfigs.get_config("smollm-135m")
+    params = terms.abstract_params(cfg)
+    one = terms.analytic_terms("round", cfg, params, seq_len=1024, global_batch=16,
+                               n_workers=1, H=4)
+    two = terms.analytic_terms("round", cfg, params, seq_len=1024, global_batch=16,
+                               n_workers=2, H=4)
+    assert one[0] == two[0] and two[1] > one[1]
+    opt = flops.optimizer_flops(params, "muon")
+    fwd = flops.forward_flops(cfg, 1024, 16)
+    assert one[0] == 4 * (fwd + 2.0 * fwd + opt + fwd) + 10.0 * 3.0 * tree_count_params(params)

@@ -12,8 +12,9 @@ unchanged by the hd-128 builds) and phases 12a and 12b (the kernels at hd
 matmul at paper-416m's ragged widths). With ``--ladder``: phase 2, then
 the whole of slice 6a (phases 12a-12e: the kernels at hd 128, the
 full-width fp32 agreements, the training and serving main paths on
-paper-416m). Each phase runs even when an earlier one failed; exits nonzero
-if any did. Needs one card; ``chip_smoke.py`` is the full check.
+paper-416m) and chip_smoke's phase 20 on them (the roofline). Each phase
+runs even when an earlier one failed; exits nonzero if any did. Needs one
+card; ``chip_smoke.py`` is the full check.
 """
 from __future__ import annotations
 
@@ -52,9 +53,13 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip()
         print(f"card (nvidia-smi name, power.limit): {smi}")
-        phases.append(("12", lambda: print(json.dumps(cs.slice_6a(
-            torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config, build_model,
-            build_parser, train, serve, smi)))))
+        def ladder():
+            rows = cs.slice_6a(torch, dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou), get_config,
+                               build_model, build_parser, train, serve, smi)
+            cs.phase_roofline(rows.pop("reads"), smi)
+            print(json.dumps(rows))
+
+        phases.append(("12", ladder))
     else:
         phases += [
             ("3a", lambda: cs.phase_flash(torch, fa)),
