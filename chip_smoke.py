@@ -5,9 +5,10 @@
 
 Phases, in order; any failure raises and the script exits nonzero.
 ``--only`` runs phases 1 and 2, then only the named groups of phases
-among 12-19 (``ALONE``; 14 runs 6b's training first), each even when an
-earlier one failed, then phase 20 on what they measured, and prints no
-summary:
+among 12-19 and 21 (``ALONE``; 14 runs 6b's training first, 21 the
+training runs of 6b and 12d with the autotune table on and off), each even
+when an earlier one failed, then phase 20 on what they measured, and prints
+no summary:
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles every kernel of the serving and training paths from
@@ -300,7 +301,24 @@ summary:
    memory term beside its floor; one record each under
    ``build/chip_smoke_roofline/`` and the roofline table of
    ``repro_torch.roofline.report``. Fails if a share is above 1.05.
-21. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+21. Autotune (``repro_torch.kernels.autotune``): (21a) every build variant of
+   ``matmul_epilogue`` (``matmul.TILE_CANDIDATES``: tiles of 64, 96 and 128,
+   K steps of 8, 16 and 32, register tiles of 4, 6 and 8) and ``quantize``
+   (``quantize.TILE_CANDIDATES``: threads, long-row unroll and split) built
+   from the one source, in parallel, each one's ptxas registers and spills
+   printed; (21b) every candidate bitwise equal to the default, Newton-Schulz
+   at ``AUTOTUNE_NS_CHECK`` and quantize (full, codes-only) and dequantize at
+   ``AUTOTUNE_QUANT_CHECK`` (each candidate's plan its library's), the
+   defaults against their plain versions as 5b and 8a hold them; (21c) every
+   ``cuda`` entry of the committed table re-verified bitwise at its key's
+   shape, and the summary rows' timed calls with the table's variant beside
+   the default's; (21d) the ``h100`` sweep suite into
+   ``build/chip_smoke_autotune/`` (not the committed table): default and best
+   ms, bound and ``torch.baddbmm`` per shape; (21e) 6b's and 12d's training
+   commands with ``--autotune off`` against their runs with it on: losses
+   and every state leaf bitwise equal, launches counted per variant, walls
+   printed.
+22. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
    paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
@@ -313,8 +331,10 @@ summary:
    matmul_epilogue at whisper's w_in, nesterov over whisper's parameters,
    and slice 9's under ``"kimi-k2-1t-a32b"`` and ``"mistral-large-123b"``:
    the flash and paged rows at hd 112 and at G = 12, their serving and
-   forward-and-backward launches), the script's seconds, then the last line
-   ``{"ok": true, "device": {...}}``.
+   forward-and-backward launches; each row's ``"variants"``: the build
+   variants its main path launched, by key, and matmul_epilogue's and
+   quantize's ``"tuned"``: 21c's timing of the table's variant), the
+   script's seconds, then the last line ``{"ok": true, "device": {...}}``.
    A line ``-- 12a: N s (T s in all)`` follows each phase: its seconds
    and the script's.
 
@@ -812,6 +832,7 @@ def phase_main(torch, fa, get_config, serve, arch: str = "smollm-135m", phase: s
     span; then a second run on the same engine (replays only) and the same
     workload through the eager span (``capture=False``), both bitwise equal
     in their greedy tokens."""
+    from repro_torch.kernels import _build
     from repro_torch.launch.serve import random_prompts, requests_for
     from repro_torch.serving import PagedEngine
 
@@ -821,7 +842,7 @@ def phase_main(torch, fa, get_config, serve, arch: str = "smollm-135m", phase: s
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     results, seconds, engine, model, params = serve(cfg, device="cuda", **MAIN)
-    launches = dict(fa.LAUNCHES)
+    launches = _build.LaunchCounts(fa.LAUNCHES, _build.VARIANT_LAUNCHES)
     st = dict(engine.stats)
     engine.peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  {st}, peak {engine.peak_gb:.2f} GB")
@@ -1510,7 +1531,7 @@ def phase_train_main(torch, build_parser, train, argv: list = TRAIN, phase: str 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     out = train(args)
-    launches = dict(_build.LAUNCHES)
+    launches = _build.LaunchCounts(_build.LAUNCHES, _build.VARIANT_LAUNCHES)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     engine, state, hist = out["engine"], out["state"], out["history"]
@@ -1871,7 +1892,7 @@ def phase_compressed_run(torch, build_parser, train, tag: str, extra: list, roun
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     out = train(args)
-    launches = dict(_build.LAUNCHES)
+    launches = _build.LaunchCounts(_build.LAUNCHES, _build.VARIANT_LAUNCHES)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     engine, state, hist = out["engine"], out["state"], out["history"]
@@ -2377,6 +2398,9 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
     torch.cuda.empty_cache()
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state, base=TRAIN_LADDER,
                       phase="12d''", with_r3=False)
+    # phase 21e's run with autotune on (the default)
+    autotune_ref = (ref_hist, tree_map(lambda t: t.to("cpu", copy=True), ref_state),
+                    train_launches.variants)
     del ref_state
     torch.cuda.empty_cache()
     lap("12d")
@@ -2404,6 +2428,8 @@ def slice_6a(torch, mods: dict, get_config, build_model, build_parser, train, se
                             "b_x_plus_a_x": matmul_bx},
         "nesterov": {"launches": train_launches["nesterov"], **nesterov},
         "reads": [train_read, serve_prof["read"]],
+        "variants": train_launches.variants,
+        "autotune_ref": autotune_ref,
     }
 
 
@@ -4350,7 +4376,310 @@ def phase_roofline(reads: list, smi: str) -> list:
 
 # the groups of phases that need nothing of the earlier ones but the build
 # (14 runs 6b's training first, its reference): ``--only`` runs these
-ALONE = ("12", "13", "14", "15", "16", "17", "18", "19")
+AUTOTUNE_DIR = ROOT / "build" / "chip_smoke_autotune"
+# 21b: the shapes every candidate is held at against the default, bitwise:
+# smollm's w_in stack and w_out's (its B X + a X reads a transposed view)
+AUTOTUNE_NS_CHECK = [(30, 576, 1536), (30, 1536, 576)]
+# and quantize's default regimes (a warp a row, a block a row, long rows),
+# whose cuts the candidates move: (rows, cols, bits)
+AUTOTUNE_QUANT_CHECK = [(34_560, 1536, 4), (1000, 10_000, 4), (2, 28_311_552, 2)]
+# 21d: the sweep's timed runs a candidate (best of) and Newton-Schulz
+# iterations a run (the committed table's sweep takes the CLI's 3 runs of 5
+# iterations; one iteration is a fifth of the work, the same three products)
+AUTOTUNE_REPS = 1
+AUTOTUNE_NS_ITERS = 1
+# nvcc processes 21a's builds run at a time, behind phases 3-20
+AUTOTUNE_JOBS = max(1, (os.cpu_count() or 2) // 2)
+
+
+def ptxas_numbers(line: str) -> tuple[int, int, int]:
+    """(registers, spill-store bytes, spill-load bytes) of a ptxas report line."""
+    regs = re.search(r"Used (\d+) registers", line)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    return (int(regs.group(1)) if regs else -1,
+            *(map(int, spill.groups()) if spill else (-1, -1)))
+
+
+# threads the script started; joined before it exits, so no nvcc outlives it
+BACKGROUND: list = []
+
+
+def start_autotune_build(_build) -> dict:
+    """21a's builds, started after phase 2's: every build variant of
+    matmul_epilogue and quantize (the autotune candidates), half the CPU
+    cores' worth of nvcc at a time at niceness 19, on the cores the script
+    leaves idle, in a thread; 21a waits for them. Returns the thread's box (its
+    keys, start, report or error)."""
+    import threading
+
+    box = {"keys": [_build.variant_key(lib, v) for lib in ("matmul_epilogue", "quantize")
+                    for v in sorted(_build.VARIANTS[lib])], "t0": time.perf_counter()}
+
+    def run():
+        try:
+            box["report"] = _build.build(box["keys"], verbose=True, jobs=AUTOTUNE_JOBS, nice=19)
+        except Exception as e:  # raised again by 21a
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=run, name="autotune-build", daemon=True)
+    box["thread"].start()
+    BACKGROUND.append(box["thread"])
+    return box
+
+
+def phase_autotune_build(_build, box: dict | None = None) -> dict:
+    """[21a] every build variant of matmul_epilogue and quantize (the
+    autotune candidates) built from the one source, in parallel (``box``:
+    the builds :func:`start_autotune_build` started); each one's ptxas
+    registers and spills. A build that fails raises."""
+    box = box or start_autotune_build(_build)
+    keys = box["keys"]
+    print(f"[21a] build every autotune candidate: {len(keys)} variants (and the two defaults "
+          f"of phase 2), {AUTOTUNE_JOBS} nvcc at a time, started "
+          f"{time.perf_counter() - box['t0']:.1f} s ago")
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    report = box["report"]
+    out = {}
+    for key in keys:
+        fns = {fn: ptxas_numbers(line) for fn, line in ptxas_report(report[key]["log"]).items()}
+        assert fns and all(r > 0 for r, _, _ in fns.values()), (key, fns)
+        spilled = sorted(fn for fn, (_, st, ld) in fns.items() if st or ld)
+        print(f"  {key}: built {report[key]['seconds']:.1f} s after the start, {len(fns)} "
+              f"kernels, registers "
+              f"{sorted({r for r, _, _ in fns.values()})}, spill stores / loads "
+              f"{max(st for _, st, _ in fns.values())} / {max(ld for _, _, ld in fns.values())} "
+              f"B at most" + (f" (in {spilled})" if spilled else ""))
+        out[key] = fns
+    AUTOTUNE_DIR.mkdir(parents=True, exist_ok=True)
+    (AUTOTUNE_DIR / "ptxas.json").write_text(json.dumps(out, indent=1, sort_keys=True))
+    return out
+
+
+def phase_autotune_bitwise(torch, _build, mm, q, ops, ref) -> None:
+    """[21b] every candidate against the default, bitwise: Newton-Schulz
+    through matmul_epilogue at ``AUTOTUNE_NS_CHECK`` (all three products, the
+    triangles mirrored), quantize (full and codes-only) and dequantize at
+    ``AUTOTUNE_QUANT_CHECK`` with each candidate's plan equal to its
+    library's; the defaults against their plain versions as 5b (1e-5) and 8a
+    (bitwise) hold them."""
+    print("[21b] every candidate bitwise equal to the default; the default against the plain "
+          "version")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for shape in AUTOTUNE_NS_CHECK:
+        g = torch.randn(shape, generator=gen, device="cuda")
+        base = ops.ns_orthogonalize(g, block=mm.DEFAULT_TILE)
+        y_ref = ref.ns_orthogonalize_ref(g)
+        torch.cuda.synchronize()
+        check(f"Newton-Schulz {list(shape)}, default tile vs plain fp32",
+              (base - y_ref).abs().max().item(), 1e-5)
+        for tile in mm.TILE_CANDIDATES:
+            y = ops.ns_orthogonalize(g, block=tile)
+            assert torch.equal(y, base), (shape, tile)
+        print(f"  Newton-Schulz {list(shape)}: all {len(mm.TILE_CANDIDATES)} candidates bitwise "
+              "equal to the default")
+        del g, base, y_ref, y
+    c_plan = {}
+    for rows, cols, bits in AUTOTUNE_QUANT_CHECK:
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+        base = q.rowwise_quantize(x, bits)
+        want = q.rowwise_quantize_plain(x, bits)
+        base_codes = q.rowwise_quantize_codes(x, bits)
+        base_vals = q.rowwise_dequantize(*base[1:])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(base, want)), (rows, cols, "plain")
+        regimes = set()
+        for tile in q.TILE_CANDIDATES:
+            key = _build.variant_key("quantize", q.tile_variant(tile))
+            if key not in c_plan:
+                fn = _build.load(key).quantize_plan
+                fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_longlong)]
+                fn.restype = ctypes.c_int
+                c_plan[key] = fn
+            parts = ctypes.c_longlong()
+            code = c_plan[key](rows, cols, ctypes.byref(parts))
+            plan = q.quantize_plan(rows, cols, tile)
+            assert (("warp", "block", "long")[code], parts.value) == plan, (key, rows, cols)
+            regimes.add(plan)
+            got = q.rowwise_quantize(x, bits, tile=tile)
+            codes_only = q.rowwise_quantize_codes(x, bits, tile=tile)
+            vals = q.rowwise_dequantize(*base[1:], tile=tile)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("deq", "codes", "lo", "scale", "codes-only codes",
+                                   "codes-only lo", "codes-only scale", "dequantize"),
+                                  (*got, *codes_only, vals), (*base, *base_codes, base_vals)):
+                assert torch.equal(a, b), (key, rows, cols, name)
+        print(f"  quantize [{rows}, {cols}] {bits}-bit: the default bitwise its plain version; "
+              f"all {len(q.TILE_CANDIDATES)} candidates' full, codes-only and dequantize launches "
+              f"bitwise the default's, each plan its library's; plans {sorted(regimes)}")
+        del x, base, want, base_codes, base_vals, got, codes_only, vals
+    torch.cuda.empty_cache()
+
+
+def phase_autotune_table(torch, mm, q, ops, at) -> list:
+    """[21c] every ``cuda`` entry of the committed table re-verified at its
+    key's shape: the named candidate's output bitwise the default's."""
+    table = at.AutotuneTable.load(at.DEFAULT_TABLE_PATH)
+    entries = sorted(k for k in table.entries if k.endswith("/cuda"))
+    print(f"[21c] the committed table's {len(entries)} cuda entries ({at.DEFAULT_TABLE_PATH}) "
+          "re-verified at their keys' shapes, bitwise")
+    assert entries, "the committed table holds no cuda entry"
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    tuned = []
+    for key in entries:
+        kernel, dims, dtype, _ = key.split("/")
+        shape = tuple(int(d) for d in dims.split("x"))
+        config = table.entries[key]["config"]
+        (mm if kernel == "ns" else q).tile_variant(config)  # a config off the grid raises
+        if kernel == "ns":
+            g = torch.randn(shape, generator=gen, device="cuda", dtype=getattr(torch, dtype))
+            a, b = (ops.ns_orthogonalize(g, block=config),
+                    ops.ns_orthogonalize(g, block=mm.DEFAULT_TILE))
+        else:
+            x = torch.randn(shape[:2], generator=gen, device="cuda", dtype=getattr(torch, dtype))
+            a, b = (ops.quantize_rowwise(x, shape[2], block_rows=config),
+                    ops.quantize_rowwise(x, shape[2], block_rows=q.DEFAULT_TILE))
+        torch.cuda.synchronize()
+        assert at._bitwise_equal(a, b), key
+        is_default = config == (mm.DEFAULT_TILE if kernel == "ns" else q.DEFAULT_TILE)
+        if not is_default:
+            tuned.append(key)
+        print(f"  {key}: {config}{' (the default)' if is_default else ''} bitwise the default's")
+        del a, b
+    torch.cuda.empty_cache()
+    return tuned
+
+
+def phase_autotune_sweep(torch, at) -> dict:
+    """[21d] the ``h100`` suite swept on the card into ``AUTOTUNE_DIR`` (not
+    the committed table; ``AUTOTUNE_REPS`` timed runs a candidate after its
+    checked one): default and best ms, bound and torch.baddbmm per shape."""
+    out = AUTOTUNE_DIR / "table.json"
+    out.unlink(missing_ok=True)
+    print(f"[21d] the h100 suite swept as python -m repro_torch.kernels.autotune --suite h100 "
+          f"--out {out} does it (in-process), at {AUTOTUNE_REPS} timed run(s) a candidate and "
+          f"{AUTOTUNE_NS_ITERS} Newton-Schulz iteration(s) a run")
+    table = at.run_sweeps("h100", out=str(out), reps=AUTOTUNE_REPS, device="cuda",
+                          ns_iters=AUTOTUNE_NS_ITERS)
+    rows = {}
+    for key, ent in sorted(table.entries.items()):
+        ev = ent["evidence"]
+        assert ev["verified_bitwise"] and ev["device"], key
+        rows[key] = dict(config=ent["config"], default_ms=ev["default_s"] * 1e3,
+                         best_ms=ev["best_s"] * 1e3)
+        if "bound_s" in ev:
+            rows[key].update(bound_ms=ev["bound_s"] * 1e3, baddbmm_ms=ev["baddbmm_s"] * 1e3)
+    return rows
+
+
+def phase_autotune_runs(torch, _build, build_parser, train, refs: dict | None = None) -> dict:
+    """[21e] 6b's captured smollm command and 12d's paper-416m command with
+    ``--autotune off`` and with it on (the default): losses, eval losses,
+    comm_bytes and every leaf of the final state (outer parameters, inner
+    and outer optimizer state, EF where kept) bitwise equal; the launches
+    counted by variant, the tuned variants launched on, the defaults off,
+    both runs' replayed rounds' walls printed. ``refs`` (tag -> (history,
+    host state, variant launches)) holds the runs with autotune on that 6b
+    and 12d made; without them (``--only 21``) they run here first."""
+    from repro_torch.kernels.autotune import configure
+    from repro_torch.utils.tree import tree_map
+
+    print("[21e] the training commands of 6b and 12d with --autotune off against on, bitwise")
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    rows = {}
+    for tag, argv in (("6b", TRAIN), ("12d", TRAIN_LADDER)):
+        runs = {}
+        if refs and tag in refs:
+            runs["on"] = refs[tag]
+        for mode in ("off", "on"):
+            if mode in runs:
+                continue
+            run_argv = replace_flags(argv, out=ROOT / "build" / f"chip_smoke_autotune_{tag}")
+            args = build_parser().parse_args(run_argv + ["--autotune", mode])
+            _build.reset_launch_counts()
+            out = train(args)
+            torch.cuda.synchronize()
+            runs[mode] = (out["history"],
+                          tree_map(lambda t: t.to("cpu", copy=True), out["state"]),
+                          dict(_build.VARIANT_LAUNCHES))
+            for name, n in _build.LAUNCHES.items():  # every launch counted by one variant
+                assert n == sum(v for k, v in _build.VARIANT_LAUNCHES.items()
+                                if _build.split_key(k)[0] == name), (tag, mode, name)
+            del out
+            torch.cuda.empty_cache()
+        configure()  # the process default again: the committed table, on
+        (h_on, s_on, v_on), (h_off, s_off, v_off) = runs["on"], runs["off"]
+        w_on, w_off = ([r["wall_s"] for r in h[1:]] for h in (h_on, h_off))
+        assert len(h_on) == len(h_off)
+        for a, b in zip(h_on, h_off):
+            for k in keys:
+                assert a[k] == b[k], (tag, a["round"], k, a[k], b[k])
+        diffs = _leaf_diffs(torch, s_on, s_off)
+        assert not diffs, (tag, diffs)
+        assert all(_build.split_key(k)[1] is None for k in v_off), (tag, v_off)
+        tuned = {k: n for k, n in v_on.items() if _build.split_key(k)[1] is not None}
+        print(f"  {tag}: {len(h_on)} rounds' {', '.join(keys)} and every state leaf bitwise "
+              f"equal; launches by variant with autotune on {v_on}; off {v_off}; the replayed "
+              f"rounds' walls on {[round(w, 4) for w in w_on]} s, off "
+              f"{[round(w, 4) for w in w_off]} s")
+        rows[tag] = dict(variants_on=v_on, variants_off=v_off, tuned=tuned, wall_on_s=w_on,
+                         wall_off_s=w_off)
+        del runs
+    return rows
+
+
+def tuned_times(torch, mm, q, at) -> dict:
+    """The summary rows' own timed calls (5b's X X^T on the w_in stack, 8a's
+    global Q1 of embed) with the committed table's variant for their shape,
+    beside the default's, in turns (default, tuned, tuned, default)."""
+    table = at.AutotuneTable.load(at.DEFAULT_TABLE_PATH)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = normed(torch.randn((30, 576, 1536), generator=gen, device="cuda"))
+    ns_tile = table.lookup("ns", (30, 576, 1536), "float32", "cuda") or mm.DEFAULT_TILE
+    xq = torch.randn((2, 28_311_552), generator=gen, device="cuda")
+    q_tile = table.lookup("quantize", (2, 28_311_552, 2), "float32", "cuda") or q.DEFAULT_TILE
+    calls = {"matmul_epilogue": (ns_tile, lambda t: mm.matmul_epilogue(
+                 x, x.mT, symmetric=True, tile=t), mm.DEFAULT_TILE),
+             "quantize": (q_tile, lambda t: q.rowwise_quantize(xq, 2, tile=t), q.DEFAULT_TILE)}
+    out = {}
+    for name, (tile, fn, default) in calls.items():
+        times = {"default": [], "tuned": []}
+        for side in ("default", "tuned", "tuned", "default"):
+            times[side].append(time_ms(torch, lambda: fn(tile if side == "tuned" else default)))
+        out[name] = dict(tile=tile, default_ms=statistics.mean(times["default"]),
+                         tuned_ms=statistics.mean(times["tuned"]))
+        print(f"  {name} at its summary row's shape: default {times['default']} ms, the table's "
+              f"{tile} {times['tuned']} ms")
+    return out
+
+
+def phase_autotune(torch, mods: dict, build_parser, train, smi: str,
+                   refs: dict | None = None) -> dict:
+    """Phase 21: the autotune candidates built, held bitwise, the committed
+    table re-verified, the ``h100`` suite swept, and the training commands
+    with the table off and on."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import autotune as at
+
+    mm, q, ops, ref = (mods[k] for k in ("mm", "q", "ops", "ref"))
+    ptxas = phase_autotune_build(_build, mods.get("autotune_build"))
+    lap("21a")
+    phase_autotune_bitwise(torch, _build, mm, q, ops, ref)
+    lap("21b")
+    tuned_keys = phase_autotune_table(torch, mm, q, ops, at)
+    times = tuned_times(torch, mm, q, at)
+    lap("21c")
+    sweep = phase_autotune_sweep(torch, at)
+    print(f"  the h100 suite on {smi}: {len(sweep)} shapes")
+    lap("21d")
+    runs = phase_autotune_runs(torch, _build, build_parser, train, refs)
+    lap("21e")
+    return dict(ptxas=ptxas, tuned_keys=tuned_keys, times=times, sweep=sweep, runs=runs)
+
+
+ALONE = ("12", "13", "14", "15", "16", "17", "18", "19", "21")
 
 
 def main(argv: list | None = None) -> int:
@@ -4391,9 +4720,11 @@ def main(argv: list | None = None) -> int:
           "allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
+    mods = dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou, q=q)
     ptxas = phase_build(_build)
+    if only is None or "21" in only:  # 21a's builds, behind the rest of the script
+        mods["autotune_build"] = start_autotune_build(_build)
     lap("2")
-    mods = dict(fa=fa, mm=mm, ops=ops, ref=ref, ou=ou)
 
     def run_variants(ref6b: tuple | None = None) -> dict:
         if ref6b is None:  # alone: 6b's run is the reference
@@ -4421,6 +4752,7 @@ def main(argv: list | None = None) -> int:
                                ptxas, smi),
         "18": lambda: slice_8(torch, mods, get_config, build_model, serve, ptxas, smi),
         "19": lambda: slice_9(torch, fa, get_config, build_model, serve, ptxas, smi),
+        "21": lambda: phase_autotune(torch, mods, build_parser, train, smi),
     }
     if only is not None:
         import gc
@@ -4495,7 +4827,7 @@ def main(argv: list | None = None) -> int:
     lap("6c")
     phase_train_equal(torch, build_parser, train, ref_hist, ref_state)
     lap("6d")
-    ref_host = tree_map(lambda t: t.to("cpu", copy=True), ref_state)  # phase 14a's reference
+    ref_host = tree_map(lambda t: t.to("cpu", copy=True), ref_state)  # phases 14a and 21e
     del ref_state
     torch.cuda.empty_cache()
 
@@ -4515,7 +4847,6 @@ def main(argv: list | None = None) -> int:
     ladder = group["12"]()
     nemotron = group["13"]()
     variants = run_variants((ref_hist, ref_host, muon_tok_s))
-    del ref_host
     probe = group["15"]()
     lap("15c")
     moe = group["16"]()
@@ -4526,6 +4857,11 @@ def main(argv: list | None = None) -> int:
         reads += g.pop("reads")
     phase_roofline(reads, smi)
     lap("20")
+    autotune = phase_autotune(torch, mods, build_parser, train, smi, refs={
+        "6b": (ref_hist, ref_host, train_launches.variants),
+        "12d": ladder.pop("autotune_ref")})
+    del ref_host
+    lap("21")
 
     def new_paths(name: str) -> dict:
         """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
@@ -4575,6 +4911,18 @@ def main(argv: list | None = None) -> int:
          "replaces": f"{jax_src}/quantize.py:87",
          "launches": run_a["dequantize"], **quant["dequantize"]},
     ]}
+    # the build variant each main path launched (6b: training; 4b: serving; 8c: run (a))
+    main_variants = {"flash_fwd": launches.variants, "paged_decode": launches.variants,
+                     "quantize": run_a.variants, "dequantize": run_a.variants}
+    for row in summary["kernels"]:
+        name = row["name"]
+        row["variants"] = {k: n for k, n in main_variants.get(name, train_launches.variants)
+                           .items() if _build.split_key(k)[0] == name}
+        if LADDER in row:  # 12d's training run
+            row[LADDER]["variants"] = {k: n for k, n in ladder["variants"].items()
+                                       if _build.split_key(k)[0] == name}
+        if name in autotune["times"]:
+            row["tuned"] = autotune["times"][name]
     t = flash["training"]
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
           "(the flash_fwd row counts the serving main path's and times its shape); at the "
@@ -4588,7 +4936,10 @@ def main(argv: list | None = None) -> int:
     print(f"compressed runs' launches of quantize / dequantize: run (a) {run_a['quantize']} / "
           f"{run_a['dequantize']} (the rows count run (a)'s), run (b) {run_b['quantize']} / "
           f"{run_b['dequantize']}")
-    print(f"[21] done in {time.perf_counter() - _T0:.1f} s")
+    print(f"tuned variants launched (autotune on, the default): 6b {autotune['runs']['6b']['tuned']}"
+          f", 12d {autotune['runs']['12d']['tuned']}; committed cuda entries not the default: "
+          f"{autotune['tuned_keys']}")
+    print(f"[22] done in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4597,4 +4948,9 @@ def main(argv: list | None = None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for thread in BACKGROUND:
+            thread.join()
+    sys.exit(code)

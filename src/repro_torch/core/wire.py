@@ -115,8 +115,10 @@ def quant_encode(x: torch.Tensor, bits: int, rowwise: bool, *,
         raise ValueError("codes are u8 on the wire")
     m, n = _row_layout(tuple(x.shape), rowwise, batch_ndim)
     x2d = x.reshape(m, n)
-    if impl == "pallas":
-        codes, lo, scale = rowwise_quantize_codes(x2d, bits)
+    if impl == "pallas":  # the codes-only kernel, under ops.quantize_rowwise's autotune key
+        from repro_torch.kernels.ops import quantize_tile
+
+        codes, lo, scale = rowwise_quantize_codes(x2d, bits, tile=quantize_tile(x2d, bits))
     else:
         q, lo, scale = quant_codes_plain(x2d, bits)
         codes = q.to(torch.uint8)

@@ -17,6 +17,20 @@ a capture counted and adds it once per replay (:func:`capture_graph`,
 launch, ``launch`` reads the tile sizes its ``<lib>_tiles`` function
 reports and raises if they differ from those the launching module
 registered in ``TILES`` (its Python mirrors of the schedules assume them).
+
+Variants. A library can be built several times from its one source with
+its tile constants overridden by ``-D`` defines (the ``#ifndef`` defaults in
+the ``.cu``): ``VARIANTS[lib][variant]`` holds a variant's defines, which the
+module that launches the library registers (``matmul.py``, ``quantize.py``;
+the autotune sweep's candidates). Everything is keyed by a string: a
+library or entry point by its name for the default variant, which compiles
+with no define and so keeps the source's own constants, and by
+``name@variant`` otherwise (:func:`variant_key`). A variant's defines enter
+its library's hash, so each variant has its own file. ``LAUNCHES`` counts by
+entry name whatever the variant; ``VARIANT_LAUNCHES`` counts by key. A
+library is built and loaded at its first launch, which must not come inside
+a CUDA-graph capture (:func:`load` raises there): the engine's eager warm-up
+reaches every variant its captured program launches.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable
@@ -41,35 +56,65 @@ ENTRY_LIB = {"flash_dq": "flash_bwd", "flash_dkv": "flash_bwd", "nesterov": "out
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+# library -> variant name -> {macro: value}: the -D defines of each variant
+VARIANTS: dict[str, dict[str, dict[str, int]]] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[str, tuple] = {}
-# library -> (the count of ints its C function <lib>_tiles reports, the
-# leading ones: the tile sizes the module that launches it assumes)
+# library key (variant_key) -> (the count of ints its C function <lib>_tiles
+# reports, the leading ones: the tile sizes the module that launches it assumes)
 TILES: dict[str, tuple[int, tuple[int, ...]]] = {}
 _TILES_CHECKED: set[str] = set()
 
 LAUNCHES: dict[str, int] = {name: 0 for name in (
     "flash_fwd", "paged_decode", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
     "quantize", "dequantize")}
+# entry key (variant_key) -> launches; a key appears at its first launch
+VARIANT_LAUNCHES: dict[str, int] = {}
+
+
+def variant_key(name: str, variant: str | None = None) -> str:
+    """The key of a library or entry point ``name`` built as ``variant``
+    (None: the default variant, keyed by the name alone)."""
+    return name if variant is None else f"{name}@{variant}"
+
+
+def split_key(key: str) -> tuple[str, str | None]:
+    """Inverse of :func:`variant_key`: ``(name, variant or None)``."""
+    name, _, variant = key.partition("@")
+    return name, variant or None
+
+
+class LaunchCounts(dict):
+    """Launches by entry name (a plain dict's equality), with the same
+    launches by entry key in ``variants``."""
+
+    def __init__(self, counts: dict, variants: dict | None = None):
+        super().__init__(counts)
+        self.variants = dict(variants or {})
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
     """Add ``counts`` to ``LAUNCHES`` (a captured graph's launches, once
-    per replay)."""
+    per replay), and its ``variants`` (a :class:`LaunchCounts`) to
+    ``VARIANT_LAUNCHES``."""
     for name, n in counts.items():
         LAUNCHES[name] += n
+    for key, n in getattr(counts, "variants", {}).items():
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + n
 
 
 def capture_graph(fn: Callable, device, generators: tuple = ()) -> tuple:
     """Capture ``fn()`` in one ``torch.cuda.CUDAGraph`` on ``device``.
 
-    Returns ``(graph, fn's result, the launches the capture recorded,
-    seconds)``. A capture executes nothing, so what it counted in
+    Returns ``(graph, fn's result, the launches the capture recorded (a
+    :class:`LaunchCounts`), seconds)``. A capture executes nothing, so what it counted in
     ``LAUNCHES`` is taken back: add it once per replay with
     :func:`add_launch_counts`. ``generators`` (CUDA ``torch.Generator``s that
     ``fn`` draws from) are registered with the graph, so each replay draws
@@ -78,7 +123,7 @@ def capture_graph(fn: Callable, device, generators: tuple = ()) -> tuple:
     """
     import torch
 
-    before = dict(LAUNCHES)
+    before, before_v = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
     t0 = time.perf_counter()
     gc_was_on = gc.isenabled()
     gc.disable()
@@ -94,8 +139,12 @@ def capture_graph(fn: Callable, device, generators: tuple = ()) -> tuple:
             gc.enable()
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    launches = {k: LAUNCHES[k] - n for k, n in before.items()}
+    launches = LaunchCounts({k: LAUNCHES[k] - n for k, n in before.items()},
+                            {k: n - before_v.get(k, 0) for k, n in VARIANT_LAUNCHES.items()
+                             if n != before_v.get(k, 0)})
     LAUNCHES.update(before)
+    VARIANT_LAUNCHES.clear()
+    VARIANT_LAUNCHES.update(before_v)
     return graph, result, launches, seconds
 
 
@@ -110,38 +159,78 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
 
 
-def lib_path(name: str) -> Path:
-    """Where the library is built, named by a hash of its source, every
-    header under ``csrc/`` (a source may include any of them) and the flags."""
-    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+def defines(key: str) -> dict[str, int]:
+    """The ``-D`` defines of library key ``key`` (none for a default variant);
+    raises for a variant its module did not register."""
+    lib, variant = split_key(key)
+    if variant is None:
+        return {}
+    try:
+        return VARIANTS[lib][variant]
+    except KeyError:
+        raise KeyError(f"{lib}: no variant {variant!r} registered (known: "
+                       f"{sorted(VARIANTS.get(lib, {}))})") from None
+
+
+def lib_path(key: str) -> Path:
+    """Where library key ``key`` (a library's name, or ``lib@variant``) is
+    built, named by a hash of its source, every header under ``csrc/`` (a
+    source may include any of them), the flags and the variant's defines."""
+    lib, variant = split_key(key)
+    h = hashlib.sha256((CSRC / SOURCES[lib]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    flags = [f"-D{k}={v}" for k, v in sorted(defines(key).items())]
+    if flags:
+        h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / (f"{lib}-{digest}.so" if variant is None else
+                        f"{lib}-{variant}-{digest}.so")
 
 
-def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path, Path]:
-    out = lib_path(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC / SOURCES[name])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def _start(key: str, verbose: bool, nice: int = 0) -> tuple[subprocess.Popen, Path, Path]:
+    """Start nvcc for ``key`` (``nice``: its scheduling niceness, above the
+    caller's); its output goes to a log file beside the library (a pipe
+    could fill while the caller waits on other builds)."""
+    out = lib_path(key)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")  # builds may overlap
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(defines(key).items())),
+           *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(CSRC / SOURCES[split_key(key)[0]])]
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+                                preexec_fn=(lambda: os.nice(nice)) if nice else None)
     return proc, tmp, out
 
 
-def build(names=None, verbose: bool = False) -> dict[str, dict]:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together. Returns ``{name: {"path",
-    "seconds", "log"}}``; raises with nvcc's output if a build fails."""
+def build(names=None, verbose: bool = False, jobs: int | None = None,
+          nice: int = 0) -> dict[str, dict]:
+    """Compile the named library keys (default: every library's default
+    variant) that are not built yet, one ``nvcc`` per key, at most ``jobs``
+    at a time (default: all started together), each at niceness ``nice``
+    (a build behind other work). Returns ``{key: {"path", "seconds",
+    "log"}}`` (``seconds`` from the call's start to the build's end); raises
+    with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     names = list(SOURCES) if names is None else list(names)
     t0 = time.perf_counter()
-    running = {n: _start(n, verbose) for n in names if verbose or not lib_path(n).exists()}
+    todo = [n for n in names if verbose or not lib_path(n).exists()]
     report = {n: {"path": str(lib_path(n)), "seconds": 0.0, "log": ""} for n in names}
-    failed = []
-    for n, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
+    failed, running = [], {}
+    jobs = jobs or max(len(todo), 1)
+    while todo or running:
+        while todo and len(running) < jobs:
+            n = todo.pop(0)
+            running[n] = _start(n, verbose, nice)
+        n = next((k for k, (p, _, _) in running.items() if p.poll() is not None), None)
+        if n is None:
+            time.sleep(0.05)
+            continue
+        proc, tmp, out = running.pop(n)
+        log_path = tmp.with_suffix(".log")
+        log = log_path.read_text()
+        log_path.unlink()
         report[n].update(seconds=time.perf_counter() - t0, log=log)
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
@@ -153,63 +242,87 @@ def build(names=None, verbose: bool = False) -> dict[str, dict]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built on first use."""
-    if name not in _LIBS:
-        path = lib_path(name)
+def load(key: str) -> ctypes.CDLL:
+    """Library key ``key``'s shared library, built on first use; then its
+    ``<lib>_init`` runs where it has one (a kernel's one-time set-up, such as
+    its shared-memory opt-in). Raises if the first use comes while the
+    current stream is capturing a CUDA graph: the build and the set-up would
+    run inside the capture."""
+    if key not in _LIBS:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{key}: first loaded inside a CUDA-graph capture; launch it "
+                               "once eagerly (the warm-up) before capturing")
+        path = lib_path(key)
         if not path.exists():
-            build([name])
-        _LIBS[name] = ctypes.CDLL(str(path))
-    return _LIBS[name]
+            build([key])
+        lib = ctypes.CDLL(str(path))
+        init = getattr(lib, f"{split_key(key)[0]}_init", None)
+        if init is not None:
+            init.restype = ctypes.c_int
+            rc = init()
+            if rc != 0:
+                raise RuntimeError(f"{key}: {split_key(key)[0]}_init failed (cudaError {rc})")
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
-def entry(name: str, argtypes: list):
-    """``(fn, err)``: the C entry point ``name`` with its argument types, and
-    its library's error-string function; built and bound on first use."""
-    if name not in _ENTRIES:
+def entry(key: str, argtypes: list):
+    """``(fn, err)``: the C entry point of key ``key`` (``name`` or
+    ``name@variant``) with its argument types, and its library's error-string
+    function; built and bound on first use."""
+    if key not in _ENTRIES:
+        name, variant = split_key(key)
         lib_name = ENTRY_LIB.get(name, name)
-        lib = load(lib_name)
+        lib = load(variant_key(lib_name, variant))
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         err = getattr(lib, f"{lib_name}_error")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        _ENTRIES[name] = (fn, err)
-    return _ENTRIES[name]
+        _ENTRIES[key] = (fn, err)
+    return _ENTRIES[key]
 
 
-def kernel_tiles(lib_name: str) -> tuple[int, ...]:
-    """What the built library reports from its ``<lib>_tiles`` function."""
-    out = [ctypes.c_int() for _ in range(TILES[lib_name][0])]
-    fn = getattr(load(lib_name), f"{lib_name}_tiles")
+def kernel_tiles(lib_key: str) -> tuple[int, ...]:
+    """What library key ``lib_key``'s built library reports from its
+    ``<lib>_tiles`` function."""
+    lib_name = split_key(lib_key)[0]
+    out = [ctypes.c_int() for _ in range(TILES[lib_key][0])]
+    fn = getattr(load(lib_key), f"{lib_name}_tiles")
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * len(out), ctypes.c_int
     fn(*map(ctypes.byref, out))
     return tuple(o.value for o in out)
 
 
-def check_tiles(name: str) -> None:
-    """Raise if the library of entry point ``name`` reports other tile sizes
-    than ``TILES`` holds (read once per library)."""
+def check_tiles(key: str) -> None:
+    """Raise if the library of entry key ``key`` reports other tile sizes
+    than ``TILES`` holds for it (read once per library key)."""
+    name, variant = split_key(key)
     lib_name = ENTRY_LIB.get(name, name)
-    if lib_name in TILES and lib_name not in _TILES_CHECKED:
-        want = TILES[lib_name][1]
-        got = kernel_tiles(lib_name)[:len(want)]
+    lib_key = variant_key(lib_name, variant)
+    if lib_key in TILES and lib_key not in _TILES_CHECKED:
+        want = TILES[lib_key][1]
+        got = kernel_tiles(lib_key)[:len(want)]
         if got != want:
             raise RuntimeError(f"{SOURCES[lib_name]} tiles {got} != {want}, the sizes the "
-                               "launching module assumes")
-        _TILES_CHECKED.add(lib_name)
+                               f"launching module assumes ({lib_key})")
+        _TILES_CHECKED.add(lib_key)
 
 
-def launch(name: str, argtypes: list, device, *args) -> None:
-    """Launch ``name`` on ``device``'s current stream (the stream is passed
-    as the last argument) after :func:`check_tiles`; raise if the launch
-    failed, else count it."""
+def launch(name: str, argtypes: list, device, *args, variant: str | None = None) -> None:
+    """Launch entry point ``name`` of ``variant`` (None: the default) on
+    ``device``'s current stream (the stream is passed as the last argument)
+    after :func:`check_tiles`; raise if the launch failed, else count it."""
     import torch
 
-    check_tiles(name)
-    fn, err = entry(name, argtypes)
+    key = variant_key(name, variant)
+    check_tiles(key)
+    fn, err = entry(key, argtypes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {err(rc).decode()} (cudaError {rc})")
+        raise RuntimeError(f"{key} launch failed: {err(rc).decode()} (cudaError {rc})")
     LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1

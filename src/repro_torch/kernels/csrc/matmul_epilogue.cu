@@ -50,18 +50,65 @@
 // is the same products in the same k order (fmaf(a, b, c) == fmaf(b, a, c)),
 // so the output equals the full computation bit for bit, with ~42% fewer
 // tiles at the 576-wide leaves (45 of 81 at tiles of 64, 21 of 36 at 96).
+//
+// Build variants: the block tile, the K step, the thread grid and its
+// register tiles, and the blocks an SM the registers are budgeted for are
+// -D defines (MM_TILE, MM_BK, MM_TY, MM_TX, MM_MG, MM_MT, MM_NG, MM_NT,
+// MM_MIN_BLOCKS), whose defaults below are the design above; the autotune
+// candidates of kernels/matmul.py are built this way. They change the
+// schedule only: every entry stays one fmaf chain over k in order, so every
+// variant's output is bitwise the default's. A variant whose shared memory
+// passes the 48 KB a static allocation may take asks for it dynamically and
+// opts in to it in matmul_epilogue_init, which the loader calls once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef MM_TILE
+#define MM_TILE 96
+#endif
+#ifndef MM_BK
+#define MM_BK 16
+#endif
+#ifndef MM_TY
+#define MM_TY 16
+#endif
+#ifndef MM_TX
+#define MM_TX 16
+#endif
+#ifndef MM_MG
+#define MM_MG 1
+#endif
+#ifndef MM_MT
+#define MM_MT 1
+#endif
+#ifndef MM_NG
+#define MM_NG 1
+#endif
+#ifndef MM_NT
+#define MM_NT 1
+#endif
+#ifndef MM_MIN_BLOCKS
+#define MM_MIN_BLOCKS 2
+#endif
+// shared memory a block, in floats: the two staging buffers of A and B, or
+// the staged C tile, whichever is larger; past 48 KB it is allocated dynamically
+#define MM_STAGE_FLOATS (2 * 2 * MM_BK * (MM_TILE + 4))
+#define MM_C_FLOATS (MM_TILE * (MM_TILE + 1))
+#if 4 * (MM_STAGE_FLOATS > MM_C_FLOATS ? MM_STAGE_FLOATS : MM_C_FLOATS) > 48 * 1024
+#define MM_DYNAMIC_SMEM 1
+#else
+#define MM_DYNAMIC_SMEM 0
+#endif
+
 namespace {
 
 // block tile (square, so the triangle map holds), depth of a K step
-constexpr int TILE = 96, BK = 16;
+constexpr int TILE = MM_TILE, BK = MM_BK;
 // thread grid TY x TX (warps of 4 x 8 threads); a thread's rows are MG
 // groups of 4 (group g: rows 4 TY g + 4 ty .. + 3) then, with MT = 1, the
 // pair 4 TY MG + 2 ty, + 1; its columns likewise with NG, NT and tx
-constexpr int TY = 16, TX = 16, MG = 1, MT = 1, NG = 1, NT = 1;
+constexpr int TY = MM_TY, TX = MM_TX, MG = MM_MG, MT = MM_MT, NG = MM_NG, NT = MM_NT;
 constexpr int THREADS = TY * TX;
 constexpr int TM = 4 * MG + 2 * MT, TN = 4 * NG + 2 * NT;
 static_assert(TY * TM == TILE && TX * TN == TILE, "thread tiles must cover the block tile");
@@ -72,6 +119,11 @@ constexpr int CHUNKS = TILE * BK / 4;                          // 4-element chun
 constexpr int CHUNK_ITERS = (CHUNKS + THREADS - 1) / THREADS;  // per thread
 constexpr int STAGE_FLOATS = 2 * 2 * BK * LD;                  // A and B, two buffers
 constexpr int SMEM_FLOATS = STAGE_FLOATS > TILE * LDC ? STAGE_FLOATS : TILE * LDC;
+static_assert(MT <= 1 && NT <= 1 && BK % 4 == 0 && TILE % 4 == 0, "fragment and chunk layouts");
+static_assert(SMEM_FLOATS == (MM_STAGE_FLOATS > MM_C_FLOATS ? MM_STAGE_FLOATS : MM_C_FLOATS),
+              "the preprocessor's shared-memory size");
+// bytes of dynamic shared memory a launch asks for (0: the static array)
+constexpr size_t DYNAMIC_SMEM_BYTES = MM_DYNAMIC_SMEM ? SMEM_FLOATS * sizeof(float) : 0;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -196,14 +248,18 @@ __device__ __forceinline__ int frag_index(int i, int t) {
 }
 
 template <typename T, bool A_KFAST, bool B_NFAST, bool VEC>
-__global__ void __launch_bounds__(THREADS, 2) matmul_epilogue_kernel(
+__global__ void __launch_bounds__(THREADS, MM_MIN_BLOCKS) matmul_epilogue_kernel(
     const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ D, T* __restrict__ C,
     int M, int N, int K, long long sAb, long long sAm, long long sAk, long long sBb,
     long long sBk, long long sBn, long long sDb, long long sDm, long long sDn, float alpha,
     float beta, int use_d, int symmetric) {
   constexpr bool ASYNC_A = VEC && !A_KFAST && sizeof(T) == 4;
   constexpr bool ASYNC_B = VEC && B_NFAST && sizeof(T) == 4;
+#if MM_DYNAMIC_SMEM
+  extern __shared__ __align__(16) float smem[];  // SMEM_FLOATS
+#else
   __shared__ __align__(16) float smem[SMEM_FLOATS];
+#endif
   float* As = smem;                // [2][BK][LD]
   float* Bs = smem + 2 * BK * LD;  // [2][BK][LD]
 
@@ -314,7 +370,7 @@ void launch(dim3 grid, cudaStream_t st, const void* a, const void* b, const void
             int M, int N, int K, long long sAb, long long sAm, long long sAk, long long sBb,
             long long sBk, long long sBn, long long sDb, long long sDm, long long sDn,
             float alpha, float beta, int use_d, int symmetric) {
-  matmul_epilogue_kernel<T, A_KFAST, B_NFAST, VEC><<<grid, THREADS, 0, st>>>(
+  matmul_epilogue_kernel<T, A_KFAST, B_NFAST, VEC><<<grid, THREADS, DYNAMIC_SMEM_BYTES, st>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(d),
       static_cast<T*>(c), M, N, K, sAb, sAm, sAk, sBb, sBk, sBn, sDb, sDm, sDn, alpha, beta,
       use_d, symmetric);
@@ -344,7 +400,35 @@ void dispatch(bool a_kfast, bool b_nfast, bool vec, dim3 grid, cudaStream_t st, 
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
+// the dynamic shared-memory opt-in of every instantiation (on the current device)
+template <typename T>
+cudaError_t opt_in() {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const int bytes = (int)DYNAMIC_SMEM_BYTES;
+  const void* fns[] = {(const void*)matmul_epilogue_kernel<T, true, true, true>,
+                       (const void*)matmul_epilogue_kernel<T, true, false, true>,
+                       (const void*)matmul_epilogue_kernel<T, false, true, true>,
+                       (const void*)matmul_epilogue_kernel<T, false, false, true>,
+                       (const void*)matmul_epilogue_kernel<T, true, true, false>,
+                       (const void*)matmul_epilogue_kernel<T, true, false, false>,
+                       (const void*)matmul_epilogue_kernel<T, false, true, false>,
+                       (const void*)matmul_epilogue_kernel<T, false, false, false>};
+  for (const void* fn : fns) {
+    const cudaError_t e = cudaFuncSetAttribute(fn, attr, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// One-time set-up before the first launch: a variant with dynamic shared
+// memory opts every kernel in to it; the others need nothing.
+extern "C" int matmul_epilogue_init() {
+  if (!MM_DYNAMIC_SMEM) return 0;
+  const cudaError_t e = opt_in<float>();
+  return (int)(e != cudaSuccess ? e : opt_in<__nv_bfloat16>());
+}
 
 // strides are in elements; dtype: 0 = float32, 1 = bfloat16 (A, B, D and C
 // share it). symmetric = 1 computes the upper triangle of tiles and mirrors

@@ -54,20 +54,40 @@
 // Loads are 16-byte float4, codes stored four to a 32-bit word and deq as
 // float4, where cols % 4 == 0 and x, deq and codes are aligned; otherwise
 // the same kernels load and store entry by entry.
+//
+// Build variants: the threads a block, the float4 groups a thread keeps in
+// flight over a long row and the blocks pass 1 aims at are -D defines
+// (QZ_THREADS, QZ_UNROLL, QZ_LONG_BLOCKS), whose defaults below are the
+// design above; the autotune candidates of kernels/quantize.py are built this
+// way. They move the cuts between the regimes and the split of a long row,
+// never the arithmetic: min and max are exact in any order and the encode is
+// elementwise, so every variant's output is bitwise the default's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef QZ_THREADS
+#define QZ_THREADS 256
+#endif
+#ifndef QZ_UNROLL
+#define QZ_UNROLL 4
+#endif
+#ifndef QZ_LONG_BLOCKS
+#define QZ_LONG_BLOCKS 528
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = QZ_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 16;                             // float4 groups a thread holds
 constexpr int kWarpRowMax = 32 * kMaxGroups * 4;           // 2048 entries held by a warp
 constexpr int kBlockRowMax = kThreads * kMaxGroups * 4;    // 16384 entries held by a block
-constexpr int kUnroll = 4;                                 // float4 groups in flight a thread
-constexpr int kLongBlocks = 528;                           // 4 blocks on each of 132 SMs
+constexpr int kUnroll = QZ_UNROLL;                         // float4 groups in flight a thread
+constexpr int kLongBlocks = QZ_LONG_BLOCKS;                // default: 4 blocks on each of 132 SMs
 constexpr int kLongMinGroups = kUnroll * kThreads;         // a block's step over a long row
 constexpr long long kChunk = 4096;                         // entries a dequantize tile
+static_assert(kThreads % 32 == 0 && kThreads <= 1024 && kUnroll >= 1 && kLongBlocks >= 1,
+              "whole warps, one block's threads, a positive unroll and split");
 
 // NaN-propagating min / max, as jnp.min / jnp.max and torch.amin / amax
 __device__ __forceinline__ float min_nan(float a, float b) { return (a < b || a != a) ? a : b; }

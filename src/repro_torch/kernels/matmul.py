@@ -29,6 +29,14 @@ so the result is bitwise the full computation's; a timing's bound counts
 only the m(m+1)/2 distinct entries a matrix (30 · 576·577/2 · 1536 · 2 =
 15.3 GFLOP for X Xᵀ on w_in, 0.229 ms at 67 TFLOP/s).
 
+The tile is a build variant (``tile=``, a config of ``TILE_CANDIDATES``;
+None, the default, is the 96-wide design above): the block tile, the K
+step and the thread grid, whose register tiles follow from them, are
+``-D`` defines of the one source, each candidate its own library
+(``_build.VARIANTS``). They change the schedule, never the arithmetic, so
+every candidate's output is bitwise the default's; the autotune sweep
+(:mod:`repro_torch.kernels.autotune`) picks among them per stack shape.
+
 The wrapper takes the kernel's plain PyTorch version for a tensor that lies
 on the CPU; for a CUDA tensor it launches the kernel or raises.
 """
@@ -43,11 +51,58 @@ from repro_torch.kernels import _build
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_F, _F, _I, _I, _I, _P]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/matmul_epilogue.cu's block tile of C (square) and K step; checked
-# against the built library at its first launch
+# csrc/matmul_epilogue.cu's default block tile of C (square) and K step;
+# checked against the built library at its first launch
 MATMUL_TILE = 96
 MATMUL_BK = 16
-_build.TILES["matmul_epilogue"] = (4, (MATMUL_TILE, MATMUL_TILE, MATMUL_BK))
+# a variant's knobs: block tile, K step, thread grid ty x tx (warps of 4 x 8
+# threads, so ty % 4 == 0 and tx % 8 == 0); a thread's register tile is
+# (tile / ty) x (tile / tx): 4, 6 or 8 a side
+DEFAULT_TILE = {"tile": MATMUL_TILE, "bk": MATMUL_BK, "ty": 16, "tx": 16}
+# the fixed candidate grid the autotune sweep walks: tiles of 64, 96 and 128,
+# K steps of 8, 16 and 32, square register tiles of 4, 6 and 8 wherever the
+# tile divides into whole warps (96 x 96 at 8 x 8 does not: 12 threads a row)
+TILE_CANDIDATES = tuple(
+    {"tile": t, "bk": bk, "ty": t // r, "tx": t // r}
+    for t in (64, 96, 128) for r in (4, 6, 8) for bk in (8, 16, 32)
+    if t % r == 0 and (t // r) % 8 == 0)
+
+
+def tile_defines(tile: dict) -> dict[str, int]:
+    """The ``-D`` defines that build ``tile`` (``csrc/matmul_epilogue.cu``'s
+    ``MM_*``); the default's equal the source's own defaults."""
+    tm, tn, threads = tile["tile"] // tile["ty"], tile["tile"] // tile["tx"], tile["ty"] * tile["tx"]
+    return {"MM_TILE": tile["tile"], "MM_BK": tile["bk"], "MM_TY": tile["ty"],
+            "MM_TX": tile["tx"], "MM_MG": tm // 4, "MM_MT": tm % 4 // 2, "MM_NG": tn // 4,
+            "MM_NT": tn % 4 // 2, "MM_MIN_BLOCKS": max(1, 512 // threads)}
+
+
+def smem_bytes(tile: dict) -> int:
+    """Shared memory a block of ``tile`` takes: the two staging buffers of A
+    and B, or the staged C tile, whichever is larger."""
+    t = tile["tile"]
+    return 4 * max(4 * tile["bk"] * (t + 4), t * (t + 1))
+
+
+def tile_variant(tile: dict | None) -> str | None:
+    """The build variant of ``tile`` (None for the default); raises for a
+    config outside ``TILE_CANDIDATES``."""
+    if tile is None or tile == DEFAULT_TILE:
+        return None
+    if tile not in TILE_CANDIDATES:
+        raise ValueError(f"matmul_epilogue: tile {tile} is not a candidate of the grid "
+                         "(matmul.TILE_CANDIDATES)")
+    return f"tile{tile['tile']}-bk{tile['bk']}-ty{tile['ty']}-tx{tile['tx']}"
+
+
+_build.TILES["matmul_epilogue"] = (4, (MATMUL_TILE, MATMUL_TILE, MATMUL_BK,
+                                       DEFAULT_TILE["ty"] * DEFAULT_TILE["tx"]))
+for _tile in TILE_CANDIDATES:
+    if _tile != DEFAULT_TILE:
+        _build.VARIANTS.setdefault("matmul_epilogue", {})[tile_variant(_tile)] = (
+            tile_defines(_tile))
+        _build.TILES[_build.variant_key("matmul_epilogue", tile_variant(_tile))] = (
+            4, (_tile["tile"], _tile["tile"], _tile["bk"], _tile["ty"] * _tile["tx"]))
 
 
 def sym_tile(t: int, nt: int) -> tuple[int, int]:
@@ -61,6 +116,14 @@ def sym_tile(t: int, nt: int) -> tuple[int, int]:
     return i, i + t
 
 
+def sym_grid(m: int, tile: dict | None = None) -> list[tuple[int, int]]:
+    """The tiles (i, j) the blocks of a symmetric ``m x m`` call with
+    ``tile`` (None: the default) compute, in block order."""
+    t = (tile or DEFAULT_TILE)["tile"]
+    nt = -(-m // t)
+    return [sym_tile(b, nt) for b in range(nt * (nt + 1) // 2)]
+
+
 def _matmul_plain(a, b, d, *, alpha: float, beta: float, out_dtype):
     """Plain version of ``matmul_epilogue``: fp32 product, then the epilogue
     in the reference's order (``alpha * acc``, then ``+ beta * d``)."""
@@ -70,7 +133,8 @@ def _matmul_plain(a, b, d, *, alpha: float, beta: float, out_dtype):
     return out.to(out_dtype)
 
 
-def _matmul_cuda(a, b, d, *, alpha: float, beta: float, out_dtype, symmetric: bool = False):
+def _matmul_cuda(a, b, d, *, alpha: float, beta: float, out_dtype, symmetric: bool = False,
+                 tile: dict | None = None):
     if a.dtype not in _DTYPE_CODE:
         raise TypeError(f"matmul_epilogue: dtype {a.dtype} (kernel takes float32 or bfloat16)")
     use_d = d is not None and beta != 0.0
@@ -89,26 +153,31 @@ def _matmul_cuda(a, b, d, *, alpha: float, beta: float, out_dtype, symmetric: bo
     dd = d if use_d else c  # never read with use_d = 0
     _build.launch("matmul_epilogue", _ARGTYPES, a.device, a.data_ptr(), b.data_ptr(),
                   dd.data_ptr(), c.data_ptr(), z, m, n, k, *a.stride(), *b.stride(),
-                  *dd.stride(), alpha, beta, int(use_d), int(symmetric), _DTYPE_CODE[a.dtype])
+                  *dd.stride(), alpha, beta, int(use_d), int(symmetric), _DTYPE_CODE[a.dtype],
+                  variant=tile_variant(tile))
     return c
 
 
 def matmul_epilogue(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor | None = None, *,
                     alpha: float = 1.0, beta: float = 0.0,
                     out_dtype: torch.dtype | None = None,
-                    symmetric: bool = False) -> torch.Tensor:
+                    symmetric: bool = False, tile: dict | None = None) -> torch.Tensor:
     """C = alpha * (a @ b) + beta * d for ``[m, k] @ [k, n]`` or stacked
     ``[z, m, k] @ [z, k, n]`` operands of any strides (no padding: the
     kernel masks ragged edges). ``d=None`` or ``beta=0`` never reads d.
     ``symmetric=True`` promises that a @ b and d are symmetric: the kernel
     computes one triangle of tiles and mirrors it (the plain version
-    ignores it); a non-square product or d raises ``ValueError``."""
+    ignores it); a non-square product or d raises ``ValueError``. ``tile``
+    picks the kernel's build variant (a config of ``TILE_CANDIDATES``; None,
+    the default tile); every variant gives the same bits, and the plain
+    version ignores it."""
     out_dtype = out_dtype or a.dtype
     if symmetric and (a.shape[-2] != b.shape[-1]
                       or (d is not None and d.shape[-1] != d.shape[-2])):
         raise ValueError(f"matmul_epilogue: symmetric=True needs a square product and d, got "
                          f"a {tuple(a.shape)}, b {tuple(b.shape)}, "
                          f"d {None if d is None else tuple(d.shape)}")
+    tile_variant(tile)  # a config outside the grid raises on either device
     if a.device.type == "cpu":
         return _matmul_plain(a, b, d, alpha=alpha, beta=beta, out_dtype=out_dtype)
     squeeze = a.dim() == 2
@@ -116,5 +185,5 @@ def matmul_epilogue(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor | None = N
         a, b = a[None], b[None]
         d = None if d is None else d[None]
     c = _matmul_cuda(a, b, d, alpha=float(alpha), beta=float(beta), out_dtype=out_dtype,
-                     symmetric=symmetric)
+                     symmetric=symmetric, tile=tile)
     return c[0] if squeeze else c

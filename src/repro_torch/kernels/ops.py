@@ -6,41 +6,67 @@ The reference pads operands to block multiples and vmaps its 2-D kernel
 over a stacked leaf; the port's kernels mask ragged edges and take the
 stack axis themselves, so nothing is padded and one launch covers a whole
 ``[L, m, n]`` leaf. Mesh routing (``kernels/partition.py``) comes with the
-multi-GPU slice, and the autotune table (``kernels/autotune.py``) with the
-tooling slice (ROADMAP.md); the Hopper kernels tile themselves, so the
-reference's ``block`` and ``block_rows`` arguments have no counterpart.
+multi-GPU slice (ROADMAP.md).
+
+The reference's ``block`` and ``block_rows`` arguments pick the kernels'
+build variant here: None (the default) consults the autotune table
+(:mod:`repro_torch.kernels.autotune`) for a CUDA tensor, under the key of
+the stack (Newton–Schulz) or of the wire shape and bits (quantize), and
+takes the default tile on a miss or with the table off; a config dict names
+a candidate of ``matmul.TILE_CANDIDATES`` or ``quantize.TILE_CANDIDATES``.
+Every variant gives the same bits. On the CPU the plain versions take no
+tile, and the arguments change nothing.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.matmul import matmul_epilogue
 from repro_torch.kernels.outer_update import fused_nesterov_update
 from repro_torch.kernels.quantize import rowwise_dequantize, rowwise_quantize
 from repro_torch.optim.muon import NS_COEFFS
 
 
+def _tile(knob, device: torch.device) -> dict | None:
+    """A call's tile: the config dict given, or None (the default) for a
+    CPU tensor or an int knob there (the reference's ``block`` /
+    ``block_rows``, which the plain versions do not take); an int on the card
+    raises, as the Hopper kernels' knobs are a config."""
+    if isinstance(knob, dict) or knob is None:
+        return knob
+    if device.type == "cpu":
+        return None
+    raise TypeError(f"the Hopper kernels take a tile config (dict), not {knob!r}")
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor | None = None, *,
-           alpha: float = 1.0, beta: float = 0.0, symmetric: bool = False) -> torch.Tensor:
+           alpha: float = 1.0, beta: float = 0.0, symmetric: bool = False,
+           tile: dict | None = None) -> torch.Tensor:
     """C = alpha * a@b + beta * d (2-D or stacked 3-D operands, any strides);
-    ``symmetric=True`` promises a@b and d symmetric (one triangle computed)."""
-    return matmul_epilogue(a, b, d, alpha=alpha, beta=beta, symmetric=symmetric)
+    ``symmetric=True`` promises a@b and d symmetric (one triangle computed);
+    ``tile`` the kernel's build variant (None: the default)."""
+    return matmul_epilogue(a, b, d, alpha=alpha, beta=beta, symmetric=symmetric, tile=tile)
 
 
-def _ns_iteration(x: torch.Tensor) -> torch.Tensor:
-    """One quintic iteration on a stack [z, m, n] (m <= n): three launches.
-    X Xᵀ is symmetric, and so is c·A·A + b·A since the kernel's A is
-    bitwise symmetric: both compute one triangle of tiles."""
+def _ns_iteration(x: torch.Tensor, tile: dict | None = None) -> torch.Tensor:
+    """One quintic iteration on a stack [z, m, n] (m <= n): three launches,
+    each of ``tile``'s variant. X Xᵀ is symmetric, and so is c·A·A + b·A
+    since the kernel's A is bitwise symmetric: both compute one triangle of
+    tiles."""
     a, b, c = NS_COEFFS
-    xt = x.transpose(-1, -2)                                  # a view, read through strides
-    A = matmul(x, xt, symmetric=True)                         # X X^T
-    B = matmul(A, A, d=A, alpha=c, beta=b, symmetric=True)    # c*A@A + b*A (fused epilogue)
-    return matmul(B, x, d=x, alpha=1.0, beta=a)               # B@X + a*X (fused epilogue)
+    xt = x.transpose(-1, -2)                                           # a view, read through strides
+    A = matmul(x, xt, symmetric=True, tile=tile)                       # X X^T
+    B = matmul(A, A, d=A, alpha=c, beta=b, symmetric=True, tile=tile)  # c*A@A + b*A (fused)
+    return matmul(B, x, d=x, alpha=1.0, beta=a, tile=tile)             # B@X + a*X (fused)
 
 
-def _ns_stack(g3: torch.Tensor, *, iters: int, eps: float) -> torch.Tensor:
+def _ns_stack(g3: torch.Tensor, *, iters: int, eps: float,
+              tile: dict | None = None) -> torch.Tensor:
     """[z, m, n] -> orthogonalized [z, m, n]: fp32 normalisation, transposed
-    (as a view) when m > n, then ``iters`` iterations."""
+    (as a view) when m > n, then ``iters`` iterations of ``tile``'s variant."""
     m, n = g3.shape[-2:]
     x = g3.float()
     transpose = m > n
@@ -48,18 +74,25 @@ def _ns_stack(g3: torch.Tensor, *, iters: int, eps: float) -> torch.Tensor:
         x = x.transpose(-1, -2)
     x = x / (torch.sqrt(torch.sum(x * x, dim=(-2, -1), keepdim=True)) + eps)
     for _ in range(iters):
-        x = _ns_iteration(x)
+        x = _ns_iteration(x, tile)
     if transpose:
         x = x.transpose(-1, -2)
     return x.to(g3.dtype).contiguous()
 
 
-def ns_orthogonalize(g: torch.Tensor, iters: int = 5, eps: float = 1e-7) -> torch.Tensor:
+def ns_orthogonalize(g: torch.Tensor, iters: int = 5, eps: float = 1e-7,
+                     block: dict | int | None = None) -> torch.Tensor:
     """Newton–Schulz orthogonalization of the trailing 2 dims through the
     matmul-epilogue kernel, in fp32 (the reference's ``ns_impl='pallas'``
-    numeric mode). Leading dims fold into the kernel's batch axis."""
+    numeric mode). Leading dims fold into the kernel's batch axis.
+    ``block=None`` consults the autotune table on the card for the stack
+    ``[L, m, n]`` the launches cover (``autotune.ns_block``) and takes the
+    default tile on a miss."""
     *batch, m, n = g.shape
-    out = _ns_stack(g.reshape((-1, m, n)), iters=iters, eps=eps)
+    if block is None and g.device.type == "cuda":
+        block = autotune.ns_block(m, n, autotune.dtype_name(g.dtype), "cuda",
+                                  stack=math.prod(batch))
+    out = _ns_stack(g.reshape((-1, m, n)), iters=iters, eps=eps, tile=_tile(block, g.device))
     return out.reshape((*batch, m, n))
 
 
@@ -73,16 +106,36 @@ def nesterov_update(theta: torch.Tensor, psi: torch.Tensor, u: torch.Tensor, *,
     return t2.reshape(shape), u2.reshape(shape)
 
 
-def quantize_rowwise(x: torch.Tensor, bits: int = 4, block_rows: int | None = None):
+def _quantize_tile(block_rows, rows: int, cols: int, bits: int, dtype, device) -> dict | None:
+    """``block_rows`` as a tile; None consults the autotune table on the card
+    under ``(rows, cols, bits)``."""
+    if block_rows is None and device.type == "cuda":
+        block_rows = autotune.quantize_block_rows(rows, cols, bits,
+                                                  autotune.dtype_name(dtype), "cuda")
+    return _tile(block_rows, device)
+
+
+def quantize_tile(x: torch.Tensor, bits: int, block_rows: dict | int | None = None
+                  ) -> dict | None:
+    """The tile a quantize of ``x [rows, cols]`` at ``bits`` launches:
+    ``block_rows`` as given, or for None the autotune table's entry on the
+    card (``autotune.quantize_block_rows`` of the wire shape and ``bits``;
+    the wire path's codes-only encode takes it too)."""
+    return _quantize_tile(block_rows, *x.shape, bits, x.dtype, x.device)
+
+
+def quantize_rowwise(x: torch.Tensor, bits: int = 4, block_rows: dict | int | None = None):
     """Fused row-wise linear quantize -> dequantize of ``x [rows, cols]``:
     ``(dequantized fp32, codes u8, lo [rows, 1], scale [rows, 1])``. Any row
-    count; ``block_rows`` is accepted and changes nothing (every row
-    quantizes against its own lo and scale)."""
-    return rowwise_quantize(x, bits)
+    count; ``block_rows`` as :func:`quantize_tile` reads it."""
+    return rowwise_quantize(x, bits, tile=quantize_tile(x, bits, block_rows))
 
 
 def dequantize_rowwise(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
-                       block_rows: int | None = None) -> torch.Tensor:
+                       block_rows: dict | int | None = None) -> torch.Tensor:
     """The receiver's reconstruction: ``(codes u8 [rows, cols], lo, scale)``
-    -> fp32 values. ``block_rows`` is accepted and changes nothing."""
-    return rowwise_dequantize(codes, lo, scale)
+    -> fp32 values. ``block_rows=None`` resolves through the autotune table
+    under the reference's key for the receiver, the wire shape at bits 4 in
+    float32, so both ends of a 4-bit wire launch from the same variant."""
+    tile = _quantize_tile(block_rows, *codes.shape, 4, torch.float32, codes.device)
+    return rowwise_dequantize(codes, lo, scale, tile=tile)

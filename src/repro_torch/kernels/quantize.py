@@ -24,6 +24,14 @@ and contracts ``lo + q * scale`` into one fused multiply-add. The kernels
 use ``__fmul_rn``, ``__fdiv_rn``, ``rintf`` and ``__fmaf_rn``; the plain
 versions use :func:`fma_f32`, an exact single-rounded fma in PyTorch.
 
+The kernels' threads a block, long-row unroll and long-row split are build
+variants (``tile=``, a config of ``TILE_CANDIDATES``; None, the default):
+``-D`` defines of the one source, each candidate its own library. They move
+the cuts between the regimes and the split of a long row, never the
+arithmetic (min and max are exact, the encode elementwise), so every
+candidate's output is bitwise the default's; the autotune sweep picks among
+them per ``(rows, cols, bits)``.
+
 The wrappers take the plain version for a tensor on the CPU; for a CUDA
 tensor they launch the kernel or raise. Code packing (:func:`pack_codes`,
 :func:`unpack_codes`) is plain PyTorch, as in the reference.
@@ -39,17 +47,55 @@ from repro_torch.kernels import _build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QUANT_ARGTYPES = [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P]
 _DEQUANT_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _P]
-# csrc/quantize.cu's plan, checked against the built library at its first
-# launch: a row of up to WARP_ROW_MAX entries is held in one warp's registers
-# and up to BLOCK_ROW_MAX in one block's (read once); a longer row is read
-# twice, in steps of LONG_MIN_GROUPS float4 groups: first by `parts` blocks
-# a row, about LONG_BLOCKS in all, each at least one step, then by one block
-# a step
+# csrc/quantize.cu's plan (the default variant's), checked against the
+# built library at its first launch: a row of up to WARP_ROW_MAX entries is
+# held in one warp's registers and up to BLOCK_ROW_MAX in one block's (read
+# once); a longer row is read twice, in steps of LONG_MIN_GROUPS float4
+# groups: first by `parts` blocks a row, about LONG_BLOCKS in all, each at
+# least one step, then by one block a step
 WARP_ROW_MAX = 2048
 BLOCK_ROW_MAX = 16384
 LONG_BLOCKS = 528
 LONG_MIN_GROUPS = 1024
-_build.TILES["quantize"] = (4, (WARP_ROW_MAX, BLOCK_ROW_MAX, LONG_BLOCKS, LONG_MIN_GROUPS))
+MAX_GROUPS = 16  # float4 groups a thread holds of a row read once
+# a variant's knobs: threads a block, float4 groups in flight a thread over a
+# long row, the blocks pass 1 of a long call aims at
+DEFAULT_TILE = {"threads": 256, "unroll": 4, "long_blocks": LONG_BLOCKS}
+# the fixed candidate grid the autotune sweep walks
+TILE_CANDIDATES = tuple({"threads": t, "unroll": u, "long_blocks": b}
+                        for t in (128, 256, 512) for u in (2, 4, 8) for b in (264, 528, 1056))
+
+
+def plan_sizes(tile: dict | None = None) -> tuple[int, int, int, int]:
+    """``(WARP_ROW_MAX, BLOCK_ROW_MAX, LONG_BLOCKS, LONG_MIN_GROUPS)`` of
+    ``tile`` (None: the default), as its library reports them."""
+    t = tile or DEFAULT_TILE
+    return (32 * MAX_GROUPS * 4, t["threads"] * MAX_GROUPS * 4, t["long_blocks"],
+            t["unroll"] * t["threads"])
+
+
+def tile_defines(tile: dict) -> dict[str, int]:
+    """The ``-D`` defines that build ``tile`` (``csrc/quantize.cu``'s ``QZ_*``)."""
+    return {"QZ_THREADS": tile["threads"], "QZ_UNROLL": tile["unroll"],
+            "QZ_LONG_BLOCKS": tile["long_blocks"]}
+
+
+def tile_variant(tile: dict | None) -> str | None:
+    """The build variant of ``tile`` (None for the default); raises for a
+    config outside ``TILE_CANDIDATES``."""
+    if tile is None or tile == DEFAULT_TILE:
+        return None
+    if tile not in TILE_CANDIDATES:
+        raise ValueError(f"quantize: tile {tile} is not a candidate of the grid "
+                         "(quantize.TILE_CANDIDATES)")
+    return f"threads{tile['threads']}-unroll{tile['unroll']}-blocks{tile['long_blocks']}"
+
+
+_build.TILES["quantize"] = (4, plan_sizes())
+for _tile in TILE_CANDIDATES:
+    if _tile != DEFAULT_TILE:
+        _build.VARIANTS.setdefault("quantize", {})[tile_variant(_tile)] = tile_defines(_tile)
+        _build.TILES[_build.variant_key("quantize", tile_variant(_tile))] = (4, plan_sizes(_tile))
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -111,23 +157,25 @@ def _check_rows(name: str, x: torch.Tensor, dtype: torch.dtype) -> tuple[int, in
     return x.shape
 
 
-def quantize_plan(rows: int, cols: int) -> tuple[str, int]:
-    """``(regime, parts)``: how the ``quantize`` kernel cuts a ``[rows,
-    cols]`` call (``csrc/quantize.cu: quantize_plan``). ``'warp'`` and
-    ``'block'`` hold a row in one warp's or one block's registers and read
-    it once; ``'long'`` reads it twice, first with ``parts`` blocks a row,
-    which leave ``2 * rows * parts`` fp32 of partial min and max in the
-    scratch."""
+def quantize_plan(rows: int, cols: int, tile: dict | None = None) -> tuple[str, int]:
+    """``(regime, parts)``: how the ``quantize`` kernel of ``tile`` (None:
+    the default) cuts a ``[rows, cols]`` call (``csrc/quantize.cu:
+    quantize_plan``). ``'warp'`` and ``'block'`` hold a row in one warp's or
+    one block's registers and read it once; ``'long'`` reads it twice, first
+    with ``parts`` blocks a row, which leave ``2 * rows * parts`` fp32 of
+    partial min and max in the scratch."""
     if rows <= 0 or cols <= 0:
         raise ValueError(f"quantize_plan: empty shape ({rows}, {cols})")
-    if cols <= WARP_ROW_MAX:
+    warp_row_max, block_row_max, long_blocks, long_min_groups = plan_sizes(tile)
+    if cols <= warp_row_max:
         return "warp", 1
-    if cols <= BLOCK_ROW_MAX:
+    if cols <= block_row_max:
         return "block", 1
-    return "long", min(-(-LONG_BLOCKS // rows), -(-cols // 4) // LONG_MIN_GROUPS)
+    return "long", min(-(-long_blocks // rows), -(-cols // 4) // long_min_groups)
 
 
-def _quantize_cuda(x: torch.Tensor, bits: int, with_deq: bool = True):
+def _quantize_cuda(x: torch.Tensor, bits: int, with_deq: bool = True,
+                   tile: dict | None = None):
     rows, cols = _check_rows("quantize", x, torch.float32)
     nlevels = _levels(bits)
     deq = torch.empty_like(x) if with_deq else None
@@ -135,17 +183,19 @@ def _quantize_cuda(x: torch.Tensor, bits: int, with_deq: bool = True):
     lo = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows and cols:
-        regime, parts = quantize_plan(rows, cols)
+        regime, parts = quantize_plan(rows, cols, tile)
         partial = (torch.empty((2, rows * parts), dtype=torch.float32, device=x.device)
                    if regime == "long" else None)
         _build.launch("quantize", _QUANT_ARGTYPES, x.device, x.data_ptr(),
                       None if deq is None else deq.data_ptr(), codes.data_ptr(),
                       lo.data_ptr(), scale.data_ptr(),
-                      None if partial is None else partial.data_ptr(), rows, cols, nlevels)
+                      None if partial is None else partial.data_ptr(), rows, cols, nlevels,
+                      variant=tile_variant(tile))
     return deq, codes, lo, scale
 
 
-def _dequantize_cuda(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor):
+def _dequantize_cuda(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
+                     tile: dict | None = None):
     rows, cols = _check_rows("dequantize", codes, torch.uint8)
     for name, t in (("lo", lo), ("scale", scale)):
         if t.shape != (rows, 1) or t.dtype != torch.float32 or t.device != codes.device:
@@ -155,35 +205,41 @@ def _dequantize_cuda(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor)
     if rows and cols:
         _build.launch("dequantize", _DEQUANT_ARGTYPES, codes.device, codes.data_ptr(),
                       lo.contiguous().data_ptr(), scale.contiguous().data_ptr(),
-                      out.data_ptr(), rows, cols)
+                      out.data_ptr(), rows, cols, variant=tile_variant(tile))
     return out
 
 
-def rowwise_quantize(x: torch.Tensor, bits: int = 4):
+def rowwise_quantize(x: torch.Tensor, bits: int = 4, tile: dict | None = None):
     """``x [rows, cols]`` -> ``(dequantized fp32, codes u8, lo, scale)``.
-    Any row count: nothing is padded."""
+    Any row count: nothing is padded. ``tile``: the kernel's build variant
+    (a config of ``TILE_CANDIDATES``; None, the default); the plain version
+    ignores it."""
+    tile_variant(tile)  # a config outside the grid raises on either device
     if x.device.type == "cpu":
         return rowwise_quantize_plain(x, bits)
-    return _quantize_cuda(x, bits)
+    return _quantize_cuda(x, bits, tile=tile)
 
 
-def rowwise_quantize_codes(x: torch.Tensor, bits: int = 4):
+def rowwise_quantize_codes(x: torch.Tensor, bits: int = 4, tile: dict | None = None):
     """``x [rows, cols]`` -> ``(codes u8, lo, scale)``: ``rowwise_quantize``
     without the dequantized values, which the kernel then never writes (the
     wire path's encode)."""
+    tile_variant(tile)
     if x.device.type == "cpu":
         q, lo, scale = quant_codes_plain(x, bits)
         return q.to(torch.uint8), lo, scale
-    return _quantize_cuda(x, bits, with_deq=False)[1:]
+    return _quantize_cuda(x, bits, with_deq=False, tile=tile)[1:]
 
 
 def rowwise_dequantize(codes: torch.Tensor, lo: torch.Tensor,
-                       scale: torch.Tensor) -> torch.Tensor:
+                       scale: torch.Tensor, tile: dict | None = None) -> torch.Tensor:
     """The receiver side: ``(codes u8 [rows, cols], lo [rows, 1], scale
-    [rows, 1])`` -> fp32 values."""
+    [rows, 1])`` -> fp32 values, launched from ``tile``'s library (its
+    elementwise decode is the same in every variant)."""
+    tile_variant(tile)
     if codes.device.type == "cpu":
         return rowwise_dequantize_plain(codes, lo, scale)
-    return _dequantize_cuda(codes, lo, scale)
+    return _dequantize_cuda(codes, lo, scale, tile=tile)
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,14 @@ pseudogradient d rounds late; metrics.csv's ``active_workers`` and
 ``--mesh`` (multi-GPU, a later slice) raises ``NotImplementedError``
 naming ROADMAP.md. ``--blockwise-threshold`` and ``--attn-block-q/kv`` set
 the plain path's (``--attn-impl xla``) blockwise attention as in the
-reference; ``--autotune`` is accepted and changes nothing here: the Hopper
-kernels tile themselves.
+reference. ``--autotune on`` (the default) consults the committed table
+``src/repro_torch/kernels/autotune_table.json`` (or ``--autotune-table``),
+as the reference does: its attention knobs for the model's shape, then the
+explicit flags above over them; on the card the Newton–Schulz and quantize
+calls launch the build variant the table names for their shapes
+(:mod:`repro_torch.kernels.autotune`). ``--autotune off`` gives every
+default. Every variant is bitwise the default, so the two runs' losses and
+states are the same bits.
 """
 from __future__ import annotations
 
@@ -119,6 +125,21 @@ def make_fault_plan(args, n_workers: int) -> FaultPlan | None:
     return None if plan.is_trivial else plan
 
 
+def resolve_blocks(cfg, args, seq_len: int, device):
+    """The reference's block-size resolution order: the autotune table
+    (``configure`` routes every later lookup; its attention entry for this
+    shape when on) < the explicit CLI overrides (None = not passed)."""
+    from repro_torch.kernels.autotune import _backend, configure, tuned_model_config
+
+    configure(enabled=args.autotune == "on", table_path=args.autotune_table)
+    if args.autotune == "on":
+        cfg = tuned_model_config(cfg, seq_len, _backend(device))
+    overrides = {k: v for k, v in (("blockwise_threshold", args.blockwise_threshold),
+                                   ("attn_block_q", args.attn_block_q),
+                                   ("attn_block_kv", args.attn_block_kv)) if v is not None}
+    return cfg.replace(**overrides) if overrides else cfg
+
+
 def train(args, *, capture: bool | None = None) -> dict:
     """Run the command ``args`` (``build_parser``'s namespace). ``capture``
     is ``TrainEngine``'s (default: capture on a CUDA device); ``False``
@@ -132,10 +153,8 @@ def train(args, *, capture: bool | None = None) -> dict:
     cfg = cfg.replace(
         max_seq_len=seq_len,
         sliding_window=min(cfg.sliding_window, seq_len) if cfg.sliding_window else 0,
-        attn_impl=args.attn_impl,
-        **{k: v for k, v in (("blockwise_threshold", args.blockwise_threshold),
-                             ("attn_block_q", args.attn_block_q),
-                             ("attn_block_kv", args.attn_block_kv)) if v is not None})
+        attn_impl=args.attn_impl)
+    cfg = resolve_blocks(cfg, args, seq_len, device)
     model = build_model(cfg)
 
     dcfg = make_diloco_cfg(args)
@@ -334,8 +353,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--blockwise-threshold", type=int, default=None)
     ap.add_argument("--attn-block-q", type=int, default=None)
     ap.add_argument("--attn-block-kv", type=int, default=None)
-    ap.add_argument("--autotune", default="on", choices=["on", "off"])
-    ap.add_argument("--autotune-table", default=None)
+    ap.add_argument("--autotune", default="on", choices=["on", "off"],
+                    help="consult the kernel autotune table (bitwise-gated tile variants; "
+                         "'off' restores every default)")
+    ap.add_argument("--autotune-table", default=None,
+                    help="path of the autotune JSON table (default: the committed "
+                         "src/repro_torch/kernels/autotune_table.json)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/train")
     ap.add_argument("--resume", default=None)

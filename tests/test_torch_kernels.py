@@ -1081,7 +1081,8 @@ def test_quantize_plan_constants_match_the_kernel_source():
     from repro_torch.kernels import _build
 
     src = (_build.CSRC / "quantize.cu").read_text()
-    consts: dict = {}
+    consts: dict = {k: int(v) for k, v in  # the defaults of the build variants' defines
+                    re.findall(r"#ifndef (\w+)\n#define \1 (\d+)\n#endif", src)}
     for name, expr in re.findall(r"^constexpr (?:int|long long) (\w+) = ([^;]+);", src, re.M):
         consts[name] = eval(expr, {}, dict(consts))
     assert (consts["kWarpRowMax"], consts["kBlockRowMax"], consts["kLongBlocks"],
@@ -1166,3 +1167,380 @@ def test_pack_topk_matches_reference():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ttopk.unpack_topk(ti, tv, 1000).numpy(),
                                   np.asarray(jtopk.unpack_topk(ji, jv, 1000)))
+
+
+# ------------------------------------------------------------- autotune
+
+from repro.kernels import autotune as jat  # noqa: E402
+from repro_torch.kernels import _build as tbuild  # noqa: E402
+from repro_torch.kernels import autotune as tat  # noqa: E402
+
+
+@pytest.fixture
+def autotune_default():
+    """Restore both packages' process-wide autotune routing after a test
+    that calls ``configure`` (directly or through a train CLI)."""
+    yield
+    jat.configure()
+    tat.configure()
+
+
+@pytest.mark.parametrize("kernel,shape,dtype,backend", [
+    ("quantize", (512, 256, 4), "float32", "cpu"),
+    ("quantize", tuple(np.int64([512, 256, 4])), "float32", "cpu"),
+    ("ns", (30, 576, 1536), "float32", "cuda"),
+    ("ns", tuple(np.int32([256, 64])), "bfloat16", "cpu"),
+    ("attention", (128, 4, 1, 64), "float32", "tpu")])
+def test_autotune_key_matches_reference(kernel, shape, dtype, backend):
+    """The port's table keys are the reference's, numpy ints included."""
+    assert tat.autotune_key(kernel, shape, dtype, backend) == \
+        jat.autotune_key(kernel, shape, dtype, backend)
+
+
+def test_autotune_table_round_trips_like_reference(tmp_path):
+    """record / lookup (hit and miss) / save / load give the port's table
+    the reference's entries and the same bytes on disk."""
+    tables = {}
+    for tag, mod in (("ref", jat), ("port", tat)):
+        t = mod.AutotuneTable()
+        t.record("quantize", (64, 32, 4), "float32", "cpu", {"block_rows": 16}, {"speedup": 2.0})
+        t.record("ns", (2, 64, 96), "float32", "cuda", dict(tmm.DEFAULT_TILE), {"x": 1})
+        assert t.lookup("quantize", (64, 32, 4), "float32", "cpu") == {"block_rows": 16}
+        assert t.lookup("quantize", (64, 33, 4), "float32", "cpu") is None
+        assert t.lookup("ns", (2, 64, 96), "float32", "cuda") == tmm.DEFAULT_TILE
+        path = str(tmp_path / f"{tag}.json")
+        t.save(path)
+        tables[tag] = mod.AutotuneTable.load(path)
+        assert tables[tag].entries == t.entries
+    assert tables["ref"].entries == tables["port"].entries
+    assert (tmp_path / "ref.json").read_bytes() == (tmp_path / "port.json").read_bytes()
+
+
+def test_autotune_scope_and_configure_route_like_reference(tmp_path, autotune_default):
+    """Scoped and process-wide routing: a table given by path is consulted,
+    a miss and ``enabled=False`` give None, in both packages alike; the
+    card's entries key the whole stack and return the kernel's knobs."""
+    path = str(tmp_path / "t.json")
+    t = tat.AutotuneTable(path=path)
+    t.record("quantize", (8, 4, 4), "float32", "cpu", {"block_rows": 2})
+    t.record("ns", (16, 32), "float32", "cpu", {"block": 64})
+    t.record("ns", (3, 16, 32), "float32", "cuda", dict(tmm.TILE_CANDIDATES[0]))
+    t.record("quantize", (8, 4, 4), "float32", "cuda", dict(tquantize.TILE_CANDIDATES[0]))
+    t.save()
+    calls = [("quantize_block_rows", (8, 4, 4, "float32")), ("quantize_block_rows", (9, 4, 4, "float32")),
+             ("ns_block", (16, 32, "float32")), ("ns_block", (16, 33, "float32"))]
+    for scope in (dict(enabled=True, table_path=path), dict(enabled=False)):
+        with jat.autotune_scope(**scope), tat.autotune_scope(**scope):
+            got = [getattr(tat, f)(*a) for f, a in calls]
+            assert got == [getattr(jat, f)(*a) for f, a in calls]
+            assert got == ([2, None, 64, None] if scope["enabled"] else [None] * 4)
+            cuda = (tat.ns_block(16, 32, "float32", "cuda", stack=3),
+                    tat.quantize_block_rows(8, 4, 4, "float32", "cuda"))
+            assert cuda == ((tmm.TILE_CANDIDATES[0], tquantize.TILE_CANDIDATES[0])
+                            if scope["enabled"] else (None, None))
+    for mod in (jat, tat):
+        mod.configure(enabled=True, table_path=path)
+    assert tat.quantize_block_rows(8, 4, 4, "float32") == jat.quantize_block_rows(8, 4, 4, "float32") == 2
+    for mod in (jat, tat):
+        mod.configure(enabled=False)
+    assert tat.active_table() is None and jat.active_table() is None
+    assert tat.ns_block(16, 32, "float32") is None
+
+
+def test_ops_resolve_the_card_tile_through_the_table(tmp_path, monkeypatch, autotune_default):
+    """The wrappers' resolution on a CUDA device (a lookup only: nothing
+    launches): ``block=None`` reads the table's cuda entry for the stack or
+    the wire shape (dequantize under bits 4), a miss and the table off give
+    the default (None), an int knob raises on the card and is ignored on the
+    CPU; and the wire encode passes ``ops.quantize_tile``'s tile."""
+    from repro_torch.core import wire as twire
+
+    path = str(tmp_path / "t.json")
+    t = tat.AutotuneTable(path=path)
+    t.record("quantize", (8, 4, 2), "float32", "cuda", dict(tquantize.TILE_CANDIDATES[1]))
+    t.record("quantize", (8, 4, 4), "float32", "cuda", dict(tquantize.TILE_CANDIDATES[2]))
+    t.save()
+    cuda = torch.device("cuda")
+    with tat.autotune_scope(enabled=True, table_path=path):
+        assert tops._quantize_tile(None, 8, 4, 2, torch.float32, cuda) == \
+            tquantize.TILE_CANDIDATES[1]
+        assert tops._quantize_tile(None, 8, 5, 2, torch.float32, cuda) is None
+        assert tops._quantize_tile(None, 8, 4, 2, torch.float32, torch.device("cpu")) is None
+        with pytest.raises(TypeError):
+            tops._quantize_tile(8, 8, 4, 2, torch.float32, cuda)
+        assert tops._quantize_tile(8, 8, 4, 2, torch.float32, torch.device("cpu")) is None
+    with tat.autotune_scope(enabled=False):
+        assert tops._quantize_tile(None, 8, 4, 2, torch.float32, cuda) is None
+    seen = []
+    real = twire.rowwise_quantize_codes
+    sentinel = dict(tquantize.TILE_CANDIDATES[3])
+    monkeypatch.setattr(twire, "rowwise_quantize_codes",
+                        lambda x, bits, tile=None: seen.append(tile) or real(x, bits))
+    monkeypatch.setattr(tops, "quantize_tile", lambda x, bits, block_rows=None: sentinel)
+    twire.quant_encode(torch.ones(4, 6), 2, True)
+    assert seen == [sentinel]
+    g = torch.from_numpy(_np(np.random.default_rng(3), (2, 6, 10)))
+    want = tops.ns_orthogonalize(g)
+    for block in (128, tmm.TILE_CANDIDATES[5]):  # the plain version takes no tile
+        assert torch.equal(tops.ns_orthogonalize(g, block=block), want)
+    with pytest.raises(ValueError, match="not a candidate"):
+        tops.ns_orthogonalize(g, block={"tile": 100, "bk": 16, "ty": 16, "tx": 16})
+
+
+def _reduced_configs():
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduce_config as jreduce_config
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.configs import reduce_config as treduce_config
+
+    return (jreduce_config(jget_config("smollm-135m")),
+            treduce_config(tget_config("smollm-135m")))
+
+
+@pytest.mark.parametrize("table", ["reference", "tmp"])
+@pytest.mark.parametrize("S", [64, 128])
+def test_tuned_model_config_and_evidence_match_reference(S, table, tmp_path):
+    """tuned_model_config and autotune_evidence of reduced smollm at S 64 and
+    128 equal the reference's, on the reference's committed table given by
+    path and on a tmp table, in scope and off."""
+    jcfg, tcfg = _reduced_configs()
+    jcfg, tcfg = jcfg.replace(max_seq_len=S), tcfg.replace(max_seq_len=S)
+    path = jat.DEFAULT_TABLE_PATH
+    if table == "tmp":
+        path = str(tmp_path / "t.json")
+        t = jat.AutotuneTable(path=path)
+        t.record("attention", (S, 4, 1, 64), "float32", "cpu",
+                 {"attn_block_q": 16, "attn_block_kv": 32, "junk_knob": 7})
+        t.save()
+    knobs = ("attn_block_q", "attn_block_kv", "blockwise_threshold")
+    for enabled in (True, False):
+        with jat.autotune_scope(enabled=enabled, table_path=path), \
+                tat.autotune_scope(enabled=enabled, table_path=path):
+            jt, tt = jat.tuned_model_config(jcfg, S), tat.tuned_model_config(tcfg, S)
+            assert [getattr(tt, k) for k in knobs] == [getattr(jt, k) for k in knobs]
+            assert tat.autotune_evidence(tcfg, S) == jat.autotune_evidence(jcfg, S)
+            assert (tt is tcfg) == (jt is jcfg)
+    assert not hasattr(tt, "junk_knob")
+
+
+def test_committed_table_carries_the_reference_cpu_entries():
+    """Every CPU entry of the port's committed table is the reference's key
+    with its config unchanged, and there is no other CPU entry."""
+    ref = jat.AutotuneTable.load().entries
+    port = tat.AutotuneTable.load().entries
+    cpu = {k: v for k, v in port.items() if k.endswith("/cpu")}
+    assert set(cpu) == set(ref) and len(ref) == 14
+    for key, ent in cpu.items():
+        assert ent["config"] == ref[key]["config"], key
+        assert ent["evidence"]["source"] == "src/repro/kernels/autotune_table.json", key
+
+
+def test_committed_table_is_wellformed():
+    """The port's committed JSON: every entry a known kernel with a config
+    and the bitwise gate's evidence; every cuda entry keys a stack (ns) or a
+    (rows, cols, bits) shape (quantize), names a candidate of its kernel's
+    grid, and records the card and its power limit."""
+    entries = tat.AutotuneTable.load().entries
+    assert entries
+    grids = {"ns": tmm.TILE_CANDIDATES, "quantize": tquantize.TILE_CANDIDATES}
+    for key, ent in entries.items():
+        kernel, dims, dtype, backend = key.split("/")
+        assert kernel in ("attention", "quantize", "ns") and ent["config"], key
+        assert ent["evidence"].get("verified_bitwise") is True, key
+        assert backend in ("cpu", "cuda") and dtype in ("float32", "bfloat16"), key
+        if backend == "cuda":
+            assert kernel in grids and len(dims.split("x")) == 3, key
+            assert ent["config"] in grids[kernel], key
+            ev = ent["evidence"]
+            assert ev["device"] and ev["power_limit"] and ev["best_s"] <= ev["default_s"], key
+
+
+def test_sweep_gate_rejects_candidates_that_are_not_bitwise(monkeypatch):
+    """The port's _sweep, as the reference's: a candidate whose output
+    differs in a value, a dtype or a shape never wins, whatever its time;
+    the fastest bitwise-equal candidate does."""
+    seconds = {1: 5.0, 2: 1.0, 3: 1.0, 4: 1.0, 5: 3.0, 6: 4.0}
+    last = [None]
+
+    def fake_time(fn, reps=3, device=None, warmup=True):
+        fn()
+        return seconds[last[0]]
+
+    monkeypatch.setattr(tat, "_time_best", fake_time)
+
+    def run(knob):
+        last[0] = knob
+        out = {1: torch.ones(3), 2: torch.tensor([1.0, 1.0, 2.0]), 3: torch.ones(3).double(),
+               4: torch.ones(4), 5: torch.ones(3), 6: torch.ones(3)}[knob]
+        return (out, torch.zeros(2))
+
+    best, ev = tat._sweep(run, {"knob": 1}, [{"knob": k} for k in (2, 3, 4, 5, 6)], reps=1)
+    assert best == {"knob": 5} and ev["rejected_not_bitwise"] == 3
+    assert ev["verified_bitwise"] is True and ev["candidates"] == 5
+    jbest, jev = jat._sweep(lambda knob: jnp.array([1.0 if knob == 1 else 2.0]), {"knob": 1},
+                            [{"knob": 2}], reps=1)
+    tbest, tev = tat._sweep(lambda knob: torch.tensor([1.0 if knob == 1 else 2.0]),
+                            {"knob": 1}, [{"knob": 2}], reps=1)
+    assert tbest == jbest == {"knob": 1}
+    assert tev["rejected_not_bitwise"] == jev["rejected_not_bitwise"] == 1
+
+
+class _Resolved(Exception):
+    pass
+
+
+def _resolved_cfg(monkeypatch, module, argv):
+    """The ModelConfig a train CLI resolves before it builds the model."""
+    def stop(cfg):
+        raise _Resolved(cfg)
+
+    monkeypatch.setattr(module, "build_model", stop)
+    with pytest.raises(_Resolved) as e:
+        module.train(module.build_parser().parse_args(argv))
+    return e.value.args[0]
+
+
+@pytest.mark.parametrize("extra", [[], ["--attn-block-q", "64"]], ids=["table", "explicit"])
+@pytest.mark.parametrize("autotune", ["on", "off"])
+def test_train_cli_resolves_blocks_in_the_reference_order(monkeypatch, autotune, extra,
+                                                          autotune_default):
+    """``--autotune on|off`` plus an explicit ``--attn-block-q``: the port's
+    train CLI resolves the attention knobs of reduced smollm at S 128 as the
+    reference's does (table first, then the explicit flags over it; off
+    restores the config's constants), each on its own committed table."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+
+    argv = ["--arch", "smollm-135m", "--reduced", "--seq-len", "128", "--autotune", autotune,
+            *extra]
+    jcfg = _resolved_cfg(monkeypatch, jtrain, argv)
+    tcfg = _resolved_cfg(monkeypatch, ttrain, argv + ["--device", "cpu"])
+    knobs = ("attn_block_q", "attn_block_kv", "blockwise_threshold", "max_seq_len")
+    assert [getattr(tcfg, k) for k in knobs] == [getattr(jcfg, k) for k in knobs]
+    want_q = 64 if extra else (32 if autotune == "on" else 512)
+    assert tcfg.attn_block_q == want_q
+    assert tat.active_table() is None if autotune == "off" else tat.active_table() is not None
+
+
+def test_cuda_sources_default_to_the_default_tiles():
+    """The ``#ifndef`` defaults of csrc/matmul_epilogue.cu and csrc/quantize.cu
+    are the defines of each module's DEFAULT_TILE (the default variant builds
+    with no define), and every candidate's defines are distinct."""
+    import re
+
+    for src, mod in (("matmul_epilogue.cu", tmm), ("quantize.cu", tquantize)):
+        text = (tbuild.CSRC / src).read_text()
+        defaults = {k: int(v) for k, v in
+                    re.findall(r"#ifndef (\w+)\n#define \1 (\d+)\n#endif", text)}
+        assert defaults == mod.tile_defines(mod.DEFAULT_TILE), src
+        seen = {tuple(sorted(mod.tile_defines(c).items())) for c in mod.TILE_CANDIDATES}
+        assert len(seen) == len(mod.TILE_CANDIDATES) and mod.DEFAULT_TILE in mod.TILE_CANDIDATES
+
+
+def test_variant_builds_hash_their_defines_and_count_launches(monkeypatch, tmp_path):
+    """A variant's library file hashes its defines (each its own file, the
+    default's name unchanged), nvcc gets them as -D flags, and a launch of a
+    variant counts under its entry name and its key; a capture's counts carry
+    both and add back per replay."""
+    import contextlib
+    import types
+    from pathlib import Path
+
+    key = tbuild.variant_key("matmul_epilogue", tmm.tile_variant(tmm.TILE_CANDIDATES[0]))
+    assert tbuild.split_key(key) == ("matmul_epilogue", tmm.tile_variant(tmm.TILE_CANDIDATES[0]))
+    paths = {tbuild.lib_path(tbuild.variant_key("matmul_epilogue", tmm.tile_variant(c)))
+             for c in tmm.TILE_CANDIDATES}
+    assert len(paths) == len(tmm.TILE_CANDIDATES)
+    assert tbuild.lib_path("matmul_epilogue").name.count("-") == 1
+    with pytest.raises(KeyError, match="no variant"):
+        tbuild.lib_path("matmul_epilogue@nope")
+    cmds = []
+
+    class Proc:
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+            kw["stdout"].write("ptxas info : Used 1 registers\n")
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            self.returncode = 0
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tbuild, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(tbuild.subprocess, "Popen", Proc)
+    report = tbuild.build([key, "quantize"], jobs=1)
+    assert "-DMM_TILE=64" in cmds[0] and not any(a.startswith("-D") for a in cmds[1])
+    assert report[key]["log"].startswith("ptxas info") and Path(report[key]["path"]).exists()
+    monkeypatch.setattr(tbuild, "entry", lambda k, argtypes: (lambda *a: 0, None))
+    monkeypatch.setattr(tbuild, "check_tiles", lambda k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tbuild, "LAUNCHES", dict(tbuild.LAUNCHES))
+    monkeypatch.setattr(tbuild, "VARIANT_LAUNCHES", {})
+    tbuild.reset_launch_counts()
+    variant = tbuild.split_key(key)[1]
+    tbuild.launch("matmul_epilogue", [], "cpu", variant=variant)
+    tbuild.launch("matmul_epilogue", [], "cpu")
+    assert tbuild.LAUNCHES["matmul_epilogue"] == 2
+    assert tbuild.VARIANT_LAUNCHES == {key: 1, "matmul_epilogue": 1}
+    counts = tbuild.LaunchCounts({"matmul_epilogue": 2}, {key: 2})
+    assert counts == {"matmul_epilogue": 2}
+    tbuild.add_launch_counts(counts)
+    assert tbuild.LAUNCHES["matmul_epilogue"] == 4 and tbuild.VARIANT_LAUNCHES[key] == 3
+
+
+def _brute_sym(m, t):
+    """Every (i, j), i <= j, of an m x m grid of t x t tiles, row by row."""
+    nt = -(-m // t)
+    return [(i, j) for i in range(nt) for j in range(nt) if i <= j]
+
+
+@pytest.mark.parametrize("tile", tmm.TILE_CANDIDATES, ids=lambda c: tmm.tile_variant(c) or "default")
+def test_matmul_candidate_layouts_and_triangle(tile):
+    """Every matmul candidate: its thread tiles cover the block tile with
+    whole warps (csrc's static_asserts), its register tile is 4, 6 or 8 a
+    side, its shared memory fits a block's 227 KB, its register budget a
+    whole SM; and its symmetric grid (``sym_grid``) visits the upper
+    triangle of tiles once, row by row, at the main path's widths."""
+    d = tmm.tile_defines(tile)
+    tm, tn = 4 * d["MM_MG"] + 2 * d["MM_MT"], 4 * d["MM_NG"] + 2 * d["MM_NT"]
+    assert d["MM_TY"] * tm == d["MM_TILE"] == d["MM_TX"] * tn and tm == tn in (4, 6, 8)
+    assert d["MM_TY"] % 4 == 0 and d["MM_TX"] % 8 == 0 and d["MM_BK"] % 4 == 0
+    threads = d["MM_TY"] * d["MM_TX"]
+    assert threads <= 1024 and threads * d["MM_MIN_BLOCKS"] <= 2048
+    assert tmm.smem_bytes(tile) <= 227 * 1024
+    for m in (64, 192, 576, 1024, 1280, 1408, 2560, 100):
+        assert tmm.sym_grid(m, tile) == _brute_sym(m, tile["tile"]), m
+
+
+@pytest.mark.parametrize("tile", tquantize.TILE_CANDIDATES,
+                         ids=lambda c: tquantize.tile_variant(c) or "default")
+def test_quantize_candidate_plan_covers_every_step(tile):
+    """Every quantize candidate's plan mirror at the compressed path's shapes,
+    against a brute-force walk of its long-row schedule: the regime cuts at
+    the candidate's warp and block row limits; pass 1's ``parts`` blocks a
+    row each own at least one step of ``LONG_MIN_GROUPS`` float4 groups and
+    together visit every step once (so the scratch of 2 x rows x parts fp32
+    holds every partial), about ``LONG_BLOCKS`` blocks in all."""
+    warp_max, block_max, blocks, groups = tquantize.plan_sizes(tile)
+    assert tquantize.plan_sizes(tile) == tbuild.TILES[
+        tbuild.variant_key("quantize", tquantize.tile_variant(tile))][1]
+    assert block_max == tile["threads"] * tquantize.MAX_GROUPS * 4 and warp_max == 2048
+    for rows, cols in ((2, 28_311_552), (1, 28_311_552), (34_560, 1536), (98_304, 576),
+                       (1000, 10_000), (3, 40_000), (1, block_max + 1)):
+        regime, parts = tquantize.quantize_plan(rows, cols, tile)
+        if cols <= block_max:
+            assert regime == ("warp" if cols <= warp_max else "block") and parts == 1
+            continue
+        assert regime == "long"
+        steps = -(-(-(-cols // 4)) // groups)
+        seen = [0] * steps
+        for part in range(parts):
+            mine = list(range(part, steps, parts))
+            assert mine, (rows, cols, part)
+            for st in mine:
+                seen[st] += 1
+        assert seen == [1] * steps
+        assert rows * parts < blocks + rows and parts * groups <= -(-cols // 4)

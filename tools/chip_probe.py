@@ -15,7 +15,11 @@ parent's flash and paged-decode libraries and compares, kernel by kernel,
 ptxas's registers, shared memory and spills at hd 64, 80 and 128 (the fp32
 sweeps' template now names their positions a block), then times the bf16
 sweeps at hd 64, 80 and 128 and paged_decode at hd 64 and 128 in turns
-(parent, tree, tree, parent).
+(parent, tree, tree, parent). It does the same for the default variants of
+``matmul_epilogue`` and ``quantize`` (``TILED_LIBS``: ptxas of every
+kernel function, then the timed calls of PERF.md section 6 tables a and b:
+X Xᵀ and B X + a·X at smollm-135m's and paper-416m's w_in stacks, quantize
+full and codes-only at the global and row-wise Q1 shapes).
 
 ``--fp64`` holds the fp32 backward sweeps against a float64 recomputation
 from the same inputs (``FP64_CASES``: two rows of kv heads at each case's S
@@ -59,6 +63,12 @@ FP32_RENAMES = {"flash_fwd_kernel<64>": "flash_fwd_kernel<64,32>",
                 "flash_dq_fp32_kernel<80>": "flash_dq_fp32_kernel<80,16>",
                 "flash_dq_fp32_kernel<128>": "flash_dq_fp32_kernel<128,8>"}
 LIBS = ["flash_fwd", "flash_bwd", "paged_decode"]
+# the libraries whose tiles are build variants: their default variants
+TILED_LIBS = ["matmul_epilogue", "quantize"]
+# --parent: (name, stack of X, symmetric X X^T first then B X + a X) of
+# PERF.md section 6 tables a and b; quantize's (rows, cols, bits)
+PARENT_MATMUL = [("smollm-135m w_in", (30, 576, 1536)), ("paper-416m w_in", (12, 1024, 2816))]
+PARENT_QUANT = [("global Q1 of embed", 2, 28_311_552, 2), ("row-wise Q1 of w_in", 34_560, 1536, 4)]
 # --fp64: (hd, S, G) of the fp32 backward cases read against float64
 FP64_CASES = [(64, 1024, 3), (112, 2048, 8), (128, 1024, 12), (128, 2048, 12)]
 
@@ -71,11 +81,11 @@ def use_csrc(_build, csrc: Path, check_tiles: bool) -> None:
     _build._ENTRIES.clear()
     _build._TILES_CHECKED.clear()
     if not check_tiles:
-        _build._TILES_CHECKED.update(LIBS)
+        _build._TILES_CHECKED.update(LIBS + TILED_LIBS)
 
 
-def ptxas_of(_build) -> dict:
-    report = _build.build(names=LIBS, verbose=True)
+def ptxas_of(_build, libs: list = LIBS) -> dict:
+    report = _build.build(names=libs, verbose=True)
     out = {}
     for r in report.values():
         out.update(cs.ptxas_report(r["log"]))
@@ -148,6 +158,57 @@ def compare_parent(torch, fa, _build, parent: Path) -> None:
         print(f"  hd {hd} {name}: parent {[round(x, 4) for x in p]} ms, tree "
               f"{[round(x, 4) for x in t]} ms: tree / parent "
               f"{statistics.mean(t) / statistics.mean(p):.4f}")
+    assert not bad, f"ptxas differs from the parent's: {bad}"
+
+
+def compare_parent_tiled(torch, _build, parent: Path) -> None:
+    """ptxas of the parent's matmul_epilogue and quantize beside this tree's
+    default variants, function by function (the same names), then their
+    times in turns at ``PARENT_MATMUL`` and ``PARENT_QUANT``."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import quantize as q
+    from repro_torch.optim.muon import NS_COEFFS
+
+    tree_csrc = _build.CSRC
+    sides = {"tree": tree_csrc, "parent": parent / "src" / "repro_torch" / "kernels" / "csrc"}
+    reports = {}
+    for side, csrc in sides.items():
+        use_csrc(_build, csrc, side == "tree")
+        reports[side] = ptxas_of(_build, TILED_LIBS)
+    bad = []
+    for fn in sorted(set(reports["parent"]) | set(reports["tree"])):
+        a, b = reports["parent"].get(fn), reports["tree"].get(fn)
+        same = a is not None and re.findall(r"\d+", a) == re.findall(r"\d+", b or "")
+        print(f"  {fn}: parent {a}; tree {b}{'' if same else '  <-- differs'}")
+        if not same:
+            bad.append(fn)
+    na, nb, nc = NS_COEFFS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    calls = {}
+    for tag, shape in PARENT_MATMUL:
+        x = cs.normed(torch.randn(shape, generator=gen, device="cuda"))
+        A = mm._matmul_plain(x, x.mT, None, alpha=1.0, beta=0.0, out_dtype=x.dtype)
+        Bm = mm._matmul_plain((A + A.mT) / 2, A, A, alpha=nc, beta=nb, out_dtype=x.dtype)
+        calls[f"X X^T {tag} {list(shape)} (symmetric)"] = (
+            lambda x=x: mm._matmul_cuda(x, x.mT, None, alpha=1.0, beta=0.0, out_dtype=x.dtype,
+                                        symmetric=True))
+        calls[f"B X + a X {tag}"] = (
+            lambda x=x, Bm=Bm: mm._matmul_cuda(Bm, x, x, alpha=1.0, beta=na, out_dtype=x.dtype))
+    for tag, rows, cols, bits in PARENT_QUANT:
+        xq = torch.randn((rows, cols), generator=gen, device="cuda")
+        for form, deq in (("full", True), ("codes-only", False)):
+            calls[f"quantize {form}, {tag} [{rows}, {cols}] {bits}-bit"] = (
+                lambda xq=xq, bits=bits, deq=deq: q._quantize_cuda(xq, bits, with_deq=deq))
+    times = {}
+    for side in ("parent", "tree", "tree", "parent"):
+        use_csrc(_build, sides[side], side == "tree")
+        for name, fn in calls.items():
+            times.setdefault((name, side), []).append(cs.time_ms(torch, fn))
+    use_csrc(_build, tree_csrc, True)
+    for name in calls:
+        p, t = times[(name, "parent")], times[(name, "tree")]
+        print(f"  {name}: parent {[round(v, 4) for v in p]} ms, tree {[round(v, 4) for v in t]} "
+              f"ms: tree / parent {statistics.mean(t) / statistics.mean(p):.4f}")
     assert not bad, f"ptxas differs from the parent's: {bad}"
 
 
@@ -260,6 +321,7 @@ def main() -> int:
     phases = [("2", lambda: cs.phase_build(_build))]
     if parent is not None:
         phases.append(("parent", lambda: compare_parent(torch, fa, _build, parent)))
+        phases.append(("parent, tiled", lambda: compare_parent_tiled(torch, _build, parent)))
     if "--fp64" in sys.argv:
         phases.append(("fp64", lambda: fp64_readings(torch, fa)))
     if "--faults" in sys.argv:
