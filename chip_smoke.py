@@ -318,7 +318,25 @@ no summary:
    commands with ``--autotune off`` against their runs with it on: losses
    and every state leaf bitwise equal, launches counted per variant, walls
    printed.
-22. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
+22. The mesh (slice 12; ``--only 22`` runs it alone after phases 1 and 2):
+   two ranks share the card (gloo: NCCL refuses two ranks on one device;
+   each rank a process of this script, ``--mesh-child``). (22a) Every kernel
+   was built in phase 2, in this process, before any rank starts. (22b) Each
+   of the eight kernels at the main path's shapes (``mesh_kernel_cases``)
+   through ``kernels/partition.py`` on the (pod=2) mesh and on the (data=2)
+   mesh: on replicated DTensors each rank runs the kernel on its block,
+   which must equal that block of the one-process call, bitwise (and every
+   Newton-Schulz stack of smollm's Muon leaves split over 'data'); on the
+   (data=2) mesh local and whole times beside each other (the ranks take
+   turns on the card). (22c) ``MESH_TRAIN`` under torchrun (two ranks, one
+   worker each, 2-bit EF at full width, one round a dispatch) against the
+   same command in one process (eager, which 6d holds to the captured
+   round): the per-round train and eval losses and comm_bytes and every
+   outer-param leaf bitwise; tokens/s, the sync's wall, the bytes gathered
+   (wire packets, θ from its ZeRO layout). (22d) ``MESH_SERVE`` through a
+   PagedEngine on the (data=2) mesh (in 22b's processes) against one
+   process: greedy tokens exact, launches equal to the engine's formula.
+23. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
    paper-416m timing and launches under ``"paper-416m"``, flash_fwd's and
    paged_decode's at G = 6 under ``"nemotron-4-15b"``, the launches of
    slice 6b's paths under ``"muon_bp"``, ``"normuon"``, ``"paper-150m
@@ -333,8 +351,10 @@ no summary:
    the flash and paged rows at hd 112 and at G = 12, their serving and
    forward-and-backward launches; each row's ``"variants"``: the build
    variants its main path launched, by key, and matmul_epilogue's and
-   quantize's ``"tuned"``: 21c's timing of the table's variant), the
-   script's seconds, then the last line ``{"ok": true, "device": {...}}``.
+   quantize's ``"tuned"``: 21c's timing of the table's variant, and
+   ``"across_ranks"``: 22b's verdict, block and times on each mesh and the
+   launches of 22c's and 22d's ranks), the script's seconds, then the last
+   line ``{"ok": true, "device": {...}}``.
    A line ``-- 12a: N s (T s in all)`` follows each phase: its seconds
    and the script's.
 
@@ -4679,7 +4699,431 @@ def phase_autotune(torch, mods: dict, build_parser, train, smi: str,
     return dict(ptxas=ptxas, tuned_keys=tuned_keys, times=times, sweep=sweep, runs=runs)
 
 
-ALONE = ("12", "13", "14", "15", "16", "17", "18", "19", "21")
+# ---------------------------------------------------------------------------
+# Slice 12 (phase 22): the mesh. Two ranks share the one card (gloo: NCCL
+# refuses two ranks on one device); each is a process of this script run
+# with ``--mesh-child KIND`` (kernels, serve) or under torchrun (train).
+# ---------------------------------------------------------------------------
+
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_RANKS = 2
+# 22c: the training command of the mesh: smollm-135m at full width, K = 2
+# workers over pod = 2, H = 4, 2 rounds, 2-bit EF (README's compressed variant)
+MESH_TRAIN = ["--arch", "smollm-135m", "--mesh", "2x1x1", "--workers", "2",
+              "--sync-interval", "4", "--rounds", "2", "--seq-len", "1024",
+              "--batch-per-worker", "8", "--attn-impl", "pallas", "--ns-impl", "pallas",
+              "--outer-kernel", "--compression", "quant", "--bits", "2", "--error-feedback",
+              "--lr", "3e-3", "--rounds-per-dispatch", "1", "--out", str(MESH_DIR / "train")]
+# 22d: serving on a (data = 2) mesh: 16 requests of 128 prompt tokens and 32
+# new over 16 slots (the slots and their page-table rows split over 'data')
+MESH_SERVE = dict(batch=16, prompt_len=128, max_new=32, slots=16, page_size=16, max_pages=256,
+                  decode_steps_per_dispatch=8)
+MESH_TIMING_RUNS = 10
+# 22b: the Newton-Schulz stacks of smollm-135m's Muon leaves (wq, wk / wv,
+# w_in / w_gate, w_out), each split over 'data' and held bitwise
+MESH_NS_STACKS = [(30, 576, 576), (30, 576, 192), (30, 576, 1536), (30, 1536, 576)]
+
+
+def mesh_env(rank: int, port: int, world: int = MESH_RANKS) -> dict:
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                PYTHONPATH=str(ROOT / "src"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cmd: list, label: str, torchrun: bool = False, timeout: int = 600) -> None:
+    """Start ``cmd`` as the mesh's ranks, each a process with its rank's
+    environment, or once when ``torchrun`` (the launcher starts the ranks);
+    wait for all, and raise with the tail of each failing process's output;
+    every process is stopped."""
+    port = free_port()
+    n = 1 if torchrun else MESH_RANKS
+    envs = ([dict(os.environ, PYTHONPATH=str(ROOT / "src"))] if torchrun
+            else [mesh_env(r, port) for r in range(n)])
+    cmds = [cmd] * n
+    procs = [subprocess.Popen(c, cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c, e in zip(cmds, envs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        (MESH_DIR / f"{label}.{i}.log").write_text(log)
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: process {i} exited {p.returncode}:\n{log[-4000:]}")
+
+
+def _mesh_child_start(torch):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    return dist.get_rank()
+
+
+def mesh_kernel_cases(torch, fa, ops, device="cuda"):
+    """name -> (body, flash?, inputs): each kernel's wrapper
+    body at the main path's shapes (smollm-135m at full width: one worker's
+    flash shapes, q [B·KV, S, G, hd] = [24, 1024, 3, 64] bf16; the serving
+    decode step, q [16, 9, 64] against a [1024, 16, 3, 64] pool; the
+    Newton-Schulz stack and the outer update on w_in [30, 576, 1536] fp32;
+    the wire's K-folded rows of w_in, [2, 26,542,080]), made from seed 22 on
+    every rank alike. ``flash?``: a flash body on the kernel layout, which
+    the caller routes by ``flash_body_specs``; the other bodies are the
+    public wrappers, which route themselves."""
+    g = torch.Generator(device=device).manual_seed(22)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    bf = torch.bfloat16
+    BKV, S, G, hd = 24, 1024, 3, 64
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = rand(BKV, S, G, hd, dtype=bf), rand(BKV, S, hd, dtype=bf), rand(BKV, S, hd, dtype=bf)
+    do = rand(BKV, S, G, hd, dtype=bf)
+    o, lse = fa._fwd(q, k, v, causal=True, window=0, scale=scale)
+    dl = torch.sum(do.float() * o.float(), dim=-1)
+    kw = dict(causal=True, window=0, scale=scale)
+    n_pages, ps, slots, W = 1024, 16, 16, 40
+    pq = rand(slots, 9, hd, dtype=bf)
+    kp, vp = rand(n_pages, ps, 3, hd, dtype=bf), rand(n_pages, ps, 3, hd, dtype=bf)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(22))[:slots * W]
+    table = (perm + 1).reshape(slots, W).to(torch.int32).to(device)
+    lengths = torch.randint(1, W * ps, (slots,), generator=torch.Generator().manual_seed(23),
+                            dtype=torch.int32).to(device)
+    w = rand(30, 576, 1536)
+    psi, u = rand(30, 576, 1536), rand(30, 576, 1536)
+    rows = rand(2, 30 * 576 * 1536)
+    codes, lo_, sc_ = ops.quantize_codes_rowwise(rows, 2)
+    return {
+        "flash_fwd": (lambda a, b, c: fa._fwd(a, b, c, **kw), True, (q, k, v)),
+        "flash_dq": (lambda *a: fa._dq_cuda(*a, **kw), True, (q, k, v, do, lse, dl)),
+        "flash_dkv": (lambda *a: fa._dkv_cuda(*a, **kw), True, (q, k, v, do, lse, dl)),
+        "paged_decode": (lambda *a: fa.paged_decode_attention(*a, impl="pallas"), False,
+                         (pq, kp, vp, table, lengths)),
+        "matmul_epilogue": (lambda x: ops.ns_orthogonalize(x), False, (w,)),
+        "nesterov": (lambda a, b, c: ops.nesterov_update(a, b, c, lr=0.7, momentum=0.9), False,
+                     (w, psi, u)),
+        "quantize": (lambda x: ops.quantize_codes_rowwise(x, 2), False, (rows,)),
+        "dequantize": (lambda *a: ops.dequantize_rowwise(*a), False, (codes, lo_, sc_)),
+    }
+
+
+def flash_body_specs(fa, part, name: str, lead: int) -> tuple:
+    """(in specs, out specs) of a flash kernel's body on the kernel layout,
+    as ``gqa_flash_attention`` routes the forward and its backward."""
+    q, kv = fa.flash_specs(part, lead)
+    row = q[:3]  # lse and dl: [B·KV, S, G]
+    if name == "flash_fwd":
+        return (q, kv, kv), (q, row)
+    ins = (q, kv, kv, q, row, row)
+    return ins, (q if name == "flash_dq" else (kv, kv))
+
+
+def mesh_child_kernels(torch) -> None:
+    """[22b, one rank] each kernel through ``kernels/partition.py`` on the
+    (pod=2) mesh and on the (data=2) mesh of the two ranks: the routed call
+    on replicated DTensors runs the kernel on this rank's block, which must
+    equal that block of the one-process call on the whole tensor, bitwise.
+    On the (data=2) mesh both are timed (the ranks take turns on the card).
+    Then 22d's serving (:func:`mesh_serve`) in the same processes."""
+    import json as _json
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.partition import kernel_partitioning, local_block, shard_wrap
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import kernel_specs
+
+    rank = _mesh_child_start(torch)
+    cases = mesh_kernel_cases(torch, fa, ops)
+    time_ms(torch, lambda: cases["flash_fwd"][0](*cases["flash_fwd"][2]))  # clocks up
+    out = {}
+    for mesh_name, mesh in (("pod2", make_debug_mesh(1, 1, pod=2, device_type="cuda")),
+                            ("data2", make_debug_mesh(2, 1, device_type="cuda"))):
+        part = kernel_specs(mesh)
+        for name, (body, flash, args) in cases.items():
+            whole = body(*args)
+            whole = whole if isinstance(whole, tuple) else (whole,)
+            fn = body
+            if flash:  # the kernel layout's bodies, routed as the wrapper routes them
+                fn = shard_wrap(body, part, *flash_body_specs(fa, part, name, args[0].shape[0]))
+            dts = tuple(DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                        for a in args)
+            before = dict(_build.LAUNCHES)
+            with kernel_partitioning(part):
+                routed = fn(*dts)
+            torch.cuda.synchronize()
+            launches = {k: n - before[k] for k, n in _build.LAUNCHES.items() if n != before[k]}
+            routed = routed if isinstance(routed, tuple) else (routed,)
+            same = all(torch.equal(r.to_local(), local_block(w_, mesh, r.placements))
+                       for r, w_ in zip(routed, whole))
+            local_shape = list(routed[0].to_local().shape)
+            times = {}
+            for turn in range(MESH_RANKS if mesh_name == "data2" else 0):
+                dist.barrier()
+                if turn == rank:
+                    with kernel_partitioning(part):
+                        times["local_ms"] = time_ms(torch, lambda: fn(*dts), MESH_TIMING_RUNS)
+                    times["whole_ms"] = time_ms(torch, lambda: body(*args), MESH_TIMING_RUNS)
+                dist.barrier()
+            out.setdefault(name, {})[mesh_name] = {
+                "bitwise": bool(same), "local": local_shape, "whole": list(whole[0].shape),
+                "launches": launches, **times,
+                "placements": [str(p) for p in routed[0].placements]}
+            del whole, routed
+    # every Newton-Schulz stack of smollm-135m's Muon leaves split over 'data'
+    mesh = make_debug_mesh(2, 1, device_type="cuda")
+    part = kernel_specs(mesh)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for shape in MESH_NS_STACKS:
+        x = torch.randn(shape, generator=g, device="cuda")
+        whole = ops.ns_orthogonalize(x)
+        with kernel_partitioning(part):
+            routed = ops.ns_orthogonalize(
+                DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False))
+        out["matmul_epilogue"]["data2"].setdefault("stacks", {})[str(list(shape))] = bool(
+            torch.equal(routed.to_local(), local_block(whole, mesh, routed.placements)))
+    (MESH_DIR / f"kernels.rank{rank}.json").write_text(_json.dumps(out))
+    del cases
+    torch.cuda.empty_cache()
+    mesh_serve(torch, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_child_train(torch) -> None:
+    """[22c, one rank, under torchrun] the training command ``MESH_TRAIN``
+    through the CLI entry point (``launch/train.py:train``); rank 0 saves the
+    per-round records, the gathered outer params, the wire bytes received
+    and the sync's times."""
+    import torch.distributed as dist
+
+    from repro_torch.core import diloco
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    rank = _mesh_child_start(torch)
+    syncs = []
+    outer_step = diloco.outer_step
+
+    def timed_sync(*a, **kw):  # the sync's wall and device time, per round
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        res = outer_step(*a, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        syncs.append((time.perf_counter() - t0, ev[0].elapsed_time(ev[1]) / 1e3))
+        return res
+
+    diloco.outer_step = timed_sync
+    _build.reset_launch_counts()
+    mesh_mod.reset_traffic()
+    out = train(build_parser().parse_args(MESH_TRAIN))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    received = dict(mesh_mod.RECEIVED)
+    whole = out["engine"].whole_state(out["state"])
+    if rank == 0:
+        torch.save({"history": out["history"], "losses": out["losses"],
+                    "outer_params": {p: t.cpu() for p, t in
+                                     tree_leaves_with_paths(whole["outer_params"])},
+                    "launches": launches, "received": received, "syncs": syncs,
+                    "staged": dict(mesh_mod.STAGED)}, MESH_DIR / "train.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_serve(torch, rank: int) -> None:
+    """[22d, one rank, in 22b's processes] ``MESH_SERVE``'s requests through
+    a PagedEngine on the (data=2) mesh; rank 0 saves the greedy tokens and
+    the launches."""
+    import json as _json
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import random_prompts, requests_for
+    from repro_torch.models import build_model
+    from repro_torch.serving import PagedEngine
+
+    cfg = get_config("smollm-135m").replace(attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.device("cuda"))
+    mesh = make_debug_mesh(2, 1, device_type="cuda")
+    kw = {k: MESH_SERVE[k] for k in ("slots", "page_size", "max_pages",
+                                      "decode_steps_per_dispatch")}
+    engine = PagedEngine(model, params, attn_impl="pallas", device="cuda", mesh=mesh, **kw)
+    reqs = requests_for(random_prompts(cfg.vocab, MESH_SERVE["batch"], MESH_SERVE["prompt_len"]),
+                        MESH_SERVE["max_new"])
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rank == 0:
+        (MESH_DIR / "serve.json").write_text(_json.dumps({
+            "tokens": {r: t.tolist() for r, t in res.items()}, "seconds": seconds,
+            "launches": dict(_build.LAUNCHES), "formula": engine.launches(),
+            "stats": engine.stats}))
+
+
+def phase_mesh_kernels(torch, smi: str) -> dict:
+    """[22b] ``mesh_child_kernels`` on two ranks; every kernel bitwise on
+    both meshes, its launches in the routed call, local and whole times."""
+    print(f"[22b] each kernel across {MESH_RANKS} ranks on one card (gloo), through "
+          f"kernels/partition.py, bitwise against the one-process call (the same processes "
+          f"then serve 22d's requests); card: {smi}")
+    run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", "kernels"], "kernels")
+    per_rank = [json.loads((MESH_DIR / f"kernels.rank{r}.json").read_text())
+                for r in range(MESH_RANKS)]
+    rows = {}
+    for name, meshes in per_rank[0].items():
+        rows[name] = {}
+        for mesh_name, v in meshes.items():
+            others = [pr[name][mesh_name] for pr in per_rank]
+            ok = all(o["bitwise"] for o in others)
+            launched = all(o["launches"] for o in others)
+            stacks = {k: all(o["stacks"][k] for o in others) for k in v.get("stacks", {})}
+            timed = (f"; local {v['local_ms']:.4f} ms, whole {v['whole_ms']:.4f} ms (rank 0; "
+                     f"card: {smi})" if "local_ms" in v else "")
+            print(f"  {name:16s} {mesh_name}: local {v['local']} of {v['whole']} "
+                  f"{v['placements']}, bitwise on every rank: {ok}, launches a rank "
+                  f"{[o['launches'] for o in others]}{timed}"
+                  + (f"; every smollm stack split over data bitwise: {stacks}" if stacks else ""))
+            assert ok and all(stacks.values()), (name, mesh_name, stacks)
+            assert launched, (name, mesh_name, "no launch")
+            rows[name][mesh_name] = {"ranks": MESH_RANKS, "bitwise": ok, "local": v["local"],
+                                     "launches": sum(sum(o["launches"].values())
+                                                     for o in others),
+                                     **{k: v[k] for k in ("local_ms", "whole_ms") if k in v}}
+    return rows
+
+
+def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
+    """[22c] ``MESH_TRAIN`` under torchrun on two ranks (one worker each)
+    against the same command in this process (no ``--mesh``; eager rounds,
+    which 6d holds bitwise to the captured ones): per-round train and eval
+    losses and every outer-param leaf, bitwise; the mesh run's tokens/s, the
+    sync's times and the wire bytes gathered."""
+    from repro_torch.kernels import _build
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    print(f"[22c] training on a 2x1x1 mesh: torchrun --nproc-per-node {MESH_RANKS} "
+          "repro_torch.launch.train " + " ".join(MESH_TRAIN) + f"; card: {smi}")
+    run_ranks([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+               str(MESH_RANKS), "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
+               "--mesh-child", "train"], "train", torchrun=True, timeout=900)
+    mesh = torch.load(MESH_DIR / "train.pt")
+    one_argv = [a for a in MESH_TRAIN if a not in ("--mesh", "2x1x1")]
+    one_argv[one_argv.index("--out") + 1] = str(MESH_DIR / "train_one")
+    _build.reset_launch_counts()
+    one = train(build_parser().parse_args(one_argv), capture=False)  # eager = captured (6d)
+    torch.cuda.synchronize()
+    one_launches = dict(_build.LAUNCHES)
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    for a, b in zip(one["history"], mesh["history"]):
+        for k in keys:
+            assert a[k] == b[k], ("round", a["round"], k, a[k], b[k])
+    ref = {p: t.cpu() for p, t in tree_leaves_with_paths(one["state"]["outer_params"])}
+    gaps = [(p, (ref[p].double() - t.double()).abs().max().item())
+            for p, t in mesh["outer_params"].items() if not torch.equal(ref[p], t)]
+    print(f"  per-round {', '.join(keys)} equal to the one-process run's over "
+          f"{len(mesh['history'])} rounds; outer-param leaves not bitwise: "
+          f"{gaps[:1] if gaps else 'none'} of {len(ref)}")
+    assert not gaps, gaps[:3]
+    tokens = 2 * 4 * 8 * 1024
+    walls = [r["wall_s"] for r in mesh["history"]]
+    one_walls = [r["wall_s"] for r in one["history"]]
+    print(f"  mesh run (eager rounds, one a dispatch): round walls "
+          f"{[round(w, 3) for w in walls]} s, {tokens / walls[-1]:.1f} tok/s in round 2 "
+          f"({tokens} tokens a round, both ranks on one card); one process, eager: "
+          f"{[round(w, 3) for w in one_walls]} s, {tokens / one_walls[-1]:.1f} tok/s")
+    print(f"  the sync (outer_step, rank 0): wall {[round(s[0], 3) for s in mesh['syncs']]} s, "
+          f"between its events on the card {[round(s[1], 4) for s in mesh['syncs']]} s (the "
+          f"host-staged gathers hold the stream); bytes received from the other rank over the "
+          f"run: {mesh['received']} "
+          f"(wire = the 2-bit packets of the other worker; outer = θ gathered from its ZeRO "
+          f"layout for Δ, the reset and the eval loss); staged gathers {mesh['staged']}")
+    print(f"  launches: mesh rank 0 {mesh['launches']}; one process {one_launches}; card: {smi}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
+                 "quantize", "dequantize"):
+        assert mesh["launches"][name] > 0, name
+    del one
+    torch.cuda.empty_cache()
+    return {"launches": mesh["launches"], "tok_s": tokens / walls[-1],
+            "received": mesh["received"]}
+
+
+def phase_mesh_serve(torch, get_config, serve, smi: str) -> dict:
+    """[22d] ``MESH_SERVE`` on the (data=2) mesh against one process: the
+    greedy tokens, exact or the count that differ."""
+    print(f"[22d] serving on a (data=2) mesh of {MESH_RANKS} ranks, smollm-135m full width, "
+          f"{MESH_SERVE}; card: {smi}")
+    got = json.loads((MESH_DIR / "serve.json").read_text())  # 22b's ranks served it
+    cfg = get_config("smollm-135m").replace(attn_impl="pallas")
+    results, seconds, _, model, params = serve(cfg, device="cuda", **MESH_SERVE)
+    differ = sum(int(a != b) for rid, toks in results.items()
+                 for a, b in zip(toks.tolist(), got["tokens"][rid]))
+    n = MESH_SERVE["batch"] * MESH_SERVE["max_new"]
+    print(f"  greedy tokens: {n - differ} of {n} equal to one process's "
+          f"({'exact' if not differ else f'{differ} differ'}); mesh {n / got['seconds']:.1f} "
+          f"tok/s (eager spans, host-staged gathers) against {n / seconds:.1f} (captured); "
+          f"launches rank 0 {got['launches']} (formula {got['formula']}); card: {smi}")
+    assert got["launches"]["paged_decode"] == got["formula"]["paged_decode"] > 0
+    assert got["launches"]["flash_fwd"] == got["formula"]["flash_fwd"] > 0
+    assert differ == 0, differ
+    del model, params
+    torch.cuda.empty_cache()
+    return {"launches": got["launches"], "tokens_equal": n}
+
+
+def slice_12(torch, build_parser, train, get_config, serve, smi: str) -> dict:
+    """Phase 22: (a) the kernels were built in phase 2, in this process,
+    before any rank starts (each rank loads them; the build's file lock
+    would hold a second builder); (b) the kernels across ranks, whose
+    processes then serve (d); (c) the mesh's training; (d) the mesh's
+    serving against one process."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    print("[22a] kernels built once in this process (phase 2) before any rank starts")
+    kernels = phase_mesh_kernels(torch, smi)
+    lap("22b")
+    trained = phase_mesh_train(torch, build_parser, train, smi)
+    lap("22c")
+    served = phase_mesh_serve(torch, get_config, serve, smi)
+    lap("22d")
+    return {"kernels": kernels, "train": trained, "serve": served}
+
+
+def mesh_child(kind: str) -> int:
+    import torch
+
+    {"kernels": mesh_child_kernels, "train": mesh_child_train}[kind](torch)
+    return 0
+
+
+ALONE = ("12", "13", "14", "15", "16", "17", "18", "19", "21", "22")
 
 
 def main(argv: list | None = None) -> int:
@@ -4688,6 +5132,8 @@ def main(argv: list | None = None) -> int:
     earlier one failed, then phase 20 on their reads, and exits 1 if any
     failed, printing no summary."""
     argv = sys.argv[1:] if argv is None else argv
+    if "--mesh-child" in argv:  # one rank of phase 22, started by this script
+        return mesh_child(argv[argv.index("--mesh-child") + 1])
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv else None
     if only is not None and not set(only) <= set(ALONE):
         raise SystemExit(f"chip_smoke: --only takes groups of {ALONE}, not {only}")
@@ -4753,6 +5199,7 @@ def main(argv: list | None = None) -> int:
         "18": lambda: slice_8(torch, mods, get_config, build_model, serve, ptxas, smi),
         "19": lambda: slice_9(torch, fa, get_config, build_model, serve, ptxas, smi),
         "21": lambda: phase_autotune(torch, mods, build_parser, train, smi),
+        "22": lambda: slice_12(torch, build_parser, train, get_config, serve, smi),
     }
     if only is not None:
         import gc
@@ -4862,6 +5309,8 @@ def main(argv: list | None = None) -> int:
         "12d": ladder.pop("autotune_ref")})
     del ref_host
     lap("21")
+    mesh = group["22"]()
+    lap("22")
 
     def new_paths(name: str) -> dict:
         """A kernel's launches on slice 6b's paths (14b, 15, 16), and its
@@ -4923,6 +5372,12 @@ def main(argv: list | None = None) -> int:
                                        if _build.split_key(k)[0] == name}
         if name in autotune["times"]:
             row["tuned"] = autotune["times"][name]
+        # 22b: across two ranks of a mesh on the card (the kernel on each
+        # rank's block, bitwise the whole call); 22c / 22d: the mesh's paths
+        row["across_ranks"] = {
+            **mesh["kernels"][name],
+            "mesh_train_launches": mesh["train"]["launches"].get(name, 0),
+            "mesh_serve_launches": mesh["serve"]["launches"].get(name, 0)}
     t = flash["training"]
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
           "(the flash_fwd row counts the serving main path's and times its shape); at the "
@@ -4939,7 +5394,7 @@ def main(argv: list | None = None) -> int:
     print(f"tuned variants launched (autotune on, the default): 6b {autotune['runs']['6b']['tuned']}"
           f", 12d {autotune['runs']['12d']['tuned']}; committed cuda entries not the default: "
           f"{autotune['tuned_keys']}")
-    print(f"[22] done in {time.perf_counter() - _T0:.1f} s")
+    print(f"[23] done in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

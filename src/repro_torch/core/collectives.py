@@ -9,6 +9,18 @@ local reduce (one compression). The reduce consumes the wire buffers the
 worker stage emitted (:mod:`repro_torch.core.wire`). Workers live on a
 stacked leading K axis, so the mean over axis 0 is the all-reduce.
 
+On a mesh of ranks (``launch/mesh.py``) each rank holds its own workers
+(K -> 'pod'), and :class:`mesh_groups` names the process groups of the
+mesh's axes: :func:`gather_workers` all-gathers a worker-stacked buffer
+(a wire packet's buffers, or dense deltas) across 'pod' in rank order, so
+the reduce then sums the same [K, ...] stack in ``_sum_workers``'s order
+on every rank and gives the bits of the one-process reduce;
+:func:`data_mean` averages a worker's gradients over the ranks that split
+its batch ('data'); :func:`whole` rebuilds a DTensor leaf of the outer
+state (kept in its ZeRO layout) whole on every rank, and :func:`like`
+lays a whole tensor out as a DTensor leaf. With no groups installed each
+is the identity, so the one-process path is unchanged.
+
 Byte accounting: :func:`measured_sync_bytes` sizes the buffers the
 collective moves (codes, row metadata, indices, packing padding) in closed
 form from the leaf shapes, allocating nothing; it is the per-round
@@ -17,7 +29,9 @@ closed-form model (Tab. 10 / Fig. 16).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from contextvars import ContextVar
 from typing import Any
 
 import torch
@@ -28,6 +42,94 @@ from repro_torch.kernels.quantize import packed_width
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
 
 Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """The process groups a mesh round exchanges over: ``workers`` ('pod':
+    each rank holds K / pod workers) and ``data`` (each rank holds B / data
+    rows of its workers' batches); None where the axis has one rank."""
+
+    workers: Any = None
+    data: Any = None
+
+
+_GROUPS: ContextVar[MeshGroups | None] = ContextVar("mesh_groups", default=None)
+
+
+class mesh_groups:
+    """Context manager installing a round's :class:`MeshGroups` (None: one
+    process holds every worker and every batch row)."""
+
+    def __init__(self, groups: MeshGroups | None):
+        self.groups = groups
+        self._toks: list = []
+
+    def __enter__(self):
+        self._toks.append(_GROUPS.set(self.groups))
+        return self
+
+    def __exit__(self, *exc):
+        _GROUPS.reset(self._toks.pop())
+        return False
+
+
+def gather_workers(x):
+    """A rank's worker-stacked [K_local, ...] tensor or wire packet,
+    all-gathered across 'pod' into the [K, ...] stack of every worker (the
+    identity with no mesh installed)."""
+    groups = _GROUPS.get()
+    if groups is None or groups.workers is None:
+        return x
+    from repro_torch.core.wire import _BUFFERS, is_wire
+    from repro_torch.launch.mesh import all_gather
+
+    if not is_wire(x):
+        return all_gather(x, groups.workers, tag="workers")
+    fields = {f: all_gather(getattr(x, f), groups.workers, tag="wire")
+              for f in _BUFFERS[type(x)]}
+    n = fields[_BUFFERS[type(x)][0]].shape[0] // getattr(x, _BUFFERS[type(x)][0]).shape[0]
+    shape = (x.shape[0] * n, *x.shape[1:])
+    return dataclasses.replace(x, shape=shape, **fields)
+
+
+def data_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks that split a worker's batch
+    ('data'): their sum in rank order times 1 / data (the identity with no
+    data axis)."""
+    groups = _GROUPS.get()
+    if groups is None or groups.data is None:
+        return x
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import all_reduce_sum
+
+    return all_reduce_sum(x, groups.data, tag="grads") * (1.0 / dist.get_world_size(groups.data))
+
+
+def whole(x):
+    """A DTensor leaf gathered whole on every rank (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.mesh import gather_whole
+
+    return gather_whole(x.to_local(), x.device_mesh, x.placements, tag="outer")
+
+
+def like(ref, x):
+    """A whole tensor ``x`` laid out as the DTensor leaf ``ref`` is (its
+    block on this rank, a slice), or ``x`` as it is when ``ref`` is plain."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(ref, DTensor):
+        return x
+    from repro_torch.kernels.partition import local_block
+
+    mesh, pl = ref.device_mesh, ref.placements
+    return DTensor.from_local(local_block(x, mesh, pl).contiguous(), mesh, pl,
+                              run_check=False, shape=ref.shape, stride=ref.stride())
 
 
 def _sum_workers(vals: torch.Tensor) -> torch.Tensor:
@@ -69,9 +171,10 @@ def reduce_pseudogradients(worker_comm: Tree, cfg: CompressionConfig,
     [K, ...] deltas for ``kind='none'``, wire packets otherwise (decoded,
     D1, then averaged; Q2/D2 for the a2a_rs_ag quantized collective)."""
     if cfg.kind == "none":
-        return tree_map(lambda d: participation_mean(d.float(), participation), worker_comm)
-    return tree_map(lambda w: _q2_d2(participation_mean(decode_leaf(w, impl=cfg.wire_impl),
-                                                        participation), cfg), worker_comm)
+        return tree_map(lambda d: participation_mean(gather_workers(d.float()), participation),
+                        worker_comm)
+    return tree_map(lambda w: _q2_d2(participation_mean(
+        decode_leaf(gather_workers(w), impl=cfg.wire_impl), participation), cfg), worker_comm)
 
 
 def _leaf_wire_pipeline(d: torch.Tensor, e: torch.Tensor | None, cfg: CompressionConfig,
@@ -81,9 +184,12 @@ def _leaf_wire_pipeline(d: torch.Tensor, e: torch.Tensor | None, cfg: Compressio
     residual and the mean. Mirrors the stage chain leafwise. Returns
     ``(psi fp32, new_residual fp32 | None)``."""
     acc = ef_accumulate(cfg, d, e) if e is not None else None
-    vals = decode_leaf(encode_leaf(acc if acc is not None else d, cfg, batch_ndim=1),
-                       impl=cfg.wire_impl)  # D1: the true reconstruction
+    packet = encode_leaf(acc if acc is not None else d, cfg, batch_ndim=1)
+    vals = decode_leaf(packet, impl=cfg.wire_impl)  # D1: the true reconstruction
     new_e = acc - vals if acc is not None else None
+    groups = _GROUPS.get()
+    if groups is not None and groups.workers is not None:  # the packets cross 'pod'
+        vals = decode_leaf(gather_workers(packet), impl=cfg.wire_impl)
     return _q2_d2(participation_mean(vals, participation), cfg), new_e
 
 

@@ -16,6 +16,14 @@ ctypes and have no ``torch.func`` batching rule. Where JAX donates the
 state, the port writes worker params, inner state, the EF residuals and the
 outer state in place (``copy_``), so a round holds one copy of each.
 
+On a mesh of ranks (``TrainEngine(mesh=...)``) the same functions run on
+each rank's compute layout: the rank's own workers ([K/pod, ...] worker
+trees, each whole) and its rows of their batches, with the outer state as
+DTensors in its ZeRO layout. The hooks of :mod:`repro_torch.core.collectives`
+do the exchanges (gradients averaged over 'data', losses and wire packets
+gathered across 'pod', θ_outer gathered whole for Δ and the reset), and
+are the identity in one process.
+
 The pseudogradient path Δ -> compress/EF -> reduce -> outer descent is the
 chain :func:`make_outer` declares (:class:`OuterOptimizer`), with the
 compressors of :mod:`repro_torch.core.compression`, the wire packets of
@@ -52,10 +60,14 @@ from typing import Any
 import torch
 
 from repro_torch.core.collectives import (
+    data_mean,
+    gather_workers,
+    like,
     measured_sync_bytes,
     participation_mean,
     reduce_mean,
     segment_sync_update,
+    whole,
 )
 from repro_torch.core.compression import CompressionConfig, compress, error_feedback
 from repro_torch.core.health import HealthConfig, health_init, health_update
@@ -190,6 +202,7 @@ class OuterOptimizer:
     def descend(self, params: Tree, psi: Tree, opt_state: Tree):
         """The terminal half: outer transform update + parameter descent.
         Returns ``(new_params, new_opt)``."""
+        psi = tree_map(like, params, psi)  # on a mesh: in the outer state's layout
         psi, opt_after = self.terminal.update(psi, opt_state, params)
         return self.terminal.apply(params, psi, opt_after)
 
@@ -336,8 +349,9 @@ def inner_step(model, opt, state: dict, batch: dict,
         with torch.enable_grad():
             loss, _ = model.loss(leaves, {n: v[k] for n, v in batch.items()})
         # the gradient tree is handed over without a name here, so the step
-        # frees it once its directions are computed
-        new_p, new_s = opt.step(params_k, _grads(loss, leaves), inner_k)
+        # frees it once its directions are computed; on a mesh it is first
+        # averaged over the ranks that split the batch ('data')
+        new_p, new_s = opt.step(params_k, tree_map(data_mean, _grads(loss, leaves)), inner_k)
         with torch.no_grad():
             if participation is None:
                 _copy_into(params_k, new_p)
@@ -348,8 +362,8 @@ def inner_step(model, opt, state: dict, batch: dict,
                     tree_map(lambda d, s: d.copy_(torch.where(keep, s, d)), dst, src)
         # copied in: freed before the next worker's step allocates its own
         del new_p, new_s
-        losses.append(loss.detach())
-    losses = torch.stack(losses)
+        losses.append(data_mean(loss.detach()))
+    losses = gather_workers(torch.stack(losses))  # on a mesh: every worker's, across 'pod'
     return state, {"loss": participation_mean(losses, participation),
                    "loss_per_worker": losses}
 
@@ -360,8 +374,9 @@ def inner_step(model, opt, state: dict, batch: dict,
 
 
 def _delta(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One leaf's Δ_k = θ_outer − θ_k, stacked [K, ...] (paper Alg. 1 line 9)."""
-    return o.float()[None] - w.float()
+    """One leaf's Δ_k = θ_outer − θ_k, stacked [K, ...] (paper Alg. 1 line 9);
+    on a mesh θ_outer is gathered whole from its ZeRO layout first."""
+    return whole(o).float()[None] - w.float()
 
 
 def compute_deltas(state: dict) -> Tree:
@@ -456,7 +471,7 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
 
     # broadcast the synced params back to every worker (masked portions only)
     def reset(o, w, m=None):
-        ob = o[None].to(w.dtype).expand_as(w)
+        ob = whole(o)[None].to(w.dtype).expand_as(w)
         if m is None:
             w.copy_(ob)
         else:

@@ -116,9 +116,9 @@ def quant_encode(x: torch.Tensor, bits: int, rowwise: bool, *,
     m, n = _row_layout(tuple(x.shape), rowwise, batch_ndim)
     x2d = x.reshape(m, n)
     if impl == "pallas":  # the codes-only kernel, under ops.quantize_rowwise's autotune key
-        from repro_torch.kernels.ops import quantize_tile
+        from repro_torch.kernels.ops import quantize_codes_rowwise
 
-        codes, lo, scale = rowwise_quantize_codes(x2d, bits, tile=quantize_tile(x2d, bits))
+        codes, lo, scale = quantize_codes_rowwise(x2d, bits, encode=rowwise_quantize_codes)
     else:
         q, lo, scale = quant_codes_plain(x2d, bits)
         codes = q.to(torch.uint8)

@@ -31,6 +31,28 @@ round counter set by the recovery path) is copied into the captured
 tensors first. A capture that fails raises; nothing falls back to eager.
 ``TrainEngine(..., capture=False)`` keeps the eager path on the card for
 the equality checks.
+
+On a mesh (``TrainEngine(model, dcfg, icfg, mesh=...)``, a DeviceMesh with
+the reference's axes 'pod', 'data' and 'model'): :meth:`state_shardings`
+gives the reference's specs of the TrainState (``launch/sharding.py``),
+:meth:`place_state` lays a whole state out by them as DTensors (each rank
+keeps its blocks: a placed state holds the bits of the whole one) and
+:meth:`place_batches` the batches (K -> 'pod', B -> 'data'). A dispatch
+runs on the state's compute layout (:meth:`compute_state`): each rank
+holds its own K / pod workers, each worker tree whole (gathered over
+'data' and 'model' once), and its B / data rows of their batches, while the
+outer params and outer optimizer state stay DTensors in their ZeRO layout,
+where the outer update runs on each rank's block. The worker loop runs over
+the rank's own workers; the exchanges are those of
+:mod:`repro_torch.core.collectives` (gradients averaged over 'data', the
+losses and the wire packets gathered across 'pod' and summed in the
+one-process order, θ_outer gathered whole for Δ, the reset and the eval
+loss), and every kernel wrapper runs under the mesh's routing
+(``kernels/partition.py``). Nothing is captured on a mesh: a round runs
+eagerly, and gloo's collectives (two ranks on one card) cannot be captured
+in a CUDA graph. Eager rounds are the captured ones' arithmetic (bitwise),
+so every R is still the same bits. The mesh path runs the lockstep sync
+(no streaming, elastic drops or sync delay).
 """
 from __future__ import annotations
 
@@ -131,10 +153,21 @@ class TrainEngine:
     """
 
     def __init__(self, model, dcfg: DiLoCoConfig, icfg: OptimizerConfig, *,
-                 capture: bool | None = None):
+                 capture: bool | None = None, mesh=None, kernel_parts=None):
         self.model = model
         self.dcfg = dcfg
         self.icfg = icfg
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh_config(dcfg, mesh)
+            if capture:
+                raise ValueError("a mesh round runs eagerly: TrainEngine(mesh=..., capture=True)")
+            capture = False
+            if kernel_parts is None:
+                from repro_torch.launch.sharding import kernel_specs
+
+                kernel_parts = kernel_specs(mesh, getattr(model, "cfg", None))
+        self.kernel_parts = kernel_parts
         self.capture = capture
         self.opt = make_optimizer(dcfg, icfg)
         self.outer = make_outer(dcfg, state_dtype=icfg.state_dtype)
@@ -151,9 +184,113 @@ class TrainEngine:
         self.replays = 0
 
     def init(self, gen: torch.Generator, device) -> dict:
+        """A fresh state; on a mesh, the whole state made from ``gen`` on
+        every rank (so every rank holds the same bits), then placed."""
         state = diloco_init(self.model, self.dcfg, self.icfg, gen, device)
+        if self.mesh is not None:
+            return self.place_state(state)
         self._captures(state)
         return state
+
+    # -- the mesh -------------------------------------------------------------
+
+    def abstract_state(self) -> dict:
+        """The TrainState on the ``meta`` device (nothing allocated)."""
+        return diloco_init(self.model, self.dcfg, self.icfg, torch.Generator(),
+                           torch.device("meta"))
+
+    def state_shardings(self, tensor_parallel: bool | None = None) -> dict:
+        """The reference's specs of the TrainState on the engine's mesh
+        (``tensor_parallel`` None: ``launch.steps.tp_friendly`` of the model)."""
+        if self.mesh is None:
+            raise ValueError("engine was built without a mesh")
+        from repro_torch.launch.sharding import diloco_state_shardings
+        from repro_torch.launch.steps import tp_friendly
+
+        tp = tp_friendly(self.model.cfg, self.mesh) if tensor_parallel is None else tensor_parallel
+        return diloco_state_shardings(self.mesh, self.abstract_state(), tensor_parallel=tp)
+
+    def place_state(self, state: dict, tensor_parallel: bool | None = None) -> dict:
+        """A whole TrainState (every rank holds the same bits) as DTensors
+        laid out by :meth:`state_shardings` (local slices, no communication)."""
+        from repro_torch.launch.sharding import place
+
+        return place(self.mesh, state, self.state_shardings(tensor_parallel))
+
+    def place_batches(self, batches: dict, leading_scan: int = 1) -> dict:
+        """Whole [H, K, B, ...] round batches (``leading_scan`` 1; [R, H, ...]
+        superstep batches: 2) as DTensors, K -> 'pod', B -> 'data'."""
+        if self.mesh is None:
+            return batches
+        from repro_torch.launch.sharding import batch_shardings, place
+
+        return place(self.mesh, batches, batch_shardings(self.mesh, batches, k_stacked=True,
+                                                         leading_scan=leading_scan))
+
+    def local_batches(self, batches: dict, leading_scan: int = 1) -> dict:
+        """This rank's rows of batches: a placed (DTensor) batch's local
+        blocks, or the blocks of whole batches (the same on every rank)."""
+        from torch.distributed.tensor import DTensor
+
+        if all(isinstance(v, DTensor) for v in batches.values()):
+            return {k: v.to_local() for k, v in batches.items()}
+        return {k: v.to_local() for k, v in self.place_batches(batches, leading_scan).items()}
+
+    def compute_state(self, state: dict) -> dict:
+        """The compute layout of a placed state (the identity on a state in
+        it already): the worker groups as plain [K / pod, ...] tensors, each
+        worker whole (gathered over every mesh axis but 'pod'); the outer
+        params and outer optimizer state as they are (DTensors); the
+        counters and health stats as plain tensors."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.launch.mesh import gather_whole
+
+        def worker(x):  # gathered over every axis but 'pod'
+            if not isinstance(x, DTensor):
+                return x
+            pl = [Replicate() if name == "pod" else p
+                  for name, p in zip(self.mesh.mesh_dim_names, x.placements)]
+            return gather_whole(x.to_local(), self.mesh, pl, tag="workers")
+
+        def plain(x):
+            return x.to_local() if isinstance(x, DTensor) else x
+
+        out = {}
+        for key, sub in state.items():
+            if key in ("worker_params", "inner_state", "ef"):
+                out[key] = tree_map(worker, sub)
+            elif key in ("outer_params", "outer_opt"):
+                out[key] = sub
+            else:
+                out[key] = tree_map(plain, sub)
+        return out
+
+    def whole_state(self, state: dict) -> dict:
+        """Every leaf of a mesh state whole on every rank (worker groups
+        gathered across 'pod', the outer groups from their ZeRO layout):
+        the state the one-process run holds, for checks and saving."""
+        from repro_torch.core.collectives import gather_workers, mesh_groups, whole
+
+        if self.mesh is None:
+            return state
+        state = self.compute_state(state)
+        with mesh_groups(self._groups()):
+            return {key: (tree_map(gather_workers, sub)
+                          if key in ("worker_params", "inner_state", "ef")
+                          else tree_map(whole, sub)) for key, sub in state.items()}
+
+    def _groups(self):
+        from repro_torch.core.collectives import MeshGroups
+
+        names = list(self.mesh.mesh_dim_names)
+
+        def group(name):
+            if name not in names or self.mesh.size(names.index(name)) == 1:
+                return None
+            return self.mesh.get_group(name)
+
+        return MeshGroups(workers=group("pod"), data=group("data"))
 
     # -- the round program ----------------------------------------------------
 
@@ -252,7 +389,15 @@ class TrainEngine:
         superstep_fn = build_superstep_fn(self._round, eval_loss_fn=self.eval_loss,
                                           checkpoint_cb=self._emit_checkpoint,
                                           program=self._dispatch_round)
-        return superstep_fn(state, batches, eval_batches, participation, ckpt_flags)
+        if self.mesh is None:
+            return superstep_fn(state, batches, eval_batches, participation, ckpt_flags)
+        from repro_torch.core.collectives import mesh_groups
+        from repro_torch.kernels.partition import kernel_partitioning
+
+        state = self.compute_state(state)
+        local = self.local_batches(batches, 2)
+        with kernel_partitioning(self.kernel_parts), mesh_groups(self._groups()):
+            return superstep_fn(state, local, eval_batches, participation, ckpt_flags)
 
     def _emit_checkpoint(self, state: dict) -> None:
         """Hand a flagged round's state to the sink as ``(host_state,
@@ -334,8 +479,27 @@ class TrainEngine:
     @torch.no_grad()
     def eval_loss(self, params: Tree, batch: dict) -> torch.Tensor:
         """Loss of the synced (outer) params on one un-stacked batch (the
-        function the round program folds in)."""
-        return self.model.loss(params, batch)[0]
+        function the round program folds in); on a mesh every rank takes the
+        whole batch on the whole params."""
+        from repro_torch.core.collectives import whole
+
+        return self.model.loss(tree_map(whole, params), batch)[0]
+
+
+def _check_mesh_config(dcfg: DiLoCoConfig, mesh) -> None:
+    """Raise for what the mesh round does not run, and for a worker count
+    the 'pod' axis does not divide."""
+    from repro_torch.launch.mesh import mesh_axis_sizes
+
+    pods = mesh_axis_sizes(mesh).get("pod", 1)
+    if dcfg.n_workers % pods:
+        raise ValueError(f"{dcfg.n_workers} workers do not divide over a 'pod' axis of {pods}")
+    for what, on in (("streaming (J > 1)", dcfg.streaming_partitions > 1),
+                     ("elastic drops", dcfg.elastic), ("a sync delay", dcfg.sync_delay > 0),
+                     ("the DP baseline (no outer optimizer)", not dcfg.outer_enabled)):
+        if on:
+            raise NotImplementedError(f"{what} on a mesh: the mesh round runs the lockstep "
+                                      "sync only (ROADMAP.md)")
 
 
 def dp_engine(model, inner_name: str, icfg: OptimizerConfig, *, ns_impl: str = "pallas",

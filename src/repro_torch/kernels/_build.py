@@ -5,7 +5,8 @@ with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes``: no PyTorch headers, so a build takes seconds. Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
 of their source and the shared headers (``csrc/*.cuh``), and are built at
-first use. Importing this module compiles nothing.
+first use, each under a file lock beside it, so ranks that start together
+compile a library once. Importing this module compiles nothing.
 
 The launch plumbing every kernel wrapper shares lives here too: ``entry``
 binds a C entry point, ``launch`` calls it on PyTorch's current stream,
@@ -35,6 +36,7 @@ reaches every variant its captured program launches.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import gc
 import hashlib
 import os
@@ -204,25 +206,58 @@ def _start(key: str, verbose: bool, nice: int = 0) -> tuple[subprocess.Popen, Pa
     return proc, tmp, out
 
 
+def _lock(key: str, wait: bool):
+    """The open lock file of library key ``key``, held exclusively
+    (``flock``), or None when ``wait`` is False and another build holds it.
+    Every process and thread that builds ``key`` takes it first, so a
+    library is compiled once however many ranks start together."""
+    f = open(lib_path(key).with_suffix(".lock"), "w")
+    try:
+        fcntl.flock(f, fcntl.LOCK_EX | (0 if wait else fcntl.LOCK_NB))
+    except BlockingIOError:
+        f.close()
+        return None
+    return f
+
+
 def build(names=None, verbose: bool = False, jobs: int | None = None,
           nice: int = 0) -> dict[str, dict]:
     """Compile the named library keys (default: every library's default
     variant) that are not built yet, one ``nvcc`` per key, at most ``jobs``
     at a time (default: all started together), each at niceness ``nice``
-    (a build behind other work). Returns ``{key: {"path", "seconds",
-    "log"}}`` (``seconds`` from the call's start to the build's end); raises
-    with nvcc's output if any build fails."""
+    (a build behind other work). Each build holds its key's file lock
+    (:func:`_lock`): a key another process or thread is building is waited
+    for, then taken as built. Returns ``{key: {"path", "seconds", "log"}}``
+    (``seconds`` from the call's start to the build's end, or to the end of
+    the wait); raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     names = list(SOURCES) if names is None else list(names)
     t0 = time.perf_counter()
     todo = [n for n in names if verbose or not lib_path(n).exists()]
     report = {n: {"path": str(lib_path(n)), "seconds": 0.0, "log": ""} for n in names}
-    failed, running = [], {}
+    failed, running, waiting, locks = [], {}, [], {}
     jobs = jobs or max(len(todo), 1)
-    while todo or running:
+
+    def begin(n: str, lock) -> None:
+        if lib_path(n).exists() and not verbose:  # built while this call waited
+            lock.close()
+            report[n]["seconds"] = time.perf_counter() - t0
+            return
+        locks[n] = lock
+        running[n] = _start(n, verbose, nice)
+
+    while todo or running or waiting:
         while todo and len(running) < jobs:
             n = todo.pop(0)
-            running[n] = _start(n, verbose, nice)
+            lock = _lock(n, wait=False)
+            if lock is None:  # another build holds it
+                waiting.append(n)
+            else:
+                begin(n, lock)
+        if not running and not todo and waiting:
+            n = waiting.pop(0)
+            begin(n, _lock(n, wait=True))
+            continue
         n = next((k for k, (p, _, _) in running.items() if p.poll() is not None), None)
         if n is None:
             time.sleep(0.05)
@@ -237,6 +272,7 @@ def build(names=None, verbose: bool = False, jobs: int | None = None,
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+        locks.pop(n).close()
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report

@@ -41,6 +41,11 @@ launch adds one to ``LAUNCHES[name]`` (shared with the other kernel
 modules, ``_build.LAUNCHES``), so a run can show that its path went
 through the kernels.
 
+On a mesh (``kernels/partition.py``) both public wrappers run their
+kernels on the rank's local block, as the reference's ``shard_map`` does:
+the fused B·KV axis of flash attention (:func:`flash_specs`), the batch
+slots and page-table rows of paged decode (:func:`paged_specs`).
+
 The visit-schedule helpers are pure Python, carried over exactly.
 """
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES, reset_launch_counts  # noqa: F401
+from repro_torch.kernels.partition import active_partitioning, axes_entry, axes_for, shard_wrap
 
 NEG_INF = -2.0e38
 DEFAULT_BLOCK_Q = 512
@@ -403,9 +409,47 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(B, S, KV, G, hd).transpose(1, 2).reshape(B * KV, S, G, hd)
     kg = k.transpose(1, 2).reshape(B * KV, S, hd)
     vg = v.transpose(1, 2).reshape(B * KV, S, hd)
-    o = FlashAttention.apply(qg.contiguous(), kg.contiguous(), vg.contiguous(), bool(causal),
-                             int(window), 1.0 / math.sqrt(hd))
+    cfg = (bool(causal), int(window), 1.0 / math.sqrt(hd))
+
+    def fn(qb, kb, vb):
+        return FlashAttention.apply(qb, kb, vb, *cfg)
+
+    part = active_partitioning()
+    if part is not None:
+        # routed outside the autograd Function, so the dq / dkv sweeps run
+        # on the same blocks as the forward
+        q_spec, kv_spec = flash_specs(part, B * KV)
+        fn = shard_wrap(fn, part, (q_spec, kv_spec, kv_spec), q_spec)
+    o = _whole(fn(qg.contiguous(), kg.contiguous(), vg.contiguous()))
     return o.reshape(B, KV, S, G, hd).transpose(1, 2).reshape(B, S, H, hd)
+
+
+def _whole(o):
+    """A DTensor result replicated on every rank (the layout change back to
+    the model layout splits the fused axis), a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(o, DTensor):
+        return o.redistribute(o.device_mesh, [Replicate()] * o.device_mesh.ndim)
+    return o
+
+
+def flash_specs(part, lead: int) -> tuple[tuple, tuple]:
+    """(q spec [lead, S, G, hd], kv spec [lead, S, hd]) on a mesh: the fused
+    B·KV axis (B-major) over ``part.flash_axes``; S whole on every rank. The
+    specs serve the forward and both backward sweeps (dq as q, dk / dv as
+    k / v, lse and dl as q's leading axis)."""
+    a = axes_entry(axes_for(part, lead, part.flash_axes))
+    return (a, None, None, None), (a, None, None)
+
+
+def paged_specs(part, batch: int) -> tuple[tuple, tuple, tuple, tuple]:
+    """(q, page_table, lengths, pool) specs of paged decode on a mesh: the
+    batch slots shard q [B, KV, G, hd], the page table [B, max_pages] and
+    lengths [B] together, so each rank looks up its own slots' rows, while
+    the KV pool stays whole on every rank and any page id resolves there."""
+    b = axes_entry(axes_for(part, batch, part.paged_axes))
+    return (b, None, None, None), (b, None), (b,), (None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -565,11 +609,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     assert H % KV == 0, (H, KV)
     qg = q.reshape(B, KV, H // KV, hd)
     if impl == "pallas":
-        if q.device.type == "cpu":
-            o = _paged_decode_plain(qg, k_pages, v_pages, page_table, lengths, window=window)
-        else:
-            o = _paged_decode_cuda(qg.contiguous(), k_pages, v_pages, page_table, lengths,
-                                   window=window)
+        def local(qb, kp, vp, tbl, lens):
+            if qb.device.type == "cpu":
+                return _paged_decode_plain(qb, kp, vp, tbl, lens, window=window)
+            return _paged_decode_cuda(qb.contiguous(), kp, vp, tbl, lens, window=window)
+
+        part = active_partitioning()
+        if part is not None:
+            q_spec, tbl_spec, len_spec, pool_spec = paged_specs(part, B)
+            local = shard_wrap(local, part, (q_spec, pool_spec, pool_spec, tbl_spec, len_spec),
+                               q_spec)
+        o = local(qg, k_pages, v_pages, page_table, lengths)
     elif impl == "xla":
         o = _paged_decode_xla(qg, k_pages, v_pages, page_table, lengths, window=window)
     else:

@@ -68,6 +68,15 @@ TILE_CANDIDATES = tuple(
     if t % r == 0 and (t // r) % 8 == 0)
 
 
+def ns_stack_spec(part, bsz: int) -> tuple:
+    """Spec of a [bsz, m, n] Newton-Schulz stack on a mesh: whole matrices
+    stay on one rank; the stack axis shards over ``part.ns_axes`` when it
+    divides, else the stack runs whole."""
+    from repro_torch.kernels.partition import axes_entry, axes_for
+
+    return (axes_entry(axes_for(part, bsz, part.ns_axes)), None, None)
+
+
 def tile_defines(tile: dict) -> dict[str, int]:
     """The ``-D`` defines that build ``tile`` (``csrc/matmul_epilogue.cu``'s
     ``MM_*``); the default's equal the source's own defaults."""

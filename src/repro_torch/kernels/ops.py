@@ -5,8 +5,12 @@ outer-update parts of ``repro/kernels/ops.py``).
 The reference pads operands to block multiples and vmaps its 2-D kernel
 over a stacked leaf; the port's kernels mask ragged edges and take the
 stack axis themselves, so nothing is padded and one launch covers a whole
-``[L, m, n]`` leaf. Mesh routing (``kernels/partition.py``) comes with the
-multi-GPU slice (ROADMAP.md).
+``[L, m, n]`` leaf. Each wrapper reads the mesh routing
+(``kernels/partition.py``) per call: with none installed it runs as one
+process on the whole tensor; on a mesh it runs its kernel on the rank's
+local block by the spec its kernel module declares (``matmul.ns_stack_spec``,
+``quantize.rowwise_specs``, ``outer_update.outer_update_spec``), which the
+kernels' row and element independence makes bitwise the whole call.
 
 The reference's ``block`` and ``block_rows`` arguments pick the kernels'
 build variant here: None (the default) consults the autotune table
@@ -19,14 +23,19 @@ tile, and the arguments change nothing.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels import autotune
 from repro_torch.kernels.matmul import matmul_epilogue
-from repro_torch.kernels.outer_update import fused_nesterov_update
-from repro_torch.kernels.quantize import rowwise_dequantize, rowwise_quantize
+from repro_torch.kernels.matmul import ns_stack_spec
+from repro_torch.kernels.outer_update import fused_nesterov_update, outer_update_spec
+from repro_torch.kernels.partition import active_partitioning, shard_wrap
+from repro_torch.kernels.quantize import (
+    rowwise_dequantize,
+    rowwise_quantize,
+    rowwise_quantize_codes,
+    rowwise_specs,
+)
 from repro_torch.optim.muon import NS_COEFFS
 
 
@@ -63,16 +72,40 @@ def _ns_iteration(x: torch.Tensor, tile: dict | None = None) -> torch.Tensor:
     return matmul(B, x, d=x, alpha=1.0, beta=a, tile=tile)             # B@X + a*X (fused)
 
 
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in a fixed pairwise order, halves added
+    elementwise (an odd width carries its last column to the next level):
+    the order depends on the width alone."""
+    while x.shape[-1] > 1:
+        w = x.shape[-1]
+        h = w // 2
+        head = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([head, x[..., 2 * h:]], dim=-1) if w % 2 else head
+    return x[..., 0]
+
+
+def frobenius(x3: torch.Tensor) -> torch.Tensor:
+    """Each matrix's Frobenius norm, [z, 1, 1], of a stack [z, m, n]: its
+    squares summed along each row, then the row sums, both by
+    :func:`_pairwise_sum`. PyTorch's own reductions pick their thread layout
+    on the card by how many outputs there are (here z), so a rank's block of
+    a stack would sum in another order than the whole stack; these sums do
+    not, and the block normalizes to the whole stack's bits
+    (``kernels/partition.py``)."""
+    return torch.sqrt(_pairwise_sum(_pairwise_sum(x3 * x3)))[:, None, None]
+
+
 def _ns_stack(g3: torch.Tensor, *, iters: int, eps: float,
               tile: dict | None = None) -> torch.Tensor:
-    """[z, m, n] -> orthogonalized [z, m, n]: fp32 normalisation, transposed
-    (as a view) when m > n, then ``iters`` iterations of ``tile``'s variant."""
+    """[z, m, n] -> orthogonalized [z, m, n]: fp32 normalisation
+    (:func:`frobenius` of the stack as laid out), transposed (as a view) when
+    m > n, then ``iters`` iterations of ``tile``'s variant."""
     m, n = g3.shape[-2:]
-    x = g3.float()
+    x = g3.float().contiguous()
+    x = x / (frobenius(x) + eps)
     transpose = m > n
     if transpose:
         x = x.transpose(-1, -2)
-    x = x / (torch.sqrt(torch.sum(x * x, dim=(-2, -1), keepdim=True)) + eps)
     for _ in range(iters):
         x = _ns_iteration(x, tile)
     if transpose:
@@ -89,21 +122,38 @@ def ns_orthogonalize(g: torch.Tensor, iters: int = 5, eps: float = 1e-7,
     ``[L, m, n]`` the launches cover (``autotune.ns_block``) and takes the
     default tile on a miss."""
     *batch, m, n = g.shape
-    if block is None and g.device.type == "cuda":
-        block = autotune.ns_block(m, n, autotune.dtype_name(g.dtype), "cuda",
-                                  stack=math.prod(batch))
-    out = _ns_stack(g.reshape((-1, m, n)), iters=iters, eps=eps, tile=_tile(block, g.device))
-    return out.reshape((*batch, m, n))
+    part = active_partitioning()
+    if part is None:
+        return _ns_local(g.reshape((-1, m, n)), iters, eps, block).reshape(g.shape)
+    g3 = g.reshape((-1, m, n))
+    spec = ns_stack_spec(part, g3.shape[0])
+    fn = shard_wrap(lambda x: _ns_local(x, iters, eps, block), part, (spec,), spec)
+    return fn(g3).reshape(g.shape)
+
+
+def _ns_local(g3: torch.Tensor, iters: int, eps: float, block) -> torch.Tensor:
+    """The stack [z, m, n] of one process (or one rank's block), with the
+    tile ``block`` names or the autotune table's for this stack."""
+    z, m, n = g3.shape
+    if block is None and g3.device.type == "cuda":
+        block = autotune.ns_block(m, n, autotune.dtype_name(g3.dtype), "cuda", stack=z)
+    return _ns_stack(g3, iters=iters, eps=eps, tile=_tile(block, g3.device))
 
 
 def nesterov_update(theta: torch.Tensor, psi: torch.Tensor, u: torch.Tensor, *,
                     lr: float, momentum: float):
     """Fused outer Nesterov update on arbitrary-shaped tensors: flattened,
     one launch, reshaped back. Returns (theta' in theta's dtype, u' fp32)."""
-    shape = theta.shape
-    t2, u2 = fused_nesterov_update(theta.reshape(-1), psi.reshape(-1).float(),
-                                   u.reshape(-1).float(), lr=lr, momentum=momentum)
-    return t2.reshape(shape), u2.reshape(shape)
+    def local(t, p, uu):
+        t2, u2 = fused_nesterov_update(t.reshape(-1), p.reshape(-1).float(),
+                                       uu.reshape(-1).float(), lr=lr, momentum=momentum)
+        return t2.reshape(t.shape), u2.reshape(t.shape)
+
+    part = active_partitioning()
+    if part is None:
+        return local(theta, psi, u)
+    spec = outer_update_spec(part, tuple(theta.shape))
+    return shard_wrap(local, part, (spec, spec, spec), (spec, spec))(theta, psi.float(), u.float())
 
 
 def _quantize_tile(block_rows, rows: int, cols: int, bits: int, dtype, device) -> dict | None:
@@ -128,7 +178,32 @@ def quantize_rowwise(x: torch.Tensor, bits: int = 4, block_rows: dict | int | No
     """Fused row-wise linear quantize -> dequantize of ``x [rows, cols]``:
     ``(dequantized fp32, codes u8, lo [rows, 1], scale [rows, 1])``. Any row
     count; ``block_rows`` as :func:`quantize_tile` reads it."""
-    return rowwise_quantize(x, bits, tile=quantize_tile(x, bits, block_rows))
+    def local(xb):
+        return rowwise_quantize(xb, bits, tile=quantize_tile(xb, bits, block_rows))
+
+    part = active_partitioning()
+    if part is None:
+        return local(x)
+    mat, meta = rowwise_specs(part, x.shape[0])
+    return shard_wrap(local, part, (mat,), (mat, mat, meta, meta))(x)
+
+
+def quantize_codes_rowwise(x: torch.Tensor, bits: int, block_rows: dict | int | None = None,
+                           *, encode=None):
+    """The wire path's codes-only encode of ``x [rows, cols]``: ``(codes u8,
+    lo [rows, 1], scale [rows, 1])`` from the ``quantize`` kernel with no
+    dequantized output (``encode``, default ``quantize.rowwise_quantize_codes``),
+    routed on a mesh as :func:`quantize_rowwise`."""
+    encode = encode or rowwise_quantize_codes
+
+    def local(xb):
+        return encode(xb, bits, tile=quantize_tile(xb, bits, block_rows))
+
+    part = active_partitioning()
+    if part is None:
+        return local(x)
+    mat, meta = rowwise_specs(part, x.shape[0])
+    return shard_wrap(local, part, (mat,), (mat, meta, meta))(x)
 
 
 def dequantize_rowwise(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
@@ -137,5 +212,12 @@ def dequantize_rowwise(codes: torch.Tensor, lo: torch.Tensor, scale: torch.Tenso
     -> fp32 values. ``block_rows=None`` resolves through the autotune table
     under the reference's key for the receiver, the wire shape at bits 4 in
     float32, so both ends of a 4-bit wire launch from the same variant."""
-    tile = _quantize_tile(block_rows, *codes.shape, 4, torch.float32, codes.device)
-    return rowwise_dequantize(codes, lo, scale, tile=tile)
+    def local(c, lo_b, scale_b):
+        tile = _quantize_tile(block_rows, *c.shape, 4, torch.float32, c.device)
+        return rowwise_dequantize(c, lo_b, scale_b, tile=tile)
+
+    part = active_partitioning()
+    if part is None:
+        return local(codes, lo, scale)
+    mat, meta = rowwise_specs(part, codes.shape[0])
+    return shard_wrap(local, part, (mat, meta, meta), mat)(codes, lo, scale)

@@ -25,6 +25,31 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _LL, _F, _F, _I, _I, _P]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def outer_update_spec(part, shape: tuple[int, ...]) -> tuple:
+    """Shape-preserving spec of one outer-update operand on a mesh: the
+    outer-state ZeRO layout of ``launch/sharding.param_spec(outer=True)``,
+    dim -2 over ('pod', 'data') (else 'data', else whole) and dim -1 over
+    'model' when ``part.outer_tp``; vectors and scalars whole. The update is
+    elementwise, so the local block is flattened inside the mapped region."""
+    sizes = part.axis_sizes()
+    nd = len(shape)
+    if nd <= 1:
+        return (None,) * nd
+
+    def div(dim: int, k: int) -> bool:
+        return k > 0 and dim % k == 0 and dim >= k
+
+    pod, data = sizes.get("pod", 0), sizes.get("data", 0)
+    spec: list = [None] * nd
+    if pod and div(shape[-2], pod * data):
+        spec[-2] = ("pod", "data")
+    elif div(shape[-2], data):
+        spec[-2] = "data"
+    if part.outer_tp and div(shape[-1], sizes.get("model", 0)):
+        spec[-1] = "model"
+    return tuple(spec)
+
+
 def _nesterov_plain(theta, psi, u, *, lr: float, momentum: float):
     """Plain version of ``nesterov``: fp32 math, theta' cast back to theta's
     dtype, u' fp32."""

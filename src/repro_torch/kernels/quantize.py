@@ -66,6 +66,16 @@ TILE_CANDIDATES = tuple({"threads": t, "unroll": u, "long_blocks": b}
                         for t in (128, 256, 512) for u in (2, 4, 8) for b in (264, 528, 1056))
 
 
+def rowwise_specs(part, rows: int) -> tuple[tuple, tuple]:
+    """(matrix spec [rows, n], meta spec [rows, 1]) of the encode / decode
+    on a mesh: rows are independent (each carries its own lo / scale), so
+    the row axis shards over ``part.quantize_axes``; columns stay whole."""
+    from repro_torch.kernels.partition import axes_entry, axes_for
+
+    r = axes_entry(axes_for(part, rows, part.quantize_axes))
+    return (r, None), (r, None)
+
+
 def plan_sizes(tile: dict | None = None) -> tuple[int, int, int, int]:
     """``(WARP_ROW_MAX, BLOCK_ROW_MAX, LONG_BLOCKS, LONG_MIN_GROUPS)`` of
     ``tile`` (None: the default), as its library reports them."""

@@ -37,8 +37,20 @@ masks of ``core/faults.FaultPlan``), ``--sync-delay d`` applies each
 pseudogradient d rounds late; metrics.csv's ``active_workers`` and
 ``staleness`` columns carry them.
 
-``--mesh`` (multi-GPU, a later slice) raises ``NotImplementedError``
-naming ROADMAP.md. ``--blockwise-threshold`` and ``--attn-block-q/kv`` set
+``--mesh PxDxM`` (or ``DxM``) trains on a mesh of ranks with the
+reference's axes (pod, data, model): the K workers are spread over 'pod',
+each worker's batch over 'data' (``TrainEngine(mesh=...)``). Launch it with
+one process per rank, ``torchrun --nproc-per-node N -m
+repro_torch.launch.train --mesh ...`` with N the mesh's size (a mismatch
+raises a ValueError naming both); a single process with no launcher is a
+world of one. Each rank places itself on ``cuda:{local_rank % cards}``
+(``--device cpu``: the CPU); the backend is NCCL when every rank has a
+card of its own and gloo otherwise (``--device cpu``, or two ranks sharing
+one card). The state is made whole on every rank from ``--seed`` and then
+placed by the reference's specs, so a mesh run starts from the bits of the
+one-process run. Rank 0 writes ``metrics.csv`` and prints; checkpoints,
+resume and the health sentinel's rollback are one-process features.
+``--blockwise-threshold`` and ``--attn-block-q/kv`` set
 the plain path's (``--attn-impl xla``) blockwise attention as in the
 reference. ``--autotune on`` (the default) consults the committed table
 ``src/repro_torch/kernels/autotune_table.json`` (or ``--autotune-table``),
@@ -91,11 +103,67 @@ def smoothed_eval_loss(losses: list[float], steps: list[int], H: int, alpha: flo
     return s if s is not None else (losses[-1] if losses else float("nan"))
 
 
-def check_ported_flags(args) -> None:
-    """Raise for the flags of features that later slices of the port bring."""
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh is not ported to repro_torch yet: "
-                                  "ROADMAP.md, Queue 1, Slice 5")
+def parse_mesh(spec: str) -> dict[str, int]:
+    """'DxM' or 'PxDxM' -> the mesh's axis sizes (P -> 'pod')."""
+    try:
+        dims = [int(d) for d in spec.lower().split("x")]
+    except ValueError:
+        dims = []
+    if len(dims) == 2:
+        return {"data": dims[0], "model": dims[1]}
+    if len(dims) == 3:
+        return {"pod": dims[0], "data": dims[1], "model": dims[2]}
+    raise SystemExit(f"--mesh {spec!r}: expected DxM or PxDxM")
+
+
+def check_mesh_flags(args) -> None:
+    """Raise for the one-process features a ``--mesh`` run does not take."""
+    if args.mesh is None:
+        return
+    for flag, on in (("--checkpoint-every", args.checkpoint_every), ("--resume", args.resume),
+                     ("--health-sentinel on", args.health_sentinel == "on"),
+                     ("--inject-*-round", args.inject_nan_round is not None
+                      or args.inject_spike_round is not None
+                      or args.inject_kill_round is not None)):
+        if on:
+            raise NotImplementedError(f"{flag} with --mesh: checkpoints, resume and recovery "
+                                      "run in one process (ROADMAP.md)")
+
+
+def start_mesh(args):
+    """``(mesh, device, rank, created)``: the process group of this rank
+    (``torchrun``'s environment; a world of one without it) and the debug
+    mesh ``args.mesh`` names over it. ``created`` is True when this call
+    initialised the group (the caller destroys it)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    sizes = parse_mesh(args.mesh)
+    n = math.prod(sizes.values())
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    if n != world:
+        raise ValueError(f"--mesh {args.mesh} has {n} ranks, but the world has {world} "
+                         f"processes (launch with torchrun --nproc-per-node {n})")
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        backend = "nccl" if local_world <= torch.cuda.device_count() else "gloo"
+    else:
+        device, backend = torch.device("cpu"), "gloo"
+    created = not dist.is_initialized()
+    if created:
+        if "MASTER_ADDR" in os.environ:
+            dist.init_process_group(backend, init_method="env://", world_size=world, rank=rank)
+        else:  # a world of one, no launcher
+            dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0)
+    mesh = make_debug_mesh(sizes.get("data", 1), sizes.get("model", 1), sizes.get("pod", 0),
+                           device_type="cuda" if on_card else "cpu")
+    return mesh, device, rank, created
 
 
 def make_diloco_cfg(args) -> DiLoCoConfig:
@@ -144,8 +212,26 @@ def train(args, *, capture: bool | None = None) -> dict:
     """Run the command ``args`` (``build_parser``'s namespace). ``capture``
     is ``TrainEngine``'s (default: capture on a CUDA device); ``False``
     keeps the eager path on the card, for equality checks."""
-    check_ported_flags(args)
-    device = torch.device(args.device)
+    check_mesh_flags(args)
+    if args.mesh is None:
+        return _train(args, torch.device(args.device), capture=capture)
+    import contextlib
+
+    import torch.distributed as dist
+
+    mesh, device, rank, created = start_mesh(args)
+    try:
+        quiet = contextlib.nullcontext() if rank == 0 else contextlib.redirect_stdout(
+            open(os.devnull, "w"))
+        with quiet:
+            return _train(args, device, capture=capture, mesh=mesh, rank=rank)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, *, capture: bool | None = None, mesh=None,
+           rank: int = 0) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -163,7 +249,7 @@ def train(args, *, capture: bool | None = None) -> dict:
         lr=args.lr, weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_steps=max(total_steps // 100, 5), total_steps=total_steps,
         ns_period=args.ns_period)
-    engine = TrainEngine(model, dcfg, icfg, capture=capture)
+    engine = TrainEngine(model, dcfg, icfg, capture=capture, mesh=mesh)
     state = engine.init(torch.Generator(device=device).manual_seed(args.seed), device)
     template = state  # paths and devices of a checkpoint's leaves
 
@@ -191,14 +277,14 @@ def train(args, *, capture: bool | None = None) -> dict:
         return {k: v[:, 0] for k, v in eval_data.batch_stack(r0, n).items()}
 
     os.makedirs(args.out, exist_ok=True)
-    csv_path = os.path.join(args.out, "metrics.csv")
+    csv_path = os.path.join(args.out, "metrics.csv") if rank == 0 else os.devnull
     losses, steps, history = [], [], []
     # Resume: keep the killed run's rows before start_round (their eval
     # losses, logged at %.9g, round-trip through float32 exactly, so the
     # smoothed eval continues from the same history) and drop the rows of
     # rounds whose state was lost.
     prior_rows: list[list[str]] = []
-    if start_round > 0 and os.path.exists(csv_path):
+    if start_round > 0 and rank == 0 and os.path.exists(csv_path):
         with open(csv_path, newline="") as f:
             prior_rows = [row for row in csv.reader(f)
                           if row and row[0].isdigit() and int(row[0]) < start_round]
@@ -349,7 +435,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(fp32); 'jnp': the plain bf16 iteration")
     ap.add_argument("--attn-impl", default="pallas", choices=["xla", "pallas"],
                     help="'pallas': the flash-attention kernels; 'xla': plain torch")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="train on a DxM or PxDxM mesh of ranks (pod = the worker axis); "
+                         "one process per rank, under torchrun")
     ap.add_argument("--blockwise-threshold", type=int, default=None)
     ap.add_argument("--attn-block-q", type=int, default=None)
     ap.add_argument("--attn-block-kv", type=int, default=None)

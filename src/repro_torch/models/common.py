@@ -5,17 +5,70 @@ and its stacked ``[L, ...]`` layer layout, so trees cross between the two
 packages by path (``repro_torch.utils.tree.params_from_numpy``). Where the
 reference scans over the L axis, the port runs a Python loop.
 
-The reference's ``shard_hint`` / ``activation_sharding`` are no-ops unless
-mesh rules are installed; the port has no mesh yet, so they are left out.
+``shard_hint`` / ``activation_sharding`` are the reference's named
+activation layouts: a no-op with no rules installed, and on a plain tensor
+(the mesh trainer's compute layout hands the model each rank's own rows as
+plain tensors); a DTensor activation is redistributed to the rule's
+placements (``launch/steps.activation_rules`` writes the rules).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from contextvars import ContextVar
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+# ---------------------------------------------------------------------------
+# Activation layouts (no-op unless rules are installed)
+# ---------------------------------------------------------------------------
+
+_ACT_RULES: ContextVar[dict | None] = ContextVar("act_rules", default=None)
+
+
+class activation_sharding:
+    """Context manager installing named activation specs::
+
+        with activation_sharding({"residual": P("data", None, "model")}):
+            logits = model.forward(params, tokens)
+    """
+
+    def __init__(self, rules: dict | None):
+        self.rules = rules
+        self._toks: list = []
+
+    def __enter__(self):
+        self._toks.append(_ACT_RULES.set(self.rules))
+        return self
+
+    def __exit__(self, *exc):
+        _ACT_RULES.reset(self._toks.pop())
+        return False
+
+
+def shard_hint(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` laid out by the installed rule ``name``: a DTensor is
+    redistributed to the rule's placements (the spec right-aligned with
+    ``x``'s rank, as the reference aligns it); a plain tensor, or no rule,
+    passes through."""
+    rules = _ACT_RULES.get()
+    if rules is None or name not in rules:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.kernels.partition import spec_placements
+
+    entries = list(rules[name])
+    if len(entries) > x.dim():
+        entries = entries[len(entries) - x.dim():]
+    else:
+        entries = [None] * (x.dim() - len(entries)) + entries
+    return x.redistribute(x.device_mesh, spec_placements(x.device_mesh, entries))
+
 
 # ---------------------------------------------------------------------------
 # Config

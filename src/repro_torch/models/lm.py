@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, dense_init, embed_init, rms_norm
+from repro_torch.models.common import ModelConfig, dense_init, embed_init, rms_norm, shard_hint
 from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
 
 Tree = Any
@@ -75,7 +75,7 @@ def _ffn(cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor, lp: Tree):
     Returns (x, the MoE aux; None for a dense layer)."""
     if cfg.post_norm:
         h = rms_norm(h, lp["ln1_post_scale"])
-    x = x + h
+    x = shard_hint(x + h, "residual")
     hin = rms_norm(x, lp["ln2_scale"])
     if cfg.n_experts:
         h, aux = moe(lp["moe"], cfg, hin)
@@ -121,7 +121,7 @@ def forward_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor, last_only: 
                hidden_only: bool = False, **_) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward. tokens [B, S] -> (logits [B,S,V], the MoE aux summed over
     layers; 0 for the dense family)."""
-    x = _embed(cfg, params, tokens)
+    x = shard_hint(_embed(cfg, params, tokens), "residual")
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -15,7 +15,11 @@ Two dispatches cover a request's lifecycle:
   copy of the ``[span, B]`` tokens back. On the CPU the same steps run
   eagerly.
 
-Both update the paged pool in place (JAX donates it).
+Both update the paged pool in place (JAX donates it). On a mesh,
+``kernel_parts`` (``launch/sharding.kernel_specs(mesh, cfg,
+plain_whole=True)``) is installed around every step: each rank holds every
+slot, and the flash and paged-decode kernels run on the rank's block of
+the batch (``kernels/partition.py``), their outputs gathered whole.
 """
 from __future__ import annotations
 
@@ -39,13 +43,15 @@ def sample_tokens(logits: torch.Tensor, gen: torch.Generator | None,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def build_prefill_fn(model, temperature: float) -> Callable:
+def build_prefill_fn(model, temperature: float, kernel_parts=None) -> Callable:
     """(params, cache, tokens [N,P], table [N,max_pages], lengths [N], gen)
     -> (cache, first_token [N]); all tensors on the model's device."""
+    from repro_torch.kernels.partition import kernel_partitioning
 
     @torch.no_grad()
     def prefill(params, cache, tokens, page_table, lengths, gen):
-        logits, cache = model.paged_prefill(params, cache, tokens, page_table, lengths)
+        with kernel_partitioning(kernel_parts):
+            logits, cache = model.paged_prefill(params, cache, tokens, page_table, lengths)
         n = tokens.shape[0]
         rows = torch.arange(n, device=tokens.device)
         last = logits[rows, lengths.long() - 1]  # each row's true last position
@@ -141,14 +147,18 @@ class SpanFn:
     ``replays``."""
 
     def __init__(self, model, span: int, temperature: float, impl: str = "xla",
-                 capture: bool | None = None):
+                 capture: bool | None = None, kernel_parts=None):
         self.model, self.span, self.temperature, self.impl = model, span, temperature, impl
         self.capture = capture
+        self.kernel_parts = kernel_parts
         self.graphs: dict[tuple[int, int], CapturedSpan] = {}
 
     def _steps(self, params, cache, tok, lengths, page_table, gen, out):
-        return span_steps(self.model, params, cache, tok, lengths, page_table, gen, out,
-                          self.temperature, self.impl)
+        from repro_torch.kernels.partition import kernel_partitioning
+
+        with kernel_partitioning(self.kernel_parts):
+            return span_steps(self.model, params, cache, tok, lengths, page_table, gen, out,
+                              self.temperature, self.impl)
 
     def captures_on(self, device: torch.device) -> bool:
         on_cuda = device.type == "cuda"
@@ -176,7 +186,7 @@ class SpanFn:
 
 
 def build_span_fn(model, span: int, temperature: float, impl: str = "xla",
-                  capture: bool | None = None) -> SpanFn:
+                  capture: bool | None = None, kernel_parts=None) -> SpanFn:
     """(params, cache, tok [B], lengths [B], table [B,max_pages], gen)
     -> (cache, tokens [span, B] on the device); see :class:`SpanFn`."""
-    return SpanFn(model, span, temperature, impl, capture)
+    return SpanFn(model, span, temperature, impl, capture, kernel_parts)

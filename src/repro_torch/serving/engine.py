@@ -128,12 +128,22 @@ class PagedEngine:
     the spans as CUDA graphs (``decode.SpanFn``); ``capture=False`` keeps
     them eager on the card. The graphs and the pool are kept across runs:
     a later run with the same page-table width only replays.
+
+    ``mesh`` (a DeviceMesh over the ranks of the process group, the
+    reference's axes) or ``kernel_parts`` routes the kernels as the
+    reference's ``serving/engine.py`` does: every rank runs the same
+    schedule on every slot, and the flash and paged-decode kernels run on
+    the rank's block of the batch (slots and their page-table rows over
+    'data', the pool whole), their outputs gathered whole. Spans run
+    eagerly on a mesh (a collective of gloo, two ranks on one card, cannot
+    be captured in a CUDA graph).
     """
 
     def __init__(self, model, params, *, slots: int = 4, page_size: int = 16,
                  max_pages: int = 64, decode_steps_per_dispatch: int = 8,
                  temperature: float = 0.0, attn_impl: str = "xla",
-                 device="cuda", seed: int = 0, capture: bool | None = None):
+                 device="cuda", seed: int = 0, capture: bool | None = None,
+                 mesh=None, kernel_parts=None):
         if not model.supports_paged_decode:
             raise ValueError(
                 f"arch_type {model.cfg.arch_type!r} has no paged decode path; "
@@ -145,10 +155,18 @@ class PagedEngine:
         self.span = decode_steps_per_dispatch
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._prefill = _decode.build_prefill_fn(model, temperature)
+        if kernel_parts is None and mesh is not None:
+            from repro_torch.launch.sharding import kernel_specs
+
+            kernel_parts = kernel_specs(mesh, model.cfg, plain_whole=True)
+        if kernel_parts is not None:
+            if capture:
+                raise ValueError("a mesh's spans run eagerly: PagedEngine(mesh=..., capture=True)")
+            capture = False
+        self._prefill = _decode.build_prefill_fn(model, temperature, kernel_parts)
         self.attn_impl = attn_impl
         self._span_fn = _decode.build_span_fn(model, self.span, temperature, impl=attn_impl,
-                                              capture=capture)
+                                              capture=capture, kernel_parts=kernel_parts)
         self._span_fn.captures_on(self.device)  # capture=True off the card raises here
         self._pool = None
         self.stats = self._new_stats()

@@ -922,3 +922,155 @@ def test_round_counts_one_replicas_optimizer_step():
     opt = flops.optimizer_flops(params, "muon")
     fwd = flops.forward_flops(cfg, 1024, 16)
     assert one[0] == 4 * (fwd + 2.0 * fwd + opt + fwd) + 10.0 * 3.0 * tree_count_params(params)
+
+
+# ---------------------------------------------------------------------------
+# The mesh's layout rules (launch/sharding.py, launch/steps.py,
+# kernels/partition.py) against the reference's, per leaf
+# ---------------------------------------------------------------------------
+
+MESHES = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+def _fake_mesh(sizes: dict):
+    """What the reference's rules read of a jax Mesh: its axis names and the
+    shape of its device array (no 256-device world is made)."""
+    return types.SimpleNamespace(axis_names=tuple(sizes),
+                                 devices=np.empty(tuple(sizes.values()), dtype=object))
+
+
+@pytest.fixture
+def jsharding(monkeypatch):
+    """The reference's sharding module with NamedSharding(mesh, spec)
+    answering its spec, so its tree builders return trees of specs."""
+    from repro.launch import sharding
+
+    monkeypatch.setattr(sharding, "NamedSharding", lambda mesh, spec: spec)
+    return sharding
+
+
+def _jspecs(tree) -> dict:
+    from jax.sharding import PartitionSpec
+    from repro.utils.tree import path_str
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    return {path_str(p): tuple(s) for p, s in flat}
+
+
+def _tspecs(tree) -> dict:
+    return {p: tuple(s) for p, s in tree_leaves_with_paths(tree)}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("name", ARCHS)
+def test_state_and_serving_specs_equal_reference(name, mesh, jsharding):
+    """The port's specs of the K = 2 full-width TrainState (every group of
+    ``diloco_state_shardings``: the worker groups, the outer ZeRO groups,
+    the replicated rest; with and without tensor parallelism), of the
+    parameters in the serving layout (expert parallel on and off) and of
+    the decode_32k cache == the reference's, leaf for leaf, at the sizes
+    of 16x16 and 2x16x16."""
+    from repro_torch.launch import sharding as tsharding
+
+    t, sizes, fake = _trees(name), MESHES[mesh], _fake_mesh(MESHES[mesh])
+    for tp in (True, False):
+        want = jsharding.diloco_state_shardings(fake, t.jstate, tensor_parallel=tp)
+        got = tsharding.diloco_state_shardings(sizes, t.tstate, tensor_parallel=tp)
+        assert set(got) == set(want.keys())
+        for field in got:
+            assert _tspecs(got[field]) == _jspecs(want[field]), (field, tp)
+        for ep in (False, True):
+            assert _tspecs(tsharding.params_shardings(sizes, t.tp, tensor_parallel=tp,
+                                                      expert_parallel=ep)) == \
+                _jspecs(jsharding.params_shardings(fake, t.jp, tensor_parallel=tp,
+                                                   expert_parallel=ep)), (tp, ep)
+    B = JSHAPES[DECODE].global_batch
+    assert _tspecs(tsharding.cache_shardings(sizes, t.tcache, B)) == \
+        _jspecs(jsharding.cache_shardings(fake, t.jcache, B))
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("name", ARCHS)
+def test_batch_specs_rules_and_kernel_axes_equal_reference(name, mesh, jsharding):
+    """The batch spec of a step's [K, B, S] batch, a round's [H, ...] and a
+    superstep's [R, H, ...] (with the audio and VLM families' context
+    leaf), and the K-less serving batch; ``tp_friendly``;
+    ``activation_rules`` for training and serving; and the axes of
+    ``kernel_specs`` == the reference's."""
+    from repro.launch import steps as jsteps
+    from repro_torch.launch import sharding as tsharding
+    from repro_torch.launch import steps as tsteps
+
+    t, sizes, fake = _trees(name), MESHES[mesh], _fake_mesh(MESHES[mesh])
+    spec = JSHAPES[TRAIN]
+    B, S = spec.global_batch // K, spec.seq_len
+    lead = {0: (K, B, S), 1: (H, K, B, S), 2: (3, H, K, B, S)}
+    for n_lead, shape in lead.items():
+        batch = {"tokens": shape}
+        if t.jcfg.arch_type in ("audio", "vlm"):
+            n = t.jcfg.n_audio_frames if t.jcfg.arch_type == "audio" else t.jcfg.n_image_tokens
+            batch["context"] = (*shape[:-1], n, t.jcfg.d_model)
+        jbatch = {k: jax.ShapeDtypeStruct(v, np.int32) for k, v in batch.items()}
+        tbatch = {k: torch.empty(v, device="meta") for k, v in batch.items()}
+        assert _tspecs(tsharding.batch_shardings(sizes, tbatch, True, n_lead)) == \
+            _jspecs(jsharding.batch_shardings(fake, jbatch, True, n_lead)), n_lead
+    serve = {"tokens": (128, 32768)}
+    assert _tspecs(tsharding.batch_shardings(
+        sizes, {k: torch.empty(v, device="meta") for k, v in serve.items()}, False)) == \
+        _jspecs(jsharding.batch_shardings(
+            fake, {k: jax.ShapeDtypeStruct(v, np.int32) for k, v in serve.items()}, False))
+    assert tsteps.tp_friendly(t.tcfg, sizes) == jsteps.tp_friendly(t.jcfg, fake)
+    for train, b in ((True, B), (False, 128), (False, 1)):
+        got = tsteps.activation_rules(sizes, b, t.tcfg, train=train)
+        want = jsteps.activation_rules(fake, b, t.jcfg, train=train)
+        assert {k: tuple(v) for k, v in got.items()} == {k: tuple(v) for k, v in want.items()}
+    got, want = tsharding.kernel_specs(sizes, t.tcfg), jsharding.kernel_specs(fake, t.jcfg)
+    for axes in ("flash_axes", "quantize_axes", "ns_axes", "paged_axes", "outer_tp"):
+        assert getattr(got, axes) == getattr(want, axes), axes
+
+
+AXES_SIZES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
+              {"pod": 2, "data": 2, "model": 1}, {"pod": 2, "data": 1, "model": 1},
+              {"data": 2, "model": 2}, {"pod": 4, "data": 3, "model": 2}]
+PREFERENCES = [("data", "model"), ("pod", "data"), ("data",), ("model", "data"),
+               ("pod", "data", "model"), ("model",)]
+
+
+@pytest.mark.parametrize("sizes", AXES_SIZES, ids=lambda s: "x".join(map(str, s.values())))
+def test_axes_for_and_kernel_specs_equal_reference(sizes):
+    """``axes_for`` (the longest prefix of the preference whose product
+    divides the dim; size-1 axes passed over) and each kernel's spec
+    function (flash, paged decode, quantize rows, the Newton-Schulz stack,
+    the outer update's shape-preserving spec, TP-friendly or not) == the
+    reference's, over dims 1..1024 and leaf shapes of every layout."""
+    from repro.kernels import flash_attention as jfa
+    from repro.kernels import matmul as jmm
+    from repro.kernels import outer_update as jou
+    from repro.kernels import partition as jpart
+    from repro.kernels import quantize as jq
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.kernels import outer_update as tou
+    from repro_torch.kernels import partition as tpart
+    from repro_torch.kernels import quantize as tq
+
+    fake = _fake_mesh(sizes)
+    dims = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 256, 512, 1000, 1024]
+    for tp in (True, False):
+        jp = jpart.KernelPartitioning(mesh=fake, outer_tp=tp)
+        tp_ = tpart.KernelPartitioning(mesh=sizes, outer_tp=tp)
+        for prefer in PREFERENCES:
+            for d in dims:
+                assert tpart.axes_for(tp_, d, prefer) == jpart.axes_for(jp, d, prefer), (prefer, d)
+        for d in dims:
+            assert tuple(map(tuple, tfa.flash_specs(tp_, d))) == \
+                tuple(map(tuple, jfa.flash_specs(jp, d))), d
+            assert tuple(map(tuple, tfa.paged_specs(tp_, d))) == \
+                tuple(map(tuple, jfa.paged_specs(jp, d))), d
+            assert tuple(map(tuple, tq.rowwise_specs(tp_, d))) == \
+                tuple(map(tuple, jq.rowwise_specs(jp, d))), d
+            assert tuple(tmm.ns_stack_spec(tp_, d)) == tuple(jmm.ns_stack_spec(jp, d)), d
+            for shape in ((d,), (d, 64), (30, d, 576), (64, d), (4, 8, d, 32)):
+                assert tuple(tou.outer_update_spec(tp_, shape)) == \
+                    tuple(jou.outer_update_spec(jp, shape)), shape

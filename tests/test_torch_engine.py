@@ -515,3 +515,152 @@ def test_ckpt_flags_require_sink():
     fn = tsuperstep.build_superstep_fn(lambda s, b: (s, {"loss": s["round"]}))
     with pytest.raises(ValueError, match="checkpoint_cb"):
         fn(state, batches, ckpt_flags=[True, False])
+
+
+# ---------------------------------------------------------------------------
+# The mesh: worlds of 2 and 4 gloo ranks on the CPU (tests/_torch_mesh_harness.py)
+# ---------------------------------------------------------------------------
+
+HARNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_mesh_harness.py")
+MESH_KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "matmul_epilogue", "nesterov",
+                "quantize", "quantize_codes", "dequantize")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+# the dry run on a fake world of 8 ranks (2x2x2) over reduced smollm, the
+# train plans at 64 positions x 8 sequences (one process; the fake backend)
+DRYRUN = """
+import json, torch
+torch.set_num_threads(1)
+from repro_torch.launch.dryrun import run_one
+recs = run_one("smollm-135m", "train_4k", True, mesh_shape=(2, 2, 2), reduced=True,
+               sync_interval=2, rounds_per_dispatch=2, seq_len=64, global_batch=8,
+               verbose=False)
+print(json.dumps(recs, default=str))
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_worlds() -> dict:
+    """Both worlds and the dry run started together, each process with its
+    own timeout; rank 0's JSON verdicts by world size, the dry run's records
+    under "dryrun"."""
+    import json
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(HARNESS))
+    procs = {}
+    procs[("dryrun", 0)] = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN], cwd=repo, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1"))
+    for world in (2, 4):
+        port = _free_port()
+        for rank in range(world):
+            env = dict(os.environ, PYTHONPATH="src", RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+            procs[(world, rank)] = subprocess.Popen(
+                [sys.executable, HARNESS], cwd=repo, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            outs[key] = proc.communicate(timeout=240)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    verdicts = {}
+    for world in (2, 4, "dryrun"):
+        for rank in range(world if world != "dryrun" else 1):
+            assert procs[(world, rank)].returncode == 0, outs[(world, rank)][1][-3000:]
+        verdicts[world] = json.loads(outs[(world, 0)][0].strip().splitlines()[-1])
+    return verdicts
+
+
+@pytest.mark.parametrize("world", [2, 4], ids=["pod2", "pod2_data2"])
+@pytest.mark.parametrize("kernel", MESH_KERNELS)
+def test_mesh_kernel_bitwise_single_process(mesh_worlds, world, kernel):
+    """Each kernel wrapper's plain version, given replicated DTensors and
+    routed by ``kernel_specs`` on the (pod=2) and (pod=2, data=2) meshes,
+    runs on each rank's block and gathers to the one-process result on the
+    whole tensor, bitwise (flash_bwd: dq, dk and dv through DTensor
+    autograd). The row-split kernels show their local block."""
+    v = mesh_worlds[world]["kernels"][kernel]
+    assert "error" not in v, v.get("error")
+    assert v["bitwise"]
+    split = {2: {"nesterov", "quantize", "quantize_codes", "dequantize"},
+             4: {"paged_decode", "matmul_epilogue", "nesterov", "quantize", "quantize_codes",
+                 "dequantize"}}[world]
+    if kernel in split:  # the rows the routed kernel ran on: a block of the whole
+        assert v["local"][0] * (2 if kernel in ("paged_decode", "matmul_epilogue") else world) \
+            == v["whole"][0], v
+
+
+def test_mesh_round_2x1x1_bitwise_single_process(mesh_worlds):
+    """One reduced smollm MuLoCo round (K = 2, H = 2, Muon with the fp32
+    Newton-Schulz kernel route, 2-bit EF wire, the outer Nesterov kernel)
+    on a 2x1x1 mesh, each rank holding one worker, from the placed
+    one-process state: losses, Psi and every leaf of the gathered state ==
+    the one-process engine's, bitwise."""
+    v = mesh_worlds[2]["round_2x1x1"]
+    assert "error" not in v, v.get("error")
+    assert v["bitwise"], v
+
+
+def test_mesh_train_cli_2x1x1_bitwise_single_process(mesh_worlds):
+    """``launch/train.py --mesh 2x1x1 --device cpu`` in a world of two
+    ranks trains two reduced rounds whose train and eval losses are the
+    one-process CLI's, bitwise."""
+    v = mesh_worlds[2]["cli_2x1x1"]
+    assert "error" not in v, v.get("error")
+    assert v["rounds"] == 2 and v["bitwise"], v
+
+
+@pytest.mark.parametrize("mesh", ["2x2x1", "2x2"])
+def test_mesh_round_within_compressed_round_tolerance(mesh_worlds, mesh):
+    """The same round on 2x2x1 (pod, data) and on the no-pod 2x2 (data,
+    model): each worker's batch is split over 'data' and its gradients
+    averaged there, which sums in another order, so the round is held at
+    test_compressed_round_matches_reference's tolerance (losses atol 2e-5 +
+    rtol 1e-4; Psi's codes equal on >= 99.9% and within one quantization
+    step; outer params and momentum within lr (1 + mu) steps; EF residuals
+    within 1.01 of their range)."""
+    v = mesh_worlds[4][f"round_{mesh}"]
+    assert "error" not in v, v.get("error")
+    assert v["within_tolerance"], v
+
+
+def test_mesh_paged_decode_span_data2(mesh_worlds):
+    """A PagedEngine on a (data=2) mesh (the paged kernel's plain version on
+    each rank's block of slots, the pool whole): greedy tokens == one
+    process's over the same requests, through five spans."""
+    v = mesh_worlds[2]["serving_data2"]
+    assert "error" not in v, v.get("error")
+    assert v["tokens_equal"] and v["spans"] == 5, v
+
+
+def test_dryrun_fake_world_train_plans_ok(mesh_worlds):
+    """``launch/dryrun.run_one`` on a fake world of 8 ranks (2x2x2) over
+    reduced smollm: the four train plans placed and called, each record
+    ``status: ok`` with rank 0's placed-argument bytes, the bytes it
+    gathered (the sync's pseudogradients across 'pod', θ from its ZeRO
+    layout, the gradients over 'data') and no peak memory, which a dry run
+    does not measure."""
+    recs = mesh_worlds["dryrun"]
+    assert [r["plan"] for r in recs] == ["train_step", "sync_step", "round_step", "superstep"]
+    for r in recs:
+        assert r["status"] == "ok", r.get("error")
+        assert r["mesh"] == "2x2x2" and r["chips"] == 8
+        assert r["memory"]["argument_bytes"] > 0 and r["memory"]["peak_per_chip_gib"] is None
+        assert r["collectives"]["total"] > 0 and r["roofline"]["compute_s"] > 0
+    sync = recs[1]["collectives"]
+    assert sync["outer"] > 0 and sync["workers"] > 0
+    assert recs[0]["collectives"]["grads"] > 0

@@ -1491,6 +1491,49 @@ def test_variant_builds_hash_their_defines_and_count_launches(monkeypatch, tmp_p
     assert tbuild.LAUNCHES["matmul_epilogue"] == 4 and tbuild.VARIANT_LAUNCHES[key] == 3
 
 
+def test_concurrent_builds_compile_a_library_once(monkeypatch, tmp_path):
+    """Two builds of one library started together (two ranks of a mesh, or
+    two processes on one card): the second waits on the library's file lock
+    while the first runs nvcc (here a stub that takes a second), then finds
+    the library built and compiles nothing; nvcc ran once."""
+    import os
+    import stat
+    import threading
+    import time
+
+    csrc, counter = tmp_path / "csrc", tmp_path / "nvcc_runs"
+    csrc.mkdir()
+    (csrc / "stub.cu").write_text("// a stub source\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+                    f"echo run >> {counter}\nsleep 1\n: > \"$out\"\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(tbuild, "CSRC", csrc)
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setitem(tbuild.SOURCES, "stub", "stub.cu")
+    monkeypatch.setattr(tbuild, "_nvcc", lambda: str(nvcc))
+    ends, reports = {}, {}
+
+    def run(name):
+        reports[name] = tbuild.build(["stub"])
+        ends[name] = time.perf_counter()
+
+    first = threading.Thread(target=run, args=("first",))
+    t0 = time.perf_counter()
+    first.start()
+    while not (tmp_path / "build").exists() or not list((tmp_path / "build").glob("*.lock")):
+        time.sleep(0.01)
+    second = threading.Thread(target=run, args=("second",))
+    second.start()
+    first.join(30)
+    second.join(30)
+    assert counter.read_text().splitlines() == ["run"]
+    assert os.path.exists(reports["first"]["stub"]["path"])
+    assert reports["second"]["stub"]["path"] == reports["first"]["stub"]["path"]
+    assert ends["second"] >= ends["first"] - 0.1 and ends["second"] - t0 >= 0.9
+    assert reports["second"]["stub"]["log"] == ""  # it compiled nothing
+
+
 def _brute_sym(m, t):
     """Every (i, j), i <= j, of an m x m grid of t x t tiles, row by row."""
     nt = -(-m // t)

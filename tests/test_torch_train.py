@@ -538,8 +538,17 @@ def test_train_cli_ladder_reduced_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x2"]])
 def test_train_cli_deferred_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """``--mesh`` (once deferred) runs: a mesh whose size is not the
+    world's raises a ValueError naming both numbers (2x2 is 4 ranks, a
+    process with no launcher a world of 1), and ``--mesh 1x1`` trains a
+    round in this process, its losses those of the run without a mesh."""
+    with pytest.raises(ValueError, match="has 4 ranks, but the world has 1"):
         ttrain.train(_args(tmp_path, *flags))
+    one = ttrain.train(_args(tmp_path / "one", "--rounds", "1"))
+    mesh = ttrain.train(_args(tmp_path / "mesh", "--rounds", "1", "--mesh", "1x1"))
+    assert len(mesh["history"]) == 1
+    assert mesh["losses"] == one["losses"]
+    assert [h["train_loss"] for h in mesh["history"]] == [h["train_loss"] for h in one["history"]]
 
 
 @pytest.mark.parametrize("flags", [["--inner", "muon_bp", "--ns-period", "2"],
@@ -559,7 +568,7 @@ def test_train_cli_muon_variants_run(tmp_path, flags):
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama-3.2-vision-90b",
                                   "whisper-large-v3"])
-def test_train_cli_unported_arch_raises(tmp_path, arch):
+def test_train_cli_families_run_as_reference(tmp_path, arch):
     """Every architecture is ported. ``--arch kimi-k2-1t-a32b --reduced``
     (once a KeyError naming ROADMAP.md; reduced: 4 experts top-2 and one
     shared at hd 64) trains a round through the CLI as the reference's does,

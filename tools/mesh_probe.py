@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""The mesh on one card per rank (NCCL), against one process.
+
+    python3 tools/mesh_probe.py [--ranks 4]
+
+Needs as many cards as ranks (four H100s on one host). For each case it starts
+``torchrun`` with one rank per card, each rank this script with ``--child``:
+the rank takes NCCL on ``cuda:{local_rank}``, trains ``chip_smoke.MESH_TRAIN``
+with the case's mesh and worker count through the CLI entry point, and rank
+0 saves the per-round records, the gathered outer params and the bytes each
+rank received (``launch/mesh.RECEIVED``; ``STAGED`` stays empty: NCCL moves
+CUDA tensors itself). The parent then runs the same command in one process
+on ``cuda:0`` (eager; first, so that the ranks find every library built)
+and compares:
+
+* ``4x1x1`` with four workers, one a rank: the losses, comm_bytes and every
+  outer-param leaf bitwise (each rank runs its worker's shapes as the one
+  process does);
+* ``2x2x1`` with two workers, each worker's batch split over 'data': its
+  gradients averaged there sum in another order, so the losses are held at
+  atol 2e-5 + rtol 1e-4 (the port's round parity tolerance) and the largest
+  outer-param gap is printed.
+
+Prints the card line of ``nvidia-smi`` and each case's round walls and
+tokens/s beside the one-process run's.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+from chip_smoke import MESH_TRAIN, free_port, replace_flags  # noqa: E402
+
+OUT = ROOT / "build" / "mesh_probe"
+CASES = {"4x1x1": 4, "2x2x1": 2}  # mesh -> workers
+
+
+def case_argv(mesh: str, workers: int) -> list:
+    return replace_flags(MESH_TRAIN, mesh=mesh, workers=workers, out=OUT / mesh)
+
+
+def child(mesh: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl", init_method="env://")
+    out = train(build_parser().parse_args(case_argv(mesh, CASES[mesh])))
+    whole = out["engine"].whole_state(out["state"])
+    torch.cuda.synchronize()
+    if dist.get_rank() == 0:
+        torch.save({"history": out["history"],
+                    "outer_params": {p: t.cpu() for p, t in
+                                     tree_leaves_with_paths(whole["outer_params"])},
+                    "received": dict(mesh_mod.RECEIVED), "staged": dict(mesh_mod.STAGED),
+                    "backend": dist.get_backend()}, OUT / f"{mesh}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--child", default=None)
+    args = ap.parse_args()
+    if args.child:
+        child(args.child)
+        return 0
+    import torch
+
+    if torch.cuda.device_count() < args.ranks:
+        raise SystemExit(f"mesh_probe: {args.ranks} ranks need {args.ranks} cards, "
+                         f"found {torch.cuda.device_count()}")
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"cards (nvidia-smi name, power.limit):\n{smi}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    tokens = 8 * 4 * 1024  # B x H x S a worker, times the workers below
+    failed = []
+    for mesh, workers in CASES.items():
+        # the one-process run first: it builds every library the ranks load
+        # (each rank would wait on the build's file lock otherwise)
+        argv = [a for a in case_argv(mesh, workers) if a not in ("--mesh", mesh)]
+        one = train(build_parser().parse_args(argv), capture=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                              str(math.prod(int(d) for d in mesh.split("x"))), "--master-port",
+                              str(free_port()), str(Path(__file__).resolve()), "--child", mesh],
+                             cwd=ROOT, capture_output=True, text=True, timeout=900,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if res.returncode:
+            print(f"[{mesh}] torchrun exited {res.returncode}\n{res.stdout[-3000:]}\n"
+                  f"{res.stderr[-5000:]}")
+            failed.append(mesh)
+            continue
+        got = torch.load(OUT / f"{mesh}.pt")
+        ref = {p: t.cpu() for p, t in tree_leaves_with_paths(one["state"]["outer_params"])}
+        gaps = {p: (ref[p].double() - t.double()).abs().max().item()
+                for p, t in got["outer_params"].items() if not torch.equal(ref[p], t)}
+        losses = [(a["train_loss"], b["train_loss"], a["eval_loss"], b["eval_loss"])
+                  for a, b in zip(one["history"], got["history"])]
+        same = all(a["comm_bytes"] == b["comm_bytes"] for a, b in zip(one["history"],
+                                                                      got["history"]))
+        bitwise = not gaps and all(t1 == t2 and e1 == e2 for t1, t2, e1, e2 in losses)
+        close = all(abs(x - y) <= 2e-5 + 1e-4 * abs(x) for t in losses for x, y in
+                    (t[:2], t[2:]))
+        walls = [r["wall_s"] for r in got["history"]]
+        one_walls = [r["wall_s"] for r in one["history"]]
+        print(f"[{mesh}] {workers} workers on {mesh} ({got['backend']}), torchrun "
+              f"{time.perf_counter() - t0:.1f} s; losses (one process, mesh) {losses}; "
+              f"comm_bytes equal {same}; outer leaves not bitwise {len(gaps)} of {len(ref)}"
+              f"{', largest ' + str(max(gaps.items(), key=lambda kv: kv[1])) if gaps else ''}; "
+              f"round walls {[round(w, 3) for w in walls]} s, "
+              f"{workers * tokens / walls[-1]:.1f} tok/s in the last round against one "
+              f"process (eager) {[round(w, 3) for w in one_walls]} s, "
+              f"{workers * tokens / one_walls[-1]:.1f}; bytes received a rank {got['received']}, "
+              f"staged {got['staged']}")
+        ok = (bitwise if mesh == "4x1x1" else close) and same
+        if not ok:
+            failed.append(mesh)
+        del one
+        torch.cuda.empty_cache()
+    print(f"mesh_probe: {'FAILED ' + str(failed) if failed else 'every case held'}")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
