@@ -142,7 +142,7 @@ no summary:
    9c'; masked where the run drops a worker): tokens/s, idle share.
 10. The data-parallel baselines (10a Muon, 10b AdamW): ``dp_engine`` (K = 1,
    H = 1, Newton-Schulz through ``matmul_epilogue``) at full width, driven
-   by ``run_rounds`` over 12 steps of 16 x 1024 tokens, one captured
+   by ``run_rounds`` over 8 steps of 16 x 1024 tokens, one captured
    one-step round replayed; launches per step counted (``flash_fwd`` 60,
    ``flash_dq`` and ``flash_dkv`` 30, ``matmul_epilogue`` 105 for Muon);
    losses finite and falling; eager and R = 4 bitwise equal; a profiled
@@ -328,12 +328,28 @@ no summary:
    which must equal that block of the one-process call, bitwise (and every
    Newton-Schulz stack of smollm's Muon leaves split over 'data'); on the
    (data=2) mesh local and whole times beside each other (the ranks take
-   turns on the card). (22c) ``MESH_TRAIN`` under torchrun (two ranks, one
-   worker each, 2-bit EF at full width, one round a dispatch) against the
-   same command in one process (eager, which 6d holds to the captured
-   round): the per-round train and eval losses and comm_bytes and every
-   outer-param leaf bitwise; tokens/s, the sync's wall, the bytes gathered
-   (wire packets, θ from its ZeRO layout). (22d) ``MESH_SERVE`` through a
+   turns on the card). (22c) ``MESH_TRAIN`` with ``--checkpoint-every 1``
+   under torchrun (two ranks, one worker each, 2-bit EF at full width, one
+   round a dispatch) against the same command in one process (eager, which
+   6d holds to the captured round): the per-round train and eval losses,
+   comm_bytes, active_workers and staleness and every outer-param leaf
+   bitwise, and ``ckpt_1.npz`` / ``ckpt_2.npz`` byte for byte; tokens/s, the
+   sync's wall, the bytes gathered (wire packets, θ from its ZeRO layout).
+   In the same torchrun launch, each against one process the same way:
+   (22e) streaming, ``--streaming 2 --rowwise`` on the 2-bit EF wire; (22f)
+   ``--drop-schedule 1:1 --sync-delay 1`` (worker 1 out in the second of two
+   rounds, Psi a round late); (22g) the crash drill: 22c's command with
+   ``--inject-kill-round 1`` in two rank processes beside the launch's 22c
+   (each must die by SIGKILL; this process runs the one-process commands
+   meanwhile), then ``--resume auto`` in a new world of two rank processes
+   (the launch goes on alone once these are done), whose
+   metrics.csv (but wall_s) and outer leaves must be 22c's mesh run's; (22h)
+   Muon DP through ``dp_engine(..., mesh=)`` on the (data=2) mesh,
+   ``MESH_DP`` steps in fp32 at a constant LR, within ``MESH_DP_TOL``, and
+   the same run with a planted fault (each rank on its own half batch's
+   gradients) outside it. Every rank of every run launches every training
+   kernel. 22c's walls are taken beside 22g's worlds and the one-process
+   runs; 22e's and 22f's, after them, with the card to the launch. (22d) ``MESH_SERVE`` through a
    PagedEngine on the (data=2) mesh (in 22b's processes) against one
    process: greedy tokens exact, launches equal to the engine's formula.
 23. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
@@ -352,8 +368,9 @@ no summary:
    forward-and-backward launches; each row's ``"variants"``: the build
    variants its main path launched, by key, and matmul_epilogue's and
    quantize's ``"tuned"``: 21c's timing of the table's variant, and
-   ``"across_ranks"``: 22b's verdict, block and times on each mesh and the
-   launches of 22c's and 22d's ranks), the script's seconds, then the last
+   ``"across_ranks"``: 22b's verdict, block and times on each mesh, the
+   launches of 22c's and 22d's rank 0 and of every rank in 22c and 22e-22h),
+   the script's seconds, then the last
    line ``{"ok": true, "device": {...}}``.
    A line ``-- 12a: N s (T s in all)`` follows each phase: its seconds
    and the script's.
@@ -364,8 +381,9 @@ repeats 6c's dispatch of three, 14b' and 17d''/17e'' (the variants',
 mamba2's and zamba2's rounds again eager, bitwise, which earlier full runs
 held), 17f's repeat shortened to 8 + 8 tokens and its prompts to 128
 tokens, the serving depth of 13c and 16b cut to 8 layers, 17d and 17e at
-2 rounds (the warm-up and capture, one replay) of H = 2; no kernel check
-and no bitwise check was cut (PERF.md section 4). The profiles read the
+2 rounds (the warm-up and capture, one replay) of H = 2, and 18d at 2
+rounds of its 3-round schedule; no kernel check and no bitwise check was cut
+(PERF.md section 4). The profiles read the
 profiler's raw events (:func:`device_times`).
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
@@ -444,8 +462,9 @@ COMM_BYTES = {"a": 67_257_680, "b": 70_441_072}
 ELASTIC = {"i": ["--drop-schedule", "1:1"], "ii": ["--sync-delay", "1"],
            "iii": COMPRESSED + ["--drop-schedule", "1:1"]}
 # the data-parallel baselines (10a, 10b): one worker, 16 x 1024 tokens a
-# step (= K * B of the training command), 12 steps (its 3 rounds' tokens)
-DP = dict(steps=12, batch=16, seq_len=1024, lr=3e-3)
+# step (= K * B of the training command), 8 steps (12 until the mesh's
+# slice 13 needed the time)
+DP = dict(steps=8, batch=16, seq_len=1024, lr=3e-3)
 
 
 _T0 = time.perf_counter()
@@ -3536,7 +3555,8 @@ VLM_BWD_CASES = [(1, 8, 2048, 8, _BF16, True, 0), (1, 8, 2048, 8, _FP32, True, 0
 # [B, 1500, 1280] frames a worker step, 3 rounds (warm-up and capture, two
 # replays: at 2 the train loss of the second round does not fall), the
 # training command's lr
-WHISPER_TRAIN = dict(K=2, H=2, batch=4, seq_len=448, rounds=3, lr=3e-3)
+# 2 rounds (the warm-up and capture, one replay) of an LR schedule that spans 3
+WHISPER_TRAIN = dict(K=2, H=2, batch=4, seq_len=448, rounds=2, schedule_rounds=3, lr=3e-3)
 # 18e / 18f: the served workloads, (requests, prompt, new tokens)
 WHISPER_SERVE = dict(batch=4, prompt_len=16, max_new=64)
 WHISPER_REPEAT_NEW = 8  # 18e's run-to-run and context checks: new tokens a run
@@ -3661,7 +3681,7 @@ def phase_whisper_train(torch, get_config, build_model, mm_ms: dict) -> dict:
     dcfg = DiLoCoConfig(n_workers=K, sync_interval=H, inner_name="muon", ns_impl="pallas",
                         outer_kernel=True)
     icfg = OptimizerConfig(lr=T["lr"], weight_decay=1e-4, schedule="cosine", warmup_steps=1,
-                           total_steps=n * H)
+                           total_steps=T["schedule_rounds"] * H)
     dkw = dict(vocab=cfg.vocab, seq_len=S, batch_per_worker=B)
     data = MarkovStream(DataConfig(**dkw, n_workers=K, seed=0), "cuda")
     evals = MarkovStream(DataConfig(**dkw, n_workers=1, seed=10_000), "cuda")
@@ -4718,7 +4738,43 @@ MESH_TRAIN = ["--arch", "smollm-135m", "--mesh", "2x1x1", "--workers", "2",
 # new over 16 slots (the slots and their page-table rows split over 'data')
 MESH_SERVE = dict(batch=16, prompt_len=128, max_new=32, slots=16, page_size=16, max_pages=256,
                   decode_steps_per_dispatch=8)
-MESH_TIMING_RUNS = 10
+MESH_TIMING_RUNS = 5
+# 22c-22g: the rest of the trainer on the 2x1x1 mesh, each run against the
+# same command in one process: 22c's command checkpoints every round (its
+# files byte for byte the one process's); 22e streams (J = 2, row-wise 2-bit
+# EF); 22f drops worker 1 in round 1 (the second of two) with a sync delay of
+# 1; 22g is 22c's command killed after round 1, then resumed in a new world
+MESH_CKPT = ["--checkpoint-every", "1"]
+MESH_RUNS = {
+    "22c": MESH_TRAIN + MESH_CKPT,
+    "22e": replace_flags(MESH_TRAIN, out=MESH_DIR / "streaming") + ["--streaming", "2",
+                                                                    "--rowwise"],
+    "22f": replace_flags(MESH_TRAIN, out=MESH_DIR / "elastic") + ["--drop-schedule", "1:1",
+                                                                  "--sync-delay", "1"],
+    "22g": replace_flags(MESH_TRAIN, out=MESH_DIR / "drill") + MESH_CKPT,
+}
+MESH_KILL_ROUND = 1
+# written once 22g's kill world is dead and this process's one-process runs
+# are done: the launch's ranks run 22e on with the card to themselves
+MESH_QUIET = MESH_DIR / "quiet"
+# the training kernels every rank of a mesh run must launch
+MESH_TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
+                      "quantize", "dequantize")
+MESH_DP_KERNELS = MESH_TRAIN_KERNELS[:4]  # no outer update and no wire in DP
+# 22h: Muon DP (dp_engine, K = 1) on the (data = 2) mesh, each rank 8 of the
+# 16 x 1024 rows a step, against one process: fp32 compute and a constant LR
+# (every step at the full LR), where a split batch differs from the whole one
+# only in the order two half-batch gradients are summed (in bf16 their last
+# bits differ, and AdamW's normalised step on Muon's embed and norm leaves
+# turns that into a share of a step: PERF.md section 6, PR 28's 2x2x1)
+MESH_DP = dict(steps=2, batch=16, seq_len=1024, lr=3e-3)
+# 22h's limits on the largest per-step train-loss gap and the largest
+# outer-param gap: each the geometric mean of the sound mesh run's reading
+# and that of 22h's planted fault (every rank stepping on its own half
+# batch's gradients, data_mean skipped), read on the H100 (PERF.md section
+# 6, PR 29): losses 9.5e-7 and 2.26e-2 apart, params 2.88e-4 and 1.20e-2
+# (embed), so each limit sits ~150x (losses) and ~6x (params) from both
+MESH_DP_TOL = dict(loss=1.5e-4, param=1.9e-3)
 # 22b: the Newton-Schulz stacks of smollm-135m's Muon leaves (wq, wk / wv,
 # w_in / w_gate, w_out), each split over 'data' and held bitwise
 MESH_NS_STACKS = [(30, 576, 576), (30, 576, 192), (30, 576, 1536), (30, 1536, 576)]
@@ -4738,32 +4794,45 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(cmd: list, label: str, torchrun: bool = False, timeout: int = 600) -> None:
+def start_ranks(cmd: list, label: str, torchrun: bool = False) -> list:
     """Start ``cmd`` as the mesh's ranks, each a process with its rank's
     environment, or once when ``torchrun`` (the launcher starts the ranks);
-    wait for all, and raise with the tail of each failing process's output;
-    every process is stopped."""
+    each process writes ``MESH_DIR/<label>.<i>.log``. Returns the processes
+    for :func:`wait_ranks`."""
     port = free_port()
     n = 1 if torchrun else MESH_RANKS
     envs = ([dict(os.environ, PYTHONPATH=str(ROOT / "src"))] if torchrun
             else [mesh_env(r, port) for r in range(n)])
-    cmds = [cmd] * n
-    procs = [subprocess.Popen(c, cwd=ROOT, env=e, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c, e in zip(cmds, envs)]
-    logs = []
+    procs = []
+    for i, env in enumerate(envs):
+        with open(MESH_DIR / f"{label}.{i}.log", "w") as log:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                          stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def wait_ranks(procs: list, label: str, timeout: int = 600, expect: int = 0) -> None:
+    """Wait for :func:`start_ranks`' processes and raise with the tail of
+    each one whose exit code is not ``expect`` (-9: killed by SIGKILL);
+    every process is stopped."""
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for i, (p, log) in enumerate(zip(procs, logs)):
-        (MESH_DIR / f"{label}.{i}.log").write_text(log)
-        if p.returncode != 0:
-            raise AssertionError(f"{label}: process {i} exited {p.returncode}:\n{log[-4000:]}")
+    for i, p in enumerate(procs):
+        if p.returncode != expect:
+            log = (MESH_DIR / f"{label}.{i}.log").read_text()
+            raise AssertionError(f"{label}: process {i} exited {p.returncode}, not {expect}:\n"
+                                 f"{log[-4000:]}")
+
+
+def run_ranks(cmd: list, label: str, torchrun: bool = False, timeout: int = 600) -> None:
+    """:func:`start_ranks`, then :func:`wait_ranks`."""
+    wait_ranks(start_ranks(cmd, label, torchrun), label, timeout)
 
 
 def _mesh_child_start(torch):
@@ -4908,18 +4977,88 @@ def mesh_child_kernels(torch) -> None:
     dist.destroy_process_group()
 
 
-def mesh_child_train(torch) -> None:
-    """[22c, one rank, under torchrun] the training command ``MESH_TRAIN``
-    through the CLI entry point (``launch/train.py:train``); rank 0 saves the
-    per-round records, the gathered outer params, the wire bytes received
-    and the sync's times."""
+def outer_digests(torch, params) -> dict:
+    """path -> sha256 of a whole outer-param leaf's bytes (two runs' leaves
+    are bitwise equal exactly where their digests are)."""
+    import hashlib
+
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    return {p: hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()
+            for p, t in tree_leaves_with_paths(params)}
+
+
+def mesh_dp_run(torch, mesh=None, fault: bool = False) -> dict:
+    """[22h] Muon DP through ``dp_engine(model, 'muon', icfg, mesh=)`` by
+    ``run_rounds``: ``MESH_DP['steps']`` eager steps of smollm-135m at full
+    width in fp32 (one process: ``capture=False``, the mesh's arithmetic,
+    6d / 10a hold eager = captured). ``fault`` plants the fault 22h's limits
+    must catch: each rank steps on its own half batch's gradients (the loss
+    is still averaged). Returns the records, the whole params on the host
+    and the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import diloco
+    from repro_torch.core.collectives import whole
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import dp_engine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    n, B, S = MESH_DP["steps"], MESH_DP["batch"], MESH_DP["seq_len"]
+    cfg = get_config("smollm-135m").replace(max_seq_len=S, attn_impl="pallas", dtype="float32")
+    icfg = OptimizerConfig(lr=MESH_DP["lr"], weight_decay=1e-4, schedule="constant",
+                           total_steps=n)
+    data = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=S, batch_per_worker=B, n_workers=1,
+                                   seed=0), "cuda")
+    engine = dp_engine(build_model(cfg), "muon", icfg, mesh=mesh, capture=False)
+    state = engine.init(torch.Generator(device="cuda").manual_seed(0), torch.device("cuda"))
+    _build.reset_launch_counts()
+    mean = diloco.data_mean
+    if fault:
+        diloco.data_mean = lambda x: x if x.dim() else mean(x)
+    try:
+        state, hist = run_rounds(engine, state, lambda r: batches_for_round(data, r, 1), n,
+                                 rounds_per_dispatch=1,
+                                 span_batches_for=lambda r0, m: batches_for_span(data, r0, 1, m))
+    finally:
+        diloco.data_mean = mean
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    params = {p: whole(t).cpu() for p, t in tree_leaves_with_paths(state["outer_params"])}
+    return {"history": hist, "params": params, "launches": launches}
+
+
+def mesh_child_kill(torch) -> None:
+    """[22g, one rank] ``MESH_RUNS['22g']`` with ``--inject-kill-round``:
+    every rank dies by SIGKILL once rank 0 has written round 1's row."""
+    from repro_torch.launch.train import build_parser, train
+
+    _mesh_child_start(torch)
+    train(build_parser().parse_args(MESH_RUNS["22g"] + ["--inject-kill-round",
+                                                        str(MESH_KILL_ROUND)]))
+    raise SystemExit("22g: the rank survived its kill round")
+
+
+def mesh_cli_runs(torch, label: str, runs: list, quiet_before: str | None = None) -> None:
+    """[one rank of 22c-22h] ``runs``, (name, argv) pairs: each command
+    through the CLI entry point (``launch/train.py:train``), or with argv
+    None 22h's Muon DP on the (data = 2) mesh; the run named
+    ``quiet_before`` and those after it once ``MESH_QUIET`` exists. Each
+    rank saves ``MESH_DIR/<label>.rank<r>.pt``: per run its launches, the
+    bytes it received, the sync's times; rank 0 the per-round records and
+    the digests of the whole outer params (22h: the params themselves; a
+    run named ``22h_fault``: 22h with its planted fault)."""
     import torch.distributed as dist
 
-    from repro_torch.core import diloco
+    from repro_torch.core import collectives, diloco
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import build_parser, train
-    from repro_torch.utils.tree import tree_leaves_with_paths
+    from repro_torch.utils.tree import tree_map
 
     rank = _mesh_child_start(torch)
     syncs = []
@@ -4937,21 +5076,55 @@ def mesh_child_train(torch) -> None:
         return res
 
     diloco.outer_step = timed_sync
-    _build.reset_launch_counts()
-    mesh_mod.reset_traffic()
-    out = train(build_parser().parse_args(MESH_TRAIN))
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    received = dict(mesh_mod.RECEIVED)
-    whole = out["engine"].whole_state(out["state"])
-    if rank == 0:
-        torch.save({"history": out["history"], "losses": out["losses"],
-                    "outer_params": {p: t.cpu() for p, t in
-                                     tree_leaves_with_paths(whole["outer_params"])},
-                    "launches": launches, "received": received, "syncs": syncs,
-                    "staged": dict(mesh_mod.STAGED)}, MESH_DIR / "train.pt")
+    records = {}
+    for name, argv in runs:
+        if name == quiet_before:  # the card to ourselves from here on
+            t0 = time.perf_counter()
+            while not MESH_QUIET.exists():
+                if time.perf_counter() - t0 > 900:
+                    raise TimeoutError("the kill and resume worlds did not end")
+                time.sleep(0.2)
+        syncs.clear()
+        _build.reset_launch_counts()
+        mesh_mod.reset_traffic()
+        t0 = time.perf_counter()
+        if argv is None:
+            run = mesh_dp_run(torch, make_debug_mesh(2, 1, device_type="cuda"),
+                              fault=name == "22h_fault")
+            rec = {"launches": run["launches"], "received": dict(mesh_mod.RECEIVED),
+                   "seconds": time.perf_counter() - t0}
+            if rank == 0:
+                rec.update(history=run["history"], params=run["params"])
+            records[name] = rec
+            continue
+        out = train(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec = {"launches": dict(_build.LAUNCHES), "received": dict(mesh_mod.RECEIVED),
+               "syncs": list(syncs), "seconds": seconds, "staged": dict(mesh_mod.STAGED)}
+        whole = tree_map(collectives.whole, out["state"]["outer_params"])  # every rank gathers
+        if rank == 0:
+            rec.update(history=out["history"], losses=out["losses"],
+                       digests=outer_digests(torch, whole))
+        records[name] = rec
+        del out, whole
+        torch.cuda.empty_cache()
+    torch.save(records, MESH_DIR / f"{label}.rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_child_train(torch) -> None:
+    """[22c, 22e, 22f, 22h, one rank, under torchrun] ``mesh_cli_runs``:
+    22c and 22h's planted fault (whose walls are not kept) beside 22g's
+    worlds, then 22e on once they have ended."""
+    mesh_cli_runs(torch, "train", [(name, MESH_RUNS.get(name)) for name in (
+        "22c", "22h_fault", "22e", "22f", "22h")], quiet_before="22e")
+
+
+def mesh_child_resume(torch) -> None:
+    """[22g, one rank of the new world] 22g's command with ``--resume auto``."""
+    mesh_cli_runs(torch, "resume", [("22g", MESH_RUNS["22g"] + ["--resume", "auto"])])
 
 
 def mesh_serve(torch, rank: int) -> None:
@@ -5021,59 +5194,207 @@ def phase_mesh_kernels(torch, smi: str) -> dict:
     return rows
 
 
-def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
-    """[22c] ``MESH_TRAIN`` under torchrun on two ranks (one worker each)
-    against the same command in this process (no ``--mesh``; eager rounds,
-    which 6d holds bitwise to the captured ones): per-round train and eval
-    losses and every outer-param leaf, bitwise; the mesh run's tokens/s, the
-    sync's times and the wire bytes gathered."""
-    from repro_torch.kernels import _build
-    from repro_torch.utils.tree import tree_leaves_with_paths
+def _csv_sans_wall(path) -> list:
+    import csv
 
-    print(f"[22c] training on a 2x1x1 mesh: torchrun --nproc-per-node {MESH_RANKS} "
-          "repro_torch.launch.train " + " ".join(MESH_TRAIN) + f"; card: {smi}")
-    run_ranks([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-               str(MESH_RANKS), "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
-               "--mesh-child", "train"], "train", torchrun=True, timeout=900)
-    mesh = torch.load(MESH_DIR / "train.pt")
-    one_argv = [a for a in MESH_TRAIN if a not in ("--mesh", "2x1x1")]
-    one_argv[one_argv.index("--out") + 1] = str(MESH_DIR / "train_one")
-    _build.reset_launch_counts()
-    one = train(build_parser().parse_args(one_argv), capture=False)  # eager = captured (6d)
-    torch.cuda.synchronize()
-    one_launches = dict(_build.LAUNCHES)
-    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
-    for a, b in zip(one["history"], mesh["history"]):
-        for k in keys:
-            assert a[k] == b[k], ("round", a["round"], k, a[k], b[k])
-    ref = {p: t.cpu() for p, t in tree_leaves_with_paths(one["state"]["outer_params"])}
-    gaps = [(p, (ref[p].double() - t.double()).abs().max().item())
-            for p, t in mesh["outer_params"].items() if not torch.equal(ref[p], t)]
-    print(f"  per-round {', '.join(keys)} equal to the one-process run's over "
-          f"{len(mesh['history'])} rounds; outer-param leaves not bitwise: "
-          f"{gaps[:1] if gaps else 'none'} of {len(ref)}")
-    assert not gaps, gaps[:3]
+    with open(path, newline="") as f:
+        return [row[:-1] for row in csv.reader(f)]
+
+
+def same_bytes(a: Path, b: Path, chunk: int = 1 << 26) -> bool:
+    """Whether two files hold the same bytes (read 64 MB at a time)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def _one_argv(argv: list, out) -> list:
+    """A mesh command as the one-process command, writing to ``out``."""
+    return replace_flags([a for a in argv if a not in ("--mesh", "2x1x1")], out=out)
+
+
+def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
+    """[22c-22h] one torchrun launch of two ranks (one worker each) running
+    ``MESH_RUNS``' 22c and 22h's planted fault, then 22e and 22f and 22h's
+    Muon DP; beside its 22c,
+    22g's kill (two rank processes, each dying by SIGKILL after round 1's
+    row), then 22g's ``--resume auto`` in a new world of two, and, in this
+    process, the one-process command of 22c, 22e and 22f (no ``--mesh``;
+    eager rounds, which 6d holds bitwise to the captured ones) and 22h's
+    one-process DP; once those are done (``MESH_QUIET``) the launch has the
+    card to itself. Bitwise: every run's
+    per-round train and eval losses, comm_bytes, active_workers and
+    staleness and every outer-param leaf; 22c's checkpoint files byte for
+    byte; 22g's resumed metrics.csv (but wall_s) and outer leaves against
+    22c's mesh run. 22h within ``MESH_DP_TOL`` and its planted fault
+    outside it. Every rank launched every training kernel in every run.
+    Prints each mesh run's round walls, tokens/s (not 22c's: it shares the
+    card), the sync's times and the bytes each rank gathered a round."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    for sub in ("train", "streaming", "elastic", "drill"):  # a rerun's files
+        for d in (MESH_DIR / sub, MESH_DIR / f"{sub}_one"):
+            shutil.rmtree(d, ignore_errors=True)
+    MESH_QUIET.unlink(missing_ok=True)
+    child = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child"]
+    print(f"[22g] the crash drill on a 2x1x1 mesh (two rank processes, gloo): "
+          f"repro_torch.launch.train {' '.join(MESH_RUNS['22g'])} --inject-kill-round "
+          f"{MESH_KILL_ROUND}; card: {smi}")
+    print(f"[22c-22h] one torchrun launch of {MESH_RANKS} ranks: 22c "
+          f"({' '.join(MESH_RUNS['22c'])}) and 22h's planted fault beside 22g's kill world, "
+          f"then its resume world, and this process's one-process runs; then alone on the card "
+          f"22e (+ "
+          f"{' '.join(MESH_RUNS['22e'][-3:])}), 22f (+ {' '.join(MESH_RUNS['22f'][-4:])}) and 22h "
+          f"(Muon DP, dp_engine on data = 2, {MESH_DP}); card: {smi}")
+    t0 = time.perf_counter()
+    killed = start_ranks(child + ["kill"], "kill")
+    launch = start_ranks([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                          str(MESH_RANKS), "--master-port", str(free_port())] + child[1:]
+                         + ["train"], "train", torchrun=True)
+    resumed: list = []
+    try:
+        refs = {}
+        for name in ("22c", "22e", "22f"):  # beside the mesh's runs: walls not kept
+            argv = MESH_RUNS[name]
+            one_out = Path(str(argv[argv.index("--out") + 1]) + "_one")
+            _build.reset_launch_counts()
+            one = train(build_parser().parse_args(_one_argv(argv, one_out)), capture=False)
+            torch.cuda.synchronize()
+            refs[name] = {"history": one["history"], "launches": dict(_build.LAUNCHES),
+                          "digests": outer_digests(torch, one["state"]["outer_params"]),
+                          "out": one_out}
+            del one
+            torch.cuda.empty_cache()
+        one_dp = mesh_dp_run(torch)
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - t0
+        wait_ranks(killed, "kill", expect=-9)
+        drill = MESH_DIR / "drill"
+        ckpts = sorted(f.name for f in drill.glob("ckpt_*.npz"))
+        killed_rows = [r[0] for r in _csv_sans_wall(drill / "metrics.csv")[1:]]
+        print(f"  22g: every rank exited -9 (SIGKILL) after {time.perf_counter() - t0:.1f} s; "
+              f"left {ckpts}, metrics.csv rounds {killed_rows}; the one-process runs "
+              f"{refs_s:.1f} s")
+        assert ckpts == [f"ckpt_{MESH_KILL_ROUND}.npz"] and killed_rows == ["0", "1"], (
+            ckpts, killed_rows)
+        resumed = start_ranks(child + ["resume"], "resume")  # a new world of two ranks
+        wait_ranks(resumed, "resume")
+        print(f"  22g: --resume auto in a new world ended after {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        for p in killed + launch + resumed:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+    MESH_QUIET.write_text("")
+    wait_ranks(launch, "train", timeout=900)
+    print(f"  the launch: {time.perf_counter() - t0:.1f} s")
+    ranks = [{**torch.load(MESH_DIR / f"train.rank{r}.pt", weights_only=False),
+              **torch.load(MESH_DIR / f"resume.rank{r}.pt", weights_only=False)}
+             for r in range(MESH_RANKS)]
+    mesh = ranks[0]
+    for name, rec in mesh.items():  # every rank launched every training kernel
+        names = MESH_DP_KERNELS if name.startswith("22h") else MESH_TRAIN_KERNELS
+        for r, per in enumerate(ranks):
+            missing = [k for k in names if per[name]["launches"].get(k, 0) <= 0]
+            assert not missing, (name, "rank", r, "launched none of", missing)
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes", "active_workers",
+            "staleness")
     tokens = 2 * 4 * 8 * 1024
-    walls = [r["wall_s"] for r in mesh["history"]]
-    one_walls = [r["wall_s"] for r in one["history"]]
-    print(f"  mesh run (eager rounds, one a dispatch): round walls "
-          f"{[round(w, 3) for w in walls]} s, {tokens / walls[-1]:.1f} tok/s in round 2 "
-          f"({tokens} tokens a round, both ranks on one card); one process, eager: "
-          f"{[round(w, 3) for w in one_walls]} s, {tokens / one_walls[-1]:.1f} tok/s")
-    print(f"  the sync (outer_step, rank 0): wall {[round(s[0], 3) for s in mesh['syncs']]} s, "
-          f"between its events on the card {[round(s[1], 4) for s in mesh['syncs']]} s (the "
-          f"host-staged gathers hold the stream); bytes received from the other rank over the "
-          f"run: {mesh['received']} "
-          f"(wire = the 2-bit packets of the other worker; outer = θ gathered from its ZeRO "
-          f"layout for Δ, the reset and the eval loss); staged gathers {mesh['staged']}")
-    print(f"  launches: mesh rank 0 {mesh['launches']}; one process {one_launches}; card: {smi}")
-    for name in ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
-                 "quantize", "dequantize"):
-        assert mesh["launches"][name] > 0, name
-    del one
-    torch.cuda.empty_cache()
-    return {"launches": mesh["launches"], "tok_s": tokens / walls[-1],
-            "received": mesh["received"]}
+    runs = {}
+    for name in ("22c", "22e", "22f"):
+        m, one = mesh[name], refs[name]
+        assert len(one["history"]) == len(m["history"]) == 2, name
+        for a, b in zip(one["history"], m["history"]):
+            for k in keys:
+                assert a[k] == b[k], (name, "round", a["round"], k, a[k], b[k])
+        apart = [p for p in one["digests"] if one["digests"][p] != m["digests"][p]]
+        assert not apart, (name, "outer leaves not bitwise", apart[:3])
+        walls = [r["wall_s"] for r in m["history"]]
+        print(f"  [{name}] per-round {', '.join(keys)} and all {len(one['digests'])} outer-param "
+              f"leaves bitwise the one-process run's; rounds "
+              f"{[r['round'] for r in m['history']]}: active "
+              f"{[r['active_workers'] for r in m['history']]}, staleness "
+              f"{[r['staleness'] for r in m['history']]}, comm_bytes "
+              f"{[r['comm_bytes'] for r in m['history']]}")
+        # 22c runs beside 22g's kill and resume worlds and this process's
+        # one-process runs: its walls are contended; 22e and 22f have the card
+        rate = (f"contended (beside 22g's worlds and the one-process runs), no yardstick"
+                if name == "22c" else f"{tokens / walls[-1]:.1f} tok/s in round 2 (both ranks "
+                f"on one card, nothing else on it)")
+        print(f"  [{name}] mesh round walls {[round(w, 3) for w in walls]} s, {rate}; the run "
+              f"{m['seconds']:.1f} s; the sync (outer_step, rank 0) wall "
+              f"{[round(x[0], 3) for x in m['syncs']]} s, on the card "
+              f"{[round(x[1], 4) for x in m['syncs']]} s; bytes rank 0 received over the run "
+              f"{m['received']} (each rank, a round: "
+              f"{ {k: v // 2 for k, v in m['received'].items()} }); launches rank 0 "
+              f"{m['launches']}, rank 1 {ranks[1][name]['launches']}, one process "
+              f"{one['launches']}; card: {smi}")
+        runs[name] = {"walls": walls, "received": m["received"],
+                      "launches": [per[name]["launches"] for per in ranks]}
+        if name != "22c":
+            runs[name]["tok_s"] = tokens / walls[-1]
+        if name == "22c":  # the checkpoints, byte for byte
+            mesh_dir = Path(str(MESH_RUNS[name][MESH_RUNS[name].index("--out") + 1]))
+            files = sorted(f.name for f in one["out"].glob("ckpt_*.npz"))
+            assert files == ["ckpt_1.npz", "ckpt_2.npz"], files
+            assert files == sorted(f.name for f in mesh_dir.glob("ckpt_*.npz"))
+            for f in files:
+                assert same_bytes(mesh_dir / f, one["out"] / f), (f, "differs")
+            print(f"  [22c] {files} byte for byte the one-process run's "
+                  f"({[(mesh_dir / f).stat().st_size for f in files]} B)")
+    g = mesh["22g"]
+    resumed, want = (_csv_sans_wall(MESH_DIR / d / "metrics.csv") for d in ("drill", "train"))
+    assert resumed == want, ("22g: the resumed metrics.csv", resumed, want)
+    apart = [p for p in g["digests"] if g["digests"][p] != mesh["22c"]["digests"][p]]
+    assert not apart, ("22g: outer leaves apart from 22c's mesh run", apart[:3])
+    print(f"  [22g] resumed from ckpt_{MESH_KILL_ROUND}.npz in a new world: "
+          f"metrics.csv (but wall_s, rounds {[r[0] for r in resumed[1:]]}) and all "
+          f"{len(g['digests'])} outer leaves equal 22c's uninterrupted mesh run; the resumed "
+          f"run {g['seconds']:.1f} s (the load included), round wall "
+          f"{[round(r['wall_s'], 3) for r in g['history']]} s")
+    def dp_gaps(h: dict) -> tuple:  # (largest loss gap, (leaf, largest param gap))
+        loss = max(abs(a["train_loss"] - b["train_loss"])
+                   for a, b in zip(one_dp["history"], h["history"]))
+        gaps = {p: (one_dp["params"][p].double() - t.double()).abs().max().item()
+                for p, t in h["params"].items()}
+        return loss, max(gaps.items(), key=lambda kv: kv[1])
+
+    (loss_gap, worst), (fault_loss, fault_worst) = dp_gaps(mesh["22h"]), dp_gaps(
+        mesh["22h_fault"])
+    h, dp_tokens = mesh["22h"], MESH_DP["batch"] * MESH_DP["seq_len"]
+    walls = [r["wall_s"] for r in h["history"]]
+    held = loss_gap <= MESH_DP_TOL["loss"] and worst[1] <= MESH_DP_TOL["param"]
+    caught = fault_loss > MESH_DP_TOL["loss"] and fault_worst[1] > MESH_DP_TOL["param"]
+    print(f"  [22h] Muon DP on data = 2 (fp32, constant LR) against one process (eager): "
+          f"losses {[round(b['train_loss'], 6) for b in h['history']]} / "
+          f"{[round(a['train_loss'], 6) for a in one_dp['history']]}; largest loss gap "
+          f"{loss_gap:.3e} (limit {MESH_DP_TOL['loss']:.1e}), largest param gap {worst[1]:.3e} "
+          f"({worst[0]}; limit {MESH_DP_TOL['param']:.1e}): {'held' if held else 'MISSED'}; the "
+          f"planted fault (each rank on its half batch's gradients): loss gap {fault_loss:.3e}, "
+          f"param gap {fault_worst[1]:.3e} ({fault_worst[0]}): "
+          f"{'caught' if caught else 'NOT CAUGHT'}; step walls {[round(w, 3) for w in walls]} s, "
+          f"{dp_tokens / walls[-1]:.1f} tok/s in the last step; bytes rank 0 received "
+          f"{h['received']}; launches rank 0 {h['launches']}, rank 1 "
+          f"{ranks[1]['22h']['launches']}, one process {one_dp['launches']}; card: {smi}")
+    assert held and caught, (loss_gap, worst, fault_loss, fault_worst)
+    runs["22h"] = {"walls": walls, "tok_s": dp_tokens / walls[-1], "loss_gap": loss_gap,
+                   "param_gap": worst[1], "fault_loss_gap": fault_loss,
+                   "fault_param_gap": fault_worst[1], "limits": MESH_DP_TOL,
+                   "launches": [per["22h"]["launches"] for per in ranks]}
+    runs["22g"] = {"launches": [per["22g"]["launches"] for per in ranks]}
+    for f in MESH_DIR.glob("*/ckpt_*.npz"):  # ~4.5 GB each
+        f.unlink()
+    return {"launches": mesh["22c"]["launches"], "received": mesh["22c"]["received"],
+            "runs": runs}
 
 
 def phase_mesh_serve(torch, get_config, serve, smi: str) -> dict:
@@ -5103,14 +5424,15 @@ def slice_12(torch, build_parser, train, get_config, serve, smi: str) -> dict:
     """Phase 22: (a) the kernels were built in phase 2, in this process,
     before any rank starts (each rank loads them; the build's file lock
     would hold a second builder); (b) the kernels across ranks, whose
-    processes then serve (d); (c) the mesh's training; (d) the mesh's
-    serving against one process."""
+    processes then serve (d); (c, e-h) the mesh's training: checkpoints,
+    streaming, elastic drops with a sync delay, the crash drill and the DP
+    baseline; (d) the mesh's serving against one process."""
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     print("[22a] kernels built once in this process (phase 2) before any rank starts")
     kernels = phase_mesh_kernels(torch, smi)
     lap("22b")
     trained = phase_mesh_train(torch, build_parser, train, smi)
-    lap("22c")
+    lap("22c, 22e-22h")
     served = phase_mesh_serve(torch, get_config, serve, smi)
     lap("22d")
     return {"kernels": kernels, "train": trained, "serve": served}
@@ -5119,7 +5441,8 @@ def slice_12(torch, build_parser, train, get_config, serve, smi: str) -> dict:
 def mesh_child(kind: str) -> int:
     import torch
 
-    {"kernels": mesh_child_kernels, "train": mesh_child_train}[kind](torch)
+    {"kernels": mesh_child_kernels, "train": mesh_child_train, "kill": mesh_child_kill,
+     "resume": mesh_child_resume}[kind](torch)
     return 0
 
 
@@ -5377,7 +5700,10 @@ def main(argv: list | None = None) -> int:
         row["across_ranks"] = {
             **mesh["kernels"][name],
             "mesh_train_launches": mesh["train"]["launches"].get(name, 0),
-            "mesh_serve_launches": mesh["serve"]["launches"].get(name, 0)}
+            "mesh_serve_launches": mesh["serve"]["launches"].get(name, 0),
+            # 22c, 22e-22h: each run's launches on each rank
+            "mesh_runs_launches": {run: [per.get(name, 0) for per in v["launches"]]
+                                   for run, v in mesh["train"]["runs"].items()}}
     t = flash["training"]
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
           "(the flash_fwd row counts the serving main path's and times its shape); at the "

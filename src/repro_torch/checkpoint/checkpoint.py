@@ -20,6 +20,15 @@ Crash safety, as in the reference:
   newest ``keep`` files and rewrites the ``LATEST`` manifest;
   :func:`load_latest_valid` walks newest to oldest past files that do not
   verify.
+
+A file's bytes are a function of the tree alone: the archive's members
+carry a fixed timestamp, so the same state saved twice (in one process, or
+gathered whole from a mesh) is the same file. On a mesh of ranks
+(``launch/train.py --mesh``) rank 0 writes the whole state, and
+:func:`load_checkpoint` / :func:`load_latest_valid` take ``shardings`` and
+``mesh`` (the reference's ``shardings=``): the loaded leaves are laid out
+as DTensors by those specs. :func:`load_latest_valid` on a mesh loads the
+file rank 0 picked on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import json
 import os
 import re
 import tempfile
+import zipfile
 import zlib
 from typing import Any
 
@@ -38,6 +48,9 @@ from repro_torch.utils.tree import tree_leaves_with_paths, tree_map_with_path
 Tree = Any
 
 _META = "__tree_meta__"
+# every member's timestamp (the zip format's earliest), so a file's bytes
+# depend on the tree alone
+_MEMBER_TIME = (1980, 1, 1, 0, 0, 0)
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.npz$")
 LATEST_MANIFEST = "LATEST"
 
@@ -87,36 +100,61 @@ def _stored(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _crc32(a: np.ndarray) -> int:
+    """CRC32 of an array's C-order bytes (``tobytes()``'s), read in place."""
+    return zlib.crc32(memoryview(np.ascontiguousarray(a).reshape(-1)).cast("B"))
+
+
+def _write_npy(member, arr: np.ndarray) -> None:
+    """``np.lib.format.write_array``'s bytes (a version 1.0 header, then the
+    C-order data), the data written from the array's own buffer."""
+    arr = np.asarray(arr, order="C")
+    np.lib.format.write_array_header_1_0(member, np.lib.format.header_data_from_array_1_0(arr))
+    if arr.size:
+        member.write(memoryview(arr.reshape(-1)).cast("B"))
+
+
 def _loaded(a: np.ndarray, dtype: str, device) -> torch.Tensor:
-    a = np.array(a, order="C")  # a writable copy; keeps 0-dim leaves 0-dim
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")  # a writable copy; keeps 0-dim leaves 0-dim
     if dtype == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.view(np.dtype(dtype))).to(device)
 
 
 def save_checkpoint(path: str, tree: Tree, step: int = 0) -> None:
-    arrays = {}
-    meta = {"step": step, "paths": [], "dtypes": [], "crc32": []}
-    for i, (p, leaf) in enumerate(tree_leaves_with_paths(tree)):
+    paths, arrays, dtypes = [], [], []
+    for p, leaf in tree_leaves_with_paths(tree):
         arr, dtype = _stored(leaf)
-        arrays[f"leaf_{i}"] = arr
-        meta["paths"].append(p)
-        meta["dtypes"].append(dtype)
-        meta["crc32"].append(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
+        paths.append(p)
+        arrays.append(arr)
+        dtypes.append(dtype)
 
-    def write(f):
-        np.savez(f, **arrays,
-                 **{_META: np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)})
+    def member(zf, name: str, arr: np.ndarray) -> None:
+        info = zipfile.ZipInfo(name + ".npy", date_time=_MEMBER_TIME)
+        with zf.open(info, "w", force_zip64=True) as f:
+            _write_npy(f, arr)
+
+    def write(f):  # np.savez's archive (stored members, zip64), fixed timestamps
+        with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for i, arr in enumerate(arrays):
+                member(zf, f"leaf_{i}", arr)
+            meta = {"step": step, "paths": paths, "dtypes": dtypes,
+                    "crc32": [_crc32(arr) for arr in arrays]}
+            member(zf, _META, np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
 
     _write_atomic(path, write)
 
 
-def load_checkpoint(path: str, template: Tree, device=None,
-                    verify: bool = True) -> tuple[Tree, int]:
+def load_checkpoint(path: str, template: Tree, device=None, verify: bool = True,
+                    shardings: Tree | None = None, mesh=None) -> tuple[Tree, int]:
     """Restore into the structure of ``template`` (its paths must be the
     file's, in any order). Leaves go to ``device``, else to the device of
     the template's leaf at the same path. ``verify`` checks every CRC32 and
-    raises :class:`CheckpointError` on a mismatch."""
+    raises :class:`CheckpointError` on a mismatch. With ``shardings`` (a
+    tree of specs, ``TrainEngine.state_shardings()``) the whole leaves are
+    laid out on ``mesh`` as DTensors (``launch.sharding.place``)."""
     if os.path.getsize(path) == 0:
         raise CheckpointError(f"{path}: zero-length checkpoint file")
     try:
@@ -127,7 +165,7 @@ def load_checkpoint(path: str, template: Tree, device=None,
             for i in range(len(meta["paths"])):
                 a = z[f"leaf_{i}"]
                 if verify and crcs is not None:
-                    got = zlib.crc32(np.ascontiguousarray(a).tobytes())
+                    got = _crc32(a)
                     if got != crcs[i]:
                         raise CheckpointError(
                             f"{path}: leaf_{i} ({meta['paths'][i]}) checksum mismatch: "
@@ -154,7 +192,12 @@ def load_checkpoint(path: str, template: Tree, device=None,
             t.device if isinstance(t, torch.Tensor) else "cpu")
         return _loaded(a, dt, where)
 
-    return tree_map_with_path(leaf, template), int(meta["step"])
+    tree = tree_map_with_path(leaf, template)
+    if shardings is not None:
+        from repro_torch.launch.sharding import place
+
+        tree = place(mesh, tree, shardings)
+    return tree, int(meta["step"])
 
 
 # ---------------------------------------------------------------------------
@@ -213,20 +256,40 @@ def save_round_checkpoint(ckpt_dir: str, tree: Tree, round: int, keep: int = 3) 
     return path
 
 
-def load_latest_valid(ckpt_dir: str, template: Tree,
-                      device=None) -> tuple[Tree, int, str] | None:
+def load_latest_valid(ckpt_dir: str, template: Tree, device=None,
+                      shardings: Tree | None = None, mesh=None
+                      ) -> tuple[Tree, int, str] | None:
     """Load the newest round-stamped checkpoint that verifies and matches
-    ``template``; ``(tree, round, path)``, or None when none does."""
-    skipped: list[str] = []
+    ``template``; ``(tree, round, path)``, or None when none does. With a
+    ``mesh`` every rank walks the directory at once, then takes the round
+    rank 0 picked (broadcast): a rank whose own pick differs loads rank 0's
+    file, so the ranks agree even where one of them saw a torn write (a
+    file rank 0 verified that another rank cannot read raises there). The
+    leaves are laid out by ``shardings``."""
+    got, skipped = None, []
     for _, path in list_checkpoints(ckpt_dir):
         try:
-            tree, step = load_checkpoint(path, template, device=device)
+            tree, step = load_checkpoint(path, template, device=device, shardings=shardings,
+                                         mesh=mesh)
         except Exception as e:  # truncated / corrupt / mismatched: fall back
             skipped.append(f"{os.path.basename(path)} ({type(e).__name__}: {e})")
             continue
-        if skipped:
-            print(f"checkpoint: skipped {len(skipped)} invalid file(s): " + "; ".join(skipped))
-        return tree, step, path
-    if skipped:
+        got = (tree, step, path)
+        break
+    if skipped and got is not None:
+        print(f"checkpoint: skipped {len(skipped)} invalid file(s): " + "; ".join(skipped))
+    elif skipped:
         print(f"checkpoint: no valid checkpoint in {ckpt_dir}; skipped: " + "; ".join(skipped))
-    return None
+    if mesh is None:
+        return got
+    from repro_torch.launch.mesh import host_broadcast
+
+    chosen = host_broadcast(-1 if got is None else got[1])
+    if chosen < 0:
+        return None
+    if got is None or got[1] != chosen:  # this rank saw another file: rank 0's
+        path = checkpoint_path(ckpt_dir, chosen)
+        tree, step = load_checkpoint(path, template, device=device, shardings=shardings,
+                                     mesh=mesh)
+        got = (tree, step, path)
+    return got

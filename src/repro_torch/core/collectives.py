@@ -16,10 +16,14 @@ mesh's axes: :func:`gather_workers` all-gathers a worker-stacked buffer
 the reduce then sums the same [K, ...] stack in ``_sum_workers``'s order
 on every rank and gives the bits of the one-process reduce;
 :func:`data_mean` averages a worker's gradients over the ranks that split
-its batch ('data'); :func:`whole` rebuilds a DTensor leaf of the outer
-state (kept in its ZeRO layout) whole on every rank, and :func:`like`
-lays a whole tensor out as a DTensor leaf. With no groups installed each
-is the identity, so the one-process path is unchanged.
+its batch ('data'); :func:`local_workers` takes the rank's slice of a [K]
+per-worker tensor (the participation mask); :func:`whole` rebuilds a
+DTensor leaf of the outer state (kept in its ZeRO layout) whole on every
+rank, :func:`like` lays a whole tensor out as a DTensor leaf, and
+:func:`local` / :func:`block` / :func:`from_block` move between a leaf
+and this rank's block of it (a streaming mask's block, the sync delay's
+FIFO slot). With no groups installed and plain tensors each is the
+identity, so the one-process path is unchanged.
 
 Byte accounting: :func:`measured_sync_bytes` sizes the buffers the
 collective moves (codes, row metadata, indices, packing padding) in closed
@@ -107,29 +111,76 @@ def data_mean(x: torch.Tensor) -> torch.Tensor:
     return all_reduce_sum(x, groups.data, tag="grads") * (1.0 / dist.get_world_size(groups.data))
 
 
-def whole(x):
-    """A DTensor leaf gathered whole on every rank (a plain tensor as it is)."""
+def local_workers(x: torch.Tensor) -> torch.Tensor:
+    """The rank's [K / pod] slice of a [K] per-worker tensor (the
+    participation mask), in ``gather_workers``' order: the identity with no
+    'pod' axis."""
+    groups = _GROUPS.get()
+    if groups is None or groups.workers is None:
+        return x
+    import torch.distributed as dist
+
+    n = dist.get_world_size(groups.workers)
+    k = x.shape[0] // n
+    r = dist.get_rank(groups.workers)
+    return x[r * k:(r + 1) * k]
+
+
+def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
-    if not isinstance(x, DTensor):
+    return isinstance(x, DTensor)
+
+
+def whole(x):
+    """A DTensor leaf gathered whole on every rank (a plain tensor as it is)."""
+    if not _is_dtensor(x):
         return x
     from repro_torch.launch.mesh import gather_whole
 
     return gather_whole(x.to_local(), x.device_mesh, x.placements, tag="outer")
 
 
-def like(ref, x):
-    """A whole tensor ``x`` laid out as the DTensor leaf ``ref`` is (its
-    block on this rank, a slice), or ``x`` as it is when ``ref`` is plain."""
-    from torch.distributed.tensor import DTensor
+def local(x):
+    """A DTensor's block on this rank (a plain tensor as it is)."""
+    return x.to_local() if _is_dtensor(x) else x
 
-    if not isinstance(ref, DTensor):
+
+def block(ref, x: torch.Tensor) -> torch.Tensor:
+    """The rank's block of a whole tensor ``x`` laid out as the DTensor leaf
+    ``ref`` is (a slice, no communication), or ``x`` as it is when ``ref``
+    is plain. A dimension of ``x`` that broadcasts against ``ref`` (size 1:
+    a streaming mask's (L, 1, ...)) stays whole, and so does an ``x`` of
+    another dimension count (a 0-dim mask)."""
+    if not _is_dtensor(ref):
         return x
+    from torch.distributed.tensor import Replicate, Shard
+
     from repro_torch.kernels.partition import local_block
 
-    mesh, pl = ref.device_mesh, ref.placements
-    return DTensor.from_local(local_block(x, mesh, pl).contiguous(), mesh, pl,
-                              run_check=False, shape=ref.shape, stride=ref.stride())
+    pl = [Replicate() if isinstance(p, Shard) and (x.dim() != ref.dim() or x.shape[p.dim] == 1)
+          else p for p in ref.placements]
+    return local_block(x, ref.device_mesh, pl)
+
+
+def from_block(ref, b: torch.Tensor):
+    """The rank's block ``b`` of a tensor laid out as ``ref`` is, as a
+    DTensor like ``ref`` (``b`` itself when ``ref`` is plain)."""
+    if not _is_dtensor(ref):
+        return b
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(b, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def like(ref, x):
+    """A whole tensor ``x`` laid out as the DTensor leaf ``ref`` is (its
+    block on this rank, a slice), or ``x`` as it is when ``ref`` is plain
+    or ``x`` is a DTensor already."""
+    if not _is_dtensor(ref) or _is_dtensor(x):
+        return x
+    return from_block(ref, block(ref, x).contiguous())
 
 
 def _sum_workers(vals: torch.Tensor) -> torch.Tensor:

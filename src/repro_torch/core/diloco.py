@@ -22,7 +22,12 @@ trees, each whole) and its rows of their batches, with the outer state as
 DTensors in its ZeRO layout. The hooks of :mod:`repro_torch.core.collectives`
 do the exchanges (gradients averaged over 'data', losses and wire packets
 gathered across 'pod', θ_outer gathered whole for Δ and the reset), and
-are the identity in one process.
+are the identity in one process. Every variant runs there: an elastic
+round reads the rank's workers' entries of the replicated [K] mask
+(``local_workers``) and averages over the global one; a streaming segment
+merges the outer state on each rank's block; the sync delay's FIFO holds
+each slot in the outer layout; the DP config gathers its K = 1 worker's
+params into the outer layout.
 
 The pseudogradient path Δ -> compress/EF -> reduce -> outer descent is the
 chain :func:`make_outer` declares (:class:`OuterOptimizer`), with the
@@ -60,9 +65,13 @@ from typing import Any
 import torch
 
 from repro_torch.core.collectives import (
+    block,
     data_mean,
+    from_block,
     gather_workers,
     like,
+    local,
+    local_workers,
     measured_sync_bytes,
     participation_mean,
     reduce_mean,
@@ -189,7 +198,7 @@ class OuterOptimizer:
             else:
                 psi, (new_e, _) = sub.update(d, (e if self.has_ef else (), ()), o)
             if participation is not None and self.has_ef:
-                keep = participation.float() > 0
+                keep = local_workers(participation.float()) > 0  # the rank's workers
                 new_e = torch.where(keep.reshape((keep.shape[0],) + (1,) * (new_e.dim() - 1)),
                                     new_e, e.to(new_e.dtype))
             return psi, new_e
@@ -341,6 +350,8 @@ def inner_step(model, opt, state: dict, batch: dict,
     reference's sum·(1/K) (``collectives.participation_mean``), which is
     what ``jnp.mean`` computes."""
     K = batch["tokens"].shape[0]
+    # on a mesh the rank's own workers' entries of the global [K] mask
+    mine = None if participation is None else local_workers(participation)
     losses = []
     for k in range(K):
         params_k = _worker(state["worker_params"], k)
@@ -357,7 +368,7 @@ def inner_step(model, opt, state: dict, batch: dict,
                 _copy_into(params_k, new_p)
                 _copy_into(inner_k, new_s)
             else:
-                keep = participation[k] > 0
+                keep = mine[k] > 0
                 for dst, src in ((params_k, new_p), (inner_k, new_s)):
                     tree_map(lambda d, s: d.copy_(torch.where(keep, s, d)), dst, src)
         # copied in: freed before the next worker's step allocates its own
@@ -434,14 +445,23 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
                 "outer_enabled=False cannot be combined with streaming_partitions > 1")
         if dcfg.n_workers == 1:  # a K = 1 elastic mask is always all-ones
             participation = None
-        psi = tree_map(lambda o, w: participation_mean(_delta(o, w), participation),
+        # on a mesh the workers are gathered across 'pod' (the identity at
+        # pod = 1, the DP layout) and the synced params laid out in the
+        # outer state's ZeRO layout
+        psi = tree_map(lambda o, w: participation_mean(gather_workers(_delta(o, w)),
+                                                       participation),
                        state["outer_params"], state["worker_params"])
+        if dcfg.n_workers == 1:  # the synced params are the worker's own: no reset
+            tree_map(lambda o, w: o.copy_(like(o, w[0])),
+                     state["outer_params"], state["worker_params"])
+            state["round"].add_(1)
+            return state, psi
         new_outer = tree_map(
-            lambda o, w: (participation_mean(w.float(), participation).to(o.dtype)
-                          if w.shape[0] > 1 or participation is not None else w[0]),
+            lambda o, w: participation_mean(gather_workers(w).float(), participation).to(o.dtype),
             state["outer_params"], state["worker_params"])
-        _copy_into(state["outer_params"], new_outer)
-        tree_map(lambda o, w: w.copy_(o[None].to(w.dtype).expand_as(w)),
+        tree_map(lambda o, n: o.copy_(like(o, n)), state["outer_params"], new_outer)
+        del new_outer
+        tree_map(lambda o, w: w.copy_(whole(o)[None].to(w.dtype).expand_as(w)),
                  state["outer_params"], state["worker_params"])
         state["round"].add_(1)
         return state, psi
@@ -456,10 +476,15 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
                              "build it with diloco_init on a config with the same sync_delay")
         psi, new_ef = outer.reduce(state["outer_params"], state["worker_params"],
                                    state.get("ef"), participation=participation, delta=_delta)
-        new_outer, new_opt = outer.descend(state["outer_params"],
-                                           tree_map(lambda q: q[0], pending),
-                                           state["outer_opt"])
-        tree_map(_shift_in, pending, psi)
+        # on a mesh the FIFO holds each slot in the outer state's layout:
+        # the descent takes pending[0]'s block beside the outer params'
+        # blocks, and the fresh (whole) Psi shifts in as this rank's block
+        new_outer, new_opt = outer.descend(
+            state["outer_params"],
+            tree_map(lambda o, q: from_block(o, local(q)[0]), state["outer_params"], pending),
+            state["outer_opt"])
+        tree_map(lambda o, q, p: _shift_in(local(q), block(o, p)),
+                 state["outer_params"], pending, psi)
     else:
         new_outer, new_opt, new_ef, psi = outer.step(
             state["outer_params"], state["worker_params"], state["outer_opt"], state.get("ef"),

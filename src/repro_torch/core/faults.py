@@ -69,7 +69,13 @@ class FaultPlan:
     (:func:`parse_drop_schedule`) forces (round, worker) drops on top. At
     least one worker always survives: when a round would drop everyone, the
     worker with the largest draw (the last one any drop rate would evict)
-    stays, the tie-break of ``wallclock.StragglerModel``."""
+    stays, the tie-break of ``wallclock.StragglerModel``.
+
+    On a mesh every rank builds the same plan from the same flags and gets
+    the same [K] masks: a mask depends on ``(seed, round)`` alone (numpy's
+    ``SeedSequence``, no process state), so no rank needs another's. Each
+    rank then reads its own workers' entries of the replicated mask
+    (``collectives.local_workers``)."""
 
     n_workers: int
     drop_prob: float = 0.0
@@ -109,7 +115,11 @@ class CrashPlan:
       corruption the EMA spike detector catches;
     * ``kill_round``: SIGKILL this process once the round's metrics have
       drained (:meth:`maybe_kill`, called from ``on_round`` after the row is
-      written).
+      written; on a mesh every rank, after a barrier behind rank 0's row).
+
+    On a mesh ``apply`` takes ``held``, the global workers this rank holds:
+    the poison lands on global worker 0 on the ranks that hold it, and only
+    there, as in the one-process run.
     """
 
     nan_round: int | None = None
@@ -128,21 +138,26 @@ class CrashPlan:
         return self.nan_round is not None or self.spike_round is not None
 
     @staticmethod
-    def _poison(state: dict, value: float) -> dict:
+    def _poison(state: dict, value: float, held: list[int] | None = None) -> dict:
         """Set worker 0's first entry of the first parameter leaf (the
-        reference's ``jax.tree.leaves`` order: sorted paths), in place."""
+        reference's ``jax.tree.leaves`` order: sorted paths), in place; with
+        ``held`` (the global workers of this rank's [K / pod] stack) only a
+        rank that holds worker 0 writes, at its local index."""
+        if held is not None and 0 not in held:
+            return state
+        k = 0 if held is None else held.index(0)
         leaf = tree_leaves_with_paths(state["worker_params"])[0][1]
         with torch.no_grad():
-            leaf[(0,) * leaf.dim()] = value
+            leaf[(k,) + (0,) * (leaf.dim() - 1)] = value
         return state
 
-    def apply(self, r0: int, n: int, batches, state):
+    def apply(self, r0: int, n: int, batches, state, held: list[int] | None = None):
         """The driver's ``inject`` hook for rounds r0..r0+n-1. Returns
         ``(batches, state)``."""
         if self.nan_round is not None and r0 == self.nan_round:
-            state = self._poison(state, float("nan"))
+            state = self._poison(state, float("nan"), held)
         if self.spike_round is not None and r0 == self.spike_round:
-            state = self._poison(state, self.spike_value)
+            state = self._poison(state, self.spike_value, held)
         return batches, state
 
     def maybe_kill(self, round: int) -> None:

@@ -13,6 +13,11 @@ two packages partition alike. Masks are fp32 tensors on the params' device
 (the CPU for leaves that are not tensors, which only need a ``shape``):
 shape ``(L, 1, ...)`` for stacked leaves, 0-dim otherwise.
 
+On a mesh the masks are made from the outer params' whole shapes (a
+DTensor's ``shape`` is the whole tensor's), the same on every rank; the
+segment sync slices rows of the rank's whole workers, and
+:func:`masked_update` merges the outer state on each rank's block.
+
 A mask tensor keeps its :func:`subset_plan` and :func:`subset_index`
 results on itself: the first call reads the mask to the host, every later
 one reads nothing, so a captured streaming sync runs no host read. The
@@ -114,9 +119,17 @@ def _subset_plan(m: np.ndarray, leaf_shape: tuple, ccfg) -> tuple[str, np.ndarra
 
 
 def masked_update(mask: Tree, new: Tree, old: Tree) -> Tree:
-    """new where mask else old (mask broadcast per leaf), in fp32."""
-    return tree_map(lambda m, n, o: (m * n.float() + (1.0 - m) * o.float()).to(o.dtype),
-                    mask, new, old)
+    """new where mask else old (mask broadcast per leaf), in fp32. On a
+    mesh ``old`` is a DTensor leaf of the outer state: the merge runs on
+    this rank's blocks (the mask's block under ``old``'s layout), the bits
+    of the whole merge's block."""
+    from repro_torch.core.collectives import block, from_block, local
+
+    def one(m, n, o):
+        mb = block(o, m)
+        return from_block(o, (mb * local(n).float() + (1.0 - mb) * local(o).float()).to(o.dtype))
+
+    return tree_map(one, mask, new, old)
 
 
 def assert_masks_partition(masks: list[Tree]) -> bool:

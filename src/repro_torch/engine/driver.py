@@ -34,6 +34,14 @@ per dispatch, late metric reads, checkpoints and recovery.
   ``launch/train.py``) stops dispatching, drains, and returns a state to
   checkpoint; ``inject`` (``core/faults.CrashPlan.apply``) corrupts chosen
   dispatches.
+* **a mesh** (``TrainEngine(mesh=...)``, one process per rank): every rank
+  runs this loop in lockstep. A checkpoint is the whole state
+  (``engine.checkpoint_state``, a collective every rank takes: rank 0's
+  ``on_state`` gets it and every other rank's gets None); the drained
+  health flags and the stop flag are each rank's own reading reduced by a
+  max over the ranks (``engine.agree_max``), so every rank rolls back,
+  skips and stops at the same round; ``restore`` hands back the state laid
+  out again.
 """
 from __future__ import annotations
 
@@ -156,6 +164,8 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
         if event is not None:
             event.synchronize()
         hls = host["health"].tolist() if "health" in host else None
+        if hls is not None and recovery is not None:  # no rank decides alone
+            hls = engine.agree_max(hls)
         if hls is not None and recovery is not None and any(h != 0 for h in hls):
             # record nothing from a poisoned dispatch: every round after the
             # flagged one trained on corrupted state
@@ -194,7 +204,7 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
     while not done:
         try:
             while r0 < rounds:
-                if should_stop is not None and should_stop():
+                if should_stop is not None and engine.agree_max([float(should_stop())])[0]:
                     if telemetry is not None:
                         telemetry["preempted"] = True
                     break
@@ -218,7 +228,7 @@ def run_rounds(engine, state: dict, batches_for: Callable[[int], Tree], rounds: 
                 if cadence and (r0 + R) % on_state_every == 0:
                     while pending:  # the CSV never lags a saved checkpoint
                         drain_one()
-                    on_state(r0 + R - 1, state)
+                    on_state(r0 + R - 1, engine.checkpoint_state(state))
                 while len(pending) > max_in_flight:
                     drain_one()
                 if in_prog_ckpt and not pending:

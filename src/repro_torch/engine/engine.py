@@ -51,8 +51,15 @@ loss), and every kernel wrapper runs under the mesh's routing
 (``kernels/partition.py``). Nothing is captured on a mesh: a round runs
 eagerly, and gloo's collectives (two ranks on one card) cannot be captured
 in a CUDA graph. Eager rounds are the captured ones' arithmetic (bitwise),
-so every R is still the same bits. The mesh path runs the lockstep sync
-(no streaming, elastic drops or sync delay).
+so every R is still the same bits. The mesh runs every round the one
+process runs: streaming (masks from the whole shapes, merged on each
+rank's block), elastic drops (each rank reads its workers' entries of the
+replicated mask, so every rank takes the same program), a sync delay (the
+FIFO in the outer layout) and the DP baseline (``dp_engine(..., mesh=)``:
+K = 1, the batch split over 'data'). A checkpoint is the whole state on
+rank 0's host (:meth:`checkpoint_state`, a collective every rank takes),
+the one writer; :meth:`agree_max` is the host-side agreement ``run_rounds``
+takes on health flags and the stop flag.
 """
 from __future__ import annotations
 
@@ -240,8 +247,9 @@ class TrainEngine:
         """The compute layout of a placed state (the identity on a state in
         it already): the worker groups as plain [K / pod, ...] tensors, each
         worker whole (gathered over every mesh axis but 'pod'); the outer
-        params and outer optimizer state as they are (DTensors); the
-        counters and health stats as plain tensors."""
+        params, outer optimizer state and the sync delay's FIFO as they are
+        (DTensors); the counters, the participation mask and the health
+        stats as plain tensors (replicated: whole on every rank)."""
         from torch.distributed.tensor import DTensor, Replicate
 
         from repro_torch.launch.mesh import gather_whole
@@ -260,7 +268,7 @@ class TrainEngine:
         for key, sub in state.items():
             if key in ("worker_params", "inner_state", "ef"):
                 out[key] = tree_map(worker, sub)
-            elif key in ("outer_params", "outer_opt"):
+            elif key in _OUTER_LAYOUT:
                 out[key] = sub
             else:
                 out[key] = tree_map(plain, sub)
@@ -280,6 +288,67 @@ class TrainEngine:
                           if key in ("worker_params", "inner_state", "ef")
                           else tree_map(whole, sub)) for key, sub in state.items()}
 
+    def checkpoint_state(self, state: dict) -> dict | None:
+        """The state a checkpoint writes: ``state`` itself off a mesh; on a
+        mesh (a collective every rank takes) the whole state on rank 0's
+        host, the bits of :meth:`whole_state`, and None on every other
+        rank. The worker groups go only to the writer, across 'pod'
+        (:func:`repro_torch.launch.mesh.gather_host`), the outer groups are
+        gathered whole as the round gathers them."""
+        if self.mesh is None:
+            return state
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import whole
+        from repro_torch.launch.mesh import gather_host
+
+        first = dist.get_rank() == 0
+        pods = self._groups().workers
+
+        def host(x):  # a copy: the state goes on updating in place
+            return x.detach().to("cpu", copy=True) if first else None
+
+        def worker(x):
+            return host(x) if pods is None else gather_host(x, pods, tag="workers")
+
+        state = self.compute_state(state)
+        out = {key: tree_map(worker if key in ("worker_params", "inner_state", "ef")
+                             else lambda x: host(whole(x)), sub)
+               for key, sub in state.items()}
+        return out if first else None
+
+    def agree_max(self, values: list[float]) -> list[float]:
+        """The element-wise max of a host list over every rank (the list as
+        it is off a mesh): health flags and the stop flag, so that no rank
+        decides alone."""
+        if self.mesh is None:
+            return values
+        from repro_torch.launch.mesh import host_max
+
+        return host_max(values)
+
+    def held_workers(self) -> list[int]:
+        """The global indices of the workers this rank holds (all K off a
+        mesh): ``collectives.local_workers``' slice of them."""
+        from repro_torch.core.collectives import local_workers, mesh_groups
+
+        with mesh_groups(None if self.mesh is None else self._groups()):
+            return local_workers(torch.arange(self.dcfg.n_workers)).tolist()
+
+    def check_placement(self, state: dict) -> None:
+        """Raise unless every leaf of a placed state sits under
+        :meth:`state_shardings`' placements (a resumed state, re-placed)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.kernels.partition import spec_placements
+
+        specs = dict(tree_leaves_with_paths(self.state_shardings()))
+        for path, leaf in tree_leaves_with_paths(state):
+            want = tuple(spec_placements(self.mesh, specs[path]))
+            got = tuple(leaf.placements) if isinstance(leaf, DTensor) else None
+            if got != want:
+                raise ValueError(f"resumed leaf {path} placed under {got}, expected {want}")
+
     def _groups(self):
         from repro_torch.core.collectives import MeshGroups
 
@@ -296,7 +365,10 @@ class TrainEngine:
 
     def _prepare(self, state: dict) -> None:
         """Streaming masks, their subset plans and the round's constant
-        metrics, made once from the first state, before any capture."""
+        metrics, made once from the first state, before any capture. On a
+        mesh the outer params are DTensors whose ``shape`` is the whole
+        tensor's: the masks, their plans and ``comm_bytes`` are the one
+        process's, the same on every rank."""
         if self._consts is not None:
             return
         self._masks = make_streaming_masks(state, self.dcfg)
@@ -403,9 +475,16 @@ class TrainEngine:
         """Hand a flagged round's state to the sink as ``(host_state,
         event)``: on the card, asynchronous copies into pinned host buffers
         and the event that marks them done (the host does not wait here);
-        on the CPU, a copy and ``None``."""
+        on the CPU, a copy and ``None``. On a mesh every rank takes
+        :meth:`checkpoint_state` (a collective) and rank 0 alone hands its
+        host copy over."""
         sink = self.checkpoint_sink
         if sink is None:
+            return
+        if self.mesh is not None:
+            state = self.checkpoint_state(state)
+            if state is not None:
+                sink((state, None))
             return
         if state["round"].device.type != "cuda":
             sink((tree_map(lambda t: t.detach().clone(), state), None))
@@ -486,20 +565,17 @@ class TrainEngine:
         return self.model.loss(tree_map(whole, params), batch)[0]
 
 
+# the TrainState fields a mesh round keeps in the outer state's ZeRO layout
+_OUTER_LAYOUT = ("outer_params", "outer_opt", "pending")
+
+
 def _check_mesh_config(dcfg: DiLoCoConfig, mesh) -> None:
-    """Raise for what the mesh round does not run, and for a worker count
-    the 'pod' axis does not divide."""
+    """Raise for a worker count the 'pod' axis does not divide."""
     from repro_torch.launch.mesh import mesh_axis_sizes
 
     pods = mesh_axis_sizes(mesh).get("pod", 1)
     if dcfg.n_workers % pods:
         raise ValueError(f"{dcfg.n_workers} workers do not divide over a 'pod' axis of {pods}")
-    for what, on in (("streaming (J > 1)", dcfg.streaming_partitions > 1),
-                     ("elastic drops", dcfg.elastic), ("a sync delay", dcfg.sync_delay > 0),
-                     ("the DP baseline (no outer optimizer)", not dcfg.outer_enabled)):
-        if on:
-            raise NotImplementedError(f"{what} on a mesh: the mesh round runs the lockstep "
-                                      "sync only (ROADMAP.md)")
 
 
 def dp_engine(model, inner_name: str, icfg: OptimizerConfig, *, ns_impl: str = "pallas",

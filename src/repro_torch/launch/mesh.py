@@ -13,7 +13,8 @@ rank; ``launch/train.py`` does it from ``torchrun``'s environment). Importing
 this module initialises nothing.
 
 The transport. Every collective of the port's mesh code goes through
-:func:`all_gather` and :func:`all_reduce_sum` here. On NCCL (one card per
+:func:`all_gather` and :func:`all_reduce_sum` here (and a checkpoint's
+worker trees through :func:`gather_host`, to the writer's host only). On NCCL (one card per
 rank) they are ``torch.distributed``'s own calls on the device. Gloo, the
 backend of the CPU tests and of two ranks that share one card (NCCL refuses
 two ranks on one device), has no collective for CUDA tensors that the port
@@ -21,6 +22,10 @@ can rely on, so a CUDA tensor on a gloo group is staged through pinned host
 memory: copied to the host, exchanged there, copied back. The staging is
 logged once per process (:data:`STAGED`) and is a transport only: it moves
 the same bytes, and no kernel gives way to its plain version for it.
+Beside the rounds' tensors, ``run_rounds`` agrees on a few host numbers over
+the world (:func:`host_max`: health flags and the stop flag;
+:func:`host_broadcast`: the checkpoint round rank 0 picked), on the CPU
+under gloo and on the rank's card under NCCL.
 """
 from __future__ import annotations
 
@@ -138,6 +143,29 @@ def all_gather(t: torch.Tensor, group, dim: int = 0, tag: str = "other") -> torc
     return torch.cat(parts, dim=dim)
 
 
+def gather_host(t: torch.Tensor, group, tag: str = "other") -> torch.Tensor | None:
+    """The group's ranks' ``t`` concatenated along dim 0 in rank order, on
+    the host of the group's first rank (None on the others): a checkpoint's
+    gather, which only the writer needs and which goes to the host anyway.
+    Under gloo a CUDA tensor crosses as a host copy; under NCCL the gather
+    runs on the card and its result is copied to the host."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t.detach().to("cpu", copy=True)
+    src = t.detach().contiguous()
+    if dist.get_backend(group) == "gloo":
+        src = src.cpu()
+    dst = dist.get_global_rank(group, 0)
+    first = dist.get_rank() == dst
+    if first:
+        RECEIVED[tag] = RECEIVED.get(tag, 0) + (n - 1) * src.numel() * src.element_size()
+    parts = [torch.empty_like(src) for _ in range(n)] if first else None
+    dist.gather(src, parts, dst=dst, group=group)
+    return torch.cat(parts).cpu() if first else None
+
+
 def all_reduce_sum(t: torch.Tensor, group, tag: str = "other") -> torch.Tensor:
     """The sum of the group's ranks' ``t``, in rank order: gathered, then
     added ((t0 + t1) + t2) + ..., so every rank gets the same bits whatever
@@ -168,3 +196,38 @@ def gather_whole(local: torch.Tensor, mesh, placements, tag: str = "other") -> t
         if isinstance(p, Shard):
             out = all_gather(out, mesh.get_group(i), dim=p.dim, tag=tag)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side agreement (run_rounds' flags, the checkpoint a resume loads)
+# ---------------------------------------------------------------------------
+
+
+def _host_device():
+    import torch.distributed as dist
+
+    return torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" \
+        else torch.device("cpu")
+
+
+def host_max(values: list[float]) -> list[float]:
+    """The element-wise max of a host list over every rank of the world (a
+    float64 all-reduce; the list as it is in a world of one)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1 or not values:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64, device=_host_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.cpu().tolist()
+
+
+def host_broadcast(value: int) -> int:
+    """Rank 0's integer on every rank of the world."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.int64, device=_host_device())
+    dist.broadcast(t, src=0)
+    return int(t.item())

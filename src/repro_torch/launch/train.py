@@ -48,8 +48,16 @@ world of one. Each rank places itself on ``cuda:{local_rank % cards}``
 card of its own and gloo otherwise (``--device cpu``, or two ranks sharing
 one card). The state is made whole on every rank from ``--seed`` and then
 placed by the reference's specs, so a mesh run starts from the bits of the
-one-process run. Rank 0 writes ``metrics.csv`` and prints; checkpoints,
-resume and the health sentinel's rollback are one-process features.
+one-process run. Rank 0 writes ``metrics.csv`` and prints. Every flag of the
+one-process run holds on a mesh: streaming, elastic drops and a sync delay
+run in the mesh round; a checkpoint is the whole state, gathered to rank 0
+and written there (the one-process run's file, byte for byte);
+``--resume`` has rank 0 pick the file and every rank load it, laid out
+again by the state's specs (and asserted so); the health sentinel's
+rollback, its LR backoff and SIGTERM's drain happen on every rank at the
+same round (the flags are agreed by a max over the ranks); ``--inject-*``
+poison the global worker the one-process run poisons, on the ranks that
+hold it, and a kill takes every rank down after rank 0's row is out.
 ``--blockwise-threshold`` and ``--attn-block-q/kv`` set
 the plain path's (``--attn-impl xla``) blockwise attention as in the
 reference. ``--autotune on`` (the default) consults the committed table
@@ -114,20 +122,6 @@ def parse_mesh(spec: str) -> dict[str, int]:
     if len(dims) == 3:
         return {"pod": dims[0], "data": dims[1], "model": dims[2]}
     raise SystemExit(f"--mesh {spec!r}: expected DxM or PxDxM")
-
-
-def check_mesh_flags(args) -> None:
-    """Raise for the one-process features a ``--mesh`` run does not take."""
-    if args.mesh is None:
-        return
-    for flag, on in (("--checkpoint-every", args.checkpoint_every), ("--resume", args.resume),
-                     ("--health-sentinel on", args.health_sentinel == "on"),
-                     ("--inject-*-round", args.inject_nan_round is not None
-                      or args.inject_spike_round is not None
-                      or args.inject_kill_round is not None)):
-        if on:
-            raise NotImplementedError(f"{flag} with --mesh: checkpoints, resume and recovery "
-                                      "run in one process (ROADMAP.md)")
 
 
 def start_mesh(args):
@@ -212,7 +206,6 @@ def train(args, *, capture: bool | None = None) -> dict:
     """Run the command ``args`` (``build_parser``'s namespace). ``capture``
     is ``TrainEngine``'s (default: capture on a CUDA device); ``False``
     keeps the eager path on the card, for equality checks."""
-    check_mesh_flags(args)
     if args.mesh is None:
         return _train(args, torch.device(args.device), capture=capture)
     import contextlib
@@ -252,16 +245,21 @@ def _train(args, device: torch.device, *, capture: bool | None = None, mesh=None
     engine = TrainEngine(model, dcfg, icfg, capture=capture, mesh=mesh)
     state = engine.init(torch.Generator(device=device).manual_seed(args.seed), device)
     template = state  # paths and devices of a checkpoint's leaves
+    # on a mesh a loaded state is laid out again by the state's specs
+    place = ({} if mesh is None else
+             {"shardings": engine.state_shardings(), "mesh": mesh})
 
     start_round, resumed_from = 0, None
     if args.resume == "auto":
-        got = load_latest_valid(args.out, template, device=device)
+        got = load_latest_valid(args.out, template, device=device, **place)
         if got is not None:
             state, start_round, resumed_from = got
     elif args.resume and os.path.exists(args.resume):
-        state, start_round = load_checkpoint(args.resume, template, device=device)
+        state, start_round = load_checkpoint(args.resume, template, device=device, **place)
         resumed_from = args.resume
     if resumed_from is not None:
+        if mesh is not None:
+            engine.check_placement(state)
         print(f"resumed from {resumed_from} at round {start_round}")
         print(f"resume telemetry: resumed_from={os.path.basename(resumed_from)} "
               f"start_round={start_round}")
@@ -318,28 +316,43 @@ def _train(args, device: torch.device, *, capture: bool | None = None, mesh=None
                       f"comm {rec['comm_bytes']:.2e}B active {rec['active_workers']:.0f} "
                       f"wall {rec['wall_s']:.3f}s")
             # the kill fires after the row is out: a real crash's trail on disk
+            # (on a mesh every rank dies once rank 0's row is out)
+            if mesh is not None and rec["round"] == crash.kill_round:
+                import torch.distributed as dist
+
+                dist.barrier()
             crash.maybe_kill(rec["round"])
 
-        def on_state(r, st):
-            save_round_checkpoint(args.out, st, r + 1, keep=args.keep_checkpoints)
+        def on_state(r, st):  # on a mesh: rank 0's whole state, None elsewhere
+            if st is not None:
+                save_round_checkpoint(args.out, st, r + 1, keep=args.keep_checkpoints)
 
         recovery = None
         if dcfg.health.enabled and args.checkpoint_every:
             def restore():
-                got = load_latest_valid(args.out, template, device=device)
+                got = load_latest_valid(args.out, template, device=device, **place)
                 return None if got is None else (got[0], got[1])
 
             def scale_lr(scale):
                 return TrainEngine(model, dcfg, dataclasses.replace(icfg, lr=args.lr * scale),
-                                   capture=capture)
+                                   capture=capture, mesh=mesh, kernel_parts=engine.kernel_parts)
 
             recovery = RecoveryPolicy(restore=restore, max_rollbacks=args.health_max_rollbacks,
                                       scale_lr=scale_lr)
-            if start_round == 0 and not os.path.exists(os.path.join(args.out, "ckpt_0.npz")):
-                on_state(-1, state)  # a round-0 fault needs something to roll back to
+            first = start_round == 0 and not os.path.exists(os.path.join(args.out, "ckpt_0.npz"))
+            if engine.agree_max([float(first)])[0]:
+                # a round-0 fault needs something to roll back to
+                on_state(-1, engine.checkpoint_state(state))
 
-        # a poisoning injection edits the state at a dispatch boundary
+        # a poisoning injection edits the state at a dispatch boundary; on a
+        # mesh it edits the rank's compute layout, where its workers are
         rpd = 1 if crash.needs_single_round_dispatch else args.rounds_per_dispatch
+
+        def inject(r0, n, batches, st):
+            if mesh is None:
+                return crash.apply(r0, n, batches, st)
+            return crash.apply(r0, n, batches, engine.compute_state(st),
+                               held=engine.held_workers())
         stop = {"flag": False}
 
         def _graceful(signum, frame):
@@ -365,16 +378,19 @@ def _train(args, device: torch.device, *, capture: bool | None = None, mesh=None
                 on_state_every=args.checkpoint_every,
                 checkpoint_in_program=args.checkpoint_in_program, telemetry=telemetry,
                 recovery=recovery, should_stop=lambda: stop["flag"],
-                inject=None if crash.is_trivial else crash.apply)
+                inject=None if crash.is_trivial else inject)
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
 
     if telemetry.get("preempted"):
-        done = int(state["round"])
-        path = save_round_checkpoint(args.out, state, done, keep=args.keep_checkpoints)
-        print(f"preempted after round {done - 1}: wrote {os.path.basename(path)}; "
-              "resume with --resume auto")
+        whole = engine.checkpoint_state(state)  # every rank; rank 0 writes
+        if whole is not None:
+            done = int(whole["round"])
+            path = save_round_checkpoint(args.out, whole, done, keep=args.keep_checkpoints)
+            print(f"preempted after round {done - 1}: wrote {os.path.basename(path)}; "
+                  "resume with --resume auto")
+        del whole
     if engine.capture_s and args.verbose:
         print(f"captured round program: warm-up rounds {engine.warmup_s} s, captures "
               f"{engine.capture_s} s, {engine.replays} replays")

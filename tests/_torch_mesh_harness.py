@@ -9,11 +9,23 @@ World of 2 ranks: every kernel's plain version routed through
 ``kernels/partition.py`` on the (pod=2) mesh, bitwise against the one-process
 call on the whole tensor; one reduced smollm round (K = 2, H = 2, 2-bit
 quantized pseudogradients with error feedback) on ``2x1x1`` against the
-one-process engine, bitwise; the train CLI with ``--mesh 2x1x1`` against the
-one-process CLI; a paged decode span on a (data=2) mesh against one process.
-World of 4 ranks: the kernels on (pod=2, data=2), and the round on
-``2x2x1`` and on the no-pod ``2x2`` against one process at the tolerance of
-``test_compressed_round_matches_reference``.
+one-process engine, bitwise; two rounds each of streaming (J = 2, 2-bit
+row-wise EF), elastic drops (a drop schedule, 2-bit EF) and a sync delay
+of 1 on ``2x1x1``, bitwise; the train CLI with ``--mesh 2x1x1`` against the
+one-process CLI, plain, with in-program checkpoints (the files byte for
+byte, then loaded back under the state's specs) and as the NaN drill
+(``metrics.csv`` less ``wall_s``); a paged decode span on a (data=2) mesh
+against one process. World of 4 ranks: the kernels on (pod=2, data=2), the
+round on ``2x2x1`` and on the no-pod ``2x2`` against one process at the
+tolerance of ``test_compressed_round_matches_reference``, and the Muon and
+AdamW DP baselines (``dp_engine(..., mesh=)``) on the (data=2, model=2)
+mesh within :data:`DP_TOL`.
+
+``MESH_DRILL=kill`` / ``MESH_DRILL=resume`` (worlds of 2 ranks started one
+after the other): the train CLI on ``2x1x1`` with ``--inject-kill-round 1``
+(every rank dies by SIGKILL), then ``--resume auto`` in a new world, whose
+``metrics.csv`` less ``wall_s`` and final outer params rank 0 holds against
+the uninterrupted one-process run.
 
 Rank 0 prints one JSON object of verdicts on its last stdout line; every
 check that raises is recorded with its error.
@@ -33,9 +45,10 @@ from torch.distributed.tensor import DTensor, Replicate  # noqa: E402
 
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core import CompressionConfig, DiLoCoConfig  # noqa: E402
+from repro_torch.core.faults import FaultPlan  # noqa: E402
 from repro_torch.core import wire  # noqa: E402
 from repro_torch.data import DataConfig, MarkovStream  # noqa: E402
-from repro_torch.engine import TrainEngine  # noqa: E402
+from repro_torch.engine import TrainEngine, dp_engine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     gqa_flash_attention,
@@ -46,10 +59,11 @@ from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.launch.sharding import kernel_specs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import OptimizerConfig  # noqa: E402
-from repro_torch.utils.tree import tree_leaves_with_paths  # noqa: E402
+from repro_torch.utils.tree import tree_leaves_with_paths, tree_map  # noqa: E402
 
 RANK = int(os.environ["RANK"])
 WORLD = int(os.environ["WORLD_SIZE"])
+DRILL = os.environ.get("MESH_DRILL")
 
 
 def rng(seed):
@@ -251,6 +265,236 @@ def check_cli(tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The rest of the trainer on a mesh: streaming, elastic drops, a sync delay,
+# the DP baseline, checkpoints and the drills
+# ---------------------------------------------------------------------------
+
+# the variants' configs over ``round_setup``'s, and the masks an elastic run
+# takes (worker 1 out in round 0, worker 0 in round 1)
+VARIANTS = {
+    "streaming": dict(streaming_partitions=2, compression=CompressionConfig(
+        kind="quant", bits=2, rowwise=True, error_feedback=True)),
+    "elastic": dict(elastic=True),
+    "delay": dict(sync_delay=1),
+}
+DROPS = "0:1;1:0"
+
+
+def variant_rounds(name: str, mesh=None) -> dict:
+    """Two rounds of a variant on ``mesh`` or in one process: the whole
+    state after each round, the rounds' infos, and (elastic) each round's
+    EF residuals of its dropped worker before and after it."""
+    import dataclasses
+
+    from repro_torch.core.faults import parse_drop_schedule
+
+    cfg, dcfg, icfg, batches = round_setup()
+    dcfg = dataclasses.replace(dcfg, **VARIANTS[name])
+    engine = TrainEngine(build_model(cfg), dcfg, icfg, mesh=mesh)
+    state = engine.init(torch.Generator().manual_seed(0), "cpu")
+    plan = FaultPlan(n_workers=dcfg.n_workers, schedule=parse_drop_schedule(DROPS))
+    out = {"states": [], "infos": [], "frozen": []}
+    for r in range(2):
+        mask = plan.masks(r, 1)[0] if dcfg.elastic else None
+        before = tree_map(torch.clone, engine.whole_state(state).get("ef"))
+        state, info = engine.step(state, batches, participation=mask)
+        whole = engine.whole_state(state)
+        if mask is not None:
+            k = int(np.argmin(mask))
+            out["frozen"].append(all(torch.equal(a[k], b[k]) for (_, a), (_, b) in zip(
+                tree_leaves_with_paths(before), tree_leaves_with_paths(whole["ef"]))))
+        out["states"].append({k: tree_map(torch.clone, v) for k, v in whole.items()})
+        out["infos"].append(info)
+    return out
+
+
+def compare_variant(ref: dict, got: dict) -> dict:
+    """Bitwise: every leaf of the whole state after each round, each round's
+    losses, Psi, comm_bytes, active_workers and staleness."""
+    def same(a, b):
+        la, lb = tree_leaves_with_paths(a), tree_leaves_with_paths(b)
+        return [p for (p, x), (_, y) in zip(la, lb) if not torch.equal(x, y)] + (
+            ["<paths>"] if [p for p, _ in la] != [p for p, _ in lb] else [])
+
+    apart = []
+    for r, (rs, gs, ri, gi) in enumerate(zip(ref["states"], got["states"], ref["infos"],
+                                             got["infos"])):
+        apart += [f"round {r} state {p}" for p in same(rs, gs)]
+        apart += [f"round {r} psi {p}" for p in same(ri["psi"], gi["psi"])]
+        apart += [f"round {r} {k}" for k in ("loss", "comm_bytes", "active_workers", "staleness")
+                  if not torch.equal(ri[k], gi[k])]
+    return {"bitwise": not apart, "apart": apart[:5], "frozen": got["frozen"],
+            "comm_bytes": [float(i["comm_bytes"]) for i in got["infos"]],
+            "active_workers": [float(i["active_workers"]) for i in got["infos"]]}
+
+
+def check_fault_plan() -> dict:
+    """Every rank's masks of one plan (8 rounds, K = 4), gathered."""
+    from repro_torch.core.faults import parse_drop_schedule
+
+    plan = FaultPlan(n_workers=4, drop_prob=0.5, schedule=parse_drop_schedule("2:1"), seed=7)
+    mine = torch.from_numpy(plan.masks(0, 8))
+    every = [torch.empty_like(mine) for _ in range(WORLD)]
+    dist.all_gather(every, mine)
+    return {"same": all(torch.equal(m, every[0]) for m in every),
+            "dropped": int((every[0] == 0).sum())}
+
+
+def check_variants(mesh) -> dict:
+    out = {"fault_plan": guarded(check_fault_plan)}
+    for name in VARIANTS:
+        ref = variant_rounds(name) if RANK == 0 else None
+        got = guarded(variant_rounds, name, mesh)
+        out[name] = (compare_variant(ref, got) if RANK == 0 and "error" not in got
+                     else got if "error" in got else {})
+    return out
+
+
+# fp32 on the CPU: the two ranks' half-batch gradients summed then halved
+# against the whole batch's, one rounding apart per sum. The losses keep
+# that (rtol 1e-5); a parameter moves by the optimizer's normalised step,
+# where an entry whose gradient nearly cancels turns the rounding into a
+# share of a step (AdamW's m / (sqrt(v) + eps), Muon's AdamW leaves): each
+# param within 5% of the peak inner LR over the three steps (the CPU read
+# 1.4% for AdamW's w_out, 0.13% for Muon's embed; a half-batch gradient
+# moves entries by whole steps)
+DP_TOL = dict(loss_rtol=1e-5, param_lr_share=0.05)
+
+
+def dp_rounds(inner: str, mesh=None) -> dict:
+    """Three DP steps (``dp_engine``: K = 1, a round one step) of 4 rows x 16
+    tokens on ``mesh`` or in one process: losses and the whole params."""
+    cfg, _, icfg, _ = round_setup()
+    stream = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=ROUND["S"], batch_per_worker=4,
+                                     n_workers=1, seed=5), "cpu")
+    engine = dp_engine(build_model(cfg), inner, icfg, mesh=mesh)
+    state = engine.init(torch.Generator().manual_seed(0), "cpu")
+    losses = []
+    for r in range(3):
+        state, info = engine.step(state, stream.batch_stack(r, 1))
+        losses.append(info["loss"].clone())
+    return {"loss": torch.stack(losses), "params": engine.whole_state(state)["outer_params"],
+            "lr": icfg.lr}
+
+
+def check_dp(mesh) -> dict:
+    out = {}
+    for inner in ("muon", "adamw"):
+        ref = dp_rounds(inner) if RANK == 0 else None
+        got = guarded(dp_rounds, inner, mesh)
+        if RANK != 0 or "error" in got:
+            out[inner] = got if "error" in got else {}
+            continue
+        gaps = [float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            tree_leaves_with_paths(ref["params"]), tree_leaves_with_paths(got["params"]))]
+        out[inner] = {
+            "within": bool(torch.allclose(got["loss"], ref["loss"], rtol=DP_TOL["loss_rtol"],
+                                          atol=0.0)
+                           and max(gaps) <= DP_TOL["param_lr_share"] * ref["lr"]),
+            "loss_gap": float((got["loss"] - ref["loss"]).abs().max()),
+            "param_gap": max(gaps), "param_bound": DP_TOL["param_lr_share"] * ref["lr"],
+            "bitwise": max(gaps) == 0.0}
+    return out
+
+
+CLI = ["--reduced", "--device", "cpu", "--workers", "2", "--sync-interval", "2",
+       "--seq-len", "16", "--batch-per-worker", "2"]
+# the crash drills' command (tests/test_torch_recovery.py's _BASE)
+DRILL_CLI = CLI + ["--inner", "adamw", "--lr", "4e-3", "--rounds", "3", "--seed", "0",
+                   "--checkpoint-every", "1"]
+
+
+def _rows_sans_wall(path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return [row[:-1] for row in csv.reader(f)]
+
+
+def _cli_pair(args: list, tmp: str, name: str) -> tuple:
+    """The train CLI with ``args`` on the 2x1x1 mesh (every rank, one --out)
+    and, on rank 0, in one process: (mesh run, one-process run | None, the
+    two --out directories)."""
+    from repro_torch.launch.train import build_parser, train
+
+    mesh_out, one_out = os.path.join(tmp, f"{name}_mesh"), os.path.join(tmp, f"{name}_one")
+    got = train(build_parser().parse_args(args + ["--mesh", "2x1x1", "--out", mesh_out]))
+    ref = (train(build_parser().parse_args(args + ["--out", one_out])) if RANK == 0 else None)
+    return got, ref, mesh_out, one_out
+
+
+def check_checkpoints(tmp: str) -> dict:
+    """In-program checkpoints every round on 2x1x1: each file byte for byte
+    the one-process run's; the last loaded back with the state's specs on
+    the mesh, its placements ``state_shardings()``' and its leaves the
+    mesh run's final whole state."""
+    from repro_torch.checkpoint import load_checkpoint
+
+    args = CLI + ["--rounds", "2", "--checkpoint-every", "1", "--checkpoint-in-program",
+                  "--compression", "quant", "--bits", "2", "--error-feedback"]
+    got, ref, mesh_out, one_out = _cli_pair(args, tmp, "ckpt")
+    engine, final = got["engine"], got["engine"].whole_state(got["state"])
+    loaded, step = load_checkpoint(os.path.join(mesh_out, "ckpt_2.npz"), engine.abstract_state(),
+                                   device="cpu", shardings=engine.state_shardings(),
+                                   mesh=engine.mesh)
+    out = {"step": step}
+    try:
+        engine.check_placement(loaded)
+        out["placed"] = True
+    except ValueError as e:
+        out["placed"] = str(e)
+    loaded = engine.whole_state(loaded)
+    out["loaded_equal"] = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_paths(loaded), tree_leaves_with_paths(final)))
+    if RANK == 0:
+        files = sorted(f for f in os.listdir(one_out) if f.endswith(".npz"))
+        out["files"] = files
+        out["bytes_equal"] = files == sorted(f for f in os.listdir(mesh_out)
+                                             if f.endswith(".npz")) and all(
+            open(os.path.join(one_out, f), "rb").read()
+            == open(os.path.join(mesh_out, f), "rb").read() for f in files)
+    return out
+
+
+def check_nan_drill(tmp: str) -> dict:
+    """``--health-sentinel on --checkpoint-every 1 --inject-nan-round 1`` on
+    2x1x1 against one process: metrics.csv less wall_s, and the rollback."""
+    args = DRILL_CLI + ["--health-sentinel", "on", "--health-warmup", "1",
+                        "--inject-nan-round", "1"]
+    got, ref, mesh_out, one_out = _cli_pair(args, tmp, "nan")
+    out = {"telemetry": {k: got["telemetry"][k] for k in ("rollbacks", "skipped_rounds")}}
+    if RANK == 0:
+        rows = _rows_sans_wall(os.path.join(mesh_out, "metrics.csv"))
+        out["csv_equal"] = rows == _rows_sans_wall(os.path.join(one_out, "metrics.csv"))
+        out["rounds"] = [r[0] for r in rows[1:]]
+    return out
+
+
+def drill(kind: str, out_dir: str) -> dict:
+    """The kill / resume drill's rank: ``kill`` dies at round 1 by SIGKILL
+    (returns only if it did not); ``resume`` restarts with ``--resume auto``
+    and rank 0 holds the run against the uninterrupted one-process run."""
+    from repro_torch.launch.train import build_parser, train
+
+    args = DRILL_CLI + ["--mesh", "2x1x1", "--out", out_dir]
+    if kind == "kill":
+        train(build_parser().parse_args(args + ["--inject-kill-round", "1"]))
+        return {"error": "the kill drill's rank survived its kill round"}
+    got = train(build_parser().parse_args(args + ["--resume", "auto"]))
+    final = got["engine"].whole_state(got["state"])["outer_params"]
+    out = {"rounds": len(got["history"])}
+    if RANK == 0:
+        one_out = out_dir + "_one"
+        ref = train(build_parser().parse_args(DRILL_CLI + ["--out", one_out]))
+        rows = _rows_sans_wall(os.path.join(out_dir, "metrics.csv"))
+        out["csv_equal"] = rows == _rows_sans_wall(os.path.join(one_out, "metrics.csv"))
+        out["rows"] = [r[0] for r in rows[1:]]
+        out["outer_equal"] = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves_with_paths(ref["state"]["outer_params"]), tree_leaves_with_paths(final)))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -284,18 +528,45 @@ def guarded(fn, *args) -> dict:
 
 def main() -> dict:
     import tempfile
+    import time
 
     dist.init_process_group("gloo", init_method="env://", world_size=WORLD, rank=RANK)
     out: dict = {"world": WORLD}
+    if DRILL:
+        out[DRILL] = guarded(drill, DRILL, os.environ["MESH_DRILL_OUT"])
+        dist.barrier()
+        dist.destroy_process_group()
+        return out
+    laps = out["seconds"] = {}
+    t0 = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t0[0], 2)
+        t0[0] = now
+
     if WORLD == 2:
         out["kernels"] = guarded(check_kernels, make_debug_mesh(1, 1, pod=2))
         ref = one_round() if RANK == 0 else None
         got = guarded(one_round, make_debug_mesh(1, 1, pod=2))
         out["round_2x1x1"] = (compare_round(ref, got, got[2]) if RANK == 0 and
                               isinstance(got, tuple) else got if isinstance(got, dict) else {})
+        lap("round")
+        out.update(guarded(check_variants, make_debug_mesh(1, 1, pod=2)))
+        lap("variants")
         with tempfile.TemporaryDirectory() as tmp:
-            out["cli_2x1x1"] = guarded(check_cli, tmp)
+            # one directory for every rank: rank 0 writes what every rank reads
+            tmp = [tmp]
+            dist.broadcast_object_list(tmp, src=0)
+            out["cli_2x1x1"] = guarded(check_cli, tmp[0])
+            lap("cli")
+            out["ckpt_2x1x1"] = guarded(check_checkpoints, tmp[0])
+            lap("ckpt")
+            out["nan_2x1x1"] = guarded(check_nan_drill, tmp[0])
+            lap("nan")
+            dist.barrier()
         out["serving_data2"] = guarded(check_serving, make_debug_mesh(2, 1))
+        lap("serving")
     else:
         out["kernels"] = guarded(check_kernels, make_debug_mesh(2, 1, pod=2))
         ref = one_round() if RANK == 0 else None
@@ -304,6 +575,9 @@ def main() -> dict:
             got = guarded(one_round, mesh)
             out[name] = (compare_round(ref, got, got[2]) if RANK == 0 and isinstance(got, tuple)
                          else got if isinstance(got, dict) else {})
+        lap("rounds")
+        out["dp_data2"] = guarded(check_dp, make_debug_mesh(2, 2))
+        lap("dp")
     dist.barrier()
     dist.destroy_process_group()
     return out

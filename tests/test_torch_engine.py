@@ -548,40 +548,54 @@ print(json.dumps(recs, default=str))
 
 
 @pytest.fixture(scope="module")
-def mesh_worlds() -> dict:
-    """Both worlds and the dry run started together, each process with its
-    own timeout; rank 0's JSON verdicts by world size, the dry run's records
-    under "dryrun"."""
+def mesh_worlds(tmp_path_factory) -> dict:
+    """Both worlds, the dry run and the kill drill's world started together,
+    each process with its own timeout, then the resume drill's world once
+    every rank of the kill drill is dead; rank 0's JSON verdicts by world
+    size, the dry run's records under "dryrun", the drill's under "drill"
+    (the killed ranks' exit codes under "killed")."""
     import json
     import subprocess
 
     repo = os.path.dirname(os.path.dirname(HARNESS))
-    procs = {}
-    procs[("dryrun", 0)] = subprocess.Popen(
-        [sys.executable, "-c", DRYRUN], cwd=repo, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1"))
-    for world in (2, 4):
+    drill_out = str(tmp_path_factory.mktemp("mesh_drill") / "run")
+
+    def world_procs(name, world, **extra):
         port = _free_port()
         for rank in range(world):
             env = dict(os.environ, PYTHONPATH="src", RANK=str(rank), WORLD_SIZE=str(world),
                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
-            procs[(world, rank)] = subprocess.Popen(
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                       **extra)
+            procs[(name, rank)] = subprocess.Popen(
                 [sys.executable, HARNESS], cwd=repo, env=env, text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    procs = {}
+    procs[("dryrun", 0)] = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN], cwd=repo, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1"))
+    world_procs("kill", 2, MESH_DRILL="kill", MESH_DRILL_OUT=drill_out)
+    for world in (2, 4):
+        world_procs(world, world)
     outs = {}
     try:
+        for rank in range(2):  # the killed world, then the resumed one
+            outs[("kill", rank)] = procs[("kill", rank)].communicate(timeout=240)
+        world_procs("resume", 2, MESH_DRILL="resume", MESH_DRILL_OUT=drill_out)
         for key, proc in procs.items():
-            outs[key] = proc.communicate(timeout=240)
+            if key not in outs:
+                outs[key] = proc.communicate(timeout=240)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
-    verdicts = {}
-    for world in (2, 4, "dryrun"):
-        for rank in range(world if world != "dryrun" else 1):
+    verdicts = {"killed": [procs[("kill", r)].returncode for r in range(2)]}
+    for world in (2, 4, "dryrun", "resume"):
+        for rank in range(world if isinstance(world, int) else 2 if world == "resume" else 1):
             assert procs[(world, rank)].returncode == 0, outs[(world, rank)][1][-3000:]
         verdicts[world] = json.loads(outs[(world, 0)][0].strip().splitlines()[-1])
+    verdicts["drill"] = verdicts.pop("resume")["resume"]
     return verdicts
 
 
@@ -636,6 +650,81 @@ def test_mesh_round_within_compressed_round_tolerance(mesh_worlds, mesh):
     v = mesh_worlds[4][f"round_{mesh}"]
     assert "error" not in v, v.get("error")
     assert v["within_tolerance"], v
+
+
+@pytest.mark.parametrize("variant", ["streaming", "elastic", "delay"])
+def test_mesh_round_variants_2x1x1_bitwise_single_process(mesh_worlds, variant):
+    """Two reduced smollm rounds on 2x1x1 of streaming (J = 2, 2-bit
+    row-wise EF: each segment syncs its partition's rows), elastic drops
+    (2-bit EF, worker 1 out in round 0 and worker 0 in round 1) and a sync
+    delay of 1 (Psi applied a round late through the FIFO in the outer
+    layout): every leaf of the whole state after each round, the losses,
+    Psi, comm_bytes, active_workers and staleness == the one-process
+    engine's, bitwise. Elastic: each round's dropped worker's EF residual
+    comes back bit-identical."""
+    v = mesh_worlds[2][variant]
+    assert "error" not in v, v.get("error")
+    assert v["bitwise"], v
+    if variant == "elastic":
+        assert v["frozen"] == [True, True] and v["active_workers"] == [1.0, 1.0], v
+
+
+def test_mesh_fault_plan_same_masks_on_every_rank(mesh_worlds):
+    """``FaultPlan`` built from the same flags on each rank of the world of
+    two (drop_prob 0.5, a schedule, ``--drop-seed 7``) gives every rank the
+    same [8, K] masks, gathered and compared on rank 0."""
+    v = mesh_worlds[2]["fault_plan"]
+    assert "error" not in v, v.get("error")
+    assert v["same"] and v["dropped"] > 0, v
+
+
+@pytest.mark.parametrize("inner", ["muon", "adamw"])
+def test_mesh_dp_baseline_data2_within_tolerance(mesh_worlds, inner):
+    """``dp_engine(model, inner, icfg, mesh=)`` on the (data=2, model=2)
+    mesh: K = 1, each rank 2 of the 4 rows and the gradients averaged over
+    'data'. fp32 on the CPU, where only the sum order of the two half-batch
+    gradients differs from one process: three steps' losses within rtol
+    1e-5 and every param within 5% of the inner LR
+    (``_torch_mesh_harness.DP_TOL``, which says why); not bitwise."""
+    v = mesh_worlds[4]["dp_data2"][inner]
+    assert "error" not in v, v.get("error")
+    assert v["within"], v
+
+
+def test_mesh_checkpoint_bytes_and_placement(mesh_worlds):
+    """``--checkpoint-every 1 --checkpoint-in-program`` on 2x1x1: rank 0
+    writes each round's file from the whole state, byte for byte the
+    one-process run's (leaf paths, dtypes, CRC32s, archive); ckpt_2 loaded
+    with ``shardings=state_shardings()`` sits under those placements and
+    gathers to the mesh run's final state, bitwise."""
+    v = mesh_worlds[2]["ckpt_2x1x1"]
+    assert "error" not in v, v.get("error")
+    assert v["files"] == ["ckpt_1.npz", "ckpt_2.npz"] and v["bytes_equal"], v
+    assert v["step"] == 2 and v["placed"] is True and v["loaded_equal"], v
+
+
+def test_mesh_nan_drill_metrics_equal_single_process(mesh_worlds):
+    """``--health-sentinel on --checkpoint-every 1 --inject-nan-round 1`` on
+    2x1x1: the NaN lands on global worker 0 (rank 0 only), both ranks roll
+    back to ckpt_1 and skip round 1, and metrics.csv less wall_s equals the
+    one-process drill's."""
+    v = mesh_worlds[2]["nan_2x1x1"]
+    assert "error" not in v, v.get("error")
+    assert v["csv_equal"] and v["rounds"] == ["0", "2"], v
+    assert v["telemetry"] == {"rollbacks": 1, "skipped_rounds": 1}, v
+
+
+def test_mesh_kill_resume_drill_equals_single_process(mesh_worlds):
+    """``--inject-kill-round 1`` on 2x1x1 kills every rank (SIGKILL, after
+    rank 0's row and a barrier); ``--resume auto`` in a new world of two
+    resumes from ckpt_1: metrics.csv less wall_s and the final outer params
+    equal the uninterrupted one-process run's."""
+    import signal
+
+    assert mesh_worlds["killed"] == [-signal.SIGKILL] * 2
+    v = mesh_worlds["drill"]
+    assert "error" not in v, v.get("error")
+    assert v["csv_equal"] and v["rows"] == ["0", "1", "2"] and v["outer_equal"], v
 
 
 def test_mesh_paged_decode_span_data2(mesh_worlds):

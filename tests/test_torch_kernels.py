@@ -36,6 +36,16 @@ from repro_torch.optim.nesterov import nesterov as tnesterov  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced models: one torch thread computes them faster than a pool of
+    threads that spin beside the other files of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
 

@@ -31,6 +31,16 @@ from repro_torch.utils.tree import params_from_numpy  # noqa: E402
 TOL = {"float32": dict(atol=1e-4, rtol=0), "bfloat16": dict(atol=5e-2, rtol=2.0 ** -7)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced models: one torch thread computes them faster than a pool of
+    threads that spin beside the other files of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
 

@@ -44,6 +44,16 @@ from repro_torch.utils.tree import params_from_numpy  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced models: one torch thread computes them faster than a pool of
+    threads that spin beside the other files of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------- allocator
 
 def test_allocator_no_double_allocation():

@@ -50,6 +50,16 @@ from repro_torch.utils.tree import (  # noqa: E402
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced models: one torch thread computes them faster than a pool of
+    threads that spin beside the other files of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**upd):
     j = reduce_config(get_config("smollm-135m")).replace(**upd)
     t = tconfigs.reduce_config(tconfigs.get_config("smollm-135m")).replace(**upd)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The mesh on one card per rank (NCCL), against one process.
 
-    python3 tools/mesh_probe.py [--ranks 4]
+    python3 tools/mesh_probe.py [--ranks 4] [--cases 4x1x1,2x2x1] [--label NAME]
+        [--fp32] [training flags ...]
 
 Needs as many cards as ranks (four H100s on one host). For each case it starts
 ``torchrun`` with one rank per card, each rank this script with ``--child``:
@@ -18,8 +19,16 @@ and compares:
   process does);
 * ``2x2x1`` with two workers, each worker's batch split over 'data': its
   gradients averaged there sum in another order, so the losses are held at
-  atol 2e-5 + rtol 1e-4 (the port's round parity tolerance) and the largest
-  outer-param gap is printed.
+  atol 2e-5 + rtol 1e-4 (the port's round parity tolerance) and the outer
+  params' gaps are printed: the largest, where, and the share of entries
+  apart.
+
+Training flags after the probe's own replace ``MESH_TRAIN``'s (argparse keeps
+the last value: ``--compression none``, ``--inner adamw``); ``--fp32`` runs
+the model's compute in fp32 (``ModelConfig.dtype``; the flash kernels take
+their fp32 sweeps) in the ranks and in the one process alike. ``--label``
+names the run's record, ``build/mesh_probe/<label>.json``, also printed as
+the last line.
 
 Prints the card line of ``nvidia-smi`` and each case's round walls and
 tokens/s beside the one-process run's.
@@ -27,6 +36,7 @@ tokens/s beside the one-process run's.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import subprocess
@@ -44,11 +54,19 @@ OUT = ROOT / "build" / "mesh_probe"
 CASES = {"4x1x1": 4, "2x2x1": 2}  # mesh -> workers
 
 
-def case_argv(mesh: str, workers: int) -> list:
-    return replace_flags(MESH_TRAIN, mesh=mesh, workers=workers, out=OUT / mesh)
+def case_argv(mesh: str, workers: int, extra: list) -> list:
+    return replace_flags(MESH_TRAIN, mesh=mesh, workers=workers, out=OUT / mesh) + list(extra)
 
 
-def child(mesh: str) -> None:
+def use_fp32() -> None:
+    """Every config the training CLI builds computes in fp32."""
+    from repro_torch.launch import train as train_mod
+
+    get = train_mod.get_config
+    train_mod.get_config = lambda name: get(name).replace(dtype="float32")
+
+
+def child(mesh: str, extra: list, fp32: bool) -> None:
     import torch
     import torch.distributed as dist
 
@@ -56,9 +74,11 @@ def child(mesh: str) -> None:
     from repro_torch.launch.train import build_parser, train
     from repro_torch.utils.tree import tree_leaves_with_paths
 
+    if fp32:
+        use_fp32()
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     dist.init_process_group("nccl", init_method="env://")
-    out = train(build_parser().parse_args(case_argv(mesh, CASES[mesh])))
+    out = train(build_parser().parse_args(case_argv(mesh, CASES[mesh], extra)))
     whole = out["engine"].whole_state(out["state"])
     torch.cuda.synchronize()
     if dist.get_rank() == 0:
@@ -72,12 +92,15 @@ def child(mesh: str) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], allow_abbrev=False)
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--label", default="default")
+    ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--child", default=None)
-    args = ap.parse_args()
+    args, extra = ap.parse_known_args()
     if args.child:
-        child(args.child)
+        child(args.child, extra, args.fp32)
         return 0
     import torch
 
@@ -87,22 +110,27 @@ def main() -> int:
     from repro_torch.launch.train import build_parser, train
     from repro_torch.utils.tree import tree_leaves_with_paths
 
+    if args.fp32:
+        use_fp32()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"cards (nvidia-smi name, power.limit):\n{smi}")
+    print(f"[{args.label}] cards (nvidia-smi name, power.limit):\n{smi}\n"
+          f"[{args.label}] training flags added: {extra}; fp32 compute: {args.fp32}")
     OUT.mkdir(parents=True, exist_ok=True)
     tokens = 8 * 4 * 1024  # B x H x S a worker, times the workers below
-    failed = []
-    for mesh, workers in CASES.items():
+    failed, record = [], {"label": args.label, "extra": extra, "fp32": args.fp32, "card": smi}
+    for mesh in args.cases.split(","):
+        workers = CASES[mesh]
         # the one-process run first: it builds every library the ranks load
         # (each rank would wait on the build's file lock otherwise)
-        argv = [a for a in case_argv(mesh, workers) if a not in ("--mesh", mesh)]
+        argv = [a for a in case_argv(mesh, workers, extra) if a not in ("--mesh", mesh)]
         one = train(build_parser().parse_args(argv), capture=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
                               str(math.prod(int(d) for d in mesh.split("x"))), "--master-port",
-                              str(free_port()), str(Path(__file__).resolve()), "--child", mesh],
+                              str(free_port()), str(Path(__file__).resolve()), "--child", mesh,
+                              *(["--fp32"] if args.fp32 else []), *extra],
                              cwd=ROOT, capture_output=True, text=True, timeout=900,
                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
         if res.returncode:
@@ -112,8 +140,12 @@ def main() -> int:
             continue
         got = torch.load(OUT / f"{mesh}.pt")
         ref = {p: t.cpu() for p, t in tree_leaves_with_paths(one["state"]["outer_params"])}
-        gaps = {p: (ref[p].double() - t.double()).abs().max().item()
-                for p, t in got["outer_params"].items() if not torch.equal(ref[p], t)}
+        gaps = {}
+        for p, t in got["outer_params"].items():
+            if not torch.equal(ref[p], t):
+                d = (ref[p].double() - t.double()).abs()
+                gaps[p] = {"max": d.max().item(), "apart": (d > 0).double().mean().item(),
+                           "max_rel": (d / ref[p].double().abs().clamp_min(1e-30)).max().item()}
         losses = [(a["train_loss"], b["train_loss"], a["eval_loss"], b["eval_loss"])
                   for a, b in zip(one["history"], got["history"])]
         same = all(a["comm_bytes"] == b["comm_bytes"] for a, b in zip(one["history"],
@@ -123,21 +155,28 @@ def main() -> int:
                     (t[:2], t[2:]))
         walls = [r["wall_s"] for r in got["history"]]
         one_walls = [r["wall_s"] for r in one["history"]]
-        print(f"[{mesh}] {workers} workers on {mesh} ({got['backend']}), torchrun "
-              f"{time.perf_counter() - t0:.1f} s; losses (one process, mesh) {losses}; "
-              f"comm_bytes equal {same}; outer leaves not bitwise {len(gaps)} of {len(ref)}"
-              f"{', largest ' + str(max(gaps.items(), key=lambda kv: kv[1])) if gaps else ''}; "
+        largest = max(gaps.items(), key=lambda kv: kv[1]["max"]) if gaps else None
+        print(f"[{args.label} {mesh}] {workers} workers on {mesh} ({got['backend']}), torchrun "
+              f"{time.perf_counter() - t0:.1f} s; losses (train one process, mesh, eval one "
+              f"process, mesh) {losses}; within atol 2e-5 + rtol 1e-4: {close}; comm_bytes "
+              f"equal {same}; outer leaves not bitwise {len(gaps)} of {len(ref)}"
+              f"{', largest ' + str(largest) if largest else ''}; every gap {gaps}; "
               f"round walls {[round(w, 3) for w in walls]} s, "
               f"{workers * tokens / walls[-1]:.1f} tok/s in the last round against one "
               f"process (eager) {[round(w, 3) for w in one_walls]} s, "
               f"{workers * tokens / one_walls[-1]:.1f}; bytes received a rank {got['received']}, "
               f"staged {got['staged']}")
+        record[mesh] = {"losses": losses, "close": close, "comm_bytes_equal": same,
+                        "bitwise": bitwise, "gaps": gaps, "walls": walls,
+                        "one_walls": one_walls, "received": got["received"]}
         ok = (bitwise if mesh == "4x1x1" else close) and same
         if not ok:
             failed.append(mesh)
         del one
         torch.cuda.empty_cache()
-    print(f"mesh_probe: {'FAILED ' + str(failed) if failed else 'every case held'}")
+    (OUT / f"{args.label}.json").write_text(json.dumps(record, indent=1))
+    print(f"mesh_probe [{args.label}]: {'FAILED ' + str(failed) if failed else 'every case held'}")
+    print(json.dumps(record))
     return 1 if failed else 0
 
 
