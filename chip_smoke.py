@@ -328,7 +328,8 @@ no summary:
    which must equal that block of the one-process call, bitwise (and every
    Newton-Schulz stack of smollm's Muon leaves split over 'data'); on the
    (data=2) mesh local and whole times beside each other (the ranks take
-   turns on the card). (22c) ``MESH_TRAIN`` with ``--checkpoint-every 1``
+   turns; the world runs beside the training runs below, so the times are
+   contended). (22c) ``MESH_TRAIN`` with ``--checkpoint-every 1``
    under torchrun (two ranks, one worker each, 2-bit EF at full width, one
    round a dispatch) against the same command in one process (eager, which
    6d holds to the captured round): the per-round train and eval losses,
@@ -348,8 +349,24 @@ no summary:
    ``MESH_DP`` steps in fp32 at a constant LR, within ``MESH_DP_TOL``, and
    the same run with a planted fault (each rank on its own half batch's
    gradients) outside it. Every rank of every run launches every training
-   kernel. 22c's walls are taken beside 22g's worlds and the one-process
-   runs; 22e's and 22f's, after them, with the card to the launch. (22d) ``MESH_SERVE`` through a
+   kernel. (22i) Tensor parallelism over 'model' (slice 14,
+   ``core/collectives.py``): paper-416m on ``--mesh 1x2``, each rank half of
+   every block matrix; ``MESH_TP_FP32`` (fp32, depth 2) within
+   ``MESH_TP_TOL`` of one process and the same with a planted fault (each
+   rank's QK-norm gradients of its own heads only) outside it, its round
+   walls and each rank's peak memory; every rank launching the flash
+   kernels, matmul_epilogue and nesterov; with ``--only 22`` also, once the
+   rest of the mesh's runs have ended, the same config on 1x2 with each
+   worker whole on both ranks (walls and peak memory) and
+   ``MESH_TP_TRAIN`` (bf16, full depth, 2 rounds, one sequence a worker
+   step): finite, falling train losses, round walls, the bytes each rank
+   sums over 'model' and its peak memory. (22j) ``MESH_NS_TRAIN``, one
+   round of H = 1 on ``--mesh 2x1``, Newton-Schulz's stacks split over
+   'data', bitwise the same round with the engine's routing at
+   ``ns_axes=()`` (the trainer's own routing on gloo), each rank's kernels
+   on half the stack rows. Two torchrun launches share the card with 22g's
+   worlds and this process's one-process runs (``MESH_LAUNCHES``), so every
+   wall but those of ``--only 22``'s measurements is contended. (22d) ``MESH_SERVE`` through a
    PagedEngine on the (data=2) mesh (in 22b's processes) against one
    process: greedy tokens exact, launches equal to the engine's formula.
 23. Summary: one ``{"kernels": [...]}`` line (each row of the eight with its
@@ -369,7 +386,7 @@ no summary:
    variants its main path launched, by key, and matmul_epilogue's and
    quantize's ``"tuned"``: 21c's timing of the table's variant, and
    ``"across_ranks"``: 22b's verdict, block and times on each mesh, the
-   launches of 22c's and 22d's rank 0 and of every rank in 22c and 22e-22h),
+   launches of 22c's and 22d's rank 0 and of every rank in 22c and 22e-22j),
    the script's seconds, then the last
    line ``{"ok": true, "device": {...}}``.
    A line ``-- 12a: N s (T s in all)`` follows each phase: its seconds
@@ -382,8 +399,11 @@ mamba2's and zamba2's rounds again eager, bitwise, which earlier full runs
 held), 17f's repeat shortened to 8 + 8 tokens and its prompts to 128
 tokens, the serving depth of 13c and 16b cut to 8 layers, 17d and 17e at
 2 rounds (the warm-up and capture, one replay) of H = 2, and 18d at 2
-rounds of its 3-round schedule; no kernel check and no bitwise check was cut
-(PERF.md section 4). The profiles read the
+rounds of its 3-round schedule; with slice 14's 22i and 22j, 17f's served
+tokens (32 + 32 a request, 128 + 64 before) and 22j's round (H = 1, 2
+before), and phase 22's runs spread over two concurrent launches, with
+22i's whole-worker twin and bf16 run at full depth left to ``--only 22``;
+no kernel check and no bitwise check was cut (PERF.md section 4). The profiles read the
 profiler's raw events (:func:`device_times`).
 
 Matmuls in fp32 run in full fp32 (TF32 off for matmul and cuDNN); bf16
@@ -393,6 +413,7 @@ below. Needs one card and no network.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -3123,10 +3144,11 @@ TRAIN_MAMBA = replace_flags(TRAIN, arch=MAMBA, seq_len=1024, batch_per_worker=8,
 # 4096 masks), K = 2, H = 2 (for the script's time), 2 rounds, the training
 # command's lr
 ZAMBA_TRAIN = dict(depth=6, K=2, H=2, batch=1, seq_len=8192, rounds=2, lr=3e-3)
-# 17f: the naive serving workload, 4b's 32 requests and 64 new tokens with the
-# prompt cut to 128 (a stepped prefill is host-bound: ~50-130 ms a step), and
-# its run-to-run repeat, (prompt, new)
-SSM_SERVE = dict(batch=MAIN["batch"], prompt_len=128, max_new=MAIN["max_new"])
+# 17f: the naive serving workload, 4b's 32 requests with the prompt cut to 32
+# and the new tokens to 32 (a stepped prefill is host-bound: ~50-130 ms a
+# step; 191 steps a run before, 63 now, for the script's time), and its
+# run-to-run repeat, (prompt, new)
+SSM_SERVE = dict(batch=MAIN["batch"], prompt_len=32, max_new=32)
 SERVE_REPEAT = (8, 8)
 # 17b: the Newton-Schulz stacks of the Muon leaves, (name, shape, taken
 # transposed): each model's in_proj first (timed)
@@ -3391,7 +3413,7 @@ def ssm_decode_floor_ms(params, cache, batch: int) -> tuple[float, float, float]
 
 def phase_ssm_serve(torch, get_config, serve, arch: str, overrides: dict | None = None) -> dict:
     """[17f] serving through the naive engine: ``SSM_SERVE`` (32 requests x
-    (128 prompt + 64 new), greedy) as one lockstep batch, the prompt stepped
+    (32 prompt + 32 new), greedy) as one lockstep batch, the prompt stepped
     through the decode path: tok/s; peak memory; no kernel launched (the
     reference's SSM and hybrid serving has no Pallas kernel: the recurrent
     update and the ring cache's one-token attention are plain). The steps
@@ -4754,8 +4776,11 @@ MESH_RUNS = {
     "22g": replace_flags(MESH_TRAIN, out=MESH_DIR / "drill") + MESH_CKPT,
 }
 MESH_KILL_ROUND = 1
-# written once 22g's kill world is dead and this process's one-process runs
-# are done: the launch's ranks run 22e on with the card to themselves
+# written once 22g's resume world has ended: the tensor-parallel launch's
+# runs (22j ~11 GB a rank, 22i's fp32 runs ~16.5 GB) wait for it, so the
+# card never holds the training launch, the tensor-parallel launch and the
+# resume world's ranks at their peaks at once (22j beside the other two and
+# this process's ~11.6 GiB ran the card out of memory: PERF.md section 6)
 MESH_QUIET = MESH_DIR / "quiet"
 # the training kernels every rank of a mesh run must launch
 MESH_TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "matmul_epilogue", "nesterov",
@@ -4778,6 +4803,51 @@ MESH_DP_TOL = dict(loss=1.5e-4, param=1.9e-3)
 # 22b: the Newton-Schulz stacks of smollm-135m's Muon leaves (wq, wk / wv,
 # w_in / w_gate, w_out), each split over 'data' and held bitwise
 MESH_NS_STACKS = [(30, 576, 576), (30, 576, 192), (30, 576, 1536), (30, 1536, 576)]
+# 22i: tensor parallelism over 'model' (core/collectives.py) on paper-416m
+# (8 heads of 128, d 1024, d_ff 2816, vocab 128256), two ranks sharing the
+# card on --mesh 1x2, each rank half of every block matrix: the training
+# command of 12d at full depth in bf16 for 2 rounds of H = 2, one sequence
+# of 2048 a worker step (12d: 4; every activation of a step is summed over
+# 'model' through host memory, so the sums scale with the rows), for the
+# walls, the bytes summed over 'model' and each rank's peak memory
+MESH_TP_TRAIN = replace_flags(TRAIN_LADDER, sync_interval=2, rounds=2, batch_per_worker=1,
+                              out=MESH_DIR / "tp") + ["--mesh", "1x2"]
+# 22i's fp32 check: paper-416m at full width, depth cut to 2 layers, K = 2, H
+# = 2, 2 sequences of 2048 a worker step, 2 rounds at a constant LR, on 1x2
+# against one process, and the same with a planted fault (the QK-norm
+# scales' gradients left to each rank's own heads); the same config on 1x2
+# with each worker whole on both ranks (the whole-worker layout) gives the
+# walls and peak memory the split is held beside
+MESH_TP_FP32 = dict(depth=2, K=2, H=2, batch=2, seq_len=2048, rounds=2, lr=3e-3)
+# 22i's limit on the largest relative outer-param gap (|a - b| / |a| of a
+# leaf, Frobenius) of the fp32 check. Relative, not the largest entry:
+# AdamW's normalised step turns the last bits of a nearly cancelling
+# gradient into a share of a step on a few of embed's 131M entries, which
+# the norm does not see. On the H100 (PERF.md section 6) the sound run read
+# 2.19e-5 (ln2_post_scale) and the planted fault 0.906 (q_norm_scale): the
+# limit is their geometric mean, ~200x from both. The per-round loss gap is
+# printed and not held: at depth 2 the sound run read 0 and the fault only
+# 5.15e-5, one step of the check's fp32 losses from each other
+MESH_TP_TOL = dict(param=4.5e-3)
+# 22j: one round of MESH_TRAIN at H = 1 on (data = 2), each rank both workers
+# and half of each batch, Muon's Newton-Schulz stacks split over 'data'
+# (which the trainer leaves off where gloo stages through host memory:
+# launch/sharding.kernel_specs), against the same round with the engine's
+# routing at ns_axes=() (each rank the whole stack): bitwise
+MESH_NS_TRAIN = replace_flags(MESH_TRAIN, mesh="2x1", rounds=1, sync_interval=1,
+                              out=MESH_DIR / "ns_split")
+MESH_RUNS.update({"22i": MESH_TP_TRAIN, "22j_split": MESH_NS_TRAIN,
+                  "22j_whole": replace_flags(MESH_NS_TRAIN, out=MESH_DIR / "ns_whole")})
+# phase 22's two torchrun launches of two ranks, by the runs each makes in
+# turn: "train" starts with 22g's kill world and this process's one-process
+# runs; "tp" once those have ended, its runs after 22g's resume world
+# (MESH_QUIET). With ``--only 22`` the "tp" launch also runs 22i's
+# measurements: the fp32 check's whole-worker twin (each worker whole on
+# both ranks; the walls and peak memory the split is held beside) and the
+# bf16 run at full depth, after the "train" launch has ended
+MESH_LAUNCHES = {"train": ("22c", "22h_fault", "22e", "22f", "22h"),
+                 "tp": ("22j_split", "22j_whole", "22i_fault", "22i_fp32")}
+MESH_TP_MEASURE = ("22i_whole", "22i")
 
 
 def mesh_env(rank: int, port: int, world: int = MESH_RANKS) -> dict:
@@ -4825,14 +4895,50 @@ def wait_ranks(procs: list, label: str, timeout: int = 600, expect: int = 0) -> 
                 p.wait()
     for i, p in enumerate(procs):
         if p.returncode != expect:
-            log = (MESH_DIR / f"{label}.{i}.log").read_text()
-            raise AssertionError(f"{label}: process {i} exited {p.returncode}, not {expect}:\n"
-                                 f"{log[-4000:]}")
+            path = MESH_DIR / f"{label}.{i}.log"
+            log = path.read_text()
+            why = root_cause(log)
+            print(f"  {label}: process {i} exited {p.returncode}; {resources()}; the root "
+                  f"cause in {path}:\n{why}", flush=True)
+            # the cause last: a reader of the run's error stream sees its end
+            raise AssertionError(f"{label}: process {i} exited {p.returncode}, not {expect}; "
+                                 f"{resources()}; the log's end:\n{log[-2500:]}\n...\nthe "
+                                 f"root cause ({path}):\n{why}")
 
 
-def run_ranks(cmd: list, label: str, torchrun: bool = False, timeout: int = 600) -> None:
-    """:func:`start_ranks`, then :func:`wait_ranks`."""
-    wait_ranks(start_ranks(cmd, label, torchrun), label, timeout)
+def root_cause(log: str) -> str:
+    """What a failed rank process's log says of why: under torchrun the
+    traceback lines of the rank its summary names as the root cause
+    (``[rankN]: ...``; the launcher interleaves its ranks' output), else
+    the text from the first traceback on."""
+    m = re.search(r"Root Cause.*?rank\s*:\s*(\d+)", log, re.S)
+    if m:
+        lines = [ln for ln in log.splitlines() if ln.startswith(f"[rank{m.group(1)}]:")]
+        if lines:
+            return "\n".join(lines)[-6000:]
+    first = log.find("Traceback")
+    return log[first:first + 6000] if first >= 0 else log[-3000:]
+
+
+def resources() -> str:
+    """The card's free memory, the host's available memory and the free
+    disk under ``MESH_DIR``, for a failed rank's report."""
+    import shutil
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    avail = "not read"
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    avail = f"{int(line.split()[1]) / 2**20:.1f} GiB"
+    except OSError:
+        pass
+    return (f"card free {free / 2**30:.1f} of {total / 2**30:.1f} GiB (this process reserves "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f}), host available {avail}, disk free "
+            f"{shutil.disk_usage(MESH_DIR).free / 2**30:.1f} GiB")
 
 
 def _mesh_child_start(torch):
@@ -4922,11 +5028,15 @@ def mesh_child_kernels(torch) -> None:
 
     rank = _mesh_child_start(torch)
     cases = mesh_kernel_cases(torch, fa, ops)
+
+    def specs(mesh):  # the split itself, which the trainer leaves off on gloo
+        return dataclasses.replace(kernel_specs(mesh), ns_axes=("data",))
+
     time_ms(torch, lambda: cases["flash_fwd"][0](*cases["flash_fwd"][2]))  # clocks up
     out = {}
     for mesh_name, mesh in (("pod2", make_debug_mesh(1, 1, pod=2, device_type="cuda")),
                             ("data2", make_debug_mesh(2, 1, device_type="cuda"))):
-        part = kernel_specs(mesh)
+        part = specs(mesh)
         for name, (body, flash, args) in cases.items():
             whole = body(*args)
             whole = whole if isinstance(whole, tuple) else (whole,)
@@ -4959,7 +5069,7 @@ def mesh_child_kernels(torch) -> None:
             del whole, routed
     # every Newton-Schulz stack of smollm-135m's Muon leaves split over 'data'
     mesh = make_debug_mesh(2, 1, device_type="cuda")
-    part = kernel_specs(mesh)
+    part = specs(mesh)
     g = torch.Generator(device="cuda").manual_seed(23)
     for shape in MESH_NS_STACKS:
         x = torch.randn(shape, generator=g, device="cuda")
@@ -5043,14 +5153,18 @@ def mesh_child_kill(torch) -> None:
 
 
 def mesh_cli_runs(torch, label: str, runs: list, quiet_before: str | None = None) -> None:
-    """[one rank of 22c-22h] ``runs``, (name, argv) pairs: each command
+    """[one rank of 22c-22j] ``runs``, (name, argv) pairs: each command
     through the CLI entry point (``launch/train.py:train``), or with argv
-    None 22h's Muon DP on the (data = 2) mesh; the run named
-    ``quiet_before`` and those after it once ``MESH_QUIET`` exists. Each
+    None 22h's Muon DP on the (data = 2) mesh (names ``22h*``) or 22i's fp32
+    check on 1x2 (``22i*``); the run named ``quiet_before`` and those after
+    it once ``MESH_QUIET`` exists (22g's resume world has ended); each under
+    :func:`_tp_run_patches`. Each
     rank saves ``MESH_DIR/<label>.rank<r>.pt``: per run its launches, the
-    bytes it received, the sync's times; rank 0 the per-round records and
-    the digests of the whole outer params (22h: the params themselves; a
-    run named ``22h_fault``: 22h with its planted fault)."""
+    bytes it received, the sync's times, its peak memory, whether the round
+    split over 'model' and its Newton-Schulz calls; rank 0 the per-round
+    records and the digests of the whole outer params (22h, 22i's fp32
+    check: the params themselves; a run named ``22h_fault``: 22h with its
+    planted fault)."""
     import torch.distributed as dist
 
     from repro_torch.core import collectives, diloco
@@ -5078,30 +5192,40 @@ def mesh_cli_runs(torch, label: str, runs: list, quiet_before: str | None = None
     diloco.outer_step = timed_sync
     records = {}
     for name, argv in runs:
-        if name == quiet_before:  # the card to ourselves from here on
+        if name == quiet_before:  # 22g's resume world has ended
             t0 = time.perf_counter()
             while not MESH_QUIET.exists():
                 if time.perf_counter() - t0 > 900:
                     raise TimeoutError("the kill and resume worlds did not end")
                 time.sleep(0.2)
         syncs.clear()
+        ns_calls: list = []
         _build.reset_launch_counts()
         mesh_mod.reset_traffic()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if argv is None:
-            run = mesh_dp_run(torch, make_debug_mesh(2, 1, device_type="cuda"),
-                              fault=name == "22h_fault")
+            with _tp_run_patches(name, ns_calls):
+                run = (mesh_dp_run(torch, make_debug_mesh(2, 1, device_type="cuda"),
+                                   fault=name == "22h_fault") if name.startswith("22h")
+                       else mesh_tp_fp32_run(torch, make_debug_mesh(1, 2, device_type="cuda")))
             rec = {"launches": run["launches"], "received": dict(mesh_mod.RECEIVED),
-                   "seconds": time.perf_counter() - t0}
+                   "seconds": time.perf_counter() - t0, "tp": run.get("tp"),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             if rank == 0:
                 rec.update(history=run["history"], params=run["params"])
             records[name] = rec
+            del run
+            torch.cuda.empty_cache()
             continue
-        out = train(build_parser().parse_args(argv))
+        with _tp_run_patches(name, ns_calls):
+            out = train(build_parser().parse_args(argv))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         rec = {"launches": dict(_build.LAUNCHES), "received": dict(mesh_mod.RECEIVED),
-               "syncs": list(syncs), "seconds": seconds, "staged": dict(mesh_mod.STAGED)}
+               "syncs": list(syncs), "seconds": seconds, "staged": dict(mesh_mod.STAGED),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "tp": out["engine"].model_group is not None, "ns": ns_calls}
         whole = tree_map(collectives.whole, out["state"]["outer_params"])  # every rank gathers
         if rank == 0:
             rec.update(history=out["history"], losses=out["losses"],
@@ -5114,17 +5238,107 @@ def mesh_cli_runs(torch, label: str, runs: list, quiet_before: str | None = None
     dist.destroy_process_group()
 
 
-def mesh_child_train(torch) -> None:
-    """[22c, 22e, 22f, 22h, one rank, under torchrun] ``mesh_cli_runs``:
-    22c and 22h's planted fault (whose walls are not kept) beside 22g's
-    worlds, then 22e on once they have ended."""
-    mesh_cli_runs(torch, "train", [(name, MESH_RUNS.get(name)) for name in (
-        "22c", "22h_fault", "22e", "22f", "22h")], quiet_before="22e")
+def mesh_child_launch(torch, label: str, names: str) -> None:
+    """[22c, 22e, 22f, 22h-22j, one rank of the launch ``label``, under
+    torchrun] ``mesh_cli_runs`` of the comma-separated run ``names``
+    (``MESH_LAUNCHES``); the "tp" launch's runs start once ``MESH_QUIET``
+    exists."""
+    runs = [(name, MESH_RUNS.get(name)) for name in names.split(",")]
+    mesh_cli_runs(torch, label, runs, quiet_before=runs[0][0] if label == "tp" else None)
 
 
 def mesh_child_resume(torch) -> None:
     """[22g, one rank of the new world] 22g's command with ``--resume auto``."""
     mesh_cli_runs(torch, "resume", [("22g", MESH_RUNS["22g"] + ["--resume", "auto"])])
+
+
+def mesh_tp_fp32_run(torch, mesh=None) -> dict:
+    """[22i] ``MESH_TP_FP32``: paper-416m in fp32 at a cut depth through
+    ``TrainEngine`` by ``run_rounds`` (eager), on ``mesh`` or in one
+    process. Returns the records, the whole outer params on the host, the
+    launches, the peak memory and whether the round split over 'model'."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DiLoCoConfig
+    from repro_torch.core.collectives import whole
+    from repro_torch.data import DataConfig, MarkovStream, batches_for_round, batches_for_span
+    from repro_torch.engine import TrainEngine, run_rounds
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.utils.tree import tree_leaves_with_paths
+
+    c = MESH_TP_FP32
+    cfg = get_config(LADDER).replace(n_layers=c["depth"], max_seq_len=c["seq_len"],
+                                     attn_impl="pallas", dtype="float32")
+    dcfg = DiLoCoConfig(n_workers=c["K"], sync_interval=c["H"], inner_name="muon",
+                        ns_impl="pallas", outer_kernel=True)
+    icfg = OptimizerConfig(lr=c["lr"], weight_decay=1e-4, schedule="constant")
+    data = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=c["seq_len"],
+                                   batch_per_worker=c["batch"], n_workers=c["K"], seed=0), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    engine = TrainEngine(build_model(cfg), dcfg, icfg, mesh=mesh, capture=False)
+    state = engine.init(torch.Generator(device="cuda").manual_seed(0), torch.device("cuda"))
+    _build.reset_launch_counts()
+    state, hist = run_rounds(
+        engine, state, lambda r: batches_for_round(data, r, c["H"]), c["rounds"],
+        rounds_per_dispatch=1,
+        span_batches_for=lambda r0, m: batches_for_span(data, r0, c["H"], m))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    params = {p: whole(t).cpu() for p, t in tree_leaves_with_paths(state["outer_params"])}
+    return {"history": hist, "params": params, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tp": engine.model_group is not None}
+
+
+def _tp_run_patches(name: str, ns_calls: list):
+    """[22i, 22j] The run ``name``'s stand-ins, undone on exit: 22i's planted
+    fault (each rank's QK-norm gradients of its own heads only), 22i's
+    whole-worker twin (``tp_compute`` says no, so each rank computes each
+    worker whole) and 22j's routing (``ns_axes`` ('data',) and ()); on 22j's
+    runs each Newton-Schulz call's stack rows and ms go to ``ns_calls``."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import attention
+
+    import torch
+
+    stack = contextlib.ExitStack()
+
+    def patch(mod, attr, value):
+        old = getattr(mod, attr)
+        setattr(mod, attr, value)
+        stack.callback(setattr, mod, attr, old)
+
+    if name == "22i_fault":
+        patch(attention, "shared_weight", lambda w: w)
+    if name == "22i_whole":
+        patch(steps, "tp_compute", lambda cfg, mesh: (False, "22i's whole-worker twin"))
+    if name.startswith("22j"):  # split over 'data', or each rank the whole stack
+        specs, axes = sharding.kernel_specs, ("data",) if name == "22j_split" else ()
+        patch(sharding, "kernel_specs",
+              lambda *a, **kw: dataclasses.replace(specs(*a, **kw), ns_axes=axes))
+    if name.startswith("22j"):
+        local, public = ops._ns_local, ops.ns_orthogonalize
+
+        def counted(g3, *a):  # the stack rows this rank's kernels ran on
+            ns_calls.append({"rows": int(g3.shape[0])})
+            return local(g3, *a)
+
+        def timed(g, *a, **kw):  # the call's ms, its gather over 'data' included
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = public(g, *a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ns_calls[-1]["ms"] = ev[0].elapsed_time(ev[1])
+            return out
+
+        patch(ops, "_ns_local", counted)
+        patch(ops, "ns_orthogonalize", timed)
+    return stack
 
 
 def mesh_serve(torch, rank: int) -> None:
@@ -5162,13 +5376,14 @@ def mesh_serve(torch, rank: int) -> None:
             "stats": engine.stats}))
 
 
-def phase_mesh_kernels(torch, smi: str) -> dict:
-    """[22b] ``mesh_child_kernels`` on two ranks; every kernel bitwise on
-    both meshes, its launches in the routed call, local and whole times."""
+def phase_mesh_kernels(torch, smi: str, world: list) -> dict:
+    """[22b] ``mesh_child_kernels`` on two ranks (``world``, started beside
+    phase 22's training runs): every kernel bitwise on both meshes, its
+    launches in the routed call, local and whole times (contended)."""
     print(f"[22b] each kernel across {MESH_RANKS} ranks on one card (gloo), through "
           f"kernels/partition.py, bitwise against the one-process call (the same processes "
-          f"then serve 22d's requests); card: {smi}")
-    run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", "kernels"], "kernels")
+          f"then serve 22d's requests), beside the mesh's training runs; card: {smi}")
+    wait_ranks(world, "kernels")
     per_rank = [json.loads((MESH_DIR / f"kernels.rank{r}.json").read_text())
                 for r in range(MESH_RANKS)]
     rows = {}
@@ -5179,8 +5394,8 @@ def phase_mesh_kernels(torch, smi: str) -> dict:
             ok = all(o["bitwise"] for o in others)
             launched = all(o["launches"] for o in others)
             stacks = {k: all(o["stacks"][k] for o in others) for k in v.get("stacks", {})}
-            timed = (f"; local {v['local_ms']:.4f} ms, whole {v['whole_ms']:.4f} ms (rank 0; "
-                     f"card: {smi})" if "local_ms" in v else "")
+            timed = (f"; local {v['local_ms']:.4f} ms, whole {v['whole_ms']:.4f} ms (rank 0, "
+                     f"contended; card: {smi})" if "local_ms" in v else "")
             print(f"  {name:16s} {mesh_name}: local {v['local']} of {v['whole']} "
                   f"{v['placements']}, bitwise on every rank: {ok}, launches a rank "
                   f"{[o['launches'] for o in others]}{timed}"
@@ -5219,27 +5434,36 @@ def _one_argv(argv: list, out) -> list:
     return replace_flags([a for a in argv if a not in ("--mesh", "2x1x1")], out=out)
 
 
-def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
-    """[22c-22h] one torchrun launch of two ranks (one worker each) running
-    ``MESH_RUNS``' 22c and 22h's planted fault, then 22e and 22f and 22h's
-    Muon DP; beside its 22c,
-    22g's kill (two rank processes, each dying by SIGKILL after round 1's
-    row), then 22g's ``--resume auto`` in a new world of two, and, in this
-    process, the one-process command of 22c, 22e and 22f (no ``--mesh``;
-    eager rounds, which 6d holds bitwise to the captured ones) and 22h's
-    one-process DP; once those are done (``MESH_QUIET``) the launch has the
-    card to itself. Bitwise: every run's
+def phase_mesh_train(torch, build_parser, train, smi: str, procs: list, beside: list,
+                     tp_measure: bool = False) -> dict:
+    """[22c-22j] the torchrun launch "train" of two ranks (``MESH_LAUNCHES``:
+    ``MESH_RUNS``' 22c, 22h's planted fault, 22e, 22f and 22h's Muon DP)
+    beside 22g's kill (two rank processes, each dying by SIGKILL after
+    round 1's row) and, in this process, the one-process command of 22c,
+    22e and 22f (no ``--mesh``; eager rounds, which 6d holds bitwise to the
+    captured ones), 22h's one-process DP and 22i's one-process fp32 run;
+    once those are done, 22g's ``--resume auto`` in a new world of two and,
+    once the processes ``beside`` (22b's world) have also ended, the launch
+    "tp", whose runs start once the resume world has ended (22j's two
+    rounds, then 22i's planted fault and fp32 check; with ``tp_measure``
+    also 22i's whole-worker twin and bf16 run, and all of them once the
+    "train" launch has ended). Every wall but those of ``tp_measure``'s runs is contended.
+    Bitwise: every run's
     per-round train and eval losses, comm_bytes, active_workers and
     staleness and every outer-param leaf; 22c's checkpoint files byte for
     byte; 22g's resumed metrics.csv (but wall_s) and outer leaves against
     22c's mesh run. 22h within ``MESH_DP_TOL`` and its planted fault
     outside it. Every rank launched every training kernel in every run.
-    Prints each mesh run's round walls, tokens/s (not 22c's: it shares the
-    card), the sync's times and the bytes each rank gathered a round."""
+    Prints each mesh run's round walls, the sync's times and the bytes each
+    rank gathered a round; ``phase_mesh_tp`` reads 22i's and 22j's, whose
+    launch runs on while 22c-22h are checked. Every process it starts goes
+    to ``procs`` (the caller stops them if a check fails)."""
     import shutil
 
     from repro_torch.kernels import _build
 
+    launches = {"train": MESH_LAUNCHES["train"],
+                "tp": MESH_LAUNCHES["tp"] + (MESH_TP_MEASURE if tp_measure else ())}
     for sub in ("train", "streaming", "elastic", "drill"):  # a rerun's files
         for d in (MESH_DIR / sub, MESH_DIR / f"{sub}_one"):
             shutil.rmtree(d, ignore_errors=True)
@@ -5248,60 +5472,73 @@ def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
     print(f"[22g] the crash drill on a 2x1x1 mesh (two rank processes, gloo): "
           f"repro_torch.launch.train {' '.join(MESH_RUNS['22g'])} --inject-kill-round "
           f"{MESH_KILL_ROUND}; card: {smi}")
-    print(f"[22c-22h] one torchrun launch of {MESH_RANKS} ranks: 22c "
-          f"({' '.join(MESH_RUNS['22c'])}) and 22h's planted fault beside 22g's kill world, "
-          f"then its resume world, and this process's one-process runs; then alone on the card "
-          f"22e (+ "
+    print(f"[22c-22j] two torchrun launches of {MESH_RANKS} ranks beside 22g's kill world, "
+          f"then its resume world, and this process's one-process runs: \"train\" runs 22c "
+          f"({' '.join(MESH_RUNS['22c'])}), 22h's planted fault, 22e (+ "
           f"{' '.join(MESH_RUNS['22e'][-3:])}), 22f (+ {' '.join(MESH_RUNS['22f'][-4:])}) and 22h "
-          f"(Muon DP, dp_engine on data = 2, {MESH_DP}); card: {smi}")
+          f"(Muon DP, dp_engine on data = 2, {MESH_DP}); \"tp\", once the resume world has ended, 22j "
+          f"({' '.join(MESH_NS_TRAIN)}, split over 'data', then at ns_axes=()), 22i's planted "
+          f"fault and fp32 check (paper-416m, {MESH_TP_FP32}, --mesh 1x2)"
+          + (f", then, once \"train\" has ended, the check's whole-worker twin and 22i "
+             f"({' '.join(MESH_TP_TRAIN)})" if tp_measure else "") + f"; card: {smi}")
+    def start_launch(label: str) -> list:
+        return start_ranks([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                            str(MESH_RANKS), "--master-port", str(free_port())] + child[1:]
+                           + [f"launch:{label}:{','.join(launches[label])}"], label,
+                           torchrun=True)
+
     t0 = time.perf_counter()
     killed = start_ranks(child + ["kill"], "kill")
-    launch = start_ranks([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-                          str(MESH_RANKS), "--master-port", str(free_port())] + child[1:]
-                         + ["train"], "train", torchrun=True)
-    resumed: list = []
-    try:
-        refs = {}
-        for name in ("22c", "22e", "22f"):  # beside the mesh's runs: walls not kept
-            argv = MESH_RUNS[name]
-            one_out = Path(str(argv[argv.index("--out") + 1]) + "_one")
-            _build.reset_launch_counts()
-            one = train(build_parser().parse_args(_one_argv(argv, one_out)), capture=False)
-            torch.cuda.synchronize()
-            refs[name] = {"history": one["history"], "launches": dict(_build.LAUNCHES),
-                          "digests": outer_digests(torch, one["state"]["outer_params"]),
-                          "out": one_out}
-            del one
-            torch.cuda.empty_cache()
-        one_dp = mesh_dp_run(torch)
+    launch = start_launch("train")
+    procs += killed + launch
+    refs = {}
+    for name in ("22c", "22e", "22f"):  # beside the mesh's runs: walls not kept
+        argv = MESH_RUNS[name]
+        one_out = Path(str(argv[argv.index("--out") + 1]) + "_one")
+        _build.reset_launch_counts()
+        one = train(build_parser().parse_args(_one_argv(argv, one_out)), capture=False)
+        torch.cuda.synchronize()
+        refs[name] = {"history": one["history"], "launches": dict(_build.LAUNCHES),
+                      "digests": outer_digests(torch, one["state"]["outer_params"]),
+                      "out": one_out}
+        del one
         torch.cuda.empty_cache()
-        refs_s = time.perf_counter() - t0
-        wait_ranks(killed, "kill", expect=-9)
-        drill = MESH_DIR / "drill"
-        ckpts = sorted(f.name for f in drill.glob("ckpt_*.npz"))
-        killed_rows = [r[0] for r in _csv_sans_wall(drill / "metrics.csv")[1:]]
-        print(f"  22g: every rank exited -9 (SIGKILL) after {time.perf_counter() - t0:.1f} s; "
-              f"left {ckpts}, metrics.csv rounds {killed_rows}; the one-process runs "
-              f"{refs_s:.1f} s")
-        assert ckpts == [f"ckpt_{MESH_KILL_ROUND}.npz"] and killed_rows == ["0", "1"], (
-            ckpts, killed_rows)
-        resumed = start_ranks(child + ["resume"], "resume")  # a new world of two ranks
-        wait_ranks(resumed, "resume")
-        print(f"  22g: --resume auto in a new world ended after {time.perf_counter() - t0:.1f} s")
-    except BaseException:
-        for p in killed + launch + resumed:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        raise
-    MESH_QUIET.write_text("")
+    one_dp = mesh_dp_run(torch)
+    torch.cuda.empty_cache()
+    one_tp = mesh_tp_fp32_run(torch)  # 22i's one-process fp32 run
+    torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0
+    wait_ranks(killed, "kill", expect=-9)
+    drill = MESH_DIR / "drill"
+    ckpts = sorted(f.name for f in drill.glob("ckpt_*.npz"))
+    killed_rows = [r[0] for r in _csv_sans_wall(drill / "metrics.csv")[1:]]
+    print(f"  22g: every rank exited -9 (SIGKILL) after {time.perf_counter() - t0:.1f} s; "
+          f"left {ckpts}, metrics.csv rounds {killed_rows}; the one-process runs "
+          f"{refs_s:.1f} s")
+    assert ckpts == [f"ckpt_{MESH_KILL_ROUND}.npz"] and killed_rows == ["0", "1"], (
+        ckpts, killed_rows)
+    resumed = start_ranks(child + ["resume"], "resume")  # a new world of two ranks
+    procs += resumed
+    for p in beside:  # the card's memory: 22b's world ends first (its caller checks it)
+        p.wait(timeout=600)
+    tp_launch = start_launch("tp")
+    procs += tp_launch
+    print(f"  the tensor-parallel launch started at {time.perf_counter() - t0:.1f} s; "
+          f"{resources()}")
+    wait_ranks(resumed, "resume")
+    print(f"  22g: --resume auto in a new world ended after {time.perf_counter() - t0:.1f} s")
+    if not tp_measure:
+        MESH_QUIET.write_text("")
     wait_ranks(launch, "train", timeout=900)
-    print(f"  the launch: {time.perf_counter() - t0:.1f} s")
+    print(f"  the training launch: {time.perf_counter() - t0:.1f} s; {resources()}")
+    MESH_QUIET.write_text("")  # tp_measure's runs have the card to their launch
     ranks = [{**torch.load(MESH_DIR / f"train.rank{r}.pt", weights_only=False),
               **torch.load(MESH_DIR / f"resume.rank{r}.pt", weights_only=False)}
              for r in range(MESH_RANKS)]
     mesh = ranks[0]
     for name, rec in mesh.items():  # every rank launched every training kernel
+        if name.startswith("22i"):  # phase_mesh_tp's
+            continue
         names = MESH_DP_KERNELS if name.startswith("22h") else MESH_TRAIN_KERNELS
         for r, per in enumerate(ranks):
             missing = [k for k in names if per[name]["launches"].get(k, 0) <= 0]
@@ -5325,11 +5562,11 @@ def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
               f"{[r['active_workers'] for r in m['history']]}, staleness "
               f"{[r['staleness'] for r in m['history']]}, comm_bytes "
               f"{[r['comm_bytes'] for r in m['history']]}")
-        # 22c runs beside 22g's kill and resume worlds and this process's
-        # one-process runs: its walls are contended; 22e and 22f have the card
-        rate = (f"contended (beside 22g's worlds and the one-process runs), no yardstick"
-                if name == "22c" else f"{tokens / walls[-1]:.1f} tok/s in round 2 (both ranks "
-                f"on one card, nothing else on it)")
+        # 22c runs beside 22g's worlds and this process's one-process runs,
+        # 22e and 22f beside the resume world or the "tp" launch
+        rate = (f"contended (beside 22g's worlds and the one-process runs)" if name == "22c"
+                else f"{tokens / walls[-1]:.1f} tok/s in round 2 (contended: beside the resume "
+                     f"world or the \"tp\" launch)")
         print(f"  [{name}] mesh round walls {[round(w, 3) for w in walls]} s, {rate}; the run "
               f"{m['seconds']:.1f} s; the sync (outer_step, rank 0) wall "
               f"{[round(x[0], 3) for x in m['syncs']]} s, on the card "
@@ -5337,7 +5574,8 @@ def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
               f"{m['received']} (each rank, a round: "
               f"{ {k: v // 2 for k, v in m['received'].items()} }); launches rank 0 "
               f"{m['launches']}, rank 1 {ranks[1][name]['launches']}, one process "
-              f"{one['launches']}; card: {smi}")
+              f"{one['launches']}; peak memory a rank "
+              f"{[round(per[name]['peak_gb'], 2) for per in ranks]} GB; card: {smi}")
         runs[name] = {"walls": walls, "received": m["received"],
                       "launches": [per[name]["launches"] for per in ranks]}
         if name != "22c":
@@ -5384,7 +5622,8 @@ def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
           f"{'caught' if caught else 'NOT CAUGHT'}; step walls {[round(w, 3) for w in walls]} s, "
           f"{dp_tokens / walls[-1]:.1f} tok/s in the last step; bytes rank 0 received "
           f"{h['received']}; launches rank 0 {h['launches']}, rank 1 "
-          f"{ranks[1]['22h']['launches']}, one process {one_dp['launches']}; card: {smi}")
+          f"{ranks[1]['22h']['launches']}, one process {one_dp['launches']}; peak memory a rank "
+          f"{[round(per['22h']['peak_gb'], 2) for per in ranks]} GB; card: {smi}")
     assert held and caught, (loss_gap, worst, fault_loss, fault_worst)
     runs["22h"] = {"walls": walls, "tok_s": dp_tokens / walls[-1], "loss_gap": loss_gap,
                    "param_gap": worst[1], "fault_loss_gap": fault_loss,
@@ -5393,8 +5632,135 @@ def phase_mesh_train(torch, build_parser, train, smi: str) -> dict:
     runs["22g"] = {"launches": [per["22g"]["launches"] for per in ranks]}
     for f in MESH_DIR.glob("*/ckpt_*.npz"):  # ~4.5 GB each
         f.unlink()
+    wait_ranks(tp_launch, "tp", timeout=900)
+    print(f"  the tensor-parallel launch: {time.perf_counter() - t0:.1f} s; {resources()}")
+    for r, per in enumerate(ranks):
+        per.update(torch.load(MESH_DIR / f"tp.rank{r}.pt", weights_only=False))
     return {"launches": mesh["22c"]["launches"], "received": mesh["22c"]["received"],
-            "runs": runs}
+            "runs": runs, "ranks": ranks, "one_tp": one_tp}
+
+
+def phase_mesh_tp(torch, trained: dict, smi: str) -> dict:
+    """[22i, 22j] the records of the "tp" launch (``phase_mesh_train``):
+    22i's fp32 check within ``MESH_TP_TOL`` of this process's one-process
+    run and its planted fault outside it, with its round walls and peak
+    memory a rank; where the launch ran them (``--only 22``), its
+    whole-worker twin's walls and peak memory on the same 1x2 mesh and the
+    bf16 run at full depth split over 'model' with finite, falling train
+    losses, the bytes each rank summed over 'model'; each rank's launches of
+    the training kernels. 22j: the round with Newton-Schulz split over
+    'data' bitwise the round with ``ns_axes=()``, each rank's kernels on
+    half the stack rows."""
+    one = trained.pop("one_tp")
+    ranks = trained.pop("ranks")
+    mesh = ranks[0]
+    measured = [n for n in MESH_TP_MEASURE if n in mesh]
+    runs = {}
+    for name in ("22i_fp32", "22i_fault", "22i"):  # split over 'model' on every rank
+        if name in mesh:
+            assert all(per[name]["tp"] for per in ranks), (name, "did not split over 'model'")
+    if "22i_whole" in mesh:
+        assert not any(per["22i_whole"]["tp"] for per in ranks), "22i_whole split over 'model'"
+    for name in ["22i_fp32"] + measured + ["22j_split", "22j_whole"]:
+        kernels = MESH_TRAIN_KERNELS if name.startswith("22j") else MESH_TRAIN_KERNELS[:5]
+        for r, per in enumerate(ranks):
+            missing = [k for k in kernels if per[name]["launches"].get(k, 0) <= 0]
+            assert not missing, (name, "rank", r, "launched none of", missing)
+
+    def gaps(h: dict) -> tuple:  # (largest loss gap, (leaf, largest relative param gap))
+        loss = max(abs(a[k] - b[k]) for a, b in zip(one["history"], h["history"])
+                   for k in ("train_loss", "train_loss_last"))
+        g = {p: ((one["params"][p].double() - t.double()).norm()
+                 / one["params"][p].double().norm().clamp_min(1e-30)).item()
+             for p, t in h["params"].items()}
+        return loss, max(g.items(), key=lambda kv: kv[1])
+
+    (loss_gap, worst), (fault_loss, fault_worst) = gaps(mesh["22i_fp32"]), gaps(
+        mesh["22i_fault"])
+    held = worst[1] <= MESH_TP_TOL["param"]
+    caught = fault_worst[1] > MESH_TP_TOL["param"]
+    twins = ["22i_fp32"] + [n for n in ("22i_whole",) if n in mesh]
+    walls = {n: [round(h["wall_s"], 3) for h in mesh[n]["history"]] for n in twins}
+    peaks = {n: [round(per[n]["peak_gb"], 2) for per in ranks] for n in twins}
+    f = mesh["22i_fp32"]
+    print(f"  [22i fp32] paper-416m at depth {MESH_TP_FP32['depth']} split over 'model' = 2 "
+          f"against one process: losses {[round(h['train_loss'], 6) for h in f['history']]} / "
+          f"{[round(h['train_loss'], 6) for h in one['history']]}; largest loss gap "
+          f"{loss_gap:.3e} (not held), largest relative param gap {worst[1]:.3e} ({worst[0]}; "
+          f"limit {MESH_TP_TOL['param']:.1e}): {'held' if held else 'MISSED'}; the planted "
+          f"fault (QK-norm gradients of each rank's own heads): loss gap {fault_loss:.3e}, "
+          f"relative param gap {fault_worst[1]:.3e} ({fault_worst[0]}): "
+          f"{'caught' if caught else 'NOT CAUGHT'}; round walls {walls['22i_fp32']} s, the run "
+          f"{f['seconds']:.1f} s; peak memory a rank {peaks['22i_fp32']} GB (one process "
+          f"{one['peak_gb']:.2f} GB); card: {smi}")
+    runs["22i_fp32"] = {"loss_gap": loss_gap, "param_gap": worst[1], "fault_loss_gap": fault_loss,
+                        "fault_param_gap": fault_worst[1], "limits": MESH_TP_TOL,
+                        "walls": walls["22i_fp32"], "peak_gb": peaks["22i_fp32"],
+                        "one_peak_gb": one["peak_gb"],
+                        "launches": [per["22i_fp32"]["launches"] for per in ranks]}
+    if "22i_whole" in mesh:
+        w = mesh["22i_whole"]
+        print(f"  [22i fp32] its whole-worker twin (each rank both halves of every worker), "
+              f"once the \"train\" launch had ended: round walls {walls['22i_whole']} s, the run "
+              f"{w['seconds']:.1f} s; peak memory a rank {peaks['22i_whole']} GB; bytes rank 0 "
+              f"received {w['received']} (the split's {f['received']}); card: {smi}")
+        runs["22i_whole"] = {"walls": walls["22i_whole"], "peak_gb": peaks["22i_whole"],
+                             "received": w["received"],
+                             "launches": [per["22i_whole"]["launches"] for per in ranks]}
+    B = int(MESH_TP_TRAIN[MESH_TP_TRAIN.index("--batch-per-worker") + 1])
+    tokens = 2 * 2 * B * 2048  # K x H x B x S a round
+    for name in [n for n in ("22i",) if n in mesh]:
+        m = mesh[name]
+        hist = m["history"]
+        losses = [h["train_loss"] for h in hist]
+        assert all(math.isfinite(x) for h in hist for x in (h["train_loss"], h["eval_loss"]))
+        walls = [h["wall_s"] for h in hist]
+        model_bytes = [per[name]["received"].get("model", 0) for per in ranks]
+        print(f"  [{name}] paper-416m bf16 at full depth, split over 'model' = 2: train losses "
+              f"{[round(x, 4) for x in losses]}, eval "
+              f"{[round(h['eval_loss'], 4) for h in hist]}; round walls "
+              f"{[round(w, 3) for w in walls]} s (two ranks on one card), "
+              f"{tokens / walls[-1]:.1f} tok/s in the last; the run {m['seconds']:.1f} s; peak "
+              f"memory a rank {[round(per[name]['peak_gb'], 2) for per in ranks]} GB; bytes summed "
+              f"over 'model' a rank a round {[b // len(hist) for b in model_bytes]}; bytes rank 0 "
+              f"received {m['received']}; launches rank 0 {m['launches']}, rank 1 "
+              f"{ranks[1][name]['launches']}; card: {smi}")
+        runs[name] = {"walls": walls, "losses": losses, "received": m["received"],
+                      "peak_gb": [per[name]["peak_gb"] for per in ranks],
+                      "model_bytes_a_round": [b // len(hist) for b in model_bytes],
+                      "launches": [per[name]["launches"] for per in ranks]}
+    a, b = mesh["22j_split"], mesh["22j_whole"]
+    keys = ("train_loss", "train_loss_last", "eval_loss", "comm_bytes")
+    apart = [k for h, g in zip(a["history"], b["history"]) for k in keys if h[k] != g[k]]
+    apart += [p for p in a["digests"] if a["digests"][p] != b["digests"][p]]
+    rows = {n: [sum(c["rows"] for c in per[n]["ns"]) for per in ranks]
+            for n in ("22j_split", "22j_whole")}
+    ns_ms = {n: [sum(c["ms"] for c in per[n]["ns"]) for per in ranks]
+             for n in ("22j_split", "22j_whole")}
+    print(f"  [22j] MESH_TRAIN on (data = 2), one round, Newton-Schulz split over 'data' "
+          f"against ns_axes=(): losses, comm_bytes and all {len(a['digests'])} outer leaves "
+          f"{'bitwise' if not apart else f'APART {apart[:3]}'}; stack rows each rank's kernels "
+          f"ran on {rows['22j_split']} against {rows['22j_whole']}; matmul_epilogue launches "
+          f"a rank {[per['22j_split']['launches'].get('matmul_epilogue', 0) for per in ranks]} "
+          f"against {[per['22j_whole']['launches'].get('matmul_epilogue', 0) for per in ranks]}"
+          f" (one launch a product covers the rank's share of a stack); Newton-Schulz calls' ms a "
+          f"rank (the gather over 'data' included) {[round(x, 1) for x in ns_ms['22j_split']]} "
+          f"against {[round(x, 1) for x in ns_ms['22j_whole']]}; round walls "
+          f"{[round(h['wall_s'], 3) for h in a['history']]} / "
+          f"{[round(h['wall_s'], 3) for h in b['history']]} s (contended); peak memory a rank "
+          f"{[round(per['22j_split']['peak_gb'], 2) for per in ranks]} GB; card: {smi}")
+    for n in ("22j_split", "22j_whole"):
+        runs[n] = {"ns_rows": rows[n], "ns_ms": ns_ms[n],
+                   "launches": [per[n]["launches"] for per in ranks]}
+    # every reading is printed above before any check fails
+    assert held and caught, (loss_gap, worst, fault_loss, fault_worst)
+    if "22i" in runs:
+        assert runs["22i"]["losses"][-1] < runs["22i"]["losses"][0], runs["22i"]["losses"]
+    assert not apart, apart[:5]
+    assert all(2 * x == y for x, y in zip(rows["22j_split"], rows["22j_whole"])), rows
+    for f_ in MESH_DIR.glob("*/ckpt_*.npz"):
+        f_.unlink()
+    return {"runs": runs, "one_fp32_peak_gb": one["peak_gb"]}
 
 
 def phase_mesh_serve(torch, get_config, serve, smi: str) -> dict:
@@ -5420,28 +5786,50 @@ def phase_mesh_serve(torch, get_config, serve, smi: str) -> dict:
     return {"launches": got["launches"], "tokens_equal": n}
 
 
-def slice_12(torch, build_parser, train, get_config, serve, smi: str) -> dict:
+def slice_12(torch, build_parser, train, get_config, serve, smi: str,
+             tp_measure: bool = False) -> dict:
     """Phase 22: (a) the kernels were built in phase 2, in this process,
     before any rank starts (each rank loads them; the build's file lock
     would hold a second builder); (b) the kernels across ranks, whose
-    processes then serve (d); (c, e-h) the mesh's training: checkpoints,
+    processes then serve (d), beside (c, e-h) the mesh's training: checkpoints,
     streaming, elastic drops with a sync delay, the crash drill and the DP
-    baseline; (d) the mesh's serving against one process."""
+    baseline; (i, j) tensor parallelism over 'model' and the Newton-Schulz
+    split over 'data' (``tp_measure``: also 22i's whole-worker twin and
+    bf16 run at full depth); (d) the mesh's serving against one process."""
+    import gc
+
     MESH_DIR.mkdir(parents=True, exist_ok=True)
-    print("[22a] kernels built once in this process (phase 2) before any rank starts")
-    kernels = phase_mesh_kernels(torch, smi)
-    lap("22b")
-    trained = phase_mesh_train(torch, build_parser, train, smi)
-    lap("22c, 22e-22h")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[22a] kernels built once in this process (phase 2) before any rank starts; "
+          f"{resources()}")
+    # 22b's world runs beside the training runs' first minute (~3 GB a rank)
+    world = start_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", "kernels"],
+                        "kernels")
+    procs = list(world)  # every rank process of phase 22, stopped if a check fails
+    try:
+        trained = phase_mesh_train(torch, build_parser, train, smi, procs, world, tp_measure)
+        kernels = phase_mesh_kernels(torch, smi, world)
+        tensor_parallel = phase_mesh_tp(torch, trained, smi)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lap("22b-22c, 22e-22j")
     served = phase_mesh_serve(torch, get_config, serve, smi)
     lap("22d")
-    return {"kernels": kernels, "train": trained, "serve": served}
+    return {"kernels": kernels, "train": trained, "tp": tensor_parallel, "serve": served}
 
 
 def mesh_child(kind: str) -> int:
     import torch
 
-    {"kernels": mesh_child_kernels, "train": mesh_child_train, "kill": mesh_child_kill,
+    if kind.startswith("launch:"):  # launch:<label>:<run,run,...>
+        _, label, names = kind.split(":")
+        mesh_child_launch(torch, label, names)
+        return 0
+    {"kernels": mesh_child_kernels, "kill": mesh_child_kill,
      "resume": mesh_child_resume}[kind](torch)
     return 0
 
@@ -5522,7 +5910,10 @@ def main(argv: list | None = None) -> int:
         "18": lambda: slice_8(torch, mods, get_config, build_model, serve, ptxas, smi),
         "19": lambda: slice_9(torch, fa, get_config, build_model, serve, ptxas, smi),
         "21": lambda: phase_autotune(torch, mods, build_parser, train, smi),
-        "22": lambda: slice_12(torch, build_parser, train, get_config, serve, smi),
+        # alone (--only 22), phase 22 also measures 22i's whole-worker twin and
+        # bf16 run at full depth, for which the whole script has no room
+        "22": lambda: slice_12(torch, build_parser, train, get_config, serve, smi,
+                               tp_measure=only is not None),
     }
     if only is not None:
         import gc
@@ -5701,9 +6092,10 @@ def main(argv: list | None = None) -> int:
             **mesh["kernels"][name],
             "mesh_train_launches": mesh["train"]["launches"].get(name, 0),
             "mesh_serve_launches": mesh["serve"]["launches"].get(name, 0),
-            # 22c, 22e-22h: each run's launches on each rank
+            # 22c, 22e-22j: each run's launches on each rank
             "mesh_runs_launches": {run: [per.get(name, 0) for per in v["launches"]]
-                                   for run, v in mesh["train"]["runs"].items()}}
+                                   for run, v in {**mesh["train"]["runs"],
+                                                  **mesh["tp"]["runs"]}.items()}}
     t = flash["training"]
     print(f"training main path launches of flash_fwd: {train_launches['flash_fwd']} "
           "(the flash_fwd row counts the serving main path's and times its shape); at the "

@@ -25,6 +25,28 @@ and this rank's block of it (a streaming mask's block, the sync delay's
 FIFO slot). With no groups installed and plain tensors each is the
 identity, so the one-process path is unchanged.
 
+Tensor parallelism over 'model' (the reference's compute layout:
+``launch/sharding.param_spec`` puts every weight's last dim on 'model' and
+``launch/steps.activation_rules`` lays the residual stream and the FFN
+hidden over it, so GSPMD splits each worker's forward and backward), written
+out by hand, Megatron's way. When :class:`MeshGroups` names a ``model``
+group, each rank holds its block of every worker's block matrices
+(:func:`split_dim`: column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_in`` /
+``w_gate`` split along dim -1, row-parallel ``wo`` / ``w_out`` along dim
+-2) and every other leaf whole. Each rank projects its own heads and FFN
+columns, and two conjugate exchanges over ``launch/mesh.all_reduce_sum``
+(summed in fp32 in rank order, cast once) carry the split:
+:func:`copy_in` (identity forward, gradient summed over 'model' backward)
+at each column-parallel input and at :func:`shared_weight` (QK-norm's
+scales, applied to the rank's heads only), and :func:`reduce_out` (the
+partials summed forward, identity backward) after each row-parallel
+product. :func:`on_whole` runs a function on a split leaf gathered whole
+(Muon's Newton-Schulz), :func:`whole_shape` reads a split leaf's whole
+shape, and :func:`gather_model` / :func:`split_model` move a tree of worker
+leaves between whole and split (the outer sync runs on whole leaves). The
+sums' bytes count under ``launch/mesh.RECEIVED['model']``, the gathers'
+under ``'model_momentum'`` (Muon) and ``'model_sync'`` (the sync).
+
 Byte accounting: :func:`measured_sync_bytes` sizes the buffers the
 collective moves (codes, row metadata, indices, packing padding) in closed
 form from the leaf shapes, allocating nothing; it is the per-round
@@ -43,7 +65,7 @@ import torch
 from repro_torch.core.compression import CompressionConfig, ef_accumulate
 from repro_torch.core.wire import _row_layout, decode_leaf, encode_leaf
 from repro_torch.kernels.quantize import packed_width
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_map_with_path, tree_unzip
 
 Tree = Any
 
@@ -51,11 +73,14 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class MeshGroups:
     """The process groups a mesh round exchanges over: ``workers`` ('pod':
-    each rank holds K / pod workers) and ``data`` (each rank holds B / data
-    rows of its workers' batches); None where the axis has one rank."""
+    each rank holds K / pod workers), ``data`` (each rank holds B / data
+    rows of its workers' batches) and ``model`` (on a tensor-parallel round
+    only: each rank holds its block of every worker's split matrices); None
+    where the axis has one rank or does not split."""
 
     workers: Any = None
     data: Any = None
+    model: Any = None
 
 
 _GROUPS: ContextVar[MeshGroups | None] = ContextVar("mesh_groups", default=None)
@@ -124,6 +149,142 @@ def local_workers(x: torch.Tensor) -> torch.Tensor:
     k = x.shape[0] // n
     r = dist.get_rank(groups.workers)
     return x[r * k:(r + 1) * k]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over 'model'
+# ---------------------------------------------------------------------------
+
+COLUMN = ("attn/wq", "attn/wk", "attn/wv", "mlp/w_in", "mlp/w_gate")
+ROW = ("attn/wo", "mlp/w_out")
+
+
+def split_dim(path: str) -> int | None:
+    """The dim of a leaf that a tensor-parallel worker splits over 'model'
+    (-1 column-parallel, -2 row-parallel), or None (the leaf stays whole).
+    ``path`` is a param path (``layers/attn/wq``) or the path of a state leaf
+    that follows its param (``tx/muon/0/m/layers/attn/wq``)."""
+    for names, dim in ((COLUMN, -1), (ROW, -2)):
+        if any(path == n or path.endswith("/" + n) for n in names):
+            return dim
+    return None
+
+
+def model_group():
+    """The installed 'model' group of a tensor-parallel round, or None."""
+    groups = _GROUPS.get()
+    return None if groups is None else groups.model
+
+
+def _model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every 'model' rank's ``x``, in fp32 and rank order, cast
+    once to ``x``'s dtype (gloo may not reduce bf16; one cast is also closer
+    to the one process's single rounding)."""
+    from repro_torch.launch.mesh import all_reduce_sum
+
+    return all_reduce_sum(x.float(), group, tag="model").to(x.dtype)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward, the gradient summed over 'model' backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_sum(grad, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """The partials summed over 'model' forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _model_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation entering column-parallel products."""
+    group = model_group()
+    return x if group is None else _CopyIn.apply(x, group)
+
+
+def shared_weight(w: torch.Tensor) -> torch.Tensor:
+    """A whole weight each rank applies to its own heads only (QK-norm's
+    scales): its gradient covers the rank's heads and is summed over
+    'model'."""
+    group = model_group()
+    return w if group is None else _CopyIn.apply(w, group)
+
+
+def reduce_out(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial, summed over 'model'."""
+    group = model_group()
+    return x if group is None else _ReduceOut.apply(x, group)
+
+
+def model_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of a whole tensor along ``dim`` (a contiguous copy)."""
+    import torch.distributed as dist
+
+    return x.chunk(dist.get_world_size(group), dim=dim)[dist.get_rank(group)].contiguous()
+
+
+def _split(path: str, x) -> int | None:
+    dim = split_dim(path)
+    return dim if dim is not None and x is not None and x.dim() >= 2 else None
+
+
+def on_whole(path: str, x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` of a leaf: a split leaf is gathered whole over 'model', ``fn``
+    runs on the whole (the same on every rank) and the rank's block of the
+    result is returned; any other leaf goes to ``fn`` as it is."""
+    group, dim = model_group(), _split(path, x)
+    if group is None or dim is None:
+        return fn(x)
+    from repro_torch.launch.mesh import all_gather
+
+    return model_block(fn(all_gather(x, group, dim=dim, tag="model_momentum")), dim, group)
+
+
+def whole_shape(path: str, shape: tuple) -> tuple:
+    """The whole leaf's shape of a (possibly split) leaf's ``shape``."""
+    group, dim = model_group(), split_dim(path)
+    if group is None or dim is None or len(shape) < 2:
+        return tuple(shape)
+    import torch.distributed as dist
+
+    out = list(shape)
+    out[dim] *= dist.get_world_size(group)
+    return tuple(out)
+
+
+def gather_model(tree: Tree, group=None, tag: str = "model_sync") -> Tree:
+    """Every split leaf of a tree of worker leaves gathered whole over
+    'model' (``group``, or the installed one; the tree as it is with none)."""
+    group = group or model_group()
+    if group is None:
+        return tree
+    from repro_torch.launch.mesh import all_gather
+
+    return tree_map_with_path(lambda p, x: x if _split(p, x) is None
+                              else all_gather(x, group, dim=_split(p, x), tag=tag), tree)
+
+
+def split_model(tree: Tree, group=None) -> Tree:
+    """Each splittable leaf of a tree of whole leaves as this rank's block."""
+    group = group or model_group()
+    if group is None:
+        return tree
+    return tree_map_with_path(lambda p, x: x if _split(p, x) is None
+                              else model_block(x, _split(p, x), group), tree)
 
 
 def _is_dtensor(x) -> bool:

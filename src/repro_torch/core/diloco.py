@@ -27,7 +27,9 @@ round reads the rank's workers' entries of the replicated [K] mask
 (``local_workers``) and averages over the global one; a streaming segment
 merges the outer state on each rank's block; the sync delay's FIFO holds
 each slot in the outer layout; the DP config gathers its K = 1 worker's
-params into the outer layout.
+params into the outer layout. On a tensor-parallel round each rank holds its
+block of the workers' split matrices and the sync runs on them gathered
+whole over 'model' (:func:`outer_step`).
 
 The pseudogradient path Δ -> compress/EF -> reduce -> outer descent is the
 chain :func:`make_outer` declares (:class:`OuterOptimizer`), with the
@@ -68,14 +70,17 @@ from repro_torch.core.collectives import (
     block,
     data_mean,
     from_block,
+    gather_model,
     gather_workers,
     like,
     local,
     local_workers,
     measured_sync_bytes,
+    model_group,
     participation_mean,
     reduce_mean,
     segment_sync_update,
+    split_model,
     whole,
 )
 from repro_torch.core.compression import CompressionConfig, compress, error_feedback
@@ -435,7 +440,22 @@ def outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None = None,
     With ``dcfg.outer_enabled=False`` (the DP config) the synced params are
     the K-mean of the worker params (``w[0]`` at K = 1), broadcast back: no
     outer transform, no compression, and no use of ``outer_opt`` or ``ef``.
+
+    On a tensor-parallel round (``collectives.model_group``) the worker
+    params are gathered whole over 'model' first and split back to this
+    rank's blocks after the reset, so Δ, the wire, EF, the streaming masks
+    and the outer update see the leaves the one process does.
     """
+    if model_group() is None:
+        return _outer_step(dcfg, state, mask, outer, participation)
+    state["worker_params"] = gather_model(state["worker_params"])
+    state, psi = _outer_step(dcfg, state, mask, outer, participation)
+    state["worker_params"] = split_model(state["worker_params"])
+    return state, psi
+
+
+def _outer_step(dcfg: DiLoCoConfig, state: dict, mask: Tree | None, outer: OuterOptimizer | None,
+                participation) -> tuple[dict, Tree]:
     if participation is _FROM_STATE:
         participation = state.get("participation")
     if not dcfg.outer_enabled:

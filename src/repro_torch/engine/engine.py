@@ -42,7 +42,18 @@ runs on the state's compute layout (:meth:`compute_state`): each rank
 holds its own K / pod workers, each worker tree whole (gathered over
 'data' and 'model' once), and its B / data rows of their batches, while the
 outer params and outer optimizer state stay DTensors in their ZeRO layout,
-where the outer update runs on each rank's block. The worker loop runs over
+where the outer update runs on each rank's block. When the mesh's 'model'
+axis splits each worker's compute (``launch/steps.tp_compute``: the dense
+LM with heads, kv heads and widths that divide it), the worker leaves are
+gathered over 'data' only and each rank keeps its block of the split
+matrices (``core/collectives.py``: column-parallel ``wq`` / ``wk`` /
+``wv`` / ``w_in`` / ``w_gate`` as they rest, row-parallel ``wo`` / ``w_out``
+moved to dim -2 once), their inner-optimizer state following them; the
+forward and backward run tensor-parallel, Muon orthogonalizes each split
+matrix whole, the sync gathers the worker params whole over 'model' and
+splits them back after the reset, and the eval loss runs the same split
+forward. Any other config with 'model' > 1 says once why it keeps each
+worker whole on every 'model' rank. The worker loop runs over
 the rank's own workers; the exchanges are those of
 :mod:`repro_torch.core.collectives` (gradients averaged over 'data', the
 losses and the wire packets gathered across 'pod' and summed in the
@@ -81,7 +92,7 @@ from repro_torch.core.diloco import (
 )
 from repro_torch.engine.superstep import build_superstep_fn, round_program
 from repro_torch.optim import OptimizerConfig
-from repro_torch.utils.tree import tree_leaves_with_paths, tree_map
+from repro_torch.utils.tree import tree_leaves_with_paths, tree_map, tree_map_with_path
 
 Tree = Any
 
@@ -175,6 +186,8 @@ class TrainEngine:
 
                 kernel_parts = kernel_specs(mesh, getattr(model, "cfg", None))
         self.kernel_parts = kernel_parts
+        # the 'model' group of a tensor-parallel round, or None
+        self.model_group = None if mesh is None else self._tensor_parallel(dcfg)
         self.capture = capture
         self.opt = make_optimizer(dcfg, icfg)
         self.outer = make_outer(dcfg, state_dtype=icfg.state_dtype)
@@ -243,23 +256,61 @@ class TrainEngine:
             return {k: v.to_local() for k, v in batches.items()}
         return {k: v.to_local() for k, v in self.place_batches(batches, leading_scan).items()}
 
+    def _tensor_parallel(self, dcfg: DiLoCoConfig):
+        """The round's 'model' group when the mesh splits each worker's
+        compute over it (``launch/steps.tp_compute``), else None; with
+        'model' > 1 and no split, rank 0 says once why."""
+        import sys
+
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_axis_sizes
+        from repro_torch.launch.steps import tp_compute
+
+        M = mesh_axis_sizes(self.mesh).get("model", 1)
+        if M <= 1:
+            return None
+        on, why = tp_compute(self.model.cfg, self.mesh)
+        if not on:
+            if dist.get_rank() == 0:
+                print(f"tensor parallel: off on 'model' = {M} ({why}): every 'model' rank "
+                      "computes each worker whole", file=sys.stderr, flush=True)
+            return None
+        if dcfg.inner_name == "normuon":
+            raise ValueError(f"--inner normuon under tensor parallelism ('model' = {M}): its "
+                             "neuron-wise RMS reads whole rows of each update, which a rank's "
+                             "block of a split matrix does not hold; train it on 'model' = 1")
+        return self.mesh.get_group("model")
+
     def compute_state(self, state: dict) -> dict:
         """The compute layout of a placed state (the identity on a state in
         it already): the worker groups as plain [K / pod, ...] tensors, each
-        worker whole (gathered over every mesh axis but 'pod'); the outer
-        params, outer optimizer state and the sync delay's FIFO as they are
-        (DTensors); the counters, the participation mask and the health
-        stats as plain tensors (replicated: whole on every rank)."""
-        from torch.distributed.tensor import DTensor, Replicate
+        worker whole (gathered over every mesh axis but 'pod'), or, on a
+        tensor-parallel round, each split matrix of ``worker_params`` and
+        ``inner_state`` as this rank's block over 'model'
+        (``collectives.split_dim``: a column-parallel leaf keeps the
+        block it rests in, a row-parallel one is gathered and split along
+        dim -2); the outer params, outer optimizer state and the sync
+        delay's FIFO as they are (DTensors); the counters, the participation
+        mask and the health stats as plain tensors (replicated: whole on
+        every rank)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
 
+        from repro_torch.core.collectives import model_block, split_dim
         from repro_torch.launch.mesh import gather_whole
 
-        def worker(x):  # gathered over every axis but 'pod'
+        names = list(self.mesh.mesh_dim_names)
+        group = self.model_group
+
+        def worker(path, x, split=True):  # gathered over every axis but 'pod'
             if not isinstance(x, DTensor):
                 return x
-            pl = [Replicate() if name == "pod" else p
-                  for name, p in zip(self.mesh.mesh_dim_names, x.placements)]
-            return gather_whole(x.to_local(), self.mesh, pl, tag="workers")
+            dim = split_dim(path) if group is not None and split and x.dim() >= 3 else None
+            keep = dim == -1 and x.placements[names.index("model")] == Shard(x.dim() - 1)
+            pl = [Replicate() if name == "pod" or (keep and name == "model") else p
+                  for name, p in zip(names, x.placements)]
+            out = gather_whole(x.to_local(), self.mesh, pl, tag="workers")
+            return out if dim is None or keep else model_block(out, dim, group)
 
         def plain(x):
             return x.to_local() if isinstance(x, DTensor) else x
@@ -267,7 +318,8 @@ class TrainEngine:
         out = {}
         for key, sub in state.items():
             if key in ("worker_params", "inner_state", "ef"):
-                out[key] = tree_map(worker, sub)
+                out[key] = tree_map_with_path(
+                    lambda p, x, split=key != "ef": worker(p, x, split), sub)
             elif key in _OUTER_LAYOUT:
                 out[key] = sub
             else:
@@ -282,7 +334,7 @@ class TrainEngine:
 
         if self.mesh is None:
             return state
-        state = self.compute_state(state)
+        state = self._whole_over_model(self.compute_state(state))
         with mesh_groups(self._groups()):
             return {key: (tree_map(gather_workers, sub)
                           if key in ("worker_params", "inner_state", "ef")
@@ -311,11 +363,36 @@ class TrainEngine:
         def worker(x):
             return host(x) if pods is None else gather_host(x, pods, tag="workers")
 
-        state = self.compute_state(state)
+        state = self._whole_over_model(self.compute_state(state))
         out = {key: tree_map(worker if key in ("worker_params", "inner_state", "ef")
                              else lambda x: host(whole(x)), sub)
                for key, sub in state.items()}
         return out if first else None
+
+    def _whole_over_model(self, state: dict) -> dict:
+        """A compute-layout state with its worker params and inner state
+        gathered whole over 'model' (a collective every rank takes on a
+        tensor-parallel round; the state as it is otherwise)."""
+        if self.model_group is None:
+            return state
+        from repro_torch.core.collectives import gather_model
+
+        return {key: (gather_model(sub, self.model_group, tag="workers")
+                      if key in ("worker_params", "inner_state") else sub)
+                for key, sub in state.items()}
+
+    def mesh_context(self):
+        """The context a mesh round runs in: the kernels' routing and the
+        mesh's groups ('model' among them on a tensor-parallel round)."""
+        import contextlib
+
+        from repro_torch.core.collectives import mesh_groups
+        from repro_torch.kernels.partition import kernel_partitioning
+
+        stack = contextlib.ExitStack()
+        for ctx in (kernel_partitioning(self.kernel_parts), mesh_groups(self._groups())):
+            stack.enter_context(ctx)
+        return stack
 
     def agree_max(self, values: list[float]) -> list[float]:
         """The element-wise max of a host list over every rank (the list as
@@ -359,7 +436,7 @@ class TrainEngine:
                 return None
             return self.mesh.get_group(name)
 
-        return MeshGroups(workers=group("pod"), data=group("data"))
+        return MeshGroups(workers=group("pod"), data=group("data"), model=self.model_group)
 
     # -- the round program ----------------------------------------------------
 
@@ -425,6 +502,11 @@ class TrainEngine:
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         self.warmup_s.append(time.perf_counter() - t0)
+        # the warm-up's freed blocks stay cached for its side stream, which the
+        # capture's pool cannot take, and nothing cached can be freed during a
+        # capture: release them first (whisper-large-v3's round needs its
+        # transient twice, ~21 GB, beside a 39.5 GB state on an 80 GB card)
+        torch.cuda.empty_cache()
         graph = CapturedRound(functools.partial(self._program, masked=masked), state, batches,
                               eval_batch)
         self.capture_s.append(graph.capture_s)
@@ -463,12 +545,9 @@ class TrainEngine:
                                           program=self._dispatch_round)
         if self.mesh is None:
             return superstep_fn(state, batches, eval_batches, participation, ckpt_flags)
-        from repro_torch.core.collectives import mesh_groups
-        from repro_torch.kernels.partition import kernel_partitioning
-
         state = self.compute_state(state)
         local = self.local_batches(batches, 2)
-        with kernel_partitioning(self.kernel_parts), mesh_groups(self._groups()):
+        with self.mesh_context():
             return superstep_fn(state, local, eval_batches, participation, ckpt_flags)
 
     def _emit_checkpoint(self, state: dict) -> None:
@@ -559,10 +638,11 @@ class TrainEngine:
     def eval_loss(self, params: Tree, batch: dict) -> torch.Tensor:
         """Loss of the synced (outer) params on one un-stacked batch (the
         function the round program folds in); on a mesh every rank takes the
-        whole batch on the whole params."""
-        from repro_torch.core.collectives import whole
+        whole batch on the whole params, split over 'model' as the workers
+        are on a tensor-parallel round."""
+        from repro_torch.core.collectives import split_model, whole
 
-        return self.model.loss(tree_map(whole, params), batch)[0]
+        return self.model.loss(split_model(tree_map(whole, params)), batch)[0]
 
 
 # the TrainState fields a mesh round keeps in the outer state's ZeRO layout

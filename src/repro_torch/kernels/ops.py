@@ -23,6 +23,8 @@ tile, and the arguments change nothing.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import autotune
@@ -120,14 +122,21 @@ def ns_orthogonalize(g: torch.Tensor, iters: int = 5, eps: float = 1e-7,
     numeric mode). Leading dims fold into the kernel's batch axis.
     ``block=None`` consults the autotune table on the card for the stack
     ``[L, m, n]`` the launches cover (``autotune.ns_block``) and takes the
-    default tile on a miss."""
+    default tile on a miss.
+
+    On a mesh the stack axis splits over ``ns_axes`` (the reference's
+    ('data',)): each rank runs its share of the stack and the results are
+    gathered whole. A plain operand is a worker's whole momentum, the same
+    on every 'data' rank (its gradients were averaged there), so this call,
+    and no other kernel's, takes plain operands whole (``plain_whole``)."""
     *batch, m, n = g.shape
     part = active_partitioning()
     if part is None:
         return _ns_local(g.reshape((-1, m, n)), iters, eps, block).reshape(g.shape)
     g3 = g.reshape((-1, m, n))
     spec = ns_stack_spec(part, g3.shape[0])
-    fn = shard_wrap(lambda x: _ns_local(x, iters, eps, block), part, (spec,), spec)
+    fn = shard_wrap(lambda x: _ns_local(x, iters, eps, block),
+                    dataclasses.replace(part, plain_whole=True), (spec,), spec)
     return fn(g3).reshape(g.shape)
 
 

@@ -22,9 +22,11 @@ What an operand is:
 * a plain tensor is the rank's local block already (the mesh trainer's
   compute layout: each rank holds its own workers and its own batch rows),
   and runs as given; with ``plain_whole=True`` (the mesh serving engine,
-  whose ranks hold every slot) a plain tensor is the whole tensor, present
-  on every rank: its local block is sliced by the spec, and the outputs are
-  gathered back whole (:func:`repro_torch.launch.mesh.gather_whole`).
+  whose ranks hold every slot, and the trainer's Newton-Schulz call, whose
+  momentum stack is whole on every 'data' rank: ``ops.ns_orthogonalize``) a
+  plain tensor is the whole tensor, present on every rank: its local block
+  is sliced by the spec, and the outputs are gathered back whole
+  (:func:`repro_torch.launch.mesh.gather_whole`).
 
 The routing lives in a ContextVar (:func:`kernel_partitioning`), installed
 by the engines and the step plans around every step; the wrappers in

@@ -112,6 +112,17 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def host_staged(mesh) -> bool:
+    """Whether a DeviceMesh's collectives stage CUDA tensors through pinned
+    host memory (gloo on the card); False for a CPU mesh, NCCL or a dict of
+    axis sizes."""
+    if getattr(mesh, "device_type", None) != "cuda":
+        return False
+    import torch.distributed as dist
+
+    return dist.get_backend(mesh.get_group(0)) == "gloo"
+
+
 def _note(name: str) -> None:
     if name not in STAGED:
         print(f"mesh transport: {name} of CUDA tensors on gloo staged through pinned host "

@@ -248,8 +248,14 @@ def kernel_specs(mesh, cfg=None, plain_whole: bool = False):
     Newton-Schulz stack over 'data'; paged decode slots over 'data'; the
     outer update in the outer-state layout, dim -1 on 'model' only for
     tensor-parallel-friendly archs). None for a mesh of one rank.
-    ``plain_whole`` as :class:`repro_torch.kernels.partition.KernelPartitioning`."""
+    ``plain_whole`` as :class:`repro_torch.kernels.partition.KernelPartitioning`.
+
+    Where the mesh stages CUDA tensors through host memory (gloo on the
+    card: ``launch/mesh.host_staged``) the Newton-Schulz stack runs whole on
+    each rank (``ns_axes=()``): there, gathering the split's results costs
+    11-14x the kernel time the split saves (PERF.md, phase 22j)."""
     from repro_torch.kernels.partition import KernelPartitioning
+    from repro_torch.launch.mesh import host_staged
 
     if mesh is None or mesh_size(mesh) <= 1:
         return None
@@ -264,4 +270,5 @@ def kernel_specs(mesh, cfg=None, plain_whole: bool = False):
 
         outer_tp = tp_friendly(cfg, sizes)
     return KernelPartitioning(mesh=mesh, flash_axes=flash, outer_tp=outer_tp,
+                              ns_axes=() if host_staged(mesh) else ("data",),
                               plain_whole=plain_whole)

@@ -106,6 +106,25 @@ def tp_friendly(cfg: ModelConfig, mesh) -> bool:
     return cfg.n_heads % model_n == 0 and cfg.hd % 2 == 0
 
 
+def tp_compute(cfg: ModelConfig, mesh) -> tuple[bool, str]:
+    """Whether a mesh round splits each worker's compute over 'model'
+    (``core/collectives.py``), and why not: the dense LM only, with
+    :func:`tp_friendly` heads, kv heads, d_model and d_ff that divide the
+    axis. Otherwise every 'model' rank computes each worker whole."""
+    model_n = mesh_axis_sizes(mesh).get("model", 1)
+    if model_n <= 1:
+        return False, "'model' = 1"
+    if cfg.arch_type != "dense" or cfg.n_experts:
+        return False, (f"the {cfg.arch_type} family has no tensor-parallel compute "
+                       "(the dense LM's only)")
+    if not tp_friendly(cfg, mesh):
+        return False, f"{cfg.n_heads} heads of hd {cfg.hd} do not split over 'model' = {model_n}"
+    for name in ("n_kv_heads", "d_model", "d_ff"):
+        if getattr(cfg, name) % model_n:
+            return False, f"{name} = {getattr(cfg, name)} does not divide over 'model' = {model_n}"
+    return True, ""
+
+
 def activation_rules(mesh, batch_per_worker: int, cfg: ModelConfig,
                      train: bool = True) -> dict[str, P]:
     """Named activation specs installed around every step (the reference's):
@@ -135,15 +154,12 @@ def activation_rules(mesh, batch_per_worker: int, cfg: ModelConfig,
 def _mesh_call(engine, rules: dict, fn: Callable) -> Callable:
     """``fn(state, *batches)`` on the mesh: the state and batches (placed
     DTensors, or whole on a one-rank mesh) taken to the compute layout, then
-    ``fn`` under the routing, the mesh's groups and the activation rules."""
-    from repro_torch.core.collectives import mesh_groups
-    from repro_torch.kernels.partition import kernel_partitioning
-
+    ``fn`` under the routing, the mesh's groups, the 'model' axis of a
+    tensor-parallel round and the activation rules."""
     def call(state, *batches):
         state = engine.compute_state(state)
         local = [engine.local_batches(b) for b in batches]
-        with activation_sharding(rules), kernel_partitioning(engine.kernel_parts), \
-                mesh_groups(engine._groups()):
+        with activation_sharding(rules), engine.mesh_context():
             return fn(state, *local)
 
     return call

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import (
     paged_decode_attention,
     visited_kv_range,
 )
+from repro_torch.core.collectives import copy_in, reduce_out, shared_weight
 from repro_torch.models.common import ModelConfig, apply_rope, dense_init, rms_norm
 
 Tree = Any
@@ -58,17 +59,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def _project_qkv(p: Tree, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor):
-    """Project to q [B,S,H,hd], k/v [B,Skv,KV,hd] with optional QK-norm."""
+    """Project to q [B,S,H,hd], k/v [B,Skv,KV,hd] with optional QK-norm. H
+    and KV are the heads the weights hold: all of them, or under tensor
+    parallelism this rank's H / M and KV / M (``core/collectives.py``),
+    whose QK-norm gradients are summed over 'model'."""
     B, S, _ = x.shape
     Skv = kv_x.shape[1]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     dt = cfg.compute_dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
     k = (kv_x @ p["wk"].to(dt)).reshape(B, Skv, KV, hd)
     v = (kv_x @ p["wv"].to(dt)).reshape(B, Skv, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm_scale"])
-        k = rms_norm(k, p["k_norm_scale"])
+        q = rms_norm(q, shared_weight(p["q_norm_scale"]))
+        k = rms_norm(k, shared_weight(p["k_norm_scale"]))
     return q, k, v
 
 
@@ -101,7 +106,11 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     (:func:`_blockwise_attention`) at and above it. Rows attend by absolute
     position (``positions == arange(S)``). ``return_kv=True`` also returns
     the post-RoPE ``(k, v)`` ([B, S, KV, hd] each) for filling a KV cache.
+    Under tensor parallelism (``core/collectives.py``) the rank runs
+    its own heads and the partial outputs of its rows of ``wo`` are summed
+    over 'model'.
     """
+    x = copy_in(x)
     q, k, v = _project_qkv(p, cfg, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -126,7 +135,7 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             scores = torch.where(mask[None, None, None], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         o = _gqa_out(probs, v)
-    out = o @ p["wo"].to(cfg.compute_dtype)
+    out = reduce_out(o @ p["wo"].to(cfg.compute_dtype))
     if return_kv:
         return out, (k, v)
     return out

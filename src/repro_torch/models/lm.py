@@ -11,6 +11,7 @@ load-balance aux is summed over the layers in the reference's order.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Any
 
@@ -127,7 +128,11 @@ def forward_lm(cfg: ModelConfig, params: Tree, tokens: torch.Tensor, last_only: 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params["layers"], cfg.n_layers):
         if remat:
-            x, a = checkpoint(lambda x, lp=lp: _block(cfg, x, lp, positions), x,
+            # the recomputation runs in the forward's context (the 'model' axis
+            # of a tensor-parallel round, the kernels' routing): on the card
+            # autograd recomputes on its own thread, which sees no ContextVar
+            x, a = checkpoint(lambda x, lp=lp, ctx=contextvars.copy_context():
+                              ctx.run(_block, cfg, x, lp, positions), x,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = _block(cfg, x, lp, positions)

@@ -20,6 +20,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import copy_in, reduce_out
 from repro_torch.models.common import ModelConfig, activation_fn, dense_init
 
 Tree = Any
@@ -40,13 +41,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device, n_layers: int | Non
 
 
 def mlp(p: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN; under tensor parallelism (``core/collectives.py``)
+    on the rank's columns of ``w_in`` / ``w_gate`` and rows of ``w_out``, the
+    partial outputs summed over 'model'."""
     dt = cfg.compute_dtype
+    x = copy_in(x)
     h = x @ p["w_in"].to(dt)
     if cfg.activation == "swiglu":
         h = activation_fn("swiglu", h, x @ p["w_gate"].to(dt))
     else:
         h = activation_fn(cfg.activation, h)
-    return h @ p["w_out"].to(dt)
+    return reduce_out(h @ p["w_out"].to(dt))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@ plain mode, normalised in fp32 and iterated in bf16, in plain PyTorch. The
 reference's ``shard_hint`` resharding hints are no-ops on one card and are
 left out. Variants (MuonBP, NorMuon) swap or extend the "muon" chain:
 :mod:`repro_torch.optim.muon_variants`.
+
+Under tensor parallelism (``core/collectives.py``) a rank holds its
+block of each split matrix: the momentum is gathered whole over 'model'
+before Newton–Schulz and the rank keeps its block of the result, and the
+lr scale reads the whole matrix's shape.
 """
 from __future__ import annotations
 
@@ -132,11 +137,20 @@ def trace_momentum(cfg: OptimizerConfig) -> Transform:
     return Transform(init=init, update=update)
 
 
+def ns_tree(ns_fn, iters: int, u: Tree) -> Tree:
+    """``ns_fn`` on each [..., m, n] update of a tree; a leaf split over
+    'model' is orthogonalized whole (``collectives.on_whole``)."""
+    from repro_torch.core.collectives import on_whole
+
+    return tree_map_with_path(
+        lambda path, m: on_whole(path, m, lambda w: ns_fn(w, iters=iters).float()), u)
+
+
 def orthogonalize(cfg: OptimizerConfig, ns_impl: str = "jnp") -> Transform:
     """Newton–Schulz orthogonalization of each [..., m, n] update."""
     ns_fn = ns_fn_for(ns_impl)
     iters = cfg.ns_iters
-    return stateless(lambda u, _params: tree_map(lambda m: ns_fn(m, iters=iters).float(), u))
+    return stateless(lambda u, _params: ns_tree(ns_fn, iters, u))
 
 
 def muon_partition(cfg: OptimizerConfig, muon_chain: Transform) -> Transform:
@@ -150,8 +164,11 @@ def muon_mults(cfg: OptimizerConfig, adamw_lr_ratio: float = 1.0):
     get the optional lr ratio on both terms."""
 
     def mults(path: str, leaf) -> tuple[float, float]:
+        from repro_torch.core.collectives import whole_shape
+
         if muon_label(path, leaf) == "muon":
-            return _muon_lr_scale(leaf.shape, cfg.muon_lr_scale_mode), 1.0
+            return _muon_lr_scale(whole_shape(path, tuple(leaf.shape)),
+                                  cfg.muon_lr_scale_mode), 1.0
         return adamw_lr_ratio, adamw_lr_ratio
 
     return mults

@@ -32,7 +32,7 @@ from repro_torch.optim.muon import (
     trace_momentum,
 )
 from repro_torch.optim.transform import Transform, _zero_count, chain
-from repro_torch.utils.tree import tree_map, tree_unzip
+from repro_torch.utils.tree import tree_map, tree_map_with_path, tree_unzip
 
 Tree = Any
 
@@ -49,13 +49,16 @@ def orthogonalize_periodic(cfg: OptimizerConfig, ns_impl: str = "jnp") -> Transf
         return {"count": _zero_count(tree)}
 
     def update(updates: Tree, state: Tree, params: Tree):
+        from repro_torch.core.collectives import on_whole
+
         count = state["count"] + 1
         do_ns = torch.remainder(count - 1, period) == 0
 
-        def per_leaf(m):
-            return torch.where(do_ns, ns_fn(m, iters=iters).float(), m.float())
+        def per_leaf(path, m):  # a leaf split over 'model' orthogonalized whole
+            return torch.where(do_ns, on_whole(path, m, lambda w: ns_fn(w, iters=iters).float()),
+                               m.float())
 
-        return tree_map(per_leaf, updates), {"count": count}
+        return tree_map_with_path(per_leaf, updates), {"count": count}
 
     return Transform(init=init, update=update)
 

@@ -21,6 +21,16 @@ tolerance of ``test_compressed_round_matches_reference``, and the Muon and
 AdamW DP baselines (``dp_engine(..., mesh=)``) on the (data=2, model=2)
 mesh within :data:`DP_TOL`.
 
+``MESH_TP=1`` (a world of 2 ranks): tensor parallelism over 'model' on the
+1x2 mesh (``core/collectives.py``): the narrow dense LM of
+:data:`TP_CFG` against one process within :data:`TP_TOL` (plain, streaming,
+elastic drops, a sync delay, the DP baseline) and its planted faults outside
+it, streaming on the 2-bit EF wire within :data:`TP_WIRE_TOL`, each rank's
+block shapes, a config that does not split (bitwise the whole-worker
+round), the checkpoint / resume and NaN drills through the CLI, what raises
+by name; and Newton-Schulz's stack split over 'data' on (data = 2), bitwise
+the same mesh with ``ns_axes=()``.
+
 ``MESH_DRILL=kill`` / ``MESH_DRILL=resume`` (worlds of 2 ranks started one
 after the other): the train CLI on ``2x1x1`` with ``--inject-kill-round 1``
 (every rank dies by SIGKILL), then ``--resume auto`` in a new world, whose
@@ -495,6 +505,274 @@ def drill(kind: str, out_dir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism over 'model' (MESH_TP=1, a world of 2 ranks)
+# ---------------------------------------------------------------------------
+
+# a narrow dense LM in fp32 that splits over 'model' = 2: 2 layers, d 64, 4
+# heads of 16 over 2 kv heads, d_ff 128, vocab 256 (QK-norm, post-norms and
+# an untied head, the paper ladder's layout), Newton-Schulz through the
+# kernel route (fp32 iterations)
+TP_CFG = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=256)
+# the tensor-parallel round against one process (fp32 on the CPU): the
+# largest per-step train-loss gap and the largest gap of any outer-param
+# leaf after two rounds. The split sums each product over 'model' in
+# another order than one process, so neither is bitwise, and AdamW's
+# normalised step (Muon's embed, head and norm leaves) turns a nearly
+# cancelling gradient's last bits into a share of a step. The sound 1x2
+# runs read losses up to 9.5e-7 and params up to 8.4e-5 apart (head); the
+# planted faults (the MLP's row-parallel sum skipped; the QK-norm gradients
+# not summed) 4.6e-2 / 2.2e-1 and 9.7e-3 / 8.2e-2: each limit is about the
+# geometric mean of the sound and the nearer fault reading, ~100x (losses)
+# and ~30x (params) from both
+TP_TOL = dict(loss=1e-4, param=2.5e-3)
+# streaming on the 2-bit EF wire: a code flips wherever a delta sits within
+# those gaps of a grid line, a third of a row's range, so no run that sums in
+# another order holds TP_TOL (the same command on (data = 2) without tensor
+# parallelism reads losses 5.6e-3 apart after two rounds). Held on the
+# outer params alone: the sound 1x2 run reads 6.6e-2 (embed), a planted
+# fault in the sync's layout (each rank given the other's blocks back after
+# the reset) 1.34 (wv); the limit is their geometric mean
+TP_WIRE_TOL = dict(loss=float("inf"), param=0.3)
+# the checkpoint / resume and NaN drills' command: paper-150m at reduced
+# widths (4 heads of 64, MHA, d_ff 512) on the 1x2 mesh
+TP_CLI = ["--arch", "paper-150m", "--reduced", "--device", "cpu", "--workers", "2",
+          "--sync-interval", "2", "--seq-len", "16", "--batch-per-worker", "2", "--seed", "0"]
+
+
+def tp_setup(over: dict | None = None):
+    import dataclasses
+
+    cfg = reduce_config(get_config("paper-150m")).replace(attn_impl="pallas", **TP_CFG)
+    dcfg = DiLoCoConfig(n_workers=2, sync_interval=2, inner_name="muon", ns_impl="pallas",
+                        outer_kernel=True)
+    dcfg = dataclasses.replace(dcfg, **(over or {}))
+    icfg = OptimizerConfig(lr=2e-2, weight_decay=1e-4, schedule="constant")
+    stream = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=16, batch_per_worker=2,
+                                     n_workers=dcfg.n_workers, seed=3), "cpu")
+    return cfg, dcfg, icfg, stream
+
+
+def tp_rounds(mesh=None, over: dict | None = None, drops: str | None = None,
+              dp: bool = False) -> dict:
+    """Two rounds (DP: three steps) of the narrow LM on ``mesh`` or in one
+    process: each round's losses, the whole outer params, and each worker
+    leaf's block shape on this rank after the rounds."""
+    from repro_torch.core.faults import parse_drop_schedule
+
+    cfg, dcfg, icfg, stream = tp_setup(over)
+    if dp:  # one worker of 4 rows
+        stream = MarkovStream(DataConfig(vocab=cfg.vocab, seq_len=16, batch_per_worker=4,
+                                         n_workers=1, seed=5), "cpu")
+        engine = dp_engine(build_model(cfg), "muon", icfg, mesh=mesh)
+    else:
+        engine = TrainEngine(build_model(cfg), dcfg, icfg, mesh=mesh)
+    state = engine.init(torch.Generator().manual_seed(0), "cpu")
+    plan = (FaultPlan(n_workers=dcfg.n_workers, schedule=parse_drop_schedule(drops))
+            if drops else None)
+    H = 1 if dp else dcfg.sync_interval
+    losses = []
+    for r in range(3 if dp else 2):
+        mask = plan.masks(r, 1)[0] if plan is not None else None
+        state, info = engine.step(state, stream.batch_stack(r * H, H), participation=mask)
+        losses.append(info["loss"].clone())
+    blocks = {p: list(t.shape) for p, t in tree_leaves_with_paths(state["worker_params"])}
+    return {"loss": torch.stack(losses),
+            "outer": tree_map(torch.clone, engine.whole_state(state)["outer_params"]),
+            "blocks": blocks, "tp": engine.model_group is not None}
+
+
+def tp_gaps(ref: dict, got: dict, tol: dict) -> dict:
+    """The largest loss and outer-param gaps, and whether both are within
+    ``tol`` or (a planted fault) either is outside it."""
+    gaps = {p: float((a.double() - b.double()).abs().max()) for (p, a), (_, b) in zip(
+        tree_leaves_with_paths(ref["outer"]), tree_leaves_with_paths(got["outer"]))}
+    worst = max(gaps, key=gaps.get)
+    loss = float((ref["loss"].double() - got["loss"].double()).abs().max())
+    within = loss <= tol["loss"] and gaps[worst] <= tol["param"]
+    return {"loss_gap": loss, "param_gap": gaps[worst], "param_leaf": worst,
+            "within": within, "tp": got["tp"]}
+
+
+def _planted(fault: str):
+    """(module, name, stand-in) of a planted tensor-parallel fault."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives, diloco
+    from repro_torch.models import attention, mlp
+    from repro_torch.utils.tree import tree_map_with_path
+
+    if fault == "row_sum":  # the MLP's row-parallel partials left unsummed
+        return mlp, "reduce_out", lambda x: x
+    if fault == "qk_norm":  # QK-norm gradients of the rank's own heads only
+        return attention, "shared_weight", lambda w: w
+
+    def swapped(tree, group=None):  # the sync hands each rank the other rank's blocks back
+        group = group or collectives.model_group()
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+
+        def other(path, x):
+            dim = collectives._split(path, x)
+            return x if dim is None else x.chunk(n, dim=dim)[n - 1 - r].contiguous()
+
+        return tree_map_with_path(other, tree)
+
+    return diloco, "split_model", swapped
+
+
+def check_tp_rounds(mesh) -> dict:
+    """(a) sound, (b) its two planted faults, (e) streaming (dense, and on
+    the 2-bit EF wire beside a planted fault of the sync's layout), elastic
+    drops, a sync delay and the DP baseline, each under 1x2 against one
+    process; the block shapes of the sound run's workers."""
+    wire = VARIANTS["streaming"]
+    runs = {"sound": {}, "streaming": {"streaming_partitions": 2}, "elastic": {"elastic": True},
+            "delay": {"sync_delay": 1}, "dp": None, "row_sum": {}, "qk_norm": {},
+            "streaming_wire": wire, "streaming_wire_swap": wire}
+    out = {}
+    for name, over in runs.items():
+        kw = {"dp": True} if over is None else {
+            "over": over, "drops": DROPS if name == "elastic" else None}
+        ref = tp_rounds(**kw) if RANK == 0 else None
+        fault = {"row_sum": "row_sum", "qk_norm": "qk_norm", "streaming_wire_swap": "swap"}
+        patch = _planted(fault[name]) if name in fault else None
+        saved = getattr(*patch[:2]) if patch else None
+        try:
+            if patch:
+                setattr(patch[0], patch[1], patch[2])
+            got = guarded(lambda: tp_rounds(mesh, **kw))
+        finally:
+            if patch:
+                setattr(patch[0], patch[1], saved)
+        if "error" in got:
+            out[name] = got
+        elif RANK == 0:
+            out[name] = tp_gaps(ref, got, TP_WIRE_TOL if over is wire else TP_TOL)
+        if name == "sound" and "error" not in got:
+            out["blocks"] = got["blocks"]
+    return out
+
+
+def check_ns_split(mesh) -> dict:
+    """(c) one round of the reduced smollm (2-bit EF) on (data = 2), Newton-
+    Schulz's stack split over 'data' against the same mesh with
+    ``ns_axes=()``: every state leaf, the losses and Psi bitwise; the stack
+    rows each call ran on."""
+    import dataclasses
+
+    cfg, dcfg, icfg, batches = round_setup()
+    out = {}
+    for name, axes in (("split", ("data",)), ("whole", ())):
+        parts = dataclasses.replace(kernel_specs(mesh, cfg), ns_axes=axes)
+        rows = []
+        local = ops._ns_local
+
+        def recording(g3, *a):
+            rows.append(int(g3.shape[0]))
+            return local(g3, *a)
+
+        ops._ns_local = recording
+        try:
+            engine = TrainEngine(build_model(cfg), dcfg, icfg, mesh=mesh, kernel_parts=parts)
+            state = engine.init(torch.Generator().manual_seed(0), "cpu")
+            state, info = engine.step(state, batches)
+        finally:
+            ops._ns_local = local
+        out[name] = {"state": {k: tree_map(torch.clone, v)
+                               for k, v in engine.whole_state(state).items()},
+                     "info": info, "rows": sorted(set(rows))}
+    same = compare_variant({"states": [out["whole"]["state"]], "infos": [out["whole"]["info"]],
+                            "frozen": []},
+                           {"states": [out["split"]["state"]], "infos": [out["split"]["info"]],
+                            "frozen": []})
+    return {"bitwise": same["bitwise"], "apart": same["apart"],
+            "rows_split": out["split"]["rows"], "rows_whole": out["whole"]["rows"]}
+
+
+def check_tp_off(mesh) -> dict:
+    """(d) the reduced smollm (one kv head: it does not split over 'model' =
+    2) on 1x2 keeps each worker whole on both ranks, bitwise one process."""
+    ref = one_round() if RANK == 0 else None
+    got = one_round(mesh)
+    cfg, dcfg, icfg, _ = round_setup()
+    tp = TrainEngine(build_model(cfg), dcfg, icfg, mesh=mesh).model_group is not None
+    out = {"tp": tp}
+    if RANK == 0:
+        out.update(compare_round(ref, got, got[2]))
+    return out
+
+
+def check_tp_cli(tmp: str) -> dict:
+    """(f) the train CLI on 1x2 with ``--checkpoint-every 1``, then the same
+    command resumed from its ckpt_1 into another directory: round 1's
+    metrics row (but wall_s) and the final whole state bitwise the
+    uninterrupted run's; ckpt_2 is the whole state (the one-process leaf
+    shapes). And the NaN drill under 1x2 against one process: round 1
+    rolled back and skipped, the losses within ``TP_TOL``."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch.train import build_parser, train
+
+    a, b = os.path.join(tmp, "tp_a"), os.path.join(tmp, "tp_b")
+    args = TP_CLI + ["--rounds", "2", "--checkpoint-every", "1", "--mesh", "1x2"]
+    full = train(build_parser().parse_args(args + ["--out", a]))
+    resumed = train(build_parser().parse_args(
+        args + ["--out", b, "--resume", os.path.join(a, "ckpt_1.npz")]))
+    fa = full["engine"].whole_state(full["state"])
+    fb = resumed["engine"].whole_state(resumed["state"])
+    out = {"tp": full["engine"].model_group is not None,
+           "state_equal": all(torch.equal(x, y) for (_, x), (_, y) in zip(
+               tree_leaves_with_paths(fa), tree_leaves_with_paths(fb)))}
+    nan = TP_CLI + ["--rounds", "3", "--checkpoint-every", "1", "--inner", "adamw", "--lr",
+                    "4e-3", "--health-sentinel", "on", "--health-warmup", "1",
+                    "--inject-nan-round", "1"]
+    got = train(build_parser().parse_args(nan + ["--mesh", "1x2",
+                                                 "--out", os.path.join(tmp, "tp_nan")]))
+    out["nan_telemetry"] = {k: got["telemetry"][k] for k in ("rollbacks", "skipped_rounds")}
+    if RANK == 0:
+        ra, rb = (_rows_sans_wall(os.path.join(d, "metrics.csv")) for d in (a, b))
+        out["row_equal"] = ra[2] == rb[1] and len(rb) == 2
+        ckpt, _ = load_checkpoint(os.path.join(a, "ckpt_2.npz"),
+                                  full["engine"].abstract_state(), device="cpu")
+        out["ckpt_whole"] = all(x.shape == y.shape for (_, x), (_, y) in zip(
+            tree_leaves_with_paths(ckpt), tree_leaves_with_paths(fa)))
+        one = train(build_parser().parse_args(nan + ["--out", os.path.join(tmp, "tp_nan_one")]))
+        out["nan_rounds"] = [h["round"] for h in got["history"]]
+        out["nan_loss_gap"] = max(abs(x["train_loss"] - y["train_loss"])
+                                  for x, y in zip(got["history"], one["history"]))
+        out["nan_rounds_one"] = [h["round"] for h in one["history"]]
+        out["nan_within"] = out["nan_loss_gap"] <= TP_TOL["loss"]
+    return out
+
+
+def check_tp_raises(mesh) -> dict:
+    """(g) what does not run tensor-parallel raises, naming itself:
+    ``--inner normuon``."""
+    import dataclasses
+
+    cfg, dcfg, icfg, _ = tp_setup()
+    try:
+        TrainEngine(build_model(cfg), dataclasses.replace(dcfg, inner_name="normuon"), icfg,
+                    mesh=mesh)
+        return {"normuon": "did not raise"}
+    except ValueError as e:
+        return {"normuon": str(e)}
+
+
+def tp_world() -> dict:
+    import tempfile
+
+    out = {"rounds": guarded(check_tp_rounds, make_debug_mesh(1, 2))}
+    out["ns_split"] = guarded(check_ns_split, make_debug_mesh(2, 1))
+    out["off"] = guarded(check_tp_off, make_debug_mesh(1, 2))
+    out["raises"] = guarded(check_tp_raises, make_debug_mesh(1, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = [tmp]
+        dist.broadcast_object_list(tmp, src=0)
+        out["cli"] = guarded(check_tp_cli, tmp[0])
+        dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -532,6 +810,11 @@ def main() -> dict:
 
     dist.init_process_group("gloo", init_method="env://", world_size=WORLD, rank=RANK)
     out: dict = {"world": WORLD}
+    if os.environ.get("MESH_TP"):
+        out["tp"] = tp_world()
+        dist.barrier()
+        dist.destroy_process_group()
+        return out
     if DRILL:
         out[DRILL] = guarded(drill, DRILL, os.environ["MESH_DRILL_OUT"])
         dist.barrier()

@@ -1074,3 +1074,89 @@ def test_axes_for_and_kernel_specs_equal_reference(sizes):
             for shape in ((d,), (d, 64), (30, d, 576), (64, d), (4, 8, d, 32)):
                 assert tuple(tou.outer_update_spec(tp_, shape)) == \
                     tuple(jou.outer_update_spec(jp, shape)), shape
+
+
+# (arch, mesh axis sizes, whether a mesh round splits each worker over 'model')
+TP_RULES = [("paper-416m", {"data": 1, "model": 2}, True),
+            ("paper-416m", {"pod": 2, "data": 1, "model": 4}, True),
+            ("paper-416m", {"data": 16, "model": 16}, False),  # 8 heads
+            ("smollm-135m", {"data": 1, "model": 2}, False),  # 9 heads
+            ("smollm-135m", {"data": 2, "model": 3}, True),
+            ("nemotron-4-15b", {"data": 1, "model": 16}, False),  # 8 kv heads
+            ("mistral-large-123b", {"data": 2, "model": 8}, True),
+            ("deepseek-moe-16b", {"data": 1, "model": 2}, False),  # the MoE family
+            ("mamba2-370m", {"data": 1, "model": 2}, False),  # the SSM family
+            ("whisper-large-v3", {"data": 1, "model": 2}, False),  # the audio family
+            ("paper-416m", {"data": 4, "model": 1}, False)]
+
+
+@pytest.mark.parametrize("name,sizes,split", TP_RULES,
+                         ids=lambda v: "x".join(map(str, v.values())) if isinstance(v, dict)
+                         else str(v))
+def test_tp_compute_rule(name, sizes, split, jsharding):
+    """``launch/steps.tp_compute``: a mesh round splits each worker over
+    'model' only for the dense LM whose heads split by the reference's
+    ``tp_friendly`` and whose kv heads, d_model and d_ff divide the axis; a
+    refusal says why. Where it splits, every leaf it splits
+    (``collectives.split_dim``) rests with dim -1 on 'model' in the
+    reference's ``param_spec`` (column-parallel leaves keep that block,
+    row-parallel ones move to dim -2) and every leaf it keeps whole is not
+    a [.., m, n] block matrix of the split layers."""
+    from repro.launch import steps as jsteps
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.core.collectives import split_dim
+
+    tcfg, fake = tconfigs.get_config(name), _fake_mesh(sizes)
+    on, why = tsteps.tp_compute(tcfg, sizes)
+    assert on == split and (why == "") == split, (on, why)
+    assert tsteps.tp_friendly(tcfg, sizes) == jsteps.tp_friendly(get_config(name), fake)
+    if not on:
+        return
+    assert jsteps.tp_friendly(get_config(name), fake)
+    jcfg = get_config(name)
+    jparams = jax.eval_shape(lambda: build_model(jcfg).init(jax.random.PRNGKey(0)))
+    specs = jsharding.params_shardings(fake, jparams, tensor_parallel=True)
+    flat = jax.tree_util.tree_flatten_with_path(specs, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))[0]
+    split_leaves = 0
+    for path, spec in flat:
+        p = "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+        if split_dim(p) is not None:
+            split_leaves += 1
+            assert tuple(spec)[-1] == "model", (p, spec)
+    assert split_leaves == 7, split_leaves
+
+
+@pytest.mark.parametrize("path,dim", [
+    ("layers/attn/wq", -1), ("layers/attn/wk", -1), ("layers/attn/wv", -1),
+    ("layers/mlp/w_in", -1), ("layers/mlp/w_gate", -1), ("layers/attn/wo", -2),
+    ("layers/mlp/w_out", -2), ("tx/muon/0/m/layers/attn/wq", -1),
+    ("tx/adamw/0/nu/layers/mlp/w_out", -2), ("layers/attn/q_norm_scale", None),
+    ("embed", None), ("head", None), ("layers/moe/shared/w_in", None),
+    ("layers/attn/wqx", None)])
+def test_tensor_parallel_split_dims(path, dim, monkeypatch):
+    """``core/collectives.split_dim``: column-parallel leaves split dim -1,
+    row-parallel dim -2, a state leaf follows its param's path, and every
+    other leaf stays whole; with no 'model' group installed the exchanges
+    are the identity and ``whole_shape`` the shape given. With one (rank 1
+    of 2, the group's size and rank faked), ``whole_shape`` and
+    ``model_block`` read the split."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives as C
+
+    assert C.split_dim(path) == dim
+    x = torch.ones(2, 3)
+    assert C.model_group() is None
+    assert C.copy_in(x) is x and C.reduce_out(x) is x and C.shared_weight(x) is x
+    assert C.whole_shape(path, (4, 6)) == (4, 6)
+    group = object()
+    monkeypatch.setattr(dist, "get_world_size", lambda g=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda g=None: 1)
+    with C.mesh_groups(C.MeshGroups(model=group)):
+        assert C.model_group() is group
+        want = {None: (4, 6), -1: (4, 12), -2: (8, 6)}[dim]
+        assert C.whole_shape(path, (4, 6)) == want
+        if dim is not None:
+            w = torch.arange(48.0).reshape(8, 6) if dim == -2 else torch.arange(48.0).reshape(4, 12)
+            assert torch.equal(C.model_block(w, dim, group), w.chunk(2, dim=dim)[1])

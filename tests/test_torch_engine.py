@@ -534,26 +534,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# the dry run on a fake world of 8 ranks (2x2x2) over reduced smollm, the
-# train plans at 64 positions x 8 sequences (one process; the fake backend)
+# the dry run on a fake world of 8 ranks (2x2x2) over reduced smollm and
+# reduced paper-150m (whose 4 heads split over 'model' = 2: the plans run
+# tensor-parallel), the train plans at 64 positions x 8 sequences (one
+# process; the fake backend)
 DRYRUN = """
 import json, torch
 torch.set_num_threads(1)
 from repro_torch.launch.dryrun import run_one
-recs = run_one("smollm-135m", "train_4k", True, mesh_shape=(2, 2, 2), reduced=True,
-               sync_interval=2, rounds_per_dispatch=2, seq_len=64, global_batch=8,
-               verbose=False)
+recs = {arch: run_one(arch, "train_4k", True, mesh_shape=(2, 2, 2), reduced=True,
+                      sync_interval=2, rounds_per_dispatch=2, seq_len=64, global_batch=8,
+                      verbose=False) for arch in ("smollm-135m", "paper-150m")}
 print(json.dumps(recs, default=str))
 """
 
 
 @pytest.fixture(scope="module")
 def mesh_worlds(tmp_path_factory) -> dict:
-    """Both worlds, the dry run and the kill drill's world started together,
-    each process with its own timeout, then the resume drill's world once
-    every rank of the kill drill is dead; rank 0's JSON verdicts by world
-    size, the dry run's records under "dryrun", the drill's under "drill"
-    (the killed ranks' exit codes under "killed")."""
+    """Both worlds, the dry run, the kill drill's world and the tensor-
+    parallel world (``MESH_TP``, two ranks) started together, each process
+    with its own timeout, then the resume drill's world once every rank of
+    the kill drill is dead; rank 0's JSON verdicts by world size, the dry
+    run's records under "dryrun", the drill's under "drill" (the killed
+    ranks' exit codes under "killed"), the tensor-parallel world's under
+    "tp"."""
     import json
     import subprocess
 
@@ -576,6 +580,7 @@ def mesh_worlds(tmp_path_factory) -> dict:
         [sys.executable, "-c", DRYRUN], cwd=repo, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1"))
     world_procs("kill", 2, MESH_DRILL="kill", MESH_DRILL_OUT=drill_out)
+    world_procs("tp", 2, MESH_TP="1")
     for world in (2, 4):
         world_procs(world, world)
     outs = {}
@@ -591,11 +596,12 @@ def mesh_worlds(tmp_path_factory) -> dict:
             if proc.poll() is None:
                 proc.kill()
     verdicts = {"killed": [procs[("kill", r)].returncode for r in range(2)]}
-    for world in (2, 4, "dryrun", "resume"):
-        for rank in range(world if isinstance(world, int) else 2 if world == "resume" else 1):
+    for world in (2, 4, "dryrun", "resume", "tp"):
+        for rank in range(world if isinstance(world, int) else 1 if world == "dryrun" else 2):
             assert procs[(world, rank)].returncode == 0, outs[(world, rank)][1][-3000:]
         verdicts[world] = json.loads(outs[(world, 0)][0].strip().splitlines()[-1])
     verdicts["drill"] = verdicts.pop("resume")["resume"]
+    verdicts["tp"] = verdicts["tp"]["tp"]
     return verdicts
 
 
@@ -743,7 +749,7 @@ def test_dryrun_fake_world_train_plans_ok(mesh_worlds):
     gathered (the sync's pseudogradients across 'pod', θ from its ZeRO
     layout, the gradients over 'data') and no peak memory, which a dry run
     does not measure."""
-    recs = mesh_worlds["dryrun"]
+    recs = mesh_worlds["dryrun"]["smollm-135m"]
     assert [r["plan"] for r in recs] == ["train_step", "sync_step", "round_step", "superstep"]
     for r in recs:
         assert r["status"] == "ok", r.get("error")
@@ -753,3 +759,124 @@ def test_dryrun_fake_world_train_plans_ok(mesh_worlds):
     sync = recs[1]["collectives"]
     assert sync["outer"] > 0 and sync["workers"] > 0
     assert recs[0]["collectives"]["grads"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over 'model' and Newton-Schulz over 'data' (the world of
+# two ranks with MESH_TP; the narrow dense LM of _torch_mesh_harness.TP_CFG)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("run", ["sound", "streaming", "elastic", "delay", "dp"])
+def test_mesh_tp_1x2_within_tolerance_of_single_process(mesh_worlds, run):
+    """(a) The narrow dense LM (fp32, Muon with the fp32 Newton-Schulz kernel
+    route, the outer Nesterov kernel) on 1x2 splits each worker over
+    'model' (column-parallel q/k/v and FFN columns, row-parallel wo and
+    w_out, the partial outputs summed): after two rounds its per-step losses
+    and every outer-param leaf are within ``TP_TOL`` of one process; so are
+    streaming (J = 2, dense), elastic drops (worker 1 out in round 0, worker
+    0 in round 1), a sync delay of 1 and the DP baseline (``dp_engine``,
+    three steps)."""
+    v = mesh_worlds["tp"]["rounds"][run]
+    assert "error" not in v, v.get("error")
+    assert v["tp"] and v["within"], v
+
+
+@pytest.mark.parametrize("fault", ["row_sum", "qk_norm"])
+def test_mesh_tp_planted_fault_leaves_tolerance(mesh_worlds, fault):
+    """(b) The same 1x2 run with a planted fault is outside ``TP_TOL``: the
+    MLP's row-parallel partial outputs left unsummed, or the QK-norm scales'
+    gradients left to each rank's own heads (the round still runs, the norms
+    drift apart)."""
+    v = mesh_worlds["tp"]["rounds"][fault]
+    assert "error" not in v, v.get("error")
+    assert v["tp"] and not v["within"], v
+
+
+def test_mesh_tp_streaming_wire_within_wire_tolerance(mesh_worlds):
+    """(e) Streaming (J = 2) on the 2-bit row-wise EF wire under 1x2: the
+    outer params within ``TP_WIRE_TOL`` of one process (the 2-bit wire turns
+    any reordered sum into code flips; the harness says why), and a planted
+    fault of the sync's layout (each rank given the other's blocks back after
+    the reset) outside it."""
+    rounds = mesh_worlds["tp"]["rounds"]
+    sound, fault = rounds["streaming_wire"], rounds["streaming_wire_swap"]
+    assert "error" not in sound and "error" not in fault, (sound, fault)
+    assert sound["tp"] and sound["within"] and not fault["within"], (sound, fault)
+
+
+def test_mesh_tp_blocks_are_a_share_of_the_whole(mesh_worlds):
+    """During a 1x2 round each rank holds 1/2 of every block matrix of its
+    workers ([K, L, ...] leaves of the narrow LM: d 64, 4 heads of 16, 2 kv
+    heads, d_ff 128): column-parallel wq / wk / wv / w_in / w_gate split on
+    dim -1, row-parallel wo / w_out on dim -2; every other leaf whole."""
+    blocks = mesh_worlds["tp"]["rounds"]["blocks"]
+    want = {"layers/attn/wq": [2, 2, 64, 32], "layers/attn/wk": [2, 2, 64, 16],
+            "layers/attn/wv": [2, 2, 64, 16], "layers/attn/wo": [2, 2, 32, 64],
+            "layers/mlp/w_in": [2, 2, 64, 64], "layers/mlp/w_gate": [2, 2, 64, 64],
+            "layers/mlp/w_out": [2, 2, 64, 64], "embed": [2, 256, 64], "head": [2, 64, 256],
+            "layers/attn/q_norm_scale": [2, 2, 16], "layers/ln1_scale": [2, 2, 64]}
+    assert {p: blocks[p] for p in want} == want, blocks
+
+
+def test_mesh_ns_split_over_data_bitwise_unsplit(mesh_worlds):
+    """(c) One reduced smollm round (2-bit EF) on (data = 2): Muon's
+    Newton-Schulz stack split over 'data' (each rank one of the 2 matrices
+    of a stacked leaf, gathered whole) against the same mesh with the
+    engine's ``KernelPartitioning`` at ``ns_axes=()`` (each rank the whole
+    stack): every state leaf, the losses and Psi bitwise."""
+    v = mesh_worlds["tp"]["ns_split"]
+    assert "error" not in v, v.get("error")
+    assert v["bitwise"] and v["rows_split"] == [1] and v["rows_whole"] == [2], v
+
+
+def test_mesh_tp_off_config_bitwise_whole_worker(mesh_worlds):
+    """(d) The reduced smollm (4 heads over one kv head, which does not
+    divide 'model' = 2) on 1x2 keeps each worker whole on both ranks (the
+    engine says why) and its round is the one-process round, bitwise."""
+    v = mesh_worlds["tp"]["off"]
+    assert "error" not in v, v.get("error")
+    assert v["tp"] is False and v["bitwise"], v
+
+
+def test_mesh_tp_checkpoint_resume_bitwise(mesh_worlds):
+    """(f) ``--arch paper-150m --reduced --mesh 1x2 --checkpoint-every 1``:
+    ckpt_2 holds the whole state (the one-process leaf shapes), and the
+    command resumed from ckpt_1 into another directory ends in the
+    uninterrupted run's whole state, bitwise, with its round-1 metrics row
+    (but wall_s)."""
+    v = mesh_worlds["tp"]["cli"]
+    assert "error" not in v, v.get("error")
+    assert v["tp"] and v["state_equal"] and v["row_equal"] and v["ckpt_whole"], v
+
+
+def test_mesh_tp_nan_drill_rolls_back(mesh_worlds):
+    """The health rollback under 1x2: ``--health-sentinel on --inject-nan-round
+    1`` rolls back to ckpt_1 and skips round 1 on both ranks, as one process
+    does, its losses within ``TP_TOL``."""
+    v = mesh_worlds["tp"]["cli"]
+    assert "error" not in v, v.get("error")
+    assert v["nan_telemetry"] == {"rollbacks": 1, "skipped_rounds": 1}, v
+    assert v["nan_rounds"] == v["nan_rounds_one"] == [0, 2], v
+    assert v["nan_within"], v
+
+
+@pytest.mark.parametrize("feature", ["normuon"])
+def test_mesh_tp_unsupported_feature_raises_by_name(mesh_worlds, feature):
+    """(g) A feature that does not run tensor-parallel raises, naming
+    itself: ``--inner normuon`` (its neuron-wise RMS reads whole rows)."""
+    v = mesh_worlds["tp"]["raises"][feature]
+    assert f"--inner {feature}" in v and "tensor parallel" in v, v
+
+
+def test_dryrun_fake_world_tensor_parallel_plans_ok(mesh_worlds):
+    """The dry run's four train plans over reduced paper-150m on the fake
+    2x2x2 world run tensor-parallel over 'model' = 2: each ``status: ok``;
+    the inner step sums partial activations over 'model' and gathers Muon's
+    momentum whole there, the sync gathers the worker params whole there."""
+    recs = mesh_worlds["dryrun"]["paper-150m"]
+    assert [r["plan"] for r in recs] == ["train_step", "sync_step", "round_step", "superstep"]
+    for r in recs:
+        assert r["status"] == "ok", r.get("error")
+    assert recs[0]["collectives"]["model"] > 0 and recs[0]["collectives"]["model_momentum"] > 0
+    assert recs[1]["collectives"]["model_sync"] > 0 and "model" not in recs[1]["collectives"]

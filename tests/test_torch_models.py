@@ -1052,3 +1052,42 @@ def test_vlm_g8_hd128_matches_reference():
                                  jax.tree_util.tree_flatten_with_path(leaves)[0]):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL["float32"],
                                    err_msg=str(path))
+
+
+def test_remat_recomputation_sees_the_forwards_tensor_parallel_axis(monkeypatch):
+    """With ``remat`` a block's forward runs again inside the backward, and
+    on the card autograd runs that recomputation on its own thread, which
+    sees no ContextVar: the dense LM's checkpointed blocks recompute in the
+    forward's context, so a tensor-parallel round's 'model' axis (and its
+    sums) is there both times. Here the backward runs on another thread."""
+    import threading
+
+    from repro_torch.configs import get_config as tget
+    from repro_torch.configs import reduce_config as treduce
+    from repro_torch.core import collectives as C
+    from repro_torch.models import build_model as tbuild
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_map
+
+    cfg = treduce(tget("paper-150m")).replace(remat=True)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    group = object()  # the sums are stood in for: no process group runs
+    monkeypatch.setattr(C, "_model_sum", lambda x, group: x)
+    seen, block = [], lm._block
+
+    def spy(*a, **kw):
+        seen.append(C.model_group())
+        return block(*a, **kw)
+
+    monkeypatch.setattr(lm, "_block", spy)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
+    with C.mesh_groups(C.MeshGroups(model=group)):
+        loss, _ = model.loss(leaves, {"tokens": tokens, "labels": tokens})
+    done = []
+    worker = threading.Thread(target=lambda: done.append(torch.autograd.grad(
+        loss, [leaves["layers"]["mlp"]["w_in"]])))
+    worker.start()
+    worker.join()
+    assert done and len(seen) == 2 * cfg.n_layers and all(g is group for g in seen), seen

@@ -21,14 +21,23 @@ and compares:
   gradients averaged there sum in another order, so the losses are held at
   atol 2e-5 + rtol 1e-4 (the port's round parity tolerance) and the outer
   params' gaps are printed: the largest, where, and the share of entries
-  apart.
+  apart;
+* ``1x4`` and ``2x1x2`` with two workers, each worker split over 'model'
+  (tensor parallelism, ``core/collectives.py``: a dense LM whose
+  heads, kv heads and widths divide 'model', e.g. ``--arch paper-416m``),
+  on one rank per card: held and printed as ``2x2x1``, with rank 0's peak
+  memory and the bytes each rank summed over 'model'.
 
 Training flags after the probe's own replace ``MESH_TRAIN``'s (argparse keeps
 the last value: ``--compression none``, ``--inner adamw``); ``--fp32`` runs
 the model's compute in fp32 (``ModelConfig.dtype``; the flash kernels take
 their fp32 sweeps) in the ranks and in the one process alike. ``--label``
 names the run's record, ``build/mesh_probe/<label>.json``, also printed as
-the last line.
+the last line. ``--variant`` lays the ranks' compute out otherwise, to hold
+a layout beside its alternative on the same cases: ``whole_worker`` keeps
+each worker whole on every 'model' rank (no tensor parallelism),
+``ns_whole`` runs Newton-Schulz's stacks whole on every 'data' rank
+(``ns_axes=()``, where NCCL would split them).
 
 Prints the card line of ``nvidia-smi`` and each case's round walls and
 tokens/s beside the one-process run's.
@@ -51,7 +60,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from chip_smoke import MESH_TRAIN, free_port, replace_flags  # noqa: E402
 
 OUT = ROOT / "build" / "mesh_probe"
-CASES = {"4x1x1": 4, "2x2x1": 2}  # mesh -> workers
+CASES = {"4x1x1": 4, "2x2x1": 2, "1x4": 2, "2x1x2": 2}  # mesh -> workers
 
 
 def case_argv(mesh: str, workers: int, extra: list) -> list:
@@ -66,7 +75,23 @@ def use_fp32() -> None:
     train_mod.get_config = lambda name: get(name).replace(dtype="float32")
 
 
-def child(mesh: str, extra: list, fp32: bool) -> None:
+def use_variant(variant: str) -> None:
+    """The ranks' compute laid out as ``variant`` says (``default``: the
+    trainer's own layout)."""
+    import dataclasses
+
+    from repro_torch.launch import sharding, steps
+
+    if variant == "whole_worker":
+        steps.tp_compute = lambda cfg, mesh: (False, "the probe's whole-worker variant")
+    elif variant == "ns_whole":
+        specs = sharding.kernel_specs
+        sharding.kernel_specs = lambda *a, **kw: dataclasses.replace(specs(*a, **kw), ns_axes=())
+    elif variant != "default":
+        raise SystemExit(f"mesh_probe: --variant {variant}: default, whole_worker or ns_whole")
+
+
+def child(mesh: str, extra: list, fp32: bool, variant: str) -> None:
     import torch
     import torch.distributed as dist
 
@@ -76,9 +101,12 @@ def child(mesh: str, extra: list, fp32: bool) -> None:
 
     if fp32:
         use_fp32()
+    use_variant(variant)
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     dist.init_process_group("nccl", init_method="env://")
+    torch.cuda.reset_peak_memory_stats()
     out = train(build_parser().parse_args(case_argv(mesh, CASES[mesh], extra)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     whole = out["engine"].whole_state(out["state"])
     torch.cuda.synchronize()
     if dist.get_rank() == 0:
@@ -86,7 +114,8 @@ def child(mesh: str, extra: list, fp32: bool) -> None:
                     "outer_params": {p: t.cpu() for p, t in
                                      tree_leaves_with_paths(whole["outer_params"])},
                     "received": dict(mesh_mod.RECEIVED), "staged": dict(mesh_mod.STAGED),
-                    "backend": dist.get_backend()}, OUT / f"{mesh}.pt")
+                    "backend": dist.get_backend(), "peak_gb": peak_gb,
+                    "tp": out["engine"].model_group is not None}, OUT / f"{mesh}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
@@ -97,10 +126,11 @@ def main() -> int:
     ap.add_argument("--cases", default=",".join(CASES))
     ap.add_argument("--label", default="default")
     ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--variant", default="default")
     ap.add_argument("--child", default=None)
     args, extra = ap.parse_known_args()
     if args.child:
-        child(args.child, extra, args.fp32)
+        child(args.child, extra, args.fp32, args.variant)
         return 0
     import torch
 
@@ -115,21 +145,27 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[{args.label}] cards (nvidia-smi name, power.limit):\n{smi}\n"
-          f"[{args.label}] training flags added: {extra}; fp32 compute: {args.fp32}")
+          f"[{args.label}] training flags added: {extra}; fp32 compute: {args.fp32}; "
+          f"variant: {args.variant}")
     OUT.mkdir(parents=True, exist_ok=True)
-    tokens = 8 * 4 * 1024  # B x H x S a worker, times the workers below
-    failed, record = [], {"label": args.label, "extra": extra, "fp32": args.fp32, "card": smi}
+    failed, record = [], {"label": args.label, "extra": extra, "fp32": args.fp32, "card": smi,
+                          "variant": args.variant}
     for mesh in args.cases.split(","):
         workers = CASES[mesh]
         # the one-process run first: it builds every library the ranks load
         # (each rank would wait on the build's file lock otherwise)
         argv = [a for a in case_argv(mesh, workers, extra) if a not in ("--mesh", mesh)]
-        one = train(build_parser().parse_args(argv), capture=False)
+        parsed = build_parser().parse_args(argv)
+        tokens = parsed.batch_per_worker * parsed.sync_interval * parsed.seq_len  # a worker
+        torch.cuda.reset_peak_memory_stats()
+        one = train(parsed, capture=False)
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
                               str(math.prod(int(d) for d in mesh.split("x"))), "--master-port",
                               str(free_port()), str(Path(__file__).resolve()), "--child", mesh,
+                              "--variant", args.variant,
                               *(["--fp32"] if args.fp32 else []), *extra],
                              cwd=ROOT, capture_output=True, text=True, timeout=900,
                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
@@ -165,10 +201,12 @@ def main() -> int:
               f"{workers * tokens / walls[-1]:.1f} tok/s in the last round against one "
               f"process (eager) {[round(w, 3) for w in one_walls]} s, "
               f"{workers * tokens / one_walls[-1]:.1f}; bytes received a rank {got['received']}, "
-              f"staged {got['staged']}")
+              f"staged {got['staged']}; split over 'model': {got['tp']}; peak memory rank 0 "
+              f"{got['peak_gb']:.2f} GB, one process {one_peak:.2f} GB")
         record[mesh] = {"losses": losses, "close": close, "comm_bytes_equal": same,
                         "bitwise": bitwise, "gaps": gaps, "walls": walls,
-                        "one_walls": one_walls, "received": got["received"]}
+                        "one_walls": one_walls, "received": got["received"], "tp": got["tp"],
+                        "peak_gb": got["peak_gb"], "one_peak_gb": one_peak}
         ok = (bitwise if mesh == "4x1x1" else close) and same
         if not ok:
             failed.append(mesh)
